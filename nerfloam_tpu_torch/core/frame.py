@@ -1,0 +1,112 @@
+"""Host-side frame containers with static-shape padding (port of
+nerfloam_tpu/core/frame.py:22-174, which imports jax). Point buffers are
+padded to a static size and uploaded once to an explicit device."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+def pose6_from_matrix_np(T: np.ndarray) -> np.ndarray:
+    """Numpy pose6 from a homogeneous matrix (quaternion log, the math of
+    ops/se3.log_so3)."""
+    R = np.asarray(T, np.float64)[:3, :3]
+    K = np.array([
+        1 + R[0, 0] + R[1, 1] + R[2, 2],
+        1 + R[0, 0] - R[1, 1] - R[2, 2],
+        1 - R[0, 0] + R[1, 1] - R[2, 2],
+        1 - R[0, 0] - R[1, 1] + R[2, 2],
+    ])
+    i = int(np.argmax(K))
+    s = 2.0 * np.sqrt(max(K[i], 1e-12))
+    r21, r02, r10 = R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]
+    s01, s02, s12 = R[0, 1] + R[1, 0], R[0, 2] + R[2, 0], R[1, 2] + R[2, 1]
+    q = [
+        np.array([s / 4, r21 / s, r02 / s, r10 / s]),
+        np.array([r21 / s, s / 4, s01 / s, s02 / s]),
+        np.array([r02 / s, s01 / s, s / 4, s12 / s]),
+        np.array([r10 / s, s02 / s, s12 / s, s / 4]),
+    ][i]
+    if q[0] < 0:
+        q = -q
+    n = np.linalg.norm(q[1:])
+    theta = 2.0 * np.arctan2(n, q[0])
+    out = np.empty(6, np.float32)
+    out[:3] = np.asarray(T, np.float64)[:3, 3]
+    out[3:] = q[1:] * (2.0 if n < 1e-9 else theta / n)
+    return out
+
+
+def matrix_from_pose6_np(p6: np.ndarray) -> np.ndarray:
+    """Numpy Rodrigues (the math of ops/se3.exp_so3)."""
+    p6 = np.asarray(p6, np.float64)
+    w = p6[3:6]
+    theta2 = float(w @ w)
+    if theta2 < 1e-12:
+        A, B = 1.0 - theta2 / 6.0, 0.5 - theta2 / 24.0
+    else:
+        theta = np.sqrt(theta2)
+        A, B = np.sin(theta) / theta, (1.0 - np.cos(theta)) / theta2
+    wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]], np.float64)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = (np.eye(3) + A * wx + B * (wx @ wx)).astype(np.float32)
+    T[:3, 3] = p6[:3].astype(np.float32)
+    return T
+
+
+@dataclass(eq=False)
+class Frame:
+    index: int
+    points: np.ndarray       # (P, 3) float32, zero-padded
+    points_cos: np.ndarray   # (P,) float32
+    valid: np.ndarray        # (P,) bool
+    n_points: int
+    pose6: np.ndarray        # (6,) float32 world pose [t, w]
+    rel_pose: np.ndarray | None = None
+    has_gt_pose: bool = False
+    hit_ratio: float = 0.0
+    _dev: tuple | None = None  # (device, points, cos, valid) uploaded once
+
+    def device_arrays(self, device):
+        """Copies of the immutable point buffers on ``device``, uploaded once."""
+        device = torch.device(device)
+        if self._dev is None or self._dev[0] != device:
+            self._dev = (
+                device,
+                torch.as_tensor(self.points, device=device),
+                torch.as_tensor(self.points_cos, device=device),
+                torch.as_tensor(self.valid, device=device),
+            )
+        return self._dev[1:]
+
+    @classmethod
+    def from_raw(cls, index: int, points: np.ndarray, cos: np.ndarray, pose, pad: int,
+                 has_gt_pose: bool = False) -> "Frame":
+        n = min(len(points), pad)
+        if len(points) > pad:  # keep a uniform subset if the scan overflows
+            sel = np.random.default_rng(index).choice(len(points), pad, replace=False)
+            points, cos = points[sel], cos[sel]
+            n = pad
+        P = np.zeros((pad, 3), np.float32)
+        C = np.ones((pad,), np.float32)
+        V = np.zeros((pad,), bool)
+        P[:n] = points[:n]
+        C[:n] = cos[:n]
+        V[:n] = True
+        pose6 = pose6_from_matrix_np(pose) if pose is not None else np.zeros(6, np.float32)
+        return cls(index, P, C, V, n, pose6.astype(np.float32), has_gt_pose=has_gt_pose)
+
+    def pose_matrix(self) -> np.ndarray:
+        return matrix_from_pose6_np(self.pose6)
+
+    def cropped(self, key_distance: float, pad: int) -> "Frame":
+        """Keyframe crop: |x|,|y|,|z| < key_distance + 0.01 (sensor frame)."""
+        vd = key_distance + 0.01
+        m = self.valid & np.all(np.abs(self.points) < vd, axis=-1)
+        f = Frame.from_raw(self.index, self.points[m], self.points_cos[m], None, pad)
+        f.pose6 = self.pose6.copy()
+        f.has_gt_pose = self.has_gt_pose
+        return f
