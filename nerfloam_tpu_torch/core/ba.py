@@ -3,14 +3,18 @@ nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
 One call = one BA step: a 2x ray superset per frame is drawn and its hit
 table built once (K4); every iteration trains on a random subset of it
-through K1/K2 (core/render.render_rays_hits) and takes an Adam step on the
+through K1 (with K8's band/anchor columns when the quality stack is on)
+and K2 (core/render.render_rays_hits) and takes an Adam step on the
 packed corner table, the decoder and the poses. Adam follows
 ``optax.scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
 bias-corrected) with fresh state per call, applied as ``p - lr * u``.
 Frozen groups have their gradients zeroed before Adam, which with fresh
 state equals leaving them out. After the loop the touched voxels' deltas
 are folded back into the canonical embeddings (reconcile_packed, mean) and
-the packed table is rebuilt from them.
+the packed table is rebuilt from them. With ``measure_bias`` the final
+field is probed at the window's measured points (K8 then the decoder):
+``surface_bias`` is its mean there, the offset the pipeline's bias
+transfer feeds to the next tracked frame.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from nerfloam_tpu_torch.core.losses import sdf_losses
-from nerfloam_tpu_torch.core.render import render_rays_hits
+from nerfloam_tpu_torch.core.render import extra_surface_z, field_at_points, render_rays_hits
 from nerfloam_tpu_torch.core.tracking import _ray_dirs, t_cap_for
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import se3
@@ -47,6 +51,9 @@ class BAParams(NamedTuple):
     compute_dtype: str = "float32"
     touched_cap: int = 1 << 16
     ray_superset: int = 2
+    surface_anchor: int = 0  # anchor columns at the measured point (its weight)
+    band_samples: int = 0    # stratified columns across the truncation band
+    measure_bias: bool = True  # probe the final field (BAResult.surface_bias)
 
 
 class BAResult(NamedTuple):
@@ -56,6 +63,8 @@ class BAResult(NamedTuple):
     poses: torch.Tensor        # (W, 6)
     loss: torch.Tensor
     touched_count: torch.Tensor  # () voxels touched this step
+    surface_bias: torch.Tensor  # () mean sdf of the final field at the
+    #   active frames' measured points (0 unless bp.measure_bias)
     upd_count: torch.Tensor    # (C,)
 
 
@@ -118,8 +127,15 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
         wdirs = se3.rotate_dirs(pos, dirs)
         origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
+        extra = None
+        if bp.surface_anchor or bp.band_samples:
+            ub = (torch.rand((W, N, bp.band_samples), generator=generator,
+                             device=dev).reshape(W * N, -1) if bp.band_samples else None)
+            ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, bp.truncation,
+                                 bp.surface_anchor, bp.band_samples, ub)
+            extra = (map_state, map_cfg, ez, rvalid.reshape(W * N))
         out = render_rays_hits(emb, dec, vs, origins.reshape(W * N, 3), wdirs.reshape(W * N, 3),
-                               ht, rvalid.reshape(W * N), u, compute_dtype)
+                               ht, rvalid.reshape(W * N), u, compute_dtype, extra)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -149,5 +165,15 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         new_emb = vm.reconcile_packed(map_state, map_cfg, emb.detach(), touched, bp.touched_cap)
         packed = vm.pack_embeddings(map_state._replace(embeddings=new_emb), map_cfg)
     new_dec = {k: [p.detach() for p in v] for k, v in dec.items()}
+    surface_bias = torch.zeros((), device=dev)
+    if bp.measure_bias:  # ba.py:398-413, on the reconciled field
+        with torch.no_grad():
+            xyz = se3.transform_points(pos.detach(), points)             # (W, P, 3)
+            depth = torch.linalg.norm(points, dim=-1)
+            ok = points_valid & frame_active[:, None] & (depth < bp.max_depth)
+            sdf_pts, m = field_at_points(map_state, map_cfg, packed, new_dec,
+                                         xyz.reshape(-1, 1, 3), depth.reshape(-1, 1),
+                                         ok.reshape(-1), compute_dtype)
+            surface_bias = sdf_pts.sum() / torch.clamp(m.sum(), min=1).to(torch.float32)
     return BAResult(new_emb, packed, new_dec, pos.detach(), loss.detach(), touched_count,
-                    upd_count)
+                    surface_bias, upd_count)

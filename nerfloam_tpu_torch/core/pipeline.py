@@ -4,8 +4,17 @@ synchronous schedule, single device).
 frame 0: insert -> active refresh -> keyframe -> ``bootstrap_steps`` BA steps.
 frame k: GN track -> lazy recenter + active refresh -> BA on the tracked
 frame -> voxel insert, then ONE host fetch of the frame's results (poses,
-hit count, row counts) and the host bookkeeping of ``_post_frame``:
-keyframe-gap insertion and the trajectory record.
+hit count, row counts, the BA's surface-bias probe) and the host
+bookkeeping: the bias EMA and ``_post_frame``'s keyframe-gap insertion and
+trajectory record.
+
+The quality stack the shipped configs turn on (``configs/kitti/kitti.yaml``)
+is ported: support voxels on both sides of every surface point
+(``support_dist``, ``support_sym``), band and anchor columns in the
+tracker and BA (``band_samples``, ``surface_anchor``), and the bias
+transfer (``bias_correction``): BA measures the final field's mean value
+at the frame's points, the host keeps an EMA of it, and the next tracked
+frame targets sdf = that offset on the band.
 
 Every budget overflow (capacity, active set, touched voxels, insert
 candidates) is handled as in JAX: rewind the frame to its pre-frame state,
@@ -30,7 +39,7 @@ from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import init_decoder
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
-from nerfloam_tpu_torch.utils.config import Config, derive_static_shapes
+from nerfloam_tpu_torch.utils.config import Config, derive_static_shapes, quality_knobs
 from nerfloam_tpu_torch.utils.profiler import Profiler
 
 # (knob, value that is implemented, ROADMAP queue-1 item that ports the rest)
@@ -39,10 +48,8 @@ _UNPORTED = [
     ("tpu_specs.track_method", lambda v: v == "gn", "11 (Adam tracker)"),
     ("tpu_specs.defer_sync", lambda v: not v, "14 (defer_sync)"),
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
-    ("tpu_specs.support_dist", lambda v: float(v) == 0.0, "10 (quality stack)"),
-    ("tpu_specs.band_samples", lambda v: int(v) == 0, "10 (quality stack)"),
-    ("tpu_specs.surface_anchor", lambda v: int(v) == 0, "10 (quality stack)"),
-    ("tpu_specs.bias_correction", lambda v: not v, "10 (quality stack)"),
+    ("tpu_specs.bias_source", lambda v: v == "window", "15 (knobs: keyframe bias probe)"),
+    ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
     ("tpu_specs.s2s_weight", lambda v: float(v) == 0.0, "15 (knobs: scan2scan)"),
     ("tpu_specs.exact_embedding_grads", lambda v: not v, "15 (knobs)"),
     ("tpu_specs.track_resample_rays", lambda v: not v, "15 (knobs)"),
@@ -91,6 +98,7 @@ class NerfLoamSLAM_torch:
         self.device = torch.device(device)
         self.prof = Profiler(self.device)
         shapes = derive_static_shapes(cfg)
+        q = quality_knobs(cfg, shapes["voxel_size"])
         tpu = cfg.tpu_specs
         self.points_pad = int(tpu["points_pad"])
         self.kf_points_pad = int(tpu["kf_points_pad"])
@@ -103,6 +111,8 @@ class NerfLoamSLAM_torch:
             feat_dim=int(cfg.decoder_specs["in_dim"]),
             emb_dtype=tpu["emb_dtype"],
             active_cap=min(int(tpu.get("active_cap", 1 << 18)), int(tpu["map_capacity"])),
+            support_dist=q["support_dist"],
+            support_sym=q["support_sym"],
         )
         coarse = float(tpu.get("coarse_factor", 1.0)) * shapes["voxel_size"]
         max_hits = int(tpu.get("max_hits", 20))
@@ -117,7 +127,8 @@ class NerfLoamSLAM_torch:
         tspec, mspec, crit = cfg.tracker_specs, cfg.mapper_specs, cfg.criteria
         base_tp = dict(n_rays=int(tspec["N_rays"]), truncation=float(crit["sdf_truncation"]),
                        max_depth=shapes["max_depth"], fs_weight=float(crit["fs_weight"]),
-                       sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype)
+                       sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype,
+                       surface_anchor=q["surface_anchor"], band_samples=q["band_samples"])
         n_iter = int(tpu.get("track_gn_iterations", 8))
         self.tp = tr_mod.TrackParams(num_iterations=n_iter, **base_tp)
         self.tp_first = tr_mod.TrackParams(num_iterations=n_iter * 2, **base_tp)
@@ -130,7 +141,9 @@ class NerfLoamSLAM_torch:
         base_bp = dict(truncation=float(crit["sdf_truncation"]), max_depth=shapes["max_depth"],
                        fs_weight=float(crit["fs_weight"]), sdf_weight=float(crit["sdf_weight"]),
                        compute_dtype=self.compute_dtype,
-                       ray_superset=int(tpu.get("ba_ray_superset", 2)))
+                       ray_superset=int(tpu.get("ba_ray_superset", 2)),
+                       surface_anchor=q["surface_anchor"], band_samples=q["band_samples"],
+                       measure_bias=q["bias_correction"])
         self.bp_current = ba_mod.BAParams(n_frames=1, n_rays=int(mspec["N_rays_each"]),
                                           num_iterations=int(mspec["num_iterations"]),
                                           touched_cap=tc_cur, **base_bp)
@@ -153,6 +166,10 @@ class NerfLoamSLAM_torch:
                 raise ValueError(f"tpu_specs.recenter_margin={self.recenter_margin} exceeds "
                                  f"region slack {slack:.1f} m; rays would leave the grid")
         self.bootstrap_steps = int(tpu["bootstrap_steps"])
+        # bias transfer: EMA of BAResult.surface_bias, the next tracked
+        # frame's band target, as (2,) [ground, non-ground] (pooled: equal)
+        self.bias_correction = q["bias_correction"]
+        self.sdf_bias = np.zeros(2, np.float32)
         self.overflow_events = {"capacity": 0, "active": 0, "touched": 0, "cand": 0}
         self.dropped_delta_events = 0
         self.host_syncs = 0  # device -> host reads (the JAX path does one per frame)
@@ -363,14 +380,35 @@ class NerfLoamSLAM_torch:
         rel = np.linalg.inv(st.current_keyframe.pose_matrix()) @ mapped_frame.pose_matrix()
         st.frame_poses.append((len(st.keyframes) - 1, rel))
 
-    def _megastep(self, tp, init6, pts, cos, val, pose_free, update_decoder):
+    @staticmethod
+    def _pooled_bias(surface_bias) -> float:
+        """Count-weighted pooled value of a (2, 2) [biases; counts] probe;
+        a scalar (the window probe) passes through (JAX pipeline.py:559)."""
+        arr = np.asarray(surface_bias, np.float64)
+        if arr.ndim == 0:
+            return float(arr)
+        b, c = arr[0], arr[1]
+        tot = c.sum()
+        return float((b * c).sum() / tot) if tot > 0 else float("nan")
+
+    def _update_sdf_bias(self, surface_bias):
+        """EMA (0.8 / 0.2) of the measured surface offset into the band
+        target (JAX pipeline.py:569-592, bias_classes=1: both entries track
+        the pooled value)."""
+        if not self.bias_correction:
+            return
+        sb = self._pooled_bias(surface_bias)
+        if np.isfinite(sb):
+            self.sdf_bias = (0.8 * self.sdf_bias + 0.2 * sb).astype(np.float32)
+
+    def _megastep(self, tp, init6, pts, cos, val, pose_free, update_decoder, sdf_bias):
         """track -> lazy recenter + refresh -> BA(current) -> insert, all on
         the device; returns the new map state and the tensors to fetch."""
         st = self.state
         cfg = self.map_cfg
         with self.prof.section("track"):
             tr = tr_mod.track_frame_gn(st.map_state, cfg, self.rc_track, tp, st.decoder_params,
-                                       init6, pts, cos, val, self.generator)
+                                       init6, pts, cos, val, self.generator, sdf_bias)
         with self.prof.section("recenter"):
             if self.recenter_margin > 0:
                 self.host_syncs += 1  # lax.cond in JAX, a host branch here
@@ -388,7 +426,7 @@ class NerfLoamSLAM_torch:
             ms = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,
                                  append_active=self.recenter_margin > 0)
         outs = (tr.pose, tr.hit_count, ba.poses[0], ms.num_lat, ms.n_active,
-                ba.touched_count, ms.num_cand, tr.loss)
+                ba.touched_count, ms.num_cand, tr.loss, ba.surface_bias)
         return ms, ba.decoder_params, outs
 
     def process_frame(self, frame: Frame):
@@ -414,10 +452,12 @@ class NerfLoamSLAM_torch:
         pts, cos, val = frame.device_arrays(self.device)
         pose_free_b = frame.index != st.first_frame_id
         pose_free = self._tensor([pose_free_b], torch.bool)
+        sdf_bias = self._tensor(self.sdf_bias if self.bias_correction else np.zeros(2, np.float32))
 
         pre = (st.map_state, st.decoder_params, self.generator.get_state())
         for _ in range(8):  # each round at least doubles a budget
-            ms, dec, outs = self._megastep(tp, init6, pts, cos, val, pose_free, update_decoder)
+            ms, dec, outs = self._megastep(tp, init6, pts, cos, val, pose_free, update_decoder,
+                                           sdf_bias)
             with self.prof.section("sync"):
                 got = self._fetch(*outs)
             num_lat, n_active, touched, num_cand = (int(got[i]) for i in (3, 4, 5, 6))
@@ -438,6 +478,7 @@ class NerfLoamSLAM_torch:
         st.rel_pose = np.linalg.inv(last.pose_matrix()) @ frame.pose_matrix()
         frame.rel_pose = st.rel_pose
         st.frame_telemetry.append((frame.index, hits / self.tp.n_rays, float(got[7])))
+        self._update_sdf_bias(got[8])  # from the accepted run only
         mapper_frame.pose6 = frame.pose6
         if pose_free_b:
             mapper_frame.pose6 = got[2].astype(np.float32)
@@ -478,7 +519,7 @@ class NerfLoamSLAM_torch:
 
     def run(self):
         """The whole sequence; returns the trajectory (list of 4x4)."""
-        from nerfloam_tpu.data.prefetch import PrefetchingLoader
+        from nerfloam_tpu_torch.data.prefetch import PrefetchingLoader
 
         tspec = self.cfg.tracker_specs
         start = int(tspec.get("start_frame", 0))

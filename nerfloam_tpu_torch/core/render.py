@@ -1,13 +1,20 @@
-"""Hits-sampler field evaluation (port of nerfloam_tpu/core/render.py:72-150).
+"""Field evaluation of the hits sampler and of explicit sample depths
+(port of nerfloam_tpu/core/render.py:42-69, 72-150, 153-239).
 
-``hits_field_fwd`` is kernel K1 and ``hits_field_bwd`` kernel K2
-(csrc/hits_field.cu) on CUDA tensors; on CPU tensors each takes its plain
-torch twin. ``render_rays_hits`` wraps both in one autograd Function over
-(packed, rays_o, rays_d): K1 returns the features and the sample
-positions, and the backward maps K2's d xyz onto the rays
-(d o = sum_m d xyz, d d = sum_m z d xyz, since xyz = o + d z with z fixed
-by the hit table and the jitter). The cell that re-resolves a sample and
-the cell that interpolates it come from the same xyz, as in JAX.
+``hits_field_fwd`` is kernel K1, ``hits_field_bwd`` kernel K2
+(csrc/hits_field.cu) and ``active_field_fwd`` kernel K8
+(csrc/active_field.cu) on CUDA tensors; on CPU tensors each takes its
+plain torch twin. K1 places samples over a ray's hit table; K8 evaluates
+given depths (the band and anchor columns of the quality stack, and the
+surface-bias probe) through the dense active grid. ``field_columns`` wraps
+K1 and K8 in one autograd Function over (packed, rays_o, rays_d): the
+features of both column sets come out side by side, and the backward is
+ONE K2 launch over all of them, mapped onto the rays (d o = sum d xyz,
+d d = sum z d xyz, since xyz = o + d z with z fixed by the hit table, the
+jitter or the band depth). K2 fits K8 too: it takes per-sample (xyz, aid,
+valid) in the active index space and interpolates in the sample's own
+cell, which is what K8 computes. The cell that resolves a sample and the
+cell that interpolates it come from the same xyz, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core.losses import MAX_DEPTH
+from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
@@ -31,6 +39,7 @@ from nerfloam_tpu_torch.ops.raycast import (
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 hits_field_fwd_launches = 0
 hits_field_bwd_launches = 0
+active_field_fwd_launches = 0
 
 _JITTER_LO, _JITTER_HI = 1e-4, 1.0 - 1e-4  # frac clip of sample_from_hits
 
@@ -153,12 +162,109 @@ def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=Tru
     return dxyz, dpacked
 
 
-class _HitsField(torch.autograd.Function):
-    """feats = K1(packed, rays_o, rays_d); backward through K2."""
+# ---------------------------------------------------------------- K8
+
+
+def active_field_fwd_plain(state: vm.MapState, map_cfg: vm.MapConfig, packed, rays_o, rays_d, z,
+                           ray_valid, xyz=None):
+    """Plain torch twin of K8: (aid, valid, xyz, feats) per sample."""
+    vs = map_cfg.voxel_size
+    if xyz is None:
+        xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    aid = vm.lookup_active(state, map_cfg, cells_of(xyz, vs))
+    valid = (aid >= 0) & ray_valid[:, None] & (z > 0)
+    rows = packed[torch.clamp(aid, min=0).long()]
+    feats = torch.where(valid[..., None], interp_packed(xyz, rows, vs), 0.0)
+    return torch.where(valid, aid, -1), valid, xyz, feats
+
+
+def active_field_fwd(state: vm.MapState, map_cfg: vm.MapConfig, packed, rays_o, rays_d, z,
+                     ray_valid, xyz=None):
+    """K8: field features at explicit depths z (R, K) along rays (R, 3), or
+    at given points ``xyz`` (R, K, 3) with rays_o = rays_d = None (z then
+    only gates z > 0): the cell's active id from ``state.grid_active``
+    (-1 outside the region), valid = aid >= 0 & ray_valid (R,) & z > 0, one
+    packed row and trilinear features. Replaces the XLA fusion of
+    nerfloam_tpu/core/render.py:181-202 (band_samples) and 42-69
+    (field_at) up to the decoder. Bound: one 512 B packed row per valid
+    sample (see csrc/active_field.cu). Returns (aid, valid, xyz, feats)."""
+    if packed.device.type == "cpu":
+        return active_field_fwd_plain(state, map_cfg, packed, rays_o, rays_d, z, ray_valid, xyz)
+    if packed.device.type != "cuda":
+        raise ValueError(f"active_field_fwd: unsupported device {packed.device}")
+    global active_field_fwd_launches
+    dev = packed.device
+    R, K = z.shape
+    if packed.shape[1] != 128:
+        raise ValueError("active_field_fwd: packed rows must be 8 x 16 floats")
+    if xyz is None:
+        o, d, x_in = rays_o.float().contiguous(), rays_d.float().contiguous(), None
+    else:
+        o = d = None
+        x_in = xyz.float().reshape(R, K, 3).contiguous()
+    ins = [t for t in (o, d, x_in) if t is not None] + [
+        z.float().contiguous(), ray_valid.to(torch.bool).contiguous(),
+        state.grid_active.contiguous(), state.region_min.to(torch.int32).contiguous(),
+        packed.float().contiguous()]
+    if any(t.device != dev for t in ins):
+        raise ValueError("active_field_fwd: all inputs must be on one device")
+    zz, rv, ga, rmin, pk = ins[-5:]
+    aid = torch.empty((R, K), dtype=torch.int32, device=dev)
+    valid = torch.empty((R, K), dtype=torch.bool, device=dev)
+    xyz_out = torch.empty((R, K, 3), dtype=torch.float32, device=dev)
+    feats = torch.empty((R, K, 16), dtype=torch.float32, device=dev)
+    Dx, Dy, Dz = map_cfg.grid_dim
+    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = kernels.lib().nl_active_field_fwd(
+        p(o), p(d), p(zz), p(x_in), p(rv), p(ga), p(rmin), Dx, Dy, Dz, p(pk), R, K,
+        map_cfg.voxel_size, p(aid), p(valid), p(xyz_out), p(feats), kernels.stream_ptr(dev))
+    kernels.check(err, "active_field_fwd")
+    active_field_fwd_launches += 1
+    return aid, valid, xyz_out, feats
+
+
+def band_sample_z(depth, cos, truncation: float, n: int, u):
+    """(R, n) stratified depths across the cosine-widened truncation band
+    around the measured distance: z = d + ((i + u) / n * 2 - 1) T / cos."""
+    off = div(torch.arange(n, dtype=torch.float32, device=depth.device) + u, float(n)) * 2.0 - 1.0
+    half = truncation / torch.clamp(cos, min=0.05)
+    return depth[:, None] + off * half[:, None]
+
+
+def extra_surface_z(dnorm, pcos, truncation: float, n_anchor: int, n_band: int, band_u=None):
+    """(R, n_anchor + n_band) depths of the anchor columns (the measured
+    distance, repeated as its weight) and the band columns
+    (render.py:205-239 extra_surface_columns, up to the field)."""
+    cols = []
+    if n_anchor:
+        cols.append(dnorm[:, None].expand(-1, n_anchor))
+    if n_band:
+        cols.append(band_sample_z(dnorm, pcos, truncation, n_band, band_u))
+    return torch.cat(cols, 1)
+
+
+# ------------------------------------------------------- K1 + K8 columns
+
+
+def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None):
+    """K1 over the hit table and, when ``extra = (state, map_cfg, ez,
+    ray_valid)``, K8 at the extra depths ez (R, K): (z, valid, aid, xyz,
+    feats) with the K columns after the M hits columns."""
+    out = hits_field_fwd(ht, u, rays_o, rays_d, packed, voxel_size)
+    if extra is None:
+        return out
+    state, map_cfg, ez, ray_valid = extra
+    eaid, evalid, exyz, efeats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, ez,
+                                                  ray_valid)
+    return tuple(torch.cat(p, 1) for p in zip(out, (ez, evalid, eaid, exyz, efeats)))
+
+
+class _FieldColumns(torch.autograd.Function):
+    """feats = columns_fwd(packed, rays_o, rays_d); backward: one K2."""
 
     @staticmethod
-    def forward(ctx, packed, rays_o, rays_d, ht, u, voxel_size):
-        z, valid, aid, xyz, feats = hits_field_fwd(ht, u, rays_o, rays_d, packed, voxel_size)
+    def forward(ctx, packed, rays_o, rays_d, ht, u, voxel_size, extra):
+        z, valid, aid, xyz, feats = columns_fwd(ht, u, rays_o, rays_d, packed, voxel_size, extra)
         ctx.save_for_backward(packed, z, valid, aid, xyz)
         ctx.voxel_size = voxel_size
         ctx.mark_non_differentiable(z, valid, aid, xyz)
@@ -172,22 +278,38 @@ class _HitsField(torch.autograd.Function):
                                        want_dpacked)
         d_o = dxyz.sum(1) if ctx.needs_input_grad[1] else None
         d_d = (z[..., None] * dxyz).sum(1) if ctx.needs_input_grad[2] else None
-        return dpacked, d_o, d_d, None, None, None
+        return dpacked, d_o, d_d, None, None, None, None
 
 
-def hits_field(packed, rays_o, rays_d, ht: HitTable, u, voxel_size):
-    """Differentiable K1: (feats, z, valid, aid, xyz)."""
-    return _HitsField.apply(packed, rays_o, rays_d, ht, u, voxel_size)
+def field_columns(packed, rays_o, rays_d, ht: HitTable, u, voxel_size, extra=None):
+    """Differentiable K1 (+ K8 columns): (feats, z, valid, aid, xyz)."""
+    return _FieldColumns.apply(packed, rays_o, rays_d, ht, u, voxel_size, extra)
 
 
 def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, ht: HitTable,
-                     ray_valid, jitter_u, compute_dtype=torch.float32) -> RenderOutput:
+                     ray_valid, jitter_u, compute_dtype=torch.float32,
+                     extra=None) -> RenderOutput:
     """render_rays over a prebuilt HitTable: K1 -> decoder -> masked sdf.
     ``jitter_u`` (R, M) is the placement jitter (JAX draws it internally
-    unless given; the port always takes it)."""
-    feats, z, valid, _, xyz = hits_field(packed, rays_o, rays_d, ht, jitter_u, voxel_size)
+    unless given; the port always takes it). ``extra = (state, map_cfg,
+    ez, ray_valid)`` appends K8's columns at depths ez (R, K), i.e. JAX's
+    extra_surface_columns concatenated onto the render output (ba.py:
+    282-304); one decoder call and one K2 take both."""
+    feats, z, valid, _, xyz = field_columns(packed, rays_o, rays_d, ht, jitter_u, voxel_size,
+                                            extra)
     valid = valid & ray_valid[:, None]
     sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
     sdf = torch.where(valid, sdf, 1.0)
     z_out = torch.where(valid, z, MAX_DEPTH)
     return RenderOutput(z_out, sdf, ht.ray_mask & ray_valid, valid, xyz)
+
+
+def field_at_points(state: vm.MapState, map_cfg: vm.MapConfig, packed, decoder_params, xyz,
+                    z, point_valid, compute_dtype=torch.float32):
+    """sdf at world points xyz (R, K, 3) in active voxels (JAX field_at with
+    its lookup_active): K8 with given points, then the decoder. ``z`` and
+    ``point_valid`` (R,) gate validity as in active_field_fwd. Returns
+    (sdf, valid); sdf is 0 where not valid."""
+    _, valid, _, feats = active_field_fwd(state, map_cfg, packed, None, None, z, point_valid, xyz)
+    sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
+    return torch.where(valid, sdf, 0.0), valid

@@ -2,12 +2,15 @@
 nerfloam_tpu/core/tracking.py:40-88, 89-346, 374-381, single device).
 
 Per iteration: K1 places the samples and interpolates their features at
-the iteration's pose, the decoder runs forward and backward to d sdf /
-d feats, and K2 (with the packed gradient off) turns that into the spatial
-gradient g per sample. The 6x6 normal equations (K3 in the roadmap) and
-the LM solve stay in torch this slice. The loop never reads a value back
-to the host: shapes are static and ``torch.linalg.solve_ex`` skips the
-error check that would synchronise.
+the iteration's pose, K8 adds the band/anchor columns of the quality
+stack (explicit depths around the measured distance), the decoder runs
+forward and backward to d sdf / d feats over all columns at once, and one
+K2 launch (with the packed gradient off) turns that into the spatial
+gradient g per sample. K3 (``gn_system``, csrc/gn_system.cu) forms the
+residuals, the count-balanced weights and the 6x6 normal equations; the
+LM solve stays in torch. The loop never reads a value back to the host:
+shapes are static and ``torch.linalg.solve_ex`` skips the error check
+that would synchronise.
 """
 
 from __future__ import annotations
@@ -16,12 +19,16 @@ from typing import NamedTuple
 
 import torch
 
-from nerfloam_tpu_torch.core.render import hits_field_bwd, hits_field_fwd
+from nerfloam_tpu_torch import kernels
+from nerfloam_tpu_torch.core.render import columns_fwd, extra_surface_z, hits_field_bwd
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig, build_hit_table, uniform_jitter
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+
+# K3 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
+gn_system_launches = 0
 
 
 class TrackParams(NamedTuple):
@@ -32,6 +39,8 @@ class TrackParams(NamedTuple):
     fs_weight: float
     sdf_weight: float
     compute_dtype: str = "float32"
+    surface_anchor: int = 0  # anchor columns at the measured point (its weight)
+    band_samples: int = 0    # stratified columns across the truncation band
 
 
 class TrackResult(NamedTuple):
@@ -51,11 +60,14 @@ def _ray_dirs(pts: torch.Tensor) -> torch.Tensor:
     return pts / (torch.linalg.norm(pts, dim=-1, keepdim=True) + 1e-8)
 
 
-def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams):
-    """Residuals, count-balanced weights and the 6x6 normal equations
-    (tracking.py:217-244, 300-315), with the band target sdf = 0 (the
-    bias transfer is the quality stack's). Returns (H, b, loss)."""
+def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
+                    bias_ray=None):
+    """Plain torch twin of K3: residuals, count-balanced weights and the
+    6x6 normal equations (tracking.py:217-244, 300-315), the band target
+    being sdf = bias_ray (N,) (None = 0). Returns (H, b, loss)."""
     T = tp.truncation
+    if bias_ray is None:
+        bias_ray = torch.zeros_like(pcos)
     zc = z * pcos[:, None]
     d = d_meas[:, None]
     front = (zc < (d - T)) & vmask
@@ -65,7 +77,7 @@ def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackPar
     tot = torch.clamp(num_fs + num_sdf, min=1).to(torch.float32)
     w_fs = tp.fs_weight * (1.0 - num_fs / tot)
     w_sdf = tp.sdf_weight * (1.0 - num_sdf / tot)
-    r = torch.where(front, sdf - 1.0, (zc + sdf * T) - d)
+    r = torch.where(front, sdf - 1.0, (zc + (sdf - bias_ray[:, None]) * T) - d)
     w = torch.where(front, w_fs, w_sdf) * (front | band)
     jscale = torch.where(front, 1.0, T)
     q = xyz - t_pos
@@ -75,6 +87,42 @@ def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackPar
     H = torch.einsum("nmi,nmj->ij", Jw, J)
     b = torch.einsum("nmi,nm->i", Jw, r)
     return H, b, torch.sum(w * r * r)
+
+
+def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
+              bias_ray=None):
+    """K3. Replaces the XLA fusion of nerfloam_tpu/core/tracking.py:217-244
+    (_residual_parts) and 300-315 (the H and b einsums): per-class sums in
+    one pass, then the balancing weights, by a deterministic two-stage
+    reduction (csrc/gn_system.cu). CPU tensors take ``gn_system_plain``.
+    Shapes: (N, M+K) samples, (N,) rays; returns (H (6, 6), b (6,), loss)."""
+    dev = xyz.device
+    if dev.type == "cpu":
+        return gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
+                               bias_ray)
+    if dev.type != "cuda":
+        raise ValueError(f"gn_system: unsupported device {dev}")
+    global gn_system_launches
+    lib = kernels.lib()
+    N, MK = z.shape
+    if bias_ray is None:
+        bias_ray = torch.zeros_like(pcos)
+    ins = [t.contiguous() for t in (
+        xyz.float(), z.float(), sdf.float(), g.float(), vmask.to(torch.bool), pcos.float(),
+        d_meas.float(), depth_ok.to(torch.bool), bias_ray.float(), t_pos.float())]
+    if any(t.device != dev for t in ins):
+        raise ValueError("gn_system: all inputs must be on one device")
+    partial = torch.empty((lib.nl_gn_blocks(N * MK), lib.nl_gn_partial_values()),
+                          dtype=torch.float32, device=dev)
+    H = torch.empty((6, 6), dtype=torch.float32, device=dev)
+    b = torch.empty((6,), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    err = lib.nl_gn_system(*[t.data_ptr() for t in ins], N, MK, tp.truncation, tp.fs_weight,
+                           tp.sdf_weight, partial.data_ptr(), H.data_ptr(), b.data_ptr(),
+                           loss.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(err, "gn_system")
+    gn_system_launches += 1
+    return H, b, loss
 
 
 def lm_update(pose6, H, b, lam):
@@ -103,9 +151,10 @@ def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, c
 @torch.no_grad()
 def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
                    decoder_params, init_pose, points, points_cos, points_valid,
-                   generator: torch.Generator | None = None) -> TrackResult:
+                   generator: torch.Generator | None = None, sdf_bias=None) -> TrackResult:
     """LM pose tracking on the truncated-SDF residuals over one frame's
-    (padded) points."""
+    (padded) points. ``sdf_bias`` (2,) [ground, non-ground] is the band
+    target (the mapped field's surface offset, bias transfer); None = 0."""
     if rc.sampler != "hits":
         raise NotImplementedError("the grid sampler is not ported yet (ROADMAP queue 1, item 11)")
     dev = points.device
@@ -119,6 +168,11 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
     d_meas = torch.linalg.norm(pts, dim=-1) * pcos
     depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
+    b2 = (torch.zeros((2,), device=dev) if sdf_bias is None
+          else torch.as_tensor(sdf_bias, dtype=torch.float32, device=dev).reshape(-1)[:2])
+    bias_ray = torch.where(pcos < 0.999, b2[0], b2[1])
+    dnorm = torch.linalg.norm(pts, dim=-1)
+    n_extra = tp.surface_anchor + tp.band_samples
 
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
     origin0 = se3.pose_translation(init_pose).expand_as(wdirs0)
@@ -133,10 +187,16 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         t_pos = se3.pose_translation(pose6)
         origin = t_pos.expand_as(wdirs)
         u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
-        z, valid, aid, xyz, feats = hits_field_fwd(ht0, u, origin, wdirs, packed, vs)
+        extra = None
+        if n_extra:
+            ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
+                  if tp.band_samples else None)
+            ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples, ub)
+            extra = (map_state, map_cfg, ez, rvalid)
+        z, valid, aid, xyz, feats = columns_fwd(ht0, u, origin, wdirs, packed, vs, extra)
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
-        H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp)
+        H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
         pose6 = lm_update(pose6, H, b, lam)
         hits = (ht0.ray_mask & rvalid).sum()
     pose6 = torch.where(hits > 0, pose6, init_pose)

@@ -12,9 +12,11 @@ Functions return a new ``MapState`` rather than editing their input, like
 the JAX code: the pipeline keeps no rewind point, but tests compare the
 before and after states.
 
-Plain torch in this slice. The map-maintenance fusions wait for later
-kernels: K5 (``reconcile_packed``, ``bump_upd_count``, ``pack_embeddings``),
-K6 (``recenter``, ``refresh_active``) and K7 (``insert_points``).
+``insert_points`` is kernel K7 (csrc/insert.cu) on CUDA tensors and its
+plain torch twin ``insert_points_plain`` on CPU tensors. The other
+map-maintenance fusions are plain torch and wait for later kernels: K5
+(``reconcile_packed``, ``bump_upd_count``, ``pack_embeddings``) and K6
+(``recenter``, ``refresh_active``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.interp import CORNER_OFFSETS
+
+# K7 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
+insert_launches = 0
+_INT_MAX = 2**31 - 1
 
 
 class MapConfig(NamedTuple):
@@ -37,6 +44,9 @@ class MapConfig(NamedTuple):
     feat_dim: int = 16
     emb_dtype: str = "float32"  # "float32" | "bfloat16"
     active_cap: int = 0         # 0 -> capacity
+    support_dist: float = 0.0   # > 0: insert_frame also allocates a support
+    #   voxel this far past each measured point (JAX MapConfig.support_dist)
+    support_sym: bool = False   # and its mirror on the sensor side
 
 
 class MapState(NamedTuple):
@@ -63,7 +73,7 @@ def acap(cfg: MapConfig) -> int:
     return cfg.active_cap if cfg.active_cap > 0 else cfg.capacity
 
 
-def create(cfg: MapConfig, device="cpu") -> MapState:
+def create(cfg: MapConfig, device="cuda") -> MapState:
     C, A = cfg.capacity, acap(cfg)
     total = int(np.prod(cfg.grid_dim))
     i32 = dict(dtype=torch.int32, device=device)
@@ -99,6 +109,14 @@ def _add_drop(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> 
     buf = torch.cat([target, torch.zeros_like(target[:1])])
     buf.index_add_(0, idx.long(), values.to(target.dtype))
     return buf[:-1]
+
+
+def div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s rounded as IEEE division. torch on CUDA turns division by a
+    Python scalar into a multiply by its reciprocal, which can move
+    floor(x / voxel_size) across a voxel face; a same-device 0-d tensor
+    divisor keeps the true division the kernels use (__fdiv_rn)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def _flat_cell(rel: torch.Tensor, grid_dim: tuple):
@@ -207,44 +225,43 @@ def pack_embeddings(state: MapState, cfg: MapConfig) -> torch.Tensor:
     return _pack(state.embeddings, state.corner_idx[state.active_ids.long()], A, cfg.feat_dim)
 
 
-def insert_points(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
-                  valid: torch.Tensor, cand_cap: int = 0,
-                  append_active: bool = False) -> MapState:
-    """Allocate voxels (and their corner lattice points) at observed points:
-    each observed voxel becomes surface, its 8 corners are allocated if
-    absent. Duplicates are resolved by a grid scatter followed by a read
-    back ("election"): any duplicate may win, and the read back agrees with
-    whichever did. Out-of-region points are dropped; rows past capacity are
-    dropped and their voxels stay inactive while ``num_lat`` still counts
-    them, so the host can grow the map."""
+def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
+                        valid: torch.Tensor, cand_cap: int = 0,
+                        append_active: bool = False) -> MapState:
+    """Plain torch twin of K7: allocate voxels (and their corner lattice
+    points) at observed points. Each observed voxel becomes surface, its 8
+    corners are allocated if absent. Duplicates are resolved by electing
+    the smallest point (corner) slot per grid cell (JAX lets any duplicate
+    win, so its row ids differ but its sets are the same). Candidates are
+    compacted to ``cand_cap`` rows (all P when 0 or >= P) before the corner
+    pass. Out-of-region points are dropped; rows past capacity are dropped
+    and their voxels stay inactive while ``num_lat`` still counts them, so
+    the host can grow the map."""
     dev = points_world.device
     P = points_world.shape[0]
     C = cfg.capacity
     total = int(np.prod(cfg.grid_dim))
     i32 = dict(dtype=torch.int32, device=dev)
+    Pc = cand_cap if 0 < cand_cap < P else P
 
-    vox = torch.floor(points_world / cfg.voxel_size).to(torch.int32)
+    vox = torch.floor(div(points_world, cfg.voxel_size)).to(torch.int32)
     vflat, vox_inb = _flat_cell(vox - state.region_min, cfg.grid_dim)
     ok = valid & vox_inb
     slot = torch.arange(P, **i32)
-    winner = _set_drop(torch.full((total,), -1, **i32), torch.where(ok, vflat, total), slot)
-    first = ok & (winner[torch.clamp(vflat, 0, total - 1).long()] == slot)
+    vdest = torch.where(ok, vflat, total).long()
+    winner = torch.full((total + 1,), _INT_MAX, **i32).scatter_reduce_(0, vdest, slot, "amin")
+    first = ok & (winner[vdest] == slot)
 
-    lid0 = lookup(state, cfg, vox)
+    lid0 = state.grid[torch.clamp(vflat, 0, total - 1).long()]
     already_surface = (lid0 >= 0) & state.is_surface[torch.clamp(lid0, min=0).long()]
     cand = first & ~already_surface
     num_cand = cand.sum(dtype=torch.int32)
 
-    if cand_cap and cand_cap < P:
-        Pc = cand_cap
-        crank = torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
-        keep = cand & (crank < Pc)
-        cdest = torch.where(keep, crank, Pc)
-        vox_c = _set_drop(torch.zeros((Pc, 3), **i32), cdest, vox)
-        cand_c = _set_drop(torch.zeros((Pc,), dtype=torch.bool, device=dev), cdest, keep)
-    else:
-        vox_c, cand_c = vox, cand
-    Pc = vox_c.shape[0]
+    crank = torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
+    keep = cand & (crank < Pc)
+    cdest = torch.where(keep, crank, Pc)
+    vox_c = _set_drop(torch.zeros((Pc, 3), **i32), cdest, vox)
+    cand_c = _set_drop(torch.zeros((Pc,), dtype=torch.bool, device=dev), cdest, keep)
 
     offsets = torch.as_tensor(CORNER_OFFSETS, device=dev)
     corners = vox_c[:, None, :] + offsets[None]
@@ -253,15 +270,15 @@ def insert_points(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
     c_lid = lookup(state, cfg, cflat3)
     c_ok = torch.repeat_interleave(cand_c, 8) & c_inb & (c_lid < 0)
     cslot = torch.arange(8 * Pc, **i32)
-    cwinner = _set_drop(torch.full((total,), -1, **i32), torch.where(c_ok, c_flatidx, total), cslot)
-    cnew = c_ok & (cwinner[torch.clamp(c_flatidx, 0, total - 1).long()] == cslot)
+    c_dest = torch.where(c_ok, c_flatidx, total).long()
+    cwinner = torch.full((total + 1,), _INT_MAX, **i32).scatter_reduce_(0, c_dest, cslot, "amin")
+    cnew = c_ok & (cwinner[c_dest] == cslot)
 
     ranks = torch.cumsum(cnew.to(torch.int32), 0, dtype=torch.int32) - 1
     new_ids = state.num_lat + ranks
     fits = new_ids < C
     lat_coords = _set_drop(state.lat_coords, torch.where(cnew & fits, new_ids, C), cflat3)
-    grid = _set_drop(state.grid, torch.where(cnew & fits, c_flatidx, total),
-                     torch.where(fits, new_ids, -1))
+    grid = _set_drop(state.grid, torch.where(cnew & fits, c_flatidx, total), new_ids)
     num_lat = state.num_lat + cnew.sum(dtype=torch.int32)
     state = state._replace(lat_coords=lat_coords, grid=grid, num_lat=num_lat)
 
@@ -292,6 +309,100 @@ def insert_points(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
         packed=_set_drop(state.packed, adest, _pack(state.embeddings, c_lid2, Pc, F)),
         n_active=state.n_active + act.sum(dtype=torch.int32),
     )
+
+
+def insert_points(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
+                  valid: torch.Tensor, cand_cap: int = 0,
+                  append_active: bool = False) -> MapState:
+    """K7. Replaces nerfloam_tpu/map/voxel_map.py:311-449 (insert_points):
+    the XLA fusion of the two grid elections, the corner allocation, the
+    activation and the active-set append. CPU tensors take the plain twin
+    ``insert_points_plain``; CUDA tensors launch csrc/insert.cu, with the
+    prefix sums between its passes in torch. The tables it writes are
+    copies, so the input state stays valid (the pipeline rewinds to it on
+    overflow). Same semantics and the same tables as the twin."""
+    dev = points_world.device
+    if dev.type == "cpu":
+        return insert_points_plain(state, cfg, points_world, valid, cand_cap, append_active)
+    if dev.type != "cuda":
+        raise ValueError(f"insert_points: unsupported device {dev}")
+    global insert_launches
+    lib = kernels.lib()
+    P = points_world.shape[0]
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
+    total = int(np.prod(cfg.grid_dim))
+    Pc = cand_cap if 0 < cand_cap < P else P
+    Dx, Dy, Dz = cfg.grid_dim
+    i32 = dict(dtype=torch.int32, device=dev)
+    pts = points_world.float().contiguous()
+    val = valid.to(torch.bool).contiguous()
+    rmin = state.region_min.to(torch.int32).contiguous()
+    if any(t.device != dev for t in (val, rmin, state.grid, state.is_surface)):
+        raise ValueError("insert_points: map and points must share one device")
+    if F * 8 != state.packed.shape[1] or state.embeddings.dtype not in (torch.float32,
+                                                                         torch.bfloat16):
+        raise ValueError("insert_points: packed rows must be 8 x F float32 embeddings")
+    stream = kernels.stream_ptr(dev)
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+
+    winner = torch.full((total,), _INT_MAX, **i32)
+    vox = torch.empty((P, 3), **i32)
+    vflat = torch.empty((P,), **i32)
+    kernels.check(lib.nl_insert_elect(ptr(pts), ptr(val), P, cfg.voxel_size, ptr(rmin), Dx, Dy,
+                                      Dz, ptr(winner), ptr(vox), ptr(vflat), stream),
+                  "insert_elect")
+    cand = torch.empty((P,), **i32)
+    kernels.check(lib.nl_insert_candidate(ptr(vflat), ptr(winner), ptr(state.grid),
+                                          ptr(state.is_surface), P, ptr(cand), stream),
+                  "insert_candidate")
+    crank = torch.cumsum(cand, 0, dtype=torch.int32)
+    num_cand = crank[-1].clone() if P else torch.zeros((), **i32)
+
+    cwinner = winner.fill_(_INT_MAX)  # the first election is read; reuse its grid
+    vox_c = torch.zeros((Pc, 3), **i32)
+    cand_c = torch.zeros((Pc,), dtype=torch.bool, device=dev)
+    cflat = torch.full((8 * Pc,), -1, **i32)
+    kernels.check(lib.nl_insert_corners(ptr(vox), ptr(cand), ptr(crank), P, Pc, ptr(rmin), Dx,
+                                        Dy, Dz, ptr(state.grid), ptr(cwinner), ptr(vox_c),
+                                        ptr(cand_c), ptr(cflat), stream), "insert_corners")
+    cnew = torch.empty((8 * Pc,), **i32)
+    kernels.check(lib.nl_insert_corner_new(ptr(cflat), ptr(cwinner), 8 * Pc, ptr(cnew), stream),
+                  "insert_corner_new")
+    rank = torch.cumsum(cnew, 0, dtype=torch.int32)
+    num_lat0 = state.num_lat.to(torch.int32).reshape(1).contiguous()
+    lat_coords = state.lat_coords.clone()
+    grid = state.grid.clone()
+    kernels.check(lib.nl_insert_alloc(ptr(vox_c), ptr(cflat), ptr(cnew), ptr(rank), 8 * Pc,
+                                      ptr(num_lat0), C, ptr(lat_coords), ptr(grid), stream),
+                  "insert_alloc")
+    num_lat = state.num_lat + (rank[-1] if Pc else 0)
+
+    is_surface = state.is_surface.clone()
+    corner_idx = state.corner_idx.clone()
+    clid = torch.empty((Pc, 8), **i32)
+    act = torch.empty((Pc,), **i32)
+    kernels.check(lib.nl_insert_activate(ptr(vox_c), ptr(cand_c), Pc, ptr(rmin), Dx, Dy, Dz,
+                                         ptr(grid), ptr(is_surface), ptr(corner_idx), ptr(clid),
+                                         ptr(act), stream), "insert_activate")
+    state = state._replace(lat_coords=lat_coords, grid=grid, num_lat=num_lat,
+                           is_surface=is_surface, corner_idx=corner_idx, num_cand=num_cand)
+    if append_active:
+        arank = torch.cumsum(act, 0, dtype=torch.int32)
+        n_active0 = state.n_active.to(torch.int32).reshape(1).contiguous()
+        emb = state.embeddings.contiguous()
+        active_ids = state.active_ids.clone()
+        active_coords = state.active_coords.clone()
+        grid_active = state.grid_active.clone()
+        packed = state.packed.clone()
+        kernels.check(lib.nl_insert_append(
+            ptr(vox_c), ptr(act), ptr(arank), ptr(clid), Pc, ptr(n_active0), A, ptr(rmin), Dx,
+            Dy, Dz, ptr(emb), int(emb.dtype == torch.bfloat16), F, ptr(active_ids),
+            ptr(active_coords), ptr(grid_active), ptr(packed), stream), "insert_append")
+        state = state._replace(active_ids=active_ids, active_coords=active_coords,
+                               grid_active=grid_active, packed=packed,
+                               n_active=state.n_active + (arank[-1] if Pc else 0))
+    insert_launches += 1
+    return state
 
 
 def grow(state: MapState, cfg: MapConfig, new_capacity: int):
@@ -348,8 +459,20 @@ def maybe_recenter_refresh(state: MapState, cfg: MapConfig, center_world: torch.
 def insert_frame(state: MapState, cfg: MapConfig, points_sensor: torch.Tensor,
                  points_cos: torch.Tensor, valid: torch.Tensor, pose6: torch.Tensor,
                  cand_cap: int = 0, append_active: bool = False) -> MapState:
-    """World transform + insert (create_voxels); support voxels are not
-    ported yet (ROADMAP queue 1, item 10)."""
+    """World transform + insert (create_voxels, JAX voxel_map.py:535-575).
+    With ``cfg.support_dist > 0`` each measured point also inserts a
+    support point that far past the surface: straight down for ground
+    points (cos < 0.999), along the ray otherwise; ``support_sym`` adds the
+    mirror point on the sensor side. One insert_points pass takes all."""
     world = se3.transform_points(pose6, points_sensor)
-    return insert_points(state, cfg, world, valid, cand_cap, append_active)
-
+    if cfg.support_dist <= 0:
+        return insert_points(state, cfg, world, valid, cand_cap, append_active)
+    dirs = points_sensor / (torch.linalg.norm(points_sensor, dim=-1, keepdim=True) + 1e-8)
+    wdirs = se3.rotate_dirs(pose6, dirs)
+    down = torch.tensor([0.0, 0.0, -1.0], dtype=world.dtype, device=world.device)
+    off = torch.where(points_cos[:, None] < 0.999, down[None, :], wdirs)
+    pts = [world, world + off * cfg.support_dist]
+    if cfg.support_sym:
+        pts.append(world - off * cfg.support_dist)
+    return insert_points(state, cfg, torch.cat(pts, 0), torch.cat([valid] * len(pts), 0),
+                         cand_cap, append_active)

@@ -26,7 +26,7 @@ import torch
 
 
 def init_decoder(depth=2, width=256, in_dim=16, skips=(), embedder="none",
-                 multires=0, generator: torch.Generator | None = None, device="cpu"):
+                 multires=0, generator: torch.Generator | None = None, device="cuda"):
     """Decoder params with torch.nn.Linear's default init, U(+-1/sqrt(fan_in))."""
     if tuple(skips) or embedder != "none":
         raise NotImplementedError(
@@ -56,7 +56,7 @@ def decoder_apply(params, feats: torch.Tensor, compute_dtype=torch.float32) -> t
     return h
 
 
-def decoder_params_from_jax(params, device="cpu"):
+def decoder_params_from_jax(params, device="cuda"):
     """The port's decoder params from a JAX decoder pytree given as numpy
     ({"layers": [{"w", "b"}, ...], "out": {"w", "b"}})."""
     layers = list(params["layers"]) + [params["out"]]

@@ -39,12 +39,7 @@ def _coarse_shape(rc: RaycastConfig) -> tuple[float, int]:
     return step, n
 
 
-def div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s rounded as IEEE division. torch on CUDA turns division by a
-    Python scalar into a multiply by its reciprocal, which can move
-    floor(x / voxel_size) across a voxel face; a same-device 0-d tensor
-    divisor keeps the true division the kernels use (__fdiv_rn)."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+div = vm.div
 
 
 def cells_of(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:

@@ -11,12 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nerfloam_tpu_torch.map.voxel_map import MapState
+from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_params_from_jax
 from nerfloam_tpu_torch.ops.raycast import HitTable
 
-__all__ = ["decoder_params_from_jax", "map_state_from_numpy", "hit_table_from_numpy",
-           "to_numpy"]
+__all__ = ["decoder_params_from_jax", "map_config_from_jax", "map_state_from_numpy",
+           "hit_table_from_numpy", "to_numpy"]
 
 
 def _fields(obj) -> dict:
@@ -30,7 +30,13 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)  # copy: jax arrays are read-only
 
 
-def map_state_from_numpy(state, device="cpu") -> MapState:
+def map_config_from_jax(cfg) -> MapConfig:
+    """The port's MapConfig from the JAX one (same fields, support voxels
+    included), so both sides insert the same points."""
+    return MapConfig(**{k: getattr(cfg, k) for k in MapConfig._fields})
+
+
+def map_state_from_numpy(state, device="cuda") -> MapState:
     """A numpy MapState (nerfloam_tpu/map/voxel_map.py:65-97) -> the port's."""
     f = _fields(state)
     C = np.asarray(f["lat_coords"]).shape[0]
@@ -41,7 +47,7 @@ def map_state_from_numpy(state, device="cpu") -> MapState:
     return MapState(**{k: _tensor(f[k], device) for k in MapState._fields})
 
 
-def hit_table_from_numpy(ht, device="cpu") -> HitTable:
+def hit_table_from_numpy(ht, device="cuda") -> HitTable:
     """A numpy HitTable (nerfloam_tpu/ops/raycast.py:133-156) -> the port's."""
     f = _fields(ht)
     return HitTable(**{k: _tensor(f[k], device) for k in HitTable._fields})

@@ -111,6 +111,21 @@ def load_json_config(path: str) -> Config:
         return finalize(json.load(f))
 
 
+def quality_knobs(cfg: Config, voxel_size: float) -> Dict[str, Any]:
+    """The quality stack's knobs as the pipeline uses them (JAX
+    core/pipeline.py:138-145, 192-193, 230-235): ``support_dist < 0`` means
+    one voxel."""
+    tpu = cfg.tpu_specs
+    sd = float(tpu.get("support_dist", 0.0))
+    return {
+        "support_dist": voxel_size if sd < 0 else sd,
+        "support_sym": bool(tpu.get("support_sym", False)),
+        "band_samples": int(tpu.get("band_samples", 0)),
+        "surface_anchor": int(tpu.get("surface_anchor", 0)),
+        "bias_correction": bool(tpu.get("bias_correction", False)),
+    }
+
+
 def derive_static_shapes(cfg: Config) -> Dict[str, Any]:
     """The static shapes the pipeline needs (JAX config.py:255-280)."""
     vs = cfg.mapper_specs["voxel_size"]

@@ -13,7 +13,7 @@ import torch
 
 
 class Profiler:
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.cuda = torch.device(device).type == "cuda"
         self._pending = defaultdict(list)   # name -> [(start, end) events]
         self.log = defaultdict(list)        # name -> [ms]

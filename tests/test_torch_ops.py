@@ -96,7 +96,7 @@ def test_interp_matches_jax():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decoder_matches_jax(dtype):
     params, meta = jdec.init_decoder(jax.random.key(0))
-    tparams = decoder_params_from_jax(jax.device_get(params))
+    tparams = decoder_params_from_jax(jax.device_get(params), device="cpu")
     feats = np.random.default_rng(3).normal(size=(64, 16)).astype(np.float32)
     ref = jdec.decoder_apply(params, meta, jnp.asarray(feats), getattr(jnp, dtype))
     got = tdec.decoder_apply(tparams, torch.as_tensor(feats), getattr(torch, dtype))
@@ -108,13 +108,13 @@ def test_decoder_matches_jax(dtype):
 
 def test_decoder_init_shapes_and_bounds():
     g = torch.Generator().manual_seed(0)
-    params = tdec.init_decoder(generator=g)
+    params = tdec.init_decoder(generator=g, device="cpu")
     shapes = [tuple(w.shape) for w in params["w"]]
     assert shapes == [(16, 256), (256, 256), (256, 1)]
     for w in params["w"]:
         assert float(w.abs().max()) <= 1.0 / np.sqrt(w.shape[0])
     with pytest.raises(NotImplementedError):
-        tdec.init_decoder(skips=(1,))
+        tdec.init_decoder(skips=(1,), device="cpu")
 
 
 def test_sdf_losses_match_jax():

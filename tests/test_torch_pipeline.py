@@ -4,9 +4,10 @@ recenter_margin 8, defer_sync off), 10 frames through the JAX package and
 through nerfloam_tpu_torch on the CPU. Random streams differ (threefry vs
 Philox), so the runs are compared on ATE: both under the 0.30 m bound of
 test_pipeline.py::test_trajectory_accuracy, and within 0.10 m of each
-other. Also: the port imports neither jax nor yaml, the KITTI-budget JSON
-equals the JAX package's config of the same overrides, and every knob
-the port lacks raises at construction."""
+other. Also: the port imports neither jax, yaml nor the JAX package, the
+KITTI-budget JSON equals the JAX package's config of the same overrides,
+the quality-stack knobs construct, and every knob the port lacks raises
+at construction."""
 
 import json
 import os
@@ -86,6 +87,7 @@ def test_port_imports_neither_jax_nor_yaml():
         "import chip_smoke\n"
         "assert len(mods) >= 15, mods\n"
         "bad = [m for m in ('jax', 'jaxlib', 'yaml', 'optax') if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m == 'nerfloam_tpu' or m.startswith('nerfloam_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -112,16 +114,36 @@ def test_kitti_budget_json_matches_jax_config():
 
 @pytest.mark.parametrize("knob", [
     "tpu_specs.sampler=grid", "tpu_specs.track_method=adam", "tpu_specs.defer_sync=true",
-    "tpu_specs.dp=2", "tpu_specs.support_dist=-1", "tpu_specs.band_samples=8",
-    "tpu_specs.surface_anchor=1", "tpu_specs.bias_correction=true", "tpu_specs.s2s_weight=5.0",
+    "tpu_specs.dp=2", "tpu_specs.s2s_weight=5.0",
     "tpu_specs.exact_embedding_grads=true", "tpu_specs.maturity_warmup=4",
     "debug_args.mesh_freq=100", "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
-    "mapper_specs.remove_back=true",
+    "mapper_specs.remove_back=true", "tpu_specs.bias_source=keyframe",
+    "tpu_specs.bias_classes=2",
 ])
 def test_unported_knobs_raise(knob):
     cfg = load_config(CFG_PATH, SLICE + [knob])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
+
+
+@pytest.mark.parametrize("knob, check", [
+    ("tpu_specs.support_dist=-1",
+     lambda s: s.map_cfg.support_dist == s.map_cfg.voxel_size and not s.map_cfg.support_sym),
+    ("tpu_specs.band_samples=8",
+     lambda s: s.tp.band_samples == 8 and s.bp_current.band_samples == 8),
+    ("tpu_specs.surface_anchor=1",
+     lambda s: s.tp.surface_anchor == 1 and s.bp_random.surface_anchor == 1),
+    ("tpu_specs.bias_correction=true",
+     lambda s: s.bias_correction and s.bp_current.measure_bias and s.bp_random.measure_bias),
+])
+def test_ported_knobs_construct(knob, check):
+    """The quality-stack knobs (queue-1 item 10) no longer raise: each
+    reaches the map, tracker and BA parameters it sets."""
+    cfg = load_config(CFG_PATH, SLICE + [knob])
+    slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
+    assert check(slam)
+    assert not NerfLoamSLAM_torch(finalize(load_config(CFG_PATH, SLICE).as_dict()), None,
+                                  device="cpu").bp_current.measure_bias
 
 
 def test_logger_raises():

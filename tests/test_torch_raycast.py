@@ -55,7 +55,7 @@ def wall_rays():
 def _both_tables(case):
     m, cfg, rc, o, d, t_cap = case
     jht = jrc.build_hit_table(m, cfg, rc, o, d, t_cap)
-    tm = map_state_from_numpy(jax.device_get(m))
+    tm = map_state_from_numpy(jax.device_get(m), device="cpu")
     tcfg = MapConfig(capacity=cfg.capacity, grid_dim=cfg.grid_dim, voxel_size=cfg.voxel_size)
     tht = trc.build_hit_table(tm, tcfg, _rc_t(rc), _t(o), _t(d), _t(t_cap))
     return jht, tht
@@ -76,7 +76,7 @@ def test_build_hit_table_matches_jax(case, request):
 def test_sample_and_resolve_match_jax(case, request):
     c = request.getfixturevalue(case)
     jht, _ = _both_tables(c)
-    tht = hit_table_from_numpy(jax.device_get(jht))
+    tht = hit_table_from_numpy(jax.device_get(jht), device="cpu")
     R, M = jht.aid.shape[0], 24
     u = np.random.default_rng(0).uniform(1e-4, 1 - 1e-4, size=(R, M)).astype(np.float32)
     jz, jonehot, jaid, jvalid, jmask = jrc.sample_from_hits(jht, M, None, u=jnp.asarray(u))

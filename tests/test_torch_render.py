@@ -72,7 +72,7 @@ def _t_loss(s, packed, params, pose6):
     d = tse3.rotate_dirs(pose6, dirs)
     o = tse3.pose_translation(pose6).expand_as(d)
     out = trender.render_rays_hits(packed, params, MAP_CFG.voxel_size, o, d,
-                                   hit_table_from_numpy(jax.device_get(s["ht"])),
+                                   hit_table_from_numpy(jax.device_get(s["ht"]), device="cpu"),
                                    _t(s["ray_valid"]), _t(s["u"]))
     loss, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, _t(s["p"]),
                                  _t(s["c"]), TRUNC, MAX_DEPTH, FS_W, SDF_W)
@@ -82,7 +82,7 @@ def _t_loss(s, packed, params, pose6):
 def test_render_rays_hits_matches_jax(setup):
     s = setup
     _, jout = _j_loss(s, s["m"].packed, s["params"], s["pose"])
-    _, tout = _t_loss(s, _t(s["m"].packed), decoder_params_from_jax(jax.device_get(s["params"])),
+    _, tout = _t_loss(s, _t(s["m"].packed), decoder_params_from_jax(jax.device_get(s["params"]), "cpu"),
                       _t(s["pose"]))
     np.testing.assert_array_equal(to_numpy(tout.valid_mask), np.asarray(jout.valid_mask))
     np.testing.assert_array_equal(to_numpy(tout.ray_mask), np.asarray(jout.ray_mask))
@@ -96,7 +96,7 @@ def test_ba_loss_gradients_match_jax(setup):
     (jl, _), jg = jax.value_and_grad(lambda *a: _j_loss(s, *a), argnums=(0, 1, 2), has_aux=True)(
         s["m"].packed, s["params"], s["pose"])
     packed = _t(s["m"].packed).requires_grad_(True)
-    params = decoder_params_from_jax(jax.device_get(s["params"]))
+    params = decoder_params_from_jax(jax.device_get(s["params"]), device="cpu")
     flat = params["w"] + params["b"]
     for q in flat:
         q.requires_grad_(True)

@@ -103,9 +103,9 @@ def test_gn_normal_equations_match_jax(scene):
     # port: K1 -> decoder fwd/bwd -> K2 (plain twins on the CPU) -> gn_system
     tpose = _t(pose6)
     twd = _t(wdirs)
-    tht = hit_table_from_numpy(jax.device_get(ht0))
+    tht = hit_table_from_numpy(jax.device_get(ht0), device="cpu")
     tpacked = _t(m.packed)
-    tparams = decoder_params_from_jax(jax.device_get(params))
+    tparams = decoder_params_from_jax(jax.device_get(params), device="cpu")
     tz, tvalid, taid, txyz, tfeats = trender.hits_field_fwd(tht, _t(u), tpose[:3].expand_as(twd),
                                                             twd, tpacked, vs)
     tsdf, tg = ttr.field_and_grad(tparams, tfeats, txyz, taid, tvalid, tpacked, vs, torch.float32)
@@ -123,9 +123,9 @@ def test_gn_normal_equations_match_jax(scene):
 
 def test_track_frame_gn_recovers_pose(scene):
     _, frames = scene
-    tm = map_state_from_numpy(jax.device_get(build_map(frames)))
+    tm = map_state_from_numpy(jax.device_get(build_map(frames)), device="cpu")
     gen = torch.Generator().manual_seed(0)
-    params = t_init_decoder(width=64, generator=gen)
+    params = t_init_decoder(width=64, generator=gen, device="cpu")
     bp = tba.BAParams(n_frames=4, n_rays=192, num_iterations=150, truncation=0.5,
                       max_depth=MAX_DEPTH, fs_weight=1.0, sdf_weight=1000.0)
     P, C, V, poses = [], [], [], []
@@ -156,9 +156,9 @@ def test_ba_step_freezes_and_projects_pose(scene):
     removes that direction from the free frame's translation update
     (ba.py:349-369, as test_pipeline.py's ba_pose_project test checks)."""
     _, frames = scene
-    tm = map_state_from_numpy(jax.device_get(build_map(frames)))
+    tm = map_state_from_numpy(jax.device_get(build_map(frames)), device="cpu")
     gen = torch.Generator().manual_seed(1)
-    params = t_init_decoder(width=32, generator=gen)
+    params = t_init_decoder(width=32, generator=gen, device="cpu")
     bp = tba.BAParams(n_frames=2, n_rays=128, num_iterations=3, truncation=0.5,
                       max_depth=MAX_DEPTH, fs_weight=1.0, sdf_weight=1000.0, touched_cap=64)
     P, C, V, poses = [], [], [], []

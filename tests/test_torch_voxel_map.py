@@ -43,7 +43,7 @@ def _j_state(seed=0, **kw):
 
 
 def _t_state(seed=0, **kw):
-    m = tvm.recenter(tvm.create(TCFG), TCFG, torch.zeros(3))
+    m = tvm.recenter(tvm.create(TCFG, "cpu"), TCFG, torch.zeros(3))
     pts, val = _points(seed)
     return tvm.insert_points(m, TCFG, torch.as_tensor(pts), torch.as_tensor(val), **kw)
 
@@ -146,7 +146,7 @@ def test_reconcile_pack_bump_match_jax(emb_dtype):
     rng = np.random.default_rng(4)
     emb = rng.normal(size=j.embeddings.shape).astype(np.float32)
     j = jvm.refresh_active(j._replace(embeddings=jnp.asarray(emb).astype(j.embeddings.dtype)), cfg_j)
-    t = map_state_from_numpy(jax.device_get(j))
+    t = map_state_from_numpy(jax.device_get(j), device="cpu")
     A = int(j.packed.shape[0])
     n = int(j.n_active)
     new_packed = np.asarray(j.packed) + rng.normal(size=j.packed.shape).astype(np.float32) * 0.01
