@@ -9,31 +9,48 @@
 3. Kernel phase, at the shapes of the quality-stack config on a map built
    by inserting the first frames of the synthetic world with support
    voxels: K4 (hit table), K1 (hits field), K2 (its backward), K8 (active
-   field: band columns and the bias probe), K3 (GN normal equations) and
-   K7 (voxel insert) against their plain torch versions on the card.
+   field: band columns and the bias probe), K3 (GN normal equations), K7
+   (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
+   bf16 and f32, bit-identical across two calls) against their plain
+   torch versions; K9a (occupancy march) and K9b (CDF placement) at the
+   Adam tracker's shapes (2048 rays x 100 slots, 64 samples) and at the
+   replica gate's BA superset (768 rays x 75 slots, 32 samples).
    Prints each kernel's max error, its median time and its twin's (CUDA
-   events), the least time the card could take (bound) and, for K3, the
-   torch.einsum pair that computes the same H and b.
-4. Main paths, 30 frames each through NerfLoamSLAM_torch on the card
-   (process_first_frame, 29 x process_frame, finalize):
-   - the KITTI-budget config (nerfloam_tpu_torch/configs/kitti_budget.json);
-   - the quality stack (configs/kitti_quality.json: support voxels both
-     sides, 8 band samples, bias transfer).
+   events), the least time the card could take (bound) and, for K3 and
+   K9b, one PyTorch call of the same function (torch.einsum pair,
+   torch.searchsorted).
+4. Main paths through NerfLoamSLAM_torch on the card:
+   - 30 frames (process_first_frame, 29 x process_frame, finalize) of the
+     KITTI-budget config (nerfloam_tpu_torch/configs/kitti_budget.json),
+     of the quality stack (configs/kitti_quality.json: support voxels
+     both sides, 8 band samples, bias transfer) and of the Adam tracker
+     at the KITTI budget (configs/kitti_adam25.json: 25 iterations x
+     2048 rays x 64 grid samples, BA on the hit table);
+   - the replica gate (configs/replica_gate60.json: GN tracker and BA on
+     the grid sampler, the quality stack, the auto touched_cap), 60
+     frames for each of seeds 0 and 1, held to the JAX gate's ATE
+     thresholds with growth events and no dropped deltas.
    Each path's launch counts are zeroed just before it and read just
-   after. Prints scans/s over frames 6-29, sections, host syncs, overflow
-   counters, the final sdf_bias and the ATE against ground truth, and
-   checks them: every kernel of the path launched, no drops, ATE in bound.
-5. A torch.profiler breakdown of a few steady quality frames.
+   after. Prints scans/s over frames 6 to the end, sections, host syncs,
+   overflow counters, the final sdf_bias and the ATE against ground
+   truth, and checks them: every kernel of the path launched, no drops,
+   ATE in bound.
+5. torch.profiler breakdowns of a few steady frames of the quality, Adam
+   and replica-gate configs: device time per launch of each port kernel.
 
-Any failure raises (exit code 1). The last two lines of standard output
-are the kernels' JSON record and {"ok": true, "device": {...}}.
+Any failure raises (exit code 1). The last three lines of standard output
+are the kernels' JSON record, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,29 +65,67 @@ from nerfloam_tpu_torch.data import get_dataset
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import raycast, se3
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
-from nerfloam_tpu_torch.utils.config import load_json_config
+from nerfloam_tpu_torch.utils.config import finalize
+from nerfloam_tpu_torch.utils.evaluation import ate_rmse
 
 # ATE (m, no alignment) of the JAX package on the same config and frame
 # count, measured on a CPU from a checkout of the JAX package:
-#   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py [--quality]
-# (synthetic_small.yaml + bench.BENCH_OVERRIDES [+ QUALITY_OVERRIDES],
-# 30 frames, defer_sync off, frames fed as bench.py feeds them, then
-# evaluation.ate_rmse(finalize(), gt, align=False))
-ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826}
+#   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py [--quality | --adam25]
+# (synthetic_small.yaml + bench.BENCH_OVERRIDES [+ QUALITY_OVERRIDES |
+# + ADAM25_OVERRIDES and tpu_specs.track_method=adam], 30 frames,
+# defer_sync off, frames fed as bench.py feeds them, then
+# evaluation.ate_rmse(finalize(), gt, align=False)); kitti_adam25 run on
+# 2026-10-16 (1341 s): the JAX Adam tracker diverges on this sequence at
+# this learning rate, so its bound is loose
+ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826,
+           "kitti_adam25": 49.932506364901286}
+# replica_gate60: the JAX gate's thresholds, tests/test_replica_gates.py:77-78
+GATE60_ATE_RAW_MAX = 0.27
+GATE60_ATE_ALIGNED_MAX = 0.17
+GATE60_SEEDS = (0, 1)
 WARMUP_FRAMES = 6
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
+_MAP = ("insert", "reconcile", "active_set")
 PATH_KERNELS = {           # kernels each main path must launch
-    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "insert"),
-    "kitti_quality": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "insert",
-                      "active_field_fwd"),
+    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP,
+    "kitti_quality": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system",
+                      "active_field_fwd") + _MAP,
+    "kitti_adam25": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
+                     "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP,
+    "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
+                       "hits_field_bwd", "gn_system") + _MAP,
+}
+# the CUDA functions behind each wrapper (csrc/*.cu), for the profile
+KERNEL_FUNCTIONS = {
+    "hit_table": ("hit_table_kernel",),
+    "hits_field_fwd": ("hits_field_fwd_kernel",),
+    "hits_field_bwd": ("hits_field_bwd_kernel",),
+    "active_field_fwd": ("active_field_fwd_kernel",),
+    "gn_system": ("gn_partial_kernel", "gn_final_kernel"),
+    "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
+               "alloc_kernel", "activate_kernel", "append_kernel"),
+    "active_set": ("grid_fill_kernel", "recenter_kernel", "refresh_mark_kernel",
+                   "refresh_place_kernel", "active_pack_kernel"),
+    "reconcile": ("reconcile_compact_kernel", "reconcile_link_kernel", "reconcile_apply_kernel",
+                  "active_pack_kernel"),
+    "march_occupancy": ("march_occupancy_kernel",),
+    "place_samples_cdf": ("place_samples_kernel",),
 }
 
 
 def ate_bound(name):
     a = ATE_JAX[name]
     return max(1.5 * a, a + 0.05)
+
+
+def load_cfg(here, name, seed=None):
+    with open(os.path.join(here, "nerfloam_tpu_torch", "configs", f"{name}.json")) as f:
+        d = json.load(f)
+    if seed is not None:
+        d["data_specs"]["seed"] = seed
+    return finalize(d)
 
 
 def log(*a):
@@ -109,33 +164,83 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+_COUNTERS = {  # wrapper name -> (module, launch counter)
+    "hit_table": (raycast, "hit_table_launches"),
+    "hits_field_fwd": (render, "hits_field_fwd_launches"),
+    "hits_field_bwd": (render, "hits_field_bwd_launches"),
+    "active_field_fwd": (render, "active_field_fwd_launches"),
+    "gn_system": (tr, "gn_system_launches"),
+    "insert": (vm, "insert_launches"),
+    "active_set": (vm, "active_set_launches"),
+    "reconcile": (vm, "reconcile_launches"),
+    "march_occupancy": (raycast, "march_occupancy_launches"),
+    "place_samples_cdf": (raycast, "place_samples_cdf_launches"),
+}
+
+
 def counters():
-    return {
-        "hit_table": raycast.hit_table_launches,
-        "hits_field_fwd": render.hits_field_fwd_launches,
-        "hits_field_bwd": render.hits_field_bwd_launches,
-        "active_field_fwd": render.active_field_fwd_launches,
-        "gn_system": tr.gn_system_launches,
-        "insert": vm.insert_launches,
-    }
+    return {k: getattr(mod, attr) for k, (mod, attr) in _COUNTERS.items()}
 
 
 def zero_counters():
-    raycast.hit_table_launches = 0
-    render.hits_field_fwd_launches = render.hits_field_bwd_launches = 0
-    render.active_field_fwd_launches = 0
-    tr.gn_system_launches = 0
-    vm.insert_launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
-def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None):
+def port_kernel_times(prof):
+    """{CUDA function of csrc/*.cu: (device us in all, launches)} from a
+    torch.profiler run."""
+    ours = {fn for fns in KERNEL_FUNCTIONS.values() for fn in fns}
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\(anonymous namespace\)::(\w+)", e.key)
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if m is None or m.group(1) not in ours or not e.count or not dev_us:
+            continue
+        t, n = out.get(m.group(1), (0.0, 0))
+        out[m.group(1)] = (t + dev_us, n + e.count)
+    return out
+
+
+def device_us(fn, reps=20):
+    """Device microseconds per launch of each CUDA function a wrapper call
+    launches, averaged over the launches torch.profiler captured in
+    ``reps`` calls (a short session can miss some), and their sum: the
+    device time of one call, each function launching once per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_fn = {k: t / n for k, (t, n) in port_kernel_times(prof).items()}
+    return per_fn, (sum(per_fn.values()) if per_fn else None)
+
+
+def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None):
+    """One kernel's JSON record. ``dev`` is a call of the wrapper on the
+    same inputs: its device time is profiled after the main paths
+    (``add_device_times``), so that no profiler session runs before them."""
     b_ms, b_by = bound(nbytes, flops)
     log(f"[{name}] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
         f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)"
         + ("" if library_ms is None else f", library {library_ms:.4f} ms"))
     return {"name": name, "route": "cuda", "source": f"nerfloam_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "_dev": dev}
+
+
+def add_device_times(records):
+    """Device microseconds per call and per launch of every kernel, from
+    torch.profiler over its kernel-phase call."""
+    for r in records:
+        per_fn, per_call = device_us(r.pop("_dev"))
+        r["device_us_per_call"], r["device_us"] = per_call, per_fn
+        log(f"[{r['name']}] device us per launch: "
+            + (", ".join(f"{k} {v:.2f}" for k, v in per_fn.items()) or "none captured")
+            + ("" if per_call is None else f"; {per_call:.2f} us per call"))
 
 
 def rows_read(aid, valid):
@@ -143,8 +248,10 @@ def rows_read(aid, valid):
     return int(torch.unique(aid[valid]).numel())
 
 
-def kernel_phase(slam, ds):
-    """The six kernels against their plain versions at the quality shapes."""
+def kernel_phase(slam, ds, rc_gate):
+    """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6
+    and K5 at the quality shapes, K9a and K9b at the Adam tracker's and the
+    replica gate's BA superset shapes (``rc_gate``)."""
     dev = slam.device
     cfg, rc_t, rc_m = slam.map_cfg, slam.rc_track, slam.rc_map
     gen = torch.Generator(device=dev)
@@ -207,7 +314,8 @@ def kernel_phase(slam, ds):
     log(f"[K4] R={R} S={S} H={H}: {probes / R:.1f} probes per ray")
     records.append(record("hit_table", "hit_table.cu", "nerfloam_tpu/ops/raycast.py:159",
                           max(worst_t, worst_cdf), k_ms, p_ms,
-                          R * 28 + 4 * probes + R * H * 28 + R, 12 * probes + 20 * R * H))
+                          R * 28 + 4 * probes + R * H * 28 + R, 12 * probes + 20 * R * H,
+                          dev=partial(raycast.build_hit_table, ms, cfg, rc_t, o, d, tc)))
 
     # ---- K1 / K2 at the tracker (M=64) and BA (M=48) shapes, with the
     # origin moved 1 cm off the table's so samples re-resolve
@@ -255,14 +363,16 @@ def kernel_phase(slam, ds):
             R * H * 32 + R * M * 4 + R * 24 + 512 * nrows + R * M * 85, 300 * nv + 40 * R * M,
             # bwd: dfeats/xyz/aid/valid + rows in, d xyz and the dense d packed out
             R * M * 81 + 512 * nrows + R * M * 12 + ms.packed.numel() * 4, 700 * nv,
+            partial(render.hits_field_fwd, ht, u, o, d, ms.packed, cfg.voxel_size),
+            partial(render.hits_field_bwd, dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size),
         )
         log(f"[K1/K2] {name}: fwd kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms;"
             f" bwd kernel {times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
-    k1, p1, k2, p2, b1, f1, b2, f2 = times["ba"]
+    k1, p1, k2, p2, b1, f1, b2, f2, d1, d2 = times["ba"]
     records.append(record("hits_field_fwd", "hits_field.cu", "nerfloam_tpu/core/render.py:108",
-                          e1, k1, p1, b1, f1))
+                          e1, k1, p1, b1, f1, dev=d1))
     records.append(record("hits_field_bwd", "hits_field.cu", "nerfloam_tpu/core/ba.py:335",
-                          e2p, k2, p2, b2, f2))
+                          e2p, k2, p2, b2, f2, dev=d2))
 
     # ---- K8: the tracker's band + anchor columns (2048, 8) and the bias
     # probe over one frame's measured points (65536, 1)
@@ -296,7 +406,9 @@ def kernel_phase(slam, ds):
         log(f"[K8] {label} {tuple(ref[1].shape)}: valid {nv / n:.3f}, feats err {ef:.3g}, "
             f"distinct rows {nrows}; kernel {k8[label][0]:.4f} ms, plain {k8[label][1]:.4f} ms")
     records.append(record("active_field_fwd", "active_field.cu",
-                          "nerfloam_tpu/core/render.py:181", e8, *k8["band"]))
+                          "nerfloam_tpu/core/render.py:181", e8, *k8["band"],
+                          dev=partial(render.active_field_fwd, ms, cfg, ms.packed, o, d, ez,
+                                      rvalid)))
 
     # ---- K3 on one tracker iteration's real columns (2048, 64 + 8)
     u = raycast.uniform_jitter((R, rc_t.n_samples), gen, dev)
@@ -344,7 +456,8 @@ def kernel_phase(slam, ds):
         f"band {int(band.sum())}")
     # xyz/z/sdf/g/mask per sample, pcos/d/bias/ok per ray in; H, b, loss out
     records.append(record("gn_system", "gn_system.cu", "nerfloam_tpu/core/tracking.py:217",
-                          e3, k_ms, p_ms, 33 * n + 13 * R + 12 + 172, 100 * nv, lib_ms))
+                          e3, k_ms, p_ms, 33 * n + 13 * R + 12 + 172, 100 * nv, lib_ms,
+                          dev=partial(tr.gn_system, *a3)))
 
     # ---- K7: one frame with symmetric support (3 x 65536 points),
     # appending to the active set
@@ -378,12 +491,170 @@ def kernel_phase(slam, ds):
     # (ids, coords, grid_active, packed row) out
     records.append(record("insert", "insert.cu", "nerfloam_tpu/map/voxel_map.py:311", 0.0,
                           k_ms, p_ms, P * 18 + 32 * Pc + 16 * n_new + n_act * (33 + 532),
-                          10 * P))
+                          10 * P, dev=partial(vm.insert_points, *args7)))
+    records += map_kernels(slam, ms, frames, gen)
+    records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, p, c, v, pose, gen)
     return records
 
 
-def main_path(name, slam, ds):
-    """30 frames of one config through NerfLoamSLAM_torch."""
+def distinct_corners(ms, rows):
+    """Distinct embedding rows the corners of these active rows read."""
+    return int(torch.unique(ms.corner_idx[ms.active_ids[rows].long()].clamp(min=0)).numel())
+
+
+def map_kernels(slam, ms, frames, gen):
+    """K6 (recenter + refresh) one frame's move away, and K5 (reconcile +
+    repack) on a touched set of the quality cap, against their twins."""
+    dev, cfg = slam.device, slam.map_cfg
+    records = []
+    # ---- K6: the region moved to the second frame's position
+    center = torch.as_tensor(frames[1].pose6[:3], device=dev)
+    kr, rr = vm.recenter(ms, cfg, center), vm.recenter_plain(ms, cfg, center)
+    kf, rf = vm.refresh_active(kr, cfg), vm.refresh_active_plain(kr, cfg)
+    torch.cuda.synchronize()
+    for nm in ("grid", "region_min"):
+        check(torch.equal(getattr(kr, nm), getattr(rr, nm)), f"K6 recenter {nm} differs")
+    for nm in ("active_ids", "n_active", "grid_active", "packed", "active_coords"):
+        check(torch.equal(getattr(kf, nm), getattr(rf, nm)), f"K6 refresh {nm} differs")
+    A, total, F = rf.packed.shape[0], rf.grid_active.numel(), cfg.feat_dim
+    n_lat, n_act = int(ms.num_lat), min(int(rf.n_active), A)
+    log(f"[K6] {n_lat} lattice rows, grid {total} cells, {int(rf.n_active)} active (A={A}); "
+        "every table equal")
+    k_ms = median_ms(lambda: vm.refresh_active(vm.recenter(ms, cfg, center), cfg))
+    p_ms = median_ms(lambda: vm.refresh_active_plain(vm.recenter_plain(ms, cfg, center), cfg))
+    esz = ms.embeddings.element_size()
+    # lattice coords + surface flags of the allocated rows in; both grids
+    # out; the active rows' corner ids and distinct corner embeddings in;
+    # active ids, coords and packed rows out
+    records.append(record(
+        "active_set", "active_set.cu", "nerfloam_tpu/map/voxel_map.py:149",
+        0.0, k_ms, p_ms,
+        n_lat * 13 + 2 * 4 * total + n_act * 32
+        + distinct_corners(rf, torch.arange(n_act, device=dev)) * F * esz + A * (4 + 12 + 512),
+        20 * n_lat,
+        dev=lambda: vm.refresh_active(vm.recenter(ms, cfg, center), cfg)))
+
+    # ---- K5: a touched set of ~60% of the quality cap, 0.01-sized deltas
+    T = slam.bp_current.touched_cap
+    st = kf
+    pick = torch.rand((A,), generator=gen, device=dev) < min(1.0, 0.6 * T / max(n_act, 1))
+    touched = pick & (torch.arange(A, device=dev) < n_act)
+    new_packed = st.packed + 0.01 * torch.randn(st.packed.shape, generator=gen, device=dev)
+    e5 = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        s5 = st._replace(embeddings=st.embeddings.to(dt))
+        s5 = s5._replace(packed=vm.pack_embeddings(s5, cfg))
+        np5 = (s5.packed + (new_packed - st.packed)).contiguous()
+        k1 = vm.reconcile(s5, cfg, np5, touched, T)
+        k2 = vm.reconcile(s5, cfg, np5, touched, T)
+        cpu = vm.MapState(*[x.cpu() for x in s5])
+        ref = vm.reconcile_plain(cpu, cfg, np5.cpu(), touched.cpu(), T)
+        torch.cuda.synchronize()
+        for nm in vm.Reconciled._fields:
+            check(torch.equal(getattr(k1, nm), getattr(k2, nm)),
+                  f"K5 {nm} differs between two calls ({dt})")
+        for nm in ("packed", "upd_count", "touched_count"):
+            check(torch.equal(getattr(k1, nm).cpu(), getattr(ref, nm)), f"K5 {nm} differs ({dt})")
+        diff = k1.embeddings.cpu().float() - ref.embeddings.float()
+        if dt == torch.float32:
+            check(torch.equal(k1.embeddings.cpu(), ref.embeddings), "K5 f32 embeddings differ")
+        else:  # within one bf16 ulp of the twin (2^-7 of the value's binade)
+            ulp = torch.exp2(torch.floor(torch.log2(ref.embeddings.float().abs().clamp(min=1e-30)))
+                             - 7)
+            check(bool((diff.abs() <= ulp).all()), "K5 bf16 embeddings beyond one ulp")
+        e5 = max(e5, float(diff.abs().max()))
+        log(f"[K5] {dt}: {int(ref.touched_count)} touched of cap {T}, A={A}; embeddings "
+            f"{'identical' if bool((diff == 0).all()) else 'within one ulp'} to the twin on the "
+            "CPU, every table bit-identical across two calls")
+    nt = min(int(touched.sum()), T)
+    trows = torch.nonzero(touched).squeeze(1)[:nt]
+    nc = distinct_corners(st, trows)
+    k_ms = median_ms(lambda: vm.reconcile(st, cfg, new_packed, touched, T))
+    p_ms = median_ms(lambda: vm.reconcile_plain(st, cfg, new_packed, touched, T))
+    # touched mask + active ids in; old and new packed rows and corner ids
+    # of the kept rows; their distinct corners read and written; the
+    # touched voxels' counts; the repack: every active row's corner ids and
+    # distinct corners in, the packed table out
+    records.append(record(
+        "reconcile", "reconcile.cu", "nerfloam_tpu/map/voxel_map.py:233", e5, k_ms, p_ms,
+        A * 5 + nt * (2 * 512 + 32) + 2 * nc * F * esz + int(touched.sum()) * 8
+        + A * 32 + distinct_corners(st, torch.arange(n_act, device=dev)) * F * esz + A * 512,
+        nt * 8 * F * 4, dev=partial(vm.reconcile, st, cfg, new_packed, touched, T)))
+    return records
+
+
+def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
+    """K9a and K9b at the Adam tracker's shapes (the tracker's 2048 rays)
+    and at the replica gate's BA superset (768 rays, its own slots and
+    samples), the placement 1 cm off the march's origin; K9b's library
+    call is torch.searchsorted over the same cdf and quantiles."""
+    dev, cfg = slam.device, slam.map_cfg
+    rc_adam = slam.rc_track._replace(sampler="grid")
+    o, d, tc = tab[:3]
+    idx, _ = sample_ray_indices(v, 768, gen)
+    dg = se3.rotate_dirs(pose, _ray_dirs(p[idx])).contiguous()
+    og = se3.pose_translation(pose).expand_as(dg).contiguous()
+    shapes = {"adam25": (rc_adam, o, d, tc),
+              "gate60": (rc_gate, og, dg, t_cap_for(p[idx], c[idx], 0.3, rc_gate.max_depth))}
+    out = {}
+    for label, (rc, ro, rd, rt) in shapes.items():
+        cstep, S = raycast._coarse_shape(rc)
+        R, M = ro.shape[0], rc.n_samples
+        kc, kn = raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)
+        pc, pn = raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)
+        torch.cuda.synchronize()
+        check(torch.equal(kc, pc) and torch.equal(kn, pn), f"K9a cdf/n_occ differ ({label})")
+        u = raycast.uniform_jitter((R, M), gen, dev)
+        o2 = (ro + 0.01).contiguous()
+        ker = raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt, u)
+        ref = raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o2, rd, rt, u)
+        torch.cuda.synchronize()
+        for i, nm in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+            check(torch.equal(ker[i], ref[i]), f"K9b {nm} differs ({label})")
+        zk, zr = ker[0], ref[0]
+        ulp1 = torch.nextafter(zr, torch.full_like(zr, float("inf"))) - zr
+        ez = float((zk - zr).abs().max())
+        check(bool(((zk - zr).abs() <= ulp1).all()), f"K9b z beyond one ulp ({label})")
+        in_range = int(((torch.arange(S, device=dev) + 0.5)[None, :] * cstep
+                        <= rt[:, None]).sum())
+        nv = int(ref[2].sum())
+        log(f"[K9] {label} R={R} S={S} M={M}: rays hit {float(pn.gt(0).float().mean()):.3f}, "
+            f"occupied slots/ray {float(pn.mean()):.2f}, valid {nv / (R * M):.3f}, z err {ez:.3g}")
+        q = raycast.div(torch.arange(M, dtype=torch.float32, device=dev)[None, :] + u,
+                        float(M)) * pn[:, None]
+        check(torch.equal(torch.clamp(torch.searchsorted(pc, q), max=S - 1),
+                          torch.clamp((pc[:, None, :] < q[:, :, None]).sum(-1), max=S - 1)),
+              f"searchsorted disagrees with the compare-count ({label})")
+        out[label] = dict(
+            a=(median_ms(lambda: raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)),
+               median_ms(lambda: raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)),
+               # rays + t_cap in, one grid cell per slot in range, cdf + n_occ out
+               R * 28 + 4 * in_range + R * S * 4 + R * 4, 14 * in_range + 4 * R * S),
+            b=(median_ms(lambda: raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt, u)),
+               median_ms(lambda: raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o2, rd,
+                                                                 rt, u)),
+               # cdf rows, n_occ, rays, t_cap, jitter, one grid cell per
+               # sample in; z, aid, valid, ray_mask out
+               R * S * 4 + R * 32 + R * M * 8 + R * M * 9 + R,
+               R * M * (30 + 2 * int(np.ceil(np.log2(S))))),
+            lib=median_ms(lambda: torch.searchsorted(pc, q)), err=ez,
+            dev_a=partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt),
+            dev_b=partial(raycast.place_samples_cdf, ms, cfg, rc, pc, pn, o2, rd, rt, u))
+        log(f"[K9] {label}: march kernel {out[label]['a'][0]:.4f} ms, plain "
+            f"{out[label]['a'][1]:.4f} ms; place kernel {out[label]['b'][0]:.4f} ms, plain "
+            f"{out[label]['b'][1]:.4f} ms, torch.searchsorted {out[label]['lib']:.4f} ms")
+    a = out["adam25"]
+    return [record("march_occupancy", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:65", 0.0,
+                   *a["a"], dev=a["dev_a"]),
+            record("place_samples_cdf", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:88",
+                   max(o_["err"] for o_ in out.values()), *a["b"], library_ms=a["lib"],
+                   dev=a["dev_b"])]
+
+
+def main_path(name, slam, ds, label=None):
+    """One run of a config through NerfLoamSLAM_torch: every frame of its
+    dataset (30, or the replica gate's 60), then finalize."""
+    label = label or name
     frames = []
     for i in range(len(ds)):
         idx, pts, cos, _ = ds[i]
@@ -410,8 +681,8 @@ def main_path(name, slam, ds):
     n_timed = len(frames) - WARMUP_FRAMES
     scans = n_timed / dt
     gt = ds.gt_trajectory()[: len(poses)]
-    ate = float(np.sqrt(np.mean(np.sum((poses[:, :3, 3] - gt[:, :3, 3]) ** 2, -1))))
-    tag = f"[main {name}]"
+    ate = ate_rmse(poses, gt, align=False)
+    tag = f"[main {label}]"
     log(f"{tag} {len(frames)} frames in {total:.2f} s (finalize included); "
         f"scans/s over frames {WARMUP_FRAMES}-{len(frames) - 1}: {scans:.4f}")
     log(f"{tag} launches: {launches}; per frame ({len(frames)} frames + finalize): "
@@ -423,8 +694,6 @@ def main_path(name, slam, ds):
     ms = slam.state.map_state
     log(f"{tag} final sdf_bias {slam.sdf_bias.tolist()}, num_lat {int(ms.num_lat)}, "
         f"n_active {int(ms.n_active)}, keyframes {len(slam.state.keyframes)}")
-    log(f"{tag} ATE {ate:.4f} m (bound {ate_bound(name):.4f} m from JAX {ATE_JAX[name]:.4f} m); "
-        f"final position {poses[-1][:3, 3].tolist()}, GT {gt[-1][:3, 3].tolist()}")
     check(len(poses) == len(frames), f"{len(poses)} poses for {len(frames)} frames")
     check(np.isfinite(poses).all(), "non-finite pose")
     check(bool(torch.isfinite(ms.embeddings.float()).all()), "non-finite embeddings")
@@ -432,15 +701,40 @@ def main_path(name, slam, ds):
           "non-finite decoder")
     check(np.isfinite(slam.sdf_bias).all(), "non-finite sdf_bias")
     for k in PATH_KERNELS[name]:
-        check(launches[k] > 0, f"kernel {k} never launched on the {name} path")
-    check(ate <= ate_bound(name), f"ATE {ate} above bound {ate_bound(name)} ({name})")
+        check(launches[k] > 0, f"kernel {k} never launched on the {label} path")
     check(slam.dropped_delta_events == 0, "dropped deltas")
+    if name == "replica_gate60":
+        aligned = ate_rmse(poses, gt, align=True)
+        growth = sum(slam.overflow_events.values())
+        log(f"{tag} ATE raw {ate:.4f} m (gate {GATE60_ATE_RAW_MAX}), aligned {aligned:.4f} m "
+            f"(gate {GATE60_ATE_ALIGNED_MAX}); growth events {growth}; lateral drift "
+            f"{drift_lat_cm_f(poses, gt):.4f} cm/frame (printed, not gated)")
+        check(ate < GATE60_ATE_RAW_MAX, f"ATE raw {ate} not under {GATE60_ATE_RAW_MAX} ({label})")
+        check(aligned < GATE60_ATE_ALIGNED_MAX,
+              f"ATE aligned {aligned} not under {GATE60_ATE_ALIGNED_MAX} ({label})")
+        check(growth > 0, f"no growth event on the {label} path")
+    else:
+        log(f"{tag} ATE {ate:.4f} m (bound {ate_bound(name):.4f} m from JAX "
+            f"{ATE_JAX[name]:.4f} m); final position {poses[-1][:3, 3].tolist()}, "
+            f"GT {gt[-1][:3, 3].tolist()}")
+        check(ate <= ate_bound(name), f"ATE {ate} above bound {ate_bound(name)} ({label})")
     return launches, scans
 
 
-def profile_phase(cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
+def drift_lat_cm_f(est, gt):
+    """Mean lateral per-frame drift (cm/frame), scripts/eval_replica.py:99-111."""
+    rel_e = np.linalg.inv(est[:-1]) @ est[1:]
+    rel_g = np.linalg.inv(gt[:-1]) @ gt[1:]
+    diff = rel_e[:, :3, 3] - rel_g[:, :3, 3]
+    fwd = rel_g[:, :3, 3] / (np.linalg.norm(rel_g[:, :3, 3], axis=1, keepdims=True) + 1e-9)
+    along = np.einsum("ij,ij->i", diff, fwd)
+    return float(np.linalg.norm(diff - along[:, None] * fwd, axis=1).mean()) * 100
+
+
+def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     """torch.profiler over a few steady frames of a fresh run: device time
-    by kernel and the device's busy share of the window."""
+    by kernel, the port kernels' device time per launch on the path, and
+    the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     slam = NerfLoamSLAM_torch(cfg, ds, device=device)
@@ -463,18 +757,17 @@ def profile_phase(cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
               if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
     dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
     total = sum(dev(e) for e in events)
-    log(f"[profile] {n_profiled} frames: wall {wall_ms:.1f} ms (profiler on), device kernels "
+    tag = f"[profile {label}]"
+    log(f"{tag} {n_profiled} frames: wall {wall_ms:.1f} ms (profiler on), device kernels "
         f"{total:.1f} ms, busy share {total / wall_ms:.3f}, {sum(e.count for e in events)} "
         f"kernel launches")
     for e in sorted(events, key=dev, reverse=True)[:15]:
-        log(f"[profile] {dev(e) / n_profiled:9.3f} ms/frame  {e.count / n_profiled:8.1f}/frame  "
+        log(f"{tag} {dev(e) / n_profiled:9.3f} ms/frame  {e.count / n_profiled:8.1f}/frame  "
             f"{e.key[:90]}")
     # the port's own kernels (csrc/*.cu): device time per launch on the path
-    ours = [e for e in events if e.key.startswith("(anonymous namespace)::")]
-    for e in sorted(ours, key=dev, reverse=True):
-        log(f"[profile] port kernel {e.key.split('::')[1].split('(')[0]}: "
-            f"{dev(e) / n_profiled:.4f} ms/frame, {e.count / n_profiled:.1f} launches/frame, "
-            f"{dev(e) / e.count * 1e3:.2f} us/launch (device)")
+    for fn, (t, n) in sorted(port_kernel_times(prof).items(), key=lambda kv: -kv[1][0]):
+        log(f"{tag} port kernel {fn}: {t / 1e3 / n_profiled:.4f} ms/frame, "
+            f"{n / n_profiled:.1f} launches/frame, {t / n:.2f} us/launch (device)")
 
 
 def main():
@@ -500,20 +793,35 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    cfgs = {n: load_json_config(os.path.join(here, "nerfloam_tpu_torch", "configs", f"{n}.json"))
-            for n in ("kitti_budget", "kitti_quality")}
-    ds = get_dataset(cfgs["kitti_quality"])  # both configs share the data specs
-    records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds)
+    cfgs = {n: load_cfg(here, n) for n in ("kitti_budget", "kitti_quality", "kitti_adam25")}
+    ds = get_dataset(cfgs["kitti_quality"])  # the three KITTI-budget configs share the data
+    gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
+    rc_gate = NerfLoamSLAM_torch(gate[0], None, device="cuda").rc_map
+    records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds,
+                           rc_gate)
+    gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
+    torch.cuda.empty_cache()
     results = {}
-    for n in ("kitti_budget", "kitti_quality"):
+    for n in ("kitti_budget", "kitti_quality", "kitti_adam25"):
         results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda"), ds)
         torch.cuda.empty_cache()
-    profile_phase(cfgs["kitti_quality"], ds)
+    gate_ds = {s_: get_dataset(gate[s_]) for s_ in GATE60_SEEDS}
+    for s_ in GATE60_SEEDS:
+        results[f"replica_gate60_s{s_}"] = main_path(
+            "replica_gate60", NerfLoamSLAM_torch(gate[s_], gate_ds[s_], device="cuda"),
+            gate_ds[s_], label=f"replica_gate60_s{s_}")
+        torch.cuda.empty_cache()
+    for label, cfg, d in (("kitti_quality", cfgs["kitti_quality"], ds),
+                          ("kitti_adam25", cfgs["kitti_adam25"], ds),
+                          ("replica_gate60_s0", gate[0], gate_ds[0])):
+        profile_phase(label, cfg, d)
+    add_device_times(records)
     for r in records:
-        r["launches"] = results["kitti_quality"][0][r["name"]]
-        r["launches_by_path"] = {n: results[n][0][r["name"]] for n in results}
-    log(f"[result] scans/s budget {results['kitti_budget'][1]:.4f}, quality "
-        f"{results['kitti_quality'][1]:.4f} on {smi}")
+        by_path = {n: results[n][0][r["name"]] for n in results}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
+    log(f"[result] scans/s " + ", ".join(f"{n} {v[1]:.4f}" for n, v in results.items())
+        + f" on {smi}")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

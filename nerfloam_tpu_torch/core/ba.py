@@ -1,17 +1,19 @@
-"""Windowed bundle adjustment on the superset + hits path (port of
+"""Windowed bundle adjustment on a ray superset (port of
 nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
-One call = one BA step: a 2x ray superset per frame is drawn and its hit
-table built once (K4); every iteration trains on a random subset of it
-through K1 (with K8's band/anchor columns when the quality stack is on)
-and K2 (core/render.render_rays_hits) and takes an Adam step on the
-packed corner table, the decoder and the poses. Adam follows
-``optax.scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
-bias-corrected) with fresh state per call, applied as ``p - lr * u``.
-Frozen groups have their gradients zeroed before Adam, which with fresh
-state equals leaving them out. After the loop the touched voxels' deltas
-are folded back into the canonical embeddings (reconcile_packed, mean) and
-the packed table is rebuilt from them. With ``measure_bias`` the final
+One call = one BA step: a 2x ray superset per frame is drawn and, once per
+step, its hit table built (K4, hits sampler) or its occupancy cdf marched
+(K9a, grid sampler); every iteration trains on a random subset of it
+through K1 (hits) or K9b + K8 (grid), with K8's band/anchor columns when
+the quality stack is on, and K2 in the backward (core/render
+render_rays_hits / render_rays), and takes an Adam step on the packed
+corner table, the decoder and the poses. Adam follows
+``optax.scale_by_adam`` (tracking.scale_by_adam_) with fresh state per
+call, applied as ``p - lr * u``. Frozen groups have their gradients zeroed
+before Adam, which with fresh state equals leaving them out. After the
+loop K5 (voxel_map.reconcile) folds the touched voxels' deltas back into
+the canonical embeddings (mean), bumps their update counts and repacks the
+table from them. With ``measure_bias`` the final
 field is probed at the window's measured points (K8 then the decoder):
 ``surface_bias`` is its mean there, the offset the pipeline's bias
 transfer feeds to the next tracked frame.
@@ -24,20 +26,24 @@ from typing import NamedTuple
 import torch
 
 from nerfloam_tpu_torch.core.losses import sdf_losses
-from nerfloam_tpu_torch.core.render import extra_surface_z, field_at_points, render_rays_hits
-from nerfloam_tpu_torch.core.tracking import _ray_dirs, t_cap_for
+from nerfloam_tpu_torch.core.render import (
+    extra_surface_z,
+    field_at_points,
+    render_rays,
+    render_rays_hits,
+)
+from nerfloam_tpu_torch.core.tracking import _ray_dirs, scale_by_adam_, t_cap_for
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import (
     RaycastConfig,
     build_hit_table,
+    march_occupancy,
     pack_hit_table,
     uniform_jitter,
     unpack_hit_table,
 )
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
-
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 class BAParams(NamedTuple):
@@ -81,10 +87,12 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     and ``points_valid`` (W, P), ``frame_active`` / ``pose_free`` (W,) bool,
     ``lrs`` [emb, decoder, pose]. ``proj_dir`` (W, 3): remove that
     component from each frame's translation update every iteration."""
-    if rc.sampler != "hits" or bp.ray_superset <= 0:
+    if bp.ray_superset <= 0:
         raise NotImplementedError(
-            "BA without the hits sampler and a ray superset is not ported yet "
-            "(ROADMAP queue 1, items 11 and 15)")
+            "BA without a ray superset is not ported yet (ROADMAP queue 1, item 15)")
+    if rc.sampler not in ("hits", "grid"):
+        raise ValueError(f"unknown sampler {rc.sampler!r}")
+    use_hits = rc.sampler == "hits"
     dev = points.device
     compute_dtype = getattr(torch, bp.compute_dtype)
     W, N, M = bp.n_frames, bp.n_rays, rc.n_samples
@@ -99,9 +107,13 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         sup_tcap = t_cap_for(sup_pts, sup_cos, bp.truncation, bp.max_depth)
         wdirs0 = se3.rotate_dirs(poses, sup_dirs)
         origins0 = se3.pose_translation(poses)[:, None, :].expand_as(wdirs0)
-        ht_sup = build_hit_table(map_state, map_cfg, rc, origins0.reshape(W * K, 3),
-                                 wdirs0.reshape(W * K, 3), sup_tcap.reshape(W * K))
-        sup_hits = pack_hit_table(ht_sup).reshape(W, K, -1)
+        sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3), wdirs0.reshape(W * K, 3),
+                    sup_tcap.reshape(W * K))
+        if use_hits:
+            sup_hits = pack_hit_table(build_hit_table(*sup_args)).reshape(W, K, -1)
+        else:
+            sup_cdf, sup_nocc = march_occupancy(*sup_args)
+            sup_cdf, sup_nocc = sup_cdf.reshape(W, K, -1), sup_nocc.reshape(W, K)
 
     emb = map_state.packed.clone().requires_grad_(True)
     dec = {k: [p.detach().clone().requires_grad_(True) for p in v]
@@ -124,7 +136,6 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         pts = _gather_rows(sup_pts, ridx).reshape(W * N, 3)
         pcos = _gather_rows(sup_cos, ridx).reshape(W * N)
         dirs = _gather_rows(sup_dirs, ridx)
-        ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
         wdirs = se3.rotate_dirs(pos, dirs)
         origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
         extra = None
@@ -134,8 +145,17 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, bp.truncation,
                                  bp.surface_anchor, bp.band_samples, ub)
             extra = (map_state, map_cfg, ez, rvalid.reshape(W * N))
-        out = render_rays_hits(emb, dec, vs, origins.reshape(W * N, 3), wdirs.reshape(W * N, 3),
-                               ht, rvalid.reshape(W * N), u, compute_dtype, extra)
+        rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
+        if use_hits:
+            ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
+            out = render_rays_hits(emb, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
+                                   compute_dtype, extra)
+        else:
+            occ = (_gather_rows(sup_cdf, ridx).reshape(W * N, -1),
+                   _gather_rows(sup_nocc, ridx).reshape(W * N))
+            out = render_rays(emb, dec, map_state, map_cfg, rc, *rays,
+                              _gather_rows(sup_tcap, ridx).reshape(W * N),
+                              rvalid.reshape(W * N), occ, u, compute_dtype, extra)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -146,11 +166,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             for i in range(1, len(params) - 1):
                 grads[i] = grads[i] * dec_mask
             grads[-1] = grads[-1] * pose_mask
-            t = it + 1
             for i, (p, g) in enumerate(zip(params, grads)):
-                mu[i].mul_(_B1).add_(g, alpha=1.0 - _B1)
-                nu[i].mul_(_B2).addcmul_(g, g, value=1.0 - _B2)
-                upd = (mu[i] / (1.0 - _B1 ** t)) / (torch.sqrt(nu[i] / (1.0 - _B2 ** t)) + _EPS)
+                upd = scale_by_adam_(g, mu[i], nu[i], it + 1)
                 if i == len(params) - 1:
                     if proj_dir is not None:
                         u_t = upd[:, :3]
@@ -160,10 +177,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                 p.sub_(lr_of[i] * upd)
 
     with torch.no_grad():
-        touched_count = touched.sum(dtype=torch.int32)
-        upd_count = vm.bump_upd_count(map_state, map_cfg, touched)
-        new_emb = vm.reconcile_packed(map_state, map_cfg, emb.detach(), touched, bp.touched_cap)
-        packed = vm.pack_embeddings(map_state._replace(embeddings=new_emb), map_cfg)
+        new_emb, packed, upd_count, touched_count = vm.reconcile(
+            map_state, map_cfg, emb.detach(), touched, bp.touched_cap)
     new_dec = {k: [p.detach() for p in v] for k, v in dec.items()}
     surface_bias = torch.zeros((), device=dev)
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field

@@ -2,11 +2,11 @@
 synchronous schedule, single device).
 
 frame 0: insert -> active refresh -> keyframe -> ``bootstrap_steps`` BA steps.
-frame k: GN track -> lazy recenter + active refresh -> BA on the tracked
-frame -> voxel insert, then ONE host fetch of the frame's results (poses,
-hit count, row counts, the BA's surface-bias probe) and the host
-bookkeeping: the bias EMA and ``_post_frame``'s keyframe-gap insertion and
-trajectory record.
+frame k: track (GN or Adam, ``track_method``) -> lazy recenter + active
+refresh -> BA on the tracked frame -> voxel insert, then ONE host fetch of
+the frame's results (poses, hit count, row counts, the BA's surface-bias
+probe) and the host bookkeeping: the bias EMA and ``_post_frame``'s
+keyframe-gap insertion and trajectory record.
 
 The quality stack the shipped configs turn on (``configs/kitti/kitti.yaml``)
 is ported: support voxels on both sides of every surface point
@@ -14,7 +14,9 @@ is ported: support voxels on both sides of every surface point
 tracker and BA (``band_samples``, ``surface_anchor``), and the bias
 transfer (``bias_correction``): BA measures the final field's mean value
 at the frame's points, the host keeps an EMA of it, and the next tracked
-frame targets sdf = that offset on the band.
+frame targets sdf = that offset on the band. Both samplers are ported:
+``tpu_specs.sampler`` picks the hit table (hits) or the occupancy march
+(grid) for the GN tracker and BA; the Adam tracker always marches.
 
 Every budget overflow (capacity, active set, touched voxels, insert
 candidates) is handled as in JAX: rewind the frame to its pre-frame state,
@@ -44,8 +46,6 @@ from nerfloam_tpu_torch.utils.profiler import Profiler
 
 # (knob, value that is implemented, ROADMAP queue-1 item that ports the rest)
 _UNPORTED = [
-    ("tpu_specs.sampler", lambda v: v == "hits", "11 (grid sampler)"),
-    ("tpu_specs.track_method", lambda v: v == "gn", "11 (Adam tracker)"),
     ("tpu_specs.defer_sync", lambda v: not v, "14 (defer_sync)"),
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
     ("tpu_specs.bias_source", lambda v: v == "window", "15 (knobs: keyframe bias probe)"),
@@ -116,8 +116,11 @@ class NerfLoamSLAM_torch:
         )
         coarse = float(tpu.get("coarse_factor", 1.0)) * shapes["voxel_size"]
         max_hits = int(tpu.get("max_hits", 20))
+        sampler = str(tpu.get("sampler", "grid"))
+        if sampler not in ("grid", "hits"):
+            raise ValueError(f"tpu_specs.sampler must be 'grid' or 'hits', got {sampler!r}")
         rc = dict(voxel_size=shapes["voxel_size"], max_depth=shapes["max_depth"],
-                  coarse_step=coarse, sampler="hits", max_hits=max_hits)
+                  coarse_step=coarse, sampler=sampler, max_hits=max_hits)
         self.rc_track = RaycastConfig(step_world=shapes["track_step_world"],
                                       n_slots=shapes["track_n_slots"],
                                       n_samples=int(tpu["track_samples"]), **rc)
@@ -129,9 +132,21 @@ class NerfLoamSLAM_torch:
                        max_depth=shapes["max_depth"], fs_weight=float(crit["fs_weight"]),
                        sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype,
                        surface_anchor=q["surface_anchor"], band_samples=q["band_samples"])
-        n_iter = int(tpu.get("track_gn_iterations", 8))
-        self.tp = tr_mod.TrackParams(num_iterations=n_iter, **base_tp)
-        self.tp_first = tr_mod.TrackParams(num_iterations=n_iter * 2, **base_tp)
+        self.track_method = str(tpu.get("track_method", "gn"))
+        if self.track_method == "gn":
+            n_iter = int(tpu.get("track_gn_iterations", 8))
+            self.tp = tr_mod.TrackParams(num_iterations=n_iter, **base_tp)
+            self.tp_first = tr_mod.TrackParams(num_iterations=n_iter * 2, **base_tp)
+        elif self.track_method == "adam":
+            n_iter = int(tspec["num_iterations"])
+            self.tp = tr_mod.TrackParams(num_iterations=n_iter, **base_tp)
+            self.tp_first = tr_mod.TrackParams(num_iterations=n_iter * 5, **base_tp)
+        else:
+            raise ValueError(f"tpu_specs.track_method must be 'adam' or 'gn', "
+                             f"got {self.track_method!r}")
+        # Adam learning rate: x2 for the first two frames, /3 after (JAX
+        # pipeline.py:227, 253-254, 1244-1248)
+        self.track_lr = float(tspec["learning_rate"])
         self.const_vel_full = bool(tpu.get("const_vel_full", False))
 
         acap_v = vm.acap(self.map_cfg)
@@ -401,14 +416,22 @@ class NerfLoamSLAM_torch:
         if np.isfinite(sb):
             self.sdf_bias = (0.8 * self.sdf_bias + 0.2 * sb).astype(np.float32)
 
+    def _track(self, tp, init6, pts, cos, val, sdf_bias):
+        st = self.state
+        args = (st.map_state, self.map_cfg, self.rc_track, tp, st.decoder_params, init6, pts, cos,
+                val)
+        if self.track_method == "gn":
+            return tr_mod.track_frame_gn(*args, self.generator, sdf_bias)
+        lr = self.track_lr * 2 if st.frames_processed < 2 else self.track_lr / 3
+        return tr_mod.track_frame(*args, lr, self.generator, sdf_bias)
+
     def _megastep(self, tp, init6, pts, cos, val, pose_free, update_decoder, sdf_bias):
         """track -> lazy recenter + refresh -> BA(current) -> insert, all on
         the device; returns the new map state and the tensors to fetch."""
         st = self.state
         cfg = self.map_cfg
         with self.prof.section("track"):
-            tr = tr_mod.track_frame_gn(st.map_state, cfg, self.rc_track, tp, st.decoder_params,
-                                       init6, pts, cos, val, self.generator, sdf_bias)
+            tr = self._track(tp, init6, pts, cos, val, sdf_bias)
         with self.prof.section("recenter"):
             if self.recenter_margin > 0:
                 self.host_syncs += 1  # lax.cond in JAX, a host branch here

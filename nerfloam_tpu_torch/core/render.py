@@ -1,5 +1,6 @@
-"""Field evaluation of the hits sampler and of explicit sample depths
-(port of nerfloam_tpu/core/render.py:42-69, 72-150, 153-239).
+"""Field evaluation of the hits sampler, the grid sampler and of explicit
+sample depths (port of nerfloam_tpu/core/render.py:42-69, 72-150,
+153-279).
 
 ``hits_field_fwd`` is kernel K1, ``hits_field_bwd`` kernel K2
 (csrc/hits_field.cu) and ``active_field_fwd`` kernel K8
@@ -14,7 +15,9 @@ d d = sum z d xyz, since xyz = o + d z with z fixed by the hit table, the
 jitter or the band depth). K2 fits K8 too: it takes per-sample (xyz, aid,
 valid) in the active index space and interpolates in the sample's own
 cell, which is what K8 computes. The cell that resolves a sample and the
-cell that interpolates it come from the same xyz, as in JAX.
+cell that interpolates it come from the same xyz, as in JAX. The grid
+sampler's ``render_rays`` goes through the same Function: K9b
+(ops/raycast.py) places the depths and K8 evaluates them.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
     HitTable,
+    RaycastConfig,
     cells_of,
     div,
+    place_samples_cdf,
     resolve_cells_in_hits,
     sample_from_hits,
 )
@@ -246,11 +251,9 @@ def extra_surface_z(dnorm, pcos, truncation: float, n_anchor: int, n_band: int, 
 # ------------------------------------------------------- K1 + K8 columns
 
 
-def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None):
-    """K1 over the hit table and, when ``extra = (state, map_cfg, ez,
-    ray_valid)``, K8 at the extra depths ez (R, K): (z, valid, aid, xyz,
-    feats) with the K columns after the M hits columns."""
-    out = hits_field_fwd(ht, u, rays_o, rays_d, packed, voxel_size)
+def _append_extra(out, packed, rays_o, rays_d, extra):
+    """K8 at the extra depths of ``extra = (state, map_cfg, ez, ray_valid)``
+    (R, K), its columns after the sampler's."""
     if extra is None:
         return out
     state, map_cfg, ez, ray_valid = extra
@@ -259,12 +262,37 @@ def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None)
     return tuple(torch.cat(p, 1) for p in zip(out, (ez, evalid, eaid, exyz, efeats)))
 
 
+def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None):
+    """K1 over the hit table and, when ``extra = (state, map_cfg, ez,
+    ray_valid)``, K8 at the extra depths ez (R, K): (z, valid, aid, xyz,
+    feats) with the K columns after the M hits columns."""
+    out = hits_field_fwd(ht, u, rays_o, rays_d, packed, voxel_size)
+    return _append_extra(out, packed, rays_o, rays_d, extra)
+
+
+def grid_columns_fwd(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, occupancy,
+                     u, rays_o, rays_d, t_cap, packed, extra=None):
+    """The grid sampler's columns: K9b places the samples over the hoisted
+    ``occupancy = (cdf, n_occ)`` (K9a) at the current rays, K8 evaluates
+    their features at those depths, and ``extra`` appends K8's columns as
+    in columns_fwd. Returns ((z, valid, aid, xyz, feats), ray_mask).
+    Validity is K9b's: K8 agrees on it (its cell is the same floor of the
+    same xyz, and K9b zeroes the depth of every invalid sample), so its
+    features are zero exactly where K9b marks a sample invalid."""
+    z, aid, valid, ray_mask = place_samples_cdf(state, map_cfg, rc, occupancy[0], occupancy[1],
+                                                rays_o, rays_d, t_cap, u)
+    _, _, xyz, feats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, z, ray_mask)
+    return _append_extra((z, valid, aid, xyz, feats), packed, rays_o, rays_d, extra), ray_mask
+
+
 class _FieldColumns(torch.autograd.Function):
-    """feats = columns_fwd(packed, rays_o, rays_d); backward: one K2."""
+    """feats = fwd(packed, rays_o, rays_d)[4] for a column producer ``fwd``
+    returning (z, valid, aid, xyz, feats); backward: one K2 over all
+    columns, mapped onto the rays (z carries no gradient)."""
 
     @staticmethod
-    def forward(ctx, packed, rays_o, rays_d, ht, u, voxel_size, extra):
-        z, valid, aid, xyz, feats = columns_fwd(ht, u, rays_o, rays_d, packed, voxel_size, extra)
+    def forward(ctx, packed, rays_o, rays_d, fwd, voxel_size):
+        z, valid, aid, xyz, feats = fwd(packed, rays_o, rays_d)
         ctx.save_for_backward(packed, z, valid, aid, xyz)
         ctx.voxel_size = voxel_size
         ctx.mark_non_differentiable(z, valid, aid, xyz)
@@ -278,12 +306,22 @@ class _FieldColumns(torch.autograd.Function):
                                        want_dpacked)
         d_o = dxyz.sum(1) if ctx.needs_input_grad[1] else None
         d_d = (z[..., None] * dxyz).sum(1) if ctx.needs_input_grad[2] else None
-        return dpacked, d_o, d_d, None, None, None, None
+        return dpacked, d_o, d_d, None, None
 
 
 def field_columns(packed, rays_o, rays_d, ht: HitTable, u, voxel_size, extra=None):
     """Differentiable K1 (+ K8 columns): (feats, z, valid, aid, xyz)."""
-    return _FieldColumns.apply(packed, rays_o, rays_d, ht, u, voxel_size, extra)
+    return _FieldColumns.apply(
+        packed, rays_o, rays_d,
+        lambda p, o, d: columns_fwd(ht, u, o, d, p, voxel_size, extra), voxel_size)
+
+
+def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compute_dtype):
+    valid = valid & ray_valid[:, None]
+    sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
+    sdf = torch.where(valid, sdf, 1.0)
+    z_out = torch.where(valid, z, MAX_DEPTH)
+    return RenderOutput(z_out, sdf, ray_mask & ray_valid, valid, xyz)
 
 
 def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, ht: HitTable,
@@ -297,11 +335,31 @@ def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, 
     282-304); one decoder call and one K2 take both."""
     feats, z, valid, _, xyz = field_columns(packed, rays_o, rays_d, ht, jitter_u, voxel_size,
                                             extra)
-    valid = valid & ray_valid[:, None]
-    sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
-    sdf = torch.where(valid, sdf, 1.0)
-    z_out = torch.where(valid, z, MAX_DEPTH)
-    return RenderOutput(z_out, sdf, ht.ray_mask & ray_valid, valid, xyz)
+    return _render_out(decoder_params, feats, z, valid, xyz, ht.ray_mask, ray_valid,
+                       compute_dtype)
+
+
+def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfig,
+                rc: RaycastConfig, rays_o, rays_d, t_cap, ray_valid, occupancy, jitter_u,
+                compute_dtype=torch.float32, extra=None) -> RenderOutput:
+    """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
+    242-279, the march hoisted: ``occupancy = (cdf, n_occ)`` from K9a):
+    K9b -> K8 at its depths (+ K8's ``extra`` columns) -> decoder -> masked
+    sdf. ``packed`` is the differentiable table (BA's optimized copy);
+    lookups go through ``state``'s grid. The backward is one K2 launch;
+    the depths depend only on the cdf and ``jitter_u``, so the rays' (and
+    the pose's) gradient flows through xyz = o + d z alone, as in JAX."""
+    side = {}
+
+    def fwd(p, o, d):
+        out, side["ray_mask"] = grid_columns_fwd(state, map_cfg, rc, occupancy, jitter_u, o, d,
+                                                 t_cap, p, extra)
+        return out
+
+    feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd,
+                                                  map_cfg.voxel_size)
+    return _render_out(decoder_params, feats, z, valid, xyz, side["ray_mask"], ray_valid,
+                       compute_dtype)
 
 
 def field_at_points(state: vm.MapState, map_cfg: vm.MapConfig, packed, decoder_params, xyz,

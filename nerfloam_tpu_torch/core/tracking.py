@@ -1,16 +1,27 @@
-"""Frame-to-map tracking, Gauss-Newton / LM path (port of
-nerfloam_tpu/core/tracking.py:40-88, 89-346, 374-381, single device).
+"""Frame-to-map tracking (port of nerfloam_tpu/core/tracking.py, single
+device): the Gauss-Newton / LM tracker (40-381) and the Adam tracker
+(383-497).
 
-Per iteration: K1 places the samples and interpolates their features at
+GN, per frame: K4 builds the hit table (hits sampler) or K9a marches the
+occupancy cdf (grid sampler) at the initial pose. Per iteration: K1 (hits)
+or K9b then K8 (grid) place the samples and interpolate their features at
 the iteration's pose, K8 adds the band/anchor columns of the quality
 stack (explicit depths around the measured distance), the decoder runs
 forward and backward to d sdf / d feats over all columns at once, and one
 K2 launch (with the packed gradient off) turns that into the spatial
 gradient g per sample. K3 (``gn_system``, csrc/gn_system.cu) forms the
 residuals, the count-balanced weights and the 6x6 normal equations; the
-LM solve stays in torch. The loop never reads a value back to the host:
-shapes are static and ``torch.linalg.solve_ex`` skips the error check
-that would synchronise.
+LM solve stays in torch.
+
+Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
+draw and one K9a per frame at the initial pose; per iteration the grid
+render_rays (K9b, K8, decoder, one K2 in the backward), the sdf losses
+with the band target, the pose gradient by autograd, and an
+``optax.scale_by_adam`` step.
+
+Neither loop reads a value back to the host: shapes are static,
+``torch.linalg.solve_ex`` skips the error check that would synchronise,
+and the total-miss fallback is a ``torch.where`` on the device.
 """
 
 from __future__ import annotations
@@ -20,15 +31,28 @@ from typing import NamedTuple
 import torch
 
 from nerfloam_tpu_torch import kernels
-from nerfloam_tpu_torch.core.render import columns_fwd, extra_surface_z, hits_field_bwd
+from nerfloam_tpu_torch.core.losses import sdf_losses
+from nerfloam_tpu_torch.core.render import (
+    columns_fwd,
+    extra_surface_z,
+    grid_columns_fwd,
+    hits_field_bwd,
+    render_rays,
+)
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.raycast import RaycastConfig, build_hit_table, uniform_jitter
+from nerfloam_tpu_torch.ops.raycast import (
+    RaycastConfig,
+    build_hit_table,
+    march_occupancy,
+    uniform_jitter,
+)
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
 
 # K3 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
 gn_system_launches = 0
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
 
 
 class TrackParams(NamedTuple):
@@ -47,6 +71,22 @@ class TrackResult(NamedTuple):
     pose: torch.Tensor       # (6,)
     hit_count: torch.Tensor  # () int: hit rays at the last iteration
     loss: torch.Tensor       # () last-iteration loss
+
+
+def scale_by_adam_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, t: int) -> torch.Tensor:
+    """One ``optax.scale_by_adam()`` step (b1 0.9, b2 0.999, eps 1e-8,
+    eps_root 0, bias-corrected) at step t >= 1: updates the moments mu and
+    nu in place and returns the update (applied as ``p - lr * update``)."""
+    mu.mul_(_B1).add_(g, alpha=1.0 - _B1)
+    nu.mul_(_B2).addcmul_(g, g, value=1.0 - _B2)
+    return (mu / (1.0 - _B1 ** t)) / (torch.sqrt(nu / (1.0 - _B2 ** t)) + _EPS)
+
+
+def _bias_ray(pcos, sdf_bias, dev):
+    """Per-ray band target: sdf_bias (2,) [ground, non-ground] or None = 0."""
+    b2 = (torch.zeros((2,), device=dev) if sdf_bias is None
+          else torch.as_tensor(sdf_bias, dtype=torch.float32, device=dev).reshape(-1)[:2])
+    return torch.where(pcos < 0.999, b2[0], b2[1])
 
 
 def t_cap_for(points: torch.Tensor, cos: torch.Tensor, truncation: float, max_depth: float):
@@ -155,8 +195,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     """LM pose tracking on the truncated-SDF residuals over one frame's
     (padded) points. ``sdf_bias`` (2,) [ground, non-ground] is the band
     target (the mapped field's surface offset, bias transfer); None = 0."""
-    if rc.sampler != "hits":
-        raise NotImplementedError("the grid sampler is not ported yet (ROADMAP queue 1, item 11)")
+    if rc.sampler not in ("hits", "grid"):
+        raise ValueError(f"unknown sampler {rc.sampler!r}")
     dev = points.device
     compute_dtype = getattr(torch, tp.compute_dtype)
     vs = map_cfg.voxel_size
@@ -168,15 +208,17 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
     d_meas = torch.linalg.norm(pts, dim=-1) * pcos
     depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
-    b2 = (torch.zeros((2,), device=dev) if sdf_bias is None
-          else torch.as_tensor(sdf_bias, dtype=torch.float32, device=dev).reshape(-1)[:2])
-    bias_ray = torch.where(pcos < 0.999, b2[0], b2[1])
+    bias_ray = _bias_ray(pcos, sdf_bias, dev)
     dnorm = torch.linalg.norm(pts, dim=-1)
     n_extra = tp.surface_anchor + tp.band_samples
 
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
     origin0 = se3.pose_translation(init_pose).expand_as(wdirs0)
-    ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
+    if rc.sampler == "hits":
+        ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
+        ray_hit = ht0.ray_mask
+    else:
+        occ0 = march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
 
     pose6 = init_pose
     lam = 1e-2
@@ -193,11 +235,78 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
                   if tp.band_samples else None)
             ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples, ub)
             extra = (map_state, map_cfg, ez, rvalid)
-        z, valid, aid, xyz, feats = columns_fwd(ht0, u, origin, wdirs, packed, vs, extra)
+        if rc.sampler == "hits":
+            z, valid, aid, xyz, feats = columns_fwd(ht0, u, origin, wdirs, packed, vs, extra)
+        else:
+            (z, valid, aid, xyz, feats), ray_hit = grid_columns_fwd(
+                map_state, map_cfg, rc, occ0, u, origin, wdirs, t_cap, packed, extra)
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
         H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
         pose6 = lm_update(pose6, H, b, lam)
-        hits = (ht0.ray_mask & rvalid).sum()
+        hits = (ray_hit & rvalid).sum()
     pose6 = torch.where(hits > 0, pose6, init_pose)
     return TrackResult(pose6, hits, loss)
+
+
+def adam_loss(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
+              decoder_params, pose6, dirs, pts, pcos, t_cap, rvalid, occupancy, u, band_u,
+              bias_ray):
+    """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
+    rays): grid render_rays over the hoisted ``occupancy`` with jitter u,
+    the anchor and band columns (jitter band_u), then ``sdf_losses`` with
+    the per-ray band target bias_ray (R,). Returns (loss, RenderOutput)."""
+    compute_dtype = getattr(torch, tp.compute_dtype)
+    wdirs = se3.rotate_dirs(pose6, dirs)
+    origin = se3.pose_translation(pose6).expand_as(wdirs)
+    extra = None
+    if tp.surface_anchor or tp.band_samples:
+        ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, tp.truncation,
+                             tp.surface_anchor, tp.band_samples, band_u)
+        extra = (map_state, map_cfg, ez, rvalid)
+    out = render_rays(map_state.packed, decoder_params, map_state, map_cfg, rc, origin, wdirs,
+                      t_cap, rvalid, occupancy, u, compute_dtype, extra)
+    loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
+                         tp.truncation, tp.max_depth, tp.fs_weight, tp.sdf_weight,
+                         sdf_bias=bias_ray[:, None])
+    return loss, out
+
+
+def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
+                decoder_params, init_pose, points, points_cos, points_valid, learning_rate,
+                generator: torch.Generator | None = None, sdf_bias=None) -> TrackResult:
+    """Adam pose tracking on the sdf losses (nerfloam_tpu/core/tracking.py:
+    383-497, fixed rays): one ray draw and one K9a march at ``init_pose``,
+    then per iteration ``adam_loss`` at the current pose, its pose gradient
+    by autograd and ``pose - learning_rate * scale_by_adam(g)``. The grid
+    sampler is used whatever ``rc.sampler`` says (JAX: tracking.py:
+    410-416). A frame whose last iteration hit nothing keeps
+    ``init_pose``, decided on the device."""
+    dev = points.device
+    ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
+    pts, pcos = points[ridx], points_cos[ridx]
+    dirs = _ray_dirs(pts)
+    t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
+    bias_ray = _bias_ray(pcos, sdf_bias, dev)
+    wdirs0 = se3.rotate_dirs(init_pose, dirs)
+    occ0 = march_occupancy(map_state, map_cfg, rc,
+                           se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0, t_cap)
+
+    pose6 = init_pose.detach().clone()
+    mu, nu = torch.zeros_like(pose6), torch.zeros_like(pose6)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    for it in range(tp.num_iterations):
+        u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
+        ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
+              if tp.band_samples else None)
+        with torch.enable_grad():
+            p = pose6.requires_grad_(True)
+            loss, out = adam_loss(map_state, map_cfg, rc, tp, decoder_params, p, dirs, pts, pcos,
+                                  t_cap, rvalid, occ0, u, ub, bias_ray)
+            (g,) = torch.autograd.grad(loss, p)
+        with torch.no_grad():
+            pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)
+        hits = out.ray_mask.sum()
+    pose6 = torch.where(hits > 0, pose6, init_pose)
+    return TrackResult(pose6, hits, loss.detach())

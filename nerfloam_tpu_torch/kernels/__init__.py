@@ -59,6 +59,16 @@ _SIGNATURES = {
     "nl_insert_activate": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "nl_insert_append": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I,
                          _P, _P, _P, _P, _P],
+    "nl_recenter": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "nl_refresh_mark": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "nl_refresh_place": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "nl_active_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "nl_reconcile_compact": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "nl_reconcile_link": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "nl_reconcile_apply": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    "nl_march_occupancy": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "nl_place_samples_cdf": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                             _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -12,11 +12,14 @@ Functions return a new ``MapState`` rather than editing their input, like
 the JAX code: the pipeline keeps no rewind point, but tests compare the
 before and after states.
 
-``insert_points`` is kernel K7 (csrc/insert.cu) on CUDA tensors and its
-plain torch twin ``insert_points_plain`` on CPU tensors. The other
-map-maintenance fusions are plain torch and wait for later kernels: K5
-(``reconcile_packed``, ``bump_upd_count``, ``pack_embeddings``) and K6
-(``recenter``, ``refresh_active``).
+Kernels, each with a plain torch twin that CPU tensors take: K7
+``insert_points`` (csrc/insert.cu, twin ``insert_points_plain``); K6
+``recenter`` and ``refresh_active`` (csrc/active_set.cu, twins
+``recenter_plain`` and ``refresh_active_plain``); K5 ``reconcile``, the
+BA step's tail (csrc/reconcile.cu, twin ``reconcile_plain``, which runs
+the JAX-named pieces ``reconcile_packed``, ``bump_upd_count`` and
+``pack_embeddings``). The kernels write fresh tables, so a kept state
+stays valid.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.interp import CORNER_OFFSETS
 
-# K7 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
-insert_launches = 0
+# launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
+insert_launches = 0      # K7
+active_set_launches = 0  # K6: recenter and refresh_active, one each
+reconcile_launches = 0   # K5
 _INT_MAX = 2**31 - 1
 
 
@@ -111,6 +116,26 @@ def _add_drop(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> 
     return buf[:-1]
 
 
+def _add_in_order(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``target.at[idx].add(values, mode="drop")`` as XLA applies it: one
+    index at a time in ascending order, rounding to target's dtype after
+    every add (a bf16 ``index_add_`` on the CPU sums duplicates in f32 and
+    rounds once instead). Duplicates are split into rounds of distinct
+    indices by their occurrence number; indices outside the target drop."""
+    idx = idx.long()
+    keep = torch.nonzero((idx >= 0) & (idx < target.shape[0])).squeeze(1)
+    ci, vals = idx[keep], values[keep].to(target.dtype)
+    sorted_c, order = torch.sort(ci, stable=True)
+    occ = torch.empty_like(order)
+    occ[order] = torch.arange(len(order), device=idx.device) - torch.searchsorted(sorted_c,
+                                                                                   sorted_c)
+    out = target.clone()
+    for o in range(int(occ.max()) + 1 if len(occ) else 0):
+        m = occ == o
+        out.index_add_(0, ci[m], vals[m])
+    return out
+
+
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s rounded as IEEE division. torch on CUDA turns division by a
     Python scalar into a multiply by its reciprocal, which can move
@@ -145,12 +170,28 @@ def lookup_active(state: MapState, cfg: MapConfig, coords: torch.Tensor) -> torc
     return _grid_read(state.grid_active, state.region_min, cfg, coords)
 
 
-def recenter(state: MapState, cfg: MapConfig, center_world: torch.Tensor) -> MapState:
-    """Rebuild the dense grid around a new world-space center (one scatter
-    over the lattice table)."""
+def _region_min(cfg: MapConfig, center_world: torch.Tensor) -> torch.Tensor:
+    dims = torch.tensor(cfg.grid_dim, dtype=torch.int32, device=center_world.device)
+    return torch.floor(div(center_world.float(), cfg.voxel_size)).to(torch.int32) - dims // 2
+
+
+def _device_of(name: str, t: torch.Tensor) -> torch.device:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _emb_args(emb: torch.Tensor):
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("map kernels take float32 or bfloat16 embeddings")
+    return emb.contiguous(), int(emb.dtype == torch.bfloat16)
+
+
+def recenter_plain(state: MapState, cfg: MapConfig, center_world: torch.Tensor) -> MapState:
+    """Plain torch twin of K6's recenter: rebuild the dense grid around a
+    new world-space center (one scatter over the lattice table)."""
     dev = state.grid.device
-    dims = torch.tensor(cfg.grid_dim, dtype=torch.int32, device=dev)
-    region_min = torch.floor(center_world / cfg.voxel_size).to(torch.int32) - dims // 2
+    region_min = _region_min(cfg, center_world)
     total = int(np.prod(cfg.grid_dim))
     ids = torch.arange(cfg.capacity, dtype=torch.int32, device=dev)
     flat, inb = _flat_cell(state.lat_coords - region_min, cfg.grid_dim)
@@ -160,9 +201,30 @@ def recenter(state: MapState, cfg: MapConfig, center_world: torch.Tensor) -> Map
     return state._replace(grid=grid, region_min=region_min)
 
 
-def refresh_active(state: MapState, cfg: MapConfig) -> MapState:
-    """Rebuild the active surface set, grid_active and the packed (A, 8F)
-    corner table from the in-region surface voxels."""
+def recenter(state: MapState, cfg: MapConfig, center_world: torch.Tensor) -> MapState:
+    """K6, first half. Replaces nerfloam_tpu/map/voxel_map.py:149-169
+    (recenter): the scatter of the lattice table into a fresh region grid.
+    CPU tensors take ``recenter_plain``; CUDA tensors launch
+    csrc/active_set.cu (fill, then one thread per lattice row). Writes a
+    new grid; the input state stays valid."""
+    if _device_of("recenter", state.grid).type == "cpu":
+        return recenter_plain(state, cfg, center_world)
+    global active_set_launches
+    dev = state.grid.device
+    region_min = _region_min(cfg, center_world.to(dev)).contiguous()
+    grid = torch.empty((int(np.prod(cfg.grid_dim)),), dtype=torch.int32, device=dev)
+    lat, num_lat = state.lat_coords.contiguous(), state.num_lat.to(torch.int32).reshape(1)
+    kernels.check(kernels.lib().nl_recenter(
+        lat.data_ptr(), num_lat.data_ptr(), cfg.capacity, region_min.data_ptr(), *cfg.grid_dim,
+        grid.data_ptr(), kernels.stream_ptr(dev)), "recenter")
+    active_set_launches += 1
+    return state._replace(grid=grid, region_min=region_min)
+
+
+def refresh_active_plain(state: MapState, cfg: MapConfig) -> MapState:
+    """Plain torch twin of K6's refresh: rebuild the active surface set,
+    grid_active and the packed (A, 8F) corner table from the in-region
+    surface voxels."""
     dev = state.grid.device
     C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
     total = int(np.prod(cfg.grid_dim))
@@ -185,15 +247,59 @@ def refresh_active(state: MapState, cfg: MapConfig) -> MapState:
     )
 
 
+def refresh_active(state: MapState, cfg: MapConfig) -> MapState:
+    """K6, second half. Replaces nerfloam_tpu/map/voxel_map.py:183-225
+    (refresh_active): mark the in-region surface rows, rank them (inclusive
+    torch.cumsum between the passes), place them in ascending lattice id
+    (active_ids, grid_active) and gather their packed rows and coords.
+    CPU tensors take ``refresh_active_plain``; CUDA tensors launch
+    csrc/active_set.cu. ``n_active`` is the true count (it may exceed A).
+    Writes fresh tables; the input state stays valid."""
+    if _device_of("refresh_active", state.grid).type == "cpu":
+        return refresh_active_plain(state, cfg)
+    global active_set_launches
+    lib = kernels.lib()
+    dev = state.grid.device
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
+    i32 = dict(dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(dev)
+    lat = state.lat_coords.contiguous()
+    rmin = state.region_min.to(torch.int32).contiguous()
+    num_lat = state.num_lat.to(torch.int32).reshape(1)
+    emb, bf16 = _emb_args(state.embeddings)
+    act = torch.empty((C,), **i32)
+    grid_active = torch.empty((int(np.prod(cfg.grid_dim)),), **i32)
+    active_ids = torch.empty((A,), **i32)
+    kernels.check(lib.nl_refresh_mark(lat.data_ptr(), state.is_surface.contiguous().data_ptr(),
+                                      num_lat.data_ptr(), C, rmin.data_ptr(), *cfg.grid_dim, A,
+                                      act.data_ptr(), grid_active.data_ptr(),
+                                      active_ids.data_ptr(), stream), "refresh_mark")
+    rank = torch.cumsum(act, 0, dtype=torch.int32)
+    kernels.check(lib.nl_refresh_place(lat.data_ptr(), act.data_ptr(), rank.data_ptr(), C,
+                                       rmin.data_ptr(), *cfg.grid_dim, A, grid_active.data_ptr(),
+                                       active_ids.data_ptr(), stream), "refresh_place")
+    packed = torch.empty((A, 8 * F), dtype=torch.float32, device=dev)
+    active_coords = torch.empty((A, 3), **i32)
+    cidx = state.corner_idx.contiguous()
+    kernels.check(lib.nl_active_pack(active_ids.data_ptr(), cidx.data_ptr(),
+                                     emb.data_ptr(), bf16, A, F, lat.data_ptr(), packed.data_ptr(),
+                                     active_coords.data_ptr(), stream), "active_pack")
+    active_set_launches += 1
+    return state._replace(active_ids=active_ids, n_active=rank[-1].clone(),
+                          grid_active=grid_active, packed=packed, active_coords=active_coords)
+
+
 def _pack(embeddings: torch.Tensor, cidx: torch.Tensor, n: int, F: int) -> torch.Tensor:
     return embeddings[torch.clamp(cidx, min=0).long()].float().reshape(n, 8 * F)
 
 
 def reconcile_packed(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
                      touched: torch.Tensor, touched_cap: int) -> torch.Tensor:
-    """Fold the optimized packed-copy deltas of the touched voxels back into
-    the canonical (C, F) embeddings; a corner shared by k touched voxels
-    gets the mean of its k deltas. Returns the new embeddings."""
+    """Plain piece of K5's twin: fold the optimized packed-copy deltas of
+    the touched voxels back into the canonical (C, F) embeddings; a corner
+    shared by k touched voxels gets the mean of its k deltas, added in
+    ascending (rank, corner slot) order on the CPU. Returns the new
+    embeddings."""
     dev = new_packed.device
     C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
     T = touched_cap
@@ -210,19 +316,88 @@ def reconcile_packed(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
                      torch.ones_like(cflat, dtype=torch.float32))
     delta = delta / torch.clamp(mult[torch.clamp(cflat, 0, C - 1).long()], min=1.0)[:, None]
     # cast the f32 deltas to the embedding type BEFORE adding, as JAX does
-    return _add_drop(state.embeddings, cflat, delta.to(state.embeddings.dtype))
+    return _add_in_order(state.embeddings, cflat, delta.to(state.embeddings.dtype))
 
 
 def bump_upd_count(state: MapState, cfg: MapConfig, touched: torch.Tensor) -> torch.Tensor:
-    """(C,) upd_count + 1 at every active voxel row touched this BA step."""
+    """Plain piece of K5's twin: (C,) upd_count + 1 at every active voxel
+    row touched this BA step."""
     dest = torch.where(touched, state.active_ids, cfg.capacity)
     return _add_drop(state.upd_count, dest, torch.ones_like(dest))
 
 
 def pack_embeddings(state: MapState, cfg: MapConfig) -> torch.Tensor:
-    """(A, 8F) packed corner features from the current embeddings."""
+    """Plain piece of K5's twin: (A, 8F) packed corner features from the
+    current embeddings."""
     A = acap(cfg)
     return _pack(state.embeddings, state.corner_idx[state.active_ids.long()], A, cfg.feat_dim)
+
+
+class Reconciled(NamedTuple):
+    embeddings: torch.Tensor     # (C, F) with the touched voxels' deltas folded in
+    packed: torch.Tensor         # (A, 8F) repacked from them
+    upd_count: torch.Tensor      # (C,) + 1 at every touched voxel
+    touched_count: torch.Tensor  # () int32 voxels touched (may exceed touched_cap)
+
+
+def reconcile_plain(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
+                    touched: torch.Tensor, touched_cap: int) -> Reconciled:
+    """Plain torch twin of K5: bump_upd_count, reconcile_packed and
+    pack_embeddings in a row (the tail of JAX core/ba.py:378-391)."""
+    emb = reconcile_packed(state, cfg, new_packed, touched, touched_cap)
+    return Reconciled(emb, pack_embeddings(state._replace(embeddings=emb), cfg),
+                      bump_upd_count(state, cfg, touched), touched.sum(dtype=torch.int32))
+
+
+def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched: torch.Tensor,
+              touched_cap: int) -> Reconciled:
+    """K5. Replaces nerfloam_tpu/map/voxel_map.py:233-308 (reconcile_packed
+    in "mean" mode, bump_upd_count, pack_embeddings) as one BA step's tail
+    calls them: compact the touched rows to ``touched_cap`` by rank
+    (inclusive torch.cumsum first), link each corner's contributions,
+    apply them in ascending (rank, corner slot) order with the delta cast
+    to the embedding type before every add, then repack all A rows.
+    Deterministic: two calls give bit-identical tables. CPU tensors take
+    ``reconcile_plain``; CUDA tensors launch csrc/reconcile.cu and the pack
+    pass of csrc/active_set.cu. The tables are fresh copies."""
+    if _device_of("reconcile", new_packed).type == "cpu":
+        return reconcile_plain(state, cfg, new_packed, touched, touched_cap)
+    global reconcile_launches
+    lib = kernels.lib()
+    dev = new_packed.device
+    C, A, F, T = cfg.capacity, acap(cfg), cfg.feat_dim, touched_cap
+    if F != 16 or new_packed.shape != (A, 8 * F):
+        raise ValueError("reconcile: packed rows must be 8 x 16 floats")
+    i32 = dict(dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(dev)
+    tmask = touched.to(torch.bool).contiguous()
+    rank = torch.cumsum(tmask, 0, dtype=torch.int32)
+    active_ids = state.active_ids.contiguous()
+    corner_idx = state.corner_idx.contiguous()
+    upd_count = state.upd_count.clone()
+    emb = state.embeddings.clone()
+    _, bf16 = _emb_args(emb)
+    t_rows = torch.empty((T,), **i32)
+    head = torch.empty((C,), **i32)
+    cid = torch.empty((8 * T,), **i32)
+    nxt = torch.empty((8 * T,), **i32)
+    kernels.check(lib.nl_reconcile_compact(tmask.data_ptr(), rank.data_ptr(), active_ids.data_ptr(),
+                                           A, T, C, upd_count.data_ptr(), t_rows.data_ptr(),
+                                           head.data_ptr(), stream), "reconcile_compact")
+    kernels.check(lib.nl_reconcile_link(rank.data_ptr(), t_rows.data_ptr(), active_ids.data_ptr(),
+                                        corner_idx.data_ptr(), A, T, C, cid.data_ptr(),
+                                        nxt.data_ptr(), head.data_ptr(), stream),
+                  "reconcile_link")
+    new, old = new_packed.float().contiguous(), state.packed.contiguous()
+    kernels.check(lib.nl_reconcile_apply(t_rows.data_ptr(), cid.data_ptr(), nxt.data_ptr(),
+                                         head.data_ptr(), T, new.data_ptr(), old.data_ptr(),
+                                         emb.data_ptr(), bf16, stream), "reconcile_apply")
+    packed = torch.empty((A, 8 * F), dtype=torch.float32, device=dev)
+    kernels.check(lib.nl_active_pack(active_ids.data_ptr(), corner_idx.data_ptr(), emb.data_ptr(),
+                                     bf16, A, F, None, packed.data_ptr(), None, stream),
+                  "active_pack")
+    reconcile_launches += 1
+    return Reconciled(emb, packed, upd_count, rank[-1].clone() if A else torch.zeros((), **i32))
 
 
 def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Tensor,

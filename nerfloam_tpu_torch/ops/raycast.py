@@ -1,11 +1,17 @@
-"""Hit-table ray sampling against the voxel map (port of the "hits" half of
-nerfloam_tpu/ops/raycast.py; the grid sampler waits for a later slice).
+"""Ray sampling against the voxel map (port of nerfloam_tpu/ops/raycast.py):
+the hit-table sampler and the grid sampler.
 
 ``build_hit_table`` is kernel K4 (csrc/hit_table.cu) on CUDA tensors and
 its plain torch version ``build_hit_table_plain`` on CPU tensors.
 ``sample_from_hits`` / ``resolve_cells_in_hits`` are the plain pieces K1
 fuses (core/render.py); they pick the hit by index where JAX contracts a
 one-hot over H, which is exact for the same selection.
+
+The grid sampler's two passes are K9a ``march_occupancy`` (the coarse
+occupancy cdf per ray) and K9b ``place_samples_cdf`` (stratified quantile
+placement and the fine cell lookup), csrc/grid_sampler.cu, with plain
+twins ``march_occupancy_plain`` and ``place_samples_cdf_plain``; the
+caller always supplies the placement jitter ``u``.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ import torch
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.map import voxel_map as vm
 
-# K4 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
-hit_table_launches = 0
+# launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
+hit_table_launches = 0          # K4
+march_occupancy_launches = 0    # K9a
+place_samples_cdf_launches = 0  # K9b
 
 
 class RaycastConfig(NamedTuple):
@@ -193,3 +201,115 @@ def resolve_cells_in_hits(ht: HitTable, cells: torch.Tensor):
     idx = torch.argmax(eq.to(torch.int32), -1)
     aid = torch.gather(ht.aid, 1, idx)
     return idx, torch.where(found, aid, -1), found
+
+
+# ------------------------------------------------------------ grid sampler
+
+
+def _grid_args(name, state: vm.MapState, *tensors):
+    dev = tensors[0].device
+    ins = [state.grid_active.contiguous(), state.region_min.to(torch.int32).contiguous()]
+    ins += [t.float().contiguous() for t in tensors]
+    if any(t.device != dev for t in ins):
+        raise ValueError(f"{name}: map and rays must share one device")
+    return dev, ins
+
+
+def march_occupancy_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                          rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor):
+    """Plain torch twin of K9a: (cdf (R, S), n_occ (R,)), the running count
+    of coarse slots whose midpoint is within t_cap and in an active voxel."""
+    cstep, S = _coarse_shape(rc)
+    t_c = (torch.arange(S, dtype=torch.float32, device=rays_o.device) + 0.5) * cstep
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t_c[None, :, None]
+    lid = vm.lookup_active(state, map_cfg, cells_of(pts, rc.voxel_size))
+    occ = (lid >= 0) & (t_c[None, :] <= t_cap[:, None])
+    cdf = torch.cumsum(occ.to(torch.float32), -1)
+    return cdf, cdf[:, -1]
+
+
+def march_occupancy(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                    rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor):
+    """K9a. Replaces nerfloam_tpu/ops/raycast.py:65-85 (march_occupancy,
+    with voxel_map.py:172-180 lookup_active): the XLA fusion of the (R, S)
+    coarse march, grid gather and per-ray cumsum. CPU tensors take the
+    plain twin; CUDA tensors launch csrc/grid_sampler.cu (one warp per ray,
+    bound by one 4-byte grid read per slot in range and the cdf write).
+    Returns (cdf (R, S), n_occ (R,))."""
+    if rays_o.device.type == "cpu":
+        return march_occupancy_plain(state, map_cfg, rc, rays_o, rays_d, t_cap)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"march_occupancy: unsupported device {rays_o.device}")
+    global march_occupancy_launches
+    dev, (ga, rmin, o, d, tc) = _grid_args("march_occupancy", state, rays_o, rays_d, t_cap)
+    R = o.shape[0]
+    cstep, S = _coarse_shape(rc)
+    cdf = torch.empty((R, S), dtype=torch.float32, device=dev)
+    n_occ = torch.empty((R,), dtype=torch.float32, device=dev)
+    kernels.check(kernels.lib().nl_march_occupancy(
+        ga.data_ptr(), rmin.data_ptr(), *map_cfg.grid_dim, o.data_ptr(), d.data_ptr(),
+        tc.data_ptr(), R, S, cstep, rc.voxel_size, cdf.data_ptr(), n_occ.data_ptr(),
+        kernels.stream_ptr(dev)), "march_occupancy")
+    march_occupancy_launches += 1
+    return cdf, n_occ
+
+
+def place_samples_cdf_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                            cdf: torch.Tensor, n_occ: torch.Tensor, rays_o: torch.Tensor,
+                            rays_d: torch.Tensor, t_cap: torch.Tensor, u: torch.Tensor):
+    """Plain torch twin of K9b: (z (R, M), aid (R, M), valid (R, M),
+    ray_mask (R,)); z = 0 and aid = -1 where not valid."""
+    S = cdf.shape[1]
+    M = u.shape[1]
+    cstep, _ = _coarse_shape(rc)
+    ray_mask = n_occ > 0
+    m = torch.arange(M, dtype=torch.float32, device=cdf.device)
+    q = div(m[None, :] + u, float(M)) * n_occ[:, None]
+    j = torch.clamp((cdf[:, None, :] < q[:, :, None]).sum(-1), 0, S - 1)
+    frac = torch.clamp(q - (torch.gather(cdf, 1, j) - 1.0), 0.0, 1.0)
+    z = (j.to(torch.float32) + frac) * cstep
+    fpts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    aid = vm.lookup_active(state, map_cfg, cells_of(fpts, rc.voxel_size))
+    valid = ray_mask[:, None] & (aid >= 0) & (z <= t_cap[:, None])
+    return torch.where(valid, z, 0.0), torch.where(valid, aid, -1), valid, ray_mask
+
+
+def place_samples_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                      cdf: torch.Tensor, n_occ: torch.Tensor, rays_o: torch.Tensor,
+                      rays_d: torch.Tensor, t_cap: torch.Tensor, u: torch.Tensor):
+    """K9b. Replaces nerfloam_tpu/ops/raycast.py:88-130 (place_samples_cdf):
+    the XLA fusion of the stratified quantile, the (R, M, S) compare-count
+    against the cdf, the depth and the fine grid lookup. ``u`` (R, M) is
+    the jitter. CPU tensors take the plain twin; CUDA tensors launch
+    csrc/grid_sampler.cu (one thread per sample, a binary search over the
+    ray's cdf row). Returns (z, aid, valid, ray_mask)."""
+    if rays_o.device.type == "cpu":
+        return place_samples_cdf_plain(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap, u)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"place_samples_cdf: unsupported device {rays_o.device}")
+    global place_samples_cdf_launches
+    dev, (ga, rmin, cd, no, o, d, tc, uu) = _grid_args("place_samples_cdf", state, cdf, n_occ,
+                                                       rays_o, rays_d, t_cap, u)
+    R, S = cd.shape
+    M = uu.shape[1]
+    cstep, _ = _coarse_shape(rc)
+    z = torch.empty((R, M), dtype=torch.float32, device=dev)
+    aid = torch.empty((R, M), dtype=torch.int32, device=dev)
+    valid = torch.empty((R, M), dtype=torch.bool, device=dev)
+    ray_mask = torch.empty((R,), dtype=torch.bool, device=dev)
+    kernels.check(kernels.lib().nl_place_samples_cdf(
+        ga.data_ptr(), rmin.data_ptr(), *map_cfg.grid_dim, cd.data_ptr(), no.data_ptr(),
+        o.data_ptr(), d.data_ptr(), tc.data_ptr(), uu.data_ptr(), R, S, M, cstep, rc.voxel_size,
+        z.data_ptr(), aid.data_ptr(), valid.data_ptr(), ray_mask.data_ptr(),
+        kernels.stream_ptr(dev)), "place_samples_cdf")
+    place_samples_cdf_launches += 1
+    return z, aid, valid, ray_mask
+
+
+def sample_rays_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                    rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor,
+                    u: torch.Tensor):
+    """Inverse-CDF sampling over the occupied voxels along each ray: K9a
+    then K9b (nerfloam_tpu/ops/raycast.py:346-381)."""
+    cdf, n_occ = march_occupancy(state, map_cfg, rc, rays_o, rays_d, t_cap)
+    return place_samples_cdf(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap, u)

@@ -3,13 +3,27 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
 
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py            # kitti_budget.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality  # kitti_quality.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --adam25   # kitti_adam25.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 SEED  # replica_gate60.json
 
-The config is synthetic_small.yaml + bench.BENCH_OVERRIDES (+ QUALITY_OVERRIDES)
-+ 30 frames, defer_sync off, i.e. the port's JSON config of the same name;
-frames are fed as bench.py feeds them. Prints one JSON line with the
-unaligned ATE RMSE (m) of the finalized trajectory.
+The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
+(+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off, i.e. the
+port's JSON config of the same name; frames are fed as bench.py feeds
+them. Prints one JSON line with the unaligned ATE RMSE (m) of the
+finalized trajectory.
+
+ADAM25 is bench.ADAM25_OVERRIDES plus ``tpu_specs.track_method=adam``: the
+pipeline reads the tracker choice from tpu_specs, so bench.py's
+``tracker_specs.track_method=adam`` alone leaves the GN tracker on.
+
+``--gate60 SEED`` runs the replica gate instead: kitti_replica_ci.yaml +
+calibrate_gate60.GATE60 + LEAN + data_specs.seed=SEED, defer_sync off,
+through NerfLoamSLAM.run() as scripts/eval_replica.py drives it, and
+prints the raw and aligned ATE, the overflow accounting and the lateral
+drift rate (no mesh).
 """
 
+import importlib.util
 import json
 import os
 import sys
@@ -28,10 +42,57 @@ from nerfloam_tpu.data import get_dataset  # noqa: E402
 from nerfloam_tpu.utils import evaluation  # noqa: E402
 from nerfloam_tpu.utils.config import load_config  # noqa: E402
 
+ADAM25 = bench.ADAM25_OVERRIDES + ["tpu_specs.track_method=adam"]
+
+
+def gate60_overrides(seed: int) -> list:
+    spec = importlib.util.spec_from_file_location(
+        "calibrate_gate60", os.path.join(ROOT, "scripts", "calibrate_gate60.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.GATE60 + mod.LEAN + [f"data_specs.seed={seed}", "tpu_specs.defer_sync=false"]
+
+
+def drift_lat_cm_f(est: np.ndarray, gt: np.ndarray) -> float:
+    """Mean lateral per-frame drift (cm/frame), scripts/eval_replica.py:99-111."""
+    rel_e = np.linalg.inv(est[:-1]) @ est[1:]
+    rel_g = np.linalg.inv(gt[:-1]) @ gt[1:]
+    diff = rel_e[:, :3, 3] - rel_g[:, :3, 3]
+    fwd = rel_g[:, :3, 3] / (np.linalg.norm(rel_g[:, :3, 3], axis=1, keepdims=True) + 1e-9)
+    along = np.einsum("ij,ij->i", diff, fwd)
+    return float(np.linalg.norm(diff - along[:, None] * fwd, axis=1).mean()) * 100
+
+
+def gate60(seed: int):
+    cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "kitti_replica_ci.yaml"),
+                      gate60_overrides(seed))
+    ds = get_dataset(cfg)
+    slam = NerfLoamSLAM(cfg, ds)
+    t0 = time.perf_counter()
+    est = np.asarray(slam.run())
+    gt = ds.gt_trajectory()[: len(est)]
+    print(json.dumps({
+        "config": "replica_gate60",
+        "seed": seed,
+        "frames": len(est),
+        "ate_raw_m": evaluation.ate_rmse(est, gt, align=False),
+        "ate_aligned_m": evaluation.ate_rmse(est, gt, align=True),
+        "growth_events": int(sum(slam.overflow_events.values())),
+        "overflow_events": {k: int(v) for k, v in slam.overflow_events.items()},
+        "dropped_delta_events": int(slam.dropped_delta_events),
+        "drift_lat_cm_f": drift_lat_cm_f(est, gt),
+        "seconds": time.perf_counter() - t0,
+        "backend": jax.default_backend(),
+    }))
+
 
 def main():
+    if "--gate60" in sys.argv:
+        return gate60(int(sys.argv[sys.argv.index("--gate60") + 1]))
     quality = "--quality" in sys.argv
+    adam25 = "--adam25" in sys.argv
     overrides = (bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if quality else [])
+                 + (ADAM25 if adam25 else [])
                  + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"])
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
@@ -49,7 +110,8 @@ def main():
     poses = np.asarray(slam.finalize())
     gt = ds.gt_trajectory()[: len(poses)]
     print(json.dumps({
-        "config": "kitti_quality" if quality else "kitti_budget",
+        "config": ("kitti_quality" if quality else "kitti_adam25" if adam25
+                   else "kitti_budget"),
         "frames": len(poses),
         "ate_m": float(evaluation.ate_rmse(poses, gt, align=False)),
         "sdf_bias": [float(x) for x in slam.sdf_bias],

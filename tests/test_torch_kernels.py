@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K4 hit table, K1 hits field, K2 its backward,
-K8 active field, K3 GN normal equations, K7 voxel insert) against their
-plain torch twins on the card, at small shapes. On a machine
+K8 active field, K3 GN normal equations, K7 voxel insert, K6 recenter +
+active set, K5 reconcile + repack, K9a occupancy march, K9b CDF
+placement) against their plain torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
 run them on the card with
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`
@@ -14,7 +15,12 @@ division); features 1e-6; d xyz 1e-5 relative; d packed 1e-5 of its
 largest entry (float atomics add in a varying order); K8 integers and
 positions exact, features 1e-6; K3 H, b and loss 1e-4 relative (another
 summation order) and bit-stable from run to run; K7 every table equal
-(both elect the smallest slot)."""
+(both elect the smallest slot); K6 every table equal; K5 every table
+equal to the twin run on the CPU (f32 and bf16: both add each corner's
+deltas in ascending order, rounding after every add) and bit-identical
+between two calls; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
+equal and z within one f32 ulp; the grid render's gradients on the card
+1e-5 of the CPU's largest entry (K2's float atomics)."""
 
 import os
 
@@ -224,6 +230,101 @@ def test_insert_kernel_matches_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(before, ms))
 
 
+def test_active_set_kernels_match_plain(cuda):
+    ms, *_ = _case(cuda, seed=8)
+    before = [t.clone() for t in ms]
+    for cfg in (T_CFG, T_CFG._replace(active_cap=64)):  # the second truncates the set
+        for center in ((0.0, 0.0, 0.0), (3.7, -1.2, 0.4)):
+            c = torch.tensor(center, device=cuda)
+            n0 = vm.active_set_launches
+            kr, rr = vm.recenter(ms, cfg, c), vm.recenter_plain(ms, cfg, c)
+            kf, rf = vm.refresh_active(kr, cfg), vm.refresh_active_plain(kr, cfg)
+            torch.cuda.synchronize()
+            assert vm.active_set_launches == n0 + 2
+            for name in vm.MapState._fields:
+                assert torch.equal(getattr(kr, name), getattr(rr, name)), (center, name)
+                assert torch.equal(getattr(kf, name), getattr(rf, name)), (center, name)
+        assert int(rf.n_active) > 64  # the true count, past a truncated set
+    assert all(torch.equal(a, b) for a, b in zip(before, ms))
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
+def test_reconcile_kernel_matches_plain(cuda, emb_dtype):
+    ms, *_ = _case(cuda, seed=9)
+    ms = ms._replace(embeddings=ms.embeddings.to(emb_dtype))
+    ms = ms._replace(packed=vm.pack_embeddings(ms, T_CFG))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    A, n = ms.packed.shape[0], int(ms.n_active)
+    touched = (torch.rand((A,), generator=g, device=cuda) < 0.5) & (
+        torch.arange(A, device=cuda) < n)
+    new_packed = ms.packed + 0.05 * torch.randn(ms.packed.shape, generator=g, device=cuda)
+    cpu = vm.MapState(*[x.cpu() for x in ms])
+    for cap in (A, max(int(touched.sum()) // 3, 1)):  # the second truncates the touched set
+        n0 = vm.reconcile_launches
+        k1 = vm.reconcile(ms, T_CFG, new_packed, touched, cap)
+        k2 = vm.reconcile(ms, T_CFG, new_packed, touched, cap)
+        ref = vm.reconcile_plain(cpu, T_CFG, new_packed.cpu(), touched.cpu(), cap)
+        torch.cuda.synchronize()
+        assert vm.reconcile_launches == n0 + 2
+        for name in vm.Reconciled._fields:
+            assert torch.equal(getattr(k1, name), getattr(k2, name)), (cap, name)
+            assert torch.equal(getattr(k1, name).cpu(), getattr(ref, name)), (cap, name)
+        assert not torch.equal(k1.embeddings, ms.embeddings)
+
+
+def test_grid_sampler_kernels_match_plain(cuda):
+    ms, o, d, tc = _case(cuda, seed=10)
+    rc = T_RC._replace(sampler="grid", n_samples=32)
+    n0 = (trc.march_occupancy_launches, trc.place_samples_cdf_launches)
+    cdf, n_occ = trc.march_occupancy(ms, T_CFG, rc, o, d, tc)
+    pcdf, pn = trc.march_occupancy_plain(ms, T_CFG, rc, o, d, tc)
+    torch.cuda.synchronize()
+    assert torch.equal(cdf, pcdf) and torch.equal(n_occ, pn)
+    assert 0.3 < float((pn > 0).float().mean()) <= 1.0
+    g = torch.Generator(device=cuda).manual_seed(10)
+    u = trc.uniform_jitter((o.shape[0], rc.n_samples), g, cuda)
+    o2 = (o + 0.02).contiguous()
+    ker = trc.place_samples_cdf(ms, T_CFG, rc, pcdf, pn, o2, d, tc, u)
+    ref = trc.place_samples_cdf_plain(ms, T_CFG, rc, pcdf, pn, o2, d, tc, u)
+    torch.cuda.synchronize()
+    assert (trc.march_occupancy_launches, trc.place_samples_cdf_launches) == (n0[0] + 1,
+                                                                              n0[1] + 1)
+    for i, name in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+        assert torch.equal(ker[i], ref[i]), name
+    ulp = torch.nextafter(ref[0], torch.full_like(ref[0], float("inf"))) - ref[0]
+    assert bool(((ker[0] - ref[0]).abs() <= ulp).all())
+    assert 0.2 < float(ref[2].float().mean()) < 1.0
+
+
+def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
+    ms, o, d, tc = _case(cuda, seed=11)
+    rc = T_RC._replace(sampler="grid", n_samples=24)
+    occ = trc.march_occupancy_plain(ms, T_CFG, rc, o, d, tc)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    u = trc.uniform_jitter((o.shape[0], 24), g, cuda)
+    ez = torch.rand((o.shape[0], 8), generator=g, device=cuda) * 10.0
+    rv = torch.ones((o.shape[0],), dtype=torch.bool, device=cuda)
+    params = {"w": [torch.randn((16, 32), generator=g, device=cuda) * 0.3,
+                    torch.randn((32, 1), generator=g, device=cuda) * 0.3],
+              "b": [torch.zeros(32, device=cuda), torch.zeros(1, device=cuda)]}
+    grads, sdfs = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        st = type(ms)(*[x.to(dev) for x in ms])
+        packed = st.packed.clone().requires_grad_(True)
+        oo = o.to(dev).clone().requires_grad_(True)
+        dd = d.to(dev).clone().requires_grad_(True)
+        out = trender.render_rays(packed, {k: [w.to(dev) for w in v] for k, v in params.items()},
+                                  st, T_CFG, rc, oo, dd, tc.to(dev), rv.to(dev),
+                                  tuple(x.to(dev) for x in occ), u.to(dev),
+                                  extra=(st, T_CFG, ez.to(dev), rv.to(dev)))
+        torch.where(out.valid_mask, out.sdf, 0.0).sum().backward()
+        grads[dev.type] = [x.grad.cpu() for x in (packed, oo, dd)]
+        sdfs[dev.type] = out.sdf.detach().cpu()
+    assert float((sdfs["cuda"] - sdfs["cpu"]).abs().max()) <= 1e-5
+    for k, c in zip(grads["cuda"], grads["cpu"]):
+        assert float((k - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
 def test_wrappers_reject_other_devices():
     ms, o, d, tc = _case("cpu")
     meta = [x.to("meta") for x in (o, d, tc)]
@@ -241,14 +342,28 @@ def test_wrappers_reject_other_devices():
                       a["d_meas"], a["depth_ok"], None)
     with pytest.raises(ValueError, match="unsupported device"):
         vm.insert_points(ms, T_CFG, o.to("meta"), torch.ones(len(o), dtype=torch.bool))
+    ms_meta = type(ms)(*[x.to("meta") for x in ms])
+    with pytest.raises(ValueError, match="unsupported device"):
+        vm.recenter(ms_meta, T_CFG, torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        vm.refresh_active(ms_meta, T_CFG)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vm.reconcile(ms, T_CFG, ms.packed.to("meta"), torch.ones(len(ms.packed), dtype=torch.bool),
+                     8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trc.march_occupancy(ms, T_CFG, T_RC, *meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trc.place_samples_cdf(ms, T_CFG, T_RC, torch.zeros(len(o), 4), torch.ones(len(o)),
+                              *meta, torch.zeros(len(o), 4))
 
 
 def test_kernel_library_is_built_lazily():
     # importing the port builds nothing; one library per source, its name
     # carrying a hash of that source
     srcs = kernels.sources()
-    assert {os.path.basename(s) for s in srcs} >= {"hit_table.cu", "hits_field.cu",
-                                                   "active_field.cu", "gn_system.cu", "insert.cu"}
+    assert {os.path.basename(s) for s in srcs} >= {
+        "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
+        "active_set.cu", "reconcile.cu", "grid_sampler.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

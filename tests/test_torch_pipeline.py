@@ -113,7 +113,8 @@ def test_kitti_budget_json_matches_jax_config():
 
 
 @pytest.mark.parametrize("knob", [
-    "tpu_specs.sampler=grid", "tpu_specs.track_method=adam", "tpu_specs.defer_sync=true",
+    "tpu_specs.track_resample_rays=true", "tpu_specs.reconcile_mode=sum",
+    "tpu_specs.defer_sync=true",
     "tpu_specs.dp=2", "tpu_specs.s2s_weight=5.0",
     "tpu_specs.exact_embedding_grads=true", "tpu_specs.maturity_warmup=4",
     "debug_args.mesh_freq=100", "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
@@ -135,10 +136,15 @@ def test_unported_knobs_raise(knob):
      lambda s: s.tp.surface_anchor == 1 and s.bp_random.surface_anchor == 1),
     ("tpu_specs.bias_correction=true",
      lambda s: s.bias_correction and s.bp_current.measure_bias and s.bp_random.measure_bias),
+    ("tpu_specs.sampler=grid",
+     lambda s: s.rc_track.sampler == "grid" and s.rc_map.sampler == "grid"),
+    ("tpu_specs.track_method=adam",
+     lambda s: s.track_method == "adam" and s.tp_first.num_iterations == 5 * s.tp.num_iterations),
 ])
 def test_ported_knobs_construct(knob, check):
-    """The quality-stack knobs (queue-1 item 10) no longer raise: each
-    reaches the map, tracker and BA parameters it sets."""
+    """The quality-stack knobs (queue-1 item 10), the grid sampler and the
+    Adam tracker (item 11) no longer raise: each reaches the map, tracker
+    and BA parameters it sets."""
     cfg = load_config(CFG_PATH, SLICE + [knob])
     slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
     assert check(slam)

@@ -169,6 +169,46 @@ def test_reconcile_pack_bump_match_jax(emb_dtype):
         np.asarray(jvm.bump_upd_count(j, cfg_j, jnp.asarray(touched))))
 
 
+@pytest.mark.parametrize("emb_dtype", ["float32", "bfloat16"])
+def test_reconcile_adds_in_jax_order(emb_dtype):
+    """Exactly JAX's table: a corner shared by k touched voxels takes k adds
+    in index order, each rounded to the embedding type, as XLA applies
+    ``at[].add`` (the twin of K5 splits the duplicates into rounds of
+    distinct indices; a bf16 ``index_add_`` on the CPU would sum them in
+    float32 and round once). The deltas are small against the embeddings,
+    so a single rounding and k roundings differ in bf16."""
+    cfg_j, cfg_t = JCFG._replace(emb_dtype=emb_dtype), TCFG._replace(emb_dtype=emb_dtype)
+    j = jvm.refresh_active(_j_state(), cfg_j)
+    rng = np.random.default_rng(11)
+    emb = (1.0 + rng.uniform(size=j.embeddings.shape)).astype(np.float32)
+    j = jvm.refresh_active(j._replace(embeddings=jnp.asarray(emb).astype(j.embeddings.dtype)),
+                           cfg_j)
+    t = map_state_from_numpy(jax.device_get(j), device="cpu")
+    A, n = int(j.packed.shape[0]), int(j.n_active)
+    new_packed = np.asarray(j.packed) + rng.uniform(1e-3, 3e-3, size=j.packed.shape).astype(
+        np.float32)
+    touched = np.arange(A) < n
+    je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jnp.asarray(touched), A)
+    te = tvm.reconcile_packed(t, cfg_t, torch.as_tensor(new_packed), torch.as_tensor(touched), A)
+    np.testing.assert_array_equal(to_numpy(te), np.asarray(je, np.float32))
+    assert not np.array_equal(np.asarray(je, np.float32), np.asarray(j.embeddings, np.float32))
+    if emb_dtype == "bfloat16":  # the single-rounding sum would differ here
+        once = torch.as_tensor(np.asarray(j.embeddings, np.float32))
+        cflat, delta = _corner_deltas(t, cfg_t, torch.as_tensor(new_packed), A)
+        once = once.index_add_(0, cflat, delta.to(torch.bfloat16).float()).to(torch.bfloat16)
+        assert not torch.equal(once.float(), torch.as_tensor(to_numpy(te)))
+
+
+def _corner_deltas(t, cfg, new_packed, A):
+    """(corner rows, mean deltas) of every active voxel, as reconcile_packed
+    forms them."""
+    F = cfg.feat_dim
+    cflat = t.corner_idx[t.active_ids[:int(t.n_active)].long()].reshape(-1).long()
+    delta = (new_packed - t.packed)[:int(t.n_active)].reshape(-1, F)
+    mult = torch.zeros(cfg.capacity).index_add_(0, cflat, torch.ones(len(cflat)))
+    return cflat, delta / mult[cflat][:, None]
+
+
 def test_grow_keeps_rows():
     t = tvm.refresh_active(_t_state(), TCFG)
     big, cfg = tvm.grow(t, TCFG, TCFG.capacity * 2)
