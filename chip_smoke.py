@@ -8,28 +8,40 @@
    source, all at once, and prints the build seconds.
 3. Kernel phase, at the shapes of the quality-stack config on a map built
    by inserting the first frames of the synthetic world with support
-   voxels: K4 (hit table), K1 (hits field), K2 (its backward), K8 (active
+   voxels: K4 (hit table), K1 (hits field), K2 (its backward, bit-identical across two calls), K8 (active
    field: band columns and the bias probe), K3 (GN normal equations), K7
    (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
    bf16 and f32, bit-identical across two calls) against their plain
    torch versions; K9a (occupancy march) and K9b (CDF placement) at the
    Adam tracker's shapes (2048 rays x 100 slots, 64 samples) and at the
-   replica gate's BA superset (768 rays x 75 slots, 32 samples).
+   replica gate's BA superset (768 rays x 75 slots, 32 samples); K10a
+   (mesh lattice) and K10b (marching tetrahedra) over every surface voxel
+   at res 2 and res 4 with bf16 and f32 embeddings; K11a (range image) at
+   one frame's 65,536 points and 64 x 1024 pixels and K11b (point-to-plane
+   system) at 2048 rays.
    Prints each kernel's max error, its median time and its twin's (CUDA
-   events), the least time the card could take (bound) and, for K3 and
-   K9b, one PyTorch call of the same function (torch.einsum pair,
+   events), the least time the card could take (bound) and, for K3, K11b
+   and K9b, one PyTorch call of the same function (torch.einsum pair,
    torch.searchsorted).
 4. Main paths through NerfLoamSLAM_torch on the card:
    - 30 frames (process_first_frame, 29 x process_frame, finalize) of the
      KITTI-budget config (nerfloam_tpu_torch/configs/kitti_budget.json),
      of the quality stack (configs/kitti_quality.json: support voxels
-     both sides, 8 band samples, bias transfer) and of the Adam tracker
-     at the KITTI budget (configs/kitti_adam25.json: 25 iterations x
-     2048 rays x 64 grid samples, BA on the hit table);
+     both sides, 8 band samples, bias transfer; run with a RunLogger in a
+     temporary directory, so finalize writes both meshes and the pose
+     files, which are read back and checked), of the Adam tracker at the
+     KITTI budget (configs/kitti_adam25.json: 25 iterations x 2048 rays x
+     64 grid samples, BA on the hit table) and of the quality stack with
+     the scan-to-scan term (configs/kitti_quality_s2s.json: s2s_weight 10,
+     range image 64 x 1024);
    - the replica gate (configs/replica_gate60.json: GN tracker and BA on
      the grid sampler, the quality stack, the auto touched_cap), 60
      frames for each of seeds 0 and 1, held to the JAX gate's ATE
-     thresholds with growth events and no dropped deltas.
+     thresholds with growth events and no dropped deltas, and to its mesh
+     thresholds (f_score, Chamfer-L1) on the cleaned mesh;
+   - checkpoint and resume on the quality config: 15 frames, save, load
+     into a fresh object (every saved table compared), 15 more frames and
+     finalize from the loaded one.
    Each path's launch counts are zeroed just before it and read just
    after. Prints scans/s over frames 6 to the end, sections, host syncs,
    overflow counters, the final sdf_bias and the ATE against ground
@@ -49,6 +61,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -57,16 +70,24 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core import render
+from nerfloam_tpu_torch.core import scan2scan as s2s
 from nerfloam_tpu_torch.core import tracking as tr
 from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
 from nerfloam_tpu_torch.core.tracking import _ray_dirs, t_cap_for
 from nerfloam_tpu_torch.data import get_dataset
+from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.ops import raycast, se3
+from nerfloam_tpu_torch.ops import marching, raycast, se3
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.utils.checkpoint import (
+    DERIVED_MAP_FIELDS,
+    load_checkpoint,
+    save_checkpoint,
+)
 from nerfloam_tpu_torch.utils.config import finalize
-from nerfloam_tpu_torch.utils.evaluation import ate_rmse
+from nerfloam_tpu_torch.utils.evaluation import ate_rmse, score_mesh
+from nerfloam_tpu_torch.utils.logger import RunLogger, read_ply
 
 # ATE (m, no alignment) of the JAX package on the same config and frame
 # count, measured on a CPU from a checkout of the JAX package:
@@ -76,32 +97,38 @@ from nerfloam_tpu_torch.utils.evaluation import ate_rmse
 # defer_sync off, frames fed as bench.py feeds them, then
 # evaluation.ate_rmse(finalize(), gt, align=False)); kitti_adam25 run on
 # 2026-10-16 (1341 s): the JAX Adam tracker diverges on this sequence at
-# this learning rate, so its bound is loose
+# this learning rate, so its bound is loose; kitti_quality_s2s is
+# `--quality --s2s` (tpu_specs.s2s_weight=10.0), run on 2026-10-16 (841 s)
 ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826,
-           "kitti_adam25": 49.932506364901286}
-# replica_gate60: the JAX gate's thresholds, tests/test_replica_gates.py:77-78
+           "kitti_adam25": 49.932506364901286, "kitti_quality_s2s": 1.4469814645550143}
+# replica_gate60: the JAX gate's thresholds, tests/test_replica_gates.py:77-80
 GATE60_ATE_RAW_MAX = 0.27
 GATE60_ATE_ALIGNED_MAX = 0.17
+GATE60_F_SCORE_MIN = 0.70
+GATE60_CHAMFER_L1_MAX = 0.37
+CKPT_FRAME = 14            # the checkpoint phase saves after this frame
 GATE60_SEEDS = (0, 1)
 WARMUP_FRAMES = 6
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 _MAP = ("insert", "reconcile", "active_set")
+_MESH = ("mesh_lattice", "marching_tets")
+_QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "active_field_fwd")
 PATH_KERNELS = {           # kernels each main path must launch
     "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP,
-    "kitti_quality": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system",
-                      "active_field_fwd") + _MAP,
+    "kitti_quality": _QUALITY + _MAP + _MESH,
+    "kitti_quality_s2s": _QUALITY + _MAP + ("build_prev_scan", "s2s_system"),
     "kitti_adam25": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                      "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP,
     "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                       "hits_field_bwd", "gn_system") + _MAP,
+                       "hits_field_bwd", "gn_system") + _MAP + _MESH,
 }
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
     "hit_table": ("hit_table_kernel",),
     "hits_field_fwd": ("hits_field_fwd_kernel",),
-    "hits_field_bwd": ("hits_field_bwd_kernel",),
+    "hits_field_bwd": ("hits_field_bwd_kernel", "hits_field_bwd_rows_kernel"),
     "active_field_fwd": ("active_field_fwd_kernel",),
     "gn_system": ("gn_partial_kernel", "gn_final_kernel"),
     "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
@@ -112,6 +139,11 @@ KERNEL_FUNCTIONS = {
                   "active_pack_kernel"),
     "march_occupancy": ("march_occupancy_kernel",),
     "place_samples_cdf": ("place_samples_kernel",),
+    "mesh_lattice": ("mesh_lattice_kernel",),
+    "marching_tets": ("marching_tets_kernel",),
+    "build_prev_scan": ("s2s_init_kernel", "s2s_span_kernel", "s2s_link_kernel",
+                        "s2s_pixel_kernel", "s2s_normal_kernel"),
+    "s2s_system": ("s2s_partial_kernel", "s2s_final_kernel"),
 }
 
 
@@ -175,6 +207,10 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "reconcile": (vm, "reconcile_launches"),
     "march_occupancy": (raycast, "march_occupancy_launches"),
     "place_samples_cdf": (raycast, "place_samples_cdf_launches"),
+    "mesh_lattice": (mesher, "mesh_lattice_launches"),
+    "marching_tets": (marching, "marching_tets_launches"),
+    "build_prev_scan": (s2s, "build_prev_scan_launches"),
+    "s2s_system": (s2s, "s2s_system_launches"),
 }
 
 
@@ -248,10 +284,11 @@ def rows_read(aid, valid):
     return int(torch.unique(aid[valid]).numel())
 
 
-def kernel_phase(slam, ds, rc_gate):
-    """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6
-    and K5 at the quality shapes, K9a and K9b at the Adam tracker's and the
-    replica gate's BA superset shapes (``rc_gate``)."""
+def kernel_phase(slam, ds, rc_gate, sp):
+    """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6,
+    K5, K10a and K10b at the quality shapes, K9a and K9b at the Adam
+    tracker's and the replica gate's BA superset shapes (``rc_gate``), K11a
+    and K11b at the s2s config's image (``sp``, its Scan2ScanParams)."""
     dev = slam.device
     cfg, rc_t, rc_m = slam.map_cfg, slam.rc_track, slam.rc_map
     gen = torch.Generator(device=dev)
@@ -341,6 +378,8 @@ def kernel_phase(slam, ds, rc_gate):
         rx, rp = render.hits_field_bwd_plain(dfeats, xyz, aid, valid, ms.packed,
                                              cfg.voxel_size, True)
         torch.cuda.synchronize()
+        kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+        check(torch.equal(kx, kx2) and torch.equal(kp, kp2), f"K2 differs between two calls ({name})")
         ex = max_abs(kx, rx) / max(float(rx.abs().max()), 1e-30)
         ep = max_abs(kp, rp)
         check(ex <= 1e-5, f"K2 d xyz rel error {ex} ({name})")
@@ -494,6 +533,8 @@ def kernel_phase(slam, ds, rc_gate):
                           10 * P, dev=partial(vm.insert_points, *args7)))
     records += map_kernels(slam, ms, frames, gen)
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, p, c, v, pose, gen)
+    records += mesh_kernels(slam, ms)
+    records += s2s_kernels(slam, sp, frames, gen)
     return records
 
 
@@ -651,10 +692,136 @@ def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
                    dev=a["dev_b"])]
 
 
-def main_path(name, slam, ds, label=None):
-    """One run of a config through NerfLoamSLAM_torch: every frame of its
-    dataset (30, or the replica gate's 60), then finalize."""
-    label = label or name
+def mesh_kernels(slam, ms):
+    """K10a and K10b over every surface voxel of the kernel phase's map, at
+    res 2 (the shipped mesh_res) and res 4 (27 cells per voxel, through the
+    cell table), with bf16 and f32 embeddings; the twins run in chunks of
+    voxels. Timed at res 2 with the config's embedding type."""
+    dev, cfg = slam.device, slam.map_cfg
+    dec, cdt = slam.state.decoder_params, getattr(torch, slam.compute_dtype)
+    ids = vm.surface_voxel_ids(ms)
+    B = ids.numel()
+    step = 32768
+    for dt in (torch.bfloat16, torch.float32):
+        st = ms._replace(embeddings=ms.embeddings.to(dt))
+        for res in (2, 4):
+            cct = mesher._lattice_tables(res, dev)[2]
+            ncell = cct.shape[0]
+            feats, pos = mesher.mesh_lattice(st, cfg, ids, res)
+            sdf = mesher.decoder_apply(dec, feats, cdt)[..., 0]
+            tris, valid = marching.marching_tets_lattice(sdf, pos, cct, ids)
+            torch.cuda.synchronize()
+            for i in range(0, B, step):
+                rf, rp = mesher.mesh_lattice_plain(st, cfg, ids[i:i + step], res)
+                check(torch.equal(feats[i:i + step], rf), f"K10a feats differ (res {res}, {dt})")
+                check(torch.equal(pos[i:i + step], rp), f"K10a pos differ (res {res}, {dt})")
+                rt, rv = marching.marching_tets_lattice_plain(sdf[i:i + step], rp, cct,
+                                                              ids[i:i + step])
+                sl = slice(i * ncell, (i + step) * ncell)
+                check(torch.equal(valid[sl], rv), f"K10b valid differs (res {res}, {dt})")
+                check(torch.equal(tris[sl], rt), f"K10b tris differ (res {res}, {dt})")
+            if res == 2:
+                rows = st.embeddings[st.corner_idx[ids.long()].clamp(min=0).long()].float()
+                check(torch.equal(feats, rows), f"K10a res 2 is not the corner rows ({dt})")
+            log(f"[K10] res {res} {dt}: {B} surface voxels, {B * ncell} cells, "
+                f"{int(valid.sum())} triangles; feats, pos, tris and valid equal to the twins")
+            del feats, pos, sdf, tris, valid
+    res, st = 2, ms
+    S, F, esz = res ** 3, cfg.feat_dim, ms.embeddings.element_size()
+    cct = mesher._lattice_tables(res, dev)[2]
+    ncell = cct.shape[0]
+    feats, pos = mesher.mesh_lattice(st, cfg, ids, res)
+    sdf = mesher.decoder_apply(dec, feats, cdt)[..., 0]
+    corners = int(torch.unique(st.corner_idx[ids.long()].clamp(min=0)).numel())
+    ka = median_ms(lambda: mesher.mesh_lattice(st, cfg, ids, res))
+    pa = median_ms(lambda: mesher.mesh_lattice_plain(st, cfg, ids, res))
+    kb = median_ms(lambda: marching.marching_tets_lattice(sdf, pos, cct, ids))
+    pb = median_ms(lambda: marching.marching_tets_lattice_plain(sdf, pos, cct, ids))
+    dec_ms = median_ms(lambda: mesher.decoder_apply(dec, feats, cdt))
+    log(f"[K10] res 2, {B} voxels: the decoder between K10a and K10b {dec_ms:.4f} ms")
+    return [
+        # ids, corner ids and coords per voxel and the distinct corner rows
+        # in; feats and pos out
+        record("mesh_lattice", "mesh.cu", "nerfloam_tpu/map/mesher.py:59", 0.0, ka, pa,
+               B * (4 + 32 + 12) + corners * F * esz + B * S * (F + 3) * 4, B * S * (15 * F + 6),
+               dev=partial(mesher.mesh_lattice, st, cfg, ids, res)),
+        # sdf and pos per lattice sample, the ids and the cell table in; 12
+        # triangle slots and their mask per cell out
+        record("marching_tets", "mesh.cu", "nerfloam_tpu/ops/marching.py:63", 0.0, kb, pb,
+               B * S * 16 + B * 4 + ncell * 32 + B * ncell * 12 * 37, B * ncell * 6 * 60,
+               dev=partial(marching.marching_tets_lattice, sdf, pos, cct, ids)),
+    ]
+
+
+def s2s_kernels(slam, sp, frames, gen):
+    """K11a on one frame's padded points (points_pad x the config's image)
+    and K11b on the next frame's 2048 tracker rays at a pose 5 cm off, both
+    against their twins; K11b's library call is the einsum pair on J, w and
+    r computed as the twin computes them."""
+    dev = slam.device
+    p0, _, v0 = frames[0].device_arrays(dev)
+    pose0 = torch.as_tensor(frames[0].pose6, device=dev)
+    k1 = s2s.build_prev_scan(sp, p0, v0, pose0)
+    k2 = s2s.build_prev_scan(sp, p0, v0, pose0)
+    ref = s2s.build_prev_scan_plain(sp, p0, v0, pose0)
+    torch.cuda.synchronize()
+    e11a = 0.0
+    for nm in s2s.PrevScan._fields:
+        check(torch.equal(getattr(k1, nm), getattr(k2, nm)), f"K11a {nm} differs between two calls")
+        check(torch.equal(getattr(k1, nm), getattr(ref, nm)), f"K11a {nm} differs from the twin")
+    P, total = p0.shape[0], sp.n_elev * sp.n_az
+    n_ok = int((v0 & (torch.linalg.norm(p0, dim=-1) > sp.min_depth)
+                & (torch.linalg.norm(p0, dim=-1) < sp.max_depth)).sum())
+    log(f"[K11a] {P} points ({n_ok} in range) into {sp.n_elev} x {sp.n_az}: "
+        f"{int(ref.pix_valid.sum())} valid pixels, elevation span "
+        f"[{float(ref.elev_min):.4f}, {float(ref.elev_max):.4f}] rad; every output equal to the "
+        "twin and bit-identical across two calls")
+    ka = median_ms(lambda: s2s.build_prev_scan(sp, p0, v0, pose0))
+    pa = median_ms(lambda: s2s.build_prev_scan_plain(sp, p0, v0, pose0), n=5)
+
+    p1, _, v1 = frames[1].device_arrays(dev)
+    idx, rvalid = sample_ray_indices(v1, slam.tp.n_rays, gen)
+    pts = p1[idx]
+    pose1 = torch.as_tensor(frames[1].pose6, device=dev) + torch.tensor(
+        [0.05, -0.03, 0.01, 0.0, 0.002, -0.003], device=dev)
+    a = (sp, ref, pose1, pts, rvalid)
+    kH, kb, kl = s2s.s2s_system(*a)
+    kH2, kb2, kl2 = s2s.s2s_system(*a)
+    rH, rb, rl = s2s.s2s_system_plain(*a)
+    torch.cuda.synchronize()
+    check(torch.equal(kH, kH2) and torch.equal(kb, kb2) and torch.equal(kl, kl2),
+          "K11b differs between two runs")
+    e11b = 0.0
+    for nm, k, r in (("H", kH, rH), ("b", kb, rb), ("loss", kl, rl)):
+        rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
+        check(rel <= 1e-5, f"K11b {nm} rel error {rel}")
+        e11b = max(e11b, max_abs(k, r))
+        log(f"[K11b] {nm}: rel err {rel:.3g} (max |{nm}| {float(r.abs().max()):.4g})")
+    p_w, t, n, r, w = s2s._associate(*a)
+    n_assoc = int((w > 0).sum())
+    check(n_assoc >= 64, f"K11b: only {n_assoc} associated rays")
+    J = torch.cat([n, s2s._cross(p_w - t, n)], -1)
+    Jw = J * w[:, None]
+    lib_ms = median_ms(lambda: (torch.einsum("ni,nj->ij", Jw, J), torch.einsum("ni,n->i", Jw, r)))
+    kb_ms = median_ms(lambda: s2s.s2s_system(*a))
+    pb_ms = median_ms(lambda: s2s.s2s_system_plain(*a))
+    N = pts.shape[0]
+    log(f"[K11b] {N} rays: {n_assoc} associated (weight > 0)")
+    return [
+        # points + valid and the pose in; q_w, n_w, validity, depth per
+        # pixel and the span out
+        record("build_prev_scan", "scan2scan.cu", "nerfloam_tpu/core/scan2scan.py:79", e11a, ka, pa,
+               P * 13 + 48 + total * 29 + 8, P * 60 + total * 90,
+               dev=partial(s2s.build_prev_scan, sp, p0, v0, pose0)),
+        # rays + valid, two poses and the span in, one pixel (q, n, validity,
+        # depth) per ray in; H, b, loss out
+        record("s2s_system", "scan2scan.cu", "nerfloam_tpu/core/scan2scan.py:158", e11b, kb_ms,
+               pb_ms, N * 13 + 96 + 8 + N * 29 + 172, N * 160, lib_ms,
+               dev=partial(s2s.s2s_system, *a)),
+    ]
+
+
+def make_frames(slam, ds):
     frames = []
     for i in range(len(ds)):
         idx, pts, cos, _ = ds[i]
@@ -662,6 +829,64 @@ def main_path(name, slam, ds, label=None):
     frames[0].pose6 = pose6_from_matrix_np(ds.get_init_pose(0))
     for f in frames:
         f.device_arrays(slam.device)
+    return frames
+
+
+def mesh_report(tag, slam):
+    """The logger's files read back and checked, and the mesh's sizes and
+    times (CUDA-event sections of the two meshes finalize wrote: the device
+    extract with its copy to the host, the host weld) plus one cleaned
+    extraction."""
+    misc, mesh = (os.path.join(slam.logger.dir, d) for d in ("misc", "mesh"))
+    poses = np.load(os.path.join(misc, "frame_poses.npy"))
+    check(poses.shape == (len(slam.state.final_poses), 4, 4), "frame_poses.npy has a wrong shape")
+    check(np.loadtxt(os.path.join(misc, "frame_poses.txt")).shape == (len(poses), 12),
+          "frame_poses.txt is not KITTI format")
+    check(np.load(os.path.join(misc, "tracking_trajectory.npy")).shape == poses.shape,
+          "tracking_trajectory.npy has a wrong shape")
+    for fname in ("final_mesh_noreplay.ply", "final_mesh.ply"):
+        v, f = read_ply(os.path.join(mesh, fname))
+        check(f is not None and len(f) > 0, f"{fname} has no face")
+        check(np.isfinite(v).all(), f"{fname} has a non-finite vertex")
+        check(f.min() >= 0 and f.max() < len(v), f"{fname} has a face index out of range")
+        check(bool(((f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])).all()),
+              f"{fname} has a degenerate face")
+    n_surf = int(vm.surface_voxel_ids(slam.state.map_state).numel())
+    tris = mesher.extract_triangles(slam.state.map_state, slam.map_cfg, slam.state.decoder_params,
+                                    slam.mesh_res, slam.compute_dtype)
+    vc, fc = slam.extract_mesh(clean=True)
+    check(0 < len(fc) <= len(f), "clean_mesh kept no face or grew the mesh")
+    sec = slam.prof.summary()
+    log(f"{tag} mesh: {n_surf} surface voxels, {len(tris)} triangles, {len(v)} vertices, "
+        f"{len(f)} faces ({len(fc)} after clean_mesh); ms per mesh: device extract "
+        f"{sec['mesh_extract']['mean_ms']:.3f}, host weld {sec['mesh_weld']['mean_ms']:.3f}, "
+        f"clean {sec['mesh_clean']['mean_ms']:.3f} "
+        f"({sec['mesh_extract']['count']} extractions)")
+
+
+def gate_mesh(tag, slam, ds, poses, gt):
+    """The mesh half of the replica gate (scripts/eval_replica.py:130-141):
+    the cleaned mesh, 200,000 samples moved by the trajectory's Umeyama
+    transform, against the observed ground-truth cloud at 0.2 m."""
+    verts, faces = slam.extract_mesh(clean=True)
+    check(len(faces) > 0, f"{tag} the cleaned mesh is empty")
+    m = score_mesh(verts, faces, poses, gt, ds, n_samples=200000, f_threshold=0.2)
+    log(f"{tag} mesh: {len(verts)} vertices, {len(faces)} faces after clean_mesh; f_score "
+        f"{m['f_score']:.4f} (gate > {GATE60_F_SCORE_MIN}), chamfer_l1 {m['chamfer_l1_m']:.4f} m "
+        f"(gate < {GATE60_CHAMFER_L1_MAX}), accuracy {m['accuracy_m']:.4f} m, completeness "
+        f"{m['completeness_m']:.4f} m, precision {m['precision']:.4f}, recall {m['recall']:.4f}")
+    check(m["f_score"] > GATE60_F_SCORE_MIN, f"f_score {m['f_score']} not above the gate ({tag})")
+    check(m["chamfer_l1_m"] < GATE60_CHAMFER_L1_MAX,
+          f"chamfer_l1 {m['chamfer_l1_m']} not under the gate ({tag})")
+
+
+def main_path(name, slam, ds, label=None):
+    """One run of a config through NerfLoamSLAM_torch: every frame of its
+    dataset (30, or the replica gate's 60), then finalize (with a logger:
+    both meshes and the pose files) and, on the replica gate, the cleaned
+    mesh and its score. The mesh work lies outside the scans/s window."""
+    label = label or name
+    frames = make_frames(slam, ds)
 
     zero_counters()
     t_start = time.perf_counter()
@@ -677,12 +902,16 @@ def main_path(name, slam, ds, label=None):
     poses = np.asarray(slam.finalize())
     torch.cuda.synchronize()
     total = time.perf_counter() - t_start
+    gt = ds.gt_trajectory()[: len(poses)]
+    tag = f"[main {label}]"
+    if name == "replica_gate60":
+        gate_mesh(tag, slam, ds, poses, gt)
+    if slam.logger is not None:
+        mesh_report(tag, slam)
     launches = counters()
     n_timed = len(frames) - WARMUP_FRAMES
     scans = n_timed / dt
-    gt = ds.gt_trajectory()[: len(poses)]
     ate = ate_rmse(poses, gt, align=False)
-    tag = f"[main {label}]"
     log(f"{tag} {len(frames)} frames in {total:.2f} s (finalize included); "
         f"scans/s over frames {WARMUP_FRAMES}-{len(frames) - 1}: {scans:.4f}")
     log(f"{tag} launches: {launches}; per frame ({len(frames)} frames + finalize): "
@@ -703,6 +932,14 @@ def main_path(name, slam, ds, label=None):
     for k in PATH_KERNELS[name]:
         check(launches[k] > 0, f"kernel {k} never launched on the {label} path")
     check(slam.dropped_delta_events == 0, "dropped deltas")
+    if name == "kitti_quality_s2s":
+        # K11a once per tracked frame (and per replayed one), K11b once per GN iteration
+        replays = sum(slam.overflow_events.values())
+        n_a, n_b = launches["build_prev_scan"], launches["s2s_system"]
+        check(len(frames) - 1 <= n_a <= len(frames) - 1 + replays,
+              f"K11a launched {n_a} times for {len(frames) - 1} tracked frames")
+        check(n_b == launches["gn_system"],
+              f"K11b launched {n_b} times for {launches['gn_system']} GN iterations")
     if name == "replica_gate60":
         aligned = ate_rmse(poses, gt, align=True)
         growth = sum(slam.overflow_events.values())
@@ -729,6 +966,74 @@ def drift_lat_cm_f(est, gt):
     fwd = rel_g[:, :3, 3] / (np.linalg.norm(rel_g[:, :3, 3], axis=1, keepdims=True) + 1e-9)
     along = np.einsum("ij,ij->i", diff, fwd)
     return float(np.linalg.norm(diff - along[:, None] * fwd, axis=1).mean()) * 100
+
+
+def checkpoint_phase(cfg, ds, workdir):
+    """Checkpoint and resume on the quality config: frames 0 to CKPT_FRAME,
+    save, load into a fresh object, compare all that was saved, then the
+    remaining frames and finalize from the loaded object, its ATE held to
+    the config's bound."""
+    tag = "[checkpoint kitti_quality]"
+    a = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    frames = make_frames(a, ds)
+    a.process_first_frame(frames[0])
+    for f in frames[1:CKPT_FRAME + 1]:
+        a.process_frame(f)
+    path = os.path.join(workdir, "ckpt", f"{CKPT_FRAME:05d}")
+    t0 = time.perf_counter()
+    save_checkpoint(path, a)
+    t_save = time.perf_counter() - t0
+    b = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    t0 = time.perf_counter()
+    load_checkpoint(path, b)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    sa, sb = a.state, b.state
+    for nm in vm.MapState._fields:
+        if nm not in DERIVED_MAP_FIELDS:
+            check(torch.equal(getattr(sa.map_state, nm), getattr(sb.map_state, nm)),
+                  f"checkpoint: map table {nm} differs")
+    for nm in DERIVED_MAP_FIELDS:  # rebuilt from the saved tables on both sides
+        check(torch.equal(getattr(sa.map_state, nm), getattr(sb.map_state, nm)),
+              f"checkpoint: derived table {nm} differs")
+    for k in ("w", "b"):
+        check(all(torch.equal(x, y) for x, y in zip(sa.decoder_params[k], sb.decoder_params[k])),
+              f"checkpoint: decoder {k} differs")
+    check(len(sa.keyframes) == len(sb.keyframes) > 0, "checkpoint: keyframe count differs")
+    for ka, kb in zip(sa.keyframes, sb.keyframes):
+        check(ka.index == kb.index and ka.n_points == kb.n_points
+              and all(np.array_equal(getattr(ka, n), getattr(kb, n))
+                      for n in ("points", "points_cos", "valid", "pose6")),
+              "checkpoint: a keyframe differs")
+    check(sa.keyframes.index(sa.current_keyframe) == sb.keyframes.index(sb.current_keyframe),
+          "checkpoint: the current keyframe differs")
+    check((a.bp_current.touched_cap, a.bp_random.touched_cap, a.insert_cand_cap, a.map_cfg)
+          == (b.bp_current.touched_cap, b.bp_random.touched_cap, b.insert_cand_cap, b.map_cfg),
+          "checkpoint: budgets differ")
+    check(torch.equal(a.generator.get_state(), b.generator.get_state()),
+          "checkpoint: the device generator's state differs")
+    check(a.pyrng.getstate() == b.pyrng.getstate(), "checkpoint: the host generator differs")
+    check(np.array_equal(a.sdf_bias, b.sdf_bias) and np.array_equal(sa.rel_pose, sb.rel_pose)
+          and sa.frames_processed == sb.frames_processed == CKPT_FRAME + 1
+          and np.array_equal(sa.last_frame.pose6, sb.last_frame.pose6)
+          and len(sa.frame_poses) == len(sb.frame_poses),
+          "checkpoint: bookkeeping differs")
+    size_mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+    log(f"{tag} saved after frame {CKPT_FRAME} in {t_save:.2f} s ({size_mb:.1f} MB), loaded in "
+        f"{t_load:.2f} s; map tables, decoder, {len(sb.keyframes)} keyframes, budgets and both "
+        "generator states equal")
+    del a
+    for f in frames[CKPT_FRAME + 1:]:
+        b.process_frame(f)
+    poses = np.asarray(b.finalize())
+    torch.cuda.synchronize()
+    gt = ds.gt_trajectory()[: len(poses)]
+    ate = ate_rmse(poses, gt, align=False)
+    log(f"{tag} resumed frames {CKPT_FRAME + 1}-{len(frames) - 1} + finalize: {len(poses)} poses, "
+        f"ATE {ate:.4f} m (bound {ate_bound('kitti_quality'):.4f} m)")
+    check(len(poses) == len(frames) and np.isfinite(poses).all(), "resumed run lost poses")
+    check(b.dropped_delta_events == 0, "dropped deltas in the resumed run")
+    check(ate <= ate_bound("kitti_quality"), f"resumed ATE {ate} above bound")
 
 
 def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
@@ -793,17 +1098,25 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    cfgs = {n: load_cfg(here, n) for n in ("kitti_budget", "kitti_quality", "kitti_adam25")}
-    ds = get_dataset(cfgs["kitti_quality"])  # the three KITTI-budget configs share the data
+    kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s")
+    cfgs = {n: load_cfg(here, n) for n in kitti}
+    ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
     rc_gate = NerfLoamSLAM_torch(gate[0], None, device="cuda").rc_map
+    sp = NerfLoamSLAM_torch(cfgs["kitti_quality_s2s"], None, device="cuda").tp.s2s
     records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds,
-                           rc_gate)
+                           rc_gate, sp)
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
     results = {}
-    for n in ("kitti_budget", "kitti_quality", "kitti_adam25"):
-        results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda"), ds)
+    with tempfile.TemporaryDirectory() as workdir:
+        for n in kitti:
+            logger = (RunLogger(workdir, n, config=cfgs[n].as_dict()) if n == "kitti_quality"
+                      else None)
+            results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda",
+                                                         logger=logger), ds)
+            torch.cuda.empty_cache()
+        checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
     gate_ds = {s_: get_dataset(gate[s_]) for s_ in GATE60_SEEDS}
     for s_ in GATE60_SEEDS:

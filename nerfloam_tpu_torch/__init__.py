@@ -3,7 +3,8 @@
 The JAX package ``nerfloam_tpu`` is the reference; every module here keeps
 its counterpart's module and function names. The port imports torch and
 numpy, never jax, yaml or anything of ``nerfloam_tpu`` (it keeps its own
-numpy copy of the data loaders and of the trajectory metrics).
+numpy copy of the data loaders, of the trajectory and mesh metrics and of
+the host-side vertex keys).
 
 Geometry runs in true float32: TF32 is switched off for matmuls and cuDNN
 when the package is imported (the JAX side pins Precision.HIGHEST for the

@@ -6,7 +6,14 @@ frame k: track (GN or Adam, ``track_method``) -> lazy recenter + active
 refresh -> BA on the tracked frame -> voxel insert, then ONE host fetch of
 the frame's results (poses, hit count, row counts, the BA's surface-bias
 probe) and the host bookkeeping: the bias EMA and ``_post_frame``'s
-keyframe-gap insertion and trajectory record.
+keyframe-gap insertion, trajectory record and periodic mesh / checkpoint /
+debug dumps.
+finalize: the no-replay mesh, the ``final_iter`` random replay, the final
+poses and mesh, all written through the run logger when there is one.
+
+With ``tpu_specs.s2s_weight > 0`` the GN tracker adds the scan-to-scan
+point-to-plane term (core/scan2scan.py): the previous frame's points, valid
+mask and tracked pose are rasterized once per frame, before the tracker.
 
 The quality stack the shipped configs turn on (``configs/kitti/kitti.yaml``)
 is ported: support voxels on both sides of every surface point
@@ -29,6 +36,7 @@ construction, naming their ROADMAP queue-1 item; none is ignored.
 
 from __future__ import annotations
 
+import os
 import random as pyrandom
 from dataclasses import dataclass, field
 
@@ -38,6 +46,8 @@ import torch
 from nerfloam_tpu_torch.core import ba as ba_mod
 from nerfloam_tpu_torch.core import tracking as tr_mod
 from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
+from nerfloam_tpu_torch.core.scan2scan import Scan2ScanParams, build_prev_scan
+from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import init_decoder
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
@@ -50,7 +60,6 @@ _UNPORTED = [
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
     ("tpu_specs.bias_source", lambda v: v == "window", "15 (knobs: keyframe bias probe)"),
     ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
-    ("tpu_specs.s2s_weight", lambda v: float(v) == 0.0, "15 (knobs: scan2scan)"),
     ("tpu_specs.exact_embedding_grads", lambda v: not v, "15 (knobs)"),
     ("tpu_specs.track_resample_rays", lambda v: not v, "15 (knobs)"),
     ("tpu_specs.ba_ray_superset", lambda v: int(v) > 0, "15 (knobs)"),
@@ -59,7 +68,6 @@ _UNPORTED = [
     ("tpu_specs.replay_freq", lambda v: int(v) == 0, "15 (knobs)"),
     ("tpu_specs.ba_pose_project", lambda v: v == "none", "15 (knobs)"),
     ("mapper_specs.remove_back", lambda v: not v, "15 (knobs)"),
-    ("debug_args.mesh_freq", lambda v: int(v) <= 0, "12 (meshing)"),
 ]
 
 
@@ -84,17 +92,16 @@ class SlamState:
     rel_pose: np.ndarray | None = None
     first_frame_id: int = 0
     frames_processed: int = 0
-    frame_telemetry: list = field(default_factory=list)  # (index, hit_ratio, loss)
+    frame_telemetry: list = field(default_factory=list)  # (index, hit_ratio, loss,
+    #   pooled surface bias) per tracked frame
 
 
 class NerfLoamSLAM_torch:
     def __init__(self, cfg: Config, dataset, device, logger=None):
-        if logger is not None:
-            raise NotImplementedError("logging meshes and checkpoints is not ported yet "
-                                      "(ROADMAP queue 1, items 12 and 13)")
         check_ported(cfg)
         self.cfg = cfg
         self.dataset = dataset
+        self.logger = logger  # utils.logger.RunLogger | None: meshes, poses, checkpoints
         self.device = torch.device(device)
         self.prof = Profiler(self.device)
         shapes = derive_static_shapes(cfg)
@@ -133,6 +140,14 @@ class NerfLoamSLAM_torch:
                        sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype,
                        surface_anchor=q["surface_anchor"], band_samples=q["band_samples"])
         self.track_method = str(tpu.get("track_method", "gn"))
+        self.s2s_weight = float(tpu.get("s2s_weight", 0.0))
+        if self.s2s_weight > 0 and self.track_method == "gn":
+            base_tp["s2s"] = Scan2ScanParams(
+                weight=self.s2s_weight, n_elev=int(tpu.get("s2s_elev", 64)),
+                n_az=int(tpu.get("s2s_az", 1024)), gate_dist=float(tpu.get("s2s_gate", 1.0)),
+                huber=float(tpu.get("s2s_huber", 0.2)),
+                min_depth=float(cfg.data_specs.get("min_depth", 0.5)),
+                max_depth=shapes["max_depth"])
         if self.track_method == "gn":
             n_iter = int(tpu.get("track_gn_iterations", 8))
             self.tp = tr_mod.TrackParams(num_iterations=n_iter, **base_tp)
@@ -173,6 +188,10 @@ class NerfLoamSLAM_torch:
         self.keyframe_gap = float(mspec["keyframe_gap"])
         self.key_distance = float(mspec["key_distance"])
         self.final_iter = bool(mspec.get("final_iter", False))
+        self.mesh_res = int(mspec.get("mesh_res", 2))
+        self.mesh_freq = int(cfg.debug_args.get("mesh_freq", -1))
+        self.ckpt_freq = int(cfg.debug_args.get("ckpt_freq", -1))
+        self.save_data_freq = int(cfg.debug_args.get("save_data_freq", -1))
         self.recenter_margin = float(tpu.get("recenter_margin", 0.0))
         if self.recenter_margin > 0:
             half_xy = min(shapes["grid_dim"][:2]) * shapes["voxel_size"] / 2
@@ -421,7 +440,12 @@ class NerfLoamSLAM_torch:
         args = (st.map_state, self.map_cfg, self.rc_track, tp, st.decoder_params, init6, pts, cos,
                 val)
         if self.track_method == "gn":
-            return tr_mod.track_frame_gn(*args, self.generator, sdf_bias)
+            prev = None
+            if tp.s2s is not None:  # rasterize the previous scan once per frame
+                last = st.last_frame
+                prev_pts, _, prev_val = last.device_arrays(self.device)
+                prev = build_prev_scan(tp.s2s, prev_pts, prev_val, self._tensor(last.pose6))
+            return tr_mod.track_frame_gn(*args, self.generator, sdf_bias, prev)
         lr = self.track_lr * 2 if st.frames_processed < 2 else self.track_lr / 3
         return tr_mod.track_frame(*args, lr, self.generator, sdf_bias)
 
@@ -500,21 +524,39 @@ class NerfLoamSLAM_torch:
         st.tracking_trajectory.append(frame.pose_matrix())
         st.rel_pose = np.linalg.inv(last.pose_matrix()) @ frame.pose_matrix()
         frame.rel_pose = st.rel_pose
-        st.frame_telemetry.append((frame.index, hits / self.tp.n_rays, float(got[7])))
+        st.frame_telemetry.append((frame.index, hits / self.tp.n_rays, float(got[7]),
+                                   self._pooled_bias(got[8])))
         self._update_sdf_bias(got[8])  # from the accepted run only
         mapper_frame.pose6 = frame.pose6
         if pose_free_b:
             mapper_frame.pose6 = got[2].astype(np.float32)
         st.last_frame = frame
-        self._post_frame(mapper_frame)
+        self._post_frame(frame, mapper_frame)
 
-    def _post_frame(self, mapper_frame: Frame):
-        """Keyframe-gap insertion and the trajectory record."""
+    def _post_frame(self, frame: Frame, mapper_frame: Frame):
+        """Keyframe-gap insertion, the trajectory record, and the periodic
+        mesh / checkpoint / debug dumps."""
         st = self.state
         gap = np.linalg.norm(mapper_frame.pose6[:3] - st.current_keyframe.pose6[:3])
         if gap > self.keyframe_gap:
             self.insert_keyframe(mapper_frame)
         self._record_trajectory(mapper_frame)
+        if self.mesh_freq > 0 and frame.index % self.mesh_freq == 0:
+            self._mesh_interval(mapper_frame)
+        if self.logger is not None and self.ckpt_freq > 0 and frame.index % self.ckpt_freq == 0:
+            from nerfloam_tpu_torch.utils.checkpoint import save_checkpoint
+
+            save_checkpoint(os.path.join(self.logger.dir, "ckpt", f"{frame.index:05d}"), self)
+        if (self.logger is not None and self.save_data_freq > 0
+                and frame.index % self.save_data_freq == 0):
+            self.host_syncs += 1
+            self.logger.log_debug_data({
+                "frame_index": frame.index,
+                "pose6": np.asarray(mapper_frame.pose6),
+                "num_lat": int(st.map_state.num_lat),
+                "n_active": int(st.map_state.n_active),
+                "n_keyframes": len(st.keyframes),
+            }, frame.index)
         st.frames_processed += 1
 
     def _replay(self, n_calls: int):
@@ -525,7 +567,25 @@ class NerfLoamSLAM_torch:
             self.do_mapping(None, update_pose=False, update_decoder=False,
                             selection_method="random")
 
+    def _mesh_interval(self, frame: Frame):
+        """A periodic mesh and pose dump; with ``final_iter`` and more than
+        20 keyframes, a random replay first and a keyframe-graph reset
+        after."""
+        st = self.state
+        did_replay = False
+        if self.final_iter and len(st.keyframes) > 20:
+            self._replay(len(st.keyframes) + 1)
+            did_replay = True
+        if self.logger is not None:
+            v, f = self.extract_mesh()
+            self.logger.log_mesh(v, f, name=f"mesh_{frame.index:05d}.ply")
+            self.logger.log_numpy_data(np.asarray(self.get_updated_poses()),
+                                       f"frame_poses_{frame.index:05d}")
+        if did_replay:  # graph reset
+            st.keyframes = [st.current_keyframe]
+
     def get_updated_poses(self):
+        """Flush frame_poses into final_poses."""
         st = self.state
         for kf_idx, rel in st.frame_poses:
             ref = st.keyframes[kf_idx] if kf_idx < len(st.keyframes) else st.current_keyframe
@@ -533,12 +593,60 @@ class NerfLoamSLAM_torch:
         st.frame_poses = []
         return st.final_poses
 
+    def observed_points(self, downsample: float = 0.05) -> np.ndarray:
+        """World-frame observed surface points from the keyframe clouds,
+        voxel-downsampled: the culling source for ``mesher.clean_mesh``."""
+        clouds = []
+        for kf in self.state.keyframes:
+            T = kf.pose_matrix()
+            clouds.append(kf.points[kf.valid] @ T[:3, :3].T + T[:3, 3])
+        if not clouds:
+            return np.zeros((0, 3), np.float32)
+        return mesher.downsample_points(np.concatenate(clouds).astype(np.float32), downsample)
+
+    def extract_mesh(self, res: int | None = None, clean: bool | None = None):
+        """The map's triangle mesh (vertices (V, 3), faces (F, 3)); ``clean``
+        (default ``mapper_specs.clean_mesh``) culls faces farther than half
+        a voxel from every observed keyframe point."""
+        with self.prof.section("mesh_extract"):
+            tris = mesher.extract_triangles(self.state.map_state, self.map_cfg,
+                                            self.state.decoder_params, res or self.mesh_res,
+                                            self.compute_dtype)
+        self.host_syncs += 1
+        if len(tris) == 0:
+            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+        with self.prof.section("mesh_weld"):
+            v, f = mesher.weld(tris)
+        if clean is None:
+            clean = bool(self.cfg.mapper_specs.get("clean_mesh", False))
+        if clean and len(f):
+            with self.prof.section("mesh_clean"):
+                f = mesher.clean_mesh(v, f, self.observed_points(),
+                                      radius=self.map_cfg.voxel_size * 0.5)
+        return v, f
+
     def finalize(self):
-        """End of sequence: the final_iter random replay, then the poses."""
+        """End of sequence: the no-replay mesh, the final_iter random
+        replay, then the final poses and mesh."""
+        if self.logger is not None:
+            v, f = self.extract_mesh()
+            self.logger.log_mesh(v, f, name="final_mesh_noreplay.ply")
         if self.final_iter:
             with self.prof.section("finalize_replay"):
                 self._replay(len(self.state.keyframes) + 1)
-        return self.get_updated_poses()
+        poses = self.get_updated_poses()
+        if self.logger is not None:
+            self.logger.log_numpy_data(np.asarray(poses), "frame_poses")
+            # the tracker's own per-frame odometry, before mapper refinement
+            self.logger.log_numpy_data(np.asarray(self.get_raw_trajectory()),
+                                       "tracking_trajectory")
+            v, f = self.extract_mesh()
+            self.logger.log_mesh(v, f, name="final_mesh.ply")
+        return poses
+
+    def get_raw_trajectory(self) -> list:
+        """The tracker's unrefined per-frame poses."""
+        return self.state.tracking_trajectory
 
     def run(self):
         """The whole sequence; returns the trajectory (list of 4x4)."""
@@ -552,10 +660,13 @@ class NerfLoamSLAM_torch:
         if end <= 0:
             end = n - 1
         start, end = min(start, n), min(end, n - 1)
-        idx, pts, cos, pose = self.dataset[start]
-        first = Frame.from_raw(idx, pts, cos, self.dataset.get_init_pose(start),
-                               self.points_pad, has_gt_pose=pose is not None)
-        self.process_first_frame(first)
+        if self.state.frames_processed > 0:  # resumed: go on after the last processed frame
+            start = max(start, self.state.last_frame.index)
+        else:
+            idx, pts, cos, pose = self.dataset[start]
+            first = Frame.from_raw(idx, pts, cos, self.dataset.get_init_pose(start),
+                                   self.points_pad, has_gt_pose=pose is not None)
+            self.process_first_frame(first)
         ids = [i for i in range(start + 1, end + 1) if i % stride == 0]
         for _, (idx, pts, cos, pose) in PrefetchingLoader(self.dataset, ids):
             frame = Frame.from_raw(idx, pts, cos, pose, self.points_pad,

@@ -140,11 +140,15 @@ def hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, voxel_size, want_dpack
 
 def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=True):
     """K2: K1's backward. d xyz (R, M, 3) from the trilinear-weight
-    derivatives and, when ``want_dpacked``, the 8 x 16 corner gradients of
-    every valid sample atomically added into a zeroed d packed (A, 128).
-    Replaces the backward XLA emits for K1 under jax.value_and_grad
-    (core/ba.py:335) and jax.grad (core/tracking.py:214). Bound: the
-    packed-row read and 128 float atomics per valid sample."""
+    derivatives and, when ``want_dpacked``, d packed (A, 128): the 8 x 16
+    corner gradients of every valid sample, summed per packed row in
+    ascending sample index. The samples are sorted by row here (a stable
+    ``torch.sort`` and a ``searchsorted`` for the rows' segments) and the
+    kernel's second pass adds each row's own samples in that order, so the
+    table is bit-identical from run to run (no atomics). Replaces the
+    backward XLA emits for K1 under jax.value_and_grad (core/ba.py:335) and
+    jax.grad (core/tracking.py:214). Bound: the packed-row read per valid
+    sample and the d packed write."""
     if packed.device.type == "cpu":
         return hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked)
     if packed.device.type != "cuda":
@@ -157,10 +161,17 @@ def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=Tru
         raise ValueError("hits_field_bwd: all inputs must be on one device")
     n = xyz.shape[0] * xyz.shape[1]
     dxyz = torch.empty(xyz.shape, dtype=torch.float32, device=dev)
-    dpacked = torch.zeros_like(ins[-1]) if want_dpacked else None
+    A = packed.shape[0]
+    order = seg = dpacked = None
+    if want_dpacked:
+        key = torch.where(ins[3], ins[2], A).reshape(-1)  # invalid samples sort last
+        skey, order = torch.sort(key, stable=True)
+        seg = torch.searchsorted(skey, torch.arange(A + 1, dtype=torch.int32, device=dev))
+        dpacked = torch.empty_like(ins[-1])
     err = kernels.lib().nl_hits_field_bwd(
         *[t.data_ptr() for t in ins], n, voxel_size, dxyz.data_ptr(),
-        dpacked.data_ptr() if want_dpacked else None, kernels.stream_ptr(dev),
+        *[None if t is None else t.data_ptr() for t in (order, seg)], A,
+        None if dpacked is None else dpacked.data_ptr(), kernels.stream_ptr(dev),
     )
     kernels.check(err, "hits_field_bwd")
     hits_field_bwd_launches += 1

@@ -10,8 +10,10 @@ stack (explicit depths around the measured distance), the decoder runs
 forward and backward to d sdf / d feats over all columns at once, and one
 K2 launch (with the packed gradient off) turns that into the spatial
 gradient g per sample. K3 (``gn_system``, csrc/gn_system.cu) forms the
-residuals, the count-balanced weights and the 6x6 normal equations; the
-LM solve stays in torch.
+residuals, the count-balanced weights and the 6x6 normal equations; with
+``TrackParams.s2s`` set, K11b (``core.scan2scan.s2s_system``) adds the
+scan-to-scan point-to-plane term on the same rays against the previous
+scan's range image; the LM solve stays in torch.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
 draw and one K9a per frame at the initial pose; per iteration the grid
@@ -39,6 +41,7 @@ from nerfloam_tpu_torch.core.render import (
     hits_field_bwd,
     render_rays,
 )
+from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
@@ -65,6 +68,8 @@ class TrackParams(NamedTuple):
     compute_dtype: str = "float32"
     surface_anchor: int = 0  # anchor columns at the measured point (its weight)
     band_samples: int = 0    # stratified columns across the truncation band
+    s2s: object = None       # core.scan2scan.Scan2ScanParams | None: add the
+    #   scan-to-scan point-to-plane term to the GN system (GN tracker only)
 
 
 class TrackResult(NamedTuple):
@@ -191,10 +196,13 @@ def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, c
 @torch.no_grad()
 def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
                    decoder_params, init_pose, points, points_cos, points_valid,
-                   generator: torch.Generator | None = None, sdf_bias=None) -> TrackResult:
+                   generator: torch.Generator | None = None, sdf_bias=None,
+                   prev_scan=None) -> TrackResult:
     """LM pose tracking on the truncated-SDF residuals over one frame's
     (padded) points. ``sdf_bias`` (2,) [ground, non-ground] is the band
-    target (the mapped field's surface offset, bias transfer); None = 0."""
+    target (the mapped field's surface offset, bias transfer); None = 0.
+    ``prev_scan`` (core.scan2scan.PrevScan) is the rasterized previous scan
+    of the s2s term, used iff ``tp.s2s`` is set."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
     dev = points.device
@@ -243,6 +251,9 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
         H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
+        if tp.s2s is not None and prev_scan is not None:
+            Hs, bs, ls = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid)
+            H, b, loss = H + Hs, b + bs, loss + ls
         pose6 = lm_update(pose6, H, b, lam)
         hits = (ray_hit & rvalid).sum()
     pose6 = torch.where(hits > 0, pose6, init_pose)

@@ -16,18 +16,24 @@
 // get zero features and aid -1.
 //
 // K2 (hits_field_bwd) is K1's backward under jax.value_and_grad
-// (core/ba.py:335) and jax.grad (core/tracking.py:214). One thread per
-// (ray, sample): d xyz from the derivative of the trilinear weights (the
-// voxel center is fixed: floor has zero gradient), and, when asked,
-// atomicAdd of the 8 x 16 corner gradients into a zeroed d packed (A, 128).
-// Invalid samples contribute nothing.
+// (core/ba.py:335) and jax.grad (core/tracking.py:214), in two passes.
+// d xyz: one thread per (ray, sample), from the derivative of the
+// trilinear weights (the voxel center is fixed: floor has zero gradient).
+// d packed (A, 128), when asked: one thread per (packed row, float). The
+// wrapper sorts the valid samples by row (a stable sort, so each row's
+// samples stay in ascending sample index) and hands in the sorted sample
+// list and each row's segment; the thread adds its row's samples' w_corner
+// * d feats in that order. No atomics and no zero fill: the table is the
+// same on every run. (The first version scattered 128 float atomics per
+// valid sample; their order changed from run to run, and BA's Adam steps,
+// which normalise each entry's gradient, turned that noise into different
+// maps and, on marginal frames, different trajectories.) Invalid samples
+// contribute nothing.
 //
 // Bound on the H100: one 512 B packed row per valid sample (K1 reads it,
-// K2 reads it again and scatters 128 float atomics into it). Neighbouring
-// samples of a ray mostly share rows, so the reads hit L1/L2; the atomics
-// to one row from one ray's samples collide. This first version keeps one
-// thread per sample and relies on the caches; staging a ray's rows in
-// shared memory and reducing per row before the atomics is later work.
+// the d xyz pass reads it again), and the (A, 128) d packed written once.
+// Neighbouring samples of a ray mostly share rows, so the reads hit L1/L2;
+// the 128 threads of a row read the same samples (broadcast loads).
 //
 // Rounding: the sample position and the cell go through __fmul_rn /
 // __fadd_rn / __fdiv_rn (and -fmad=false), in the order of the JAX code,
@@ -127,7 +133,7 @@ __global__ void hits_field_bwd_kernel(const float* __restrict__ dfeats,
                                       const int* __restrict__ aid_in,
                                       const unsigned char* __restrict__ valid_in,
                                       const float* __restrict__ packed, int n, float vs,
-                                      float* __restrict__ dxyz, float* __restrict__ dpacked) {
+                                      float* __restrict__ dxyz) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float g[3] = {0.0f, 0.0f, 0.0f};
@@ -155,14 +161,35 @@ __global__ void hits_field_bwd_kernel(const float* __restrict__ dfeats,
       g[0] += (b0 ? dot : -dot) * f1 * f2;
       g[1] += (b1 ? dot : -dot) * f0 * f2;
       g[2] += (b2 ? dot : -dot) * f0 * f1;
-      if (dpacked != nullptr) {
-        float w = __fmul_rn(__fmul_rn(f0, f1), f2);
-        for (int k = 0; k < kF; ++k) atomicAdd(dpacked + base + jc * kF + k, w * df[k]);
-      }
     }
     for (int a = 0; a < 3; ++a) g[a] = __fdiv_rn(g[a], vs);
   }
   for (int a = 0; a < 3; ++a) dxyz[3 * i + a] = g[a];
+}
+
+// order: the sample indices sorted by packed row (invalid samples last);
+// seg[a] .. seg[a + 1]: row a's part of it
+__global__ void hits_field_bwd_rows_kernel(const float* __restrict__ dfeats,
+                                           const float* __restrict__ xyz_in,
+                                           const long long* __restrict__ order,
+                                           const long long* __restrict__ seg, long long n_out,
+                                           float vs, float* __restrict__ dpacked) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_out) return;
+  long long a = t / kRow;
+  int e = (int)(t - a * kRow);
+  int jc = e / kF, k = e - jc * kF;
+  int b0 = (jc >> 2) & 1, b1 = (jc >> 1) & 1, b2 = jc & 1;
+  float acc = 0.0f;
+  for (long long p = seg[a]; p < seg[a + 1]; ++p) {
+    long long i = order[p];
+    float xyz[3] = {xyz_in[3 * i], xyz_in[3 * i + 1], xyz_in[3 * i + 2]};
+    float f[3][2];
+    axis_factors(xyz, vs, f);
+    float w = __fmul_rn(__fmul_rn(f[0][b0], f[1][b1]), f[2][b2]);
+    acc = __fadd_rn(acc, __fmul_rn(w, dfeats[i * kF + k]));
+  }
+  dpacked[t] = acc;
 }
 
 }  // namespace
@@ -183,13 +210,21 @@ extern "C" int nl_hits_field_fwd(const int* h_aid, const float* h_tnear, const f
   return (int)cudaGetLastError();
 }
 
+// d xyz (n, 3); then, if dpacked is not null, d packed (A, 128) from the
+// samples sorted by row (order (n,), seg (A + 1,))
 extern "C" int nl_hits_field_bwd(const float* dfeats, const float* xyz, const int* aid,
                                  const unsigned char* valid, const float* packed, int n,
-                                 float vs, float* dxyz, float* dpacked, void* stream) {
-  if (n > 0) {
-    const int threads = 128;
-    hits_field_bwd_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        dfeats, xyz, aid, valid, packed, n, vs, dxyz, dpacked);
+                                 float vs, float* dxyz, const long long* order,
+                                 const long long* seg, int A, float* dpacked, void* stream) {
+  const int threads = 128;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0)
+    hits_field_bwd_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(dfeats, xyz, aid, valid,
+                                                                         packed, n, vs, dxyz);
+  if (dpacked != nullptr && A > 0) {
+    long long n_out = (long long)A * kRow;
+    hits_field_bwd_rows_kernel<<<(int)((n_out + threads - 1) / threads), threads, 0, s>>>(
+        dfeats, xyz, order, seg, n_out, vs, dpacked);
   }
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "nl_hit_table_max_hits": [],
     "nl_hits_field_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                           _P, _P, _P, _P, _P, _P],
-    "nl_hits_field_bwd": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _P],
+    "nl_hits_field_bwd": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P],
     "nl_active_field_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
                             _P, _P, _P, _P, _P],
     "nl_gn_partial_values": [],
@@ -69,6 +69,14 @@ _SIGNATURES = {
     "nl_march_occupancy": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     "nl_place_samples_cdf": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                              _P, _P, _P, _P, _P],
+    "nl_mesh_lattice": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "nl_marching_tets": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P],
+    "nl_s2s_partial_values": [],
+    "nl_s2s_blocks": [_I],
+    "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                      _F, _F, _P, _P, _P, _P, _P],
 }
 
 _lib = None

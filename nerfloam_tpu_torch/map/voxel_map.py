@@ -608,6 +608,26 @@ def grow(state: MapState, cfg: MapConfig, new_capacity: int):
     ), new_cfg
 
 
+def surface_voxel_ids(state: MapState) -> torch.Tensor:
+    """Rows of the allocated surface voxels, ascending, on the map's device
+    (a dynamic shape: one host read)."""
+    C = state.is_surface.shape[0]
+    surf = state.is_surface & (torch.arange(C, device=state.is_surface.device) < state.num_lat)
+    return torch.nonzero(surf).squeeze(1).to(torch.int32)
+
+
+def surface_snapshot(state: MapState) -> dict:
+    """Host export of the surface voxels for meshing and diagnostics (JAX
+    voxel_map.py:492-504): numpy rows, lattice coords and corner rows."""
+    idx = surface_voxel_ids(state).long()
+    return {
+        "voxel_ids": idx.cpu().numpy(),
+        "coords": state.lat_coords[idx].cpu().numpy(),
+        "corner_idx": state.corner_idx[idx].cpu().numpy(),
+        "num_lat": int(state.num_lat),
+    }
+
+
 def recenter_refresh(state: MapState, cfg: MapConfig, center_world: torch.Tensor) -> MapState:
     return refresh_active(recenter(state, cfg, center_world), cfg)
 

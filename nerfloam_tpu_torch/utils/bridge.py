@@ -11,12 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nerfloam_tpu_torch.core.scan2scan import PrevScan
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_params_from_jax
 from nerfloam_tpu_torch.ops.raycast import HitTable
 
 __all__ = ["decoder_params_from_jax", "map_config_from_jax", "map_state_from_numpy",
-           "hit_table_from_numpy", "to_numpy"]
+           "hit_table_from_numpy", "prev_scan_from_numpy", "load_jax_checkpoint", "to_numpy"]
 
 
 def _fields(obj) -> dict:
@@ -51,6 +52,24 @@ def hit_table_from_numpy(ht, device="cuda") -> HitTable:
     """A numpy HitTable (nerfloam_tpu/ops/raycast.py:133-156) -> the port's."""
     f = _fields(ht)
     return HitTable(**{k: _tensor(f[k], device) for k in HitTable._fields})
+
+
+def prev_scan_from_numpy(prev, device="cuda") -> PrevScan:
+    """A numpy PrevScan (nerfloam_tpu/core/scan2scan.py:58-67) -> the port's."""
+    f = _fields(prev)
+    return PrevScan(**{k: _tensor(f[k], device) for k in PrevScan._fields})
+
+
+def load_jax_checkpoint(path: str, slam) -> None:
+    """Carry a run of the JAX package over: load a checkpoint directory it
+    wrote (``nerfloam_tpu.utils.checkpoint.save_checkpoint``) into a
+    ``NerfLoamSLAM_torch`` built from the same config. The two packages
+    share the npz keys and the manifest; ``jax_key`` has no meaning here, so
+    the generator is seeded from the config, and the deferred-sync pose
+    recurrence is dropped (the port runs the synchronous schedule)."""
+    from nerfloam_tpu_torch.utils.checkpoint import load_checkpoint
+
+    load_checkpoint(path, slam)
 
 
 def to_numpy(x):

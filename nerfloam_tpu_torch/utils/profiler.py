@@ -44,3 +44,10 @@ class Profiler:
             self._pending.clear()
         return {k: {"count": len(v), "mean_ms": sum(v) / max(len(v), 1), "total_ms": sum(v)}
                 for k, v in self.log.items()}
+
+    def report(self):
+        """Print the sections, slowest total first."""
+        rows = sorted(self.summary().items(), key=lambda kv: -kv[1]["total_ms"])
+        print(f"{'section':<20}{'count':>8}{'mean ms':>12}{'total ms':>12}")
+        for name, r in rows:
+            print(f"{name:<20}{r['count']:>8}{r['mean_ms']:>12.3f}{r['total_ms']:>12.1f}")

@@ -4,6 +4,7 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py            # kitti_budget.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality  # kitti_quality.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --adam25   # kitti_adam25.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --s2s  # kitti_quality_s2s.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 SEED  # replica_gate60.json
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
@@ -11,6 +12,9 @@ The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
 port's JSON config of the same name; frames are fed as bench.py feeds
 them. Prints one JSON line with the unaligned ATE RMSE (m) of the
 finalized trajectory.
+
+``--s2s`` adds the scan-to-scan term (``tpu_specs.s2s_weight=10.0``, image
+64 x 1024) to the GN tracker of the chosen config.
 
 ADAM25 is bench.ADAM25_OVERRIDES plus ``tpu_specs.track_method=adam``: the
 pipeline reads the tracker choice from tpu_specs, so bench.py's
@@ -43,6 +47,7 @@ from nerfloam_tpu.utils import evaluation  # noqa: E402
 from nerfloam_tpu.utils.config import load_config  # noqa: E402
 
 ADAM25 = bench.ADAM25_OVERRIDES + ["tpu_specs.track_method=adam"]
+S2S = ["tpu_specs.s2s_weight=10.0"]
 
 
 def gate60_overrides(seed: int) -> list:
@@ -91,8 +96,9 @@ def main():
         return gate60(int(sys.argv[sys.argv.index("--gate60") + 1]))
     quality = "--quality" in sys.argv
     adam25 = "--adam25" in sys.argv
+    s2s = "--s2s" in sys.argv
     overrides = (bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if quality else [])
-                 + (ADAM25 if adam25 else [])
+                 + (ADAM25 if adam25 else []) + (S2S if s2s else [])
                  + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"])
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
@@ -111,7 +117,7 @@ def main():
     gt = ds.gt_trajectory()[: len(poses)]
     print(json.dumps({
         "config": ("kitti_quality" if quality else "kitti_adam25" if adam25
-                   else "kitti_budget"),
+                   else "kitti_budget") + ("_s2s" if s2s else ""),
         "frames": len(poses),
         "ate_m": float(evaluation.ate_rmse(poses, gt, align=False)),
         "sdf_bias": [float(x) for x in slam.sdf_bias],

@@ -193,7 +193,7 @@ def test_adam_slice_matches_jax(adam_runs):
     assert ate_port < 0.30, ate_port
     assert abs(ate_port - ate_jax) <= 0.20, (ate_port, ate_jax)
     assert slam.dropped_delta_events == 0
-    assert all(hit > 0.5 for _, hit, _ in slam.state.frame_telemetry)
+    assert all(hit > 0.5 for _, hit, *_ in slam.state.frame_telemetry)
 
 
 def test_kitti_adam25_json_matches_jax_config():

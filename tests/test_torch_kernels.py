@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K4 hit table, K1 hits field, K2 its backward,
 K8 active field, K3 GN normal equations, K7 voxel insert, K6 recenter +
 active set, K5 reconcile + repack, K9a occupancy march, K9b CDF
-placement) against their plain torch twins, at small shapes. On a machine
+placement, K10a mesh lattice, K10b marching tetrahedra, K11a range image,
+K11b point-to-plane system) against their plain torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
 run them on the card with
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`
@@ -12,7 +13,8 @@ everywhere.
 Tolerances as in chip_smoke.py: integers, depths and positions exact (the
 kernels round exactly like the plain ops: no FMA contraction, IEEE
 division); features 1e-6; d xyz 1e-5 relative; d packed 1e-5 of its
-largest entry (float atomics add in a varying order); K8 integers and
+largest entry (another summation order than the twin's) and bit-identical
+between two calls (each row adds its samples in ascending index); K8 integers and
 positions exact, features 1e-6; K3 H, b and loss 1e-4 relative (another
 summation order) and bit-stable from run to run; K7 every table equal
 (both elect the smallest slot); K6 every table equal; K5 every table
@@ -20,7 +22,11 @@ equal to the twin run on the CPU (f32 and bf16: both add each corner's
 deltas in ascending order, rounding after every add) and bit-identical
 between two calls; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
 equal and z within one f32 ulp; the grid render's gradients on the card
-1e-5 of the CPU's largest entry (K2's float atomics)."""
+1e-5 of the CPU's largest entry (another summation order); K10a features and
+positions equal, K10b triangles and mask equal (one rounded operation at a
+time on both sides); K11a every output equal and bit-identical between two
+calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
+relative (another summation order) and bit-stable from run to run."""
 
 import os
 
@@ -30,8 +36,11 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core import render as trender
+from nerfloam_tpu_torch.core import scan2scan as ts2s
 from nerfloam_tpu_torch.core import tracking as ttr
+from nerfloam_tpu_torch.map import mesher as tmesher
 from nerfloam_tpu_torch.map import voxel_map as vm
+from nerfloam_tpu_torch.ops import marching as tmarch
 from nerfloam_tpu_torch.ops import raycast as trc
 
 torch.set_num_threads(2)
@@ -105,6 +114,11 @@ def test_hits_field_kernels_match_plain(cuda, M):
                                           True)
     assert float((kx - rx).abs().max()) <= 1e-5 * float(rx.abs().max())
     assert float((kp - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+    kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size)
+    assert torch.equal(kx, kx2) and torch.equal(kp, kp2)      # no atomics: the same every run
+    untouched = torch.ones(len(kp), dtype=torch.bool, device=cuda)
+    untouched[aid[valid].long()] = False
+    assert float(kp[untouched].abs().max()) == 0.0 and bool(untouched.any())
     gx, none = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size,
                                       want_dpacked=False)
     assert none is None and torch.equal(gx, kx)
@@ -325,6 +339,108 @@ def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
         assert float((k - c).abs().max()) <= 1e-5 * float(c.abs().max())
 
 
+@pytest.mark.parametrize("res", [2, 3, 4])
+@pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
+def test_mesh_kernels_match_plain(cuda, res, emb_dtype):
+    ms, *_ = _case(cuda, seed=res)
+    ms = ms._replace(embeddings=ms.embeddings.to(emb_dtype))
+    ids = vm.surface_voxel_ids(ms)
+    assert ids.numel() > 100
+    ids = torch.cat([ids, torch.full((37,), -1, dtype=torch.int32, device=cuda)])
+    n0 = (tmesher.mesh_lattice_launches, tmarch.marching_tets_launches)
+    kf, kp = tmesher.mesh_lattice(ms, T_CFG, ids, res)
+    rf, rp = tmesher.mesh_lattice_plain(ms, T_CFG, ids, res)
+    assert kf.shape == (ids.numel(), res ** 3, 16) and kp.shape == (ids.numel(), res ** 3, 3)
+    assert torch.equal(kf, rf) and torch.equal(kp, rp)
+    if res == 2:  # weights 0 / 1: the corner rows themselves
+        rows = ms.embeddings[ms.corner_idx[ids.clamp(min=0).long()].clamp(min=0).long()].float()
+        assert torch.equal(kf, rows)
+    g = torch.Generator(device=cuda).manual_seed(res)
+    sdf = rf @ torch.randn((16,), generator=g, device=cuda) + 0.05
+    cct = torch.as_tensor(tmesher._cell_corner_table(res), device=cuda)
+    kt, kv = tmarch.marching_tets_lattice(sdf, rp, cct, ids)
+    rt, rv = tmarch.marching_tets_lattice_plain(sdf, rp, cct, ids)
+    torch.cuda.synchronize()
+    assert (tmesher.mesh_lattice_launches, tmarch.marching_tets_launches) == (n0[0] + 1,
+                                                                              n0[1] + 1)
+    assert kt.shape == (ids.numel() * (res - 1) ** 3, 12, 3, 3)
+    assert torch.equal(kv, rv) and torch.equal(kt, rt)
+    assert bool(rv.any()) and not bool(rv[-37 * (res - 1) ** 3:].any())
+
+
+def test_marching_tets_cells_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pos = (torch.rand((4096, 1, 3), generator=g, device=cuda)
+           + 0.3 * torch.rand((4096, 8, 3), generator=g, device=cuda))
+    val = 0.2 * torch.randn((4096, 8), generator=g, device=cuda)
+    val[::7, 3] = 0.0
+    val[5] = val[5, 0]
+    kt, kv = tmarch.marching_tets_cells(pos, val)
+    rt, rv = tmarch.marching_tets_cells_plain(pos, val)
+    assert torch.equal(kv, rv) and torch.equal(kt, rt)
+    assert 0.1 < float(rv.float().mean()) < 0.9
+
+
+def _scan(device, n=20000, seed=0):
+    """A sensor-frame scan of a floor and two walls, a LiDAR-like range
+    window, with padding rows at the end."""
+    rng = np.random.default_rng(seed)
+    n3 = n // 3
+    along = rng.uniform(-20, 20, (3, n3))
+    floor = np.stack([along[0], rng.uniform(-6, 6, n3), np.full(n3, -2.0)], -1)
+    wl = np.stack([along[1], np.full(n3, -6.0), rng.uniform(-2, 2, n3)], -1)
+    wr = np.stack([along[2], np.full(n3, 6.0), rng.uniform(-2, 2, n3)], -1)
+    pts = np.concatenate([floor, wl, wr]).astype(np.float32)
+    d = np.linalg.norm(pts, axis=1)
+    pts = pts[(d > 4.0) & (d < 25.0)]
+    valid = rng.uniform(size=len(pts)) > 0.03
+    pts = np.concatenate([pts, np.zeros((300, 3), np.float32)])
+    valid = np.concatenate([valid, np.zeros(300, bool)])
+    return torch.as_tensor(pts, device=device), torch.as_tensor(valid, device=device)
+
+
+S2S = ts2s.Scan2ScanParams(weight=10.0, n_elev=32, n_az=256, gate_dist=1.0, huber=0.2,
+                           min_depth=1.0, max_depth=50.0)
+
+
+@pytest.mark.parametrize("sp", [S2S, S2S._replace(n_elev=64, n_az=1024)])
+def test_build_prev_scan_kernel_matches_plain(cuda, sp):
+    pts, valid = _scan(cuda)
+    pose = torch.tensor([3.0, -1.0, 0.5, 0.02, -0.01, 0.3], device=cuda)
+    n0 = ts2s.build_prev_scan_launches
+    k1 = ts2s.build_prev_scan(sp, pts, valid, pose)
+    k2 = ts2s.build_prev_scan(sp, pts, valid, pose)
+    ref = ts2s.build_prev_scan_plain(sp, pts, valid, pose)
+    torch.cuda.synchronize()
+    assert ts2s.build_prev_scan_launches == n0 + 2
+    for name in ts2s.PrevScan._fields:
+        assert torch.equal(getattr(k1, name), getattr(k2, name)), f"{name} differs between calls"
+        assert torch.equal(getattr(k1, name), getattr(ref, name)), name
+    assert int(ref.pix_valid.sum()) > 300
+    empty = ts2s.build_prev_scan(sp, pts, torch.zeros_like(valid), pose)
+    assert not bool(empty.pix_valid.any()) and float(empty.elev_min) == 1e9
+
+
+def test_s2s_system_kernel_matches_plain(cuda):
+    pts, valid = _scan(cuda, seed=1)
+    prev = ts2s.build_prev_scan_plain(S2S, pts, valid, torch.zeros(6, device=cuda))
+    cur, _ = _scan(cuda, n=6000, seed=2)
+    pose = torch.tensor([0.4, 0.1, 0.02, 0.0, 0.01, 0.02], device=cuda)
+    cur = cur[:2048] - pose[:3]
+    rv = torch.rand(len(cur), device=cuda) > 0.05
+    n0 = ts2s.s2s_system_launches
+    k1 = ts2s.s2s_system(S2S, prev, pose, cur, rv)
+    k2 = ts2s.s2s_system(S2S, prev, pose, cur, rv)
+    ref = ts2s.s2s_system_plain(S2S, prev, pose, cur, rv)
+    torch.cuda.synchronize()
+    assert ts2s.s2s_system_launches == n0 + 2
+    assert float(torch.trace(ref[0][:3, :3])) > 1000
+    for name, a, b, r in zip(("H", "b", "loss"), k1, k2, ref):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+    assert torch.equal(k1[0], k1[0].T)
+
+
 def test_wrappers_reject_other_devices():
     ms, o, d, tc = _case("cpu")
     meta = [x.to("meta") for x in (o, d, tc)]
@@ -355,6 +471,17 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         trc.place_samples_cdf(ms, T_CFG, T_RC, torch.zeros(len(o), 4), torch.ones(len(o)),
                               *meta, torch.zeros(len(o), 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmesher.mesh_lattice(ms, T_CFG, torch.zeros(4, dtype=torch.int32, device="meta"), 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmarch.marching_tets_cells(torch.zeros(4, 8, 3, device="meta"),
+                                   torch.zeros(4, 8, device="meta"))
+    pts, valid = _scan("cpu", n=600)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ts2s.build_prev_scan(S2S, pts.to("meta"), valid.to("meta"), torch.zeros(6, device="meta"))
+    prev = ts2s.build_prev_scan(S2S, pts, valid, torch.zeros(6))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ts2s.s2s_system(S2S, prev, torch.zeros(6), pts.to("meta"), valid.to("meta"))
 
 
 def test_kernel_library_is_built_lazily():
@@ -363,7 +490,7 @@ def test_kernel_library_is_built_lazily():
     srcs = kernels.sources()
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
-        "active_set.cu", "reconcile.cu", "grid_sampler.cu"}
+        "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

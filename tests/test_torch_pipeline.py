@@ -6,8 +6,9 @@ Philox), so the runs are compared on ATE: both under the 0.30 m bound of
 test_pipeline.py::test_trajectory_accuracy, and within 0.10 m of each
 other. Also: the port imports neither jax, yaml nor the JAX package, the
 KITTI-budget JSON equals the JAX package's config of the same overrides,
-the quality-stack knobs construct, and every knob the port lacks raises
-at construction."""
+the ported knobs (quality stack, samplers, trackers, the s2s term, mesh
+intervals, a logger) construct, and every knob the port lacks raises at
+construction."""
 
 import json
 import os
@@ -68,7 +69,7 @@ def test_port_run_bookkeeping(runs):
     assert st.frames_processed == 10
     assert len(st.tracking_trajectory) == 10
     assert len(st.frame_telemetry) == 9
-    assert all(0.5 < hit <= 1.0 for _, hit, _ in st.frame_telemetry)
+    assert all(0.5 < hit <= 1.0 for _, hit, *_ in st.frame_telemetry)
     assert len(st.keyframes) >= 1
     assert sum(slam.overflow_events.values()) == 0 and slam.dropped_delta_events == 0
     ms = st.map_state
@@ -85,7 +86,12 @@ def test_port_imports_neither_jax_nor_yaml():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'nerfloam_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 22, mods\n"
+        "need = {'core.scan2scan', 'map.mesher', 'ops.marching', 'ops.keys', 'utils.logger',\n"
+        "        'utils.checkpoint', 'utils.evaluation', 'utils.bridge'}\n"
+        "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
+        "import runpy\n"
+        "runpy.run_path('demo/run_torch.py', run_name='not_main')\n"
         "bad = [m for m in ('jax', 'jaxlib', 'yaml', 'optax') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m == 'nerfloam_tpu' or m.startswith('nerfloam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -115,9 +121,9 @@ def test_kitti_budget_json_matches_jax_config():
 @pytest.mark.parametrize("knob", [
     "tpu_specs.track_resample_rays=true", "tpu_specs.reconcile_mode=sum",
     "tpu_specs.defer_sync=true",
-    "tpu_specs.dp=2", "tpu_specs.s2s_weight=5.0",
+    "tpu_specs.dp=2",
     "tpu_specs.exact_embedding_grads=true", "tpu_specs.maturity_warmup=4",
-    "debug_args.mesh_freq=100", "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
+    "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
     "mapper_specs.remove_back=true", "tpu_specs.bias_source=keyframe",
     "tpu_specs.bias_classes=2",
 ])
@@ -140,11 +146,17 @@ def test_unported_knobs_raise(knob):
      lambda s: s.rc_track.sampler == "grid" and s.rc_map.sampler == "grid"),
     ("tpu_specs.track_method=adam",
      lambda s: s.track_method == "adam" and s.tp_first.num_iterations == 5 * s.tp.num_iterations),
+    ("tpu_specs.s2s_weight=5.0",
+     lambda s: s.tp.s2s.weight == 5.0 and (s.tp.s2s.n_elev, s.tp.s2s.n_az) == (64, 1024)
+     and s.tp_first.s2s == s.tp.s2s),
+    ("debug_args.mesh_freq=100", lambda s: s.mesh_freq == 100 and s.mesh_res == 2),
+    ("debug_args.ckpt_freq=7", lambda s: s.ckpt_freq == 7 and s.save_data_freq == -1),
 ])
 def test_ported_knobs_construct(knob, check):
     """The quality-stack knobs (queue-1 item 10), the grid sampler and the
-    Adam tracker (item 11) no longer raise: each reaches the map, tracker
-    and BA parameters it sets."""
+    Adam tracker (item 11), the s2s term (item 15), mesh intervals and
+    checkpoints (items 12, 13) no longer raise: each reaches the map,
+    tracker and BA parameters it sets."""
     cfg = load_config(CFG_PATH, SLICE + [knob])
     slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
     assert check(slam)
@@ -152,7 +164,16 @@ def test_ported_knobs_construct(knob, check):
                                   device="cpu").bp_current.measure_bias
 
 
-def test_logger_raises():
+def test_logger_constructs(tmp_path):
+    """A logger no longer raises: the run directory is made with its config
+    backup as JSON (the port has no yaml), and the object keeps it."""
+    from nerfloam_tpu_torch.utils.logger import RunLogger
+
     cfg = finalize(load_config(CFG_PATH, SLICE).as_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        NerfLoamSLAM_torch(cfg, None, device="cpu", logger=object())
+    logger = RunLogger(str(tmp_path), "run", config=cfg.as_dict())
+    slam = NerfLoamSLAM_torch(cfg, None, device="cpu", logger=logger)
+    assert slam.logger is logger and slam.s2s_weight == 0.0 and slam.tp.s2s is None
+    for sub in ("mesh", "ckpt", "misc", "bak"):
+        assert os.path.isdir(os.path.join(logger.dir, sub))
+    with open(os.path.join(logger.dir, "bak", "config.json")) as f:
+        assert json.load(f) == cfg.as_dict()
