@@ -19,6 +19,11 @@
    at res 2 and res 4 with bf16 and f32 embeddings; K11a (range image) at
    one frame's 65,536 points and 64 x 1024 pixels and K11b (point-to-plane
    system) at 2048 rays.
+   K9b is checked with one origin per ray and with one origin broadcast to
+   every ray (row stride 0, the trackers' form, which is timed), K11b
+   alone and in the tracker's form (rotation given, adding into a system
+   in place, which is timed; bit-identical across two calls and equal to
+   one add on its sums alone).
    Prints each kernel's max error, its median time and its twin's (CUDA
    events), the least time the card could take (bound) and, for K3, K11b
    and K9b, one PyTorch call of the same function (torch.einsum pair,
@@ -43,12 +48,18 @@
      into a fresh object (every saved table compared), 15 more frames and
      finalize from the loaded one.
    Each path's launch counts are zeroed just before it and read just
-   after. Prints scans/s over frames 6 to the end, sections, host syncs,
+   after. Prints the tracker ms the s2s term adds to the quality path.
+   Prints scans/s over frames 6 to the end, sections, host syncs,
    overflow counters, the final sdf_bias and the ATE against ground
    truth, and checks them: every kernel of the path launched, no drops,
    ATE in bound.
-5. torch.profiler breakdowns of a few steady frames of the quality, Adam
-   and replica-gate configs: device time per launch of each port kernel.
+5. torch.profiler breakdowns of a few steady frames of the quality, s2s,
+   Adam and replica-gate configs: device launches per frame, device time
+   per launch of each port kernel;
+   then each kernel-phase call profiled alone: its device time and its
+   CUDA launches per call (K9b and K11b must make exactly one). A session
+   that misses one of a wrapper's CUDA functions is run again, up to three
+   times, and then the run fails.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are the kernels' JSON record, the card's name and power limit, and
@@ -110,6 +121,7 @@ CKPT_FRAME = 14            # the checkpoint phase saves after this frame
 GATE60_SEEDS = (0, 1)
 WARMUP_FRAMES = 6
 TIMED_RUNS = 20
+PAIRED_RUNS = 200          # K9b and K11b against their library calls, in turns
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 _MAP = ("insert", "reconcile", "active_set")
@@ -143,8 +155,9 @@ KERNEL_FUNCTIONS = {
     "marching_tets": ("marching_tets_kernel",),
     "build_prev_scan": ("s2s_init_kernel", "s2s_span_kernel", "s2s_link_kernel",
                         "s2s_pixel_kernel", "s2s_normal_kernel"),
-    "s2s_system": ("s2s_partial_kernel", "s2s_final_kernel"),
+    "s2s_system": ("s2s_system_kernel",),
 }
+ONE_LAUNCH = ("place_samples_cdf", "s2s_system")  # wrappers that launch one kernel and no torch op
 
 
 def ate_bound(name):
@@ -178,6 +191,26 @@ def median_ms(fn, n=TIMED_RUNS):
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def paired_median_ms(fn_a, fn_b, n=PAIRED_RUNS):
+    """Median ms of fn_a and of fn_b (CUDA events around one call), the two
+    timed in turns so that both see the same host: a kernel's wrapper
+    against the one PyTorch call that computes the same function."""
+    ta, tb = [], []
+    for fn in (fn_a, fn_b):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(n):
+        for fn, times in ((fn_a, ta), (fn_b, tb)):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def check(cond, msg):
@@ -238,21 +271,46 @@ def port_kernel_times(prof):
     return out
 
 
-def device_us(fn, reps=20):
+def device_us(name, fn, reps=20, sessions=5):
     """Device microseconds per launch of each CUDA function a wrapper call
     launches, averaged over the launches torch.profiler captured in
-    ``reps`` calls (a short session can miss some), and their sum: the
-    device time of one call, each function launching once per call."""
-    from torch.profiler import ProfilerActivity, profile
+    ``reps`` calls, their sum (the device time of one call, each function
+    launching once per call), and the device launches (the port's
+    kernels, torch's, copies) per call. Each session traces a warm-up step of
+    ``reps`` calls that it discards (a cold session drops kernel records)
+    before the ``reps`` it keeps. Every function of KERNEL_FUNCTIONS[name]
+    must show ``reps`` launches at least: a session that drops some is run
+    again, and after ``sessions`` such sessions the run fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_fn = {k: t / n for k, (t, n) in port_kernel_times(prof).items()}
-    return per_fn, (sum(per_fn.values()) if per_fn else None)
+    want = KERNEL_FUNCTIONS[name]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     acc_events=True) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        times = port_kernel_times(prof)
+        if all(times.get(f, (0, 0))[1] >= reps for f in want):
+            # device work that recurs on every call (a session also holds
+            # a stray record or two of the profiler's own)
+            launches = sum(e.count for e in prof.key_averages() if _on_device(e)
+                           and e.count >= reps)
+            per_fn = {k: t / n for k, (t, n) in times.items()}
+            return per_fn, sum(per_fn.values()), launches / reps
+        log(f"[{name}] the profiler kept {({f: times.get(f, (0, 0))[1] for f in want})} "
+            f"launches of {reps} calls; profiling again")
+    raise AssertionError(f"{name}: the profiler dropped launches of {want} in {sessions} "
+                         "sessions")
+
+
+def _on_device(e):
+    return getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
 
 
 def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None):
@@ -272,11 +330,14 @@ def add_device_times(records):
     """Device microseconds per call and per launch of every kernel, from
     torch.profiler over its kernel-phase call."""
     for r in records:
-        per_fn, per_call = device_us(r.pop("_dev"))
-        r["device_us_per_call"], r["device_us"] = per_call, per_fn
+        per_fn, per_call, launches = device_us(r["name"], r.pop("_dev"))
+        r["device_us_per_call"], r["device_us"], r["device_launches_per_call"] = (
+            per_call, per_fn, launches)
         log(f"[{r['name']}] device us per launch: "
-            + (", ".join(f"{k} {v:.2f}" for k, v in per_fn.items()) or "none captured")
-            + ("" if per_call is None else f"; {per_call:.2f} us per call"))
+            + ", ".join(f"{k} {v:.2f}" for k, v in per_fn.items())
+            + f"; {per_call:.2f} us per call; {launches:g} CUDA launches per call (profile)")
+        if r["name"] in ONE_LAUNCH:
+            check(launches == 1, f"{r['name']}: {launches} CUDA launches per call, not one")
 
 
 def rows_read(aid, valid):
@@ -627,8 +688,11 @@ def map_kernels(slam, ms, frames, gen):
 def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
     """K9a and K9b at the Adam tracker's shapes (the tracker's 2048 rays)
     and at the replica gate's BA superset (768 rays, its own slots and
-    samples), the placement 1 cm off the march's origin; K9b's library
-    call is torch.searchsorted over the same cdf and quantiles."""
+    samples), the placement 1 cm off the march's origin, with one origin
+    per ray (place_samples_cdf, BA's form) and with one origin broadcast to
+    every ray through a CdfPlacer made once (the trackers' form, timed);
+    K9b's library call is torch.searchsorted over the same cdf and
+    quantiles."""
     dev, cfg = slam.device, slam.map_cfg
     rc_adam = slam.rc_track._replace(sampler="grid")
     o, d, tc = tab[:3]
@@ -646,16 +710,27 @@ def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
         torch.cuda.synchronize()
         check(torch.equal(kc, pc) and torch.equal(kn, pn), f"K9a cdf/n_occ differ ({label})")
         u = raycast.uniform_jitter((R, M), gen, dev)
+        # one origin per ray (BA's form) and one origin broadcast to every
+        # ray with row stride 0 (the trackers' form), 1 cm off the march's
         o2 = (ro + 0.01).contiguous()
-        ker = raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt, u)
-        ref = raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o2, rd, rt, u)
-        torch.cuda.synchronize()
-        for i, nm in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
-            check(torch.equal(ker[i], ref[i]), f"K9b {nm} differs ({label})")
-        zk, zr = ker[0], ref[0]
-        ulp1 = torch.nextafter(zr, torch.full_like(zr, float("inf"))) - zr
-        ez = float((zk - zr).abs().max())
-        check(bool(((zk - zr).abs() <= ulp1).all()), f"K9b z beyond one ulp ({label})")
+        o1 = (ro[0] + 0.01).expand_as(rd)
+        placer = raycast.CdfPlacer(ms, cfg, rc, pc, pn, rt, M)  # once per frame in a tracker
+        forms = {"rows": (o2, lambda: raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt,
+                                                                  u)),
+                 "shared origin": (o1, lambda: placer(o1, rd, u))}
+        ez = 0.0
+        for form, (oo, place) in forms.items():
+            ker = place()
+            ref = raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, oo, rd, rt, u)
+            torch.cuda.synchronize()
+            for i, nm in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+                check(torch.equal(ker[i], ref[i]), f"K9b {nm} differs ({label}, {form})")
+            zk, zr = ker[0], ref[0]
+            ulp1 = torch.nextafter(zr, torch.full_like(zr, float("inf"))) - zr
+            ez = max(ez, float((zk - zr).abs().max()))
+            check(bool(((zk - zr).abs() <= ulp1).all()), f"K9b z beyond one ulp ({label}, {form})")
+            log(f"[K9b] {label} {form}: aid, valid, ray_mask equal to the twin, valid "
+                f"{float(ref[2].float().mean()):.3f}")
         in_range = int(((torch.arange(S, device=dev) + 0.5)[None, :] * cstep
                         <= rt[:, None]).sum())
         nv = int(ref[2].sum())
@@ -671,25 +746,31 @@ def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
                median_ms(lambda: raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)),
                # rays + t_cap in, one grid cell per slot in range, cdf + n_occ out
                R * 28 + 4 * in_range + R * S * 4 + R * 4, 14 * in_range + 4 * R * S),
-            b=(median_ms(lambda: raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt, u)),
-               median_ms(lambda: raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o2, rd,
+            b=(*paired_median_ms(forms["shared origin"][1], lambda: torch.searchsorted(pc, q)),
+               median_ms(lambda: raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o1, rd,
                                                                  rt, u)),
                # cdf rows, n_occ, rays, t_cap, jitter, one grid cell per
                # sample in; z, aid, valid, ray_mask out
                R * S * 4 + R * 32 + R * M * 8 + R * M * 9 + R,
                R * M * (30 + 2 * int(np.ceil(np.log2(S))))),
-            lib=median_ms(lambda: torch.searchsorted(pc, q)), err=ez,
+            err=ez,
+            once_ms=median_ms(forms["rows"][1]),
             dev_a=partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt),
-            dev_b=partial(raycast.place_samples_cdf, ms, cfg, rc, pc, pn, o2, rd, rt, u))
+            dev_b=forms["shared origin"][1])
+        k_ms, lib_ms, p_ms = out[label]["b"][:3]
         log(f"[K9] {label}: march kernel {out[label]['a'][0]:.4f} ms, plain "
-            f"{out[label]['a'][1]:.4f} ms; place kernel {out[label]['b'][0]:.4f} ms, plain "
-            f"{out[label]['b'][1]:.4f} ms, torch.searchsorted {out[label]['lib']:.4f} ms")
+            f"{out[label]['a'][1]:.4f} ms; place kernel {k_ms:.4f} ms (a tracker iteration's "
+            f"call of its frame's CdfPlacer, shared origin) against torch.searchsorted "
+            f"{lib_ms:.4f} ms, in turns ({'at or under' if k_ms <= lib_ms else 'over'} it); "
+            f"{out[label]['once_ms']:.4f} ms as place_samples_cdf, "
+            f"which makes a placer per call, as BA does; plain {p_ms:.4f} ms")
     a = out["adam25"]
+    k_ms, lib_ms, p_ms, nbytes, flops = a["b"]
     return [record("march_occupancy", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:65", 0.0,
                    *a["a"], dev=a["dev_a"]),
             record("place_samples_cdf", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:88",
-                   max(o_["err"] for o_ in out.values()), *a["b"], library_ms=a["lib"],
-                   dev=a["dev_b"])]
+                   max(o_["err"] for o_ in out.values()), k_ms, p_ms, nbytes, flops,
+                   library_ms=lib_ms, dev=a["dev_b"])]
 
 
 def mesh_kernels(slam, ms):
@@ -756,8 +837,10 @@ def mesh_kernels(slam, ms):
 def s2s_kernels(slam, sp, frames, gen):
     """K11a on one frame's padded points (points_pad x the config's image)
     and K11b on the next frame's 2048 tracker rays at a pose 5 cm off, both
-    against their twins; K11b's library call is the einsum pair on J, w and
-    r computed as the twin computes them."""
+    against their twins, K11b alone and in the tracker's form (rotation
+    given, adding into a system of the SDF term's size; timed in that
+    form); K11b's library call is the einsum pair on J, w and r computed as
+    the twin computes them."""
     dev = slam.device
     p0, _, v0 = frames[0].device_arrays(dev)
     pose0 = torch.as_tensor(frames[0].pose6, device=dev)
@@ -785,28 +868,45 @@ def s2s_kernels(slam, sp, frames, gen):
     pose1 = torch.as_tensor(frames[1].pose6, device=dev) + torch.tensor(
         [0.05, -0.03, 0.01, 0.0, 0.002, -0.003], device=dev)
     a = (sp, ref, pose1, pts, rvalid)
-    kH, kb, kl = s2s.s2s_system(*a)
-    kH2, kb2, kl2 = s2s.s2s_system(*a)
-    rH, rb, rl = s2s.s2s_system_plain(*a)
-    torch.cuda.synchronize()
-    check(torch.equal(kH, kH2) and torch.equal(kb, kb2) and torch.equal(kl, kl2),
-          "K11b differs between two runs")
-    e11b = 0.0
-    for nm, k, r in (("H", kH, rH), ("b", kb, rb), ("loss", kl, rl)):
-        rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
-        check(rel <= 1e-5, f"K11b {nm} rel error {rel}")
-        e11b = max(e11b, max_abs(k, r))
-        log(f"[K11b] {nm}: rel err {rel:.3g} (max |{nm}| {float(r.abs().max()):.4g})")
+    R1 = se3.pose_rotation(pose1)
+    # the tracker's form: its rotation and K3's sums, taken in place (a
+    # system of the SDF term's magnitude)
+    acc0 = (torch.randn((6, 6), generator=gen, device=dev) * 1e4,
+            torch.randn((6,), generator=gen, device=dev) * 1e3, torch.tensor(2e3, device=dev))
+    forms = {"alone": lambda fn: fn(*a),
+             "accumulating": lambda fn: fn(*a, R1, tuple(x.clone() for x in acc0))}
+    e11b, outs = 0.0, {}
+    for form, run in forms.items():
+        kH, kb, kl = run(s2s.s2s_system)
+        kH2, kb2, kl2 = run(s2s.s2s_system)
+        rH, rb, rl = run(s2s.s2s_system_plain)
+        torch.cuda.synchronize()
+        check(torch.equal(kH, kH2) and torch.equal(kb, kb2) and torch.equal(kl, kl2),
+              f"K11b differs between two runs ({form})")
+        for nm, k, r in (("H", kH, rH), ("b", kb, rb), ("loss", kl, rl)):
+            rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
+            check(rel <= 1e-5, f"K11b {nm} rel error {rel} ({form})")
+            e11b = max(e11b, max_abs(k, r))
+            log(f"[K11b] {form} {nm}: rel err {rel:.3g} (max |{nm}| {float(r.abs().max()):.4g})")
+        outs[form] = (kH, kb, kl)
+    for x, y, k in zip(acc0, outs["alone"], outs["accumulating"]):
+        check(torch.equal(k, x + y), "K11b's accumulating form is not one add on its sums")
     p_w, t, n, r, w = s2s._associate(*a)
     n_assoc = int((w > 0).sum())
     check(n_assoc >= 64, f"K11b: only {n_assoc} associated rays")
     J = torch.cat([n, s2s._cross(p_w - t, n)], -1)
     Jw = J * w[:, None]
-    lib_ms = median_ms(lambda: (torch.einsum("ni,nj->ij", Jw, J), torch.einsum("ni,n->i", Jw, r)))
-    kb_ms = median_ms(lambda: s2s.s2s_system(*a))
-    pb_ms = median_ms(lambda: s2s.s2s_system_plain(*a))
+    acc = tuple(x.clone() for x in acc0)  # the timed calls add into it
+    kb_ms, lib_ms = paired_median_ms(
+        lambda: s2s.s2s_system(*a, R1, acc),
+        lambda: (torch.einsum("ni,nj->ij", Jw, J), torch.einsum("ni,n->i", Jw, r)))
+    direct_ms = median_ms(lambda: s2s.s2s_system(*a))
+    pb_ms = median_ms(lambda: s2s.s2s_system_plain(*a, R1, acc))
     N = pts.shape[0]
-    log(f"[K11b] {N} rays: {n_assoc} associated (weight > 0)")
+    log(f"[K11b] {N} rays: {n_assoc} associated (weight > 0); the tracker's form (rotation "
+        f"given, accumulating) {kb_ms:.4f} ms against the einsum pair {lib_ms:.4f} ms, in turns "
+        f"({'at or under' if kb_ms <= lib_ms else 'over'} it); called alone (rotation built, "
+        f"sums allocated) {direct_ms:.4f} ms")
     return [
         # points + valid and the pose in; q_w, n_w, validity, depth per
         # pixel and the span out
@@ -814,10 +914,10 @@ def s2s_kernels(slam, sp, frames, gen):
                P * 13 + 48 + total * 29 + 8, P * 60 + total * 90,
                dev=partial(s2s.build_prev_scan, sp, p0, v0, pose0)),
         # rays + valid, two poses and the span in, one pixel (q, n, validity,
-        # depth) per ray in; H, b, loss out
+        # depth) per ray in; the caller's H, b, loss in and out
         record("s2s_system", "scan2scan.cu", "nerfloam_tpu/core/scan2scan.py:158", e11b, kb_ms,
-               pb_ms, N * 13 + 96 + 8 + N * 29 + 172, N * 160, lib_ms,
-               dev=partial(s2s.s2s_system, *a)),
+               pb_ms, N * 13 + 96 + 8 + N * 29 + 172 + 172, N * 160, lib_ms,
+               dev=partial(s2s.s2s_system, *a, R1, acc)),
     ]
 
 
@@ -955,7 +1055,7 @@ def main_path(name, slam, ds, label=None):
             f"{ATE_JAX[name]:.4f} m); final position {poses[-1][:3, 3].tolist()}, "
             f"GT {gt[-1][:3, 3].tolist()}")
         check(ate <= ate_bound(name), f"ATE {ate} above bound {ate_bound(name)} ({label})")
-    return launches, scans
+    return launches, scans, slam.prof.summary()
 
 
 def drift_lat_cm_f(est, gt):
@@ -1058,8 +1158,7 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
             slam.process_frame(f)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    events = [e for e in prof.key_averages() if _on_device(e)]
     dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
     total = sum(dev(e) for e in events)
     tag = f"[profile {label}]"
@@ -1116,6 +1215,11 @@ def main():
             results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda",
                                                          logger=logger), ds)
             torch.cuda.empty_cache()
+        track = {n: results[n][2]["track"]["mean_ms"]
+                 for n in ("kitti_quality", "kitti_quality_s2s")}
+        log(f"[s2s] tracker ms per frame: quality {track['kitti_quality']:.3f}, quality + s2s "
+            f"{track['kitti_quality_s2s']:.3f}; the s2s term adds "
+            f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
         checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
     gate_ds = {s_: get_dataset(gate[s_]) for s_ in GATE60_SEEDS}
@@ -1125,6 +1229,7 @@ def main():
             gate_ds[s_], label=f"replica_gate60_s{s_}")
         torch.cuda.empty_cache()
     for label, cfg, d in (("kitti_quality", cfgs["kitti_quality"], ds),
+                          ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
                           ("kitti_adam25", cfgs["kitti_adam25"], ds),
                           ("replica_gate60_s0", gate[0], gate_ds[0])):
         profile_phase(label, cfg, d)

@@ -32,11 +32,11 @@ from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
+    CdfPlacer,
     HitTable,
     RaycastConfig,
     cells_of,
     div,
-    place_samples_cdf,
     resolve_cells_in_hits,
     sample_from_hits,
 )
@@ -284,14 +284,16 @@ def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None)
 def grid_columns_fwd(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, occupancy,
                      u, rays_o, rays_d, t_cap, packed, extra=None):
     """The grid sampler's columns: K9b places the samples over the hoisted
-    ``occupancy = (cdf, n_occ)`` (K9a) at the current rays, K8 evaluates
-    their features at those depths, and ``extra`` appends K8's columns as
-    in columns_fwd. Returns ((z, valid, aid, xyz, feats), ray_mask).
+    ``occupancy`` (K9a's ``(cdf, n_occ)``, or a ``raycast.CdfPlacer`` made
+    from them once per frame) at the current rays, K8 evaluates their
+    features at those depths, and ``extra`` appends K8's columns as in
+    columns_fwd. Returns ((z, valid, aid, xyz, feats), ray_mask).
     Validity is K9b's: K8 agrees on it (its cell is the same floor of the
     same xyz, and K9b zeroes the depth of every invalid sample), so its
     features are zero exactly where K9b marks a sample invalid."""
-    z, aid, valid, ray_mask = place_samples_cdf(state, map_cfg, rc, occupancy[0], occupancy[1],
-                                                rays_o, rays_d, t_cap, u)
+    if not isinstance(occupancy, CdfPlacer):
+        occupancy = CdfPlacer(state, map_cfg, rc, *occupancy, t_cap, u.shape[-1])
+    z, aid, valid, ray_mask = occupancy(rays_o, rays_d, u)
     _, _, xyz, feats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, z, ray_mask)
     return _append_extra((z, valid, aid, xyz, feats), packed, rays_o, rays_d, extra), ray_mask
 
@@ -354,7 +356,8 @@ def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfi
                 rc: RaycastConfig, rays_o, rays_d, t_cap, ray_valid, occupancy, jitter_u,
                 compute_dtype=torch.float32, extra=None) -> RenderOutput:
     """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
-    242-279, the march hoisted: ``occupancy = (cdf, n_occ)`` from K9a):
+    242-279, the march hoisted: ``occupancy = (cdf, n_occ)`` from K9a, or
+    a ``raycast.CdfPlacer`` made from them):
     K9b -> K8 at its depths (+ K8's ``extra`` columns) -> decoder -> masked
     sdf. ``packed`` is the differentiable table (BA's optimized copy);
     lookups go through ``state``'s grid. The backward is one K2 launch;

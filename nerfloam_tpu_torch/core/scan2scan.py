@@ -10,8 +10,11 @@ Each tracker iteration projects the current ray subset into the previous
 sensor frame (one gather per point instead of a nearest-neighbour search),
 gates by depth agreement and accumulates Huber-weighted point-to-plane
 residuals r = n_w . (p_w(pose) - q_w) into a 6x6 system with the
-left-perturbation Jacobian J = [n_w, (p_w - t) x n_w]: K11b ``s2s_system``.
-The tracker adds it to the SDF term's system before the LM solve.
+left-perturbation Jacobian J = [n_w, (p_w - t) x n_w]: K11b ``s2s_system``,
+which adds its sums in place to the SDF term's system (K3's outputs)
+before the LM solve. Both rotations are built once where they are known:
+the previous pose's with the range image (``PrevScan.R`` / ``.t``), the
+current one by the tracker, which rotates its ray directions with it.
 
 Both kernels live in csrc/scan2scan.cu; the plain twins beside the wrappers
 run on CPU tensors and repeat the kernels' arithmetic one rounded operation
@@ -60,6 +63,8 @@ class PrevScan(NamedTuple):
     pose6: torch.Tensor      # (6,) previous frame pose
     elev_min: torch.Tensor   # () scan elevation span (radians)
     elev_max: torch.Tensor   # ()
+    R: torch.Tensor          # (3, 3) se3.pose_rotation(pose6), built once per frame
+    t: torch.Tensor          # (3,) se3.pose_translation(pose6)
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
@@ -142,7 +147,8 @@ def build_prev_scan_plain(sp: Scan2ScanParams, points, valid, pose6) -> PrevScan
 
     R, t = se3.pose_rotation(pose6), se3.pose_translation(pose6)
     return PrevScan(q_w=_rotate(R, P_img) + t, n_w=_rotate(R, n), pix_valid=n_ok,
-                    depth=_norm3(pts3).reshape(B, A), pose6=pose6, elev_min=e_min, elev_max=e_max)
+                    depth=_norm3(pts3).reshape(B, A), pose6=pose6, elev_min=e_min, elev_max=e_max,
+                    R=R, t=t)
 
 
 def build_prev_scan(sp: Scan2ScanParams, points: torch.Tensor, valid: torch.Tensor,
@@ -189,18 +195,19 @@ def build_prev_scan(sp: Scan2ScanParams, points: torch.Tensor, valid: torch.Tens
         kernels.stream_ptr(dev)), "build_prev_scan")
     build_prev_scan_launches += 1
     return PrevScan(q_w=q_w, n_w=n_w, pix_valid=pix_valid, depth=depth, pose6=pose6,
-                    elev_min=span[0], elev_max=span[1])
+                    elev_min=span[0], elev_max=span[1], R=R, t=t)
 
 
-def _associate(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid):
+def _associate(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid, R=None):
     """Per ray: world point, residual, weight and normal of its projective
-    correspondence in the previous scan (scan2scan.py:170-201)."""
+    correspondence in the previous scan (scan2scan.py:170-201). ``R`` is
+    se3.pose_rotation(pose6), built here when not given."""
     B, A = sp.n_elev, sp.n_az
-    Rc, tc = se3.pose_rotation(pose6), se3.pose_translation(pose6)
-    Rp, tp = se3.pose_rotation(prev.pose6), se3.pose_translation(prev.pose6)
-    p_w = _rotate(Rc, pts.float()) + tc                                 # (N, 3)
+    Rc = se3.pose_rotation(pose6) if R is None else R
+    tc = se3.pose_translation(pose6)
+    p_w = _rotate(Rc, pts) + tc                                         # (N, 3)
     # projective association: current points into the previous sensor frame
-    p_prev = _rotate(Rp.transpose(0, 1), p_w - tp)
+    p_prev = _rotate(prev.R.transpose(0, 1), p_w - prev.t)
     az, elev, d = _angles(p_prev)
     bi_f = _elev_bin_f(elev, prev.elev_min, prev.elev_max, B)
     in_img = (bi_f >= -0.5) & (bi_f <= B - 0.5) & (d > sp.min_depth) & (d < sp.max_depth)
@@ -219,54 +226,74 @@ def _associate(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid):
     return p_w, tc, n, r, w
 
 
-def s2s_system_plain(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid):
+def s2s_system_plain(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid, R=None, acc=None):
     """Plain torch twin of K11b (scan2scan.py:170-211): point-to-plane
-    normal-equation contributions at the current pose. Returns (H (6, 6),
-    b (6,), loss ())."""
-    p_w, t, n, r, w = _associate(sp, prev, pose6, pts, rvalid)
+    normal-equation contributions at the current pose, (H (6, 6), b (6,),
+    loss ()). With ``acc = (H0, b0, loss0)`` they are added to those in
+    place and the three are returned, as the kernel does."""
+    p_w, t, n, r, w = _associate(sp, prev, pose6, pts, rvalid, R)
     J = torch.cat([n, _cross(p_w - t, n)], -1)                          # (N, 6)
     Jw = J * w[:, None]
     H = torch.einsum("ni,nj->ij", Jw, J)
     b = torch.einsum("ni,n->i", Jw, r)
-    return H, b, torch.sum(w * r * r)
+    loss = torch.sum(w * r * r)
+    if acc is None:
+        return H, b, loss
+    return acc[0].add_(H), acc[1].add_(b), acc[2].add_(loss)
+
+
+def _check_s2s_args(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid, R, acc):
+    name, dev, f32 = "s2s_system", pts.device, torch.float32
+    N, B, A = pts.shape[0], sp.n_elev, sp.n_az
+    kernels.expect(name, dev, f32, pts=pts, pose6=pose6, R=R, prev_R=prev.R, prev_t=prev.t,
+                   q_w=prev.q_w, n_w=prev.n_w, depth=prev.depth, elev_min=prev.elev_min,
+                   elev_max=prev.elev_max)
+    kernels.expect(name, dev, torch.bool, rvalid=rvalid, pix_valid=prev.pix_valid)
+    kernels.expect_shape(name, pts=(pts, (N, 3)), rvalid=(rvalid, (N,)), pose6=(pose6, (6,)),
+                         R=(R, (3, 3)), prev_R=(prev.R, (3, 3)), prev_t=(prev.t, (3,)),
+                         q_w=(prev.q_w, (B, A, 3)), n_w=(prev.n_w, (B, A, 3)),
+                         pix_valid=(prev.pix_valid, (B, A)), depth=(prev.depth, (B, A)),
+                         elev_min=(prev.elev_min, ()), elev_max=(prev.elev_max, ()))
+    if acc is not None:
+        kernels.expect(name, dev, f32, H=acc[0], b=acc[1], loss=acc[2])
+        kernels.expect_shape(name, H=(acc[0], (6, 6)), b=(acc[1], (6,)), loss=(acc[2], ()))
 
 
 def s2s_system(sp: Scan2ScanParams, prev: PrevScan, pose6: torch.Tensor, pts: torch.Tensor,
-               rvalid: torch.Tensor):
+               rvalid: torch.Tensor, R: torch.Tensor | None = None, acc=None):
     """K11b. Replaces the XLA fusion of nerfloam_tpu/core/scan2scan.py:
     170-211: projective association of the current ray subset (pts (N, 3)
     sensor frame, rvalid (N,)) with the previous scan's range image, the
-    gates, the Huber weight, J, and the sums H (6, 6), b (6,) and loss ()
-    by a deterministic two-stage reduction. CPU tensors take
-    ``s2s_system_plain``; CUDA tensors launch csrc/scan2scan.cu (one thread
-    per ray)."""
+    gates, the Huber weight, J, and the sums H (6, 6), b (6,) and loss ().
+    ``R`` is se3.pose_rotation(pose6) when the caller has it (the tracker
+    does), else it is built here; the previous pose's comes from ``prev``.
+    ``acc = (H0, b0, loss0)``, f32 tensors of those shapes, takes the sums
+    in place (the tracker passes K3's outputs) and is returned.
+
+    Every input must already be what the kernel reads (f32 or bool,
+    contiguous, on one device): nothing is converted. CPU tensors take
+    ``s2s_system_plain``; CUDA tensors launch csrc/scan2scan.cu once: one
+    cluster of 8 blocks whose sums are the same on every run."""
     dev = pts.device
-    if dev.type == "cpu":
-        return s2s_system_plain(sp, prev, pose6, pts, rvalid)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"s2s_system: unsupported device {dev}")
+    if R is None:
+        R = se3.pose_rotation(pose6)
+    _check_s2s_args(sp, prev, pose6, pts, rvalid, R, acc)
+    if dev.type == "cpu":
+        return s2s_system_plain(sp, prev, pose6, pts, rvalid, R, acc)
     global s2s_system_launches
-    lib = kernels.lib()
-    B, A, N = sp.n_elev, sp.n_az, pts.shape[0]
-    if prev.q_w.shape != (B, A, 3) or prev.depth.shape != (B, A):
-        raise ValueError("s2s_system: the previous scan does not have the params' image shape")
-    pose6, prev6 = pose6.float(), prev.pose6.float()
-    ins = [t.contiguous() for t in (
-        pts.float(), rvalid.to(torch.bool), se3.pose_rotation(pose6), se3.pose_translation(pose6),
-        se3.pose_rotation(prev6), se3.pose_translation(prev6), prev.q_w.float(),
-        prev.n_w.float(), prev.pix_valid.to(torch.bool), prev.depth.float(),
-        prev.elev_min.float().reshape(1), prev.elev_max.float().reshape(1))]
-    if any(t.device != dev for t in ins):
-        raise ValueError("s2s_system: all inputs must be on one device")
-    partial = torch.empty((lib.nl_s2s_blocks(N), lib.nl_s2s_partial_values()),
-                          dtype=torch.float32, device=dev)
-    H = torch.empty((6, 6), dtype=torch.float32, device=dev)
-    b = torch.empty((6,), dtype=torch.float32, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    p = [t.data_ptr() for t in ins]
-    kernels.check(lib.nl_s2s_system(
-        p[0], p[1], N, *p[2:], B, A, sp.min_depth, sp.max_depth, sp.gate_dist,
-        2.0 * sp.gate_dist, sp.huber, sp.weight, partial.data_ptr(), H.data_ptr(), b.data_ptr(),
+    if acc is None:
+        out = torch.empty((43,), dtype=torch.float32, device=dev)
+        H, b, loss = out[:36].view(6, 6), out[36:42], out[42]
+    else:
+        H, b, loss = acc
+    kernels.check(kernels.lib().nl_s2s_system(
+        pts.data_ptr(), rvalid.data_ptr(), pts.shape[0], R.data_ptr(), pose6.data_ptr(),
+        prev.R.data_ptr(), prev.t.data_ptr(), prev.q_w.data_ptr(), prev.n_w.data_ptr(),
+        prev.pix_valid.data_ptr(), prev.depth.data_ptr(), prev.elev_min.data_ptr(),
+        prev.elev_max.data_ptr(), sp.n_elev, sp.n_az, sp.min_depth, sp.max_depth, sp.gate_dist,
+        2.0 * sp.gate_dist, sp.huber, sp.weight, acc is not None, H.data_ptr(), b.data_ptr(),
         loss.data_ptr(), kernels.stream_ptr(dev)), "s2s_system")
     s2s_system_launches += 1
     return H, b, loss

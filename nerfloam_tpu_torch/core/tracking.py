@@ -3,8 +3,10 @@ device): the Gauss-Newton / LM tracker (40-381) and the Adam tracker
 (383-497).
 
 GN, per frame: K4 builds the hit table (hits sampler) or K9a marches the
-occupancy cdf (grid sampler) at the initial pose. Per iteration: K1 (hits)
-or K9b then K8 (grid) place the samples and interpolate their features at
+occupancy cdf (grid sampler) at the initial pose, and K9b's per-frame
+arguments are checked and packed once (``raycast.CdfPlacer``). Per
+iteration: K1 (hits) or K9b then K8 (grid) place the samples and
+interpolate their features at
 the iteration's pose, K8 adds the band/anchor columns of the quality
 stack (explicit depths around the measured distance), the decoder runs
 forward and backward to d sdf / d feats over all columns at once, and one
@@ -13,11 +15,13 @@ gradient g per sample. K3 (``gn_system``, csrc/gn_system.cu) forms the
 residuals, the count-balanced weights and the 6x6 normal equations; with
 ``TrackParams.s2s`` set, K11b (``core.scan2scan.s2s_system``) adds the
 scan-to-scan point-to-plane term on the same rays against the previous
-scan's range image; the LM solve stays in torch.
+scan's range image into K3's H, b and loss in place, with the iteration's
+rotation of the ray directions; the LM solve stays in torch.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
-draw and one K9a per frame at the initial pose; per iteration the grid
-render_rays (K9b, K8, decoder, one K2 in the backward), the sdf losses
+draw, one K9a and one CdfPlacer per frame at the initial pose; per
+iteration the grid render_rays (K9b, K8, decoder, one K2 in the
+backward), the sdf losses
 with the band target, the pose gradient by autograd, and an
 ``optax.scale_by_adam`` step.
 
@@ -46,6 +50,7 @@ from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import (
+    CdfPlacer,
     RaycastConfig,
     build_hit_table,
     march_occupancy,
@@ -225,15 +230,18 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     if rc.sampler == "hits":
         ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
         ray_hit = ht0.ray_mask
-    else:
-        occ0 = march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
+    else:  # K9a once, and K9b's per-frame arguments checked and packed once
+        occ0 = CdfPlacer(map_state, map_cfg, rc,
+                         *march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap), t_cap,
+                         rc.n_samples)
 
     pose6 = init_pose
     lam = 1e-2
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(tp.num_iterations):
-        wdirs = se3.rotate_dirs(pose6, dirs)
+        R = se3.pose_rotation(pose6)  # shared with K11b
+        wdirs = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(pose6, dirs)
         t_pos = se3.pose_translation(pose6)
         origin = t_pos.expand_as(wdirs)
         u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
@@ -251,9 +259,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
         H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
-        if tp.s2s is not None and prev_scan is not None:
-            Hs, bs, ls = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid)
-            H, b, loss = H + Hs, b + bs, loss + ls
+        if tp.s2s is not None and prev_scan is not None:  # adds into K3's fresh outputs
+            H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
         pose6 = lm_update(pose6, H, b, lam)
         hits = (ray_hit & rvalid).sum()
     pose6 = torch.where(hits > 0, pose6, init_pose)
@@ -300,8 +307,10 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
-    occ0 = march_occupancy(map_state, map_cfg, rc,
-                           se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0, t_cap)
+    occ0 = CdfPlacer(map_state, map_cfg, rc,
+                     *march_occupancy(map_state, map_cfg, rc,
+                                      se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0,
+                                      t_cap), t_cap, rc.n_samples)
 
     pose6 = init_pose.detach().clone()
     mu, nu = torch.zeros_like(pose6), torch.zeros_like(pose6)

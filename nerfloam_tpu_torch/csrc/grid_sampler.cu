@@ -9,19 +9,26 @@
 // active voxel in grid_active. The warp's ballot gives each lane its
 // inclusive count, so the cdf (R, S) (a running count of occupied slots)
 // is written coalesced, and n_occ (R,) is the last entry.
-// K9b place: one thread per (ray, sample m). The stratified quantile
-// q = ((m + u) / M) * n_occ, in JAX's order; j = the number of cdf entries
-// below q, found by binary search (the cdf is non-decreasing, so the lower
-// bound equals JAX's compare-count), clipped to S - 1; frac =
-// clip(q - (cdf_j - 1), 0, 1), z = (j + frac) * cstep; the fine cell
-// floor((o + d z) / vs) is looked up in grid_active, and valid = n_occ > 0
-// & aid >= 0 & z <= t_cap. Invalid samples get z = 0 and aid = -1.
+// K9b place: one warp per ray, its cdf row staged in shared memory; per
+// sample m the stratified quantile q = ((m + u) / M) * n_occ, in JAX's
+// order; j = the number of cdf entries below q, found by binary search
+// (the cdf is non-decreasing, so the lower bound equals JAX's
+// compare-count), clipped to S - 1; frac = clip(q - (cdf_j - 1), 0, 1),
+// z = (j + frac) * cstep; the fine cell floor((o + d z) / vs) is looked up
+// in grid_active, and valid = n_occ > 0 & aid >= 0 & z <= t_cap. Invalid
+// samples get z = 0 and aid = -1.
 //
 // Bound on the H100: K9a reads one 4-byte grid_active cell per slot within
 // range (the 19.9 MB grid stays in the 50 MB L2) and writes the (R, S) f32
-// cdf; K9b reads log2(S) cdf entries and one grid cell per sample and
-// writes z, aid, valid. Both are bound by those bytes; the arithmetic is a
-// few dozen operations per slot or sample.
+// cdf; K9b reads each cdf row once and one grid cell per sample and writes
+// z, aid, valid. Both are bound by those bytes; the arithmetic is a few
+// dozen operations per slot or sample. At the tracker's 2048 rays both
+// take a few microseconds, so the launch and the wrapper's host work
+// weigh more than the device time: the wrapper converts and copies
+// nothing (rays_o may be one origin broadcast with row stride 0), and
+// what stays fixed for a ray set (map, cdf, t_cap, outputs) is checked
+// and packed into PlaceArgs once, so an iteration's call passes six
+// arguments.
 //
 // Rounding: every product, sum and division that feeds a floor() or the
 // quantile is written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn
@@ -31,6 +38,9 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kPlaceWarps = 4;         // K9b: rays per block
+constexpr int kPlaceMaxSlots = 3072;   // K9b: 4 cdf rows fill 48 KB of shared memory
 
 __device__ __forceinline__ int grid_read(const int* grid, const float* o, const float* d, float t,
                                          float vs, const int* rmin, int Dx, int Dy, int Dz) {
@@ -74,46 +84,87 @@ __global__ void march_occupancy_kernel(const int* __restrict__ grid_active,
   if (lane == 0) n_occ[r] = (float)run;
 }
 
-__global__ void place_samples_kernel(const int* __restrict__ grid_active,
-                                     const int* __restrict__ rmin, int Dx, int Dy, int Dz,
-                                     const float* __restrict__ cdf,
-                                     const float* __restrict__ n_occ,
-                                     const float* __restrict__ rays_o,
-                                     const float* __restrict__ rays_d,
-                                     const float* __restrict__ t_cap, const float* __restrict__ u,
-                                     int R, int S, int M, float cstep, float vs,
-                                     float* __restrict__ z_out, int* __restrict__ aid_out,
-                                     unsigned char* __restrict__ valid_out,
-                                     unsigned char* __restrict__ ray_mask) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R * M) return;
-  int r = i / M, m = i - r * M;
+// K9b: one warp per ray, kPlaceWarps rays per block. The warp copies its
+// ray's cdf row into shared memory with coalesced loads and reads n_occ,
+// the origin (row stride o_stride: 3, or 0 for one origin broadcast to
+// every ray), the direction and t_cap once; lane l then places samples
+// m = l, l + 32, ... by a binary search in shared memory, with the
+// arithmetic of the thread-per-sample version it replaced, so z is
+// bit for bit what that gave. Lane 0 writes ray_mask. The launch ends a
+// tracker's K9b call, so its device time is not hidden behind host work.
+__global__ void __launch_bounds__(32 * kPlaceWarps)
+    place_samples_kernel(const int* __restrict__ grid_active, const int* __restrict__ rmin,
+                         int Dx, int Dy, int Dz, const float* __restrict__ cdf,
+                         const float* __restrict__ n_occ, const float* __restrict__ rays_o,
+                         int o_stride, const float* __restrict__ rays_d,
+                         const float* __restrict__ t_cap, const float* __restrict__ u, int R,
+                         int S, int M, float cstep, float vs, float* __restrict__ z_out,
+                         int* __restrict__ aid_out, unsigned char* __restrict__ valid_out,
+                         unsigned char* __restrict__ ray_mask) {
+  extern __shared__ float rows[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * kPlaceWarps + w;
+  if (r >= R) return;  // whole warps leave; the block never synchronises
+  // the loads that wait on nothing are issued before the row is staged,
+  // so their latencies overlap
   const float n = n_occ[r];
-  const bool hit = n > 0.0f;
-  if (m == 0) ray_mask[r] = hit;
-  float q = __fmul_rn(__fdiv_rn(__fadd_rn((float)m, u[i]), (float)M), n);
-  const float* row = cdf + (size_t)r * S;
-  int lo = 0, hi = S;  // first entry >= q = the count of entries < q
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (row[mid] < q)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  int j = lo < S - 1 ? lo : S - 1;
-  float frac = fminf(fmaxf(__fsub_rn(q, __fsub_rn(row[j], 1.0f)), 0.0f), 1.0f);
-  float z = __fmul_rn(__fadd_rn((float)j, frac), cstep);
+  const float tcap = t_cap[r];
   float o[3], d[3];
   for (int a = 0; a < 3; ++a) {
-    o[a] = rays_o[3 * r + a];
+    o[a] = rays_o[(size_t)r * o_stride + a];
     d[a] = rays_d[3 * r + a];
   }
-  int aid = grid_read(grid_active, o, d, z, vs, rmin, Dx, Dy, Dz);
-  bool valid = hit && aid >= 0 && z <= t_cap[r];
-  z_out[i] = valid ? z : 0.0f;
-  aid_out[i] = valid ? aid : -1;
-  valid_out[i] = valid;
+  const int rm[3] = {rmin[0], rmin[1], rmin[2]};
+  const float* ur = u + (size_t)r * M;
+  float uq[2];  // this pass's two jitters, loaded one pass ahead
+#pragma unroll
+  for (int k = 0; k < 2; ++k) uq[k] = lane + 32 * k < M ? ur[lane + 32 * k] : 0.0f;
+  float* row = rows + (size_t)w * S;
+  const float* src = cdf + (size_t)r * S;
+  for (int s = lane; s < S; s += 32) row[s] = src[s];
+  __syncwarp();
+  const bool hit = n > 0.0f;
+  if (lane == 0) ray_mask[r] = hit;
+  // two samples per pass (m and m + 32): both searches first, then both
+  // grid reads, so the two dependent loads are in flight together
+  for (int m0 = lane; m0 < M; m0 += 64) {
+    float z[2] = {0.0f, 0.0f}, un[2];
+    int aid[2] = {-1, -1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) un[k] = m0 + 64 + 32 * k < M ? ur[m0 + 64 + 32 * k] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int m = m0 + 32 * k;
+      if (m >= M) break;
+      float q = __fmul_rn(__fdiv_rn(__fadd_rn((float)m, uq[k]), (float)M), n);
+      int lo = 0, hi = S;  // first entry >= q = the count of entries < q
+      while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (row[mid] < q)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      int j = lo < S - 1 ? lo : S - 1;
+      float frac = fminf(fmaxf(__fsub_rn(q, __fsub_rn(row[j], 1.0f)), 0.0f), 1.0f);
+      z[k] = __fmul_rn(__fadd_rn((float)j, frac), cstep);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (m0 + 32 * k < M) aid[k] = grid_read(grid_active, o, d, z[k], vs, rm, Dx, Dy, Dz);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int m = m0 + 32 * k;
+      if (m >= M) break;
+      const size_t i = (size_t)r * M + m;
+      bool valid = hit && aid[k] >= 0 && z[k] <= tcap;
+      z_out[i] = valid ? z[k] : 0.0f;
+      aid_out[i] = valid ? aid[k] : -1;
+      valid_out[i] = valid;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) uq[k] = un[k];
+  }
 }
 
 }  // namespace
@@ -132,17 +183,37 @@ extern "C" int nl_march_occupancy(const int* grid_active, const int* rmin, int D
   return (int)cudaGetLastError();
 }
 
-extern "C" int nl_place_samples_cdf(const int* grid_active, const int* rmin, int Dx, int Dy,
-                                    int Dz, const float* cdf, const float* n_occ,
-                                    const float* rays_o, const float* rays_d, const float* t_cap,
-                                    const float* u, int R, int S, int M, float cstep, float vs,
-                                    float* z, int* aid, unsigned char* valid,
-                                    unsigned char* ray_mask, void* stream) {
-  if (R > 0 && M > 0 && S > 0) {
-    const int threads = 128;
-    place_samples_kernel<<<(R * M + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        grid_active, rmin, Dx, Dy, Dz, cdf, n_occ, rays_o, rays_d, t_cap, u, R, S, M, cstep, vs,
-        z, aid, valid, ray_mask);
+// K9b's arguments that stay fixed for one ray set (a tracker frame, a BA
+// iteration), filled once by the wrapper; _PlaceArgs in
+// nerfloam_tpu_torch/ops/raycast.py has the same fields in the same order.
+struct PlaceArgs {
+  const int* grid_active;
+  const int* rmin;
+  int Dx, Dy, Dz;
+  const float* cdf;
+  const float* n_occ;
+  const float* t_cap;
+  int R, S, M;
+  float cstep, vs;
+  float* z;
+  int* aid;
+  unsigned char* valid;
+  unsigned char* ray_mask;
+};
+
+extern "C" int nl_place_max_slots() { return kPlaceMaxSlots; }
+
+extern "C" int nl_place_args_size() { return (int)sizeof(PlaceArgs); }
+
+// rays_o rows are o_stride floats apart (3, or 0 for one shared origin).
+extern "C" int nl_place_samples_cdf(const PlaceArgs* a, const float* rays_o, int o_stride,
+                                    const float* rays_d, const float* u, void* stream) {
+  if (a->S > kPlaceMaxSlots) return (int)cudaErrorInvalidValue;
+  if (a->R > 0 && a->M > 0 && a->S > 0) {
+    place_samples_kernel<<<(a->R + kPlaceWarps - 1) / kPlaceWarps, 32 * kPlaceWarps,
+                           kPlaceWarps * a->S * sizeof(float), (cudaStream_t)stream>>>(
+        a->grid_active, a->rmin, a->Dx, a->Dy, a->Dz, a->cdf, a->n_occ, rays_o, o_stride, rays_d,
+        a->t_cap, u, a->R, a->S, a->M, a->cstep, a->vs, a->z, a->aid, a->valid, a->ray_mask);
   }
   return (int)cudaGetLastError();
 }

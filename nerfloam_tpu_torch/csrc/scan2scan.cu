@@ -23,12 +23,24 @@
 // costs k^2 steps for a pixel with k points; a scan spreads its points
 // over the image, k is a handful.
 //
-// K11b s2s_system, once per GN iteration: one thread per ray projects the
-// current point into the previous sensor frame, reads its pixel, gates,
-// weights (Huber) and forms J = [n, (p_w - t) x n]; the 21 + 6 + 1 sums of
-// H = sum w J J^T, b = sum w J r and the loss sum w r^2 go through a
-// deterministic two-stage reduction (per-block rows, then one block adds
-// the rows in order), as in csrc/gn_system.cu.
+// K11b s2s_system, once per GN iteration, one launch of one thread block
+// cluster (Hopper) of 8 blocks x 256 threads: thread g of the cluster takes
+// rays g, g + 2048, ..., projects the current point into the previous
+// sensor frame, reads its pixel, gates, weights (Huber), forms J = [n,
+// (p_w - t) x n] and adds to its own 21 + 6 + 1 sums of H = sum w J J^T,
+// b = sum w J r and the loss sum w r^2. Warp shuffles, then each block's 8
+// warp rows in ascending order, then block 0 adding the 8 blocks' rows in
+// ascending rank straight from their shared memory (distributed shared
+// memory), give the totals: the same on every run, with no global scratch,
+// no atomics and no second launch. (One block of 1024 threads took 12 us on
+// one SM; the ray work is a few hundred dependent operations, so it is
+// spread over 8 SMs.) The caller's H, b and
+// loss (the SDF term's, from K3) are added in place, so the tracker issues
+// no adds of its own. Both rotations come from the caller (the previous
+// pose's once per frame in PrevScan, the current one from the tracker's
+// rotation of the ray directions): the kernel and its twin read one R, and
+// an ulp of difference in R would move a point near a bin edge to another
+// pixel.
 //
 // Every arithmetic step is one IEEE-rounded operation in JAX's order (no
 // FMA), so bins and pixels agree with the plain torch versions.
@@ -38,12 +50,16 @@
 // K11b reads 13 B per ray and 29 B per associated pixel (86 KB at 2048
 // rays). Both are bound by their launches, not by bytes or operations.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 64;
+constexpr int kS2SBlocks = 8;      // K11b: one cluster of 8 blocks (the portable most)
+constexpr int kS2SThreads = 256;   // ... of 256 threads
 constexpr int kSums = 28;  // 21 (H upper) + 6 (b) + 1 (loss)
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -223,22 +239,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void s2s_partial_kernel(const float* __restrict__ pts,
-                                   const unsigned char* __restrict__ rvalid, int N,
-                                   const float* __restrict__ Rc, const float* __restrict__ tc,
-                                   const float* __restrict__ Rp, const float* __restrict__ tp,
-                                   const float* __restrict__ q_w, const float* __restrict__ n_w,
-                                   const unsigned char* __restrict__ pix_valid,
-                                   const float* __restrict__ depth,
-                                   const float* __restrict__ e_min_p,
-                                   const float* __restrict__ e_max_p, int B, int A,
-                                   float min_depth, float max_depth, float gate, float gate2,
-                                   float huber, float weight, float* __restrict__ partial) {
+// K11b, launched as one cluster (see the header); with accumulate set each
+// output becomes out + ours, one rounded add per entry.
+__global__ void __cluster_dims__(kS2SBlocks, 1, 1) __launch_bounds__(kS2SThreads)
+    s2s_system_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ rvalid,
+                      int N, const float* __restrict__ Rc, const float* __restrict__ tc,
+                      const float* __restrict__ Rp, const float* __restrict__ tp,
+                      const float* __restrict__ q_w, const float* __restrict__ n_w,
+                      const unsigned char* __restrict__ pix_valid,
+                      const float* __restrict__ depth, const float* __restrict__ e_min_p,
+                      const float* __restrict__ e_max_p, int B, int A, float min_depth,
+                      float max_depth, float gate, float gate2, float huber, float weight,
+                      int accumulate, float* __restrict__ H, float* __restrict__ b,
+                      float* __restrict__ loss) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
   float acc[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
   const float e_min = e_min_p[0], e_max = e_max_p[0];
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < N; i += gridDim.x * kThreads) {
+  for (int i = rank * kS2SThreads + threadIdx.x; i < N; i += kS2SBlocks * kS2SThreads) {
     float p[3] = {pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]}, pw[3], dp[3];
     rotate(Rc, p, pw);
 #pragma unroll
@@ -277,8 +297,10 @@ __global__ void s2s_partial_kernel(const float* __restrict__ pts,
     }
     acc[27] += w * r * r;
   }
-  __shared__ float warp_part[kThreads / 32][kSums];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // lanes by shuffles, then the block's warps in ascending order
+  __shared__ float warp_part[kS2SThreads / 32][kSums];
+  __shared__ float block_tot[kSums];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < kSums; ++k) {
     float s = warp_sum(acc[k]);
@@ -287,30 +309,27 @@ __global__ void s2s_partial_kernel(const float* __restrict__ pts,
   __syncthreads();
   if (threadIdx.x < kSums) {
     float s = 0.0f;
-    for (int wp = 0; wp < kThreads / 32; ++wp) s += warp_part[wp][threadIdx.x];
-    partial[blockIdx.x * kSums + threadIdx.x] = s;
+    for (int wp = 0; wp < kS2SThreads / 32; ++wp) s += warp_part[wp][threadIdx.x];
+    block_tot[threadIdx.x] = s;
   }
-}
-
-__global__ void s2s_final_kernel(const float* __restrict__ partial, int n_blocks,
-                                 float* __restrict__ H, float* __restrict__ b,
-                                 float* __restrict__ loss) {
-  __shared__ float tot[kSums];
-  if (threadIdx.x < kSums) {
-    float s = 0.0f;
-    for (int k = 0; k < n_blocks; ++k) s += partial[k * kSums + threadIdx.x];
-    tot[threadIdx.x] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  int k = 0;
-  for (int i = 0; i < 6; ++i)
-    for (int j = i; j < 6; ++j, ++k) {
-      H[6 * i + j] = tot[k];
-      H[6 * j + i] = tot[k];
+  cluster.sync();  // every block's row is in its shared memory
+  // block 0 adds the blocks' rows in ascending rank, read from their shared
+  // memory (no global scratch, no atomics); 43 outputs, one thread each:
+  // H (row-major, both triangles from the 21 upper sums), b, loss
+  const int o = threadIdx.x;
+  if (rank == 0 && o < 43) {
+    int u = o < 36 ? 0 : (o < 42 ? 21 + (o - 36) : 27);
+    if (o < 36) {
+      int i = o / 6, j = o - 6 * (o / 6);
+      int lo = min(i, j), hi = max(i, j);
+      u = 6 * lo - lo * (lo - 1) / 2 + (hi - lo);
     }
-  for (int i = 0; i < 6; ++i) b[i] = tot[21 + i];
-  loss[0] = tot[27];
+    float v = 0.0f;
+    for (int r = 0; r < kS2SBlocks; ++r) v += cluster.map_shared_rank(block_tot, r)[u];
+    float* out = o < 36 ? H + o : (o < 42 ? b + (o - 36) : loss);
+    *out = accumulate ? __fadd_rn(*out, v) : v;
+  }
+  cluster.sync();  // the other blocks keep their shared memory until block 0 has read it
 }
 
 }  // namespace
@@ -341,28 +360,17 @@ extern "C" int nl_build_prev_scan(const float* points, const unsigned char* vali
   return (int)cudaGetLastError();
 }
 
-extern "C" int nl_s2s_partial_values() { return kSums; }
-
-extern "C" int nl_s2s_blocks(int n) {
-  int b = (n + kThreads - 1) / kThreads;
-  return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
-}
-
-// partial: nl_s2s_blocks(N) x nl_s2s_partial_values() floats of scratch
+// H (6 x 6), b (6) and loss (1) are written; with accumulate != 0 they hold
+// the caller's sums on entry and ours are added to them in place.
 extern "C" int nl_s2s_system(const float* pts, const unsigned char* rvalid, int N,
                              const float* Rc, const float* tc, const float* Rp, const float* tp,
                              const float* q_w, const float* n_w, const unsigned char* pix_valid,
                              const float* depth, const float* e_min, const float* e_max,
                              int n_elev, int n_az, float min_depth, float max_depth, float gate,
-                             float gate2, float huber, float weight, float* partial, float* H,
+                             float gate2, float huber, float weight, int accumulate, float* H,
                              float* b, float* loss, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int nb = nl_s2s_blocks(N);
-  s2s_partial_kernel<<<nb, kThreads, 0, s>>>(pts, rvalid, N, Rc, tc, Rp, tp, q_w, n_w, pix_valid,
-                                             depth, e_min, e_max, n_elev, n_az, min_depth,
-                                             max_depth, gate, gate2, huber, weight, partial);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  s2s_final_kernel<<<1, 32, 0, s>>>(partial, nb, H, b, loss);
+  s2s_system_kernel<<<kS2SBlocks, kS2SThreads, 0, (cudaStream_t)stream>>>(
+      pts, rvalid, N, Rc, tc, Rp, tp, q_w, n_w, pix_valid, depth, e_min, e_max, n_elev, n_az,
+      min_depth, max_depth, gate, gate2, huber, weight, accumulate, H, b, loss);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,8 @@ import subprocess
 import time
 import types
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -67,16 +69,15 @@ _SIGNATURES = {
     "nl_reconcile_link": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "nl_reconcile_apply": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
     "nl_march_occupancy": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
-    "nl_place_samples_cdf": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                             _P, _P, _P, _P, _P],
+    "nl_place_max_slots": [],
+    "nl_place_args_size": [],
+    "nl_place_samples_cdf": [_P, _P, _I, _P, _P, _P],
     "nl_mesh_lattice": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "nl_marching_tets": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P],
-    "nl_s2s_partial_values": [],
-    "nl_s2s_blocks": [_I],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
-                      _F, _F, _P, _P, _P, _P, _P],
+                      _F, _F, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -150,10 +151,35 @@ def lib() -> types.SimpleNamespace:
     return _lib
 
 
-def stream_ptr(device) -> int:
-    import torch
+# raw_stream(index): the raw pointer of PyTorch's current stream on CUDA
+# device ``index``. It follows ``torch.cuda.stream(...)`` contexts and
+# builds no Python object, where ``torch.cuda.current_stream(device)
+# .cuda_stream`` builds a Stream on every call (None in a CPU-only build).
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
-    return torch.cuda.current_stream(device).cuda_stream
+
+def stream_ptr(device) -> int:
+    """``raw_stream`` of a CUDA ``device``."""
+    index = device.index
+    return raw_stream(torch.cuda.current_device() if index is None else index)
+
+
+def expect(name: str, device, dtype, **tensors) -> None:
+    """Raise ValueError unless every tensor is contiguous, of ``dtype`` and
+    on ``device``. A wrapper hands the kernel its inputs as they are: it
+    converts and copies nothing, so what the kernel cannot read is an
+    error of the caller."""
+    for label, t in tensors.items():
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} tensor on {device}; "
+                             f"got {t.dtype} with strides {tuple(t.stride())} on {t.device}")
+
+
+def expect_shape(name: str, **shapes) -> None:
+    """Raise ValueError unless each ``label=(tensor, shape)`` has that shape."""
+    for label, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {shape}")
 
 
 def check(err: int, name: str):

@@ -11,11 +11,15 @@ The grid sampler's two passes are K9a ``march_occupancy`` (the coarse
 occupancy cdf per ray) and K9b ``place_samples_cdf`` (stratified quantile
 placement and the fine cell lookup), csrc/grid_sampler.cu, with plain
 twins ``march_occupancy_plain`` and ``place_samples_cdf_plain``; the
-caller always supplies the placement jitter ``u``.
+caller always supplies the placement jitter ``u``. A tracker places
+samples over one frame's cdf in every iteration, so it makes a
+``CdfPlacer`` once per frame (K9b's fixed arguments checked and packed,
+its outputs allocated) and calls it per iteration.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -27,6 +31,9 @@ from nerfloam_tpu_torch.map import voxel_map as vm
 hit_table_launches = 0          # K4
 march_occupancy_launches = 0    # K9a
 place_samples_cdf_launches = 0  # K9b
+_PLACE = "place_samples_cdf"
+_F32 = torch.float32
+_ORIGIN_STRIDES = ((0, 1), (3, 1))  # K9b's rays_o: one shared origin, or one per ray
 
 
 class RaycastConfig(NamedTuple):
@@ -225,7 +232,7 @@ def march_occupancy_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Raycast
     lid = vm.lookup_active(state, map_cfg, cells_of(pts, rc.voxel_size))
     occ = (lid >= 0) & (t_c[None, :] <= t_cap[:, None])
     cdf = torch.cumsum(occ.to(torch.float32), -1)
-    return cdf, cdf[:, -1]
+    return cdf, cdf[:, -1].contiguous()  # its own row, as the kernel writes it
 
 
 def march_occupancy(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
@@ -274,36 +281,122 @@ def place_samples_cdf_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Rayca
     return torch.where(valid, z, 0.0), torch.where(valid, aid, -1), valid, ray_mask
 
 
+class _PlaceArgs(ctypes.Structure):
+    """K9b's arguments fixed for one ray set: ``PlaceArgs`` of
+    csrc/grid_sampler.cu, the same fields in the same order."""
+
+    _fields_ = [("grid_active", ctypes.c_void_p), ("rmin", ctypes.c_void_p),
+                ("Dx", ctypes.c_int), ("Dy", ctypes.c_int), ("Dz", ctypes.c_int),
+                ("cdf", ctypes.c_void_p), ("n_occ", ctypes.c_void_p), ("t_cap", ctypes.c_void_p),
+                ("R", ctypes.c_int), ("S", ctypes.c_int), ("M", ctypes.c_int),
+                ("cstep", ctypes.c_float), ("vs", ctypes.c_float),
+                ("z", ctypes.c_void_p), ("aid", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("ray_mask", ctypes.c_void_p)]
+
+
+class CdfPlacer:
+    """K9b prepared for one ray set: the map, the occupancy cdf and n_occ of
+    K9a, t_cap and the sample count M are checked once, so each call
+    (``placer(rays_o, rays_d, u)``, once per tracker iteration) checks only
+    the rays and the jitter, and on the card makes one ctypes call of six
+    arguments into output buffers allocated once. Every input must already be
+    what the kernel reads (f32 or int32, contiguous, on t_cap's device;
+    ``rays_o`` may be one origin expanded to (R, 3)): nothing is converted
+    or copied, and a tensor that would need it raises ValueError.
+
+    On the card a call returns the placer's own (z, aid, valid, ray_mask)
+    buffers, overwritten by the next call: the trackers and BA consume them
+    within the iteration. CPU tensors take ``place_samples_cdf_plain``."""
+
+    def __init__(self, state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                 cdf: torch.Tensor, n_occ: torch.Tensor, t_cap: torch.Tensor, n_samples: int):
+        dev = t_cap.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{_PLACE}: unsupported device {dev}")
+        R, S = cdf.shape
+        M = n_samples
+        kernels.expect(_PLACE, dev, torch.int32, grid_active=state.grid_active,
+                       region_min=state.region_min)
+        kernels.expect(_PLACE, dev, _F32, cdf=cdf, n_occ=n_occ, t_cap=t_cap)
+        kernels.expect_shape(_PLACE, region_min=(state.region_min, (3,)), n_occ=(n_occ, (R,)),
+                             t_cap=(t_cap, (R,)))
+        self.device, self.R, self.M = dev, R, M
+        self._rd_shape, self._u_shape, self._u_stride = (R, 3), (R, M), (M, 1)
+        self._inputs = (state, map_cfg, rc, cdf, n_occ, t_cap)  # holds what _args points at
+        self._out = None
+        self._index = -2  # matches no tensor's get_device(): CPU calls take the full checks
+        if dev.type == "cpu":
+            return
+        self._index = t_cap.get_device()
+        lib = kernels.lib()
+        if S > lib.nl_place_max_slots():
+            raise ValueError(f"{_PLACE}: {S} coarse slots > {lib.nl_place_max_slots()}, the cdf "
+                             "rows the kernel holds in shared memory")
+        # four allocations, not one buffer cut into views: on the card's
+        # host a view costs about what an allocation does, and three dtypes
+        # need seven (scripts/wrapper_host_costs.py)
+        self._out = (torch.empty((R, M), dtype=torch.float32, device=dev),
+                     torch.empty((R, M), dtype=torch.int32, device=dev),
+                     torch.empty((R, M), dtype=torch.bool, device=dev),
+                     torch.empty((R,), dtype=torch.bool, device=dev))
+        cstep, _ = _coarse_shape(rc)
+        self._args = _PlaceArgs(state.grid_active.data_ptr(), state.region_min.data_ptr(),
+                                *map_cfg.grid_dim, cdf.data_ptr(), n_occ.data_ptr(),
+                                t_cap.data_ptr(), R, S, M, cstep, rc.voxel_size,
+                                *(t.data_ptr() for t in self._out))
+        self._args_ptr = ctypes.addressof(self._args)
+        self._launch = lib.nl_place_samples_cdf
+
+    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor, u: torch.Tensor):
+        index = self._index
+        # the usual case on the card in one expression (each term a fraction
+        # of a us); anything else, and every CPU call, goes through the full
+        # checks, which raise
+        if not (rays_d.dtype is _F32 and u.dtype is _F32 and rays_o.dtype is _F32
+                and rays_d.shape == self._rd_shape and rays_o.shape == self._rd_shape
+                and u.shape == self._u_shape and rays_d.stride() == (3, 1)
+                and u.stride() == self._u_stride and (o_st := rays_o.stride()) in _ORIGIN_STRIDES
+                and rays_d.get_device() == index and u.get_device() == index
+                and rays_o.get_device() == index):
+            self._check(rays_o, rays_d, u)
+            o_st = rays_o.stride()
+        if self._out is None:
+            state, map_cfg, rc, cdf, n_occ, t_cap = self._inputs
+            return place_samples_cdf_plain(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap,
+                                           u)
+        global place_samples_cdf_launches
+        err = self._launch(self._args_ptr, rays_o.data_ptr(), o_st[0], rays_d.data_ptr(),
+                           u.data_ptr(), kernels.raw_stream(index))
+        if err:
+            kernels.check(err, _PLACE)
+        place_samples_cdf_launches += 1
+        return self._out
+
+    def _check(self, rays_o, rays_d, u):
+        dev, R = self.device, self.R
+        kernels.expect(_PLACE, dev, _F32, rays_d=rays_d, u=u)
+        kernels.expect_shape(_PLACE, rays_d=(rays_d, (R, 3)), u=(u, (R, self.M)))
+        if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
+                or rays_o.stride(1) != 1 or (R > 1 and rays_o.stride(0) not in (0, 3))):
+            raise ValueError(f"{_PLACE}: rays_o must be ({R}, 3) f32 rows on {dev} (row stride "
+                             f"3, or 0 for one shared origin); got {tuple(rays_o.shape)} "
+                             f"{rays_o.dtype}, strides {tuple(rays_o.stride())}, on "
+                             f"{rays_o.device}")
+
+
 def place_samples_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
                       cdf: torch.Tensor, n_occ: torch.Tensor, rays_o: torch.Tensor,
                       rays_d: torch.Tensor, t_cap: torch.Tensor, u: torch.Tensor):
     """K9b. Replaces nerfloam_tpu/ops/raycast.py:88-130 (place_samples_cdf):
     the XLA fusion of the stratified quantile, the (R, M, S) compare-count
     against the cdf, the depth and the fine grid lookup. ``u`` (R, M) is
-    the jitter. CPU tensors take the plain twin; CUDA tensors launch
-    csrc/grid_sampler.cu (one thread per sample, a binary search over the
-    ray's cdf row). Returns (z, aid, valid, ray_mask)."""
-    if rays_o.device.type == "cpu":
-        return place_samples_cdf_plain(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap, u)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"place_samples_cdf: unsupported device {rays_o.device}")
-    global place_samples_cdf_launches
-    dev, (ga, rmin, cd, no, o, d, tc, uu) = _grid_args("place_samples_cdf", state, cdf, n_occ,
-                                                       rays_o, rays_d, t_cap, u)
-    R, S = cd.shape
-    M = uu.shape[1]
-    cstep, _ = _coarse_shape(rc)
-    z = torch.empty((R, M), dtype=torch.float32, device=dev)
-    aid = torch.empty((R, M), dtype=torch.int32, device=dev)
-    valid = torch.empty((R, M), dtype=torch.bool, device=dev)
-    ray_mask = torch.empty((R,), dtype=torch.bool, device=dev)
-    kernels.check(kernels.lib().nl_place_samples_cdf(
-        ga.data_ptr(), rmin.data_ptr(), *map_cfg.grid_dim, cd.data_ptr(), no.data_ptr(),
-        o.data_ptr(), d.data_ptr(), tc.data_ptr(), uu.data_ptr(), R, S, M, cstep, rc.voxel_size,
-        z.data_ptr(), aid.data_ptr(), valid.data_ptr(), ray_mask.data_ptr(),
-        kernels.stream_ptr(dev)), "place_samples_cdf")
-    place_samples_cdf_launches += 1
-    return z, aid, valid, ray_mask
+    the jitter. One call of a CdfPlacer made for it (see there: inputs are
+    checked, never converted); CUDA tensors launch csrc/grid_sampler.cu,
+    one warp per ray with its cdf row in shared memory. Returns (z, aid,
+    valid, ray_mask)."""
+    if rays_o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_PLACE}: unsupported device {rays_o.device}")
+    return CdfPlacer(state, map_cfg, rc, cdf, n_occ, t_cap, u.shape[-1])(rays_o, rays_d, u)
 
 
 def sample_rays_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,

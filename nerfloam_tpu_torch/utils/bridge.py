@@ -14,6 +14,7 @@ import torch
 from nerfloam_tpu_torch.core.scan2scan import PrevScan
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
 from nerfloam_tpu_torch.models.decoder import decoder_params_from_jax
+from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import HitTable
 
 __all__ = ["decoder_params_from_jax", "map_config_from_jax", "map_state_from_numpy",
@@ -55,9 +56,12 @@ def hit_table_from_numpy(ht, device="cuda") -> HitTable:
 
 
 def prev_scan_from_numpy(prev, device="cuda") -> PrevScan:
-    """A numpy PrevScan (nerfloam_tpu/core/scan2scan.py:58-67) -> the port's."""
+    """A numpy PrevScan (nerfloam_tpu/core/scan2scan.py:58-67) -> the port's,
+    whose previous-pose rotation and translation are built from pose6 as
+    build_prev_scan builds them."""
     f = _fields(prev)
-    return PrevScan(**{k: _tensor(f[k], device) for k in PrevScan._fields})
+    out = {k: _tensor(f[k], device) for k in PrevScan._fields if k not in ("R", "t")}
+    return PrevScan(**out, R=se3.pose_rotation(out["pose6"]), t=se3.pose_translation(out["pose6"]))
 
 
 def load_jax_checkpoint(path: str, slam) -> None:

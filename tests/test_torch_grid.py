@@ -143,6 +143,48 @@ def test_march_and_place_match_jax(setup):
         np.testing.assert_allclose(to_numpy(t), np.asarray(j), rtol=0, atol=1e-6)
 
 
+def test_place_samples_shared_origin_equals_its_copy(setup):
+    """The trackers hand K9b one origin expanded to every ray (row stride
+    0), through a CdfPlacer made once per frame; the wrapper reads it as it
+    is and gives what the copied rows give."""
+    s = setup
+    _, tocc = _occupancy(s)
+    to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
+    assert to.stride(0) == 0
+    args = (s["tm"], T_CFG, T_RC, *tocc)
+    shared = trc.place_samples_cdf(*args, to, td, _t(s["t_cap"]), _t(s["u"]))
+    copied = trc.place_samples_cdf(*args, to.contiguous(), td, _t(s["t_cap"]), _t(s["u"]))
+    plain = trc.place_samples_cdf_plain(*args, to, td, _t(s["t_cap"]), _t(s["u"]))
+    placer = trc.CdfPlacer(*args, _t(s["t_cap"]), RC.n_samples)  # a tracker's, once per frame
+    placed = placer(to, td, _t(s["u"]))
+    for a, b, c, d in zip(shared, copied, plain, placed):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert bool(shared[2].any())
+
+
+def test_place_samples_rejects_unconverted_inputs(setup):
+    """The wrapper converts and copies nothing: a wrong dtype, a strided
+    tensor or rows of another stride raise instead."""
+    s = setup
+    _, (cdf, n_occ) = _occupancy(s)
+    to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
+    tc, u = _t(s["t_cap"]), _t(s["u"])
+    ok = dict(cdf=cdf, n_occ=n_occ, rays_o=to, rays_d=td, t_cap=tc, u=u)
+    bad = [("cdf", cdf.double(), "cdf must be a contiguous"),
+           ("n_occ", cdf[:, -1], "n_occ must be a contiguous"),
+           ("rays_d", td.t().contiguous().t(), "rays_d must be a contiguous"),
+           ("u", u.half(), "u must be a contiguous"),
+           ("t_cap", tc[:, None], "t_cap has shape"),
+           ("rays_o", torch.cat([to, to], 1)[:, :3], "rays_o must be"),
+           ("rays_o", to.double(), "rays_o must be")]
+    for key, value, match in bad:
+        with pytest.raises(ValueError, match=match):
+            trc.place_samples_cdf(s["tm"], T_CFG, T_RC, **{**ok, key: value})
+    state = s["tm"]._replace(region_min=s["tm"].region_min.long())
+    with pytest.raises(ValueError, match="region_min must be a contiguous"):
+        trc.place_samples_cdf(state, T_CFG, T_RC, **ok)
+
+
 def test_render_rays_grid_matches_jax(setup):
     s = setup
     jocc, tocc = _occupancy(s)

@@ -21,13 +21,18 @@ summation order) and bit-stable from run to run; K7 every table equal
 equal to the twin run on the CPU (f32 and bf16: both add each corner's
 deltas in ascending order, rounding after every add) and bit-identical
 between two calls; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
-equal and z within one f32 ulp; the grid render's gradients on the card
+equal and z within one f32 ulp (also with one origin broadcast to every
+ray and widths that are not multiples of 32); the grid render's gradients on the card
 1e-5 of the CPU's largest entry (another summation order); K10a features and
 positions equal, K10b triangles and mask equal (one rounded operation at a
 time on both sides); K11a every output equal and bit-identical between two
 calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
-relative (another summation order) and bit-stable from run to run."""
+relative (another summation order) and bit-stable from run to run, and in
+the accumulating form each entry one add on the sums alone. K9b and K11b
+raise on what they would have to convert (another device, another dtype,
+a strided tensor)."""
 
+import ctypes
 import os
 
 import numpy as np
@@ -42,6 +47,7 @@ from nerfloam_tpu_torch.map import mesher as tmesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import marching as tmarch
 from nerfloam_tpu_torch.ops import raycast as trc
+from nerfloam_tpu_torch.ops import se3 as tse3
 
 torch.set_num_threads(2)
 VS = 0.5
@@ -310,6 +316,36 @@ def test_grid_sampler_kernels_match_plain(cuda):
     assert 0.2 < float(ref[2].float().mean()) < 1.0
 
 
+@pytest.mark.parametrize("S, M", [(45, 37), (100, 64), (75, 32)])
+def test_place_samples_kernel_shared_origin_matches_plain(cuda, S, M):
+    """K9b with one origin for every ray (row stride 0, as the trackers pass
+    it), at cdf widths and sample counts that are not multiples of 32."""
+    ms, o, d, tc = _case(cuda, seed=12)
+    rc = T_RC._replace(sampler="grid", n_samples=M, n_coarse=S, coarse_step=12.0 / S)
+    cdf, n_occ = trc.march_occupancy(ms, T_CFG, rc, o[:1].expand_as(d), d, tc)
+    assert cdf.shape == (o.shape[0], S)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    o2 = (o[0] + 0.02).expand_as(d)
+    assert o2.stride(0) == 0
+    placer = trc.CdfPlacer(ms, T_CFG, rc, cdf, n_occ, tc, M)  # a tracker's, once per frame
+    n0 = trc.place_samples_cdf_launches
+    for _ in range(2):  # each call refills the placer's buffers
+        u = trc.uniform_jitter((o.shape[0], M), g, cuda)
+        ker = placer(o2, d, u)
+        ref = trc.place_samples_cdf_plain(ms, T_CFG, rc, cdf, n_occ, o2, d, tc, u)
+        torch.cuda.synchronize()
+        for i, name in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+            assert torch.equal(ker[i], ref[i]), name
+        ulp = torch.nextafter(ref[0], torch.full_like(ref[0], float("inf"))) - ref[0]
+        assert bool(((ker[0] - ref[0]).abs() <= ulp).all())
+        assert 0.1 < float(ref[2].float().mean()) < 1.0
+    assert trc.place_samples_cdf_launches == n0 + 2
+    assert ctypes.sizeof(trc._PlaceArgs) == kernels.lib().nl_place_args_size()
+    wide = torch.zeros((o.shape[0], kernels.lib().nl_place_max_slots() + 1), device=cuda)
+    with pytest.raises(ValueError, match="coarse slots"):
+        trc.place_samples_cdf(ms, T_CFG, rc, wide, n_occ, o2, d, tc, u)
+
+
 def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
     ms, o, d, tc = _case(cuda, seed=11)
     rc = T_RC._replace(sampler="grid", n_samples=24)
@@ -439,6 +475,62 @@ def test_s2s_system_kernel_matches_plain(cuda):
         assert torch.equal(a, b), f"{name} differs between two runs"
         assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
     assert torch.equal(k1[0], k1[0].T)
+
+
+def test_s2s_system_kernel_accumulates_like_plain(cuda):
+    """The tracker's form: the rotation given and K3's sums taken in place."""
+    pts, valid = _scan(cuda, seed=1)
+    prev = ts2s.build_prev_scan(S2S, pts, valid,
+                                torch.tensor([0.1, 0.0, 0.0, 0.0, 0.0, 0.01], device=cuda))
+    cur, _ = _scan(cuda, n=6000, seed=3)
+    pose = torch.tensor([0.4, 0.1, 0.02, 0.0, 0.01, 0.02], device=cuda)
+    cur = (cur[:2048] - pose[:3]).contiguous()
+    rv = torch.rand(len(cur), device=cuda) > 0.05
+    R = tse3.pose_rotation(pose)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    acc0 = (torch.randn((6, 6), generator=g, device=cuda) * 100.0,
+            torch.randn((6,), generator=g, device=cuda) * 10.0, torch.tensor(5.0, device=cuda))
+    n0 = ts2s.s2s_system_launches
+    k1, k2 = (ts2s.s2s_system(S2S, prev, pose, cur, rv, R, tuple(a.clone() for a in acc0))
+              for _ in range(2))
+    ref = ts2s.s2s_system_plain(S2S, prev, pose, cur, rv, R, tuple(a.clone() for a in acc0))
+    alone = ts2s.s2s_system(S2S, prev, pose, cur, rv, R)
+    torch.cuda.synchronize()
+    assert ts2s.s2s_system_launches == n0 + 3
+    assert float(torch.trace(alone[0][:3, :3])) > 1000
+    for name, a, b, r, x, y in zip(("H", "b", "loss"), k1, k2, ref, acc0, alone):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+        assert torch.equal(a, x + y), f"{name} is not one add on the sums alone"
+
+
+def test_grid_and_s2s_wrappers_reject_what_they_would_convert(cuda):
+    """K9b and K11b take their inputs as they are: a CPU or meta tensor among
+    CUDA ones, or a wrong dtype, raises instead of being moved or cast."""
+    ms, o, d, tc = _case(cuda, seed=13)
+    rc = T_RC._replace(sampler="grid", n_samples=32)
+    cdf, n_occ = trc.march_occupancy(ms, T_CFG, rc, o, d, tc)
+    u = torch.rand((len(o), 32), device=cuda)
+    ok = dict(cdf=cdf, n_occ=n_occ, rays_o=o, rays_d=d, t_cap=tc, u=u)
+    for key, value in (("cdf", cdf.cpu()), ("u", u.to("meta")), ("t_cap", tc.double()),
+                       ("rays_d", d.half())):
+        with pytest.raises(ValueError, match=f"{key} must be a contiguous"):
+            trc.place_samples_cdf(ms, T_CFG, rc, **{**ok, key: value})
+    with pytest.raises(ValueError, match="grid_active must be a contiguous"):
+        trc.place_samples_cdf(ms._replace(grid_active=ms.grid_active.cpu()), T_CFG, rc, **ok)
+    pts, valid = _scan(cuda, seed=1)
+    prev = ts2s.build_prev_scan(S2S, pts, valid, torch.zeros(6, device=cuda))
+    cur, rv, pose = pts[:512].contiguous(), valid[:512].contiguous(), torch.zeros(6, device=cuda)
+    for args, match in (((pose.cpu(), cur, rv), "pose6 must"), ((pose, cur, rv.to("meta")),
+                                                                 "rvalid must"),
+                        ((pose, cur.double(), rv), "pts must")):
+        with pytest.raises(ValueError, match=match):
+            ts2s.s2s_system(S2S, prev, *args)
+    with pytest.raises(ValueError, match="q_w must"):
+        ts2s.s2s_system(S2S, prev._replace(q_w=prev.q_w.cpu()), pose, cur, rv)
+    acc = (torch.zeros((6, 6), device=cuda), torch.zeros(6, device=cuda), torch.zeros(()))
+    with pytest.raises(ValueError, match="loss must"):
+        ts2s.s2s_system(S2S, prev, pose, cur, rv, acc=acc)
 
 
 def test_wrappers_reject_other_devices():

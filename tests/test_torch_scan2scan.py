@@ -29,6 +29,7 @@ from nerfloam_tpu.utils.config import load_config
 from nerfloam_tpu_torch.core import scan2scan as ts2s
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
+from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.utils.bridge import prev_scan_from_numpy, to_numpy
 from nerfloam_tpu_torch.utils.config import finalize, load_json_config
 
@@ -100,6 +101,61 @@ def test_s2s_system_matches_jax():
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=1e-4 * np.abs(j).max(),
                                    err_msg=name)
+
+
+def test_s2s_system_takes_the_tracker_rotation_and_sums():
+    """The tracker's form: the current rotation given (it equals the one
+    built inside, bitwise) and K3's sums taken in place (each entry one add,
+    as H + Hs)."""
+    prev = _prev(corridor_scan(np.random.default_rng(1)), np.array([0.2, 0.1, 0.0, 0.0, 0.0, 0.05],
+                                                                    np.float32))
+    pose = _t(np.array([1.1, 0.12, 0.03, 0.0, 0.01, 0.07], np.float32))
+    rng = np.random.default_rng(7)
+    pts = _t(world_scan_at(corridor_scan(rng), np.array([1.2, 0.15, 0.02, 0.0, 0.01, 0.06],
+                                                        np.float32))[:1024])
+    rv = _t(rng.uniform(size=len(pts)) > 0.05)
+    sp10 = SP._replace(weight=10.0)
+    H, b, loss = ts2s.s2s_system(sp10, prev, pose, pts, rv)
+    assert float(torch.trace(H[:3, :3])) > 100
+    given = ts2s.s2s_system(sp10, prev, pose, pts, rv, tse3.pose_rotation(pose))
+    for x, y in zip(given, (H, b, loss)):
+        assert torch.equal(x, y)
+    acc = (_t(rng.normal(size=(6, 6)).astype(np.float32)),
+           _t(rng.normal(size=6).astype(np.float32)), torch.tensor(3.5))
+    want = (acc[0] + H, acc[1] + b, acc[2] + loss)
+    got = ts2s.s2s_system(sp10, prev, pose, pts, rv, tse3.pose_rotation(pose), acc)
+    for x, y, a in zip(got, want, acc):
+        assert x is a and torch.equal(x, y)                   # in place, bitwise H0 + H
+
+
+def test_prev_scan_carries_the_previous_rotation():
+    pose6 = np.array([3.0, -1.0, 0.5, 0.02, -0.01, 0.3], np.float32)
+    pts = corridor_scan(np.random.default_rng(0))
+    tprev = _prev(pts, pose6)
+    jprev = prev_scan_from_numpy(jax.device_get(js2s.build_prev_scan(
+        JSP, jnp.asarray(pts), jnp.ones(len(pts), dtype=bool), jnp.asarray(pose6))), device="cpu")
+    for prev in (tprev, jprev):
+        assert torch.equal(prev.R, tse3.pose_rotation(prev.pose6))
+        assert torch.equal(prev.t, tse3.pose_translation(prev.pose6))
+        assert prev.R.dtype == prev.t.dtype == torch.float32 and prev.R.is_contiguous()
+
+
+def test_s2s_system_rejects_unconverted_inputs():
+    """The wrapper converts nothing: f64, int or strided inputs raise."""
+    prev = _prev(corridor_scan(np.random.default_rng(1)), np.zeros(6, np.float32))
+    pts = _t(corridor_scan(np.random.default_rng(2))[:256])
+    rv = torch.ones(len(pts), dtype=torch.bool)
+    pose = torch.zeros(6)
+    for args, match in (((pose, pts.double(), rv), "pts must be a contiguous"),
+                        ((pose, pts, rv.int()), "rvalid must be a contiguous"),
+                        ((pose.double(), pts, rv), "pose6 must be a contiguous"),
+                        ((pose, pts.t().contiguous().t(), rv), "pts must be a contiguous"),
+                        ((pose, pts[:, :2].contiguous(), rv), "pts has shape")):
+        with pytest.raises(ValueError, match=match):
+            ts2s.s2s_system(SP, prev, *args)
+    with pytest.raises(ValueError, match="loss must be a contiguous"):
+        ts2s.s2s_system(SP, prev, pose, pts, rv, acc=(torch.zeros(6, 6), torch.zeros(6),
+                                                      torch.zeros((), dtype=torch.float64)))
 
 
 def test_range_image_normals():
