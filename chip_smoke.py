@@ -19,8 +19,11 @@
    at res 2 and res 4 with bf16 and f32 embeddings; K11a (range image) at
    one frame's 65,536 points and 64 x 1024 pixels and K11b (point-to-plane
    system) at 2048 rays.
-   K9b is checked with one origin per ray and with one origin broadcast to
-   every ray (row stride 0, the trackers' form, which is timed), K11b
+   K9b is checked with one origin per ray, with one origin broadcast to
+   every ray (row stride 0, the trackers' form, timed at the Adam shapes)
+   and over a superset cdf whose rows each call picks (BA's form, timed at
+   the gate's), per call and with the placer made once per frame or step;
+   it also prints the host us of its wrapper's pieces. K11b is checked
    alone and in the tracker's form (rotation given, adding into a system
    in place, which is timed; bit-identical across two calls and equal to
    one add on its sums alone).
@@ -345,11 +348,13 @@ def rows_read(aid, valid):
     return int(torch.unique(aid[valid]).numel())
 
 
-def kernel_phase(slam, ds, rc_gate, sp):
+def kernel_phase(slam, ds, rc_gate, loops, sp):
     """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6,
     K5, K10a and K10b at the quality shapes, K9a and K9b at the Adam
-    tracker's and the replica gate's BA superset shapes (``rc_gate``), K11a
-    and K11b at the s2s config's image (``sp``, its Scan2ScanParams)."""
+    tracker's and the replica gate's BA superset shapes (``rc_gate``;
+    ``loops``: the Adam tracker's iterations a frame and the gate's BA
+    iterations a step), K11a and K11b at the s2s config's image (``sp``,
+    its Scan2ScanParams)."""
     dev = slam.device
     cfg, rc_t, rc_m = slam.map_cfg, slam.rc_track, slam.rc_map
     gen = torch.Generator(device=dev)
@@ -593,7 +598,7 @@ def kernel_phase(slam, ds, rc_gate, sp):
                           k_ms, p_ms, P * 18 + 32 * Pc + 16 * n_new + n_act * (33 + 532),
                           10 * P, dev=partial(vm.insert_points, *args7)))
     records += map_kernels(slam, ms, frames, gen)
-    records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, p, c, v, pose, gen)
+    records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
     return records
@@ -685,43 +690,105 @@ def map_kernels(slam, ms, frames, gen):
     return records
 
 
-def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
+def host_us(fn, calls=2000):
+    """Mean host microseconds of one call of fn (the GPU is synchronised
+    before and after the calls, not between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def k9b_host_costs(ms, cfg, rc, cdf, n_occ, o, d, tc, u, q):
+    """Host us of K9b's wrapper and of what it is built from, at one
+    shape: the placer made and called, torch.searchsorted, the outputs
+    allocated four times or as views of one buffer, the stream lookup."""
+    dev, (R, M) = d.device, u.shape
+    placer = raycast.CdfPlacer(ms, cfg, rc, cdf, n_occ, tc, M)
+
+    def one_buffer_views():
+        buf = torch.empty((9 * R * M + R,), dtype=torch.uint8, device=dev)
+        zb, ab, vb, mb = buf.split_with_sizes([4 * R * M, 4 * R * M, R * M, R])
+        return (zb.view(torch.float32).view(R, M), ab.view(torch.int32).view(R, M),
+                vb.view(torch.bool).view(R, M), mb.view(torch.bool))
+
+    pieces = {
+        "CdfPlacer made": lambda: raycast.CdfPlacer(ms, cfg, rc, cdf, n_occ, tc, M),
+        "CdfPlacer call": lambda: placer(o, d, u),
+        "torch.searchsorted": lambda: torch.searchsorted(cdf, q),
+        "4 x torch.empty (the outputs)": lambda: (
+            torch.empty((R, M), dtype=torch.float32, device=dev),
+            torch.empty((R, M), dtype=torch.int32, device=dev),
+            torch.empty((R, M), dtype=torch.bool, device=dev),
+            torch.empty((R,), dtype=torch.bool, device=dev)),
+        "one buffer cut into views": one_buffer_views,
+        "kernels.stream_ptr": lambda: kernels.stream_ptr(dev),
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev)
+        .cuda_stream,
+    }
+    costs = {k: host_us(fn) for k, fn in pieces.items()}
+    log("[K9b] host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
+
+
+def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
     """K9a and K9b at the Adam tracker's shapes (the tracker's 2048 rays)
     and at the replica gate's BA superset (768 rays, its own slots and
-    samples), the placement 1 cm off the march's origin, with one origin
-    per ray (place_samples_cdf, BA's form) and with one origin broadcast to
-    every ray through a CdfPlacer made once (the trackers' form, timed);
-    K9b's library call is torch.searchsorted over the same cdf and
-    quantiles."""
+    samples), the placement 1 cm off the march's origin. K9b is checked in
+    three forms: place_samples_cdf with one origin per ray; a CdfPlacer
+    with one origin broadcast to every ray (row stride 0; the trackers'
+    form, a placer per frame); and a CdfPlacer over the whole superset
+    whose calls take half of its rows through ``rows`` (BA's form, a placer
+    per step). The trackers' form is timed at the Adam shapes, BA's at the
+    gate's, each per call and with the placer's making spread over the
+    ``loops`` iterations of a frame or step (the record's time is the Adam
+    tracker's), in turns with torch.searchsorted over the same cdf rows
+    and quantiles, K9b's library call."""
     dev, cfg = slam.device, slam.map_cfg
     rc_adam = slam.rc_track._replace(sampler="grid")
     o, d, tc = tab[:3]
     idx, _ = sample_ray_indices(v, 768, gen)
     dg = se3.rotate_dirs(pose, _ray_dirs(p[idx])).contiguous()
     og = se3.pose_translation(pose).expand_as(dg).contiguous()
-    shapes = {"adam25": (rc_adam, o, d, tc),
-              "gate60": (rc_gate, og, dg, t_cap_for(p[idx], c[idx], 0.3, rc_gate.max_depth))}
+    shapes = {"adam25": (rc_adam, o, d, tc, "shared origin"),
+              "gate60": (rc_gate, og, dg, t_cap_for(p[idx], c[idx], 0.3, rc_gate.max_depth),
+                         "superset rows")}
     out = {}
-    for label, (rc, ro, rd, rt) in shapes.items():
+    for label, (rc, ro, rd, rt, timed) in shapes.items():
         cstep, S = raycast._coarse_shape(rc)
-        R, M = ro.shape[0], rc.n_samples
+        C, M = ro.shape[0], rc.n_samples
         kc, kn = raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)
         pc, pn = raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)
         torch.cuda.synchronize()
         check(torch.equal(kc, pc) and torch.equal(kn, pn), f"K9a cdf/n_occ differ ({label})")
-        u = raycast.uniform_jitter((R, M), gen, dev)
-        # one origin per ray (BA's form) and one origin broadcast to every
-        # ray with row stride 0 (the trackers' form), 1 cm off the march's
+        u = raycast.uniform_jitter((C, M), gen, dev)
         o2 = (ro + 0.01).contiguous()
         o1 = (ro[0] + 0.01).expand_as(rd)
-        placer = raycast.CdfPlacer(ms, cfg, rc, pc, pn, rt, M)  # once per frame in a tracker
-        forms = {"rows": (o2, lambda: raycast.place_samples_cdf(ms, cfg, rc, pc, pn, o2, rd, rt,
-                                                                  u)),
-                 "shared origin": (o1, lambda: placer(o1, rd, u))}
+        rows = torch.randperm(C, generator=gen, device=dev)[:C // 2].to(torch.int32)
+        ri = rows.long()
+        R2 = rows.shape[0]
+        o_r, d_r, u_r = o2[ri].contiguous(), rd[ri].contiguous(), u[:R2]
+        # the placers' makers (a tracker's once per frame, BA's once per
+        # step), their calls' arguments and the twin's inputs
+        makers = {"shared origin": partial(raycast.CdfPlacer, ms, cfg, rc, pc, pn, rt, M),
+                  "superset rows": partial(raycast.CdfPlacer, ms, cfg, rc, pc, pn, rt, M, R2)}
+        call_args = {"shared origin": (o1, rd, u), "superset rows": (o_r, d_r, u_r, rows)}
+        forms = {  # form: (its call, the plain twin's inputs)
+            "rows": (partial(raycast.place_samples_cdf, ms, cfg, rc, pc, pn, o2, rd, rt, u),
+                     (pc, pn, o2, rd, rt, u)),
+            "shared origin": (partial(makers["shared origin"](), *call_args["shared origin"]),
+                              (pc, pn, o1, rd, rt, u)),
+            "superset rows": (partial(makers["superset rows"](), *call_args["superset rows"]),
+                              (pc[ri], pn[ri], o_r, d_r, rt[ri], u_r)),
+        }
         ez = 0.0
-        for form, (oo, place) in forms.items():
+        for form, (place, ins) in forms.items():
             ker = place()
-            ref = raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, oo, rd, rt, u)
+            ref = raycast.place_samples_cdf_plain(ms, cfg, rc, *ins)
             torch.cuda.synchronize()
             for i, nm in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
                 check(torch.equal(ker[i], ref[i]), f"K9b {nm} differs ({label}, {form})")
@@ -733,39 +800,53 @@ def grid_kernels(slam, ms, tab, rc_gate, p, c, v, pose, gen):
                 f"{float(ref[2].float().mean()):.3f}")
         in_range = int(((torch.arange(S, device=dev) + 0.5)[None, :] * cstep
                         <= rt[:, None]).sum())
-        nv = int(ref[2].sum())
-        log(f"[K9] {label} R={R} S={S} M={M}: rays hit {float(pn.gt(0).float().mean()):.3f}, "
-            f"occupied slots/ray {float(pn.mean()):.2f}, valid {nv / (R * M):.3f}, z err {ez:.3g}")
-        q = raycast.div(torch.arange(M, dtype=torch.float32, device=dev)[None, :] + u,
-                        float(M)) * pn[:, None]
-        check(torch.equal(torch.clamp(torch.searchsorted(pc, q), max=S - 1),
-                          torch.clamp((pc[:, None, :] < q[:, :, None]).sum(-1), max=S - 1)),
+        log(f"[K9] {label} C={C} S={S} M={M}: rays hit {float(pn.gt(0).float().mean()):.3f}, "
+            f"occupied slots/ray {float(pn.mean()):.2f}, z err {ez:.3g}")
+        # the timed form: its rays, cdf rows and quantiles
+        place, ins = forms[timed]
+        tcdf, tn, tu = ins[0], ins[1], ins[5]
+        R = tu.shape[0]
+        q = raycast.div(torch.arange(M, dtype=torch.float32, device=dev)[None, :] + tu,
+                        float(M)) * tn[:, None]
+        check(torch.equal(torch.clamp(torch.searchsorted(tcdf, q), max=S - 1),
+                          torch.clamp((tcdf[:, None, :] < q[:, :, None]).sum(-1), max=S - 1)),
               f"searchsorted disagrees with the compare-count ({label})")
+        n_loop = loops[label]
+
+        def loop():  # a tracker frame's or a BA step's placements, the placer made first
+            placer = makers[timed]()
+            for _ in range(n_loop):
+                placer(*call_args[timed])
+
+        if timed == "shared origin":
+            # cdf rows, n_occ, t_cap, one origin, directions, jitter, one
+            # grid cell per sample in; z, aid, valid, ray_mask out
+            nbytes = R * S * 4 + R * 20 + 12 + R * M * 8 + R * M * 9 + R
+        else:  # + each ray's row index and its own origin
+            nbytes = R * S * 4 + R * 36 + R * M * 8 + R * M * 9 + R
+        flops = R * M * (30 + 2 * int(np.ceil(np.log2(S))))
+        call_ms, lib_ms = paired_median_ms(place, lambda: torch.searchsorted(tcdf, q))
+        loop_ms, lib_loop_ms = paired_median_ms(
+            loop, lambda: [torch.searchsorted(tcdf, q) for _ in range(n_loop)], n=PAIRED_RUNS // 4)
+        p_ms = median_ms(lambda: raycast.place_samples_cdf_plain(ms, cfg, rc, *ins))
+        what = "a tracker frame" if timed == "shared origin" else "a BA step"
+        log(f"[K9] {label}, {timed} ({what}, {n_loop} iterations, R={R}): per call "
+            f"{call_ms:.4f} ms against torch.searchsorted {lib_ms:.4f} ms; with the placer made "
+            f"once per {n_loop} calls "
+            f"{loop_ms / n_loop:.4f} ms against {lib_loop_ms / n_loop:.4f} ms, in turns "
+            f"({'at or under' if loop_ms <= lib_loop_ms else 'over'} it); plain {p_ms:.4f} ms; "
+            f"bound {bound(nbytes, flops)[0]:.5f} ms")
         out[label] = dict(
             a=(median_ms(lambda: raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)),
                median_ms(lambda: raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)),
                # rays + t_cap in, one grid cell per slot in range, cdf + n_occ out
-               R * 28 + 4 * in_range + R * S * 4 + R * 4, 14 * in_range + 4 * R * S),
-            b=(*paired_median_ms(forms["shared origin"][1], lambda: torch.searchsorted(pc, q)),
-               median_ms(lambda: raycast.place_samples_cdf_plain(ms, cfg, rc, pc, pn, o1, rd,
-                                                                 rt, u)),
-               # cdf rows, n_occ, rays, t_cap, jitter, one grid cell per
-               # sample in; z, aid, valid, ray_mask out
-               R * S * 4 + R * 32 + R * M * 8 + R * M * 9 + R,
-               R * M * (30 + 2 * int(np.ceil(np.log2(S))))),
-            err=ez,
-            once_ms=median_ms(forms["rows"][1]),
-            dev_a=partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt),
-            dev_b=forms["shared origin"][1])
-        k_ms, lib_ms, p_ms = out[label]["b"][:3]
-        log(f"[K9] {label}: march kernel {out[label]['a'][0]:.4f} ms, plain "
-            f"{out[label]['a'][1]:.4f} ms; place kernel {k_ms:.4f} ms (a tracker iteration's "
-            f"call of its frame's CdfPlacer, shared origin) against torch.searchsorted "
-            f"{lib_ms:.4f} ms, in turns ({'at or under' if k_ms <= lib_ms else 'over'} it); "
-            f"{out[label]['once_ms']:.4f} ms as place_samples_cdf, "
-            f"which makes a placer per call, as BA does; plain {p_ms:.4f} ms")
+               C * 28 + 4 * in_range + C * S * 4 + C * 4, 14 * in_range + 4 * C * S),
+            b=(loop_ms / n_loop, p_ms, nbytes, flops, lib_loop_ms / n_loop), err=ez,
+            dev_a=partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt), dev_b=place)
+        if label == "adam25":
+            k9b_host_costs(ms, cfg, rc, pc, pn, o1, rd, rt, u, q)
     a = out["adam25"]
-    k_ms, lib_ms, p_ms, nbytes, flops = a["b"]
+    k_ms, p_ms, nbytes, flops, lib_ms = a["b"]
     return [record("march_occupancy", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:65", 0.0,
                    *a["a"], dev=a["dev_a"]),
             record("place_samples_cdf", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:88",
@@ -1201,10 +1282,14 @@ def main():
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
-    rc_gate = NerfLoamSLAM_torch(gate[0], None, device="cuda").rc_map
+    gate_slam = NerfLoamSLAM_torch(gate[0], None, device="cuda")
+    loops = {"adam25": NerfLoamSLAM_torch(cfgs["kitti_adam25"], None,
+                                          device="cuda").tp.num_iterations,
+             "gate60": gate_slam.bp_current.num_iterations}
     sp = NerfLoamSLAM_torch(cfgs["kitti_quality_s2s"], None, device="cuda").tp.s2s
     records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds,
-                           rc_gate, sp)
+                           gate_slam.rc_map, loops, sp)
+    del gate_slam
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
     results = {}

@@ -3,8 +3,9 @@ nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
 One call = one BA step: a 2x ray superset per frame is drawn and, once per
 step, its hit table built (K4, hits sampler) or its occupancy cdf marched
-(K9a, grid sampler); every iteration trains on a random subset of it
-through K1 (hits) or K9b + K8 (grid), with K8's band/anchor columns when
+(K9a, grid sampler, with K9b's CdfPlacer made over it); every iteration
+trains on a random subset of it through K1 (hits) or K9b + K8 (grid, each
+ray reading its superset row of the cdf), with K8's band/anchor columns when
 the quality stack is on, and K2 in the backward (core/render
 render_rays_hits / render_rays), and takes an Adam step on the packed
 corner table, the decoder and the poses. Adam follows
@@ -36,6 +37,7 @@ from nerfloam_tpu_torch.core.tracking import _ray_dirs, scale_by_adam_, t_cap_fo
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import (
+    CdfPlacer,
     RaycastConfig,
     build_hit_table,
     march_occupancy,
@@ -111,9 +113,9 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                     sup_tcap.reshape(W * K))
         if use_hits:
             sup_hits = pack_hit_table(build_hit_table(*sup_args)).reshape(W, K, -1)
-        else:
-            sup_cdf, sup_nocc = march_occupancy(*sup_args)
-            sup_cdf, sup_nocc = sup_cdf.reshape(W, K, -1), sup_nocc.reshape(W, K)
+        else:  # K9a once and K9b's fixed arguments packed once; rows pick each ray's cdf row
+            placer = CdfPlacer(*sup_args[:3], *march_occupancy(*sup_args), sup_args[5], M, W * N)
+            frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
 
     emb = map_state.packed.clone().requires_grad_(True)
     dec = {k: [p.detach().clone().requires_grad_(True) for p in v]
@@ -151,11 +153,9 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             out = render_rays_hits(emb, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
                                    compute_dtype, extra)
         else:
-            occ = (_gather_rows(sup_cdf, ridx).reshape(W * N, -1),
-                   _gather_rows(sup_nocc, ridx).reshape(W * N))
-            out = render_rays(emb, dec, map_state, map_cfg, rc, *rays,
-                              _gather_rows(sup_tcap, ridx).reshape(W * N),
-                              rvalid.reshape(W * N), occ, u, compute_dtype, extra)
+            rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
+            out = render_rays(emb, dec, map_state, map_cfg, *rays, rvalid.reshape(W * N), placer,
+                              u, compute_dtype, extra, rows)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)

@@ -34,7 +34,6 @@ from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     HitTable,
-    RaycastConfig,
     cells_of,
     div,
     resolve_cells_in_hits,
@@ -281,19 +280,17 @@ def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None)
     return _append_extra(out, packed, rays_o, rays_d, extra)
 
 
-def grid_columns_fwd(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, occupancy,
-                     u, rays_o, rays_d, t_cap, packed, extra=None):
-    """The grid sampler's columns: K9b places the samples over the hoisted
-    ``occupancy`` (K9a's ``(cdf, n_occ)``, or a ``raycast.CdfPlacer`` made
-    from them once per frame) at the current rays, K8 evaluates their
+def grid_columns_fwd(state: vm.MapState, map_cfg: vm.MapConfig, placer: CdfPlacer, u, rays_o,
+                     rays_d, packed, extra=None, rows=None):
+    """The grid sampler's columns: K9b places the samples at the current
+    rays through ``placer`` (a ``raycast.CdfPlacer`` over K9a's hoisted
+    cdf; ``rows`` picks each ray's cdf row, as BA does), K8 evaluates their
     features at those depths, and ``extra`` appends K8's columns as in
     columns_fwd. Returns ((z, valid, aid, xyz, feats), ray_mask).
     Validity is K9b's: K8 agrees on it (its cell is the same floor of the
     same xyz, and K9b zeroes the depth of every invalid sample), so its
     features are zero exactly where K9b marks a sample invalid."""
-    if not isinstance(occupancy, CdfPlacer):
-        occupancy = CdfPlacer(state, map_cfg, rc, *occupancy, t_cap, u.shape[-1])
-    z, aid, valid, ray_mask = occupancy(rays_o, rays_d, u)
+    z, aid, valid, ray_mask = placer(rays_o, rays_d, u, rows)
     _, _, xyz, feats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, z, ray_mask)
     return _append_extra((z, valid, aid, xyz, feats), packed, rays_o, rays_d, extra), ray_mask
 
@@ -352,12 +349,12 @@ def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, 
                        compute_dtype)
 
 
-def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfig,
-                rc: RaycastConfig, rays_o, rays_d, t_cap, ray_valid, occupancy, jitter_u,
-                compute_dtype=torch.float32, extra=None) -> RenderOutput:
+def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfig, rays_o,
+                rays_d, ray_valid, placer: CdfPlacer, jitter_u, compute_dtype=torch.float32,
+                extra=None, rows=None) -> RenderOutput:
     """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
-    242-279, the march hoisted: ``occupancy = (cdf, n_occ)`` from K9a, or
-    a ``raycast.CdfPlacer`` made from them):
+    242-279, the march hoisted: ``placer`` is a ``raycast.CdfPlacer`` over
+    K9a's cdf, ``rows`` each ray's row in it where the rays are a subset):
     K9b -> K8 at its depths (+ K8's ``extra`` columns) -> decoder -> masked
     sdf. ``packed`` is the differentiable table (BA's optimized copy);
     lookups go through ``state``'s grid. The backward is one K2 launch;
@@ -366,8 +363,8 @@ def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfi
     side = {}
 
     def fwd(p, o, d):
-        out, side["ray_mask"] = grid_columns_fwd(state, map_cfg, rc, occupancy, jitter_u, o, d,
-                                                 t_cap, p, extra)
+        out, side["ray_mask"] = grid_columns_fwd(state, map_cfg, placer, jitter_u, o, d, p, extra,
+                                                 rows)
         return out
 
     feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd,

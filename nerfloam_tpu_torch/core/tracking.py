@@ -231,9 +231,9 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
         ray_hit = ht0.ray_mask
     else:  # K9a once, and K9b's per-frame arguments checked and packed once
-        occ0 = CdfPlacer(map_state, map_cfg, rc,
-                         *march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap), t_cap,
-                         rc.n_samples)
+        placer = CdfPlacer(map_state, map_cfg, rc,
+                           *march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap),
+                           t_cap, rc.n_samples)
 
     pose6 = init_pose
     lam = 1e-2
@@ -255,7 +255,7 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
             z, valid, aid, xyz, feats = columns_fwd(ht0, u, origin, wdirs, packed, vs, extra)
         else:
             (z, valid, aid, xyz, feats), ray_hit = grid_columns_fwd(
-                map_state, map_cfg, rc, occ0, u, origin, wdirs, t_cap, packed, extra)
+                map_state, map_cfg, placer, u, origin, wdirs, packed, extra)
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
         H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
@@ -267,13 +267,13 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     return TrackResult(pose6, hits, loss)
 
 
-def adam_loss(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
-              decoder_params, pose6, dirs, pts, pcos, t_cap, rvalid, occupancy, u, band_u,
-              bias_ray):
+def adam_loss(map_state: MapState, map_cfg: MapConfig, tp: TrackParams, decoder_params, pose6,
+              dirs, pts, pcos, rvalid, placer: CdfPlacer, u, band_u, bias_ray):
     """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
-    rays): grid render_rays over the hoisted ``occupancy`` with jitter u,
-    the anchor and band columns (jitter band_u), then ``sdf_losses`` with
-    the per-ray band target bias_ray (R,). Returns (loss, RenderOutput)."""
+    rays): grid render_rays through ``placer`` (the frame's CdfPlacer over
+    the hoisted march) with jitter u, the anchor and band columns (jitter
+    band_u), then ``sdf_losses`` with the per-ray band target bias_ray
+    (R,). Returns (loss, RenderOutput)."""
     compute_dtype = getattr(torch, tp.compute_dtype)
     wdirs = se3.rotate_dirs(pose6, dirs)
     origin = se3.pose_translation(pose6).expand_as(wdirs)
@@ -282,8 +282,8 @@ def adam_loss(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: Tr
         ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, tp.truncation,
                              tp.surface_anchor, tp.band_samples, band_u)
         extra = (map_state, map_cfg, ez, rvalid)
-    out = render_rays(map_state.packed, decoder_params, map_state, map_cfg, rc, origin, wdirs,
-                      t_cap, rvalid, occupancy, u, compute_dtype, extra)
+    out = render_rays(map_state.packed, decoder_params, map_state, map_cfg, origin, wdirs, rvalid,
+                      placer, u, compute_dtype, extra)
     loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                          tp.truncation, tp.max_depth, tp.fs_weight, tp.sdf_weight,
                          sdf_bias=bias_ray[:, None])
@@ -307,10 +307,10 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
-    occ0 = CdfPlacer(map_state, map_cfg, rc,
-                     *march_occupancy(map_state, map_cfg, rc,
-                                      se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0,
-                                      t_cap), t_cap, rc.n_samples)
+    placer = CdfPlacer(map_state, map_cfg, rc,
+                       *march_occupancy(map_state, map_cfg, rc,
+                                        se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0,
+                                        t_cap), t_cap, rc.n_samples)
 
     pose6 = init_pose.detach().clone()
     mu, nu = torch.zeros_like(pose6), torch.zeros_like(pose6)
@@ -322,8 +322,8 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
               if tp.band_samples else None)
         with torch.enable_grad():
             p = pose6.requires_grad_(True)
-            loss, out = adam_loss(map_state, map_cfg, rc, tp, decoder_params, p, dirs, pts, pcos,
-                                  t_cap, rvalid, occ0, u, ub, bias_ray)
+            loss, out = adam_loss(map_state, map_cfg, tp, decoder_params, p, dirs, pts, pcos,
+                                  rvalid, placer, u, ub, bias_ray)
             (g,) = torch.autograd.grad(loss, p)
         with torch.no_grad():
             pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)

@@ -26,9 +26,12 @@
 // take a few microseconds, so the launch and the wrapper's host work
 // weigh more than the device time: the wrapper converts and copies
 // nothing (rays_o may be one origin broadcast with row stride 0), and
-// what stays fixed for a ray set (map, cdf, t_cap, outputs) is checked
-// and packed into PlaceArgs once, so an iteration's call passes six
-// arguments.
+// what stays fixed over a loop (map, cdf, t_cap, outputs) is checked and
+// packed into PlaceArgs once, so an iteration's call passes seven
+// arguments. BA's rays are a subset of its step's superset, drawn anew
+// each iteration: ``rows`` gives each ray its cdf row in the superset, so
+// the cdf, n_occ and t_cap are neither gathered nor checked per
+// iteration.
 //
 // Rounding: every product, sum and division that feeds a floor() or the
 // quantile is written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn
@@ -36,6 +39,8 @@
 // agree exactly with the plain torch versions.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
@@ -86,29 +91,41 @@ __global__ void march_occupancy_kernel(const int* __restrict__ grid_active,
 
 // K9b: one warp per ray, kPlaceWarps rays per block. The warp copies its
 // ray's cdf row into shared memory with coalesced loads and reads n_occ,
-// the origin (row stride o_stride: 3, or 0 for one origin broadcast to
-// every ray), the direction and t_cap once; lane l then places samples
+// t_cap, the origin (row stride o_stride: 3, or 0 for one origin
+// broadcast to every ray) and the direction once; lane l then places samples
 // m = l, l + 32, ... by a binary search in shared memory, with the
 // arithmetic of the thread-per-sample version it replaced, so z is
 // bit for bit what that gave. Lane 0 writes ray_mask. The launch ends a
 // tracker's K9b call, so its device time is not hidden behind host work.
+// kRows: ray r reads row rows[r] of the C rows (BA), where a row outside
+// [0, C) reads nothing and its ray misses; else row r (the trackers),
+// with no index load and no range test on their path.
+template <bool kRows>
 __global__ void __launch_bounds__(32 * kPlaceWarps)
     place_samples_kernel(const int* __restrict__ grid_active, const int* __restrict__ rmin,
                          int Dx, int Dy, int Dz, const float* __restrict__ cdf,
-                         const float* __restrict__ n_occ, const float* __restrict__ rays_o,
+                         const float* __restrict__ n_occ, const float* __restrict__ t_cap, int C,
+                         const int* __restrict__ rows, const float* __restrict__ rays_o,
                          int o_stride, const float* __restrict__ rays_d,
-                         const float* __restrict__ t_cap, const float* __restrict__ u, int R,
+                         const float* __restrict__ u, int R,
                          int S, int M, float cstep, float vs, float* __restrict__ z_out,
                          int* __restrict__ aid_out, unsigned char* __restrict__ valid_out,
                          unsigned char* __restrict__ ray_mask) {
-  extern __shared__ float rows[];
+  extern __shared__ float staged[];  // kPlaceWarps cdf rows
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int r = blockIdx.x * kPlaceWarps + w;
   if (r >= R) return;  // whole warps leave; the block never synchronises
   // the loads that wait on nothing are issued before the row is staged,
   // so their latencies overlap
-  const float n = n_occ[r];
-  const float tcap = t_cap[r];
+  int c = r;
+  bool known = true;
+  if (kRows) {
+    c = rows[r];
+    known = c >= 0 && c < C;
+    if (!known) c = 0;
+  }
+  const float n = known ? n_occ[c] : 0.0f;
+  const float tcap = known ? t_cap[c] : 0.0f;
   float o[3], d[3];
   for (int a = 0; a < 3; ++a) {
     o[a] = rays_o[(size_t)r * o_stride + a];
@@ -119,9 +136,9 @@ __global__ void __launch_bounds__(32 * kPlaceWarps)
   float uq[2];  // this pass's two jitters, loaded one pass ahead
 #pragma unroll
   for (int k = 0; k < 2; ++k) uq[k] = lane + 32 * k < M ? ur[lane + 32 * k] : 0.0f;
-  float* row = rows + (size_t)w * S;
-  const float* src = cdf + (size_t)r * S;
-  for (int s = lane; s < S; s += 32) row[s] = src[s];
+  float* row = staged + (size_t)w * S;
+  const float* src = cdf + (size_t)c * S;
+  for (int s = lane; s < S; s += 32) row[s] = known ? src[s] : 0.0f;
   __syncwarp();
   const bool hit = n > 0.0f;
   if (lane == 0) ray_mask[r] = hit;
@@ -183,9 +200,11 @@ extern "C" int nl_march_occupancy(const int* grid_active, const int* rmin, int D
   return (int)cudaGetLastError();
 }
 
-// K9b's arguments that stay fixed for one ray set (a tracker frame, a BA
-// iteration), filled once by the wrapper; _PlaceArgs in
-// nerfloam_tpu_torch/ops/raycast.py has the same fields in the same order.
+// K9b's arguments that stay fixed over a loop (a tracker frame, a BA
+// step), filled once by the wrapper; _PlaceArgs in
+// nerfloam_tpu_torch/ops/raycast.py has the same fields in the same order,
+// which the wrapper checks against nl_place_args_layout when it first
+// launches.
 struct PlaceArgs {
   const int* grid_active;
   const int* rmin;
@@ -193,7 +212,7 @@ struct PlaceArgs {
   const float* cdf;
   const float* n_occ;
   const float* t_cap;
-  int R, S, M;
+  int C, R, S, M;
   float cstep, vs;
   float* z;
   int* aid;
@@ -203,17 +222,32 @@ struct PlaceArgs {
 
 extern "C" int nl_place_max_slots() { return kPlaceMaxSlots; }
 
-extern "C" int nl_place_args_size() { return (int)sizeof(PlaceArgs); }
+// sizeof(PlaceArgs), then the offset of each field in declaration order;
+// returns the number of entries written (out holds 32).
+extern "C" int nl_place_args_layout(int* out) {
+  int n = 0;
+#define NL_AT(f) out[n++] = (int)offsetof(PlaceArgs, f)
+  out[n++] = (int)sizeof(PlaceArgs);
+  NL_AT(grid_active); NL_AT(rmin); NL_AT(Dx); NL_AT(Dy); NL_AT(Dz); NL_AT(cdf); NL_AT(n_occ);
+  NL_AT(t_cap); NL_AT(C); NL_AT(R); NL_AT(S); NL_AT(M); NL_AT(cstep); NL_AT(vs); NL_AT(z);
+  NL_AT(aid); NL_AT(valid); NL_AT(ray_mask);
+#undef NL_AT
+  return n;
+}
 
-// rays_o rows are o_stride floats apart (3, or 0 for one shared origin).
-extern "C" int nl_place_samples_cdf(const PlaceArgs* a, const float* rays_o, int o_stride,
-                                    const float* rays_d, const float* u, void* stream) {
+// rows: (R,) cdf row of each ray, or null for row r; rays_o rows are
+// o_stride floats apart (3, or 0 for one shared origin).
+extern "C" int nl_place_samples_cdf(const PlaceArgs* a, const int* rows, const float* rays_o,
+                                    int o_stride, const float* rays_d, const float* u,
+                                    void* stream) {
   if (a->S > kPlaceMaxSlots) return (int)cudaErrorInvalidValue;
   if (a->R > 0 && a->M > 0 && a->S > 0) {
-    place_samples_kernel<<<(a->R + kPlaceWarps - 1) / kPlaceWarps, 32 * kPlaceWarps,
-                           kPlaceWarps * a->S * sizeof(float), (cudaStream_t)stream>>>(
-        a->grid_active, a->rmin, a->Dx, a->Dy, a->Dz, a->cdf, a->n_occ, rays_o, o_stride, rays_d,
-        a->t_cap, u, a->R, a->S, a->M, a->cstep, a->vs, a->z, a->aid, a->valid, a->ray_mask);
+    auto kernel = rows ? place_samples_kernel<true> : place_samples_kernel<false>;
+    kernel<<<(a->R + kPlaceWarps - 1) / kPlaceWarps, 32 * kPlaceWarps,
+             kPlaceWarps * a->S * sizeof(float), (cudaStream_t)stream>>>(
+        a->grid_active, a->rmin, a->Dx, a->Dy, a->Dz, a->cdf, a->n_occ, a->t_cap, a->C, rows,
+        rays_o, o_stride, rays_d, u, a->R, a->S, a->M, a->cstep, a->vs, a->z, a->aid, a->valid,
+        a->ray_mask);
   }
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,9 @@ occupancy cdf per ray) and K9b ``place_samples_cdf`` (stratified quantile
 placement and the fine cell lookup), csrc/grid_sampler.cu, with plain
 twins ``march_occupancy_plain`` and ``place_samples_cdf_plain``; the
 caller always supplies the placement jitter ``u``. A tracker places
-samples over one frame's cdf in every iteration, so it makes a
-``CdfPlacer`` once per frame (K9b's fixed arguments checked and packed,
-its outputs allocated) and calls it per iteration.
+samples over one frame's cdf in every iteration, and BA over one step's
+superset cdf, so each makes a ``CdfPlacer`` once (K9b's fixed arguments
+checked and packed, its outputs allocated) and calls it per iteration.
 """
 
 from __future__ import annotations
@@ -282,46 +282,74 @@ def place_samples_cdf_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Rayca
 
 
 class _PlaceArgs(ctypes.Structure):
-    """K9b's arguments fixed for one ray set: ``PlaceArgs`` of
-    csrc/grid_sampler.cu, the same fields in the same order."""
+    """K9b's arguments fixed over a loop: ``PlaceArgs`` of
+    csrc/grid_sampler.cu, the same fields in the same order (checked
+    against the library's ``nl_place_args_layout`` before the first
+    launch)."""
 
     _fields_ = [("grid_active", ctypes.c_void_p), ("rmin", ctypes.c_void_p),
                 ("Dx", ctypes.c_int), ("Dy", ctypes.c_int), ("Dz", ctypes.c_int),
                 ("cdf", ctypes.c_void_p), ("n_occ", ctypes.c_void_p), ("t_cap", ctypes.c_void_p),
-                ("R", ctypes.c_int), ("S", ctypes.c_int), ("M", ctypes.c_int),
-                ("cstep", ctypes.c_float), ("vs", ctypes.c_float),
+                ("C", ctypes.c_int), ("R", ctypes.c_int), ("S", ctypes.c_int),
+                ("M", ctypes.c_int), ("cstep", ctypes.c_float), ("vs", ctypes.c_float),
                 ("z", ctypes.c_void_p), ("aid", ctypes.c_void_p), ("valid", ctypes.c_void_p),
                 ("ray_mask", ctypes.c_void_p)]
 
 
+_place_layout_checked = False
+
+
+def _check_place_layout(lib) -> None:
+    """Raise unless _PlaceArgs has the size and field offsets of the
+    library's PlaceArgs (once per process)."""
+    global _place_layout_checked
+    if _place_layout_checked:
+        return
+    out = (ctypes.c_int * 32)()
+    got = list(out[:lib.nl_place_args_layout(out)])
+    want = [ctypes.sizeof(_PlaceArgs)] + [getattr(_PlaceArgs, f).offset
+                                          for f, _ in _PlaceArgs._fields_]
+    if got != want:
+        raise RuntimeError(f"{_PLACE}: _PlaceArgs (size, offsets) {want} differ from "
+                           f"csrc/grid_sampler.cu's PlaceArgs {got}")
+    _place_layout_checked = True
+
+
 class CdfPlacer:
-    """K9b prepared for one ray set: the map, the occupancy cdf and n_occ of
-    K9a, t_cap and the sample count M are checked once, so each call
-    (``placer(rays_o, rays_d, u)``, once per tracker iteration) checks only
-    the rays and the jitter, and on the card makes one ctypes call of six
-    arguments into output buffers allocated once. Every input must already be
-    what the kernel reads (f32 or int32, contiguous, on t_cap's device;
-    ``rays_o`` may be one origin expanded to (R, 3)): nothing is converted
-    or copied, and a tensor that would need it raises ValueError.
+    """K9b prepared for a loop over one cdf: the map, K9a's cdf and n_occ
+    (C rows), t_cap (C,) and the sample count M are checked once, the
+    outputs for R rays (``n_rays``, C unless given) allocated once, and
+    each call ``placer(rays_o, rays_d, u, rows=None)`` checks only the
+    rays, the jitter and ``rows``, and on the card makes one ctypes call of
+    seven arguments. A tracker makes one per frame and calls it once per
+    iteration; BA makes one per step over its ray superset and gives each
+    iteration's rays their cdf rows, ``rows`` (R,) int32 in [0, C) (on the
+    card a row outside that range reads nothing and its ray misses).
+    Without ``rows`` ray r takes row r, which needs R = C. Every input must
+    already be what the kernel reads (f32 or int32, contiguous, on t_cap's
+    device; ``rays_o`` may be one origin expanded to (R, 3)): nothing is
+    converted or copied, and a tensor that would need it raises ValueError.
 
     On the card a call returns the placer's own (z, aid, valid, ray_mask)
     buffers, overwritten by the next call: the trackers and BA consume them
     within the iteration. CPU tensors take ``place_samples_cdf_plain``."""
 
     def __init__(self, state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
-                 cdf: torch.Tensor, n_occ: torch.Tensor, t_cap: torch.Tensor, n_samples: int):
+                 cdf: torch.Tensor, n_occ: torch.Tensor, t_cap: torch.Tensor, n_samples: int,
+                 n_rays: int | None = None):
         dev = t_cap.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"{_PLACE}: unsupported device {dev}")
-        R, S = cdf.shape
+        C, S = cdf.shape
+        R = C if n_rays is None else n_rays
         M = n_samples
         kernels.expect(_PLACE, dev, torch.int32, grid_active=state.grid_active,
                        region_min=state.region_min)
         kernels.expect(_PLACE, dev, _F32, cdf=cdf, n_occ=n_occ, t_cap=t_cap)
-        kernels.expect_shape(_PLACE, region_min=(state.region_min, (3,)), n_occ=(n_occ, (R,)),
-                             t_cap=(t_cap, (R,)))
-        self.device, self.R, self.M = dev, R, M
-        self._rd_shape, self._u_shape, self._u_stride = (R, 3), (R, M), (M, 1)
+        kernels.expect_shape(_PLACE, region_min=(state.region_min, (3,)), n_occ=(n_occ, (C,)),
+                             t_cap=(t_cap, (C,)))
+        self.device, self.C, self.R, self.M = dev, C, R, M
+        self._rd_shape, self._u_shape, self._u_stride, self._rows_shape = (R, 3), (R, M), (M, 1), (R,)
         self._inputs = (state, map_cfg, rc, cdf, n_occ, t_cap)  # holds what _args points at
         self._out = None
         self._index = -2  # matches no tensor's get_device(): CPU calls take the full checks
@@ -329,53 +357,68 @@ class CdfPlacer:
             return
         self._index = t_cap.get_device()
         lib = kernels.lib()
+        _check_place_layout(lib)
         if S > lib.nl_place_max_slots():
             raise ValueError(f"{_PLACE}: {S} coarse slots > {lib.nl_place_max_slots()}, the cdf "
                              "rows the kernel holds in shared memory")
-        # four allocations, not one buffer cut into views: on the card's
-        # host a view costs about what an allocation does, and three dtypes
-        # need seven (scripts/wrapper_host_costs.py)
+        # four allocations, not one buffer cut into views, which costs the
+        # host as much (chip_smoke.py's K9b host readings)
         self._out = (torch.empty((R, M), dtype=torch.float32, device=dev),
                      torch.empty((R, M), dtype=torch.int32, device=dev),
                      torch.empty((R, M), dtype=torch.bool, device=dev),
                      torch.empty((R,), dtype=torch.bool, device=dev))
         cstep, _ = _coarse_shape(rc)
-        self._args = _PlaceArgs(state.grid_active.data_ptr(), state.region_min.data_ptr(),
-                                *map_cfg.grid_dim, cdf.data_ptr(), n_occ.data_ptr(),
-                                t_cap.data_ptr(), R, S, M, cstep, rc.voxel_size,
-                                *(t.data_ptr() for t in self._out))
+        gx, gy, gz = map_cfg.grid_dim
+        z, aid, valid, ray_mask = (t.data_ptr() for t in self._out)
+        self._args = _PlaceArgs(
+            grid_active=state.grid_active.data_ptr(), rmin=state.region_min.data_ptr(), Dx=gx,
+            Dy=gy, Dz=gz, cdf=cdf.data_ptr(), n_occ=n_occ.data_ptr(), t_cap=t_cap.data_ptr(),
+            C=C, R=R, S=S, M=M, cstep=cstep, vs=rc.voxel_size, z=z, aid=aid, valid=valid,
+            ray_mask=ray_mask)
         self._args_ptr = ctypes.addressof(self._args)
         self._launch = lib.nl_place_samples_cdf
 
-    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor, u: torch.Tensor):
+    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor, u: torch.Tensor,
+                 rows: torch.Tensor | None = None):
         index = self._index
-        # the usual case on the card in one expression (each term a fraction
-        # of a us); anything else, and every CPU call, goes through the full
-        # checks, which raise
+        # the usual cases on the card in one expression (each term a
+        # fraction of a us); anything else, and every CPU call, goes through
+        # the full checks, which raise
         if not (rays_d.dtype is _F32 and u.dtype is _F32 and rays_o.dtype is _F32
                 and rays_d.shape == self._rd_shape and rays_o.shape == self._rd_shape
                 and u.shape == self._u_shape and rays_d.stride() == (3, 1)
                 and u.stride() == self._u_stride and (o_st := rays_o.stride()) in _ORIGIN_STRIDES
                 and rays_d.get_device() == index and u.get_device() == index
-                and rays_o.get_device() == index):
-            self._check(rays_o, rays_d, u)
+                and rays_o.get_device() == index
+                and (self.R == self.C if rows is None else
+                     rows.dtype is torch.int32 and rows.shape == self._rows_shape
+                     and rows.stride() == (1,) and rows.get_device() == index)):
+            self._check(rays_o, rays_d, u, rows)
             o_st = rays_o.stride()
         if self._out is None:
             state, map_cfg, rc, cdf, n_occ, t_cap = self._inputs
+            if rows is not None:
+                cdf, n_occ, t_cap = (t[rows.long()] for t in (cdf, n_occ, t_cap))
             return place_samples_cdf_plain(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap,
                                            u)
         global place_samples_cdf_launches
-        err = self._launch(self._args_ptr, rays_o.data_ptr(), o_st[0], rays_d.data_ptr(),
-                           u.data_ptr(), kernels.raw_stream(index))
+        err = self._launch(self._args_ptr, None if rows is None else rows.data_ptr(),
+                           rays_o.data_ptr(), o_st[0], rays_d.data_ptr(), u.data_ptr(),
+                           kernels.raw_stream(index))
         if err:
             kernels.check(err, _PLACE)
         place_samples_cdf_launches += 1
         return self._out
 
-    def _check(self, rays_o, rays_d, u):
+    def _check(self, rays_o, rays_d, u, rows):
         dev, R = self.device, self.R
         kernels.expect(_PLACE, dev, _F32, rays_d=rays_d, u=u)
         kernels.expect_shape(_PLACE, rays_d=(rays_d, (R, 3)), u=(u, (R, self.M)))
+        if rows is not None:
+            kernels.expect(_PLACE, dev, torch.int32, rows=rows)
+            kernels.expect_shape(_PLACE, rows=(rows, (R,)))
+        elif R != self.C:
+            raise ValueError(f"{_PLACE}: {R} rays over {self.C} cdf rows need rows")
         if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
                 or rays_o.stride(1) != 1 or (R > 1 and rays_o.stride(0) not in (0, 3))):
             raise ValueError(f"{_PLACE}: rays_o must be ({R}, 3) f32 rows on {dev} (row stride "

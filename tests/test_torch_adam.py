@@ -115,9 +115,9 @@ def test_adam_iteration_loss_and_pose_gradient_match_jax(scene):
     tm = map_state_from_numpy(jax.device_get(m), device="cpu")
     tparams = decoder_params_from_jax(jax.device_get(params), device="cpu")
     tpose = _t(pose).requires_grad_(True)
-    tocc = (_t(occ[0]), _t(occ[1]))
-    tl, tout = ttr.adam_loss(tm, T_CFG, T_RC, TP, tparams, tpose, _t(dirs), _t(p), _t(c),
-                             _t(t_cap), _t(rvalid), tocc, _t(u), _t(band_u), _t(bias_ray))
+    placer = trc.CdfPlacer(tm, T_CFG, T_RC, _t(occ[0]), _t(occ[1]), _t(t_cap), RC.n_samples)
+    tl, tout = ttr.adam_loss(tm, T_CFG, TP, tparams, tpose, _t(dirs), _t(p), _t(c), _t(rvalid),
+                             placer, _t(u), _t(band_u), _t(bias_ray))
     (tg,) = torch.autograd.grad(tl, tpose)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     assert int(tout.ray_mask.sum()) == int(jhits) > 100

@@ -162,6 +162,37 @@ def test_place_samples_shared_origin_equals_its_copy(setup):
     assert bool(shared[2].any())
 
 
+def test_place_samples_superset_rows_equal_the_gathered_rows(setup):
+    """BA's form: a CdfPlacer over a superset cdf, each iteration's rays
+    picking their rows with ``rows``, gives what place_samples_cdf gives
+    on the gathered cdf, n_occ and t_cap rows, bitwise."""
+    s = setup
+    _, (cdf, n_occ) = _occupancy(s)
+    to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
+    tc, u = _t(s["t_cap"]), _t(s["u"])
+    C = cdf.shape[0]
+    rows = torch.as_tensor(np.random.default_rng(3).integers(0, C, C // 2), dtype=torch.int32)
+    R = rows.shape[0]
+    placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, cdf, n_occ, tc, RC.n_samples, R)
+    idx = rows.long()
+    o, d = to[idx].contiguous(), td[idx].contiguous()
+    for it in range(2):  # a BA step's iterations: one placer, new rows each time
+        r_it = rows.flip(0) if it else rows
+        i_it = r_it.long()
+        got = placer(o, d, u[:R], r_it)
+        want = trc.place_samples_cdf(s["tm"], T_CFG, T_RC, cdf[i_it], n_occ[i_it], o, d, tc[i_it],
+                                     u[:R])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool(got[2].any())
+    with pytest.raises(ValueError, match="need rows"):
+        placer(o, d, u[:R])
+    with pytest.raises(ValueError, match="rows must be a contiguous"):
+        placer(o, d, u[:R], rows.long())
+    with pytest.raises(ValueError, match="rows has shape"):
+        placer(o, d, u[:R], rows[:-1])
+
+
 def test_place_samples_rejects_unconverted_inputs(setup):
     """The wrapper converts and copies nothing: a wrong dtype, a strided
     tensor or rows of another stride raise instead."""
@@ -192,8 +223,9 @@ def test_render_rays_grid_matches_jax(setup):
     jout = jrender.render_rays(s["m"], MAP_CFG, RC, s["params"], s["meta"], o, d, s["t_cap"],
                                s["ray_valid"], None, occupancy=jocc, jitter_u=jnp.asarray(s["u"]))
     to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
-    tout = trender.render_rays(s["tm"].packed, s["tparams"], s["tm"], T_CFG, T_RC, to, td,
-                               _t(s["t_cap"]), _t(s["ray_valid"]), tocc, _t(s["u"]))
+    placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
+    tout = trender.render_rays(s["tm"].packed, s["tparams"], s["tm"], T_CFG, to, td,
+                               _t(s["ray_valid"]), placer, _t(s["u"]))
     np.testing.assert_array_equal(to_numpy(tout.valid_mask), np.asarray(jout.valid_mask))
     np.testing.assert_array_equal(to_numpy(tout.ray_mask), np.asarray(jout.ray_mask))
     np.testing.assert_allclose(to_numpy(tout.z_vals), np.asarray(jout.z_vals), rtol=0, atol=1e-6)
@@ -256,9 +288,9 @@ def test_gn_grid_iteration_matches_jax(setup):
     tpts, tc, trv = _t(p), _t(pcos), _t(rvalid)
     tdn = torch.linalg.norm(tpts, dim=-1)
     tez = trender.extra_surface_z(tdn, tc, TRUNC, 1, N_BAND, _t(s["band_u"]))
+    placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
     (tz, tvalid, taid, txyz, tfeats), ray_hit = trender.grid_columns_fwd(
-        s["tm"], T_CFG, T_RC, tocc, _t(s["u"]), to, td, _t(s["t_cap"]), s["tm"].packed,
-        (s["tm"], T_CFG, tez, trv))
+        s["tm"], T_CFG, placer, _t(s["u"]), to, td, s["tm"].packed, (s["tm"], T_CFG, tez, trv))
     tsdf, tg = ttr.field_and_grad(s["tparams"], tfeats, txyz, taid, tvalid, s["tm"].packed, vs,
                                   torch.float32)
     tvm_ = tvalid & trv[:, None]
@@ -306,8 +338,9 @@ def test_ba_grid_gradients_match_jax(setup):
     tp, tc, rv = _t(s["p"]), _t(s["c"]), _t(s["ray_valid"])
     ez = trender.extra_surface_z(torch.linalg.norm(tp, dim=-1), tc, TRUNC, 0, N_BAND,
                                  _t(s["band_u"]))
-    out = trender.render_rays(packed, params, s["tm"], T_CFG, T_RC, o, d, _t(s["t_cap"]), rv,
-                              tocc, _t(s["u"]), extra=(s["tm"], T_CFG, ez, rv))
+    placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
+    out = trender.render_rays(packed, params, s["tm"], T_CFG, o, d, rv, placer, _t(s["u"]),
+                              extra=(s["tm"], T_CFG, ez, rv))
     tl, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc, TRUNC,
                                MAX_DEPTH, FS_W, SDF_W)
     grads = torch.autograd.grad(tl, [packed, *flat, pose])

@@ -340,16 +340,53 @@ def test_place_samples_kernel_shared_origin_matches_plain(cuda, S, M):
         assert bool(((ker[0] - ref[0]).abs() <= ulp).all())
         assert 0.1 < float(ref[2].float().mean()) < 1.0
     assert trc.place_samples_cdf_launches == n0 + 2
-    assert ctypes.sizeof(trc._PlaceArgs) == kernels.lib().nl_place_args_size()
+    out = (ctypes.c_int * 32)()
+    layout = list(out[:kernels.lib().nl_place_args_layout(out)])
+    assert layout == [ctypes.sizeof(trc._PlaceArgs)] + [getattr(trc._PlaceArgs, f).offset
+                                                         for f, _ in trc._PlaceArgs._fields_]
     wide = torch.zeros((o.shape[0], kernels.lib().nl_place_max_slots() + 1), device=cuda)
     with pytest.raises(ValueError, match="coarse slots"):
         trc.place_samples_cdf(ms, T_CFG, rc, wide, n_occ, o2, d, tc, u)
 
 
+def test_place_samples_kernel_superset_rows_match_plain(cuda):
+    """K9b in BA's form: a placer over a superset cdf, each call's rays
+    reading their rows through ``rows`` (a row outside the cdf reads
+    nothing: its ray misses), against the twin on the gathered rows."""
+    ms, o, d, tc = _case(cuda, seed=13)
+    rc = T_RC._replace(sampler="grid", n_samples=40)
+    cdf, n_occ = trc.march_occupancy(ms, T_CFG, rc, o, d, tc)
+    C = o.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rows = torch.randint(0, C, (C // 2,), generator=g, device=cuda, dtype=torch.int32)
+    R = rows.shape[0]
+    placer = trc.CdfPlacer(ms, T_CFG, rc, cdf, n_occ, tc, 40, R)
+    idx = rows.long()
+    o2, d2 = (o[idx] + 0.02).contiguous(), d[idx].contiguous()
+    u = trc.uniform_jitter((R, 40), g, cuda)
+    n0 = trc.place_samples_cdf_launches
+    ker = [t.clone() for t in placer(o2, d2, u, rows)]
+    ref = trc.place_samples_cdf_plain(ms, T_CFG, rc, cdf[idx], n_occ[idx], o2, d2, tc[idx], u)
+    torch.cuda.synchronize()
+    assert trc.place_samples_cdf_launches == n0 + 1
+    for i, name in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+        assert torch.equal(ker[i], ref[i]), name
+    ulp = torch.nextafter(ref[0], torch.full_like(ref[0], float("inf"))) - ref[0]
+    assert bool(((ker[0] - ref[0]).abs() <= ulp).all())
+    assert 0.1 < float(ref[2].float().mean()) < 1.0
+    off = rows.clone()
+    off[:3] = torch.tensor([-1, C, 1 << 30], dtype=torch.int32, device=cuda)
+    z, aid, valid, ray_mask = placer(o2, d2, u, off)
+    torch.cuda.synchronize()
+    assert not bool(ray_mask[:3].any()) and not bool(valid[:3].any())
+    assert bool((aid[:3] == -1).all()) and bool((z[:3] == 0).all())
+    assert torch.equal(valid[3:], ref[2][3:])
+
+
 def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
     ms, o, d, tc = _case(cuda, seed=11)
     rc = T_RC._replace(sampler="grid", n_samples=24)
-    occ = trc.march_occupancy_plain(ms, T_CFG, rc, o, d, tc)
+    cdf, n_occ = trc.march_occupancy_plain(ms, T_CFG, rc, o, d, tc)
     g = torch.Generator(device=cuda).manual_seed(11)
     u = trc.uniform_jitter((o.shape[0], 24), g, cuda)
     ez = torch.rand((o.shape[0], 8), generator=g, device=cuda) * 10.0
@@ -363,9 +400,9 @@ def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
         packed = st.packed.clone().requires_grad_(True)
         oo = o.to(dev).clone().requires_grad_(True)
         dd = d.to(dev).clone().requires_grad_(True)
+        placer = trc.CdfPlacer(st, T_CFG, rc, cdf.to(dev), n_occ.to(dev), tc.to(dev), 24)
         out = trender.render_rays(packed, {k: [w.to(dev) for w in v] for k, v in params.items()},
-                                  st, T_CFG, rc, oo, dd, tc.to(dev), rv.to(dev),
-                                  tuple(x.to(dev) for x in occ), u.to(dev),
+                                  st, T_CFG, oo, dd, rv.to(dev), placer, u.to(dev),
                                   extra=(st, T_CFG, ez.to(dev), rv.to(dev)))
         torch.where(out.valid_mask, out.sdf, 0.0).sum().backward()
         grads[dev.type] = [x.grad.cpu() for x in (packed, oo, dd)]
