@@ -8,7 +8,11 @@
    source, all at once, and prints the build seconds.
 3. Kernel phase, at the shapes of the quality-stack config on a map built
    by inserting the first frames of the synthetic world with support
-   voxels: K4 (hit table), K1 (hits field), K2 (its backward, bit-identical across two calls), K8 (active
+   voxels: K4 (hit table), K1 (hits field; the trackers' 2048 x 64 with one
+   origin expanded to every ray, row stride 0, timed, and BA's 2048 x 48),
+   K2 (its backward: d packed bit-identical across two calls and equal to
+   render.dpacked_in_row_order_plain, here and at the replica gate's BA
+   shape; the samples per touched row printed), K8 (active
    field: band columns and the bias probe), K3 (GN normal equations), K7
    (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
    bf16 and f32, bit-identical across two calls) against their plain
@@ -59,8 +63,10 @@
 5. torch.profiler breakdowns of a few steady frames of the quality, s2s,
    Adam and replica-gate configs: device launches per frame, device time
    per launch of each port kernel;
-   then each kernel-phase call profiled alone: its device time and its
-   CUDA launches per call (K9b and K11b must make exactly one). A session
+   then each kernel-phase call profiled alone: its device time per CUDA
+   function and its CUDA launches per call (K9b, K11b, K1 in both origin
+   forms and K2's d xyz form must make exactly one; K2's d packed form at
+   most four, all of them the port's). A session
    that misses one of a wrapper's CUDA functions is run again, up to three
    times, and then the run fails.
 
@@ -143,7 +149,8 @@ PATH_KERNELS = {           # kernels each main path must launch
 KERNEL_FUNCTIONS = {
     "hit_table": ("hit_table_kernel",),
     "hits_field_fwd": ("hits_field_fwd_kernel",),
-    "hits_field_bwd": ("hits_field_bwd_kernel", "hits_field_bwd_rows_kernel"),
+    "hits_field_bwd": ("hits_field_bwd_kernel", "hits_field_scan_kernel",
+                       "hits_field_scatter_kernel", "hits_field_reduce_kernel"),
     "active_field_fwd": ("active_field_fwd_kernel",),
     "gn_system": ("gn_partial_kernel", "gn_final_kernel"),
     "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
@@ -160,7 +167,10 @@ KERNEL_FUNCTIONS = {
                         "s2s_pixel_kernel", "s2s_normal_kernel"),
     "s2s_system": ("s2s_system_kernel",),
 }
-ONE_LAUNCH = ("place_samples_cdf", "s2s_system")  # wrappers that launch one kernel and no torch op
+# wrappers (and forms of one) that launch one kernel and no torch op
+ONE_LAUNCH = ("place_samples_cdf", "s2s_system", "hits_field_fwd",
+              "hits_field_fwd, origin row stride 0", "hits_field_bwd, d xyz")
+MAX_LAUNCHES = {"hits_field_bwd": 4}  # the d-packed form: at most this many, all the port's
 
 
 def ate_bound(name):
@@ -274,7 +284,7 @@ def port_kernel_times(prof):
     return out
 
 
-def device_us(name, fn, reps=20, sessions=5):
+def device_us(name, fn, reps=20, sessions=5, want=None):
     """Device microseconds per launch of each CUDA function a wrapper call
     launches, averaged over the launches torch.profiler captured in
     ``reps`` calls, their sum (the device time of one call, each function
@@ -282,13 +292,14 @@ def device_us(name, fn, reps=20, sessions=5):
     kernels, torch's, copies) per call. Each session traces a warm-up step of
     ``reps`` calls that it discards (a cold session drops kernel records)
     before the ``reps`` it keeps. Every function of KERNEL_FUNCTIONS[name]
-    must show ``reps`` launches at least: a session that drops some is run
-    again, and after ``sessions`` such sessions the run fails."""
+    (or of ``want``, a form's own functions) must show ``reps`` launches at
+    least: a session that drops some is run again, and after ``sessions``
+    such sessions the run fails."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    want = KERNEL_FUNCTIONS[name]
+    want = want or KERNEL_FUNCTIONS[name]
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -316,17 +327,21 @@ def _on_device(e):
     return getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
 
 
-def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None):
+def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None,
+           forms=None):
     """One kernel's JSON record. ``dev`` is a call of the wrapper on the
     same inputs: its device time is profiled after the main paths
-    (``add_device_times``), so that no profiler session runs before them."""
+    (``add_device_times``), so that no profiler session runs before them;
+    so are ``forms``, {label: (call, its CUDA functions)}, other forms of
+    the wrapper whose launches are checked (ONE_LAUNCH) and printed."""
     b_ms, b_by = bound(nbytes, flops)
     log(f"[{name}] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
         f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)"
         + ("" if library_ms is None else f", library {library_ms:.4f} ms"))
     return {"name": name, "route": "cuda", "source": f"nerfloam_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "_dev": dev}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "_dev": dev,
+            "_forms": forms or {}}
 
 
 def add_device_times(records):
@@ -341,11 +356,35 @@ def add_device_times(records):
             + f"; {per_call:.2f} us per call; {launches:g} CUDA launches per call (profile)")
         if r["name"] in ONE_LAUNCH:
             check(launches == 1, f"{r['name']}: {launches} CUDA launches per call, not one")
+        if r["name"] in MAX_LAUNCHES:
+            check(launches <= MAX_LAUNCHES[r["name"]] and launches == len(per_fn),
+                  f"{r['name']}: {launches} CUDA launches per call, {len(per_fn)} of them the "
+                  f"port's; at most {MAX_LAUNCHES[r['name']]}, all the port's")
+        for label, (fn, want) in r.pop("_forms").items():
+            f_fn, f_call, f_launches = device_us(r["name"], fn, want=want)
+            r.setdefault("forms", {})[label] = {"device_us_per_call": f_call,
+                                                "device_launches_per_call": f_launches}
+            log(f"[{label}] device us per launch: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in f_fn.items())
+                + f"; {f_call:.2f} us per call; {f_launches:g} CUDA launches per call (profile)")
+            if label in ONE_LAUNCH:
+                check(f_launches == 1, f"{label}: {f_launches} CUDA launches per call, not one")
 
 
 def rows_read(aid, valid):
     """Distinct packed rows the valid samples need (512 B each)."""
     return int(torch.unique(aid[valid]).numel())
+
+
+def samples_per_row(aid, valid, n_rows):
+    """The packed rows K2's d packed form touches and the valid samples
+    each receives: count, mean, p50, p99, max."""
+    c = torch.bincount(aid[valid].long(), minlength=n_rows)
+    c = c[c > 0].float()
+    if not len(c):
+        return "no touched row"
+    return (f"{len(c)} touched rows of {n_rows}, mean {float(c.mean()):.2f}, p50 "
+            f"{float(c.quantile(0.5)):g}, p99 {float(c.quantile(0.99)):g}, max {int(c.max())}")
 
 
 def kernel_phase(slam, ds, rc_gate, loops, sp):
@@ -420,15 +459,18 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
                           R * 28 + 4 * probes + R * H * 28 + R, 12 * probes + 20 * R * H,
                           dev=partial(raycast.build_hit_table, ms, cfg, rc_t, o, d, tc)))
 
-    # ---- K1 / K2 at the tracker (M=64) and BA (M=48) shapes, with the
-    # origin moved 1 cm off the table's so samples re-resolve
+    # ---- K1 / K2 at the tracker (M=64, one origin expanded to every ray,
+    # row stride 0, as the trackers pass it) and BA (M=48, one origin per
+    # ray) shapes, with the origin moved 1 cm off the table's so samples
+    # re-resolve
     e1 = e2p = 0.0
-    times = {}
+    times, forms = {}, {}
     for name, R, M in (("track", slam.tp.n_rays, rc_t.n_samples),
                        ("ba", slam.bp_current.n_rays, rc_m.n_samples)):
         o, d, tc, ht, *_ = tables[slam.tp.n_rays] if name == "track" else tables[2 * R]
-        ht = raycast.HitTable(*[x[:R] for x in ht])
-        o, d = (o[:R] + 0.01).contiguous(), d[:R].contiguous()
+        ht = raycast.HitTable(*[x[:R].contiguous() for x in ht])
+        o = (o[:1] + 0.01).expand(R, 3) if name == "track" else (o[:R] + 0.01).contiguous()
+        d = d[:R].contiguous()
         u = raycast.uniform_jitter((R, M), gen, dev)
         ker = render.hits_field_fwd(ht, u, o, d, ms.packed, cfg.voxel_size)
         ref = render.hits_field_fwd_plain(ht, u, o, d, ms.packed, cfg.voxel_size)
@@ -450,12 +492,19 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
         ep = max_abs(kp, rp)
         check(ex <= 1e-5, f"K2 d xyz rel error {ex} ({name})")
         check(ep <= 1e-5 * float(rp.abs().max()), f"K2 d packed error {ep} ({name})")
+        check(torch.equal(kp, render.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, len(kp),
+                                                                cfg.voxel_size)),
+              f"K2 d packed differs from its row-order oracle ({name})")
+        gx, none = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size,
+                                         want_dpacked=False)
+        check(none is None and torch.equal(gx, kx), f"K2's d xyz form differs ({name})")
         e2p = max(e2p, ep)
         nv, nrows = int(valid.sum()), rows_read(aid, valid)
         log(f"[K1/K2] {name} R={R} M={M}: valid {float(valid.float().mean()):.3f}, "
             f"feats err {ef:.3g}, dxyz rel err {ex:.3g}, dpacked err {ep:.3g} "
             f"(max |dpacked| {float(rp.abs().max()):.3g}, rows {kp.shape[0]}, "
-            f"distinct rows read {nrows})")
+            f"distinct rows read {nrows}); d packed equal to dpacked_in_row_order_plain")
+        log(f"[K2] {name}: samples per touched row {samples_per_row(aid, valid, len(kp))}")
         times[name] = (
             median_ms(lambda: render.hits_field_fwd(ht, u, o, d, ms.packed, cfg.voxel_size)),
             median_ms(lambda: render.hits_field_fwd_plain(ht, u, o, d, ms.packed,
@@ -473,11 +522,19 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
         )
         log(f"[K1/K2] {name}: fwd kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms;"
             f" bwd kernel {times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+        if name == "track":
+            forms["hits_field_fwd, origin row stride 0"] = (times[name][8],
+                                                            ("hits_field_fwd_kernel",))
+            forms["hits_field_bwd, d xyz"] = (
+                partial(render.hits_field_bwd, dfeats, xyz, aid, valid, ms.packed,
+                        cfg.voxel_size, want_dpacked=False), ("hits_field_bwd_kernel",))
     k1, p1, k2, p2, b1, f1, b2, f2, d1, d2 = times["ba"]
     records.append(record("hits_field_fwd", "hits_field.cu", "nerfloam_tpu/core/render.py:108",
-                          e1, k1, p1, b1, f1, dev=d1))
+                          e1, k1, p1, b1, f1, dev=d1,
+                          forms={k: v for k, v in forms.items() if "fwd" in k}))
     records.append(record("hits_field_bwd", "hits_field.cu", "nerfloam_tpu/core/ba.py:335",
-                          e2p, k2, p2, b2, f2, dev=d2))
+                          e2p, k2, p2, b2, f2, dev=d2,
+                          forms={k: v for k, v in forms.items() if "bwd" in k}))
 
     # ---- K8: the tracker's band + anchor columns (2048, 8) and the bias
     # probe over one frame's measured points (65536, 1)
@@ -735,6 +792,28 @@ def k9b_host_costs(ms, cfg, rc, cdf, n_occ, o, d, tc, u, q):
     return costs
 
 
+def gate_k2(ms, cfg, place, o, d, gen):
+    """K2 at the replica gate's BA shape (its grid sampler: K9b's depths,
+    K8's features): d packed equal to its row-order oracle and from call to
+    call, within 1e-5 of the twin's largest entry."""
+    z, _, _, ray_mask = place()
+    aid, valid, xyz, feats = render.active_field_fwd(ms, cfg, ms.packed, o, d, z, ray_mask)
+    dfeats = torch.randn(feats.shape, generator=gen, device=feats.device)
+    kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+    kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+    _, rp = render.hits_field_bwd_plain(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size, True)
+    torch.cuda.synchronize()
+    check(torch.equal(kx, kx2) and torch.equal(kp, kp2), "K2 differs between two calls (gate)")
+    check(torch.equal(kp, render.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, len(kp),
+                                                            cfg.voxel_size)),
+          "K2 d packed differs from its row-order oracle (gate)")
+    ep = max_abs(kp, rp)
+    check(ep <= 1e-5 * float(rp.abs().max()), f"K2 d packed error {ep} (gate)")
+    log(f"[K2] gate60 {tuple(valid.shape)}: d packed equal to dpacked_in_row_order_plain, err "
+        f"{ep:.3g} against the twin; samples per touched row "
+        f"{samples_per_row(aid, valid, len(kp))}")
+
+
 def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
     """K9a and K9b at the Adam tracker's shapes (the tracker's 2048 rays)
     and at the replica gate's BA superset (768 rays, its own slots and
@@ -798,6 +877,8 @@ def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
             check(bool(((zk - zr).abs() <= ulp1).all()), f"K9b z beyond one ulp ({label}, {form})")
             log(f"[K9b] {label} {form}: aid, valid, ray_mask equal to the twin, valid "
                 f"{float(ref[2].float().mean()):.3f}")
+        if label == "gate60":
+            gate_k2(ms, cfg, forms["superset rows"][0], o_r, d_r, gen)
         in_range = int(((torch.arange(S, device=dev) + 0.5)[None, :] * cstep
                         <= rt[:, None]).sum())
         log(f"[K9] {label} C={C} S={S} M={M}: rays hit {float(pn.gt(0).float().mean()):.3f}, "

@@ -46,6 +46,8 @@ hits_field_bwd_launches = 0
 active_field_fwd_launches = 0
 
 _JITTER_LO, _JITTER_HI = 1e-4, 1.0 - 1e-4  # frac clip of sample_from_hits
+_FWD, _BWD = "hits_field_fwd", "hits_field_bwd"
+_F32 = torch.float32
 
 
 class RenderOutput(NamedTuple):
@@ -79,39 +81,68 @@ def hits_field_fwd_plain(ht: HitTable, u, rays_o, rays_d, packed, voxel_size):
     return z, valid, torch.where(valid, aid, -1), xyz, feats
 
 
+def _check_fwd(ht: HitTable, u, rays_o, rays_d, packed):
+    """K1's inputs as the kernel reads them, or ValueError. Returns (R, H,
+    M, the row stride of t_near / seg / cdf, rays_o's row stride)."""
+    dev = packed.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_FWD}: unsupported device {dev}")
+    kernels.expect(_FWD, dev, torch.int32, aid=ht.aid, cell=ht.cell)
+    kernels.expect(_FWD, dev, _F32, u=u, rays_d=rays_d, packed=packed)
+    R, H = ht.aid.shape
+    M = u.shape[-1]
+    kernels.expect_shape(_FWD, cell=(ht.cell, (R, H, 3)), u=(u, (R, M)), rays_d=(rays_d, (R, 3)),
+                         packed=(packed, (packed.shape[0], 128)))
+    # t_near, seg and cdf may be views of one wider table (BA unpacks its
+    # hit table from one (R, 7H) row per ray): rows of H, one row stride
+    ld = ht.cdf.stride(0) if R > 1 else H
+    for label, t in (("t_near", ht.t_near), ("seg", ht.seg), ("cdf", ht.cdf)):
+        if (t.dtype != _F32 or t.device != dev or t.shape != (R, H) or t.stride(1) != 1
+                or (R > 1 and t.stride(0) != ld) or ld < H):
+            raise ValueError(f"{_FWD}: {label} must be ({R}, {H}) f32 rows on {dev}, with the row "
+                             f"stride of cdf; got {tuple(t.shape)} {t.dtype}, strides "
+                             f"{tuple(t.stride())}, on {t.device}")
+    o_st = rays_o.stride(0) if R > 1 else 3
+    if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
+            or rays_o.stride(1) != 1 or o_st not in (0, 3)):
+        raise ValueError(f"{_FWD}: rays_o must be ({R}, 3) f32 rows on {dev} (row stride 3, or 0 "
+                         f"for one shared origin); got {tuple(rays_o.shape)} {rays_o.dtype}, "
+                         f"strides {tuple(rays_o.stride())}, on {rays_o.device}")
+    return R, H, M, ld, o_st
+
+
 def hits_field_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size):
     """K1: stratified placement over the hit table, in-register voxel
     re-resolution, one packed row and trilinear features per sample.
     Replaces the XLA fusion of nerfloam_tpu/core/render.py:132-147 over
     ops/raycast.py:248-324, render.py:91-105 and interp.py:22-47 (up to the
     decoder). Bound: one 512 B packed row read per valid sample (see
-    csrc/hits_field.cu). Returns (z, valid, aid, xyz, feats)."""
+    csrc/hits_field.cu). Returns (z, valid, aid, xyz, feats).
+
+    Every input must already be what the kernel reads (int32 aid and
+    cells, f32 otherwise, contiguous, on packed's device; t_near / seg /
+    cdf may share a row stride wider than H; ``rays_o`` may be one origin
+    expanded, row stride 0): nothing is converted or copied, and a tensor
+    that would need it raises ValueError, on the CPU too. CPU tensors take
+    ``hits_field_fwd_plain``; CUDA tensors launch the kernel once."""
+    R, H, M, ld, o_st = _check_fwd(ht, u, rays_o, rays_d, packed)
     if packed.device.type == "cpu":
         return hits_field_fwd_plain(ht, u, rays_o, rays_d, packed, voxel_size)
-    if packed.device.type != "cuda":
-        raise ValueError(f"hits_field_fwd: unsupported device {packed.device}")
     global hits_field_fwd_launches
     dev = packed.device
-    R, H = ht.aid.shape
-    M = u.shape[1]
-    if packed.shape[1] != 128:
-        raise ValueError("hits_field_fwd: packed rows must be 8 x 16 floats")
-    ins = [t.contiguous() for t in (ht.aid.to(torch.int32), ht.t_near.float(), ht.seg.float(),
-                                     ht.cdf.float(), ht.cell.to(torch.int32), u.float(),
-                                     rays_o.float(), rays_d.float(), packed.float())]
-    if any(t.device != dev for t in ins):
-        raise ValueError("hits_field_fwd: all inputs must be on one device")
-    z = torch.empty((R, M), dtype=torch.float32, device=dev)
+    z = torch.empty((R, M), dtype=_F32, device=dev)
     valid = torch.empty((R, M), dtype=torch.bool, device=dev)
     aid = torch.empty((R, M), dtype=torch.int32, device=dev)
-    xyz = torch.empty((R, M, 3), dtype=torch.float32, device=dev)
-    feats = torch.empty((R, M, 16), dtype=torch.float32, device=dev)
+    xyz = torch.empty((R, M, 3), dtype=_F32, device=dev)
+    feats = torch.empty((R, M, 16), dtype=_F32, device=dev)
     err = kernels.lib().nl_hits_field_fwd(
-        *[t.data_ptr() for t in ins], R, M, H, voxel_size, _JITTER_LO, _JITTER_HI,
-        z.data_ptr(), valid.data_ptr(), aid.data_ptr(), xyz.data_ptr(), feats.data_ptr(),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check(err, "hits_field_fwd")
+        ht.aid.data_ptr(), ht.t_near.data_ptr(), ht.seg.data_ptr(), ht.cdf.data_ptr(), ld,
+        ht.cell.data_ptr(), u.data_ptr(), rays_o.data_ptr(), o_st, rays_d.data_ptr(),
+        packed.data_ptr(), R, M, H, voxel_size, _JITTER_LO, _JITTER_HI, z.data_ptr(),
+        valid.data_ptr(), aid.data_ptr(), xyz.data_ptr(), feats.data_ptr(),
+        kernels.stream_ptr(dev))
+    if err:
+        kernels.check(err, _FWD)
     hits_field_fwd_launches += 1
     return z, valid, aid, xyz, feats
 
@@ -137,42 +168,120 @@ def hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, voxel_size, want_dpack
     return grads[0], dpacked
 
 
+def dpacked_in_row_order_plain(dfeats, xyz, aid, valid, n_rows: int, voxel_size):
+    """d packed (n_rows, 128) in K2's own arithmetic, the kernel's bit-exact
+    oracle (tests and chip_smoke.py; no run calls it). Per valid sample
+    the 8 trilinear weights by the elementwise f32 ops of the kernel
+    (p = (xyz - center) / vs + 0.5 with center = (floor(xyz / vs) + 0.5)
+    vs, w_j = (f_x f_y) f_z, f = 1 - p or p), then per row, from 0, the
+    contributions w_j * dfeats added in ascending sample index: one pass
+    per rank within a row's samples, each pass one add on every row that
+    has a sample of that rank."""
+    F = dfeats.shape[-1]
+    ids = torch.nonzero(valid.reshape(-1)).reshape(-1)  # ascending
+    rows, order = torch.sort(aid.reshape(-1)[ids].long(), stable=True)
+    ids = ids[order]
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    pos = torch.arange(len(rows), device=rows.device)
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    x = xyz.reshape(-1, 3)[ids]
+    center = (torch.floor(div(x, voxel_size)) + 0.5) * voxel_size
+    p = div(x - center, voxel_size) + 0.5
+    f = torch.stack([1.0 - p, p], -1)  # (S, 3 axes, 2)
+    bits = torch.as_tensor([[(j >> 2) & 1, (j >> 1) & 1, j & 1] for j in range(8)],
+                           device=x.device)
+    w = (f[:, 0, bits[:, 0]] * f[:, 1, bits[:, 1]]) * f[:, 2, bits[:, 2]]  # (S, 8)
+    contrib = w[:, :, None] * dfeats.reshape(-1, F)[ids][:, None, :]      # (S, 8, F)
+    out = torch.zeros((n_rows, 8, F), dtype=torch.float32, device=dfeats.device)
+    for r in range(int(rank.max()) + 1 if len(rank) else 0):
+        sel = rank == r
+        out[rows[sel]] = out[rows[sel]] + contrib[sel]
+    return out.reshape(n_rows, 8 * F)
+
+
+class _DpackedScratch:
+    """K2's d-packed scratch on one CUDA device, kept from call to call
+    (grown, never shrunk): the scan's tile states and its ticket (int64,
+    the ticket last), the per-row sample counts, the row offsets, the
+    grouped sample indices, the per-sample trilinear weights, and the lists
+    of touched rows behind their two counters. States, ticket and counts
+    start at zero and every call leaves them at zero (the scatter counts
+    each row back down), so no call needs a memset. Calls on one device
+    share it, which holds on one stream."""
+
+    def __init__(self, dev, A: int, n: int):
+        tiles = kernels.lib().nl_hits_field_scan_tiles(A)
+        self.A, self.n = A, n
+        self.state = torch.zeros((tiles + 1,), dtype=torch.int64, device=dev)
+        self.counts = torch.zeros((A,), dtype=torch.int32, device=dev)
+        self.offsets = torch.empty((A + 1,), dtype=torch.int32, device=dev)
+        self.ids = torch.empty((max(n, 1),), dtype=torch.int32, device=dev)
+        self.wts = torch.empty((max(n, 1), 8), dtype=_F32, device=dev)
+        self.rows = torch.zeros((2 + 2 * A,), dtype=torch.int32, device=dev)
+        self.ptrs = (self.state.data_ptr(), self.state.data_ptr() + 8 * tiles,
+                     self.counts.data_ptr(), self.offsets.data_ptr(), self.ids.data_ptr(),
+                     self.wts.data_ptr(), self.rows.data_ptr())
+
+
+_dpacked_scratch: dict = {}  # CUDA device index -> _DpackedScratch
+_NO_SCRATCH = (None,) * 7
+
+
+def _check_bwd(dfeats, xyz, aid, valid, packed):
+    """K2's inputs as the kernels read them, or ValueError."""
+    dev = packed.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_BWD}: unsupported device {dev}")
+    kernels.expect(_BWD, dev, _F32, dfeats=dfeats, xyz=xyz, packed=packed)
+    kernels.expect(_BWD, dev, torch.int32, aid=aid)
+    kernels.expect(_BWD, dev, torch.bool, valid=valid)
+    S = tuple(valid.shape)
+    kernels.expect_shape(_BWD, dfeats=(dfeats, S + (16,)), xyz=(xyz, S + (3,)), aid=(aid, S),
+                         packed=(packed, (packed.shape[0], 128)))
+
+
 def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=True):
-    """K2: K1's backward. d xyz (R, M, 3) from the trilinear-weight
+    """K2: K1's (and K8's) backward. d xyz (R, M, 3) from the trilinear-weight
     derivatives and, when ``want_dpacked``, d packed (A, 128): the 8 x 16
     corner gradients of every valid sample, summed per packed row in
-    ascending sample index. The samples are sorted by row here (a stable
-    ``torch.sort`` and a ``searchsorted`` for the rows' segments) and the
-    kernel's second pass adds each row's own samples in that order, so the
-    table is bit-identical from run to run (no atomics). Replaces the
-    backward XLA emits for K1 under jax.value_and_grad (core/ba.py:335) and
-    jax.grad (core/tracking.py:214). Bound: the packed-row read per valid
-    sample and the d packed write."""
+    ascending sample index, from 0, so the table is bit-identical from run
+    to run (no float atomics) and equal to ``dpacked_in_row_order_plain``.
+    On the card the d xyz form is one launch; the d packed form four (the
+    sample pass counts the samples per row, a one-pass scan gives the rows'
+    segments, a scatter fills them, one warp per row sorts its segment and
+    adds it) and no torch op, its scratch kept from call to call. Replaces
+    the backward XLA emits for K1 under jax.value_and_grad (core/ba.py:335)
+    and jax.grad (core/tracking.py:214). Bound: the packed-row read per
+    valid sample and the d packed write.
+
+    Every input must already be what the kernels read (f32 dfeats (R, M,
+    16), xyz and packed (A, 128), int32 aid, bool valid, contiguous, on one
+    device): a tensor that would need a conversion raises ValueError, on
+    the CPU too. CPU tensors take ``hits_field_bwd_plain``."""
+    _check_bwd(dfeats, xyz, aid, valid, packed)
     if packed.device.type == "cpu":
         return hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked)
-    if packed.device.type != "cuda":
-        raise ValueError(f"hits_field_bwd: unsupported device {packed.device}")
     global hits_field_bwd_launches
     dev = packed.device
-    ins = [t.contiguous() for t in (dfeats.float(), xyz.float(), aid.to(torch.int32), valid,
-                                     packed.float())]
-    if any(t.device != dev for t in ins):
-        raise ValueError("hits_field_bwd: all inputs must be on one device")
-    n = xyz.shape[0] * xyz.shape[1]
-    dxyz = torch.empty(xyz.shape, dtype=torch.float32, device=dev)
-    A = packed.shape[0]
-    order = seg = dpacked = None
+    n, A = valid.numel(), packed.shape[0]
+    dxyz = torch.empty(xyz.shape, dtype=_F32, device=dev)
+    dpacked, ptrs = None, _NO_SCRATCH
     if want_dpacked:
-        key = torch.where(ins[3], ins[2], A).reshape(-1)  # invalid samples sort last
-        skey, order = torch.sort(key, stable=True)
-        seg = torch.searchsorted(skey, torch.arange(A + 1, dtype=torch.int32, device=dev))
-        dpacked = torch.empty_like(ins[-1])
+        dpacked = torch.empty_like(packed)
+        index = packed.get_device()
+        sc = _dpacked_scratch.get(index)
+        if sc is None or sc.A < A or sc.n < n:
+            sc = _dpacked_scratch[index] = _DpackedScratch(
+                dev, max(A, sc.A if sc else 0), max(n, sc.n if sc else 0))
+        ptrs = sc.ptrs
     err = kernels.lib().nl_hits_field_bwd(
-        *[t.data_ptr() for t in ins], n, voxel_size, dxyz.data_ptr(),
-        *[None if t is None else t.data_ptr() for t in (order, seg)], A,
-        None if dpacked is None else dpacked.data_ptr(), kernels.stream_ptr(dev),
-    )
-    kernels.check(err, "hits_field_bwd")
+        dfeats.data_ptr(), xyz.data_ptr(), aid.data_ptr(), valid.data_ptr(), packed.data_ptr(), n,
+        voxel_size, dxyz.data_ptr(), A, None if dpacked is None else dpacked.data_ptr(), *ptrs,
+        kernels.stream_ptr(dev))
+    if err:
+        _dpacked_scratch.pop(packed.get_device(), None)  # its counts may not be zero
+        kernels.check(err, _BWD)
     hits_field_bwd_launches += 1
     return dxyz, dpacked
 
@@ -311,6 +420,9 @@ class _FieldColumns(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dfeats, *_):
         packed, z, valid, aid, xyz = ctx.saved_tensors
+        # the one conversion on K2's way: autograd may hand a broadcast
+        # gradient (a sum's ones expanded), which K2 reads as it is not
+        dfeats = dfeats.contiguous()
         want_dpacked = ctx.needs_input_grad[0]
         dxyz, dpacked = hits_field_bwd(dfeats, xyz, aid, valid, packed, ctx.voxel_size,
                                        want_dpacked)

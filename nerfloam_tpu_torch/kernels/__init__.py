@@ -44,9 +44,11 @@ _SIGNATURES = {
     "nl_hit_table": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F,
                      _P, _P, _P, _P, _P, _P, _P],
     "nl_hit_table_max_hits": [],
-    "nl_hits_field_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+    "nl_hits_field_fwd": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F,
                           _P, _P, _P, _P, _P, _P],
-    "nl_hits_field_bwd": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P],
+    "nl_hits_field_bwd": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
+    "nl_hits_field_scan_tiles": [_I],
     "nl_active_field_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
                             _P, _P, _P, _P, _P],
     "nl_gn_partial_values": [],

@@ -103,7 +103,8 @@ def build_hit_table_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Raycast
     t_far = torch.minimum(torch.amin(torch.maximum(t0, t1), -1), t_cap[:, None])
     seg = torch.where(aid >= 0, torch.clamp(t_far - t_near, min=0.0), 0.0)
     cdf = torch.cumsum(seg, -1)
-    return HitTable(aid, t_near, seg, cdf, hcell.to(torch.int32), cdf[:, -1] > 0.0)
+    # contiguous tables, as K4 writes them and K1 reads them
+    return HitTable(aid.contiguous(), t_near, seg, cdf, hcell.to(torch.int32), cdf[:, -1] > 0.0)
 
 
 def build_hit_table(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
@@ -159,14 +160,18 @@ def pack_hit_table(ht: HitTable) -> torch.Tensor:
 
 
 def unpack_hit_table(packed: torch.Tensor) -> HitTable:
+    """pack_hit_table's inverse: t_near, seg and cdf are views of
+    ``packed`` (rows of H, row stride 7H, as K1 takes them); aid and the
+    cells are cast into contiguous int32 tables."""
     H = packed.shape[-1] // 7
     cdf = packed[..., 3 * H:4 * H]
+    to_int = dict(dtype=torch.int32, memory_format=torch.contiguous_format)
     return HitTable(
-        packed[..., :H].to(torch.int32),
+        packed[..., :H].to(**to_int),
         packed[..., H:2 * H],
         packed[..., 2 * H:3 * H],
         cdf,
-        packed[..., 4 * H:].reshape(packed.shape[:-1] + (H, 3)).to(torch.int32),
+        packed[..., 4 * H:].reshape(packed.shape[:-1] + (H, 3)).to(**to_int),
         cdf[..., -1] > 0.0,
     )
 

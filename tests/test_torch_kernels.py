@@ -12,9 +12,12 @@ everywhere.
 
 Tolerances as in chip_smoke.py: integers, depths and positions exact (the
 kernels round exactly like the plain ops: no FMA contraction, IEEE
-division); features 1e-6; d xyz 1e-5 relative; d packed 1e-5 of its
-largest entry (another summation order than the twin's) and bit-identical
-between two calls (each row adds its samples in ascending index); K8 integers and
+division; also with one origin expanded to every ray); features 1e-6; d
+xyz 1e-5 relative; d packed 1e-5 of its largest entry (another summation
+order than the twin's), bit-identical between two calls and equal to
+render.dpacked_in_row_order_plain (each row adds its samples in ascending
+index, in the kernel's arithmetic) whatever a row's sample count, and with
+no valid sample at all; K8 integers and
 positions exact, features 1e-6; K3 H, b and loss 1e-4 relative (another
 summation order) and bit-stable from run to run; K7 every table equal
 (both elect the smallest slot); K6 every table equal; K5 every table
@@ -28,9 +31,9 @@ positions equal, K10b triangles and mask equal (one rounded operation at a
 time on both sides); K11a every output equal and bit-identical between two
 calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
 relative (another summation order) and bit-stable from run to run, and in
-the accumulating form each entry one add on the sums alone. K9b and K11b
-raise on what they would have to convert (another device, another dtype,
-a strided tensor)."""
+the accumulating form each entry one add on the sums alone. K9b, K11b, K1
+and K2 raise on what they would have to convert (another device, another
+dtype, a strided tensor)."""
 
 import ctypes
 import os
@@ -108,11 +111,20 @@ def test_hits_field_kernels_match_plain(cuda, M):
     g = torch.Generator(device=cuda).manual_seed(M)
     u = trc.uniform_jitter((o.shape[0], M), g, cuda)
     o2 = (o + 0.02).contiguous()
+    n0 = trender.hits_field_fwd_launches
     ker = trender.hits_field_fwd(ht, u, o2, d, ms.packed, T_CFG.voxel_size)
     ref = trender.hits_field_fwd_plain(ht, u, o2, d, ms.packed, T_CFG.voxel_size)
     for i, name in enumerate(("z", "valid", "aid", "xyz")):
         assert torch.equal(ker[i], ref[i]), name
     torch.testing.assert_close(ker[4], ref[4], rtol=0, atol=1e-6)
+    # one origin for every ray, row stride 0 (the trackers' form)
+    o1 = o2[:1].expand_as(d)
+    ker1 = trender.hits_field_fwd(ht, u, o1, d, ms.packed, T_CFG.voxel_size)
+    ref1 = trender.hits_field_fwd_plain(ht, u, o1, d, ms.packed, T_CFG.voxel_size)
+    for i, name in enumerate(("z", "valid", "aid", "xyz")):
+        assert torch.equal(ker1[i], ref1[i]), name
+    torch.testing.assert_close(ker1[4], ref1[4], rtol=0, atol=1e-6)
+    assert trender.hits_field_fwd_launches == n0 + 2
     _, valid, aid, xyz, _ = ref
     dfeats = torch.randn((o.shape[0], M, 16), generator=g, device=cuda)
     kx, kp = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size)
@@ -120,6 +132,9 @@ def test_hits_field_kernels_match_plain(cuda, M):
                                           True)
     assert float((kx - rx).abs().max()) <= 1e-5 * float(rx.abs().max())
     assert float((kp - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+    # each row's samples added in ascending index, in the kernel's arithmetic
+    assert torch.equal(kp, trender.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, len(kp),
+                                                              T_CFG.voxel_size))
     kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size)
     assert torch.equal(kx, kx2) and torch.equal(kp, kp2)      # no atomics: the same every run
     untouched = torch.ones(len(kp), dtype=torch.bool, device=cuda)
@@ -128,6 +143,35 @@ def test_hits_field_kernels_match_plain(cuda, M):
     gx, none = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size,
                                       want_dpacked=False)
     assert none is None and torch.equal(gx, kx)
+
+
+@pytest.mark.parametrize("long_len", [0, 300, 1200, 5000])
+def test_hits_field_bwd_segments_match_row_order(cuda, long_len):
+    """K2's d packed equal to its oracle whatever a row's sample count: a
+    warp's rows (<= 64 samples), a block's in shared memory (<= 4096) and
+    the in-place sort beyond it; long_len 0: no valid sample at all."""
+    rng = np.random.default_rng(long_len)
+    R, M, A = 512, 16, 300
+    xyz = torch.as_tensor(rng.uniform(-4, 4, (R, M, 3)).astype(np.float32), device=cuda)
+    aid = rng.integers(0, A, (R, M)).astype(np.int32)
+    valid = rng.uniform(size=(R, M)) < (0.7 if long_len else 0.0)
+    if long_len:
+        pick = rng.choice(R * M, long_len, replace=False)
+        aid.reshape(-1)[pick], valid.reshape(-1)[pick] = 7, True
+    aid, valid = torch.as_tensor(aid, device=cuda), torch.as_tensor(valid, device=cuda)
+    dfeats = torch.as_tensor(rng.normal(size=(R, M, 16)).astype(np.float32), device=cuda)
+    packed = torch.as_tensor(rng.normal(size=(A, 128)).astype(np.float32), device=cuda)
+    kx, kp = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS)
+    ref = trender.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, A, VS)
+    assert torch.equal(kp, ref)
+    kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS)
+    assert torch.equal(kx, kx2) and torch.equal(kp, kp2)
+    rx, _ = trender.hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, VS, False)
+    assert float((kx - rx).abs().max()) <= 1e-5 * max(float(rx.abs().max()), 1e-30)
+    if long_len:
+        assert int((aid[valid] == 7).sum()) >= long_len
+    else:
+        assert not bool(kp.any()) and not bool(kx.any())
 
 
 def test_hits_field_autograd_on_card_matches_cpu(cuda):
@@ -570,6 +614,34 @@ def test_grid_and_s2s_wrappers_reject_what_they_would_convert(cuda):
         ts2s.s2s_system(S2S, prev, pose, cur, rv, acc=acc)
 
 
+def test_hits_field_wrappers_reject_what_they_would_convert(cuda):
+    """K1 and K2 take their inputs as they are: a CPU tensor among CUDA
+    ones, another dtype or a strided tensor raises instead of being moved,
+    cast or copied."""
+    ms, o, d, tc = _case(cuda, seed=14)
+    ht = trc.build_hit_table(ms, T_CFG, T_RC, o, d, tc)
+    u = torch.rand((len(o), 8), device=cuda)
+    ok = dict(ht=ht, u=u, rays_o=o, rays_d=d, packed=ms.packed)
+    for key, value, match in (("u", u.cpu(), "u must be a contiguous"),
+                              ("rays_d", d.double(), "rays_d must be a contiguous"),
+                              ("ht", ht._replace(aid=ht.aid.long()), "aid must be a contiguous"),
+                              ("ht", ht._replace(seg=ht.seg.cpu()), "seg must be"),
+                              ("rays_o", o.t().contiguous().t(), "rays_o must be")):
+        with pytest.raises(ValueError, match=match):
+            trender.hits_field_fwd(**{**ok, key: value}, voxel_size=VS)
+    _, valid, aid, xyz, feats = trender.hits_field_fwd(ht, u, o, d, ms.packed, VS)
+    good = (torch.randn_like(feats), xyz, aid, valid, ms.packed)
+    for i, value, match in ((0, good[0].cpu(), "dfeats must be a contiguous"),
+                            (1, xyz.transpose(0, 1).contiguous().transpose(0, 1),
+                             "xyz must be a contiguous"),
+                            (2, aid.long(), "aid must be a contiguous"),
+                            (4, ms.packed.double(), "packed must be a contiguous")):
+        args = list(good)
+        args[i] = value
+        with pytest.raises(ValueError, match=match):
+            trender.hits_field_bwd(*args, VS)
+
+
 def test_wrappers_reject_other_devices():
     ms, o, d, tc = _case("cpu")
     meta = [x.to("meta") for x in (o, d, tc)]
@@ -578,6 +650,10 @@ def test_wrappers_reject_other_devices():
     ht = trc.build_hit_table(ms, T_CFG, T_RC, o, d, tc)
     with pytest.raises(ValueError, match="unsupported device"):
         trender.hits_field_fwd(ht, torch.zeros(o.shape[0], 4), o, d, ms.packed.to("meta"), 0.5)
+    z, valid, aid, xyz, feats = trender.hits_field_fwd(ht, torch.zeros(o.shape[0], 4), o, d,
+                                                       ms.packed, 0.5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trender.hits_field_bwd(feats, xyz, aid, valid, ms.packed.to("meta"), 0.5)
     with pytest.raises(ValueError, match="unsupported device"):
         trender.active_field_fwd(ms, T_CFG, ms.packed.to("meta"), o, d, torch.ones(len(o), 2),
                                  torch.ones(len(o), dtype=torch.bool))
