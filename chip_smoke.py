@@ -10,9 +10,11 @@
    by inserting the first frames of the synthetic world with support
    voxels: K4 (hit table), K1 (hits field; the trackers' 2048 x 64 with one
    origin expanded to every ray, row stride 0, timed, and BA's 2048 x 48),
-   K2 (its backward: d packed bit-identical across two calls and equal to
+   K2 (its backward: d packed bit-identical across two calls through one
+   DpackedScratch, as a BA step keeps it, and equal to
    render.dpacked_in_row_order_plain, here and at the replica gate's BA
-   shape; the samples per touched row printed), K8 (active
+   shape; the samples per touched row and the host us of K1's and K2's
+   wrapper pieces printed), K8 (active
    field: band columns and the bias probe), K3 (GN normal equations), K7
    (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
    bf16 and f32, bit-identical across two calls) against their plain
@@ -73,8 +75,17 @@
 Any failure raises (exit code 1). The last three lines of standard output
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --paths kitti_budget,kitti_quality
+
+runs only those configs' main paths (step 4; their checks too) and prints
+no result line: to compare two trees of the port in one call, in turns,
+run each tree's package under this script (copy it into the other tree's
+root). Each path prints its scans/s and the host CPU seconds its process
+spent a frame, which a loaded host inflates less than the wall clock.
 """
 
+import argparse
 import gc
 import json
 import os
@@ -464,7 +475,7 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
     # ray) shapes, with the origin moved 1 cm off the table's so samples
     # re-resolve
     e1 = e2p = 0.0
-    times, forms = {}, {}
+    times, forms, host_args = {}, {}, {}
     for name, R, M in (("track", slam.tp.n_rays, rc_t.n_samples),
                        ("ba", slam.bp_current.n_rays, rc_m.n_samples)):
         o, d, tc, ht, *_ = tables[slam.tp.n_rays] if name == "track" else tables[2 * R]
@@ -482,11 +493,14 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
         e1 = max(e1, ef)
         valid, aid, xyz = ref[1], ref[2], ref[3]
         dfeats = torch.randn((R, M, 16), generator=gen, device=dev)
-        kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+        k2s = render.DpackedScratch()  # kept over the calls, as a BA step keeps it
+        kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size,
+                                       scratch=k2s)
         rx, rp = render.hits_field_bwd_plain(dfeats, xyz, aid, valid, ms.packed,
                                              cfg.voxel_size, True)
         torch.cuda.synchronize()
-        kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+        kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size,
+                                         scratch=k2s)
         check(torch.equal(kx, kx2) and torch.equal(kp, kp2), f"K2 differs between two calls ({name})")
         ex = max_abs(kx, rx) / max(float(rx.abs().max()), 1e-30)
         ep = max_abs(kp, rp)
@@ -510,24 +524,30 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
             median_ms(lambda: render.hits_field_fwd_plain(ht, u, o, d, ms.packed,
                                                           cfg.voxel_size)),
             median_ms(lambda: render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed,
-                                                    cfg.voxel_size)),
+                                                    cfg.voxel_size, scratch=k2s)),
             median_ms(lambda: render.hits_field_bwd_plain(dfeats, xyz, aid, valid, ms.packed,
                                                           cfg.voxel_size, True)),
-            # fwd: hit table + jitter + rays + rows in, z/valid/aid/xyz/feats out
-            R * H * 32 + R * M * 4 + R * 24 + 512 * nrows + R * M * 85, 300 * nv + 40 * R * M,
-            # bwd: dfeats/xyz/aid/valid + rows in, d xyz and the dense d packed out
-            R * M * 81 + 512 * nrows + R * M * 12 + ms.packed.numel() * 4, 700 * nv,
+            # fwd: hit table (aid, t_near, seg, cdf, 3 cell ints: 28 B a slot) +
+            # jitter + rays + rows in, z/valid/aid/xyz/feats out
+            R * H * 28 + R * M * 4 + R * 24 + 512 * nrows + R * M * 85, 300 * nv + 40 * R * M,
+            # bwd: valid + aid of every sample, dfeats + xyz of the valid ones,
+            # rows in; d xyz and the dense d packed out
+            R * M * 5 + nv * 76 + 512 * nrows + R * M * 12 + ms.packed.numel() * 4, 700 * nv,
             partial(render.hits_field_fwd, ht, u, o, d, ms.packed, cfg.voxel_size),
-            partial(render.hits_field_bwd, dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size),
+            partial(render.hits_field_bwd, dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size,
+                    scratch=k2s),
         )
         log(f"[K1/K2] {name}: fwd kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms;"
             f" bwd kernel {times[name][2]:.4f} ms, plain {times[name][3]:.4f} ms")
+        host_args[name] = (ht, u, o, d, ms.packed, dfeats, xyz, aid, valid, k2s, cfg.voxel_size)
         if name == "track":
             forms["hits_field_fwd, origin row stride 0"] = (times[name][8],
                                                             ("hits_field_fwd_kernel",))
             forms["hits_field_bwd, d xyz"] = (
                 partial(render.hits_field_bwd, dfeats, xyz, aid, valid, ms.packed,
                         cfg.voxel_size, want_dpacked=False), ("hits_field_bwd_kernel",))
+    for name, a in host_args.items():  # after the timings, which its 28,000 calls would perturb
+        k12_host_costs(name, *a)
     k1, p1, k2, p2, b1, f1, b2, f2, d1, d2 = times["ba"]
     records.append(record("hits_field_fwd", "hits_field.cu", "nerfloam_tpu/core/render.py:108",
                           e1, k1, p1, b1, f1, dev=d1,
@@ -792,6 +812,32 @@ def k9b_host_costs(ms, cfg, rc, cdf, n_occ, o, d, tc, u, q):
     return costs
 
 
+def k12_host_costs(label, ht, u, o, d, packed, dfeats, xyz, aid, valid, k2, vs):
+    """Host us of K1's and K2's wrappers and of their checks, beside the
+    conversions their earlier wrappers made instead (each input through
+    ``.float()`` / ``.to(torch.int32)`` and ``.contiguous()``, which copies
+    an expanded origin), at one shape. The d packed call itself is left
+    out: its device time (~64 us) is longer than its host time, so a loop
+    of calls would time the card."""
+    pieces = {
+        "K1 call": lambda: render.hits_field_fwd(ht, u, o, d, packed, vs),
+        "K1 checks": lambda: render._check_fwd(ht, u, o, d, packed),
+        "K1 conversions before": lambda: [t.contiguous() for t in (
+            ht.aid.to(torch.int32), ht.t_near.float(), ht.seg.float(), ht.cdf.float(),
+            ht.cell.to(torch.int32), u.float(), o.float(), d.float(), packed.float())],
+        "K2 d xyz call": lambda: render.hits_field_bwd(dfeats, xyz, aid, valid, packed, vs,
+                                                       want_dpacked=False),
+        "K2 checks": lambda: render._check_bwd(dfeats, xyz, aid, valid, packed),
+        "K2 conversions before": lambda: [t.contiguous() for t in (
+            dfeats.float(), xyz.float(), aid.to(torch.int32), valid, packed.float())],
+        "K2 scratch kept": lambda: k2.fit(packed.device, packed.shape[0], valid.numel()),
+    }
+    costs = {k: host_us(fn) for k, fn in pieces.items()}
+    log(f"[K1/K2] {label} host us per call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
+
+
 def gate_k2(ms, cfg, place, o, d, gen):
     """K2 at the replica gate's BA shape (its grid sampler: K9b's depths,
     K8's features): d packed equal to its row-order oracle and from call to
@@ -799,8 +845,10 @@ def gate_k2(ms, cfg, place, o, d, gen):
     z, _, _, ray_mask = place()
     aid, valid, xyz, feats = render.active_field_fwd(ms, cfg, ms.packed, o, d, z, ray_mask)
     dfeats = torch.randn(feats.shape, generator=gen, device=feats.device)
-    kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
-    kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size)
+    k2 = render.DpackedScratch()
+    kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size, scratch=k2)
+    kx2, kp2 = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size,
+                                     scratch=k2)
     _, rp = render.hits_field_bwd_plain(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size, True)
     torch.cuda.synchronize()
     check(torch.equal(kx, kx2) and torch.equal(kp, kp2), "K2 differs between two calls (gate)")
@@ -1156,11 +1204,11 @@ def main_path(name, slam, ds, label=None):
     for f in frames[1:WARMUP_FRAMES]:
         slam.process_frame(f)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.process_time()
     for f in frames[WARMUP_FRAMES:]:
         slam.process_frame(f)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt, cpu = time.perf_counter() - t0, time.process_time() - c0
     poses = np.asarray(slam.finalize())
     torch.cuda.synchronize()
     total = time.perf_counter() - t_start
@@ -1175,7 +1223,8 @@ def main_path(name, slam, ds, label=None):
     scans = n_timed / dt
     ate = ate_rmse(poses, gt, align=False)
     log(f"{tag} {len(frames)} frames in {total:.2f} s (finalize included); "
-        f"scans/s over frames {WARMUP_FRAMES}-{len(frames) - 1}: {scans:.4f}")
+        f"scans/s over frames {WARMUP_FRAMES}-{len(frames) - 1}: {scans:.4f}; host CPU "
+        f"{cpu / n_timed:.4f} s a frame (the process, all its threads)")
     log(f"{tag} launches: {launches}; per frame ({len(frames)} frames + finalize): "
         + ", ".join(f"{k} {v / len(frames):.2f}" for k, v in launches.items()))
     log(f"{tag} overflow events {slam.overflow_events}, dropped {slam.dropped_delta_events}, "
@@ -1336,7 +1385,23 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
             f"{n / n_profiled:.1f} launches/frame, {t / n:.2f} us/launch (device)")
 
 
-def main():
+def kitti_paths(names, cfgs, ds, workdir):
+    """The KITTI configs' main paths in turn, the quality path with a
+    RunLogger in ``workdir``; {name: main_path's result}."""
+    results = {}
+    for n in names:
+        logger = RunLogger(workdir, n, config=cfgs[n].as_dict()) if n == "kitti_quality" else None
+        results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda", logger=logger),
+                               ds)
+        torch.cuda.empty_cache()
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
+    ap.add_argument("--paths", help="comma-separated KITTI configs (kitti_budget, kitti_quality, "
+                    "kitti_adam25, kitti_quality_s2s): run only their main paths")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -1362,6 +1427,10 @@ def main():
     kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s")
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
+    if args.paths:
+        with tempfile.TemporaryDirectory() as workdir:
+            kitti_paths(args.paths.split(","), cfgs, ds, workdir)
+        return 0
     gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
     gate_slam = NerfLoamSLAM_torch(gate[0], None, device="cuda")
     loops = {"adam25": NerfLoamSLAM_torch(cfgs["kitti_adam25"], None,
@@ -1373,14 +1442,8 @@ def main():
     del gate_slam
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
-    results = {}
     with tempfile.TemporaryDirectory() as workdir:
-        for n in kitti:
-            logger = (RunLogger(workdir, n, config=cfgs[n].as_dict()) if n == "kitti_quality"
-                      else None)
-            results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda",
-                                                         logger=logger), ds)
-            torch.cuda.empty_cache()
+        results = kitti_paths(kitti, cfgs, ds, workdir)
         track = {n: results[n][2]["track"]["mean_ms"]
                  for n in ("kitti_quality", "kitti_quality_s2s")}
         log(f"[s2s] tracker ms per frame: quality {track['kitti_quality']:.3f}, quality + s2s "

@@ -28,6 +28,7 @@ import torch
 
 from nerfloam_tpu_torch.core.losses import sdf_losses
 from nerfloam_tpu_torch.core.render import (
+    DpackedScratch,
     extra_surface_z,
     field_at_points,
     render_rays,
@@ -129,6 +130,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     dec_mask = 1.0 if update_decoder else 0.0
     touched = torch.zeros((map_state.packed.shape[0],), dtype=torch.bool, device=dev)
     loss = torch.zeros((), device=dev)
+    k2_scratch = DpackedScratch()  # K2's d-packed scratch, the step's calls in turn
 
     for it in range(bp.num_iterations):
         ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
@@ -151,11 +153,11 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if use_hits:
             ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
             out = render_rays_hits(emb, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
-                                   compute_dtype, extra)
+                                   compute_dtype, extra, k2_scratch)
         else:
             rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
             out = render_rays(emb, dec, map_state, map_cfg, *rays, rvalid.reshape(W * N), placer,
-                              u, compute_dtype, extra, rows)
+                              u, compute_dtype, extra, rows, k2_scratch)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)

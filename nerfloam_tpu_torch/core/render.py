@@ -48,6 +48,7 @@ active_field_fwd_launches = 0
 _JITTER_LO, _JITTER_HI = 1e-4, 1.0 - 1e-4  # frac clip of sample_from_hits
 _FWD, _BWD = "hits_field_fwd", "hits_field_bwd"
 _F32 = torch.float32
+_K1_SMEM_MAX = 227 * 1024  # an H100 block's shared memory; K1 stages a ray's tables there
 
 
 class RenderOutput(NamedTuple):
@@ -102,6 +103,9 @@ def _check_fwd(ht: HitTable, u, rays_o, rays_d, packed):
             raise ValueError(f"{_FWD}: {label} must be ({R}, {H}) f32 rows on {dev}, with the row "
                              f"stride of cdf; got {tuple(t.shape)} {t.dtype}, strides "
                              f"{tuple(t.stride())}, on {t.device}")
+    if 4 * (7 * (H + M) + 6) > _K1_SMEM_MAX:
+        raise ValueError(f"{_FWD}: a ray of {H} hit slots and {M} samples needs more shared "
+                         f"memory than a block has ({_K1_SMEM_MAX} B)")
     o_st = rays_o.stride(0) if R > 1 else 3
     if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
             or rays_o.stride(1) != 1 or o_st not in (0, 3)):
@@ -200,31 +204,44 @@ def dpacked_in_row_order_plain(dfeats, xyz, aid, valid, n_rows: int, voxel_size)
     return out.reshape(n_rows, 8 * F)
 
 
-class _DpackedScratch:
-    """K2's d-packed scratch on one CUDA device, kept from call to call
-    (grown, never shrunk): the scan's tile states and its ticket (int64,
-    the ticket last), the per-row sample counts, the row offsets, the
-    grouped sample indices, the per-sample trilinear weights, and the lists
-    of touched rows behind their two counters. States, ticket and counts
-    start at zero and every call leaves them at zero (the scatter counts
-    each row back down), so no call needs a memset. Calls on one device
-    share it, which holds on one stream."""
+class DpackedScratch:
+    """K2's d-packed scratch, owned by its caller: a BA step makes one and
+    hands it to every render of the step (render_rays_hits / render_rays
+    ``scratch=``), so its calls, on one stream, take turns with it. It
+    holds the scan's tile states and its ticket (int64, the ticket last),
+    the per-row sample counts, the row offsets, the grouped sample indices,
+    the per-sample trilinear weights, and the lists of touched rows behind
+    their two counters. It is allocated at its first call on the card, and
+    again only for a call with more rows or samples. States, ticket and
+    counts start at zero and every call leaves them at zero (the scatter
+    counts each row back down), so no call needs a memset; a call whose
+    launch fails drops the buffers, and the next call starts afresh."""
 
-    def __init__(self, dev, A: int, n: int):
-        tiles = kernels.lib().nl_hits_field_scan_tiles(A)
-        self.A, self.n = A, n
-        self.state = torch.zeros((tiles + 1,), dtype=torch.int64, device=dev)
-        self.counts = torch.zeros((A,), dtype=torch.int32, device=dev)
-        self.offsets = torch.empty((A + 1,), dtype=torch.int32, device=dev)
-        self.ids = torch.empty((max(n, 1),), dtype=torch.int32, device=dev)
-        self.wts = torch.empty((max(n, 1), 8), dtype=_F32, device=dev)
-        self.rows = torch.zeros((2 + 2 * A,), dtype=torch.int32, device=dev)
-        self.ptrs = (self.state.data_ptr(), self.state.data_ptr() + 8 * tiles,
-                     self.counts.data_ptr(), self.offsets.data_ptr(), self.ids.data_ptr(),
-                     self.wts.data_ptr(), self.rows.data_ptr())
+    def __init__(self):
+        self.drop()
+
+    def fit(self, dev, A: int, n: int):
+        """The kernels' scratch pointers for A rows and n samples on dev."""
+        if self.ptrs is None or A > self.A or n > self.n or dev != self.dev:
+            A, n = max(A, self.A), max(n, self.n, 1)
+            tiles = kernels.lib().nl_hits_field_scan_tiles(A)
+            state = torch.zeros((tiles + 1,), dtype=torch.int64, device=dev)
+            self._bufs = (state,
+                          torch.zeros((A,), dtype=torch.int32, device=dev),       # counts
+                          torch.empty((A + 1,), dtype=torch.int32, device=dev),   # offsets
+                          torch.empty((n,), dtype=torch.int32, device=dev),       # ids
+                          torch.empty((n, 8), dtype=_F32, device=dev),            # weights
+                          torch.zeros((2 + 2 * A,), dtype=torch.int32, device=dev))  # row lists
+            self.A, self.n, self.dev = A, n, dev
+            self.ptrs = (state.data_ptr(), state.data_ptr() + 8 * tiles,
+                         *[t.data_ptr() for t in self._bufs[1:]])
+        return self.ptrs
+
+    def drop(self):
+        self.A = self.n = 0
+        self.dev = self.ptrs = self._bufs = None
 
 
-_dpacked_scratch: dict = {}  # CUDA device index -> _DpackedScratch
 _NO_SCRATCH = (None,) * 7
 
 
@@ -241,7 +258,8 @@ def _check_bwd(dfeats, xyz, aid, valid, packed):
                          packed=(packed, (packed.shape[0], 128)))
 
 
-def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=True):
+def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=True,
+                   scratch: DpackedScratch | None = None):
     """K2: K1's (and K8's) backward. d xyz (R, M, 3) from the trilinear-weight
     derivatives and, when ``want_dpacked``, d packed (A, 128): the 8 x 16
     corner gradients of every valid sample, summed per packed row in
@@ -250,10 +268,12 @@ def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=Tru
     On the card the d xyz form is one launch; the d packed form four (the
     sample pass counts the samples per row, a one-pass scan gives the rows'
     segments, a scatter fills them, one warp per row sorts its segment and
-    adds it) and no torch op, its scratch kept from call to call. Replaces
-    the backward XLA emits for K1 under jax.value_and_grad (core/ba.py:335)
-    and jax.grad (core/tracking.py:214). Bound: the packed-row read per
-    valid sample and the d packed write.
+    adds it) and no torch op, through ``scratch`` (a ``DpackedScratch``;
+    without one, a scratch made for this call alone, whose allocations
+    and zeros add their own launches). Replaces the backward XLA emits for
+    K1 under jax.value_and_grad (core/ba.py:335) and jax.grad
+    (core/tracking.py:214). Bound: the packed-row read per valid sample and
+    the d packed write.
 
     Every input must already be what the kernels read (f32 dfeats (R, M,
     16), xyz and packed (A, 128), int32 aid, bool valid, contiguous, on one
@@ -269,18 +289,15 @@ def hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=Tru
     dpacked, ptrs = None, _NO_SCRATCH
     if want_dpacked:
         dpacked = torch.empty_like(packed)
-        index = packed.get_device()
-        sc = _dpacked_scratch.get(index)
-        if sc is None or sc.A < A or sc.n < n:
-            sc = _dpacked_scratch[index] = _DpackedScratch(
-                dev, max(A, sc.A if sc else 0), max(n, sc.n if sc else 0))
-        ptrs = sc.ptrs
+        scratch = DpackedScratch() if scratch is None else scratch
+        ptrs = scratch.fit(dev, A, n)
     err = kernels.lib().nl_hits_field_bwd(
         dfeats.data_ptr(), xyz.data_ptr(), aid.data_ptr(), valid.data_ptr(), packed.data_ptr(), n,
         voxel_size, dxyz.data_ptr(), A, None if dpacked is None else dpacked.data_ptr(), *ptrs,
         kernels.stream_ptr(dev))
     if err:
-        _dpacked_scratch.pop(packed.get_device(), None)  # its counts may not be zero
+        if want_dpacked:
+            scratch.drop()  # its counts may not be zero
         kernels.check(err, _BWD)
     hits_field_bwd_launches += 1
     return dxyz, dpacked
@@ -410,10 +427,10 @@ class _FieldColumns(torch.autograd.Function):
     columns, mapped onto the rays (z carries no gradient)."""
 
     @staticmethod
-    def forward(ctx, packed, rays_o, rays_d, fwd, voxel_size):
+    def forward(ctx, packed, rays_o, rays_d, fwd, voxel_size, scratch):
         z, valid, aid, xyz, feats = fwd(packed, rays_o, rays_d)
         ctx.save_for_backward(packed, z, valid, aid, xyz)
-        ctx.voxel_size = voxel_size
+        ctx.voxel_size, ctx.scratch = voxel_size, scratch
         ctx.mark_non_differentiable(z, valid, aid, xyz)
         return feats, z, valid, aid, xyz
 
@@ -425,17 +442,18 @@ class _FieldColumns(torch.autograd.Function):
         dfeats = dfeats.contiguous()
         want_dpacked = ctx.needs_input_grad[0]
         dxyz, dpacked = hits_field_bwd(dfeats, xyz, aid, valid, packed, ctx.voxel_size,
-                                       want_dpacked)
+                                       want_dpacked, ctx.scratch)
         d_o = dxyz.sum(1) if ctx.needs_input_grad[1] else None
         d_d = (z[..., None] * dxyz).sum(1) if ctx.needs_input_grad[2] else None
-        return dpacked, d_o, d_d, None, None
+        return dpacked, d_o, d_d, None, None, None
 
 
-def field_columns(packed, rays_o, rays_d, ht: HitTable, u, voxel_size, extra=None):
-    """Differentiable K1 (+ K8 columns): (feats, z, valid, aid, xyz)."""
+def field_columns(packed, rays_o, rays_d, ht: HitTable, u, voxel_size, extra=None, scratch=None):
+    """Differentiable K1 (+ K8 columns): (feats, z, valid, aid, xyz).
+    ``scratch``: K2's ``DpackedScratch`` where packed's gradient is taken."""
     return _FieldColumns.apply(
         packed, rays_o, rays_d,
-        lambda p, o, d: columns_fwd(ht, u, o, d, p, voxel_size, extra), voxel_size)
+        lambda p, o, d: columns_fwd(ht, u, o, d, p, voxel_size, extra), voxel_size, scratch)
 
 
 def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compute_dtype):
@@ -448,22 +466,23 @@ def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compu
 
 def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, ht: HitTable,
                      ray_valid, jitter_u, compute_dtype=torch.float32,
-                     extra=None) -> RenderOutput:
+                     extra=None, scratch=None) -> RenderOutput:
     """render_rays over a prebuilt HitTable: K1 -> decoder -> masked sdf.
     ``jitter_u`` (R, M) is the placement jitter (JAX draws it internally
     unless given; the port always takes it). ``extra = (state, map_cfg,
     ez, ray_valid)`` appends K8's columns at depths ez (R, K), i.e. JAX's
     extra_surface_columns concatenated onto the render output (ba.py:
-    282-304); one decoder call and one K2 take both."""
+    282-304); one decoder call and one K2 take both. ``scratch``: K2's
+    ``DpackedScratch`` (BA's, made once a step)."""
     feats, z, valid, _, xyz = field_columns(packed, rays_o, rays_d, ht, jitter_u, voxel_size,
-                                            extra)
+                                            extra, scratch)
     return _render_out(decoder_params, feats, z, valid, xyz, ht.ray_mask, ray_valid,
                        compute_dtype)
 
 
 def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfig, rays_o,
                 rays_d, ray_valid, placer: CdfPlacer, jitter_u, compute_dtype=torch.float32,
-                extra=None, rows=None) -> RenderOutput:
+                extra=None, rows=None, scratch=None) -> RenderOutput:
     """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
     242-279, the march hoisted: ``placer`` is a ``raycast.CdfPlacer`` over
     K9a's cdf, ``rows`` each ray's row in it where the rays are a subset):
@@ -471,7 +490,8 @@ def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfi
     sdf. ``packed`` is the differentiable table (BA's optimized copy);
     lookups go through ``state``'s grid. The backward is one K2 launch;
     the depths depend only on the cdf and ``jitter_u``, so the rays' (and
-    the pose's) gradient flows through xyz = o + d z alone, as in JAX."""
+    the pose's) gradient flows through xyz = o + d z alone, as in JAX.
+    ``scratch``: K2's ``DpackedScratch`` (BA's, made once a step)."""
     side = {}
 
     def fwd(p, o, d):
@@ -480,7 +500,7 @@ def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfi
         return out
 
     feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd,
-                                                  map_cfg.voxel_size)
+                                                  map_cfg.voxel_size, scratch)
     return _render_out(decoder_params, feats, z, valid, xyz, side["ray_mask"], ray_valid,
                        compute_dtype)
 

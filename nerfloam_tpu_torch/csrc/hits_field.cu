@@ -7,12 +7,13 @@
 //   nerfloam_tpu/core/render.py:72-87    field_from_embs (up to the decoder),
 //   nerfloam_tpu/ops/interp.py:22-47     trilinear interpolation,
 // as driven by render.py:132-147 (BA) and tracking.py:254-261 (GN).
-// One block of 128 threads takes a few rays (128 / M of them). It stages
-// their hit tables (aid, t_near, seg, cdf, cell: 28 B a slot) and the rays
-// in shared memory with coalesced loads, the jitter of its first 128
-// samples fetched alongside. Then one thread per sample: stratified
-// inverse-CDF depth by compare-count over the ray's H cdf entries, xyz =
-// o + d z, the cell floor(xyz / vs) re-resolved against the ray's hit cells
+// One block of 128 threads takes a few rays (128 / M of them, fewer where
+// their tables would pass 48 KB). It stages their hit tables (aid, t_near,
+// seg, cdf, cell: 28 B a slot) and the rays in shared memory with coalesced
+// loads, the jitter of its first 128 samples fetched alongside. Then one
+// thread per sample: stratified inverse-CDF depth by compare-count over the
+// ray's H cdf entries, xyz = o + d z, the cell floor(xyz / vs) re-resolved
+// against the ray's hit cells
 // (the FIRST hit with that cell and aid >= 0: duplicate slabs of one cell
 // carry the same aid, so JAX's one-hot average over them is this one row),
 // and z, valid, aid, xyz written. Then four threads per sample interpolate:
@@ -65,6 +66,7 @@ namespace {
 constexpr int kF = 16;        // feature width
 constexpr int kRow = 8 * kF;  // packed row width
 constexpr int kFwdThreads = 128;
+constexpr size_t kFwdSmemDefault = 48 * 1024;  // dynamic shared memory without opting in
 constexpr int kBwdThreads = 128;
 constexpr int kScanThreads = 256;
 constexpr int kScanItems = 16;
@@ -108,11 +110,11 @@ __device__ __forceinline__ void add_scaled(float4& acc, float w, float4 v) {
   acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
 }
 
-// Shared memory of a K1 block of rb rays: the hit tables (aid, t_near, seg,
-// cdf and 3 cell ints a slot), per sample its aid and 6 factors, per ray
-// its origin and direction.
-__host__ __device__ inline size_t fwd_smem_bytes(int rb, int M, int H) {
-  return sizeof(float) * ((size_t)rb * H * 7 + (size_t)rb * M * 7 + (size_t)rb * 6);
+// Shared memory of a K1 block per ray: its hit table (aid, t_near, seg,
+// cdf and 3 cell ints a slot), per sample its aid and 6 factors, and its
+// origin and direction.
+inline size_t fwd_smem_per_ray(int M, int H) {
+  return sizeof(float) * ((size_t)H * 7 + (size_t)M * 7 + 6);
 }
 
 __global__ void __launch_bounds__(kFwdThreads) hits_field_fwd_kernel(
@@ -563,9 +565,18 @@ extern "C" int nl_hits_field_fwd(const int* h_aid, const float* h_tnear, const f
                                  float hi, float* z, unsigned char* valid, int* aid, float* xyz,
                                  float* feats, void* stream) {
   if (R <= 0 || M <= 0) return (int)cudaGetLastError();
+  // as many rays as give each thread a sample, and as fit in the default
+  // 48 KB; one ray's tables beyond that ask for more (up to the card's)
+  const size_t per_ray = fwd_smem_per_ray(M, H);
+  const size_t fit = kFwdSmemDefault / per_ray;
   int rb = M >= kFwdThreads ? 1 : kFwdThreads / M;
-  size_t smem = fwd_smem_bytes(rb, M, H);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if ((size_t)rb > fit) rb = fit > 0 ? (int)fit : 1;
+  const size_t smem = rb * per_ray;
+  if (smem > kFwdSmemDefault) {
+    cudaError_t e = cudaFuncSetAttribute(hits_field_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   hits_field_fwd_kernel<<<(R + rb - 1) / rb, kFwdThreads, smem, (cudaStream_t)stream>>>(
       h_aid, h_tnear, h_seg, h_cdf, ld, h_cell, u, rays_o, o_stride, rays_d, packed, R, M, H, rb,
       vs, lo, hi, z, valid, aid, xyz, feats);

@@ -147,7 +147,9 @@ def test_hits_field_wrappers_reject_what_they_would_convert():
             ("ht", ht._replace(aid=ht.aid.long()), "aid must be a contiguous"),
             ("ht", ht._replace(cdf=ht.cdf.double()), "cdf must be"),
             ("rays_o", o.repeat(1, 2)[:, :3], "rays_o must be"),
-            ("u", u[:8].contiguous(), r"u has shape")):
+            ("u", u[:8].contiguous(), r"u has shape"),
+            # one ray's tables and samples past a block's shared memory
+            ("u", torch.zeros((16, 9000)), "shared memory")):
         with pytest.raises(ValueError, match=match):
             trender.hits_field_fwd(**{**ok, key: value}, voxel_size=VS)
     dfeats = torch.randn(feats.shape)

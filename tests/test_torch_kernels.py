@@ -12,7 +12,8 @@ everywhere.
 
 Tolerances as in chip_smoke.py: integers, depths and positions exact (the
 kernels round exactly like the plain ops: no FMA contraction, IEEE
-division; also with one origin expanded to every ray); features 1e-6; d
+division; also with one origin expanded to every ray, and for K1 at 1 to
+2,000 samples a ray and 20 or 64 hit slots); features 1e-6; d
 xyz 1e-5 relative; d packed 1e-5 of its largest entry (another summation
 order than the twin's), bit-identical between two calls and equal to
 render.dpacked_in_row_order_plain (each row adds its samples in ascending
@@ -135,8 +136,12 @@ def test_hits_field_kernels_match_plain(cuda, M):
     # each row's samples added in ascending index, in the kernel's arithmetic
     assert torch.equal(kp, trender.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, len(kp),
                                                               T_CFG.voxel_size))
-    kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size)
-    assert torch.equal(kx, kx2) and torch.equal(kp, kp2)      # no atomics: the same every run
+    # no float atomics: the same every run, with a scratch of its own or one kept
+    sc = trender.DpackedScratch()
+    for _ in range(2):
+        kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, T_CFG.voxel_size,
+                                          scratch=sc)
+        assert torch.equal(kx, kx2) and torch.equal(kp, kp2)
     untouched = torch.ones(len(kp), dtype=torch.bool, device=cuda)
     untouched[aid[valid].long()] = False
     assert float(kp[untouched].abs().max()) == 0.0 and bool(untouched.any())
@@ -161,10 +166,11 @@ def test_hits_field_bwd_segments_match_row_order(cuda, long_len):
     aid, valid = torch.as_tensor(aid, device=cuda), torch.as_tensor(valid, device=cuda)
     dfeats = torch.as_tensor(rng.normal(size=(R, M, 16)).astype(np.float32), device=cuda)
     packed = torch.as_tensor(rng.normal(size=(A, 128)).astype(np.float32), device=cuda)
-    kx, kp = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS)
+    sc = trender.DpackedScratch()
+    kx, kp = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS, scratch=sc)
     ref = trender.dpacked_in_row_order_plain(dfeats, xyz, aid, valid, A, VS)
     assert torch.equal(kp, ref)
-    kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS)
+    kx2, kp2 = trender.hits_field_bwd(dfeats, xyz, aid, valid, packed, VS, scratch=sc)
     assert torch.equal(kx, kx2) and torch.equal(kp, kp2)
     rx, _ = trender.hits_field_bwd_plain(dfeats, xyz, aid, valid, packed, VS, False)
     assert float((kx - rx).abs().max()) <= 1e-5 * max(float(rx.abs().max()), 1e-30)
@@ -172,6 +178,24 @@ def test_hits_field_bwd_segments_match_row_order(cuda, long_len):
         assert int((aid[valid] == 7).sum()) >= long_len
     else:
         assert not bool(kp.any()) and not bool(kx.any())
+
+
+@pytest.mark.parametrize("M,H", [(1, 20), (4, 64), (2000, 20)])
+def test_hits_field_fwd_any_samples_and_slots(cuda, M, H):
+    """K1 at shapes whose rays' tables do not fit 128 / M to a block in
+    48 KB: fewer rays a block, and one ray beyond 48 KB (M = 2000) asks
+    for more shared memory."""
+    ms, o, d, tc = _case(cuda, R=40, seed=M)
+    rc = trc.RaycastConfig(step_world=0.25 * VS, n_slots=97, n_samples=M, voxel_size=VS,
+                           max_depth=12.0, sampler="hits", max_hits=H)
+    ht = trc.build_hit_table_plain(ms, T_CFG, rc, o, d, tc)
+    u = trc.uniform_jitter((o.shape[0], M), torch.Generator(device=cuda).manual_seed(M), cuda)
+    ker = trender.hits_field_fwd(ht, u, o, d, ms.packed, VS)
+    ref = trender.hits_field_fwd_plain(ht, u, o, d, ms.packed, VS)
+    for i, name in enumerate(("z", "valid", "aid", "xyz")):
+        assert torch.equal(ker[i], ref[i]), name
+    torch.testing.assert_close(ker[4], ref[4], rtol=0, atol=1e-6)
+    assert bool(ref[1].any())
 
 
 def test_hits_field_autograd_on_card_matches_cpu(cuda):
