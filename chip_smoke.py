@@ -15,7 +15,14 @@
    render.dpacked_in_row_order_plain, here and at the replica gate's BA
    shape; the samples per touched row and the host us of K1's and K2's
    wrapper pieces printed), K8 (active
-   field: band columns and the bias probe), K3 (GN normal equations), K7
+   field through one ActiveField: band columns with one origin per ray and
+   with the trackers' one origin expanded to every ray, the bias probe, and
+   the replica gate tracker's grid and band columns; every output equal
+   from call to call), K3 (GN normal equations through one GnSystem a
+   shape, at the quality tracker's and the replica gate tracker's columns:
+   bit-identical between calls and to a fresh GnSystem, its last-block
+   counter back to zero; the host us of both objects, their function forms
+   and the conversions their earlier wrappers made printed), K7
    (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
    bf16 and f32, bit-identical across two calls) against their plain
    torch versions; K9a (occupancy march) and K9b (CDF placement) at the
@@ -52,7 +59,8 @@
      the grid sampler, the quality stack, the auto touched_cap), 60
      frames for each of seeds 0 and 1, held to the JAX gate's ATE
      thresholds with growth events and no dropped deltas, and to its mesh
-     thresholds (f_score, Chamfer-L1) on the cleaned mesh;
+     thresholds (f_score, Chamfer-L1) on the cleaned mesh; each frame's
+     raw translation error printed;
    - checkpoint and resume on the quality config: 15 frames, save, load
      into a fresh object (every saved table compared), 15 more frames and
      finalize from the loaded one.
@@ -67,8 +75,9 @@
    per launch of each port kernel;
    then each kernel-phase call profiled alone: its device time per CUDA
    function and its CUDA launches per call (K9b, K11b, K1 in both origin
-   forms and K2's d xyz form must make exactly one; K2's d packed form at
-   most four, all of them the port's). A session
+   forms, K2's d xyz form, K3 at both shapes and K8 in every form must
+   make exactly one; K2's d packed form at most four, all of them the
+   port's). A session
    that misses one of a wrapper's CUDA functions is run again, up to three
    times, and then the run fails.
 
@@ -78,11 +87,12 @@ are the kernels' JSON record, the card's name and power limit, and
 
     python3 chip_smoke.py --paths kitti_budget,kitti_quality
 
-runs only those configs' main paths (step 4; their checks too) and prints
-no result line: to compare two trees of the port in one call, in turns,
-run each tree's package under this script (copy it into the other tree's
-root). Each path prints its scans/s and the host CPU seconds its process
-spent a frame, which a loaded host inflates less than the wall clock.
+runs only those configs' main paths (step 4; their checks too; also
+replica_gate60_s<seed>) and prints no result line: to compare two trees
+of the port in one call, in turns, run each tree's package under this
+script (copy it into the other tree's root). Each path prints its scans/s
+and the host CPU seconds its process spent a frame, which a loaded host
+inflates less than the wall clock.
 """
 
 import argparse
@@ -163,7 +173,7 @@ KERNEL_FUNCTIONS = {
     "hits_field_bwd": ("hits_field_bwd_kernel", "hits_field_scan_kernel",
                        "hits_field_scatter_kernel", "hits_field_reduce_kernel"),
     "active_field_fwd": ("active_field_fwd_kernel",),
-    "gn_system": ("gn_partial_kernel", "gn_final_kernel"),
+    "gn_system": ("gn_system_kernel",),
     "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
                "alloc_kernel", "activate_kernel", "append_kernel"),
     "active_set": ("grid_fill_kernel", "recenter_kernel", "refresh_mark_kernel",
@@ -180,7 +190,10 @@ KERNEL_FUNCTIONS = {
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("place_samples_cdf", "s2s_system", "hits_field_fwd",
-              "hits_field_fwd, origin row stride 0", "hits_field_bwd, d xyz")
+              "hits_field_fwd, origin row stride 0", "hits_field_bwd, d xyz", "gn_system",
+              "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
+              "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
+              "active_field_fwd, gate band, origin row stride 0")
 MAX_LAUNCHES = {"hits_field_bwd": 4}  # the d-packed form: at most this many, all the port's
 
 
@@ -398,13 +411,14 @@ def samples_per_row(aid, valid, n_rows):
             f"{float(c.quantile(0.5)):g}, p99 {float(c.quantile(0.99)):g}, max {int(c.max())}")
 
 
-def kernel_phase(slam, ds, rc_gate, loops, sp):
+def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
     """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6,
-    K5, K10a and K10b at the quality shapes, K9a and K9b at the Adam
-    tracker's and the replica gate's BA superset shapes (``rc_gate``;
-    ``loops``: the Adam tracker's iterations a frame and the gate's BA
-    iterations a step), K11a and K11b at the s2s config's image (``sp``,
-    its Scan2ScanParams)."""
+    K5, K10a and K10b at the quality shapes, K8 and K3 also at the replica
+    gate tracker's (``gate_track``: its rays and samples), K9a and K9b at
+    the Adam tracker's and the replica gate's BA superset shapes
+    (``rc_gate``; ``loops``: the Adam tracker's iterations a frame and the
+    gate's BA iterations a step), K11a and K11b at the s2s config's image
+    (``sp``, its Scan2ScanParams)."""
     dev = slam.device
     cfg, rc_t, rc_m = slam.map_cfg, slam.rc_track, slam.rc_map
     gen = torch.Generator(device=dev)
@@ -556,70 +570,118 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
                           e2p, k2, p2, b2, f2, dev=d2,
                           forms={k: v for k, v in forms.items() if "bwd" in k}))
 
-    # ---- K8: the tracker's band + anchor columns (2048, 8) and the bias
-    # probe over one frame's measured points (65536, 1)
+    # ---- K8 through one ActiveField (made once, as a tracker's frame or a
+    # BA step makes it): the tracker's band columns (2048, 8) with one
+    # origin per ray (the record's form) and with the trackers' one origin
+    # expanded to every ray (row stride 0), the bias probe over one frame's
+    # measured points (65536, 1), and the replica gate's tracker (its rays
+    # and samples on the grid sampler: K9b's depths, then the band columns)
     o, d, tc, ht, pts, pcos, rvalid = tables[slam.tp.n_rays]
     R = o.shape[0]
     tp = slam.tp
+    o1 = o[:1].expand_as(d)
     ub = torch.rand((R, tp.band_samples), generator=gen, device=dev)
     ez = render.extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, tp.truncation,
                                 tp.surface_anchor, tp.band_samples, ub)
     depth = torch.linalg.norm(p, dim=-1)
     xyz_probe = se3.transform_points(pose, p).reshape(-1, 1, 3)
     pv = v & (depth < rc_m.max_depth)
-    e8, k8 = 0.0, {}
-    for label, args in (("band", (o, d, ez, rvalid)),
-                        ("probe", (None, None, depth.reshape(-1, 1), pv, xyz_probe))):
-        ker = render.active_field_fwd(ms, cfg, ms.packed, *args)
-        ref = render.active_field_fwd_plain(ms, cfg, ms.packed, *args)
+    Rg, Mg = gate_track
+    og, dg, tcg, ptsg, pcosg, rvg = rays(Rg)
+    og1 = og[:1].expand_as(dg)
+    rc_g = rc_t._replace(sampler="grid", n_samples=Mg)
+    zg, _, _, mg = (x.clone() for x in raycast.place_samples_cdf(
+        ms, cfg, rc_g, *raycast.march_occupancy(ms, cfg, rc_g, og, dg, tcg), og, dg, tcg,
+        raycast.uniform_jitter((Rg, Mg), gen, dev)))
+    ezg = render.extra_surface_z(torch.linalg.norm(ptsg, dim=-1), pcosg, tp.truncation,
+                                 tp.surface_anchor, tp.band_samples,
+                                 torch.rand((Rg, tp.band_samples), generator=gen, device=dev))
+    field = render.ActiveField(ms, cfg)
+    k8_cases = {  # form: (rays_o, rays_d, z, ray_valid, xyz, bytes of the rays or points)
+        "band": (o, d, ez, rvalid, None, R * 24),
+        "band, origin row stride 0": (o1, d, ez, rvalid, None, 12 + R * 12),
+        "probe": (None, None, depth.reshape(-1, 1), pv, xyz_probe, p.shape[0] * 12),
+        "gate grid columns, origin row stride 0": (og1, dg, zg, mg, None, 12 + Rg * 12),
+        "gate band, origin row stride 0": (og1, dg, ezg, rvg, None, 12 + Rg * 12),
+    }
+    e8, k8, k8_forms, k8_out = 0.0, {}, {}, {}
+    for label, (ro, rd, zz, rv, xp, ray_bytes) in k8_cases.items():
+        call = partial(field, ms.packed, ro, rd, zz, rv, xp)
+        ker = call()
+        ker2 = call()
+        ref = render.active_field_fwd_plain(ms, cfg, ms.packed, ro, rd, zz, rv, xp)
         torch.cuda.synchronize()
         for i, nm in enumerate(("aid", "valid", "xyz")):
             check(torch.equal(ker[i], ref[i]), f"K8 {nm} differs ({label})")
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(ker, ker2)),
+              f"K8 differs between two calls ({label})")
         ef = max_abs(ker[3], ref[3])
         check(ef <= 1e-6, f"K8 feats error {ef} ({label})")
         e8 = max(e8, ef)
         n, nv, nrows = ref[1].numel(), int(ref[1].sum()), rows_read(ref[0], ref[1])
         # rays (or points) + z + ray_valid + one grid cell per sample + rows
         # in; aid/valid/xyz/feats out
-        k8[label] = (median_ms(lambda: render.active_field_fwd(ms, cfg, ms.packed, *args)),
-                     median_ms(lambda: render.active_field_fwd_plain(ms, cfg, ms.packed, *args)),
-                     (R * 24 if label == "band" else n * 12) + n * 8 + ref[1].shape[0]
-                     + 512 * nrows + 81 * n, 300 * nv + 20 * n)
+        nbytes = ray_bytes + n * 8 + zz.shape[0] + 512 * nrows + 81 * n
+        k8[label] = (median_ms(call),
+                     median_ms(partial(render.active_field_fwd_plain, ms, cfg, ms.packed, ro, rd,
+                                       zz, rv, xp)), nbytes, 300 * nv + 20 * n)
+        k8_out[label] = ker
+        if label != "band":
+            k8_forms[f"active_field_fwd, {label}"] = (call, ("active_field_fwd_kernel",))
         log(f"[K8] {label} {tuple(ref[1].shape)}: valid {nv / n:.3f}, feats err {ef:.3g}, "
-            f"distinct rows {nrows}; kernel {k8[label][0]:.4f} ms, plain {k8[label][1]:.4f} ms")
+            f"distinct rows {nrows}; aid, valid, xyz equal to the twin and every output to the "
+            f"next call's; kernel {k8[label][0]:.4f} ms, plain {k8[label][1]:.4f} ms, bound "
+            f"{bound(*k8[label][2:])[0]:.5f} ms")
     records.append(record("active_field_fwd", "active_field.cu",
                           "nerfloam_tpu/core/render.py:181", e8, *k8["band"],
-                          dev=partial(render.active_field_fwd, ms, cfg, ms.packed, o, d, ez,
-                                      rvalid)))
+                          dev=partial(field, ms.packed, o, d, ez, rvalid), forms=k8_forms))
 
-    # ---- K3 on one tracker iteration's real columns (2048, 64 + 8)
+    # ---- K3 through one GnSystem a shape (made once, as a tracker's frame
+    # makes it) on one tracker iteration's real columns: the quality
+    # tracker's (2048, 64 + 8) on the hit table, and the replica gate's
+    # (its rays, its samples + 8) from the K8 calls above
     u = raycast.uniform_jitter((R, rc_t.n_samples), gen, dev)
     t_pos = se3.pose_translation(pose)
-    z, valid, aid, xyz, feats = render.columns_fwd(ht, u, o, d, ms.packed, cfg.voxel_size,
-                                                   (ms, cfg, ez, rvalid))
-    sdf, g = tr.field_and_grad(slam.state.decoder_params, feats, xyz, aid, valid, ms.packed,
-                               cfg.voxel_size, getattr(torch, tp.compute_dtype))
-    vmask = valid & rvalid[:, None]
-    d_meas = torch.linalg.norm(pts, dim=-1) * pcos
-    depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
-    bias_ray = torch.where(pcos < 0.999, 0.01, -0.005)
-    a3 = (xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
-    kH, kb, kl = tr.gn_system(*a3)
-    kH2, kb2, kl2 = tr.gn_system(*a3)
-    rH, rb, rl = tr.gn_system_plain(*a3)
-    torch.cuda.synchronize()
-    check(torch.equal(kH, kH2) and torch.equal(kb, kb2) and torch.equal(kl, kl2),
-          "K3 differs between two runs")
-    e3 = 0.0
-    for nm, k, r in (("H", kH, rH), ("b", kb, rb), ("loss", kl, rl)):
-        rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
-        check(rel <= 1e-4, f"K3 {nm} rel error {rel}")
-        e3 = max(e3, max_abs(k, r))
-        log(f"[K3] {nm}: rel err {rel:.3g} (max |{nm}| {float(r.abs().max()):.4g})")
+    dec, cdt = slam.state.decoder_params, getattr(torch, tp.compute_dtype)
+    k3_cases = {}
+    for label, cols, (ro, rd, zz, rv), rp, rc_ in (
+            ("quality", render.columns_fwd(ht, u, o1, d, ms.packed, cfg.voxel_size,
+                                           (field, ez, rvalid)), (o1, d, ez, rvalid), pts, pcos),
+            ("gate", [torch.cat(x, 1) for x in zip(
+                (zg, *(k8_out["gate grid columns, origin row stride 0"][i] for i in (1, 0, 2, 3))),
+                (ezg, *(k8_out["gate band, origin row stride 0"][i] for i in (1, 0, 2, 3))))],
+             (og1, dg, ezg, rvg), ptsg, pcosg)):
+        z, valid, aid, xyz, feats = cols
+        sdf, g = tr.field_and_grad(dec, feats, xyz, aid, valid, ms.packed, cfg.voxel_size, cdt)
+        d_meas = torch.linalg.norm(rp, dim=-1) * rc_
+        depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
+        bias_ray = torch.where(rc_ < 0.999, 0.01, -0.005)
+        k3_cases[label] = ((xyz, t_pos, z, sdf, g, valid & rv[:, None]),
+                           (rc_, d_meas, depth_ok, bias_ray))
+    e3, systems = 0.0, {}
+    for label, (samples, per_ray) in k3_cases.items():
+        system = tr.GnSystem(*per_ray, tp, samples[2].shape[1])
+        systems[label] = system
+        kH, kb, kl = (x.clone() for x in system(*samples))
+        again = system(*samples)
+        fresh = tr.GnSystem(*per_ray, tp, samples[2].shape[1])(*samples)
+        rH, rb, rl = tr.gn_system_plain(*samples, *per_ray[:3], tp, per_ray[3])
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) and torch.equal(x, f_) for x, y, f_ in
+                  zip((kH, kb, kl), again, fresh)),
+              f"K3 differs between two calls or from a fresh GnSystem ({label})")
+        check(int(system._scratch[-1:].view(torch.int32)) == 0,
+              f"K3's last-block counter is not zero after a call ({label})")
+        for nm, k, r in (("H", kH, rH), ("b", kb, rb), ("loss", kl, rl)):
+            rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
+            check(rel <= 1e-4, f"K3 {nm} rel error {rel} ({label})")
+            e3 = max(e3, max_abs(k, r))
+            log(f"[K3] {label} {nm}: rel err {rel:.3g} (max |{nm}| {float(r.abs().max()):.4g})")
     # the library comparison: the einsum pair of the twin, on J, w, r
-    # precomputed as the twin computes them
+    # precomputed as the twin computes them (quality shape)
+    (xyz, t_pos, z, sdf, g, vmask), (pcos_, d_meas, depth_ok, bias_ray) = k3_cases["quality"]
     T = tp.truncation
-    zc = z * pcos[:, None]
+    zc = z * pcos_[:, None]
     front = (zc < (d_meas[:, None] - T)) & vmask
     band = vmask & ~front & ~(zc > (d_meas[:, None] + T)) & depth_ok[:, None]
     tot = torch.clamp(front.sum() + band.sum(), min=1).float()
@@ -631,15 +693,24 @@ def kernel_phase(slam, ds, rc_gate, loops, sp):
     Jw = J * w[..., None]
     lib_ms = median_ms(lambda: (torch.einsum("nmi,nmj->ij", Jw, J),
                                 torch.einsum("nmi,nm->i", Jw, r)))
-    k_ms = median_ms(lambda: tr.gn_system(*a3))
-    p_ms = median_ms(lambda: tr.gn_system_plain(*a3))
+    samples, per_ray = k3_cases["quality"]
+    k_ms = median_ms(partial(systems["quality"], *samples))
+    p_ms = median_ms(partial(tr.gn_system_plain, *samples, *per_ray[:3], tp, per_ray[3]))
     n, nv = z.numel(), int(vmask.sum())
-    log(f"[K3] {tuple(z.shape)}: {nv} valid samples, front {int(front.sum())}, "
-        f"band {int(band.sum())}")
+    for label, (samples, _) in k3_cases.items():
+        vm_ = samples[5]
+        log(f"[K3] {label} {tuple(vm_.shape)}: {int(vm_.sum())} valid samples; two calls of "
+            "one GnSystem and a fresh one equal, its counter back to zero")
+    log(f"[K3] quality: front {int(front.sum())}, band {int(band.sum())}")
     # xyz/z/sdf/g/mask per sample, pcos/d/bias/ok per ray in; H, b, loss out
-    records.append(record("gn_system", "gn_system.cu", "nerfloam_tpu/core/tracking.py:217",
-                          e3, k_ms, p_ms, 33 * n + 13 * R + 12 + 172, 100 * nv, lib_ms,
-                          dev=partial(tr.gn_system, *a3)))
+    records.append(record(
+        "gn_system", "gn_system.cu", "nerfloam_tpu/core/tracking.py:217", e3, k_ms, p_ms,
+        33 * n + 13 * R + 12 + 172, 100 * nv, lib_ms,
+        dev=partial(systems["quality"], *k3_cases["quality"][0]),
+        forms={"gn_system, gate": (partial(systems["gate"], *k3_cases["gate"][0]),
+                                   KERNEL_FUNCTIONS["gn_system"])}))
+    k38_host_costs(ms, cfg, field, k8_cases["band, origin row stride 0"][:4], tp,
+                   *k3_cases["quality"])
 
     # ---- K7: one frame with symmetric support (3 x 65536 points),
     # appending to the active set
@@ -838,12 +909,56 @@ def k12_host_costs(label, ht, u, o, d, packed, dfeats, xyz, aid, valid, k2, vs):
     return costs
 
 
+def k38_host_costs(ms, cfg, field, k8_args, tp, k3_samples, k3_rays):
+    """Host us of K8's and K3's per-frame objects (made, and called), of
+    their function forms (an object made for the one call), and of what
+    their earlier wrappers did instead of the checks: each input through
+    ``.float()`` / ``.to(...)`` and ``.contiguous()`` (which copies an
+    expanded origin) and the outputs (and K3's partial rows) allocated per
+    call. K8 at the band shape with the trackers' shared origin, K3 at the
+    quality tracker's."""
+    o, d, z, rv = k8_args
+    dev, (R, K) = z.device, z.shape
+    xyz, t_pos, zz, sdf, g, vmask = k3_samples
+    pcos, d_meas, depth_ok, bias_ray = k3_rays
+    N, MK = zz.shape
+    system = tr.GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, MK)
+    pieces = {
+        "ActiveField call": partial(field, ms.packed, o, d, z, rv),
+        "ActiveField made": partial(render.ActiveField, ms, cfg),
+        "active_field_fwd": partial(render.active_field_fwd, ms, cfg, ms.packed, o, d, z, rv),
+        "K8 conversions and outputs before": lambda: (
+            [t.contiguous() for t in (o.float(), d.float(), z.float(), rv.to(torch.bool),
+                                      ms.grid_active, ms.region_min.to(torch.int32),
+                                      ms.packed.float())],
+            torch.empty((R, K), dtype=torch.int32, device=dev),
+            torch.empty((R, K), dtype=torch.bool, device=dev),
+            torch.empty((R, K, 3), dtype=torch.float32, device=dev),
+            torch.empty((R, K, 16), dtype=torch.float32, device=dev)),
+        "GnSystem call": partial(system, *k3_samples),
+        "GnSystem made": partial(tr.GnSystem, *k3_rays, tp, MK),
+        "gn_system": partial(tr.gn_system, xyz, t_pos, zz, sdf, g, vmask, pcos, d_meas, depth_ok,
+                             tp, bias_ray),
+        "K3 conversions and outputs before": lambda: (
+            [t.contiguous() for t in (xyz.float(), zz.float(), sdf.float(), g.float(),
+                                      vmask.to(torch.bool), pcos.float(), d_meas.float(),
+                                      depth_ok.to(torch.bool), bias_ray.float(), t_pos.float())],
+            torch.empty((min(256, (N * MK + 255) // 256), 58), dtype=torch.float32, device=dev),
+            torch.empty((6, 6), dtype=torch.float32, device=dev),
+            torch.empty((6,), dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.float32, device=dev)),
+    }
+    costs = {k: host_us(fn) for k, fn in pieces.items()}
+    log("[K3/K8] host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
+
+
 def gate_k2(ms, cfg, place, o, d, gen):
     """K2 at the replica gate's BA shape (its grid sampler: K9b's depths,
     K8's features): d packed equal to its row-order oracle and from call to
     call, within 1e-5 of the twin's largest entry."""
     z, _, _, ray_mask = place()
-    aid, valid, xyz, feats = render.active_field_fwd(ms, cfg, ms.packed, o, d, z, ray_mask)
+    aid, valid, xyz, feats = render.ActiveField(ms, cfg)(ms.packed, o, d, z, ray_mask)
     dfeats = torch.randn(feats.shape, generator=gen, device=feats.device)
     k2 = render.DpackedScratch()
     kx, kp = render.hits_field_bwd(dfeats, xyz, aid, valid, ms.packed, cfg.voxel_size, scratch=k2)
@@ -1261,6 +1376,9 @@ def main_path(name, slam, ds, label=None):
         check(aligned < GATE60_ATE_ALIGNED_MAX,
               f"ATE aligned {aligned} not under {GATE60_ATE_ALIGNED_MAX} ({label})")
         check(growth > 0, f"no growth event on the {label} path")
+        err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+        log(f"{tag} raw translation error per frame (m): "
+            + " ".join(f"{e:.4f}" for e in err))
     else:
         log(f"{tag} ATE {ate:.4f} m (bound {ate_bound(name):.4f} m from JAX "
             f"{ATE_JAX[name]:.4f} m); final position {poses[-1][:3, 3].tolist()}, "
@@ -1385,6 +1503,17 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
             f"{n / n_profiled:.1f} launches/frame, {t / n:.2f} us/launch (device)")
 
 
+def gate_path(here, seed):
+    """The replica gate's main path for one data seed; (its config, its
+    dataset, main_path's result)."""
+    cfg = load_cfg(here, "replica_gate60", seed=seed)
+    ds = get_dataset(cfg)
+    result = main_path("replica_gate60", NerfLoamSLAM_torch(cfg, ds, device="cuda"), ds,
+                       label=f"replica_gate60_s{seed}")
+    torch.cuda.empty_cache()
+    return cfg, ds, result
+
+
 def kitti_paths(names, cfgs, ds, workdir):
     """The KITTI configs' main paths in turn, the quality path with a
     RunLogger in ``workdir``; {name: main_path's result}."""
@@ -1399,8 +1528,8 @@ def kitti_paths(names, cfgs, ds, workdir):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
-    ap.add_argument("--paths", help="comma-separated KITTI configs (kitti_budget, kitti_quality, "
-                    "kitti_adam25, kitti_quality_s2s): run only their main paths")
+    ap.add_argument("--paths", help="comma-separated main paths (kitti_budget, kitti_quality, "
+                    "kitti_adam25, kitti_quality_s2s, replica_gate60_s<seed>): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1428,8 +1557,12 @@ def main(argv=None):
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     if args.paths:
+        names = args.paths.split(",")
         with tempfile.TemporaryDirectory() as workdir:
-            kitti_paths(args.paths.split(","), cfgs, ds, workdir)
+            kitti_paths([n for n in names if n in kitti], cfgs, ds, workdir)
+        for n in names:
+            if n.startswith("replica_gate60_s"):
+                gate_path(here, int(n[len("replica_gate60_s"):]))
         return 0
     gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
     gate_slam = NerfLoamSLAM_torch(gate[0], None, device="cuda")
@@ -1438,7 +1571,8 @@ def main(argv=None):
              "gate60": gate_slam.bp_current.num_iterations}
     sp = NerfLoamSLAM_torch(cfgs["kitti_quality_s2s"], None, device="cuda").tp.s2s
     records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds,
-                           gate_slam.rc_map, loops, sp)
+                           gate_slam.rc_map, (gate_slam.tp.n_rays, gate_slam.rc_track.n_samples),
+                           loops, sp)
     del gate_slam
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
@@ -1451,12 +1585,9 @@ def main(argv=None):
             f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
         checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
-    gate_ds = {s_: get_dataset(gate[s_]) for s_ in GATE60_SEEDS}
+    gate_ds = {}
     for s_ in GATE60_SEEDS:
-        results[f"replica_gate60_s{s_}"] = main_path(
-            "replica_gate60", NerfLoamSLAM_torch(gate[s_], gate_ds[s_], device="cuda"),
-            gate_ds[s_], label=f"replica_gate60_s{s_}")
-        torch.cuda.empty_cache()
+        _, gate_ds[s_], results[f"replica_gate60_s{s_}"] = gate_path(here, s_)
     for label, cfg, d in (("kitti_quality", cfgs["kitti_quality"], ds),
                           ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
                           ("kitti_adam25", cfgs["kitti_adam25"], ds),

@@ -28,6 +28,7 @@ import torch
 
 from nerfloam_tpu_torch.core.losses import sdf_losses
 from nerfloam_tpu_torch.core.render import (
+    ActiveField,
     DpackedScratch,
     extra_surface_z,
     field_at_points,
@@ -131,6 +132,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     touched = torch.zeros((map_state.packed.shape[0],), dtype=torch.bool, device=dev)
     loss = torch.zeros((), device=dev)
     k2_scratch = DpackedScratch()  # K2's d-packed scratch, the step's calls in turn
+    field = ActiveField(map_state, map_cfg)  # K8's grid, checked once a step
 
     for it in range(bp.num_iterations):
         ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
@@ -148,7 +150,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                              device=dev).reshape(W * N, -1) if bp.band_samples else None)
             ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, bp.truncation,
                                  bp.surface_anchor, bp.band_samples, ub)
-            extra = (map_state, map_cfg, ez, rvalid.reshape(W * N))
+            extra = (field, ez, rvalid.reshape(W * N))
         rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
         if use_hits:
             ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
@@ -156,8 +158,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                                    compute_dtype, extra, k2_scratch)
         else:
             rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
-            out = render_rays(emb, dec, map_state, map_cfg, *rays, rvalid.reshape(W * N), placer,
-                              u, compute_dtype, extra, rows, k2_scratch)
+            out = render_rays(emb, dec, field, *rays, rvalid.reshape(W * N), placer, u,
+                              compute_dtype, extra, rows, k2_scratch)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -188,7 +190,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             xyz = se3.transform_points(pos.detach(), points)             # (W, P, 3)
             depth = torch.linalg.norm(points, dim=-1)
             ok = points_valid & frame_active[:, None] & (depth < bp.max_depth)
-            sdf_pts, m = field_at_points(map_state, map_cfg, packed, new_dec,
+            sdf_pts, m = field_at_points(field, packed, new_dec,
                                          xyz.reshape(-1, 1, 3), depth.reshape(-1, 1),
                                          ok.reshape(-1), compute_dtype)
             surface_bias = sdf_pts.sum() / torch.clamp(m.sum(), min=1).to(torch.float32)

@@ -3,9 +3,10 @@ sample depths (port of nerfloam_tpu/core/render.py:42-69, 72-150,
 153-279).
 
 ``hits_field_fwd`` is kernel K1, ``hits_field_bwd`` kernel K2
-(csrc/hits_field.cu) and ``active_field_fwd`` kernel K8
-(csrc/active_field.cu) on CUDA tensors; on CPU tensors each takes its
-plain torch twin. K1 places samples over a ray's hit table; K8 evaluates
+(csrc/hits_field.cu) and ``ActiveField`` (made once over a map, one a
+tracker's frame or a BA step; ``active_field_fwd`` is one call of a fresh
+one) kernel K8 (csrc/active_field.cu) on CUDA tensors; on CPU tensors each
+takes its plain torch twin. K1 places samples over a ray's hit table; K8 evaluates
 given depths (the band and anchor columns of the quality stack, and the
 surface-bias probe) through the dense active grid. ``field_columns`` wraps
 K1 and K8 in one autograd Function over (packed, rays_o, rays_d): the
@@ -32,6 +33,7 @@ from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
+    _ORIGIN_STRIDES,
     CdfPlacer,
     HitTable,
     cells_of,
@@ -46,7 +48,7 @@ hits_field_bwd_launches = 0
 active_field_fwd_launches = 0
 
 _JITTER_LO, _JITTER_HI = 1e-4, 1.0 - 1e-4  # frac clip of sample_from_hits
-_FWD, _BWD = "hits_field_fwd", "hits_field_bwd"
+_FWD, _BWD, _K8 = "hits_field_fwd", "hits_field_bwd", "active_field_fwd"
 _F32 = torch.float32
 _K1_SMEM_MAX = 227 * 1024  # an H100 block's shared memory; K1 stages a ray's tables there
 
@@ -106,13 +108,7 @@ def _check_fwd(ht: HitTable, u, rays_o, rays_d, packed):
     if 4 * (7 * (H + M) + 6) > _K1_SMEM_MAX:
         raise ValueError(f"{_FWD}: a ray of {H} hit slots and {M} samples needs more shared "
                          f"memory than a block has ({_K1_SMEM_MAX} B)")
-    o_st = rays_o.stride(0) if R > 1 else 3
-    if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
-            or rays_o.stride(1) != 1 or o_st not in (0, 3)):
-        raise ValueError(f"{_FWD}: rays_o must be ({R}, 3) f32 rows on {dev} (row stride 3, or 0 "
-                         f"for one shared origin); got {tuple(rays_o.shape)} {rays_o.dtype}, "
-                         f"strides {tuple(rays_o.stride())}, on {rays_o.device}")
-    return R, H, M, ld, o_st
+    return R, H, M, ld, kernels.expect_origin(_FWD, dev, rays_o, R)
 
 
 def hits_field_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size):
@@ -319,49 +315,115 @@ def active_field_fwd_plain(state: vm.MapState, map_cfg: vm.MapConfig, packed, ra
     return torch.where(valid, aid, -1), valid, xyz, feats
 
 
+class ActiveField:
+    """K8 prepared for a span over one map: the dense active grid
+    (``state.grid_active``, int32 (Dx*Dy*Dz,), and ``state.region_min``,
+    int32 (3,)), its dims and the voxel size are checked once; each call
+    ``field(packed, rays_o, rays_d, z, ray_valid, xyz=None)`` checks only
+    its own inputs and, on the card, makes one launch. A tracker makes one
+    per frame, a BA step one per step (the grid is fixed over both; the
+    packed table is the call's: BA's optimized copy, or the reconciled one
+    the bias probe reads).
+
+    Per call: depths z (R, K) along rays (R, 3), or given points ``xyz``
+    (R, K, 3) with rays_o = rays_d = None (z then only gates z > 0); the
+    cell's active id (-1 outside the region), valid = aid >= 0 & ray_valid
+    (R,) & z > 0, one packed row (A, 128) and trilinear features. Returns
+    (aid, valid, xyz, feats), fresh tensors. Every input must already be
+    what the kernel reads (f32, bool ray_valid, contiguous, on the grid's
+    device; ``rays_o`` may be one origin expanded, row stride 0): nothing is
+    converted or copied, and a tensor that would need it raises ValueError,
+    on the CPU too. CPU tensors take ``active_field_fwd_plain``."""
+
+    def __init__(self, state: vm.MapState, map_cfg: vm.MapConfig):
+        ga, rmin = state.grid_active, state.region_min
+        dev = ga.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{_K8}: unsupported device {dev}")
+        kernels.expect(_K8, dev, torch.int32, grid_active=ga, region_min=rmin)
+        Dx, Dy, Dz = map_cfg.grid_dim
+        kernels.expect_shape(_K8, grid_active=(ga, (Dx * Dy * Dz,)), region_min=(rmin, (3,)))
+        self.state, self.map_cfg, self.device = state, map_cfg, dev
+        self.voxel_size = map_cfg.voxel_size
+        self._index = -2  # matches no tensor's get_device(): CPU calls take the full checks
+        if dev.type == "cuda":
+            self._index = ga.get_device()
+            self._launch = kernels.lib().nl_active_field_fwd
+            self._grid = (ga.data_ptr(), rmin.data_ptr(), Dx, Dy, Dz)
+
+    def __call__(self, packed, rays_o, rays_d, z, ray_valid, xyz=None):
+        index = self._index
+        # the rays' form on the card in one expression (each term a fraction
+        # of a us); the probe's form, anything else and every CPU call go
+        # through the full checks, which raise
+        if (xyz is None and z.dtype is _F32 and rays_d.dtype is _F32 and rays_o.dtype is _F32
+                and ray_valid.dtype is torch.bool and packed.dtype is _F32
+                and len(zs := z.shape) == 2 and rays_d.shape == (zs[0], 3)
+                and rays_o.shape == rays_d.shape and ray_valid.shape == zs[:1]
+                and z.is_contiguous() and rays_d.stride() == (3, 1)
+                and (o_st := rays_o.stride()) in _ORIGIN_STRIDES and ray_valid.is_contiguous()
+                and packed.is_contiguous() and packed.shape[1] == 128
+                and z.get_device() == index and rays_d.get_device() == index
+                and rays_o.get_device() == index and ray_valid.get_device() == index
+                and packed.get_device() == index and (pk := packed.data_ptr()) & 15 == 0):
+            o_st = o_st[0]
+        else:
+            o_st = self._check(packed, rays_o, rays_d, z, ray_valid, xyz)
+            if index < 0:
+                return active_field_fwd_plain(self.state, self.map_cfg, packed, rays_o, rays_d,
+                                              z, ray_valid, xyz)
+            pk = packed.data_ptr()
+        global active_field_fwd_launches
+        dev = self.device
+        R, K = z.shape
+        aid = torch.empty((R, K), dtype=torch.int32, device=dev)
+        valid = torch.empty((R, K), dtype=torch.bool, device=dev)
+        xyz_out = torch.empty((R, K, 3), dtype=_F32, device=dev)
+        feats = torch.empty((R, K, 16), dtype=_F32, device=dev)
+        rays = ((None, 0, None, xyz.data_ptr()) if xyz is not None
+                else (rays_o.data_ptr(), o_st, rays_d.data_ptr(), None))
+        err = self._launch(
+            *rays[:3], z.data_ptr(), rays[3], ray_valid.data_ptr(), *self._grid, pk, R, K,
+            self.voxel_size, aid.data_ptr(), valid.data_ptr(), xyz_out.data_ptr(),
+            feats.data_ptr(), kernels.raw_stream(index))
+        if err:
+            kernels.check(err, _K8)
+        active_field_fwd_launches += 1
+        return aid, valid, xyz_out, feats
+
+    def _check(self, packed, rays_o, rays_d, z, ray_valid, xyz):
+        """The full checks, raising ValueError; returns rays_o's row stride."""
+        dev = self.device
+        kernels.expect(_K8, dev, _F32, z=z, packed=packed)
+        kernels.expect(_K8, dev, torch.bool, ray_valid=ray_valid)
+        if z.dim() != 2:
+            raise ValueError(f"{_K8}: z has shape {tuple(z.shape)}, expected (R, K)")
+        R, K = z.shape
+        kernels.expect_shape(_K8, ray_valid=(ray_valid, (R,)),
+                             packed=(packed, (packed.shape[0], 128)))
+        if packed.data_ptr() % 16:
+            raise ValueError(f"{_K8}: packed must start on a 16-byte boundary (float4 rows)")
+        if xyz is not None:
+            if rays_o is not None or rays_d is not None:
+                raise ValueError(f"{_K8}: given points take rays_o = rays_d = None")
+            kernels.expect(_K8, dev, _F32, xyz=xyz)
+            kernels.expect_shape(_K8, xyz=(xyz, (R, K, 3)))
+            return 0
+        kernels.expect(_K8, dev, _F32, rays_d=rays_d)
+        kernels.expect_shape(_K8, rays_d=(rays_d, (R, 3)))
+        return kernels.expect_origin(_K8, dev, rays_o, R)
+
+
 def active_field_fwd(state: vm.MapState, map_cfg: vm.MapConfig, packed, rays_o, rays_d, z,
                      ray_valid, xyz=None):
-    """K8: field features at explicit depths z (R, K) along rays (R, 3), or
-    at given points ``xyz`` (R, K, 3) with rays_o = rays_d = None (z then
-    only gates z > 0): the cell's active id from ``state.grid_active``
-    (-1 outside the region), valid = aid >= 0 & ray_valid (R,) & z > 0, one
-    packed row and trilinear features. Replaces the XLA fusion of
-    nerfloam_tpu/core/render.py:181-202 (band_samples) and 42-69
-    (field_at) up to the decoder. Bound: one 512 B packed row per valid
-    sample (see csrc/active_field.cu). Returns (aid, valid, xyz, feats)."""
-    if packed.device.type == "cpu":
-        return active_field_fwd_plain(state, map_cfg, packed, rays_o, rays_d, z, ray_valid, xyz)
-    if packed.device.type != "cuda":
-        raise ValueError(f"active_field_fwd: unsupported device {packed.device}")
-    global active_field_fwd_launches
-    dev = packed.device
-    R, K = z.shape
-    if packed.shape[1] != 128:
-        raise ValueError("active_field_fwd: packed rows must be 8 x 16 floats")
-    if xyz is None:
-        o, d, x_in = rays_o.float().contiguous(), rays_d.float().contiguous(), None
-    else:
-        o = d = None
-        x_in = xyz.float().reshape(R, K, 3).contiguous()
-    ins = [t for t in (o, d, x_in) if t is not None] + [
-        z.float().contiguous(), ray_valid.to(torch.bool).contiguous(),
-        state.grid_active.contiguous(), state.region_min.to(torch.int32).contiguous(),
-        packed.float().contiguous()]
-    if any(t.device != dev for t in ins):
-        raise ValueError("active_field_fwd: all inputs must be on one device")
-    zz, rv, ga, rmin, pk = ins[-5:]
-    aid = torch.empty((R, K), dtype=torch.int32, device=dev)
-    valid = torch.empty((R, K), dtype=torch.bool, device=dev)
-    xyz_out = torch.empty((R, K, 3), dtype=torch.float32, device=dev)
-    feats = torch.empty((R, K, 16), dtype=torch.float32, device=dev)
-    Dx, Dy, Dz = map_cfg.grid_dim
-    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = kernels.lib().nl_active_field_fwd(
-        p(o), p(d), p(zz), p(x_in), p(rv), p(ga), p(rmin), Dx, Dy, Dz, p(pk), R, K,
-        map_cfg.voxel_size, p(aid), p(valid), p(xyz_out), p(feats), kernels.stream_ptr(dev))
-    kernels.check(err, "active_field_fwd")
-    active_field_fwd_launches += 1
-    return aid, valid, xyz_out, feats
+    """K8: one call of an ``ActiveField`` made for it (see there: inputs are
+    checked, never converted). Replaces the XLA fusion of
+    nerfloam_tpu/core/render.py:181-202 (band_samples) and 42-69 (field_at)
+    up to the decoder. Bound: one 512 B packed row per valid sample (see
+    csrc/active_field.cu). Returns (aid, valid, xyz, feats)."""
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_K8}: unsupported device {packed.device}")
+    return ActiveField(state, map_cfg)(packed, rays_o, rays_d, z, ray_valid, xyz)
 
 
 def band_sample_z(depth, cos, truncation: float, n: int, u):
@@ -388,36 +450,36 @@ def extra_surface_z(dnorm, pcos, truncation: float, n_anchor: int, n_band: int, 
 
 
 def _append_extra(out, packed, rays_o, rays_d, extra):
-    """K8 at the extra depths of ``extra = (state, map_cfg, ez, ray_valid)``
-    (R, K), its columns after the sampler's."""
+    """K8 at the extra depths of ``extra = (field, ez, ray_valid)`` (an
+    ``ActiveField``, depths (R, K), (R,)), its columns after the sampler's."""
     if extra is None:
         return out
-    state, map_cfg, ez, ray_valid = extra
-    eaid, evalid, exyz, efeats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, ez,
-                                                  ray_valid)
+    field, ez, ray_valid = extra
+    eaid, evalid, exyz, efeats = field(packed, rays_o, rays_d, ez, ray_valid)
     return tuple(torch.cat(p, 1) for p in zip(out, (ez, evalid, eaid, exyz, efeats)))
 
 
 def columns_fwd(ht: HitTable, u, rays_o, rays_d, packed, voxel_size, extra=None):
-    """K1 over the hit table and, when ``extra = (state, map_cfg, ez,
-    ray_valid)``, K8 at the extra depths ez (R, K): (z, valid, aid, xyz,
-    feats) with the K columns after the M hits columns."""
+    """K1 over the hit table and, when ``extra = (field, ez, ray_valid)``,
+    K8 (an ``ActiveField``) at the extra depths ez (R, K): (z, valid, aid,
+    xyz, feats) with the K columns after the M hits columns."""
     out = hits_field_fwd(ht, u, rays_o, rays_d, packed, voxel_size)
     return _append_extra(out, packed, rays_o, rays_d, extra)
 
 
-def grid_columns_fwd(state: vm.MapState, map_cfg: vm.MapConfig, placer: CdfPlacer, u, rays_o,
-                     rays_d, packed, extra=None, rows=None):
+def grid_columns_fwd(field: ActiveField, placer: CdfPlacer, u, rays_o, rays_d, packed, extra=None,
+                     rows=None):
     """The grid sampler's columns: K9b places the samples at the current
     rays through ``placer`` (a ``raycast.CdfPlacer`` over K9a's hoisted
-    cdf; ``rows`` picks each ray's cdf row, as BA does), K8 evaluates their
-    features at those depths, and ``extra`` appends K8's columns as in
-    columns_fwd. Returns ((z, valid, aid, xyz, feats), ray_mask).
+    cdf; ``rows`` picks each ray's cdf row, as BA does), K8 (``field``, an
+    ``ActiveField`` over the same map) evaluates their features at those
+    depths, and ``extra`` appends K8's columns as in columns_fwd. Returns
+    ((z, valid, aid, xyz, feats), ray_mask).
     Validity is K9b's: K8 agrees on it (its cell is the same floor of the
     same xyz, and K9b zeroes the depth of every invalid sample), so its
     features are zero exactly where K9b marks a sample invalid."""
     z, aid, valid, ray_mask = placer(rays_o, rays_d, u, rows)
-    _, _, xyz, feats = active_field_fwd(state, map_cfg, packed, rays_o, rays_d, z, ray_mask)
+    _, _, xyz, feats = field(packed, rays_o, rays_d, z, ray_mask)
     return _append_extra((z, valid, aid, xyz, feats), packed, rays_o, rays_d, extra), ray_mask
 
 
@@ -469,8 +531,9 @@ def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, 
                      extra=None, scratch=None) -> RenderOutput:
     """render_rays over a prebuilt HitTable: K1 -> decoder -> masked sdf.
     ``jitter_u`` (R, M) is the placement jitter (JAX draws it internally
-    unless given; the port always takes it). ``extra = (state, map_cfg,
-    ez, ray_valid)`` appends K8's columns at depths ez (R, K), i.e. JAX's
+    unless given; the port always takes it). ``extra = (field, ez,
+    ray_valid)`` appends K8's columns (``field``, an ``ActiveField``) at
+    depths ez (R, K), i.e. JAX's
     extra_surface_columns concatenated onto the render output (ba.py:
     282-304); one decoder call and one K2 take both. ``scratch``: K2's
     ``DpackedScratch`` (BA's, made once a step)."""
@@ -480,37 +543,37 @@ def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, 
                        compute_dtype)
 
 
-def render_rays(packed, decoder_params, state: vm.MapState, map_cfg: vm.MapConfig, rays_o,
-                rays_d, ray_valid, placer: CdfPlacer, jitter_u, compute_dtype=torch.float32,
-                extra=None, rows=None, scratch=None) -> RenderOutput:
+def render_rays(packed, decoder_params, field: ActiveField, rays_o, rays_d, ray_valid,
+                placer: CdfPlacer, jitter_u, compute_dtype=torch.float32, extra=None, rows=None,
+                scratch=None) -> RenderOutput:
     """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
     242-279, the march hoisted: ``placer`` is a ``raycast.CdfPlacer`` over
     K9a's cdf, ``rows`` each ray's row in it where the rays are a subset):
     K9b -> K8 at its depths (+ K8's ``extra`` columns) -> decoder -> masked
     sdf. ``packed`` is the differentiable table (BA's optimized copy);
-    lookups go through ``state``'s grid. The backward is one K2 launch;
+    lookups go through ``field``, an ``ActiveField`` over the map's grid
+    (a tracker's, one a frame; BA's, one a step). The backward is one K2 launch;
     the depths depend only on the cdf and ``jitter_u``, so the rays' (and
     the pose's) gradient flows through xyz = o + d z alone, as in JAX.
     ``scratch``: K2's ``DpackedScratch`` (BA's, made once a step)."""
     side = {}
 
     def fwd(p, o, d):
-        out, side["ray_mask"] = grid_columns_fwd(state, map_cfg, placer, jitter_u, o, d, p, extra,
-                                                 rows)
+        out, side["ray_mask"] = grid_columns_fwd(field, placer, jitter_u, o, d, p, extra, rows)
         return out
 
-    feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd,
-                                                  map_cfg.voxel_size, scratch)
+    feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd, field.voxel_size,
+                                                  scratch)
     return _render_out(decoder_params, feats, z, valid, xyz, side["ray_mask"], ray_valid,
                        compute_dtype)
 
 
-def field_at_points(state: vm.MapState, map_cfg: vm.MapConfig, packed, decoder_params, xyz,
-                    z, point_valid, compute_dtype=torch.float32):
+def field_at_points(field: ActiveField, packed, decoder_params, xyz, z, point_valid,
+                    compute_dtype=torch.float32):
     """sdf at world points xyz (R, K, 3) in active voxels (JAX field_at with
-    its lookup_active): K8 with given points, then the decoder. ``z`` and
-    ``point_valid`` (R,) gate validity as in active_field_fwd. Returns
-    (sdf, valid); sdf is 0 where not valid."""
-    _, valid, _, feats = active_field_fwd(state, map_cfg, packed, None, None, z, point_valid, xyz)
+    its lookup_active): K8 (``field``, an ``ActiveField``) with given
+    points, then the decoder. ``z`` and ``point_valid`` (R,) gate validity
+    as in ActiveField. Returns (sdf, valid); sdf is 0 where not valid."""
+    _, valid, _, feats = field(packed, None, None, z, point_valid, xyz)
     sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
     return torch.where(valid, sdf, 0.0), valid

@@ -39,6 +39,7 @@ import torch
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core.losses import sdf_losses
 from nerfloam_tpu_torch.core.render import (
+    ActiveField,
     columns_fwd,
     extra_surface_z,
     grid_columns_fwd,
@@ -60,6 +61,8 @@ from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
 
 # K3 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
 gn_system_launches = 0
+_K3 = "gn_system"
+_F32 = torch.float32
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
 
 
@@ -139,40 +142,104 @@ def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: Tr
     return H, b, torch.sum(w * r * r)
 
 
+class GnSystem:
+    """K3 prepared for one tracked frame: the per-ray inputs, fixed over the
+    frame's iterations (pcos, d_meas, bias_ray f32 (N,), depth_ok bool
+    (N,)), ``tp``'s truncation and weights and the column count ``n_cols``
+    (M + K) are checked once, and on the card the kernel's scratch (the
+    partial rows and the last-block counter, which every call leaves at
+    zero) and the outputs H (6, 6), b (6,) and loss () are allocated once.
+    Each call ``system(xyz, t_pos, z, sdf, g, vmask)`` checks only the
+    iteration's samples (xyz, g (N, n_cols, 3) and z, sdf (N, n_cols) f32,
+    vmask bool (N, n_cols), t_pos f32 (3,); contiguous, on pcos's device)
+    and raises ValueError on what it would have to convert, on the CPU
+    too. On the card it makes one launch and returns the object's own H,
+    b and loss, overwritten by its next call: the tracker consumes them
+    (K11b adds into them in place, the LM step reads them) within the
+    iteration. CPU tensors take ``gn_system_plain``."""
+
+    def __init__(self, pcos, d_meas, depth_ok, bias_ray, tp: TrackParams, n_cols: int):
+        dev = pcos.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{_K3}: unsupported device {dev}")
+        kernels.expect(_K3, dev, _F32, pcos=pcos, d_meas=d_meas, bias_ray=bias_ray)
+        kernels.expect(_K3, dev, torch.bool, depth_ok=depth_ok)
+        N = pcos.shape[0] if pcos.dim() == 1 else -1
+        kernels.expect_shape(_K3, pcos=(pcos, (N,)), d_meas=(d_meas, (N,)),
+                             depth_ok=(depth_ok, (N,)), bias_ray=(bias_ray, (N,)))
+        if N * n_cols >= 1 << 24:
+            raise ValueError(f"{_K3}: {N} x {n_cols} samples; the kernel counts them in f32, "
+                             "exact below 2^24")
+        self.device, self.tp = dev, tp
+        self._rays = (pcos, d_meas, depth_ok, bias_ray)
+        self._s_shape, self._x_shape = (N, n_cols), (N, n_cols, 3)
+        self._index = -2  # matches no tensor's get_device(): CPU calls take the full checks
+        if dev.type == "cpu":
+            return
+        self._index = pcos.get_device()
+        lib = kernels.lib()
+        # the partial rows, then the counter (0.0's bits are an unsigned 0)
+        self._scratch = torch.zeros((lib.nl_gn_partial_values() * lib.nl_gn_max_blocks() + 1,),
+                                    dtype=_F32, device=dev)
+        out = torch.empty((43,), dtype=_F32, device=dev)
+        self._out = (out[:36].view(6, 6), out[36:42], out[42])
+        self._launch = lib.nl_gn_system
+        self._fixed = (*(t.data_ptr() for t in self._rays), N, n_cols, tp.truncation,
+                       tp.fs_weight, tp.sdf_weight, self._scratch.data_ptr(),
+                       *(t.data_ptr() for t in self._out))
+
+    def __call__(self, xyz, t_pos, z, sdf, g, vmask):
+        index, s, x = self._index, self._s_shape, self._x_shape
+        # the usual case on the card in one expression; anything else, and
+        # every CPU call, goes through the full checks, which raise
+        if not (xyz.dtype is _F32 and z.dtype is _F32 and sdf.dtype is _F32 and g.dtype is _F32
+                and t_pos.dtype is _F32 and vmask.dtype is torch.bool and z.shape == s
+                and sdf.shape == s and vmask.shape == s and xyz.shape == x and g.shape == x
+                and t_pos.shape == (3,) and xyz.is_contiguous() and z.is_contiguous()
+                and sdf.is_contiguous() and g.is_contiguous() and vmask.is_contiguous()
+                and t_pos.is_contiguous() and xyz.get_device() == index
+                and z.get_device() == index and sdf.get_device() == index
+                and g.get_device() == index and vmask.get_device() == index
+                and t_pos.get_device() == index):
+            self._check(xyz, t_pos, z, sdf, g, vmask)
+            if index < 0:
+                pcos, d_meas, depth_ok, bias_ray = self._rays
+                return gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok,
+                                       self.tp, bias_ray)
+        global gn_system_launches
+        err = self._launch(xyz.data_ptr(), z.data_ptr(), sdf.data_ptr(), g.data_ptr(),
+                           vmask.data_ptr(), *self._fixed[:4], t_pos.data_ptr(),
+                           *self._fixed[4:], kernels.raw_stream(index))
+        if err:
+            self._scratch.zero_()  # the counter may not be zero
+            kernels.check(err, _K3)
+        gn_system_launches += 1
+        return self._out
+
+    def _check(self, xyz, t_pos, z, sdf, g, vmask):
+        dev = self.device
+        kernels.expect(_K3, dev, _F32, xyz=xyz, t_pos=t_pos, z=z, sdf=sdf, g=g)
+        kernels.expect(_K3, dev, torch.bool, vmask=vmask)
+        kernels.expect_shape(_K3, xyz=(xyz, self._x_shape), t_pos=(t_pos, (3,)),
+                             z=(z, self._s_shape), sdf=(sdf, self._s_shape), g=(g, self._x_shape),
+                             vmask=(vmask, self._s_shape))
+
+
 def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
               bias_ray=None):
     """K3. Replaces the XLA fusion of nerfloam_tpu/core/tracking.py:217-244
     (_residual_parts) and 300-315 (the H and b einsums): per-class sums in
-    one pass, then the balancing weights, by a deterministic two-stage
-    reduction (csrc/gn_system.cu). CPU tensors take ``gn_system_plain``.
-    Shapes: (N, M+K) samples, (N,) rays; returns (H (6, 6), b (6,), loss)."""
-    dev = xyz.device
-    if dev.type == "cpu":
-        return gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
-                               bias_ray)
-    if dev.type != "cuda":
-        raise ValueError(f"gn_system: unsupported device {dev}")
-    global gn_system_launches
-    lib = kernels.lib()
-    N, MK = z.shape
+    one pass, then the balancing weights, by a deterministic reduction in
+    one launch (csrc/gn_system.cu). One call of a ``GnSystem`` made for it
+    (see there: inputs are checked, never converted; bias_ray None = 0).
+    CPU tensors take ``gn_system_plain``. Shapes: (N, M+K) samples, (N,)
+    rays; returns (H (6, 6), b (6,), loss)."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_K3}: unsupported device {xyz.device}")
     if bias_ray is None:
         bias_ray = torch.zeros_like(pcos)
-    ins = [t.contiguous() for t in (
-        xyz.float(), z.float(), sdf.float(), g.float(), vmask.to(torch.bool), pcos.float(),
-        d_meas.float(), depth_ok.to(torch.bool), bias_ray.float(), t_pos.float())]
-    if any(t.device != dev for t in ins):
-        raise ValueError("gn_system: all inputs must be on one device")
-    partial = torch.empty((lib.nl_gn_blocks(N * MK), lib.nl_gn_partial_values()),
-                          dtype=torch.float32, device=dev)
-    H = torch.empty((6, 6), dtype=torch.float32, device=dev)
-    b = torch.empty((6,), dtype=torch.float32, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    err = lib.nl_gn_system(*[t.data_ptr() for t in ins], N, MK, tp.truncation, tp.fs_weight,
-                           tp.sdf_weight, partial.data_ptr(), H.data_ptr(), b.data_ptr(),
-                           loss.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(err, "gn_system")
-    gn_system_launches += 1
-    return H, b, loss
+    return GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, z.shape[1])(xyz, t_pos, z, sdf, g,
+                                                                     vmask)
 
 
 def lm_update(pose6, H, b, lam):
@@ -224,6 +291,9 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
     dnorm = torch.linalg.norm(pts, dim=-1)
     n_extra = tp.surface_anchor + tp.band_samples
+    # what stays fixed over the frame, checked once: K8's grid and K3's rays
+    field = ActiveField(map_state, map_cfg)
+    system = GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, rc.n_samples + n_extra)
 
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
     origin0 = se3.pose_translation(init_pose).expand_as(wdirs0)
@@ -250,16 +320,17 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
             ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
                   if tp.band_samples else None)
             ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples, ub)
-            extra = (map_state, map_cfg, ez, rvalid)
+            extra = (field, ez, rvalid)
         if rc.sampler == "hits":
             z, valid, aid, xyz, feats = columns_fwd(ht0, u, origin, wdirs, packed, vs, extra)
         else:
             (z, valid, aid, xyz, feats), ray_hit = grid_columns_fwd(
-                map_state, map_cfg, placer, u, origin, wdirs, packed, extra)
+                field, placer, u, origin, wdirs, packed, extra)
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
-        H, b, loss = gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp, bias_ray)
-        if tp.s2s is not None and prev_scan is not None:  # adds into K3's fresh outputs
+        H, b, loss = system(xyz, t_pos, z, sdf, g, vmask)
+        if tp.s2s is not None and prev_scan is not None:
+            # adds in place into K3's outputs, which its next call overwrites
             H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
         pose6 = lm_update(pose6, H, b, lam)
         hits = (ray_hit & rvalid).sum()
@@ -267,13 +338,14 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     return TrackResult(pose6, hits, loss)
 
 
-def adam_loss(map_state: MapState, map_cfg: MapConfig, tp: TrackParams, decoder_params, pose6,
-              dirs, pts, pcos, rvalid, placer: CdfPlacer, u, band_u, bias_ray):
+def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, pts, pcos, rvalid,
+              placer: CdfPlacer, u, band_u, bias_ray):
     """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
-    rays): grid render_rays through ``placer`` (the frame's CdfPlacer over
-    the hoisted march) with jitter u, the anchor and band columns (jitter
-    band_u), then ``sdf_losses`` with the per-ray band target bias_ray
-    (R,). Returns (loss, RenderOutput)."""
+    rays): grid render_rays of the map's packed table through ``placer``
+    and ``field`` (the frame's CdfPlacer over the hoisted march and its
+    ActiveField over the map) with jitter u, the anchor and band columns
+    (jitter band_u), then ``sdf_losses`` with the per-ray band target
+    bias_ray (R,). Returns (loss, RenderOutput)."""
     compute_dtype = getattr(torch, tp.compute_dtype)
     wdirs = se3.rotate_dirs(pose6, dirs)
     origin = se3.pose_translation(pose6).expand_as(wdirs)
@@ -281,9 +353,9 @@ def adam_loss(map_state: MapState, map_cfg: MapConfig, tp: TrackParams, decoder_
     if tp.surface_anchor or tp.band_samples:
         ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, tp.truncation,
                              tp.surface_anchor, tp.band_samples, band_u)
-        extra = (map_state, map_cfg, ez, rvalid)
-    out = render_rays(map_state.packed, decoder_params, map_state, map_cfg, origin, wdirs, rvalid,
-                      placer, u, compute_dtype, extra)
+        extra = (field, ez, rvalid)
+    out = render_rays(field.state.packed, decoder_params, field, origin, wdirs, rvalid, placer, u,
+                      compute_dtype, extra)
     loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                          tp.truncation, tp.max_depth, tp.fs_weight, tp.sdf_weight,
                          sdf_bias=bias_ray[:, None])
@@ -311,6 +383,7 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
                        *march_occupancy(map_state, map_cfg, rc,
                                         se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0,
                                         t_cap), t_cap, rc.n_samples)
+    field = ActiveField(map_state, map_cfg)
 
     pose6 = init_pose.detach().clone()
     mu, nu = torch.zeros_like(pose6), torch.zeros_like(pose6)
@@ -322,8 +395,8 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
               if tp.band_samples else None)
         with torch.enable_grad():
             p = pose6.requires_grad_(True)
-            loss, out = adam_loss(map_state, map_cfg, tp, decoder_params, p, dirs, pts, pcos,
-                                  rvalid, placer, u, ub, bias_ray)
+            loss, out = adam_loss(field, tp, decoder_params, p, dirs, pts, pcos, rvalid, placer,
+                                  u, ub, bias_ray)
             (g,) = torch.autograd.grad(loss, p)
         with torch.no_grad():
             pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)

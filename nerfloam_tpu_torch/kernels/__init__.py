@@ -49,10 +49,10 @@ _SIGNATURES = {
     "nl_hits_field_bwd": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
     "nl_hits_field_scan_tiles": [_I],
-    "nl_active_field_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
+    "nl_active_field_fwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
                             _P, _P, _P, _P, _P],
     "nl_gn_partial_values": [],
-    "nl_gn_blocks": [_I],
+    "nl_gn_max_blocks": [],
     "nl_gn_system": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                      _P, _P, _P, _P, _P],
     "nl_insert_elect": [_P, _P, _I, _F, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -182,6 +182,20 @@ def expect_shape(name: str, **shapes) -> None:
     for label, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def expect_origin(name: str, device, rays_o, R: int) -> int:
+    """Raise ValueError unless ``rays_o`` is (R, 3) f32 rows on ``device``
+    with a row stride of 3, or of 0 (one origin expanded to every ray, as
+    the trackers pass it); return that row stride (3 where R <= 1)."""
+    ok = (rays_o.dtype == torch.float32 and rays_o.device == device
+          and tuple(rays_o.shape) == (R, 3) and rays_o.stride(1) == 1)
+    stride = rays_o.stride(0) if ok and R > 1 else 3
+    if not ok or stride not in (0, 3):
+        raise ValueError(f"{name}: rays_o must be ({R}, 3) f32 rows on {device} (row stride 3, or "
+                         f"0 for one shared origin); got {tuple(rays_o.shape)} {rays_o.dtype}, "
+                         f"strides {tuple(rays_o.stride())}, on {rays_o.device}")
+    return stride
 
 
 def check(err: int, name: str):

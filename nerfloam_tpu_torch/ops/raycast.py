@@ -33,7 +33,7 @@ march_occupancy_launches = 0    # K9a
 place_samples_cdf_launches = 0  # K9b
 _PLACE = "place_samples_cdf"
 _F32 = torch.float32
-_ORIGIN_STRIDES = ((0, 1), (3, 1))  # K9b's rays_o: one shared origin, or one per ray
+_ORIGIN_STRIDES = ((0, 1), (3, 1))  # rays_o of K9b and K8: one shared origin, or one per ray
 
 
 class RaycastConfig(NamedTuple):
@@ -424,12 +424,7 @@ class CdfPlacer:
             kernels.expect_shape(_PLACE, rows=(rows, (R,)))
         elif R != self.C:
             raise ValueError(f"{_PLACE}: {R} rays over {self.C} cdf rows need rows")
-        if (rays_o.dtype != _F32 or rays_o.device != dev or rays_o.shape != (R, 3)
-                or rays_o.stride(1) != 1 or (R > 1 and rays_o.stride(0) not in (0, 3))):
-            raise ValueError(f"{_PLACE}: rays_o must be ({R}, 3) f32 rows on {dev} (row stride "
-                             f"3, or 0 for one shared origin); got {tuple(rays_o.shape)} "
-                             f"{rays_o.dtype}, strides {tuple(rays_o.stride())}, on "
-                             f"{rays_o.device}")
+        kernels.expect_origin(_PLACE, dev, rays_o, R)
 
 
 def place_samples_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,

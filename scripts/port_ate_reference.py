@@ -23,8 +23,9 @@ pipeline reads the tracker choice from tpu_specs, so bench.py's
 ``--gate60 SEED`` runs the replica gate instead: kitti_replica_ci.yaml +
 calibrate_gate60.GATE60 + LEAN + data_specs.seed=SEED, defer_sync off,
 through NerfLoamSLAM.run() as scripts/eval_replica.py drives it, and
-prints the raw and aligned ATE, the overflow accounting and the lateral
-drift rate (no mesh).
+prints the raw and aligned ATE, the overflow accounting, the lateral
+drift rate and each frame's raw translation error (m, no alignment: the
+estimated position's distance to the ground truth's), with no mesh.
 """
 
 import importlib.util
@@ -86,6 +87,7 @@ def gate60(seed: int):
         "overflow_events": {k: int(v) for k, v in slam.overflow_events.items()},
         "dropped_delta_events": int(slam.dropped_delta_events),
         "drift_lat_cm_f": drift_lat_cm_f(est, gt),
+        "frame_err_m": [float(e) for e in np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)],
         "seconds": time.perf_counter() - t0,
         "backend": jax.default_backend(),
     }))

@@ -224,8 +224,8 @@ def test_render_rays_grid_matches_jax(setup):
                                s["ray_valid"], None, occupancy=jocc, jitter_u=jnp.asarray(s["u"]))
     to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
     placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
-    tout = trender.render_rays(s["tm"].packed, s["tparams"], s["tm"], T_CFG, to, td,
-                               _t(s["ray_valid"]), placer, _t(s["u"]))
+    tout = trender.render_rays(s["tm"].packed, s["tparams"], trender.ActiveField(s["tm"], T_CFG),
+                               to, td, _t(s["ray_valid"]), placer, _t(s["u"]))
     np.testing.assert_array_equal(to_numpy(tout.valid_mask), np.asarray(jout.valid_mask))
     np.testing.assert_array_equal(to_numpy(tout.ray_mask), np.asarray(jout.ray_mask))
     np.testing.assert_allclose(to_numpy(tout.z_vals), np.asarray(jout.z_vals), rtol=0, atol=1e-6)
@@ -289,8 +289,9 @@ def test_gn_grid_iteration_matches_jax(setup):
     tdn = torch.linalg.norm(tpts, dim=-1)
     tez = trender.extra_surface_z(tdn, tc, TRUNC, 1, N_BAND, _t(s["band_u"]))
     placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
+    field = trender.ActiveField(s["tm"], T_CFG)
     (tz, tvalid, taid, txyz, tfeats), ray_hit = trender.grid_columns_fwd(
-        s["tm"], T_CFG, placer, _t(s["u"]), to, td, s["tm"].packed, (s["tm"], T_CFG, tez, trv))
+        field, placer, _t(s["u"]), to, td, s["tm"].packed, (field, tez, trv))
     tsdf, tg = ttr.field_and_grad(s["tparams"], tfeats, txyz, taid, tvalid, s["tm"].packed, vs,
                                   torch.float32)
     tvm_ = tvalid & trv[:, None]
@@ -339,8 +340,9 @@ def test_ba_grid_gradients_match_jax(setup):
     ez = trender.extra_surface_z(torch.linalg.norm(tp, dim=-1), tc, TRUNC, 0, N_BAND,
                                  _t(s["band_u"]))
     placer = trc.CdfPlacer(s["tm"], T_CFG, T_RC, *tocc, _t(s["t_cap"]), RC.n_samples)
-    out = trender.render_rays(packed, params, s["tm"], T_CFG, o, d, rv, placer, _t(s["u"]),
-                              extra=(s["tm"], T_CFG, ez, rv))
+    field = trender.ActiveField(s["tm"], T_CFG)
+    out = trender.render_rays(packed, params, field, o, d, rv, placer, _t(s["u"]),
+                              extra=(field, ez, rv))
     tl, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc, TRUNC,
                                MAX_DEPTH, FS_W, SDF_W)
     grads = torch.autograd.grad(tl, [packed, *flat, pose])

@@ -19,8 +19,13 @@ order than the twin's), bit-identical between two calls and equal to
 render.dpacked_in_row_order_plain (each row adds its samples in ascending
 index, in the kernel's arithmetic) whatever a row's sample count, and with
 no valid sample at all; K8 integers and
-positions exact, features 1e-6; K3 H, b and loss 1e-4 relative (another
-summation order) and bit-stable from run to run; K7 every table equal
+positions exact, features 1e-6, the same bits from call to call of one
+ActiveField and with one origin expanded to every ray (read as it is: one
+kernel, no copy); K3 H, b and loss 1e-4 relative (another summation
+order), bit-stable from run to run, a GnSystem made once equal to a fresh
+one, one kernel a call, and its last-block counter back to zero after
+calls of every size (below one block, rays not a multiple of a block's
+warps, an all-false mask); K7 every table equal
 (both elect the smallest slot); K6 every table equal; K5 every table
 equal to the twin run on the CPU (f32 and bf16: both add each corner's
 deltas in ascending order, rounding after every add) and bit-identical
@@ -32,9 +37,10 @@ positions equal, K10b triangles and mask equal (one rounded operation at a
 time on both sides); K11a every output equal and bit-identical between two
 calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
 relative (another summation order) and bit-stable from run to run, and in
-the accumulating form each entry one add on the sums alone. K9b, K11b, K1
-and K2 raise on what they would have to convert (another device, another
-dtype, a strided tensor)."""
+the accumulating form each entry one add on the sums alone (also into a
+GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
+GnSystem and K8's ActiveField raise on what they would have to convert
+(another device, another dtype, a strided tensor)."""
 
 import ctypes
 import os
@@ -222,7 +228,7 @@ def test_active_field_kernel_matches_plain(cuda):
     z = torch.rand((R, K), generator=g, device=cuda) * 11.0 - 0.5
     rv = torch.rand((R,), generator=g, device=cuda) > 0.1
     n0 = trender.active_field_fwd_launches
-    ker = trender.active_field_fwd(ms, T_CFG, ms.packed, o, d, z, rv)
+    ker = ker0 = trender.active_field_fwd(ms, T_CFG, ms.packed, o, d, z, rv)
     ref = trender.active_field_fwd_plain(ms, T_CFG, ms.packed, o, d, z, rv)
     torch.cuda.synchronize()
     assert trender.active_field_fwd_launches == n0 + 1
@@ -239,6 +245,61 @@ def test_active_field_kernel_matches_plain(cuda):
         assert torch.equal(ker[i], ref2[i])
     torch.testing.assert_close(ker[3], ref2[3], rtol=0, atol=1e-6)
     assert torch.equal(ref2[1].reshape(R, K), ref[1])
+    # an ActiveField made once, called again: the same bits as the function form
+    field = trender.ActiveField(ms, T_CFG)
+    for _ in range(2):
+        again = field(ms.packed, o, d, z, rv)
+        assert all(torch.equal(a, b) for a, b in zip(again, ker0))
+    assert trender.active_field_fwd_launches == n0 + 4
+
+
+def _launches_per_call(fn, reps=5, sessions=3):
+    """{device kernel or copy: launches per call of fn}, from torch.profiler
+    over ``reps`` calls after a discarded warm-up step (a cold session drops
+    kernel records; a session that still misses some is run again). Work
+    seen fewer than ``reps`` times is the profiler's own."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     acc_events=True) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        got = {e.key: e.count / reps for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", "")) and e.count >= reps}
+        if got and all(float(n).is_integer() for n in got.values()):
+            return got
+    return got
+
+
+@pytest.mark.parametrize("K", [1, 8, 64])
+def test_active_field_shared_origin_read_as_it_is(cuda, K):
+    """The trackers' form: one origin expanded to every ray (row stride 0)
+    is read without a copy (one kernel, no other device work), with aid,
+    valid and xyz equal to the twin's and the same bits as the origin
+    copied out per ray."""
+    ms, o, d, tc = _case(cuda, R=160, seed=K)
+    g = torch.Generator(device=cuda).manual_seed(K)
+    z = torch.rand((len(o), K), generator=g, device=cuda) * 11.0
+    rv = torch.rand((len(o),), generator=g, device=cuda) > 0.1
+    o1 = (o[3] + 0.01).expand_as(d)
+    field = trender.ActiveField(ms, T_CFG)
+    ker = field(ms.packed, o1, d, z, rv)
+    ref = trender.active_field_fwd_plain(ms, T_CFG, ms.packed, o1, d, z, rv)
+    copied = field(ms.packed, o1.contiguous(), d, z, rv)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("aid", "valid", "xyz")):
+        assert torch.equal(ker[i], ref[i]), name
+    torch.testing.assert_close(ker[3], ref[3], rtol=0, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(ker, copied))
+    assert bool(ref[1].any())
+    launched = _launches_per_call(lambda: field(ms.packed, o1, d, z, rv))
+    assert len(launched) == 1 and "active_field_fwd_kernel" in next(iter(launched)), launched
+    assert list(launched.values()) == [1.0], launched
 
 
 def test_field_columns_autograd_on_card_matches_cpu(cuda):
@@ -256,7 +317,8 @@ def test_field_columns_autograd_on_card_matches_cpu(cuda):
         dd = d.to(dev).clone().requires_grad_(True)
         h = trc.HitTable(*[x.to(dev) for x in ht])
         feats, *_ = trender.field_columns(packed, oo, dd, h, u.to(dev), T_CFG.voxel_size,
-                                          (st, T_CFG, ez.to(dev), rv.to(dev)))
+                                          (trender.ActiveField(st, T_CFG), ez.to(dev),
+                                           rv.to(dev)))
         (feats * torch.linspace(-1, 1, 16, device=dev)).sum().backward()
         grads[dev.type] = [x.grad.cpu() for x in (packed, oo, dd)]
     for k, c in zip(grads["cuda"], grads["cpu"]):
@@ -293,6 +355,55 @@ def test_gn_system_kernel_matches_plain(cuda):
     assert torch.equal(H, H.T)
     for k, r in ((H, rH), (b, rb), (loss, rl)):
         assert float((k.double() - r.double()).abs().max()) <= 1e-4 * float(r.abs().max())
+    # a GnSystem made once (a tracker's frame): the same bits, call after
+    # call, as a fresh one; its outputs are its own, overwritten in place
+    system = ttr.GnSystem(a["pcos"], a["d_meas"], a["depth_ok"], a["bias_ray"], tp, 72)
+    samples = (a["xyz"], a["t_pos"], a["z"], a["sdf"], a["g"], a["vmask"])
+    out = system(*samples)
+    for _ in range(2):
+        again = system(*samples)
+        assert all(x is y for x, y in zip(again, out))
+        assert torch.equal(again[0], H) and torch.equal(again[1], b) and torch.equal(again[2], loss)
+    assert ttr.gn_system_launches == n0 + 5
+    launched = _launches_per_call(lambda: system(*samples))
+    assert len(launched) == 1 and "gn_system_kernel" in next(iter(launched)), launched
+    assert list(launched.values()) == [1.0], launched
+
+
+@pytest.mark.parametrize("N,MK,masked", [(2, 3, True), (1000, 37, True), (512, 72, False),
+                                         (2048, 72, True), (3000, 40, True)])
+def test_gn_system_counter_returns_to_zero(cuda, N, MK, masked):
+    """K3's last-block counter is zero after every call, whatever the size:
+    below one block (2 x 3), rays not a multiple of a block's warps
+    (1000, 3000: more rays than two blocks an SM take), an all-false mask;
+    calls of different sizes through two objects in turn give the bits of a
+    fresh object and stay within 1e-4 relative of the twin."""
+    tp = ttr.TrackParams(n_rays=N, num_iterations=1, truncation=0.3, max_depth=40.0,
+                         fs_weight=1.0, sdf_weight=1e4)
+    a = _gn_inputs(cuda, N=N, MK=MK, seed=N + MK)
+    if not masked:
+        a["vmask"] = torch.zeros_like(a["vmask"])
+    small = _gn_inputs(cuda, N=3, MK=5, seed=1)
+    systems = [ttr.GnSystem(x["pcos"], x["d_meas"], x["depth_ok"], x["bias_ray"], tp, mk)
+               for x, mk in ((a, MK), (small, 5))]
+    rays = ("xyz", "t_pos", "z", "sdf", "g", "vmask")
+    fresh = ttr.gn_system(*(a[k] for k in ("xyz", "t_pos", "z", "sdf", "g", "vmask", "pcos",
+                                           "d_meas", "depth_ok")), tp, a["bias_ray"])
+    fresh = [x.clone() for x in fresh]
+    for _ in range(3):
+        for system, x in zip(systems, (a, small)):
+            system(*(x[k] for k in rays))
+            torch.cuda.synchronize()
+            assert int(system._scratch[-1:].view(torch.int32)) == 0
+        got = systems[0](*(a[k] for k in rays))
+        assert all(torch.equal(g_, f_) for g_, f_ in zip(got, fresh))
+    ref = ttr.gn_system_plain(*(a[k] for k in ("xyz", "t_pos", "z", "sdf", "g", "vmask", "pcos",
+                                               "d_meas", "depth_ok")), tp, a["bias_ray"])
+    for k, r in zip(got, ref):
+        assert float((k.double() - r.double()).abs().max()) <= 1e-4 * max(
+            float(r.abs().max()), 1e-30)
+    if not masked:
+        assert not bool(got[0].any()) and not bool(got[1].any()) and float(got[2]) == 0.0
 
 
 def test_insert_kernel_matches_plain(cuda):
@@ -469,9 +580,10 @@ def test_render_rays_grid_autograd_on_card_matches_cpu(cuda):
         oo = o.to(dev).clone().requires_grad_(True)
         dd = d.to(dev).clone().requires_grad_(True)
         placer = trc.CdfPlacer(st, T_CFG, rc, cdf.to(dev), n_occ.to(dev), tc.to(dev), 24)
+        field = trender.ActiveField(st, T_CFG)
         out = trender.render_rays(packed, {k: [w.to(dev) for w in v] for k, v in params.items()},
-                                  st, T_CFG, oo, dd, rv.to(dev), placer, u.to(dev),
-                                  extra=(st, T_CFG, ez.to(dev), rv.to(dev)))
+                                  field, oo, dd, rv.to(dev), placer, u.to(dev),
+                                  extra=(field, ez.to(dev), rv.to(dev)))
         torch.where(out.valid_mask, out.sdf, 0.0).sum().backward()
         grads[dev.type] = [x.grad.cpu() for x in (packed, oo, dd)]
         sdfs[dev.type] = out.sdf.detach().cpu()
@@ -607,6 +719,21 @@ def test_s2s_system_kernel_accumulates_like_plain(cuda):
         assert torch.equal(a, b), f"{name} differs between two runs"
         assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
         assert torch.equal(a, x + y), f"{name} is not one add on the sums alone"
+    # as the tracker calls it: into a GnSystem's own outputs, in place
+    tp = ttr.TrackParams(n_rays=512, num_iterations=1, truncation=0.3, max_depth=40.0,
+                         fs_weight=1.0, sdf_weight=1e4)
+    gi = _gn_inputs(cuda, N=512, MK=72, seed=3)
+    system = ttr.GnSystem(gi["pcos"], gi["d_meas"], gi["depth_ok"], gi["bias_ray"], tp, 72)
+    samples = [gi[k] for k in ("xyz", "t_pos", "z", "sdf", "g", "vmask")]
+    k3 = [x.clone() for x in system(*samples)]
+    out = system(*samples)
+    added = ts2s.s2s_system(S2S, prev, pose, cur, rv, R, out)
+    plain = ts2s.s2s_system_plain(S2S, prev, pose, cur, rv, R, tuple(x.clone() for x in k3))
+    torch.cuda.synchronize()
+    for name, a, r, x, y in zip(("H", "b", "loss"), added, plain, k3, alone):
+        assert a is not None and a.data_ptr() == out[("H", "b", "loss").index(name)].data_ptr()
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+        assert torch.equal(a, x + y), f"{name} is not one add on K3's sums"
 
 
 def test_grid_and_s2s_wrappers_reject_what_they_would_convert(cuda):
@@ -636,6 +763,59 @@ def test_grid_and_s2s_wrappers_reject_what_they_would_convert(cuda):
     acc = (torch.zeros((6, 6), device=cuda), torch.zeros(6, device=cuda), torch.zeros(()))
     with pytest.raises(ValueError, match="loss must"):
         ts2s.s2s_system(S2S, prev, pose, cur, rv, acc=acc)
+    _reject_gn_and_field_conversions(cuda)
+
+
+def _reject_gn_and_field_conversions(device):
+    """GnSystem (K3) and ActiveField (K8) raise on what they would have to
+    convert: another device, another dtype, a strided tensor or a shape
+    other than the one they were made for."""
+    tp = ttr.TrackParams(n_rays=64, num_iterations=1, truncation=0.3, max_depth=40.0,
+                         fs_weight=1.0, sdf_weight=1e4)
+    a = _gn_inputs(device, N=64, MK=9, seed=2)
+    with pytest.raises(ValueError, match="d_meas must be a contiguous"):
+        ttr.GnSystem(a["pcos"], a["d_meas"].double(), a["depth_ok"], a["bias_ray"], tp, 9)
+    with pytest.raises(ValueError, match="depth_ok must be a contiguous"):
+        ttr.GnSystem(a["pcos"], a["d_meas"], a["depth_ok"].int(), a["bias_ray"], tp, 9)
+    system = ttr.GnSystem(a["pcos"], a["d_meas"], a["depth_ok"], a["bias_ray"], tp, 9)
+    good = {k: a[k] for k in ("xyz", "t_pos", "z", "sdf", "g", "vmask")}
+    other = "meta" if device.type == "cpu" else "cpu"
+    for key, value, match in (("xyz", a["xyz"].to(other), "xyz must be a contiguous"),
+                              ("z", a["z"].double(), "z must be a contiguous"),
+                              ("sdf", a["sdf"].t().contiguous().t(), "sdf must be a contiguous"),
+                              ("vmask", a["vmask"].float(), "vmask must be a contiguous"),
+                              ("g", a["g"][:, :8].contiguous(), "g has shape"),
+                              ("t_pos", a["t_pos"].half(), "t_pos must be a contiguous")):
+        with pytest.raises(ValueError, match=match):
+            system(**{**good, key: value})
+    ms, o, d, tc = _case(device, R=32, seed=4)
+    z = torch.rand((32, 4), device=device) * 10.0
+    rv = torch.ones((32,), dtype=torch.bool, device=device)
+    with pytest.raises(ValueError, match="grid_active must be a contiguous"):
+        trender.ActiveField(ms._replace(grid_active=ms.grid_active.long()), T_CFG)
+    with pytest.raises(ValueError, match="region_min must be a contiguous"):
+        trender.ActiveField(ms._replace(region_min=ms.region_min.to(other)), T_CFG)
+    field = trender.ActiveField(ms, T_CFG)
+    good = dict(packed=ms.packed, rays_o=o, rays_d=d, z=z, ray_valid=rv)
+    for key, value, match in (("z", z.double(), "z must be a contiguous"),
+                              ("z", z.t().contiguous().t(), "z must be a contiguous"),
+                              ("ray_valid", rv.to(other), "ray_valid must be a contiguous"),
+                              ("rays_d", d.to(other), "rays_d must be a contiguous"),
+                              ("rays_o", torch.cat([o, o], 1)[:, :3], "rays_o must be"),
+                              ("rays_o", o.double(), "rays_o must be"),
+                              ("packed", ms.packed.reshape(-1, 64), "packed has shape"),
+                              ("packed", ms.packed.reshape(-1)[1:129].reshape(1, 128),
+                               "16-byte boundary")):
+        with pytest.raises(ValueError, match=match):
+            field(**{**good, key: value})
+    with pytest.raises(ValueError, match="xyz must be a contiguous"):
+        field(ms.packed, None, None, z, rv, torch.zeros((32, 4, 3), device=device).double())
+    with pytest.raises(ValueError, match="rays_o = rays_d = None"):
+        field(ms.packed, o, d, z, rv, torch.zeros((32, 4, 3), device=device))
+
+
+def test_gn_and_field_wrappers_reject_what_they_would_convert_on_cpu():
+    _reject_gn_and_field_conversions(torch.device("cpu"))
 
 
 def test_hits_field_wrappers_reject_what_they_would_convert(cuda):

@@ -47,6 +47,7 @@ from nerfloam_tpu_torch.core import render as trender
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
 from nerfloam_tpu_torch.map import voxel_map as tvm
+from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.bridge import (
@@ -132,12 +133,21 @@ def test_band_columns_match_jax(setup):
     ez = trender.extra_surface_z(_t(dnorm), _t(s["c"]), TRUNC, N_ANCHOR, N_BAND, _t(s["band_u"]))
     out = trender.render_rays_hits(s["tm"].packed, s["tparams"], MAP_CFG.voxel_size, to, td,
                                    s["tht"], _t(s["ray_valid"]), _t(s["u"]),
-                                   extra=(s["tm"], T_CFG, ez, _t(s["ray_valid"])))
+                                   extra=(trender.ActiveField(s["tm"], T_CFG), ez,
+                                          _t(s["ray_valid"])))
     M = RCH.n_samples
     np.testing.assert_array_equal(to_numpy(out.valid_mask[:, M:]), np.asarray(jvalid))
     np.testing.assert_array_equal(to_numpy(out.z_vals[:, M:]), np.asarray(jz))
     np.testing.assert_allclose(to_numpy(out.sdf[:, M:]), np.asarray(jsdf), atol=1e-5)
     assert 0.2 < float(np.asarray(jvalid).mean()) < 1.0
+    # an ActiveField made once (a tracker's frame), called twice with the
+    # one origin expanded to every ray: the same columns as JAX's
+    field = trender.ActiveField(s["tm"], T_CFG)
+    for _ in range(2):
+        _, evalid, _, efeats = field(s["tm"].packed, to, td, ez, _t(s["ray_valid"]))
+        np.testing.assert_array_equal(to_numpy(evalid), np.asarray(jvalid))
+        esdf = torch.where(evalid, decoder_apply(s["tparams"], efeats)[..., 0], 1.0)
+        np.testing.assert_allclose(to_numpy(esdf), np.asarray(jsdf), atol=1e-5)
     # band depths alone: exact against band_sample_z
     np.testing.assert_array_equal(
         to_numpy(trender.band_sample_z(_t(dnorm), _t(s["c"]), TRUNC, N_BAND, _t(s["band_u"]))),
@@ -175,7 +185,7 @@ def test_ba_loss_gradients_with_band_columns_match_jax(setup):
     ez = trender.extra_surface_z(torch.linalg.norm(tp, dim=-1), tc, TRUNC, 0, N_BAND,
                                  _t(s["band_u"]))
     out = trender.render_rays_hits(packed, params, MAP_CFG.voxel_size, o, d, s["tht"], rv,
-                                   _t(s["u"]), extra=(s["tm"], T_CFG, ez, rv))
+                                   _t(s["u"]), extra=(trender.ActiveField(s["tm"], T_CFG), ez, rv))
     tl, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc, TRUNC,
                                MAX_DEPTH, FS_W, SDF_W)
     grads = torch.autograd.grad(tl, [packed, *flat, pose])
@@ -282,7 +292,7 @@ def test_gn_system_with_band_columns_and_bias_matches_jax(setup):
     tez = trender.extra_surface_z(tdn, tc, TRUNC, N_ANCHOR, N_BAND, _t(s["band_u"]))
     tz, tvalid, taid, txyz, tfeats = trender.columns_fwd(
         s["tht"], _t(s["u"]), tpose[:3].expand_as(twd), twd, s["tm"].packed, vs,
-        (s["tm"], T_CFG, tez, trv))
+        (trender.ActiveField(s["tm"], T_CFG), tez, trv))
     tsdf, tg = ttr.field_and_grad(s["tparams"], tfeats, txyz, taid, tvalid, s["tm"].packed, vs,
                                   torch.float32)
     tvm_ = tvalid & trv[:, None]
@@ -295,6 +305,13 @@ def test_gn_system_with_band_columns_and_bias_matches_jax(setup):
     assert _rel_err(tH, H) <= 1e-4
     assert _rel_err(tb, b) <= 1e-4
     np.testing.assert_allclose(float(tloss), float(jnp.sum(w * r * r)), rtol=1e-4)
+    # the tracker's form: a GnSystem made once for the frame, called twice
+    system = ttr.GnSystem(tc, tdm, (tdm > 0) & (tdm < MAX_DEPTH), tbias, tp, tz.shape[1])
+    for _ in range(2):
+        sH, sb, sloss = system(txyz, tpose[:3], tz, tsdf, tg, tvm_)
+        assert _rel_err(sH, H) <= 1e-4
+        assert _rel_err(sb, b) <= 1e-4
+        np.testing.assert_allclose(float(sloss), float(jnp.sum(w * r * r)), rtol=1e-4)
 
 
 def _coords_rows(state):

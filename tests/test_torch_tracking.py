@@ -117,6 +117,13 @@ def test_gn_normal_equations_match_jax(scene):
     assert _rel_err(tH, H) <= 1e-4
     assert _rel_err(tb, b) <= 1e-4
     np.testing.assert_allclose(float(tloss), float(jnp.sum(w * r * r)), rtol=1e-4)
+    # the tracker's form: a GnSystem made once for the frame, called twice
+    system = ttr.GnSystem(tc, tdm, (tdm > 0) & (tdm < MAX_DEPTH), torch.zeros_like(tc), TP, M)
+    for _ in range(2):
+        sH, sb, sloss = system(txyz, tpose[:3], tz, tsdf, tg, tvalid & _t(rvalid)[:, None])
+        assert _rel_err(sH, H) <= 1e-4
+        assert _rel_err(sb, b) <= 1e-4
+        np.testing.assert_allclose(float(sloss), float(jnp.sum(w * r * r)), rtol=1e-4)
     new = ttr.lm_update(tpose, tH, tb, 1e-2)
     assert torch.isfinite(new).all() and float((new - tpose).abs().max()) <= 0.5
 
