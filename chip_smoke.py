@@ -8,7 +8,10 @@
    source, all at once, and prints the build seconds.
 3. Kernel phase, at the shapes of the quality-stack config on a map built
    by inserting the first frames of the synthetic world with support
-   voxels: K4 (hit table), K1 (hits field; the trackers' 2048 x 64 with one
+   voxels: K4 (hit table at 2048 and 4096 rays, with one origin per ray
+   and with one origin expanded to every ray, unpacked and in BA's packed
+   form; cdf equal to the running f32 sum of the twin's seg; each form
+   timed beside its bound), K1 (hits field; the trackers' 2048 x 64 with one
    origin expanded to every ray, row stride 0, timed, and BA's 2048 x 48),
    K2 (its backward: d packed bit-identical across two calls through one
    DpackedScratch, as a BA step keeps it, and equal to
@@ -24,7 +27,9 @@
    counter back to zero; the host us of both objects, their function forms
    and the conversions their earlier wrappers made printed), K7
    (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
-   bf16 and f32, bit-identical across two calls) against their plain
+   bf16 and f32, bit-identical across three calls, two of them through
+   one kept ReconcileScratch, reset after each; the host us of K4's and
+   K5's wrappers beside what their earlier forms did) against their plain
    torch versions; K9a (occupancy march) and K9b (CDF placement) at the
    Adam tracker's shapes (2048 rays x 100 slots, 64 samples) and at the
    replica gate's BA superset (768 rays x 75 slots, 32 samples); K10a
@@ -74,10 +79,10 @@
    Adam and replica-gate configs: device launches per frame, device time
    per launch of each port kernel;
    then each kernel-phase call profiled alone: its device time per CUDA
-   function and its CUDA launches per call (K9b, K11b, K1 in both origin
-   forms, K2's d xyz form, K3 at both shapes and K8 in every form must
-   make exactly one; K2's d packed form at most four, all of them the
-   port's). A session
+   function and its CUDA launches per call (K4 in every form, K9b, K11b,
+   K1 in both origin forms, K2's d xyz form, K3 at both shapes and K8 in
+   every form must make exactly one; K2's d packed form at most four, all
+   of them the port's; K5's and K6's pack share printed). A session
    that misses one of a wrapper's CUDA functions is run again, up to three
    times, and then the run fails.
 
@@ -168,7 +173,7 @@ PATH_KERNELS = {           # kernels each main path must launch
 }
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
-    "hit_table": ("hit_table_kernel",),
+    "hit_table": ("hit_table_warp_kernel",),
     "hits_field_fwd": ("hits_field_fwd_kernel",),
     "hits_field_bwd": ("hits_field_bwd_kernel", "hits_field_scan_kernel",
                        "hits_field_scatter_kernel", "hits_field_reduce_kernel"),
@@ -177,9 +182,9 @@ KERNEL_FUNCTIONS = {
     "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
                "alloc_kernel", "activate_kernel", "append_kernel"),
     "active_set": ("grid_fill_kernel", "recenter_kernel", "refresh_mark_kernel",
-                   "refresh_place_kernel", "active_pack_kernel"),
-    "reconcile": ("reconcile_compact_kernel", "reconcile_link_kernel", "reconcile_apply_kernel",
-                  "active_pack_kernel"),
+                   "refresh_place_kernel", "active_pack_rows_kernel"),
+    "reconcile": ("reconcile_scan_kernel", "reconcile_link_kernel", "reconcile_fold_kernel",
+                  "active_pack_rows_kernel"),
     "march_occupancy": ("march_occupancy_kernel",),
     "place_samples_cdf": ("place_samples_kernel",),
     "mesh_lattice": ("mesh_lattice_kernel",),
@@ -189,7 +194,9 @@ KERNEL_FUNCTIONS = {
     "s2s_system": ("s2s_system_kernel",),
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
-ONE_LAUNCH = ("place_samples_cdf", "s2s_system", "hits_field_fwd",
+ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
+              "hit_table, packed, origin row stride 0", "hit_table, R=2048, origin row stride 0",
+              "place_samples_cdf", "s2s_system", "hits_field_fwd",
               "hits_field_fwd, origin row stride 0", "hits_field_bwd, d xyz", "gn_system",
               "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
               "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
@@ -259,6 +266,16 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def running_sum(seg):
+    """(R, H) inclusive sums of seg's columns, one f32 add at a time in
+    ascending column order (K4's cdf, bit for bit)."""
+    acc, cols = torch.zeros_like(seg[:, 0]), []
+    for h in range(seg.shape[1]):
+        acc = acc + seg[:, h]
+        cols.append(acc)
+    return torch.stack(cols, 1)
+
+
 def bound(nbytes, flops):
     """Least time (ms) for the work: bytes over the HBM rate or f32 flops
     over the f32 rate, the larger of the two, and which one it is."""
@@ -317,8 +334,10 @@ def device_us(name, fn, reps=20, sessions=5, want=None):
     ``reps`` calls that it discards (a cold session drops kernel records)
     before the ``reps`` it keeps. Every function of KERNEL_FUNCTIONS[name]
     (or of ``want``, a form's own functions) must show ``reps`` launches at
-    least: a session that drops some is run again, and after ``sessions``
-    such sessions the run fails."""
+    least, and every device operation that recurs a whole multiple of
+    ``reps``: a session that drops records, or keeps a stray few of the
+    discarded step's, is run again, and after ``sessions`` such sessions
+    the run fails."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -334,17 +353,18 @@ def device_us(name, fn, reps=20, sessions=5, want=None):
                 torch.cuda.synchronize()
                 prof.step()
         times = port_kernel_times(prof)
-        if all(times.get(f, (0, 0))[1] >= reps for f in want):
-            # device work that recurs on every call (a session also holds
-            # a stray record or two of the profiler's own)
-            launches = sum(e.count for e in prof.key_averages() if _on_device(e)
-                           and e.count >= reps)
+        # device work that recurs on every call (a session also holds a
+        # stray record or two of the profiler's own)
+        recurring = [e.count for e in prof.key_averages() if _on_device(e) and e.count >= reps]
+        if all(times.get(f, (0, 0))[1] >= reps for f in want) and not any(
+                n % reps for n in recurring):
             per_fn = {k: t / n for k, (t, n) in times.items()}
-            return per_fn, sum(per_fn.values()), launches / reps
+            return per_fn, sum(per_fn.values()), sum(recurring) / reps
         log(f"[{name}] the profiler kept {({f: times.get(f, (0, 0))[1] for f in want})} "
-            f"launches of {reps} calls; profiling again")
-    raise AssertionError(f"{name}: the profiler dropped launches of {want} in {sessions} "
-                         "sessions")
+            f"launches of {reps} calls, device operations recurring {recurring} times; "
+            "profiling again")
+    raise AssertionError(f"{name}: the profiler dropped or added launches of {want} in "
+                         f"{sessions} sessions")
 
 
 def _on_device(e):
@@ -380,6 +400,10 @@ def add_device_times(records):
             + f"; {per_call:.2f} us per call; {launches:g} CUDA launches per call (profile)")
         if r["name"] in ONE_LAUNCH:
             check(launches == 1, f"{r['name']}: {launches} CUDA launches per call, not one")
+        pack = per_fn.get("active_pack_rows_kernel")
+        if pack is not None:  # K5's and K6's shared pack pass
+            log(f"[{r['name']}] the pack pass: {pack:.2f} of {per_call:.2f} us per call "
+                f"({pack / per_call:.3f})")
         if r["name"] in MAX_LAUNCHES:
             check(launches <= MAX_LAUNCHES[r["name"]] and launches == len(per_fn),
                   f"{r['name']}: {launches} CUDA launches per call, {len(per_fn)} of them the "
@@ -451,38 +475,68 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
 
     records = []
 
-    # ---- K4 at the tracker (R=2048) and BA superset (R=4096) shapes
-    worst_t = worst_cdf = 0.0
-    tables = {}
+    # ---- K4 at the tracker (R=2048) and BA superset (R=4096) shapes, each
+    # with one origin per ray, with one origin expanded to every ray (row
+    # stride 0: the tracker's and a one-frame BA step's form, read as it
+    # is) and in BA's packed form
+    e4 = 0.0  # cdf against the twin's torch.cumsum
+    tables, k4_calls = {}, {}
+    cstep, S = raycast._coarse_shape(rc_t)
+    H = rc_t.max_hits
     for R in (slam.tp.n_rays, 2 * slam.bp_current.n_rays):
         o, d, tc, pts, pcos, rvalid = rays(R)
-        ker = raycast.build_hit_table(ms, cfg, rc_t, o, d, tc)
+        o1 = o[:1].expand_as(d)
         ref = raycast.build_hit_table_plain(ms, cfg, rc_t, o, d, tc)
-        torch.cuda.synchronize()
-        check(torch.equal(ker.aid, ref.aid), f"K4 aid differs (R={R})")
-        check(torch.equal(ker.cell, ref.cell), f"K4 cell differs (R={R})")
-        check(torch.equal(ker.ray_mask, ref.ray_mask), f"K4 ray_mask differs (R={R})")
-        e_t = max(max_abs(ker.t_near, ref.t_near), max_abs(ker.seg, ref.seg))
-        e_c = float(((ker.cdf - ref.cdf).abs() / ref.cdf.abs().clamp(min=1e-6)).max())
-        check(e_t <= 1e-6, f"K4 t_near/seg error {e_t}")
-        check(e_c <= 1e-5, f"K4 cdf rel error {e_c}")
-        worst_t, worst_cdf = max(worst_t, e_t), max(worst_cdf, e_c)
+        for form, ro in (("origin per ray", o), ("origin row stride 0", o1)):
+            ker = raycast.build_hit_table(ms, cfg, rc_t, ro, d, tc)
+            kp = raycast.build_hit_table_packed(ms, cfg, rc_t, ro, d, tc)
+            torch.cuda.synchronize()
+            for nm in ("aid", "cell", "ray_mask", "t_near", "seg"):
+                check(torch.equal(getattr(ker, nm), getattr(ref, nm)), f"K4 {nm} differs (R={R}, "
+                      f"{form})")
+            check(torch.equal(ker.cdf, running_sum(ref.seg)),
+                  f"K4 cdf is not the running f32 sum of seg (R={R}, {form})")
+            check(torch.equal(kp, raycast.pack_hit_table(ker)),
+                  f"K4's packed rows are not pack_hit_table of its table (R={R}, {form})")
+            e4 = max(e4, max_abs(ker.cdf, ref.cdf))
+            k4_calls[R, form] = partial(raycast.build_hit_table, ms, cfg, rc_t, ro, d, tc)
+        k4_calls[R, "packed, origin row stride 0"] = partial(raycast.build_hit_table_packed, ms,
+                                                             cfg, rc_t, o1, d, tc)
         tables[R] = (o, d, tc, ref, pts, pcos, rvalid)
         hits = float((ref.aid >= 0).sum(1).float().mean())
         log(f"[K4] R={R}: mean hits/ray {hits:.2f}, ray hit rate "
-            f"{float(ref.ray_mask.float().mean()):.3f}, t/seg err {e_t:.3g}, cdf rel err {e_c:.3g}")
-    o, d, tc, ht, *_ = tables[2 * slam.bp_current.n_rays]
-    R, H = o.shape[0], rc_t.max_hits
-    cstep, S = raycast._coarse_shape(rc_t)
-    # probes the rays need: each walks to its range (t_cap + one step)
-    probes = float(torch.clamp(torch.ceil((tc + cstep) / cstep), max=S).sum())
-    k_ms = median_ms(lambda: raycast.build_hit_table(ms, cfg, rc_t, o, d, tc))
+            f"{float(ref.ray_mask.float().mean()):.3f}; aid, cell, ray_mask, t_near, seg equal to "
+            "the twin, cdf to the running f32 sum of its seg, packed rows to pack_hit_table, with "
+            "one origin per ray and with one origin expanded (row stride 0)")
+    k4_bound = {}
+    for R in tables:
+        tc = tables[R][2]
+        # probes the rays need: each walks to its range (t_cap + one step);
+        # the rays (an origin each, or one), the probes' grid cells and the
+        # table's 28 bytes a slot (+ ray_mask unpacked) moved
+        probes = float(torch.clamp(torch.ceil((tc + cstep) / cstep), max=S).sum())
+        out = R * H * 28
+        k4_bound[R, "origin per ray"] = (R * 28 + 4 * probes + out + R, 12 * probes + 20 * R * H)
+        k4_bound[R, "origin row stride 0"] = (12 + R * 16 + 4 * probes + out + R,
+                                              12 * probes + 20 * R * H)
+        k4_bound[R, "packed, origin row stride 0"] = (12 + R * 16 + 4 * probes + out,
+                                                      12 * probes + 20 * R * H)
+        log(f"[K4] R={R} S={S} H={H}: {probes / R:.1f} probes per ray")
+    for (R, form), call in k4_calls.items():
+        log(f"[K4] R={R}, {form}: kernel {median_ms(call):.4f} ms, bound "
+            f"{bound(*k4_bound[R, form])[0]:.5f} ms")
+    R = 2 * slam.bp_current.n_rays
+    o, d, tc = tables[R][:3]
     p_ms = median_ms(lambda: raycast.build_hit_table_plain(ms, cfg, rc_t, o, d, tc))
-    log(f"[K4] R={R} S={S} H={H}: {probes / R:.1f} probes per ray")
-    records.append(record("hit_table", "hit_table.cu", "nerfloam_tpu/ops/raycast.py:159",
-                          max(worst_t, worst_cdf), k_ms, p_ms,
-                          R * 28 + 4 * probes + R * H * 28 + R, 12 * probes + 20 * R * H,
-                          dev=partial(raycast.build_hit_table, ms, cfg, rc_t, o, d, tc)))
+    k4_forms = {"hit_table, origin row stride 0": k4_calls[R, "origin row stride 0"],
+                "hit_table, packed, origin row stride 0": k4_calls[R, "packed, origin row stride 0"],
+                "hit_table, R=2048, origin row stride 0":
+                    k4_calls[slam.tp.n_rays, "origin row stride 0"]}
+    records.append(record("hit_table", "hit_table.cu", "nerfloam_tpu/ops/raycast.py:159", e4,
+                          median_ms(k4_calls[R, "origin per ray"]), p_ms,
+                          *k4_bound[R, "origin per ray"], dev=k4_calls[R, "origin per ray"],
+                          forms={k: (v, KERNEL_FUNCTIONS["hit_table"])
+                                 for k, v in k4_forms.items()}))
 
     # ---- K1 / K2 at the tracker (M=64, one origin expanded to every ray,
     # row stride 0, as the trackers pass it) and BA (M=48, one origin per
@@ -745,7 +799,8 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
     records.append(record("insert", "insert.cu", "nerfloam_tpu/map/voxel_map.py:311", 0.0,
                           k_ms, p_ms, P * 18 + 32 * Pc + 16 * n_new + n_act * (33 + 532),
                           10 * P, dev=partial(vm.insert_points, *args7)))
-    records += map_kernels(slam, ms, frames, gen)
+    o, d, tc = tables[2 * slam.bp_current.n_rays][:3]
+    records += map_kernels(slam, ms, frames, gen, (o[:1].expand_as(d), d, tc))
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
@@ -757,9 +812,11 @@ def distinct_corners(ms, rows):
     return int(torch.unique(ms.corner_idx[ms.active_ids[rows].long()].clamp(min=0)).numel())
 
 
-def map_kernels(slam, ms, frames, gen):
+def map_kernels(slam, ms, frames, gen, k4_rays):
     """K6 (recenter + refresh) one frame's move away, and K5 (reconcile +
-    repack) on a touched set of the quality cap, against their twins."""
+    repack) on a touched set of the quality cap, against their twins; the
+    host costs of K4's and K5's wrappers (``k4_rays``: BA's superset, see
+    k45_host_costs)."""
     dev, cfg = slam.device, slam.map_cfg
     records = []
     # ---- K6: the region moved to the second frame's position
@@ -789,25 +846,32 @@ def map_kernels(slam, ms, frames, gen):
         20 * n_lat,
         dev=lambda: vm.refresh_active(vm.recenter(ms, cfg, center), cfg)))
 
-    # ---- K5: a touched set of ~60% of the quality cap, 0.01-sized deltas
+    # ---- K5: a touched set of ~60% of the quality cap, 0.01-sized deltas;
+    # each call without a scratch and through one ReconcileScratch kept over
+    # the calls (as the pipeline keeps it)
     T = slam.bp_current.touched_cap
     st = kf
     pick = torch.rand((A,), generator=gen, device=dev) < min(1.0, 0.6 * T / max(n_act, 1))
     touched = pick & (torch.arange(A, device=dev) < n_act)
     new_packed = st.packed + 0.01 * torch.randn(st.packed.shape, generator=gen, device=dev)
+    k5s = vm.ReconcileScratch()
     e5 = 0.0
     for dt in (torch.bfloat16, torch.float32):
         s5 = st._replace(embeddings=st.embeddings.to(dt))
         s5 = s5._replace(packed=vm.pack_embeddings(s5, cfg))
         np5 = (s5.packed + (new_packed - st.packed)).contiguous()
         k1 = vm.reconcile(s5, cfg, np5, touched, T)
-        k2 = vm.reconcile(s5, cfg, np5, touched, T)
+        k2 = vm.reconcile(s5, cfg, np5, touched, T, scratch=k5s)
+        k3 = vm.reconcile(s5, cfg, np5, touched, T, scratch=k5s)
         cpu = vm.MapState(*[x.cpu() for x in s5])
         ref = vm.reconcile_plain(cpu, cfg, np5.cpu(), touched.cpu(), T)
         torch.cuda.synchronize()
         for nm in vm.Reconciled._fields:
-            check(torch.equal(getattr(k1, nm), getattr(k2, nm)),
-                  f"K5 {nm} differs between two calls ({dt})")
+            check(torch.equal(getattr(k1, nm), getattr(k2, nm))
+                  and torch.equal(getattr(k1, nm), getattr(k3, nm)),
+                  f"K5 {nm} differs between calls ({dt})")
+        check(bool((k5s.head == -1).all()) and not bool(k5s.scan_state.any()),
+              f"K5's kept scratch is not reset after a call ({dt})")
         for nm in ("packed", "upd_count", "touched_count"):
             check(torch.equal(getattr(k1, nm).cpu(), getattr(ref, nm)), f"K5 {nm} differs ({dt})")
         diff = k1.embeddings.cpu().float() - ref.embeddings.float()
@@ -820,12 +884,19 @@ def map_kernels(slam, ms, frames, gen):
         e5 = max(e5, float(diff.abs().max()))
         log(f"[K5] {dt}: {int(ref.touched_count)} touched of cap {T}, A={A}; embeddings "
             f"{'identical' if bool((diff == 0).all()) else 'within one ulp'} to the twin on the "
-            "CPU, every table bit-identical across two calls")
+            "CPU, every table bit-identical across three calls (one without a scratch, two "
+            "through one kept scratch, its head table all -1 and scan states zero after them)")
     nt = min(int(touched.sum()), T)
     trows = torch.nonzero(touched).squeeze(1)[:nt]
     nc = distinct_corners(st, trows)
-    k_ms = median_ms(lambda: vm.reconcile(st, cfg, new_packed, touched, T))
+    k5 = partial(vm.reconcile, st, cfg, new_packed, touched, T, scratch=k5s)
+    k_ms = median_ms(k5)
     p_ms = median_ms(lambda: vm.reconcile_plain(st, cfg, new_packed, touched, T))
+    log(f"[K5] without a kept scratch (a (C,) fill a call): "
+        f"{median_ms(partial(vm.reconcile, st, cfg, new_packed, touched, T)):.4f} ms; its two "
+        f"clones alone (the replay's pre-step tables kept): embeddings "
+        f"{median_ms(st.embeddings.clone):.4f} ms, upd_count {median_ms(st.upd_count.clone):.4f} ms")
+    k45_host_costs(ms, cfg, slam.rc_track, k4_rays, st, new_packed, touched, T, k5s)
     # touched mask + active ids in; old and new packed rows and corner ids
     # of the kept rows; their distinct corners read and written; the
     # touched voxels' counts; the repack: every active row's corner ids and
@@ -834,8 +905,53 @@ def map_kernels(slam, ms, frames, gen):
         "reconcile", "reconcile.cu", "nerfloam_tpu/map/voxel_map.py:233", e5, k_ms, p_ms,
         A * 5 + nt * (2 * 512 + 32) + 2 * nc * F * esz + int(touched.sum()) * 8
         + A * 32 + distinct_corners(st, torch.arange(n_act, device=dev)) * F * esz + A * 512,
-        nt * 8 * F * 4, dev=partial(vm.reconcile, st, cfg, new_packed, touched, T)))
+        nt * 8 * F * 4, dev=k5))
     return records
+
+
+def host_us_idle(fn, calls=50):
+    """Mean host microseconds from the call to its return, the card idle
+    before each call (synchronised first): a wrapper's host cost where its
+    device time is longer than it, which a loop of calls would time."""
+    total = 0.0
+    fn()
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def k45_host_costs(ms, cfg, rc, k4_rays, st, new_packed, touched, T, k5s):
+    """Host us of K4's and K5's wrappers (the card idle before each call)
+    beside what their earlier forms did instead: K4's conversions of its
+    inputs (``.float()`` / ``.to(torch.int32)`` and ``.contiguous()``,
+    which copies an expanded origin) and BA's pack of the table in torch
+    (``pack_hit_table``: two casts and a concatenation), K5's
+    ``torch.cumsum`` of the touched mask and the clone of its last entry,
+    and the kept scratch against one made for the call. K4 at BA's
+    superset with one origin expanded to every ray (``k4_rays``: rays_o,
+    rays_d, t_cap)."""
+    o1, d, tc = k4_rays
+    ht = raycast.build_hit_table(ms, cfg, rc, o1, d, tc)
+    pieces = {
+        "K4 call, origin row stride 0": partial(raycast.build_hit_table, ms, cfg, rc, o1, d, tc),
+        "K4 packed call": partial(raycast.build_hit_table_packed, ms, cfg, rc, o1, d, tc),
+        "K4 conversions before": lambda: [t.contiguous() for t in (
+            ms.grid_active, ms.region_min.to(torch.int32), o1.float(), d.float(), tc.float())],
+        "pack_hit_table (BA's torch pack before)": partial(raycast.pack_hit_table, ht),
+        "K5 call, scratch kept": partial(vm.reconcile, st, cfg, new_packed, touched, T,
+                                         scratch=k5s),
+        "K5 call, scratch made for it": partial(vm.reconcile, st, cfg, new_packed, touched, T),
+        "K5 cumsum and count clone before": lambda: torch.cumsum(touched, 0,
+                                                                 dtype=torch.int32)[-1].clone(),
+    }
+    costs = {k: host_us_idle(fn) for k, fn in pieces.items()}
+    log("[K4/K5] host us per call (card idle before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
 
 
 def host_us(fn, calls=2000):

@@ -2,8 +2,9 @@
 nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
 One call = one BA step: a 2x ray superset per frame is drawn and, once per
-step, its hit table built (K4, hits sampler) or its occupancy cdf marched
-(K9a, grid sampler, with K9b's CdfPlacer made over it); every iteration
+step, its hit table built (K4, hits sampler, packed into one row a ray by
+the launch) or its occupancy cdf marched (K9a, grid sampler, with K9b's
+CdfPlacer made over it); every iteration
 trains on a random subset of it through K1 (hits) or K9b + K8 (grid, each
 ray reading its superset row of the cdf), with K8's band/anchor columns when
 the quality stack is on, and K2 in the backward (core/render
@@ -12,12 +13,12 @@ corner table, the decoder and the poses. Adam follows
 ``optax.scale_by_adam`` (tracking.scale_by_adam_) with fresh state per
 call, applied as ``p - lr * u``. Frozen groups have their gradients zeroed
 before Adam, which with fresh state equals leaving them out. After the
-loop K5 (voxel_map.reconcile) folds the touched voxels' deltas back into
-the canonical embeddings (mean), bumps their update counts and repacks the
-table from them. With ``measure_bias`` the final
-field is probed at the window's measured points (K8 then the decoder):
-``surface_bias`` is its mean there, the offset the pipeline's bias
-transfer feeds to the next tracked frame.
+loop K5 (voxel_map.reconcile, through the caller's ``ReconcileScratch``)
+folds the touched voxels' deltas back into the canonical embeddings
+(mean), bumps their update counts and repacks the table from them. With
+``measure_bias`` the final field is probed at the window's measured
+points (K8 then the decoder): ``surface_bias`` is its mean there, the
+offset the pipeline's bias transfer feeds to the next tracked frame.
 """
 
 from __future__ import annotations
@@ -41,9 +42,8 @@ from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
-    build_hit_table,
+    build_hit_table_packed,
     march_occupancy,
-    pack_hit_table,
     uniform_jitter,
     unpack_hit_table,
 )
@@ -86,11 +86,13 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp: BAParams,
             decoder_params, poses, points, points_cos, points_valid, frame_active, pose_free,
             update_decoder: bool, lrs, generator: torch.Generator | None = None,
-            proj_dir=None) -> BAResult:
+            proj_dir=None, reconcile_scratch: vm.ReconcileScratch | None = None) -> BAResult:
     """One BA step. ``poses`` (W, 6), ``points`` (W, P, 3), ``points_cos``
     and ``points_valid`` (W, P), ``frame_active`` / ``pose_free`` (W,) bool,
     ``lrs`` [emb, decoder, pose]. ``proj_dir`` (W, 3): remove that
-    component from each frame's translation update every iteration."""
+    component from each frame's translation update every iteration.
+    ``reconcile_scratch``: K5's scratch, kept by the caller from step to
+    step (the pipeline's; None: one made for this step)."""
     if bp.ray_superset <= 0:
         raise NotImplementedError(
             "BA without a ray superset is not ported yet (ROADMAP queue 1, item 15)")
@@ -114,7 +116,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3), wdirs0.reshape(W * K, 3),
                     sup_tcap.reshape(W * K))
         if use_hits:
-            sup_hits = pack_hit_table(build_hit_table(*sup_args)).reshape(W, K, -1)
+            sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
         else:  # K9a once and K9b's fixed arguments packed once; rows pick each ray's cdf row
             placer = CdfPlacer(*sup_args[:3], *march_occupancy(*sup_args), sup_args[5], M, W * N)
             frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
@@ -182,7 +184,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
 
     with torch.no_grad():
         new_emb, packed, upd_count, touched_count = vm.reconcile(
-            map_state, map_cfg, emb.detach(), touched, bp.touched_cap)
+            map_state, map_cfg, emb.detach(), touched, bp.touched_cap, reconcile_scratch)
     new_dec = {k: [p.detach() for p in v] for k, v in dec.items()}
     surface_bias = torch.zeros((), device=dev)
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field

@@ -211,6 +211,9 @@ class NerfLoamSLAM_torch:
         seed = int(tpu["seed"])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # K5's scratch, kept for the run: its (C,) head table is filled
+        # once, and again only when the map grows
+        self.reconcile_scratch = vm.ReconcileScratch()
         self.pyrng = pyrandom.Random(seed)
         dec = cfg.decoder_specs
         params = init_decoder(
@@ -327,7 +330,8 @@ class NerfLoamSLAM_torch:
         return ba_mod.ba_step(
             st.map_state, self.map_cfg, self.rc_map, bp, st.decoder_params, self._tensor(poses),
             pts, cos, val, self._tensor(active, torch.bool), self._tensor(pose_free, torch.bool),
-            bool(update_decoder), self.ba_lrs, self.generator)
+            bool(update_decoder), self.ba_lrs, self.generator,
+            reconcile_scratch=self.reconcile_scratch)
 
     def _apply_ba(self, res):
         st = self.state
@@ -467,7 +471,8 @@ class NerfLoamSLAM_torch:
             ba = ba_mod.ba_step(ms, cfg, self.rc_map, self.bp_current, st.decoder_params,
                                 tr.pose[None], pts[None], cos[None], val[None],
                                 torch.ones((1,), dtype=torch.bool, device=self.device),
-                                pose_free, update_decoder, self.ba_lrs, self.generator)
+                                pose_free, update_decoder, self.ba_lrs, self.generator,
+                                reconcile_scratch=self.reconcile_scratch)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
             ms = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,

@@ -17,7 +17,7 @@
 //   place     an active row of rank r < A writes active_ids[r] = i and
 //             grid_active[flat] = r: the active order is ascending lattice
 //             id, exactly the order of JAX's cumsum
-//   pack      one thread per (active row, packed float): the row's 8 corner
+//   pack      a warp per active row, a float4 per lane: the row's 8 corner
 //             embeddings as f32 (A, 8F), and active_coords[a] =
 //             lat_coords[active_ids[a]] (padding rows read row 0, as in JAX)
 // The true count n_active (it may exceed A) is the prefix sum's last entry.
@@ -27,13 +27,14 @@
 // lat_coords (25 MB) and writes the grid; refresh reads lat_coords and
 // is_surface, writes the grid again, and gathers 8 embedding rows per
 // active voxel into the (A, 128) f32 table (37.7-67.1 MB written). All
-// memory-bound streaming plus one gather per packed float.
+// memory-bound streaming plus one gather per 16 bytes of a packed row.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPackWarps = 8;  // packed rows per block
 
 inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
@@ -87,28 +88,38 @@ __global__ void refresh_place_kernel(const int* __restrict__ lat_coords,
   grid_active[flat_cell(lat_coords + 3 * i, rmin, Dx, Dy, Dz)] = r;
 }
 
-__device__ __forceinline__ float emb_at(const void* emb, int bf16, size_t i) {
-  if (bf16) {
-    unsigned int bits = static_cast<const unsigned short*>(emb)[i];
-    return __uint_as_float(bits << 16);
+// A warp per active row a, one float4 of the packed row per lane: the
+// row's active id is read once for the warp, each corner id once for the
+// lanes of its corner (one load), the embedding 16 bytes (f32) or 8 bytes
+// (four bf16, widened) at a time, and the row goes out as 16-byte stores.
+// A copy and a widening: bit-identical to the plain gather. 32-bit index
+// math (the wrappers check A * 8F < 2^31 and F % 4 == 0).
+__global__ void __launch_bounds__(32 * kPackWarps) active_pack_rows_kernel(
+    const int* __restrict__ active_ids, const int* __restrict__ corner_idx,
+    const void* __restrict__ emb, int bf16, int A, int F, const int* __restrict__ lat_coords,
+    float* __restrict__ packed, int* __restrict__ active_coords) {
+  const int lane = threadIdx.x & 31;
+  const int a = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+  if (a >= A) return;
+  const int id = active_ids[a];
+  const int q4 = F >> 2;   // float4s per corner
+  const int nq = 8 * q4;   // float4s per packed row
+  float4* out = reinterpret_cast<float4*>(packed) + a * nq;
+  for (int q = lane; q < nq; q += 32) {
+    const int j = q / q4, f4 = q - j * q4;
+    const int c = max(corner_idx[8 * id + j], 0);  // padding corners read row 0, as in JAX
+    float4 v;
+    if (bf16) {
+      const uint2 b = reinterpret_cast<const uint2*>(static_cast<const unsigned short*>(emb) +
+                                                     (size_t)c * F)[f4];
+      v = make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u),
+                      __uint_as_float(b.y << 16), __uint_as_float(b.y & 0xffff0000u));
+    } else {
+      v = reinterpret_cast<const float4*>(static_cast<const float*>(emb) + (size_t)c * F)[f4];
+    }
+    out[q] = v;
   }
-  return static_cast<const float*>(emb)[i];
-}
-
-__global__ void active_pack_kernel(const int* __restrict__ active_ids,
-                                   const int* __restrict__ corner_idx,
-                                   const void* __restrict__ emb, int bf16, int A, int F,
-                                   const int* __restrict__ lat_coords, float* __restrict__ packed,
-                                   int* __restrict__ active_coords) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int row = 8 * F;
-  if (t >= (long long)A * row) return;
-  int a = (int)(t / row), e = (int)(t - (long long)a * row);
-  int j = e / F, f = e - j * F;
-  int id = active_ids[a];
-  int c = corner_idx[8 * id + j];
-  packed[t] = emb_at(emb, bf16, (size_t)(c < 0 ? 0 : c) * F + f);
-  if (active_coords != nullptr && e < 3) active_coords[3 * a + e] = lat_coords[3 * id + e];
+  if (active_coords != nullptr && lane < 3) active_coords[3 * a + lane] = lat_coords[3 * id + lane];
 }
 
 }  // namespace
@@ -150,9 +161,9 @@ extern "C" int nl_refresh_place(const int* lat_coords, const int* act, const int
 extern "C" int nl_active_pack(const int* active_ids, const int* corner_idx, const void* emb,
                               int bf16, int A, int F, const int* lat_coords, float* packed,
                               int* active_coords, void* stream) {
-  long long n = (long long)A * 8 * F;
-  if (n > 0)
-    active_pack_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-        active_ids, corner_idx, emb, bf16, A, F, lat_coords, packed, active_coords);
+  if (A > 0)
+    active_pack_rows_kernel<<<(A + kPackWarps - 1) / kPackWarps, 32 * kPackWarps, 0,
+                              (cudaStream_t)stream>>>(active_ids, corner_idx, emb, bf16, A, F,
+                                                      lat_coords, packed, active_coords);
   return (int)cudaGetLastError();
 }

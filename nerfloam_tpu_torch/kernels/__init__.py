@@ -41,8 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nl_hit_table": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F,
-                     _P, _P, _P, _P, _P, _P, _P],
+    "nl_hit_table": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _F, _F,
+                     _P, _P, _P, _P, _P, _P, _P, _P],
     "nl_hit_table_max_hits": [],
     "nl_hits_field_fwd": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F,
                           _P, _P, _P, _P, _P, _P],
@@ -67,9 +67,9 @@ _SIGNATURES = {
     "nl_refresh_mark": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "nl_refresh_place": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "nl_active_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "nl_reconcile_compact": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "nl_reconcile_link": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "nl_reconcile_apply": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    "nl_reconcile_scan_tiles": [_I],
+    "nl_reconcile": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P],
     "nl_march_occupancy": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     "nl_place_max_slots": [],
     "nl_place_args_layout": [_P],

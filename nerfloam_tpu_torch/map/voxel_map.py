@@ -18,8 +18,8 @@ Kernels, each with a plain torch twin that CPU tensors take: K7
 ``recenter_plain`` and ``refresh_active_plain``); K5 ``reconcile``, the
 BA step's tail (csrc/reconcile.cu, twin ``reconcile_plain``, which runs
 the JAX-named pieces ``reconcile_packed``, ``bump_upd_count`` and
-``pack_embeddings``). The kernels write fresh tables, so a kept state
-stays valid.
+``pack_embeddings``; its scratch a ``ReconcileScratch`` the pipeline
+keeps). The kernels write fresh tables, so a kept state stays valid.
 """
 
 from __future__ import annotations
@@ -267,6 +267,7 @@ def refresh_active(state: MapState, cfg: MapConfig) -> MapState:
     rmin = state.region_min.to(torch.int32).contiguous()
     num_lat = state.num_lat.to(torch.int32).reshape(1)
     emb, bf16 = _emb_args(state.embeddings)
+    _pack_check("refresh_active", emb, A, F)
     act = torch.empty((C,), **i32)
     grid_active = torch.empty((int(np.prod(cfg.grid_dim)),), **i32)
     active_ids = torch.empty((A,), **i32)
@@ -349,55 +350,121 @@ def reconcile_plain(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
                       bump_upd_count(state, cfg, touched), touched.sum(dtype=torch.int32))
 
 
+class ReconcileScratch:
+    """K5's scratch, owned by its caller: the pipeline keeps one for the
+    run and hands it to every BA step (``ba_step(reconcile_scratch=)``), so
+    the (C,) head table is filled with -1 once per map capacity, not once
+    per step. It holds that table (every call leaves it all -1: the head of
+    each corner's list resets its entry), the scan's tile states and its
+    ticket (int64, the ticket last; left at zero), and the compacted rows
+    and contribution lists for up to T kept rows. It is allocated at its
+    first call on the card, again for a call with a larger map (``grow``),
+    more active rows or a larger cap, and dropped by a call whose launch
+    fails (the next call starts afresh). Calls on one stream take turns
+    with it."""
+
+    def __init__(self):
+        self.drop()
+
+    def fit(self, dev, C: int, A: int, T: int):
+        """The kernels' scratch pointers (head, tile states, ticket, t_rows,
+        t_ids, cid, next) for C map rows, A active rows and T kept rows on
+        dev."""
+        tiles = kernels.lib().nl_reconcile_scan_tiles(A)
+        if self.ptrs is None or dev != self.dev or C > self.C or tiles > self.tiles or T > self.T:
+            C, tiles, T = max(C, self.C), max(tiles, self.tiles), max(T, self.T, 1)
+            i32 = dict(dtype=torch.int32, device=dev)
+            self.head = torch.full((C,), -1, **i32)
+            self.scan_state = torch.zeros((tiles + 1,), dtype=torch.int64, device=dev)
+            self._lists = (torch.empty((T,), **i32), torch.empty((T,), **i32),
+                           torch.empty((8 * T,), **i32),
+                           torch.empty((8 * T,), **i32))  # t_rows, t_ids, cid, next
+            self.C, self.tiles, self.T, self.dev = C, tiles, T, dev
+            state = self.scan_state.data_ptr()
+            self.ptrs = (self.head.data_ptr(), state, state + 8 * tiles,
+                         *[t.data_ptr() for t in self._lists])
+        return self.ptrs
+
+    def drop(self):
+        self.C = self.tiles = self.T = 0
+        self.dev = self.ptrs = self.head = self.scan_state = self._lists = None
+
+
+def _pack_check(name: str, emb: torch.Tensor, A: int, F: int):
+    """The pack pass's limits: F a multiple of 4 (float4 stores), 32-bit
+    indices (A * 8F < 2^31) and 16-byte aligned embedding rows."""
+    if F % 4 or A * 8 * F >= 2**31 or emb.data_ptr() % 16:
+        raise ValueError(f"{name}: the pack pass needs feat_dim % 4 == 0 (got {F}), A * 8F < "
+                         f"2^31 (got {A * 8 * F}) and 16-byte aligned embeddings")
+
+
 def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched: torch.Tensor,
-              touched_cap: int) -> Reconciled:
+              touched_cap: int, scratch: ReconcileScratch | None = None) -> Reconciled:
     """K5. Replaces nerfloam_tpu/map/voxel_map.py:233-308 (reconcile_packed
     in "mean" mode, bump_upd_count, pack_embeddings) as one BA step's tail
-    calls them: compact the touched rows to ``touched_cap`` by rank
-    (inclusive torch.cumsum first), link each corner's contributions,
-    apply them in ascending (rank, corner slot) order with the delta cast
-    to the embedding type before every add, then repack all A rows.
-    Deterministic: two calls give bit-identical tables. CPU tensors take
-    ``reconcile_plain``; CUDA tensors launch csrc/reconcile.cu and the pack
-    pass of csrc/active_set.cu. The tables are fresh copies."""
+    calls them: rank and compact the touched rows to ``touched_cap`` in one
+    pass (a decoupled look-back scan, which also bumps their counts), link
+    each corner's contributions, fold them in ascending (rank, corner slot)
+    order with the delta cast to the embedding type before every add, then
+    repack all A rows. Deterministic: two calls give bit-identical tables.
+    CPU tensors take ``reconcile_plain``; CUDA tensors launch
+    csrc/reconcile.cu (three kernels) and the pack pass of
+    csrc/active_set.cu, on inputs as the kernels read them (contiguous; the
+    touched mask bool, new and old packed (A, 128) f32, active_ids,
+    corner_idx and upd_count int32, f32 or bf16 embeddings of 16 features):
+    nothing is converted, anything else raises ValueError. ``scratch``: a
+    ``ReconcileScratch`` kept by the caller (without one, one made for this
+    call: a (C,) fill).
+
+    The embeddings and update counts come back as fresh copies (64 + 8 MB
+    at C = 2,097,152): the kernels fold into those copies, not into the
+    state's tables, because the pipeline replays a BA step whose touched
+    count overflowed its cap from the state it started from
+    (``NerfLoamSLAM_torch.do_mapping``)."""
     if _device_of("reconcile", new_packed).type == "cpu":
         return reconcile_plain(state, cfg, new_packed, touched, touched_cap)
     global reconcile_launches
-    lib = kernels.lib()
+    name = "reconcile"
     dev = new_packed.device
-    C, A, F, T = cfg.capacity, acap(cfg), cfg.feat_dim, touched_cap
-    if F != 16 or new_packed.shape != (A, 8 * F):
-        raise ValueError("reconcile: packed rows must be 8 x 16 floats")
-    i32 = dict(dtype=torch.int32, device=dev)
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
+    T = min(touched_cap, A)  # no more rows can be kept
+    if F != 16:
+        raise ValueError(f"{name}: packed rows must be 8 x 16 floats")
+    if state.embeddings.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: embeddings must be float32 or bfloat16")
+    kernels.expect(name, dev, torch.bool, touched=touched)
+    kernels.expect(name, dev, torch.float32, new_packed=new_packed, packed=state.packed)
+    kernels.expect(name, dev, torch.int32, active_ids=state.active_ids,
+                   corner_idx=state.corner_idx, upd_count=state.upd_count)
+    kernels.expect(name, dev, state.embeddings.dtype, embeddings=state.embeddings)
+    kernels.expect_shape(name, touched=(touched, (A,)), new_packed=(new_packed, (A, 8 * F)),
+                         packed=(state.packed, (A, 8 * F)), active_ids=(state.active_ids, (A,)),
+                         corner_idx=(state.corner_idx, (C, 8)),
+                         upd_count=(state.upd_count, (C,)),
+                         embeddings=(state.embeddings, (C, F)))
+    if new_packed.data_ptr() % 16 or state.packed.data_ptr() % 16:
+        raise ValueError(f"{name}: packed rows must be 16-byte aligned")
+    _pack_check(name, state.embeddings, A, F)
+    lib = kernels.lib()
+    scratch = ReconcileScratch() if scratch is None else scratch
+    ptrs = scratch.fit(dev, C, A, T)
     stream = kernels.stream_ptr(dev)
-    tmask = touched.to(torch.bool).contiguous()
-    rank = torch.cumsum(tmask, 0, dtype=torch.int32)
-    active_ids = state.active_ids.contiguous()
-    corner_idx = state.corner_idx.contiguous()
     upd_count = state.upd_count.clone()
     emb = state.embeddings.clone()
-    _, bf16 = _emb_args(emb)
-    t_rows = torch.empty((T,), **i32)
-    head = torch.empty((C,), **i32)
-    cid = torch.empty((8 * T,), **i32)
-    nxt = torch.empty((8 * T,), **i32)
-    kernels.check(lib.nl_reconcile_compact(tmask.data_ptr(), rank.data_ptr(), active_ids.data_ptr(),
-                                           A, T, C, upd_count.data_ptr(), t_rows.data_ptr(),
-                                           head.data_ptr(), stream), "reconcile_compact")
-    kernels.check(lib.nl_reconcile_link(rank.data_ptr(), t_rows.data_ptr(), active_ids.data_ptr(),
-                                        corner_idx.data_ptr(), A, T, C, cid.data_ptr(),
-                                        nxt.data_ptr(), head.data_ptr(), stream),
-                  "reconcile_link")
-    new, old = new_packed.float().contiguous(), state.packed.contiguous()
-    kernels.check(lib.nl_reconcile_apply(t_rows.data_ptr(), cid.data_ptr(), nxt.data_ptr(),
-                                         head.data_ptr(), T, new.data_ptr(), old.data_ptr(),
-                                         emb.data_ptr(), bf16, stream), "reconcile_apply")
+    count = torch.empty((), dtype=torch.int32, device=dev)
     packed = torch.empty((A, 8 * F), dtype=torch.float32, device=dev)
-    kernels.check(lib.nl_active_pack(active_ids.data_ptr(), corner_idx.data_ptr(), emb.data_ptr(),
-                                     bf16, A, F, None, packed.data_ptr(), None, stream),
-                  "active_pack")
+    active_ids, corner_idx = state.active_ids.data_ptr(), state.corner_idx.data_ptr()
+    bf16 = int(emb.dtype == torch.bfloat16)
+    err = lib.nl_reconcile(touched.data_ptr(), active_ids, corner_idx, new_packed.data_ptr(),
+                           state.packed.data_ptr(), A, T, C, emb.data_ptr(), bf16,
+                           upd_count.data_ptr(), count.data_ptr(), *ptrs, stream)
+    if err:
+        scratch.drop()  # its head table and tile states may not be reset
+        kernels.check(err, name)
+    kernels.check(lib.nl_active_pack(active_ids, corner_idx, emb.data_ptr(), bf16, A, F, None,
+                                     packed.data_ptr(), None, stream), "active_pack")
     reconcile_launches += 1
-    return Reconciled(emb, packed, upd_count, rank[-1].clone() if A else torch.zeros((), **i32))
+    return Reconciled(emb, packed, upd_count, count)
 
 
 def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Tensor,

@@ -2,7 +2,9 @@
 the hit-table sampler and the grid sampler.
 
 ``build_hit_table`` is kernel K4 (csrc/hit_table.cu) on CUDA tensors and
-its plain torch version ``build_hit_table_plain`` on CPU tensors.
+its plain torch version ``build_hit_table_plain`` on CPU tensors;
+``build_hit_table_packed`` is its form for BA, the table packed into one
+f32 row per ray by the same launch (``pack_hit_table`` of the table).
 ``sample_from_hits`` / ``resolve_cells_in_hits`` are the plain pieces K1
 fuses (core/render.py); they pick the hit by index where JAX contracts a
 one-hot over H, which is exact for the same selection.
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nerfloam_tpu_torch import kernels
@@ -31,6 +34,7 @@ from nerfloam_tpu_torch.map import voxel_map as vm
 hit_table_launches = 0          # K4
 march_occupancy_launches = 0    # K9a
 place_samples_cdf_launches = 0  # K9b
+_HT = "build_hit_table"
 _PLACE = "place_samples_cdf"
 _F32 = torch.float32
 _ORIGIN_STRIDES = ((0, 1), (3, 1))  # rays_o of K9b and K8: one shared origin, or one per ray
@@ -107,49 +111,78 @@ def build_hit_table_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Raycast
     return HitTable(aid.contiguous(), t_near, seg, cdf, hcell.to(torch.int32), cdf[:, -1] > 0.0)
 
 
+def _hit_table_launch(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                      rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor,
+                      packed: bool):
+    """One launch of csrc/hit_table.cu on CUDA tensors taken as they are
+    (see build_hit_table): the six tables, or BA's packed rows."""
+    global hit_table_launches
+    dev = rays_d.device
+    R, H = rays_d.shape[0], rc.max_hits
+    lib = kernels.lib()
+    if not 1 <= H <= lib.nl_hit_table_max_hits():
+        raise ValueError(f"{_HT}: max_hits {H} outside [1, {lib.nl_hit_table_max_hits()}], the "
+                         "hits a warp holds in shared memory")
+    kernels.expect(_HT, dev, torch.int32, grid_active=state.grid_active,
+                   region_min=state.region_min)
+    kernels.expect(_HT, dev, _F32, rays_d=rays_d, t_cap=t_cap)
+    kernels.expect_shape(_HT, grid_active=(state.grid_active, (int(np.prod(map_cfg.grid_dim)),)),
+                         region_min=(state.region_min, (3,)), rays_d=(rays_d, (R, 3)),
+                         t_cap=(t_cap, (R,)))
+    o_stride = kernels.expect_origin(_HT, dev, rays_o, R)
+    cstep, S = _coarse_shape(rc)
+    if packed:
+        out = (torch.empty((R, 7 * H), dtype=_F32, device=dev),)
+        ptrs = (None,) * 6 + (out[0].data_ptr(),)
+    else:
+        out = (torch.empty((R, H), dtype=torch.int32, device=dev),
+               torch.empty((R, H), dtype=_F32, device=dev),
+               torch.empty((R, H), dtype=_F32, device=dev),
+               torch.empty((R, H), dtype=_F32, device=dev),
+               torch.empty((R, H, 3), dtype=torch.int32, device=dev),
+               torch.empty((R,), dtype=torch.bool, device=dev))
+        ptrs = tuple(t.data_ptr() for t in out) + (None,)
+    err = lib.nl_hit_table(
+        state.grid_active.data_ptr(), state.region_min.data_ptr(), *map_cfg.grid_dim,
+        rays_o.data_ptr(), o_stride, rays_d.data_ptr(), t_cap.data_ptr(), R, S, H, cstep,
+        rc.voxel_size, *ptrs, kernels.stream_ptr(dev))
+    kernels.check(err, _HT)
+    hit_table_launches += 1
+    return out
+
+
+def _hit_table_device(name: str, rays_o: torch.Tensor) -> str:
+    if rays_o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {rays_o.device}")
+    return rays_o.device.type
+
+
 def build_hit_table(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
                     rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor) -> HitTable:
     """K4. Replaces nerfloam_tpu/ops/raycast.py:159-220 (build_hit_table with
     voxel_map.py:172-181 lookup_active): the XLA fusion of the (R, S) probe
     march, grid gather, run-start compaction and slab test. CPU tensors take
-    the plain twin; CUDA tensors launch csrc/hit_table.cu (bound by S random
-    4-byte grid reads per ray, see the source)."""
-    if rays_o.device.type == "cpu":
+    the plain twin; CUDA tensors launch csrc/hit_table.cu once (a warp per
+    ray, see the source), on inputs as the kernel reads them: rays_d (R, 3)
+    and t_cap (R,) contiguous f32, rays_o (R, 3) f32 rows with a row stride
+    of 3, or of 0 for one origin expanded to every ray (the tracker's
+    form), the map's grid_active and region_min contiguous int32. Nothing
+    is converted or copied: anything else raises ValueError."""
+    if _hit_table_device(_HT, rays_o) == "cpu":
         return build_hit_table_plain(state, map_cfg, rc, rays_o, rays_d, t_cap)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"build_hit_table: unsupported device {rays_o.device}")
-    global hit_table_launches
-    lib = kernels.lib()
-    R = rays_o.shape[0]
-    H = rc.max_hits
-    if H > lib.nl_hit_table_max_hits():
-        raise ValueError(f"max_hits {H} > kernel limit {lib.nl_hit_table_max_hits()}")
-    cstep, S = _coarse_shape(rc)
-    dev = rays_o.device
-    grid_active = state.grid_active.contiguous()
-    region_min = state.region_min.to(torch.int32).contiguous()
-    o = rays_o.float().contiguous()
-    d = rays_d.float().contiguous()
-    tc = t_cap.float().contiguous()
-    for t in (grid_active, region_min, o, d, tc):
-        if t.device != dev:
-            raise ValueError("build_hit_table: map and rays must share one device")
-    aid = torch.empty((R, H), dtype=torch.int32, device=dev)
-    t_near = torch.empty((R, H), dtype=torch.float32, device=dev)
-    seg = torch.empty_like(t_near)
-    cdf = torch.empty_like(t_near)
-    cell = torch.empty((R, H, 3), dtype=torch.int32, device=dev)
-    ray_mask = torch.empty((R,), dtype=torch.bool, device=dev)
-    Dx, Dy, Dz = map_cfg.grid_dim
-    err = lib.nl_hit_table(
-        grid_active.data_ptr(), region_min.data_ptr(), Dx, Dy, Dz, o.data_ptr(), d.data_ptr(),
-        tc.data_ptr(), R, S, H, cstep, rc.voxel_size, aid.data_ptr(), t_near.data_ptr(),
-        seg.data_ptr(), cdf.data_ptr(), cell.data_ptr(), ray_mask.data_ptr(),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check(err, "hit_table")
-    hit_table_launches += 1
-    return HitTable(aid, t_near, seg, cdf, cell, ray_mask)
+    return HitTable(*_hit_table_launch(state, map_cfg, rc, rays_o, rays_d, t_cap, False))
+
+
+def build_hit_table_packed(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                           rays_o: torch.Tensor, rays_d: torch.Tensor,
+                           t_cap: torch.Tensor) -> torch.Tensor:
+    """K4 in BA's form: ``pack_hit_table(build_hit_table(...))``, the (R,
+    7H) f32 rows [aid, t_near, seg, cdf, cell xyz], written by the one
+    launch (inputs as build_hit_table takes them). CPU tensors pack the
+    plain twin's table."""
+    if _hit_table_device(_HT, rays_o) == "cpu":
+        return pack_hit_table(build_hit_table_plain(state, map_cfg, rc, rays_o, rays_d, t_cap))
+    return _hit_table_launch(state, map_cfg, rc, rays_o, rays_d, t_cap, True)[0]
 
 
 def pack_hit_table(ht: HitTable) -> torch.Tensor:

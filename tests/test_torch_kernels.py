@@ -13,7 +13,10 @@ everywhere.
 Tolerances as in chip_smoke.py: integers, depths and positions exact (the
 kernels round exactly like the plain ops: no FMA contraction, IEEE
 division; also with one origin expanded to every ray, and for K1 at 1 to
-2,000 samples a ray and 20 or 64 hit slots); features 1e-6; d
+2,000 samples a ray and 20 or 64 hit slots); K4's cdf the running f32
+sum of the twin's seg column by column (1e-5 relative to the twin's
+torch.cumsum) at 1 to 64 hit slots, and its packed rows pack_hit_table
+of its table; features 1e-6; d
 xyz 1e-5 relative; d packed 1e-5 of its largest entry (another summation
 order than the twin's), bit-identical between two calls and equal to
 render.dpacked_in_row_order_plain (each row adds its samples in ascending
@@ -26,10 +29,11 @@ order), bit-stable from run to run, a GnSystem made once equal to a fresh
 one, one kernel a call, and its last-block counter back to zero after
 calls of every size (below one block, rays not a multiple of a block's
 warps, an all-false mask); K7 every table equal
-(both elect the smallest slot); K6 every table equal; K5 every table
-equal to the twin run on the CPU (f32 and bf16: both add each corner's
-deltas in ascending order, rounding after every add) and bit-identical
-between two calls; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
+(both elect the smallest slot); K6 every table equal (f32 and bf16); K5
+every table equal to the twin run on the CPU (f32 and bf16: both add
+each corner's deltas in ascending order, rounding after every add) and
+bit-identical between calls without a scratch and through one kept
+ReconcileScratch, whose head table is all -1 after every call; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
 equal and z within one f32 ulp (also with one origin broadcast to every
 ray and widths that are not multiples of 32); the grid render's gradients on the card
 1e-5 of the CPU's largest entry (another summation order); K10a features and
@@ -39,8 +43,8 @@ calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
 relative (another summation order) and bit-stable from run to run, and in
 the accumulating form each entry one add on the sums alone (also into a
 GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
-GnSystem and K8's ActiveField raise on what they would have to convert
-(another device, another dtype, a strided tensor)."""
+GnSystem, K8's ActiveField, K4 and K5 raise on what they would have to
+convert (another device, another dtype, a strided tensor)."""
 
 import ctypes
 import os
@@ -98,17 +102,66 @@ def _case(device, R=96, seed=0):
     return ms, *(torch.as_tensor(x, device=device) for x in (o, d, t_cap))
 
 
-def test_hit_table_kernel_matches_plain(cuda):
-    ms, o, d, tc = _case(cuda)
-    n0 = trc.hit_table_launches
-    ker = trc.build_hit_table(ms, T_CFG, T_RC, o, d, tc)
-    ref = trc.build_hit_table_plain(ms, T_CFG, T_RC, o, d, tc)
-    torch.cuda.synchronize()
-    assert trc.hit_table_launches == n0 + 1
-    for name in ("aid", "cell", "ray_mask", "t_near", "seg"):
-        assert torch.equal(getattr(ker, name), getattr(ref, name)), name
-    torch.testing.assert_close(ker.cdf, ref.cdf, rtol=1e-5, atol=0)
-    assert bool(ker.ray_mask.any())
+D_CFG = vm.MapConfig(capacity=1 << 16, grid_dim=(128, 32, 32), voxel_size=0.25)
+
+
+def _dense_case(device, R=160, seed=0):
+    """A solid block of surface voxels along most of the region's x extent
+    (a ray along it crosses ~100 of them, more than any table holds), and
+    rays from just outside it: a fifth pointing away (no hit), the others
+    along the block with ranges of 1 to 40 m (past the region's end at x =
+    16 m, 31.5 m away: some rays leave the region)."""
+    vs = D_CFG.voxel_size
+    g = np.meshgrid(np.arange(-14, 14, vs), np.arange(-1.5, 1.5, vs), np.arange(-1.5, 1.5, vs),
+                    indexing="ij")
+    pts = torch.as_tensor(np.stack([x.ravel() + vs / 2 for x in g], -1), dtype=torch.float32)
+    ms = vm.recenter(vm.create(D_CFG, "cpu"), D_CFG, torch.zeros(3))
+    ms = vm.refresh_active(vm.insert_points(ms, D_CFG, pts, torch.ones(len(pts), dtype=torch.bool)),
+                           D_CFG)
+    rng = np.random.default_rng(seed)
+    o = np.stack([np.full(R, -15.5), rng.uniform(-1, 1, R), rng.uniform(-1, 1, R)], -1)
+    d = np.stack([np.where(rng.uniform(size=R) < 0.2, -1.0, 1.0), rng.uniform(-0.15, 0.15, R),
+                  rng.uniform(-0.15, 0.15, R)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_cap = rng.uniform(1.0, 40.0, R)
+    ms = type(ms)(*[x.to(device) for x in ms])
+    return ms, *(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (o, d, t_cap))
+
+
+@pytest.mark.parametrize("H", [1, 20, 33, 64])
+def test_hit_table_kernel_matches_plain(cuda, H):
+    """K4 on the two walls (24 probes) and on the dense block (150 probes,
+    rays with no hit, with more than H hits, and leaving the region), with
+    one origin per ray and with one origin expanded to every ray (row
+    stride 0, read as it is), unpacked and packed: every output equal to
+    the twin, cdf to the running f32 sum of the twin's seg column by
+    column, the packed rows to pack_hit_table of the table; one launch a
+    call."""
+    dense_rc = T_RC._replace(max_hits=H, n_coarse=150, coarse_step=0.27, voxel_size=0.25,
+                             max_depth=40.0)
+    for cfg, rc, (ms, o, d, tc) in ((T_CFG, T_RC._replace(max_hits=H), _case(cuda)),
+                                    (D_CFG, dense_rc, _dense_case(cuda))):
+        for label, ro in (("origin per ray", o), ("origin row stride 0", o[:1].expand_as(d))):
+            n0 = trc.hit_table_launches
+            ker = trc.build_hit_table(ms, cfg, rc, ro, d, tc)
+            kp = trc.build_hit_table_packed(ms, cfg, rc, ro, d, tc)
+            ref = trc.build_hit_table_plain(ms, cfg, rc, ro, d, tc)
+            torch.cuda.synchronize()
+            assert trc.hit_table_launches == n0 + 2
+            for name in ("aid", "cell", "ray_mask", "t_near", "seg"):
+                assert torch.equal(getattr(ker, name), getattr(ref, name)), (label, name)
+            acc, cols = torch.zeros_like(ref.seg[:, 0]), []
+            for h in range(H):
+                acc = acc + ref.seg[:, h]
+                cols.append(acc)
+            assert torch.equal(ker.cdf, torch.stack(cols, 1)), label
+            torch.testing.assert_close(ker.cdf, ref.cdf, rtol=1e-5, atol=0)
+            assert torch.equal(kp, trc.pack_hit_table(ker)), label
+            assert bool(ker.ray_mask.any())
+        if cfg is D_CFG:
+            ends = o[:, 0] + d[:, 0] * (tc + rc.coarse_step)
+            assert bool((~ref.ray_mask).any()) and bool((ref.aid[:, -1] >= 0).any())
+            assert bool((ref.ray_mask & (ends > 16.0)).any())  # hits, then out of the region
 
 
 @pytest.mark.parametrize("M", [24, 48])
@@ -430,9 +483,11 @@ def test_insert_kernel_matches_plain(cuda):
 
 
 def test_active_set_kernels_match_plain(cuda):
-    ms, *_ = _case(cuda, seed=8)
-    before = [t.clone() for t in ms]
-    for cfg in (T_CFG, T_CFG._replace(active_cap=64)):  # the second truncates the set
+    base, *_ = _case(cuda, seed=8)
+    before = [t.clone() for t in base]
+    bf16 = base._replace(embeddings=base.embeddings.to(torch.bfloat16))
+    # the second truncates the set; the third packs bf16 embeddings
+    for cfg, ms in ((T_CFG, base), (T_CFG._replace(active_cap=64), base), (T_CFG, bf16)):
         for center in ((0.0, 0.0, 0.0), (3.7, -1.2, 0.4)):
             c = torch.tensor(center, device=cuda)
             n0 = vm.active_set_launches
@@ -444,31 +499,45 @@ def test_active_set_kernels_match_plain(cuda):
                 assert torch.equal(getattr(kr, name), getattr(rr, name)), (center, name)
                 assert torch.equal(getattr(kf, name), getattr(rf, name)), (center, name)
         assert int(rf.n_active) > 64  # the true count, past a truncated set
-    assert all(torch.equal(a, b) for a, b in zip(before, ms))
+    assert all(torch.equal(a, b) for a, b in zip(before, base))
 
 
 @pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
 def test_reconcile_kernel_matches_plain(cuda, emb_dtype):
+    """K5, each call without a scratch and through one ReconcileScratch kept
+    over calls with other touched sets, a truncating cap, an all-false mask
+    and a grown map: every table equal to the twin's and between the two;
+    the scratch's head table all -1 and its scan states zero after every
+    call."""
     ms, *_ = _case(cuda, seed=9)
     ms = ms._replace(embeddings=ms.embeddings.to(emb_dtype))
     ms = ms._replace(packed=vm.pack_embeddings(ms, T_CFG))
+    cfg0 = T_CFG._replace(active_cap=ms.packed.shape[0])  # the active set keeps its size on growth
     g = torch.Generator(device=cuda).manual_seed(9)
     A, n = ms.packed.shape[0], int(ms.n_active)
-    touched = (torch.rand((A,), generator=g, device=cuda) < 0.5) & (
-        torch.arange(A, device=cuda) < n)
+    live = torch.arange(A, device=cuda) < n
+    touched = (torch.rand((A,), generator=g, device=cuda) < 0.5) & live
+    other = (torch.rand((A,), generator=g, device=cuda) < 0.8) & live
     new_packed = ms.packed + 0.05 * torch.randn(ms.packed.shape, generator=g, device=cuda)
-    cpu = vm.MapState(*[x.cpu() for x in ms])
-    for cap in (A, max(int(touched.sum()) // 3, 1)):  # the second truncates the touched set
+    scratch = vm.ReconcileScratch()
+    big, big_cfg = vm.grow(ms, cfg0, 2 * cfg0.capacity)
+    cases = ((ms, cfg0, touched, A), (ms, cfg0, touched, max(int(touched.sum()) // 3, 1)),
+             (ms, cfg0, other, A), (ms, cfg0, torch.zeros_like(touched), A),
+             (big, big_cfg, other, A))
+    for st, cfg, mask, cap in cases:
+        cpu = vm.MapState(*[x.cpu() for x in st])
         n0 = vm.reconcile_launches
-        k1 = vm.reconcile(ms, T_CFG, new_packed, touched, cap)
-        k2 = vm.reconcile(ms, T_CFG, new_packed, touched, cap)
-        ref = vm.reconcile_plain(cpu, T_CFG, new_packed.cpu(), touched.cpu(), cap)
+        k1 = vm.reconcile(st, cfg, new_packed, mask, cap)
+        k2 = vm.reconcile(st, cfg, new_packed, mask, cap, scratch=scratch)
+        ref = vm.reconcile_plain(cpu, cfg, new_packed.cpu(), mask.cpu(), cap)
         torch.cuda.synchronize()
         assert vm.reconcile_launches == n0 + 2
         for name in vm.Reconciled._fields:
             assert torch.equal(getattr(k1, name), getattr(k2, name)), (cap, name)
             assert torch.equal(getattr(k1, name).cpu(), getattr(ref, name)), (cap, name)
-        assert not torch.equal(k1.embeddings, ms.embeddings)
+        assert torch.equal(k1.embeddings, st.embeddings) == (not bool(mask.any()))
+        assert scratch.head.numel() == cfg.capacity and bool((scratch.head == -1).all())
+        assert not bool(scratch.scan_state.any())
 
 
 def test_grid_sampler_kernels_match_plain(cuda):
@@ -819,9 +888,9 @@ def test_gn_and_field_wrappers_reject_what_they_would_convert_on_cpu():
 
 
 def test_hits_field_wrappers_reject_what_they_would_convert(cuda):
-    """K1 and K2 take their inputs as they are: a CPU tensor among CUDA
-    ones, another dtype or a strided tensor raises instead of being moved,
-    cast or copied."""
+    """K4, K1, K2 and K5 take their inputs as they are: a CPU tensor among
+    CUDA ones, another dtype or a strided tensor raises instead of being
+    moved, cast or copied."""
     ms, o, d, tc = _case(cuda, seed=14)
     ht = trc.build_hit_table(ms, T_CFG, T_RC, o, d, tc)
     u = torch.rand((len(o), 8), device=cuda)
@@ -844,6 +913,34 @@ def test_hits_field_wrappers_reject_what_they_would_convert(cuda):
         args[i] = value
         with pytest.raises(ValueError, match=match):
             trender.hits_field_bwd(*args, VS)
+    good = dict(rays_o=o, rays_d=d, t_cap=tc)
+    for key, value, match in (("rays_d", d.double(), "rays_d must be a contiguous"),
+                              ("rays_d", d.t().contiguous().t(), "rays_d must be a contiguous"),
+                              ("t_cap", tc.cpu(), "t_cap must be a contiguous"),
+                              ("t_cap", tc[:-1], "t_cap has shape"),
+                              ("rays_o", torch.cat([o, o], 1)[:, :3], "rays_o must be"),
+                              ("rays_o", o.double(), "rays_o must be")):
+        for build in (trc.build_hit_table, trc.build_hit_table_packed):
+            with pytest.raises(ValueError, match=match):
+                build(ms, T_CFG, T_RC, **{**good, key: value})
+    with pytest.raises(ValueError, match="grid_active must be a contiguous"):
+        trc.build_hit_table(ms._replace(grid_active=ms.grid_active.long()), T_CFG, T_RC, o, d, tc)
+    with pytest.raises(ValueError, match="max_hits 65 outside"):
+        trc.build_hit_table(ms, T_CFG, T_RC._replace(max_hits=65), o, d, tc)
+    A = ms.packed.shape[0]
+    touched = torch.zeros((A,), dtype=torch.bool, device=cuda)
+    for st, new, mask, match in (
+            (ms, ms.packed, touched.to(torch.uint8), "touched must be a contiguous"),
+            (ms, ms.packed.double(), touched, "new_packed must be a contiguous"),
+            (ms, ms.packed.t().contiguous().t(), touched, "new_packed must be a contiguous"),
+            (ms._replace(active_ids=ms.active_ids.long()), ms.packed, touched,
+             "active_ids must be a contiguous"),
+            (ms._replace(embeddings=ms.embeddings.half()), ms.packed, touched,
+             "embeddings must be float32 or bfloat16"),
+            (ms._replace(upd_count=ms.upd_count.cpu()), ms.packed, touched,
+             "upd_count must be a contiguous")):
+        with pytest.raises(ValueError, match=match):
+            vm.reconcile(st, T_CFG, new, mask, A)
 
 
 def test_wrappers_reject_other_devices():

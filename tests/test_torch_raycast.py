@@ -73,6 +73,25 @@ def test_build_hit_table_matches_jax(case, request):
 
 
 @pytest.mark.parametrize("case", ["wall_rays", "scene_rays"])
+def test_build_hit_table_packed_matches_jax(case, request):
+    """BA's form: one (R, 7H) f32 row a ray [aid, t_near, seg, cdf, cell xyz]
+    equal to JAX's build_hit_table packed in the same layout (aid and cells
+    exact, depths 1e-6), and to pack_hit_table of the unpacked table."""
+    m, cfg, rc, o, d, t_cap = request.getfixturevalue(case)
+    jp = np.asarray(jrc.pack_hit_table(jrc.build_hit_table(m, cfg, rc, o, d, t_cap)))
+    tm = map_state_from_numpy(jax.device_get(m), device="cpu")
+    tcfg = MapConfig(capacity=cfg.capacity, grid_dim=cfg.grid_dim, voxel_size=cfg.voxel_size)
+    args = (tm, tcfg, _rc_t(rc), _t(o), _t(d), _t(t_cap))
+    tp = trc.build_hit_table_packed(*args)
+    H = rc.max_hits
+    assert tp.shape == (len(jp), 7 * H) and tp.dtype == torch.float32
+    exact = np.r_[0:H, 4 * H:7 * H]
+    np.testing.assert_array_equal(to_numpy(tp)[:, exact], jp[:, exact])
+    np.testing.assert_allclose(to_numpy(tp)[:, H:4 * H], jp[:, H:4 * H], atol=TOL, rtol=TOL)
+    assert torch.equal(tp, trc.pack_hit_table(trc.build_hit_table(*args)))
+
+
+@pytest.mark.parametrize("case", ["wall_rays", "scene_rays"])
 def test_sample_and_resolve_match_jax(case, request):
     c = request.getfixturevalue(case)
     jht, _ = _both_tables(c)

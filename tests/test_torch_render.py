@@ -119,3 +119,44 @@ def test_ba_loss_gradients_match_jax(setup):
         assert err <= 1e-4 * scale, (name, err, scale)
     # the rows BA marks as touched are the rows with a nonzero gradient
     np.testing.assert_array_equal(to_numpy((grads[0] != 0).any(-1)), (np.asarray(jp) != 0).any(-1))
+
+
+def test_ba_step_with_kept_reconcile_scratch_matches_without(scene):
+    """One BA step on the hit table (its superset's table packed by the
+    one K4 call) with a ReconcileScratch kept by the caller, as the
+    pipeline keeps it, gives the BAResult of the step without one (K5 then
+    makes its own), field for field; a second step through the same
+    scratch gives the same again."""
+    from nerfloam_tpu_torch.core import ba as tba
+    from nerfloam_tpu_torch.map import voxel_map as tvm
+    from nerfloam_tpu_torch.models.decoder import init_decoder as t_init_decoder
+    from nerfloam_tpu_torch.ops.raycast import RaycastConfig
+    from nerfloam_tpu_torch.utils.bridge import map_state_from_numpy
+
+    _, frames = scene
+    tm = map_state_from_numpy(jax.device_get(build_map(frames)), device="cpu")
+    cfg = tvm.MapConfig(capacity=MAP_CFG.capacity, grid_dim=MAP_CFG.grid_dim,
+                        voxel_size=MAP_CFG.voxel_size)
+    rc = RaycastConfig(**RCH._asdict())
+    params = t_init_decoder(width=32, generator=torch.Generator().manual_seed(2), device="cpu")
+    bp = tba.BAParams(n_frames=2, n_rays=96, num_iterations=2, truncation=TRUNC,
+                      max_depth=MAX_DEPTH, fs_weight=FS_W, sdf_weight=SDF_W, touched_cap=256)
+    P, C, V, poses = [], [], [], []
+    for pts, cos, T in frames[:2]:
+        p, c, v = pad_frame(pts, cos)
+        P.append(_t(p)), C.append(_t(c)), V.append(_t(v))
+        poses.append(np.asarray(jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))))
+    args = (tm, cfg, rc, bp, params, _t(np.stack(poses)), torch.stack(P), torch.stack(C),
+            torch.stack(V), torch.ones(2, dtype=torch.bool), torch.tensor([False, True]), True,
+            [0.05, 0.005, 0.001])
+    scratch = tvm.ReconcileScratch()
+    runs = [tba.ba_step(*args, torch.Generator().manual_seed(3), reconcile_scratch=s)
+            for s in (None, scratch, scratch)]
+    for res in runs[1:]:
+        for name in tba.BAResult._fields:
+            a, b = getattr(runs[0], name), getattr(res, name)
+            if name == "decoder_params":
+                assert all(torch.equal(x, y) for k in a for x, y in zip(a[k], b[k])), name
+            else:
+                assert torch.equal(a, b), name
+    assert int(runs[0].touched_count) > 0

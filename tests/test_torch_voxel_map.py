@@ -170,6 +170,41 @@ def test_reconcile_pack_bump_match_jax(emb_dtype):
 
 
 @pytest.mark.parametrize("emb_dtype", ["float32", "bfloat16"])
+def test_reconcile_with_kept_scratch_matches_jax(emb_dtype):
+    """K5's wrapper as a BA step calls it, one ReconcileScratch kept over
+    calls with different touched sets and caps, equal to JAX's
+    reconcile_packed + bump_upd_count + pack_embeddings (embeddings to the
+    tolerances of test_reconcile_pack_bump_match_jax, counts exact). On the
+    CPU it takes the plain twin, which needs no scratch: the scratch stays
+    unallocated."""
+    cfg_j, cfg_t = JCFG._replace(emb_dtype=emb_dtype), TCFG._replace(emb_dtype=emb_dtype)
+    j = jvm.refresh_active(_j_state(), cfg_j)
+    rng = np.random.default_rng(5)
+    emb = rng.normal(size=j.embeddings.shape).astype(np.float32)
+    j = jvm.refresh_active(j._replace(embeddings=jnp.asarray(emb).astype(j.embeddings.dtype)), cfg_j)
+    t = map_state_from_numpy(jax.device_get(j), device="cpu")
+    A, n = int(j.packed.shape[0]), int(j.n_active)
+    new_packed = np.asarray(j.packed) + rng.normal(size=j.packed.shape).astype(np.float32) * 0.01
+    tol = 1e-6 if emb_dtype == "float32" else 2e-2
+    scratch = tvm.ReconcileScratch()
+    for frac, cap in ((0.3, A), (0.6, max(n // 5, 1)), (0.0, A)):  # the second truncates
+        touched = np.zeros(A, bool)
+        touched[rng.choice(n, int(frac * n), replace=False)] = True
+        jt = jnp.asarray(touched)
+        je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jt, cap)
+        got = tvm.reconcile(t, cfg_t, torch.as_tensor(new_packed), torch.as_tensor(touched), cap,
+                            scratch=scratch)
+        np.testing.assert_allclose(to_numpy(got.embeddings), np.asarray(je, np.float32), atol=tol)
+        np.testing.assert_allclose(to_numpy(got.packed),
+                                   np.asarray(jvm.pack_embeddings(j._replace(embeddings=je), cfg_j)),
+                                   atol=tol)
+        np.testing.assert_array_equal(to_numpy(got.upd_count),
+                                      np.asarray(jvm.bump_upd_count(j, cfg_j, jt)))
+        assert int(got.touched_count) == int(touched.sum())
+    assert scratch.ptrs is None and scratch.head is None
+
+
+@pytest.mark.parametrize("emb_dtype", ["float32", "bfloat16"])
 def test_reconcile_adds_in_jax_order(emb_dtype):
     """Exactly JAX's table: a corner shared by k touched voxels takes k adds
     in index order, each rounded to the embedding type, as XLA applies
