@@ -26,7 +26,14 @@
    bit-identical between calls and to a fresh GnSystem, its last-block
    counter back to zero; the host us of both objects, their function forms
    and the conversions their earlier wrappers made printed), K7
-   (voxel insert), K6 (recenter + active set), K5 (reconcile + repack,
+   (voxel insert, in place: the kernel and the twin each on a clone of
+   the map, in bf16 and f32 and at a candidate cap it overflows, every
+   table and the undo record equal and two calls equal, the kept
+   InsertScratch's grids all INT_MAX after each call, undo_insert
+   restoring the clone exactly; timed through the kept scratch, each
+   call undone outside the timing; the host us of its wrapper beside the
+   earlier wrapper's table clones), K6 (recenter + active set), K5
+   (reconcile + repack,
    bf16 and f32, bit-identical across three calls, two of them through
    one kept ReconcileScratch, reset after each; the host us of K4's and
    K5's wrappers beside what their earlier forms did) against their plain
@@ -81,8 +88,11 @@
    then each kernel-phase call profiled alone: its device time per CUDA
    function and its CUDA launches per call (K4 in every form, K9b, K11b,
    K1 in both origin forms, K2's d xyz form, K3 at both shapes and K8 in
-   every form must make exactly one; K2's d packed form at most four, all
-   of them the port's; K5's and K6's pack share printed). A session
+   every form must make exactly one; K2's d packed form at most four and
+   K7 at most five, all of them the port's (K7 profiled with the undo of
+   each call, reported apart); K11a at most two of the port's, its other
+   launches exactly those of its se3.pose_rotation, printed apart; K5's
+   and K6's pack share printed). A session
    that misses one of a wrapper's CUDA functions is run again, up to three
    times, and then the run fails.
 
@@ -179,8 +189,9 @@ KERNEL_FUNCTIONS = {
                        "hits_field_scatter_kernel", "hits_field_reduce_kernel"),
     "active_field_fwd": ("active_field_fwd_kernel",),
     "gn_system": ("gn_system_kernel",),
-    "insert": ("elect_kernel", "candidate_kernel", "corners_kernel", "corner_new_kernel",
-               "alloc_kernel", "activate_kernel", "append_kernel"),
+    "insert": ("insert_elect_kernel", "insert_candidate_kernel", "insert_alloc_kernel",
+               "insert_activate_kernel", "insert_pack_kernel"),
+    "undo_insert": ("insert_undo_kernel",),
     "active_set": ("grid_fill_kernel", "recenter_kernel", "refresh_mark_kernel",
                    "refresh_place_kernel", "active_pack_rows_kernel"),
     "reconcile": ("reconcile_scan_kernel", "reconcile_link_kernel", "reconcile_fold_kernel",
@@ -189,8 +200,7 @@ KERNEL_FUNCTIONS = {
     "place_samples_cdf": ("place_samples_kernel",),
     "mesh_lattice": ("mesh_lattice_kernel",),
     "marching_tets": ("marching_tets_kernel",),
-    "build_prev_scan": ("s2s_init_kernel", "s2s_span_kernel", "s2s_link_kernel",
-                        "s2s_pixel_kernel", "s2s_normal_kernel"),
+    "build_prev_scan": ("s2s_range_image_kernel",),
     "s2s_system": ("s2s_system_kernel",),
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
@@ -201,7 +211,14 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
               "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
               "active_field_fwd, gate band, origin row stride 0")
-MAX_LAUNCHES = {"hits_field_bwd": 4}  # the d-packed form: at most this many, all the port's
+# at most this many CUDA launches a call, all the port's: K2's d-packed form, K7
+MAX_LAUNCHES = {"hits_field_bwd": 4, "insert": 5}
+# at most this many of the port's a call, the others only those of the rotation it builds
+# (se3.pose_rotation): K11a
+MAX_PORT_LAUNCHES = {"build_prev_scan": 2}
+# a kernel-phase call that undoes what it wrote, so that it can be repeated: the
+# undo's CUDA function, profiled with it and reported apart
+UNDONE_BY = {"insert": "insert_undo_kernel"}
 
 
 def ate_bound(name):
@@ -290,6 +307,7 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "active_field_fwd": (render, "active_field_fwd_launches"),
     "gn_system": (tr, "gn_system_launches"),
     "insert": (vm, "insert_launches"),
+    "undo_insert": (vm, "insert_undo_launches"),
     "active_set": (vm, "active_set_launches"),
     "reconcile": (vm, "reconcile_launches"),
     "march_occupancy": (raycast, "march_occupancy_launches"),
@@ -342,7 +360,7 @@ def device_us(name, fn, reps=20, sessions=5, want=None):
 
     fn()
     torch.cuda.synchronize()
-    want = want or KERNEL_FUNCTIONS[name]
+    want = KERNEL_FUNCTIONS[name] if want is None else want
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -354,8 +372,11 @@ def device_us(name, fn, reps=20, sessions=5, want=None):
                 prof.step()
         times = port_kernel_times(prof)
         # device work that recurs on every call (a session also holds a
-        # stray record or two of the profiler's own)
-        recurring = [e.count for e in prof.key_averages() if _on_device(e) and e.count >= reps]
+        # stray record or two of the profiler's own; an operation with
+        # half its records or more is counted, so that one which lost some
+        # fails the whole-multiple test)
+        recurring = [e.count for e in prof.key_averages()
+                     if _on_device(e) and e.count >= reps // 2]
         if all(times.get(f, (0, 0))[1] >= reps for f in want) and not any(
                 n % reps for n in recurring):
             per_fn = {k: t / n for k, (t, n) in times.items()}
@@ -372,7 +393,7 @@ def _on_device(e):
 
 
 def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None,
-           forms=None):
+           forms=None, **extra):
     """One kernel's JSON record. ``dev`` is a call of the wrapper on the
     same inputs: its device time is profiled after the main paths
     (``add_device_times``), so that no profiler session runs before them;
@@ -385,19 +406,45 @@ def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=No
     return {"name": name, "route": "cuda", "source": f"nerfloam_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "_dev": dev,
-            "_forms": forms or {}}
+            "_forms": forms or {}, **extra}
 
 
 def add_device_times(records):
     """Device microseconds per call and per launch of every kernel, from
     torch.profiler over its kernel-phase call."""
     for r in records:
-        per_fn, per_call, launches = device_us(r["name"], r.pop("_dev"))
+        undo = UNDONE_BY.get(r["name"])
+        dev_fn = r.pop("_dev")
+        per_fn, per_call, launches = device_us(
+            r["name"], dev_fn, want=KERNEL_FUNCTIONS[r["name"]] + ((undo,) if undo else ()))
+        if undo is not None:  # the profiled call undoes its insert: the undo apart
+            r["undo_device_us"] = per_fn.pop(undo)
+            per_call -= r["undo_device_us"]
+            launches -= 1
+            log(f"[{r['name']}] its undo ({undo}): {r['undo_device_us']:.2f} us per call, 1 "
+                "CUDA launch (profiled with each call, taken out of the numbers below)")
         r["device_us_per_call"], r["device_us"], r["device_launches_per_call"] = (
             per_call, per_fn, launches)
         log(f"[{r['name']}] device us per launch: "
             + ", ".join(f"{k} {v:.2f}" for k, v in per_fn.items())
             + f"; {per_call:.2f} us per call; {launches:g} CUDA launches per call (profile)")
+        if r["name"] in MAX_PORT_LAUNCHES:  # the others: the rotation the wrapper builds
+            rotation = r.pop("_rotation")
+            for _ in range(3):  # a session that lost a whole operation's records: again
+                _, _, rot = device_us(r["name"], rotation, want=())
+                if launches - len(per_fn) == rot:
+                    break
+                log(f"[{r['name']}] {launches:g} launches a call, {len(per_fn)} of them the "
+                    f"port's, against {rot:g} of the rotation alone; profiling both again")
+                per_fn, per_call, launches = device_us(r["name"], dev_fn)
+            port = len(per_fn)
+            r["device_launches_port"], r["device_launches_rotation"] = port, launches - port
+            log(f"[{r['name']}] {launches:g} CUDA launches per call: {port} the port's, "
+                f"{launches - port:g} of its rotation (se3.pose_rotation alone: {rot:g})")
+            check(port <= MAX_PORT_LAUNCHES[r["name"]] and launches - port == rot,
+                  f"{r['name']}: {port} of the port's launches a call (at most "
+                  f"{MAX_PORT_LAUNCHES[r['name']]}) and {launches - port:g} others, where the "
+                  f"rotation alone makes {rot:g}")
         if r["name"] in ONE_LAUNCH:
             check(launches == 1, f"{r['name']}: {launches} CUDA launches per call, not one")
         pack = per_fn.get("active_pack_rows_kernel")
@@ -455,8 +502,8 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
     ms = vm.recenter(ms, cfg, torch.as_tensor(frames[0].pose6[:3], device=dev))
     for f in frames[:3]:
         p, c, v = f.device_arrays(dev)
-        ms = vm.insert_frame(ms, cfg, p, c, v, torch.as_tensor(f.pose6, device=dev),
-                             slam.insert_cand_cap)
+        ms, _ = vm.insert_frame(ms, cfg, p, c, v, torch.as_tensor(f.pose6, device=dev),
+                                slam.insert_cand_cap)
     emb = (torch.randn(ms.embeddings.shape, generator=gen, device=dev) * 0.1)
     ms = vm.refresh_active(ms._replace(embeddings=emb.to(ms.embeddings.dtype)), cfg)
     log(f"[kernels] map: {int(ms.num_lat)} lattice rows, {int(ms.n_active)} active voxels "
@@ -766,45 +813,148 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
     k38_host_costs(ms, cfg, field, k8_cases["band, origin row stride 0"][:4], tp,
                    *k3_cases["quality"])
 
-    # ---- K7: one frame with symmetric support (3 x 65536 points),
-    # appending to the active set
-    f = frames[3]
-    p3, c3, v3 = f.device_arrays(dev)
-    p6 = torch.as_tensor(f.pose6, device=dev)
-    world = se3.transform_points(p6, p3)
-    dirs = p3 / (torch.linalg.norm(p3, dim=-1, keepdim=True) + 1e-8)
-    off = torch.where(c3[:, None] < 0.999, torch.tensor([0.0, 0.0, -1.0], device=dev),
-                      se3.rotate_dirs(p6, dirs))
-    pts7 = torch.cat([world, world + off * cfg.support_dist, world - off * cfg.support_dist])
-    val7 = torch.cat([v3] * 3)
-    args7 = (ms, cfg, pts7, val7, slam.insert_cand_cap, True)
-    ker = vm.insert_points(*args7)
-    ref = vm.insert_points_plain(*args7)
-    torch.cuda.synchronize()
-    for nm in vm.MapState._fields:
-        check(torch.equal(getattr(ker, nm), getattr(ref, nm)), f"K7 {nm} differs")
-    n_new = int(ref.num_lat) - int(ms.num_lat)
-    n_act = int(ref.n_active) - int(ms.n_active)
-    n_cand = int(ref.num_cand)
-    Pc = min(n_cand, slam.insert_cand_cap)
-    log(f"[K7] {pts7.shape[0]} points: {n_cand} candidates, {n_new} new rows, {n_act} activated "
-        f"(n_active {int(ref.n_active)}); every table equal")
-    k_ms = median_ms(lambda: vm.insert_points(*args7))
-    p_ms = median_ms(lambda: vm.insert_points_plain(*args7))
-    P = pts7.shape[0]
-    # in place at the least: points + their cell (grid, is_surface) in, 8
-    # corner cells per candidate, the new rows (coords + grid), the
-    # activated voxels (is_surface, corner_idx) and their appended entries
-    # (ids, coords, grid_active, packed row) out
-    records.append(record("insert", "insert.cu", "nerfloam_tpu/map/voxel_map.py:311", 0.0,
-                          k_ms, p_ms, P * 18 + 32 * Pc + 16 * n_new + n_act * (33 + 532),
-                          10 * P, dev=partial(vm.insert_points, *args7)))
+    records.append(k7_phase(slam, ms, frames[3]))
     o, d, tc = tables[2 * slam.bp_current.n_rays][:3]
     records += map_kernels(slam, ms, frames, gen, (o[:1].expand_as(d), d, tc))
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
     return records
+
+
+def clone_state(ms):
+    return vm.MapState(*[t.clone() for t in ms])
+
+
+def median_ms_undone(fn, undo, n=TIMED_RUNS):
+    """median_ms of fn (CUDA events around the call), ``undo(fn's result)``
+    run after each timed call, outside the timing."""
+    undo(fn())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        undo(out)
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def k7_phase(slam, ms, frame):
+    """K7 on one frame with symmetric support (3 x 65536 points), appending
+    to the active set, as the quality path calls it: in place, so the
+    kernel and the twin each take their own clone of the map. For bf16 and
+    f32 embeddings and at the run's candidate cap and one it overflows:
+    every table and the record equal to the twin's, two calls from equal
+    clones equal, the kept InsertScratch's election grids all INT_MAX after
+    every call, and undo_insert giving back the pre-insert tables exactly.
+    Timed through the kept scratch, each call undone outside the timing."""
+    dev, cfg = slam.device, slam.map_cfg
+    p3, c3, v3 = frame.device_arrays(dev)
+    p6 = torch.as_tensor(frame.pose6, device=dev)
+    world = se3.transform_points(p6, p3)
+    dirs = p3 / (torch.linalg.norm(p3, dim=-1, keepdim=True) + 1e-8)
+    off = torch.where(c3[:, None] < 0.999, torch.tensor([0.0, 0.0, -1.0], device=dev),
+                      se3.rotate_dirs(p6, dirs))
+    pts7 = torch.cat([world, world + off * cfg.support_dist, world - off * cfg.support_dist])
+    val7 = torch.cat([v3] * 3)
+    cap = slam.insert_cand_cap
+    k7s = vm.InsertScratch()
+    for dt in (torch.bfloat16, torch.float32):
+        st = ms._replace(embeddings=ms.embeddings.to(dt))
+        for cap_ in (cap, 1024):  # the run's cap, and one the candidates overflow
+            a, b, c = clone_state(st), clone_state(st), clone_state(st)
+            ka, rec_a = vm.insert_points(a, cfg, pts7, val7, cap_, True, scratch=k7s)
+            check(bool((k7s.grids == vm._INT_MAX).all()),
+                  f"K7's kept election grids are not all INT_MAX after a call ({dt}, cap {cap_})")
+            kb, rec_b = vm.insert_points(b, cfg, pts7, val7, cap_, True, scratch=k7s)
+            ref, rec_r = vm.insert_points_plain(c, cfg, pts7, val7, cap_, True)
+            torch.cuda.synchronize()
+            check(ka is a and all(x.data_ptr() == y.data_ptr() for x, y in zip(ka, a)),
+                  "K7 did not write into the state it was given")
+            for nm in vm.MapState._fields:
+                check(torch.equal(getattr(ka, nm), getattr(ref, nm)),
+                      f"K7 {nm} differs from the twin ({dt}, cap {cap_})")
+                check(torch.equal(getattr(ka, nm), getattr(kb, nm)),
+                      f"K7 {nm} differs between two calls ({dt}, cap {cap_})")
+            parts = [vm.record_parts(r) for r in (rec_a, rec_b, rec_r)]
+            for nm in parts[0]:
+                check(torch.equal(parts[0][nm], parts[2][nm])
+                      and torch.equal(parts[0][nm], parts[1][nm]),
+                      f"K7's record {nm} differs from the twin's or between calls ({dt}, "
+                      f"cap {cap_})")
+            check(bool((k7s.grids == vm._INT_MAX).all()),
+                  f"K7's kept election grids are not all INT_MAX after a call ({dt}, cap {cap_})")
+            n0 = vm.insert_undo_launches
+            vm.undo_insert(ka, rec_a)
+            torch.cuda.synchronize()
+            check(vm.insert_undo_launches == n0 + 1, "undo_insert did not launch its kernel")
+            for nm in vm.MapState._fields:
+                check(torch.equal(getattr(ka, nm), getattr(st, nm)),
+                      f"undo_insert left {nm} other than before the insert ({dt}, cap {cap_})")
+            h = parts[0]["header"].tolist()
+            log(f"[K7] {dt}, cand_cap {cap_}: {int(ref.num_cand)} candidates, {h[3]} new rows "
+                f"(num_lat {h[0]} -> {int(ref.num_lat)}), {h[4]} activated, {h[5]} appended "
+                f"(n_active {int(ref.n_active)}); every table and the record equal to the twin's "
+                "and between two calls, the kept grids all INT_MAX after each, the undo exact")
+            del a, b, c, ka, kb, ref
+    # timed at the run's cap with the map's own embeddings, through the kept scratch
+    a = clone_state(ms)
+    ins = partial(vm.insert_points, a, cfg, pts7, val7, cap, True, scratch=k7s)
+    k_ms = median_ms_undone(ins, lambda out: vm.undo_insert(*out))
+    c = clone_state(ms)
+    p_ms = median_ms_undone(partial(vm.insert_points_plain, c, cfg, pts7, val7, cap, True),
+                            lambda out: vm.undo_insert(*out))
+    _, rec = ins()
+    parts = vm.record_parts(rec)
+    undo_ms = median_ms(partial(vm.undo_insert, a, rec))  # a second undo writes the same
+    num_lat0, n_active0, _, n_rows, n_act, n_app = parts["header"].tolist()
+    nk = min(int(a.num_cand), cap)
+    P, F, esz = pts7.shape[0], cfg.feat_dim, a.embeddings.element_size()
+    log(f"[K7] timed: {P} points, {nk} kept candidates, {n_rows} new rows, {n_act} activated, "
+        f"{n_app} appended; undo_insert {undo_ms:.4f} ms")
+    k7_host_costs(a, cfg, ins, rec)
+    undo_bytes = n_rows * (20 + 16) + n_act * (40 + 33) + n_app * (24 + 20 + 2 * 8 * F * 4)
+    log(f"[K7] undo bound {bound(undo_bytes, 0)[0]:.5f} ms ({undo_bytes / 1e6:.3f} MB)")
+    # in place at the least: each point, its cell's grid entry and surface
+    # flag; 8 corner cells per kept candidate; each new row's coords and
+    # grid entry written, their old values read and the record written;
+    # each activated voxel's surface flag and corner rows the same; each
+    # appended slot's id, coords and grid_active entry the same, its packed
+    # row written, the old one read and recorded, its corners' embeddings
+    bytes7 = (P * 18 + nk * 32 + n_rows * (16 + 16 + 20) + n_act * (33 + 33 + 40)
+              + n_app * (20 + 20 + 24 + 3 * 8 * F * 4 + 8 * F * esz))
+    return record("insert", "insert.cu", "nerfloam_tpu/map/voxel_map.py:311", 0.0, k_ms, p_ms,
+                  bytes7, 10 * P, dev=partial(k7_and_undo, ins), undo_ms=undo_ms)
+
+
+def k7_and_undo(ins):
+    vm.undo_insert(*ins())
+
+
+def k7_host_costs(ms, cfg, ins, rec):
+    """Host us of K7's wrapper with the kept scratch (the insert and its
+    undo; the undo alone, which a repeat leaves as it is), with a scratch
+    made for the call, and the parent wrapper's eight whole-table clones
+    (the card idle before each call)."""
+    fresh = partial(vm.insert_points, *ins.args, **{**ins.keywords, "scratch": None})
+    pieces = {
+        "K7 call + undo, scratch kept": partial(k7_and_undo, ins),
+        "undo_insert": partial(vm.undo_insert, ms, rec),
+        "K7 call + undo, scratch made for it": partial(k7_and_undo, fresh),
+        "eight table clones before": lambda: [t.clone() for t in (
+            ms.lat_coords, ms.grid, ms.is_surface, ms.corner_idx, ms.active_ids,
+            ms.active_coords, ms.grid_active, ms.packed)],
+    }
+    costs = {k: host_us_idle(fn) for k, fn in pieces.items()}
+    log("[K7] host us per call (card idle before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
 
 
 def distinct_corners(ms, rows):
@@ -1353,7 +1503,8 @@ def s2s_kernels(slam, sp, frames, gen):
         # pixel and the span out
         record("build_prev_scan", "scan2scan.cu", "nerfloam_tpu/core/scan2scan.py:79", e11a, ka, pa,
                P * 13 + 48 + total * 29 + 8, P * 60 + total * 90,
-               dev=partial(s2s.build_prev_scan, sp, p0, v0, pose0)),
+               dev=partial(s2s.build_prev_scan, sp, p0, v0, pose0),
+               _rotation=partial(se3.pose_rotation, pose0)),
         # rays + valid, two poses and the span in, one pixel (q, n, validity,
         # depth) per ray in; the caller's H, b, loss in and out
         record("s2s_system", "scan2scan.cu", "nerfloam_tpu/core/scan2scan.py:158", e11b, kb_ms,
@@ -1714,6 +1865,8 @@ def main(argv=None):
         by_path = {n: results[n][0][r["name"]] for n in results}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
+        if r["name"] in UNDONE_BY:  # K7's undo: only where a frame overflowed and replayed
+            r["undo_launches"] = sum(results[n][0]["undo_insert"] for n in results)
     log(f"[result] scans/s " + ", ".join(f"{n} {v[1]:.4f}" for n, v in results.items())
         + f" on {smi}")
     print(json.dumps({"kernels": records}))

@@ -39,6 +39,7 @@ from __future__ import annotations
 import os
 import random as pyrandom
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -211,9 +212,11 @@ class NerfLoamSLAM_torch:
         seed = int(tpu["seed"])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        # K5's scratch, kept for the run: its (C,) head table is filled
-        # once, and again only when the map grows
+        # K5's and K7's scratch, kept for the run: K5's (C,) head table is
+        # filled once, and again only when the map grows; K7's election
+        # grids once, and again only for a larger region or cap
         self.reconcile_scratch = vm.ReconcileScratch()
+        self.insert_scratch = vm.InsertScratch()
         self.pyrng = pyrandom.Random(seed)
         dec = cfg.decoder_specs
         params = init_decoder(
@@ -265,29 +268,35 @@ class NerfLoamSLAM_torch:
         candidate budget and re-running the insert on overflow."""
         pts, cos, val = frame.device_arrays(self.device)
         p6 = self._tensor(frame.pose6)
-        pre = self.state.map_state
-        while True:
-            ms = vm.insert_frame(pre, self.map_cfg, pts, cos, val, p6, self.insert_cand_cap,
-                                 self.recenter_margin > 0)
+        while True:  # the insert writes into the map; an overflow undoes it first
+            ms, rec = vm.insert_frame(self.state.map_state, self.map_cfg, pts, cos, val, p6,
+                                      self.insert_cand_cap, self.recenter_margin > 0,
+                                      self.insert_scratch)
             num_lat, num_cand = (int(v) for v in self._fetch(ms.num_lat, ms.num_cand))
-            if not self._grow_budgets(num_lat, 0, 0, num_cand):
+            if not self._grow_budgets(num_lat, 0, 0, num_cand,
+                                      rewind=partial(vm.undo_insert, ms, rec)):
                 break
-            pre = self.state.map_state  # grown copy of the pre-insert state
         self.state.map_state = ms
 
     def _grow_budgets(self, num_lat: int, n_active: int, touched: int, num_cand: int,
-                      which: str = "current") -> bool:
+                      which: str = "current", rewind=None) -> bool:
         """Grow every budget the counts overflowed, without re-running
-        anything (callers rewind and replay). Resizes state.map_state."""
+        anything (callers replay). Resizes state.map_state; ``rewind``, when
+        given, is called first if any budget overflowed (the callers undo
+        the insert that wrote into the pre-frame map)."""
         st = self.state
-        grew = False
+        bp = self.bp_current if which == "current" else self.bp_random
+        if not (num_lat > self.map_cfg.capacity or n_active > vm.acap(self.map_cfg)
+                or touched > bp.touched_cap or num_cand > self.insert_cand_cap):
+            return False
+        if rewind is not None:
+            rewind()
         if num_lat > self.map_cfg.capacity:
             cap = self.map_cfg.capacity
             while num_lat > cap:
                 cap *= 2
             self.overflow_events["capacity"] += 1
             st.map_state, self.map_cfg = vm.grow(st.map_state, self.map_cfg, cap)
-            grew = True
         if n_active > vm.acap(self.map_cfg):
             acap_v = vm.acap(self.map_cfg)
             while n_active > acap_v:
@@ -295,8 +304,6 @@ class NerfLoamSLAM_torch:
             self.overflow_events["active"] += 1
             self.map_cfg = self.map_cfg._replace(active_cap=min(acap_v, self.map_cfg.capacity))
             st.map_state = vm.refresh_active(st.map_state, self.map_cfg)
-            grew = True
-        bp = self.bp_current if which == "current" else self.bp_random
         if touched > bp.touched_cap:
             cap = bp.touched_cap
             while touched > cap:
@@ -307,15 +314,13 @@ class NerfLoamSLAM_torch:
                 self.bp_current = bp
             else:
                 self.bp_random = bp
-            grew = True
         if num_cand > self.insert_cand_cap:
             cap = self.insert_cand_cap
             while num_cand > cap:
                 cap *= 2
             self.overflow_events["cand"] += 1
             self.insert_cand_cap = cap
-            grew = True
-        return grew
+        return True
 
     def insert_keyframe(self, frame: Frame):
         kf = frame.cropped(self.key_distance, self.kf_points_pad)
@@ -455,7 +460,9 @@ class NerfLoamSLAM_torch:
 
     def _megastep(self, tp, init6, pts, cos, val, pose_free, update_decoder, sdf_bias):
         """track -> lazy recenter + refresh -> BA(current) -> insert, all on
-        the device; returns the new map state and the tensors to fetch."""
+        the device; returns the new map state, the decoder, the tensors to
+        fetch and the insert's record (the insert writes into tables the
+        pre-frame state shares: a replay undoes it first)."""
         st = self.state
         cfg = self.map_cfg
         with self.prof.section("track"):
@@ -475,11 +482,11 @@ class NerfLoamSLAM_torch:
                                 reconcile_scratch=self.reconcile_scratch)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
-            ms = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,
-                                 append_active=self.recenter_margin > 0)
+            ms, rec = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,
+                                      self.recenter_margin > 0, self.insert_scratch)
         outs = (tr.pose, tr.hit_count, ba.poses[0], ms.num_lat, ms.n_active,
                 ba.touched_count, ms.num_cand, tr.loss, ba.surface_bias)
-        return ms, ba.decoder_params, outs
+        return ms, ba.decoder_params, outs, rec
 
     def process_frame(self, frame: Frame):
         """One tracked frame, synchronous: the whole frame runs on the
@@ -508,18 +515,20 @@ class NerfLoamSLAM_torch:
 
         pre = (st.map_state, st.decoder_params, self.generator.get_state())
         for _ in range(8):  # each round at least doubles a budget
-            ms, dec, outs = self._megastep(tp, init6, pts, cos, val, pose_free, update_decoder,
-                                           sdf_bias)
+            ms, dec, outs, rec = self._megastep(tp, init6, pts, cos, val, pose_free,
+                                                update_decoder, sdf_bias)
             with self.prof.section("sync"):
                 got = self._fetch(*outs)
             num_lat, n_active, touched, num_cand = (int(got[i]) for i in (3, 4, 5, 6))
             st.map_state, st.decoder_params = pre[0], pre[1]
-            if not self._grow_budgets(num_lat, n_active, touched, num_cand):
+            if not self._grow_budgets(num_lat, n_active, touched, num_cand,
+                                      rewind=partial(vm.undo_insert, ms, rec)):
                 break
             self.generator.set_state(pre[2])
             pre = (st.map_state, st.decoder_params, pre[2])
-        else:
+        else:  # the last round's map update was undone: the frame's deltas are dropped
             self.dropped_delta_events += 1
+            ms, dec = pre[0], pre[1]
         st.map_state, st.decoder_params = ms, dec
 
         frame.pose6 = got[0].astype(np.float32)

@@ -159,43 +159,50 @@ def build_prev_scan(sp: Scan2ScanParams, points: torch.Tensor, valid: torch.Tens
     pixels. The per-pixel surface point is the mean of the pixel's points
     (it lies on the plane they sample, so planar residuals are unbiased);
     normals by central differences over the pixel grid, turned toward the
-    sensor; both in the world frame. CPU tensors take
-    ``build_prev_scan_plain``; CUDA tensors launch csrc/scan2scan.cu, whose
-    per-pixel lists are walked in ascending point index, so the image is the
-    same on every run."""
+    sensor; both in the world frame, by the rotation built here once
+    (``se3.pose_rotation``, kept as ``PrevScan.R`` for K11b).
+
+    CPU tensors take ``build_prev_scan_plain``; CUDA tensors launch
+    csrc/scan2scan.cu once (a cooperative launch whose pixels add their
+    points in ascending index, so the image is the same on every run), on
+    inputs as the kernel reads them (contiguous f32 points and pose6, bool
+    valid, on one device): nothing is converted, anything else raises
+    ValueError."""
     dev = points.device
     if dev.type == "cpu":
         return build_prev_scan_plain(sp, points, valid, pose6)
     if dev.type != "cuda":
         raise ValueError(f"build_prev_scan: unsupported device {dev}")
     global build_prev_scan_launches
-    B, A, P = sp.n_elev, sp.n_az, points.shape[0]
+    name, B, A, P = "build_prev_scan", sp.n_elev, sp.n_az, points.shape[0]
+    kernels.expect(name, dev, torch.float32, points=points, pose6=pose6)
+    kernels.expect(name, dev, torch.bool, valid=valid)
+    kernels.expect_shape(name, points=(points, (P, 3)), valid=(valid, (P,)), pose6=(pose6, (6,)))
+    lib = kernels.lib()
     total = B * A
-    pts = points.float().contiguous()
-    val = valid.to(torch.bool).contiguous()
-    pose6 = pose6.float()
-    if val.device != dev or pose6.device != dev:
-        raise ValueError("build_prev_scan: all inputs must be on one device")
-    R = se3.pose_rotation(pose6).contiguous()
-    t = se3.pose_translation(pose6).contiguous()
-    fbuf = torch.empty((2 * P + 3 * total,), dtype=torch.float32, device=dev)
-    ibuf = torch.empty((P + total + 2,), dtype=torch.int32, device=dev)
-    bbuf = torch.empty((P + total,), dtype=torch.uint8, device=dev)
-    q_w = torch.empty((B, A, 3), dtype=torch.float32, device=dev)
-    n_w = torch.empty((B, A, 3), dtype=torch.float32, device=dev)
+    R = se3.pose_rotation(pose6)
+    t = se3.pose_translation(pose6)
+    out = torch.empty((7 * total + 2,), dtype=torch.float32, device=dev)
     pix_valid = torch.empty((B, A), dtype=torch.bool, device=dev)
-    depth = torch.empty((B, A), dtype=torch.float32, device=dev)
-    span = torch.empty((2,), dtype=torch.float32, device=dev)
-    f, i, b = fbuf.data_ptr(), ibuf.data_ptr(), bbuf.data_ptr()
-    kernels.check(kernels.lib().nl_build_prev_scan(
-        pts.data_ptr(), val.data_ptr(), P, R.data_ptr(), t.data_ptr(), B, A,
-        sp.min_depth, sp.max_depth,
-        f, f + 4 * P, b, i, i + 4 * P, i + 4 * (P + total), f + 8 * P, b + P,
-        q_w.data_ptr(), n_w.data_ptr(), pix_valid.data_ptr(), depth.data_ptr(), span.data_ptr(),
-        kernels.stream_ptr(dev)), "build_prev_scan")
+    # scratch: elev (P f32), abin, next (P i32 each), head (total i32), the
+    # blocks' spans, p_img (3 total f32), has_pt (total bytes)
+    n_part = lib.nl_range_image_part_ints()
+    scratch = torch.empty((4 * (3 * P + 4 * total + n_part) + total,), dtype=torch.uint8,
+                          device=dev)
+    s = scratch.data_ptr()
+    elev, abin, nxt, head = s, s + 4 * P, s + 8 * P, s + 12 * P
+    part = head + 4 * total
+    p_img = part + 4 * n_part
+    has_pt = p_img + 12 * total
+    o = out.data_ptr()
+    kernels.check(lib.nl_build_prev_scan(
+        points.data_ptr(), valid.data_ptr(), P, R.data_ptr(), t.data_ptr(), B, A, sp.min_depth,
+        sp.max_depth, elev, abin, nxt, head, part, p_img, has_pt, o, o + 12 * total,
+        pix_valid.data_ptr(), o + 24 * total, o + 28 * total, kernels.stream_ptr(dev)), name)
     build_prev_scan_launches += 1
-    return PrevScan(q_w=q_w, n_w=n_w, pix_valid=pix_valid, depth=depth, pose6=pose6,
-                    elev_min=span[0], elev_max=span[1], R=R, t=t)
+    return PrevScan(q_w=out[:3 * total].view(B, A, 3), n_w=out[3 * total:6 * total].view(B, A, 3),
+                    pix_valid=pix_valid, depth=out[6 * total:7 * total].view(B, A), pose6=pose6,
+                    elev_min=out[7 * total], elev_max=out[7 * total + 1], R=R, t=t)
 
 
 def _associate(sp: Scan2ScanParams, prev: PrevScan, pose6, pts, rvalid, R=None):

@@ -2,27 +2,32 @@
 // nerfloam_tpu/core/scan2scan.py:98-155 build_prev_scan and 170-211
 // s2s_system).
 //
-// K11a build_prev_scan, once per tracked frame, five passes in one call:
-//   init    per-pixel list heads to -1, the elevation span to (+1e9, -1e9).
-//   span    one thread per point: range, azimuth, elevation, the depth
-//           gate; min / max elevation of the gated points by integer
-//           atomics on an order-preserving encoding of the float (min and
-//           max do not depend on the order).
-//   link    one thread per gated point: its pixel (elevation bin from the
-//           span, azimuth bin), pushed onto the pixel's list with
-//           atomicExch.
-//   pixel   one thread per pixel: counts its list, then adds the points in
-//           ascending point index, so the per-pixel sum is the one a
-//           sequential scatter-add in point order gives, on every run; the
-//           mean point and its range.
-//   normal  one thread per pixel: central differences (azimuth wraps,
-//           elevation edges are invalid), the unit normal turned toward
-//           the sensor, validity, and both moved to the world frame.
-// The list order from atomicExch varies from run to run; the walk in
-// ascending index does not (the remedy of csrc/reconcile.cu). The walk
-// costs k^2 steps for a pixel with k points; a scan spreads its points
-// over the image, k is a handful.
-//
+// K11a build_prev_scan, once per tracked frame: one cooperative launch
+// (every block resident at once, cudaLaunchCooperativeKernel), its phases
+// apart by grid-wide syncs:
+//   1  per point: range, azimuth, elevation, the depth gate and the
+//      azimuth bin; each block's min / max elevation of its gated points,
+//      on an order-preserving integer encoding of the float; the
+//      per-pixel list heads to -1.
+//   2  every block folds the blocks' spans itself (min and max do not
+//      depend on the order, so all find the same span; block 0's first
+//      thread writes it out); each gated point's pixel (the elevation bin
+//      from the span), and the point pushed onto the pixel's list with
+//      atomicExch.
+//   3  per pixel: the list walked once into registers and put in
+//      ascending point index by a fixed sorting network (at most 8
+//      points; a longer list is walked once per point for the next index
+//      up), the points added in that order, so the sum is the one a
+//      sequential scatter-add in point order gives, on every run; the
+//      mean point and its range.
+//   4  per pixel: central differences (azimuth wraps, elevation edges are
+//      invalid), the unit normal turned toward the sensor, validity, and
+//      both moved to the world frame.
+// One launch, where five grid-wide passes (init, span, link, pixel,
+// normal) would each pay a launch and a tail for a few us of work.
+// The rotation is the caller's (se3.pose_rotation, built once per frame
+// and kept in PrevScan.R for K11b): the kernel and its twin read one R.
+
 // K11b s2s_system, once per GN iteration, one launch of one thread block
 // cluster (Hopper) of 8 blocks x 256 threads: thread g of the cluster takes
 // rays g, g + 2048, ..., projects the current point into the previous
@@ -50,6 +55,7 @@
 // K11b reads 13 B per ray and 29 B per associated pixel (86 KB at 2048
 // rays). Both are bound by their launches, not by bytes or operations.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -58,13 +64,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxList = 8;          // K11a: points a pixel sorted in registers
+constexpr int kRangeMaxBlocks = 1024;  // K11a: blocks of its cooperative launch at most
+constexpr int kMaxDevices = 64;
 constexpr int kS2SBlocks = 8;      // K11b: one cluster of 8 blocks (the portable most)
 constexpr int kS2SThreads = 256;   // ... of 256 threads
 constexpr int kSums = 28;  // 21 (H upper) + 6 (b) + 1 (loss)
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
-
-inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // monotone float -> int map, so integer atomicMin / atomicMax order floats
 __device__ __forceinline__ int enc(float f) {
@@ -106,81 +113,6 @@ __device__ __forceinline__ int az_bin(float az, int A) {
   return clip_bin(__fmul_rn(__fdiv_rn(__fadd_rn(az, kPi), kTwoPi), (float)A), A);
 }
 
-__global__ void s2s_init_kernel(int total, int* __restrict__ head, int* __restrict__ span_key) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) head[i] = -1;
-  if (i == 0) {
-    span_key[0] = enc(1e9f);
-    span_key[1] = enc(-1e9f);
-  }
-}
-
-__global__ void s2s_span_kernel(const float* __restrict__ points,
-                                const unsigned char* __restrict__ valid, int P, float min_depth,
-                                float max_depth, float* __restrict__ az_out,
-                                float* __restrict__ elev_out, unsigned char* __restrict__ ok_out,
-                                int* __restrict__ span_key) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int lo = enc(1e9f), hi = enc(-1e9f);
-  if (i < P) {
-    float az, elev, d;
-    angles(points[3 * i], points[3 * i + 1], points[3 * i + 2], az, elev, d);
-    bool ok = valid[i] && d > min_depth && d < max_depth;
-    az_out[i] = az;
-    elev_out[i] = elev;
-    ok_out[i] = ok;
-    if (ok) lo = hi = enc(elev);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_down_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_down_sync(0xffffffffu, hi, o));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMin(span_key, lo);
-    atomicMax(span_key + 1, hi);
-  }
-}
-
-__global__ void s2s_link_kernel(const float* __restrict__ az, const float* __restrict__ elev,
-                                const unsigned char* __restrict__ ok, int P, int B, int A,
-                                const int* __restrict__ span_key, int* __restrict__ next,
-                                int* __restrict__ head) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P || !ok[i]) return;
-  int bi = clip_bin(elev_bin_f(elev[i], dec(span_key[0]), dec(span_key[1]), B), B);
-  next[i] = atomicExch(head + bi * A + az_bin(az[i], A), i);
-}
-
-__global__ void s2s_pixel_kernel(const float* __restrict__ points, const int* __restrict__ next,
-                                 const int* __restrict__ head, int total,
-                                 float* __restrict__ p_img, unsigned char* __restrict__ has_pt,
-                                 float* __restrict__ depth) {
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= total) return;
-  int h = head[pix];
-  int k = 0;
-  for (int p = h; p >= 0; p = next[p]) ++k;
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  int last = -1;
-  for (int n = 0; n < k; ++n) {
-    int cur = 0x7fffffff;  // the smallest entry above the last one added
-    for (int p = h; p >= 0; p = next[p])
-      if (p > last && p < cur) cur = p;
-    last = cur;
-    sx = __fadd_rn(sx, points[3 * cur]);
-    sy = __fadd_rn(sy, points[3 * cur + 1]);
-    sz = __fadd_rn(sz, points[3 * cur + 2]);
-  }
-  float c = fmaxf((float)k, 1.0f);
-  float x = __fdiv_rn(sx, c), y = __fdiv_rn(sy, c), z = __fdiv_rn(sz, c);
-  p_img[3 * pix] = x;
-  p_img[3 * pix + 1] = y;
-  p_img[3 * pix + 2] = z;
-  has_pt[pix] = k > 0;
-  depth[pix] = norm3(x, y, z);
-}
-
 // out = R v (+ t): rows of R times v, summed left to right
 __device__ __forceinline__ void rotate(const float* __restrict__ R, const float (&v)[3],
                                        float (&out)[3]) {
@@ -188,48 +120,180 @@ __device__ __forceinline__ void rotate(const float* __restrict__ R, const float 
   for (int r = 0; r < 3; ++r) out[r] = dot3(v[0], v[1], v[2], R[3 * r], R[3 * r + 1], R[3 * r + 2]);
 }
 
-__global__ void s2s_normal_kernel(const float* __restrict__ p_img,
-                                  const unsigned char* __restrict__ has_pt, int B, int A,
-                                  const float* __restrict__ R, const float* __restrict__ t,
-                                  const int* __restrict__ span_key, float* __restrict__ q_w,
-                                  float* __restrict__ n_w, unsigned char* __restrict__ pix_valid,
-                                  float* __restrict__ span_out) {
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix == 0) {
-    span_out[0] = dec(span_key[0]);
-    span_out[1] = dec(span_key[1]);
+__device__ __forceinline__ void order(int& x, int& y) {
+  const int lo = min(x, y), hi = max(x, y);
+  x = lo;
+  y = hi;
+}
+
+// the block's min of lo and max of hi, in every thread
+__device__ __forceinline__ void block_span(int& lo, int& hi, int* s_lo, int* s_hi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
-  if (pix >= B * A) return;
-  int b = pix / A, a = pix - b * A;
-  int a1 = b * A + (a + 1 == A ? 0 : a + 1), a0 = b * A + (a == 0 ? A - 1 : a - 1);
-  int e1 = (b + 1 < B ? b + 1 : B - 1) * A + a, e0 = (b > 0 ? b - 1 : 0) * A + a;
-  bool ve1 = b + 1 < B && has_pt[e1], ve0 = b > 0 && has_pt[e0];
-  float u[3], w[3], p[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    u[d] = __fsub_rn(p_img[3 * a1 + d], p_img[3 * a0 + d]);
-    w[d] = __fsub_rn(p_img[3 * e1 + d], p_img[3 * e0 + d]);
-    p[d] = p_img[3 * pix + d];
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
   }
-  float n[3] = {__fsub_rn(__fmul_rn(u[1], w[2]), __fmul_rn(u[2], w[1])),
-                __fsub_rn(__fmul_rn(u[2], w[0]), __fmul_rn(u[0], w[2])),
-                __fsub_rn(__fmul_rn(u[0], w[1]), __fmul_rn(u[1], w[0]))};
-  float nn = norm3(n[0], n[1], n[2]);
-  float den = fmaxf(nn, 1e-9f);
+  __syncthreads();
 #pragma unroll
-  for (int d = 0; d < 3; ++d) n[d] = __fdiv_rn(n[d], den);
-  if (dot3(n[0], n[1], n[2], p[0], p[1], p[2]) > 0.0f) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) n[d] = -n[d];
+  for (int w = 0; w < kThreads / 32; ++w) {
+    lo = min(lo, s_lo[w]);
+    hi = max(hi, s_hi[w]);
   }
-  pix_valid[pix] = has_pt[pix] && has_pt[a1] && has_pt[a0] && ve1 && ve0 && nn > 1e-6f;
-  float q[3], nw[3];
-  rotate(R, p, q);
-  rotate(R, n, nw);
+  __syncthreads();
+}
+
+// the sum of a pixel's points in ascending point index, and their count:
+// its list (head, next) walked once into registers and put in order by a
+// fixed sorting network when it holds at most kMaxList points, else walked
+// once per point for the smallest index above the last one added
+__device__ __forceinline__ int pixel_sum(int head, const int* __restrict__ next,
+                                         const float* __restrict__ points, float (&s)[3]) {
+  int e[kMaxList];
+  int p = head, k = 0;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    q_w[3 * pix + d] = __fadd_rn(q[d], t[d]);
-    n_w[3 * pix + d] = nw[d];
+  for (int j = 0; j < kMaxList; ++j) {
+    e[j] = p >= 0 ? p : INT_MAX;  // absent entries sort last
+    if (p >= 0) {
+      ++k;
+      p = next[p];
+    }
+  }
+  s[0] = s[1] = s[2] = 0.0f;
+  if (p < 0) {
+    order(e[0], e[2]), order(e[1], e[3]), order(e[4], e[6]), order(e[5], e[7]);
+    order(e[0], e[4]), order(e[1], e[5]), order(e[2], e[6]), order(e[3], e[7]);
+    order(e[0], e[1]), order(e[2], e[3]), order(e[4], e[5]), order(e[6], e[7]);
+    order(e[2], e[4]), order(e[3], e[5]);
+    order(e[1], e[4]), order(e[3], e[6]);
+    order(e[1], e[2]), order(e[3], e[4]), order(e[5], e[6]);
+#pragma unroll
+    for (int j = 0; j < kMaxList; ++j) {
+      if (j >= k) continue;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) s[d] = __fadd_rn(s[d], points[3 * e[j] + d]);
+    }
+    return k;
+  }
+  for (; p >= 0; p = next[p]) ++k;
+  int last = -1;
+  for (int n = 0; n < k; ++n) {
+    int cur = INT_MAX;
+    for (int q = head; q >= 0; q = next[q])
+      if (q > last && q < cur) cur = q;
+    last = cur;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s[d] = __fadd_rn(s[d], points[3 * cur + d]);
+  }
+  return k;
+}
+
+// K11a, one cooperative launch (every block resident), four phases apart
+// by grid-wide syncs (see the header).
+__global__ void __launch_bounds__(kThreads) s2s_range_image_kernel(
+    const float* __restrict__ points, const unsigned char* __restrict__ valid, int P, int B,
+    int A, float min_depth, float max_depth, const float* __restrict__ R,
+    const float* __restrict__ t, float* __restrict__ elev, int* __restrict__ abin,
+    int* __restrict__ next, int* __restrict__ head, int* __restrict__ part,
+    float* __restrict__ p_img, unsigned char* __restrict__ has_pt, float* __restrict__ q_w,
+    float* __restrict__ n_w, unsigned char* __restrict__ pix_valid, float* __restrict__ depth,
+    float* __restrict__ span_out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_lo[kThreads / 32], s_hi[kThreads / 32];
+  const int total = B * A;
+  const int g = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
+  // 1: the list heads to -1; each point's angles, depth gate and azimuth
+  // bin; each block's elevation span of its gated points
+  for (int i = g; i < total; i += stride) head[i] = -1;
+  int lo = enc(1e9f), hi = enc(-1e9f);
+  for (int i = g; i < P; i += stride) {
+    float az, el, d;
+    angles(points[3 * i], points[3 * i + 1], points[3 * i + 2], az, el, d);
+    const bool ok = valid[i] && d > min_depth && d < max_depth;
+    elev[i] = el;
+    abin[i] = ok ? az_bin(az, A) : -1;
+    if (ok) {
+      lo = min(lo, enc(el));
+      hi = max(hi, enc(el));
+    }
+  }
+  block_span(lo, hi, s_lo, s_hi);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = lo;
+    part[2 * blockIdx.x + 1] = hi;
+  }
+  grid.sync();
+  // 2: every block folds the blocks' spans (min and max: the same span in
+  // each, whatever the order); each gated point joins its pixel's list
+  lo = enc(1e9f), hi = enc(-1e9f);
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
+    lo = min(lo, part[2 * b]);
+    hi = max(hi, part[2 * b + 1]);
+  }
+  block_span(lo, hi, s_lo, s_hi);
+  const float e_min = dec(lo), e_max = dec(hi);
+  if (g == 0) {
+    span_out[0] = e_min;
+    span_out[1] = e_max;
+  }
+  for (int i = g; i < P; i += stride) {
+    const int ab = abin[i];
+    if (ab < 0) continue;
+    const int bi = clip_bin(elev_bin_f(elev[i], e_min, e_max, B), B);
+    next[i] = atomicExch(head + bi * A + ab, i);
+  }
+  grid.sync();
+  // 3: each pixel's mean point, its points added in ascending index
+  for (int pix = g; pix < total; pix += stride) {
+    float sum[3];
+    const int k = pixel_sum(head[pix], next, points, sum);
+    const float c = fmaxf((float)k, 1.0f);
+    const float x = __fdiv_rn(sum[0], c), y = __fdiv_rn(sum[1], c), z = __fdiv_rn(sum[2], c);
+    p_img[3 * pix] = x;
+    p_img[3 * pix + 1] = y;
+    p_img[3 * pix + 2] = z;
+    has_pt[pix] = k > 0;
+    depth[pix] = norm3(x, y, z);
+  }
+  grid.sync();
+  // 4: central-difference normals (azimuth wraps, the elevation edges are
+  // invalid), turned toward the sensor, and both moved to the world frame
+  for (int pix = g; pix < total; pix += stride) {
+    const int b = pix / A, a = pix - b * A;
+    const int a1 = b * A + (a + 1 == A ? 0 : a + 1), a0 = b * A + (a == 0 ? A - 1 : a - 1);
+    const int e1 = (b + 1 < B ? b + 1 : B - 1) * A + a, e0 = (b > 0 ? b - 1 : 0) * A + a;
+    const bool ve1 = b + 1 < B && has_pt[e1], ve0 = b > 0 && has_pt[e0];
+    float u[3], w[3], p[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      u[d] = __fsub_rn(p_img[3 * a1 + d], p_img[3 * a0 + d]);
+      w[d] = __fsub_rn(p_img[3 * e1 + d], p_img[3 * e0 + d]);
+      p[d] = p_img[3 * pix + d];
+    }
+    float n[3] = {__fsub_rn(__fmul_rn(u[1], w[2]), __fmul_rn(u[2], w[1])),
+                  __fsub_rn(__fmul_rn(u[2], w[0]), __fmul_rn(u[0], w[2])),
+                  __fsub_rn(__fmul_rn(u[0], w[1]), __fmul_rn(u[1], w[0]))};
+    const float nn = norm3(n[0], n[1], n[2]);
+    const float den = fmaxf(nn, 1e-9f);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) n[d] = __fdiv_rn(n[d], den);
+    if (dot3(n[0], n[1], n[2], p[0], p[1], p[2]) > 0.0f) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) n[d] = -n[d];
+    }
+    pix_valid[pix] = has_pt[pix] && has_pt[a1] && has_pt[a0] && ve1 && ve0 && nn > 1e-6f;
+    float q[3], nw[3];
+    rotate(R, p, q);
+    rotate(R, n, nw);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      q_w[3 * pix + d] = __fadd_rn(q[d], t[d]);
+      n_w[3 * pix + d] = nw[d];
+    }
   }
 }
 
@@ -334,29 +398,42 @@ __global__ void __cluster_dims__(kS2SBlocks, 1, 1) __launch_bounds__(kS2SThreads
 
 }  // namespace
 
-// Scratch: az, elev (P floats each), ok (P bytes), next (P ints), head
-// (n_elev * n_az ints), span_key (2 ints), p_img (3 floats per pixel),
-// has_pt (1 byte per pixel). R (9) and t (3) are the previous pose.
+// K11a's scratch, in this order: elev (P floats), abin and next (P ints
+// each), head (n_elev * n_az ints), the blocks' spans
+// (nl_range_image_part_ints), p_img (3 floats a pixel), has_pt (a byte a
+// pixel). R (9) and t (3) are the previous pose's.
+extern "C" int nl_range_image_part_ints() { return 2 * kRangeMaxBlocks; }
+
 extern "C" int nl_build_prev_scan(const float* points, const unsigned char* valid, int P,
                                   const float* R, const float* t, int n_elev, int n_az,
-                                  float min_depth, float max_depth, float* az, float* elev,
-                                  unsigned char* ok, int* next, int* head, int* span_key,
-                                  float* p_img, unsigned char* has_pt, float* q_w, float* n_w,
+                                  float min_depth, float max_depth, float* elev, int* abin,
+                                  int* next, int* head, int* part, float* p_img,
+                                  unsigned char* has_pt, float* q_w, float* n_w,
                                   unsigned char* pix_valid, float* depth, float* span_out,
                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int total = n_elev * n_az;
-  s2s_init_kernel<<<blocks(total), kThreads, 0, s>>>(total, head, span_key);
-  if (P > 0) {
-    s2s_span_kernel<<<blocks(P), kThreads, 0, s>>>(points, valid, P, min_depth, max_depth, az,
-                                                    elev, ok, span_key);
-    s2s_link_kernel<<<blocks(P), kThreads, 0, s>>>(az, elev, ok, P, n_elev, n_az, span_key, next,
-                                                    head);
+  static int resident[kMaxDevices];  // blocks that fit the card at once, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2s_range_image_kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm == 0) return (int)cudaErrorLaunchOutOfResources;
+    resident[dev] = min(sms * per_sm, kRangeMaxBlocks);
   }
-  s2s_pixel_kernel<<<blocks(total), kThreads, 0, s>>>(points, next, head, total, p_img, has_pt,
-                                                       depth);
-  s2s_normal_kernel<<<blocks(total), kThreads, 0, s>>>(p_img, has_pt, n_elev, n_az, R, t,
-                                                        span_key, q_w, n_w, pix_valid, span_out);
+  const int total = n_elev * n_az;
+  const int blocks = max(1, min(resident[dev], (max(P, total) + kThreads - 1) / kThreads));
+  void* args[] = {&points, &valid, &P, &n_elev, &n_az, &min_depth, &max_depth, &R, &t,
+                  &elev, &abin, &next, &head, &part, &p_img, &has_pt, &q_w, &n_w,
+                  &pix_valid, &depth, &span_out};
+  err = cudaLaunchCooperativeKernel((const void*)s2s_range_image_kernel, blocks, kThreads, args,
+                                    0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -55,14 +55,10 @@ _SIGNATURES = {
     "nl_gn_max_blocks": [],
     "nl_gn_system": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                      _P, _P, _P, _P, _P],
-    "nl_insert_elect": [_P, _P, _I, _F, _P, _I, _I, _I, _P, _P, _P, _P],
-    "nl_insert_candidate": [_P, _P, _P, _P, _I, _P, _P],
-    "nl_insert_corners": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "nl_insert_corner_new": [_P, _P, _I, _P, _P],
-    "nl_insert_alloc": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
-    "nl_insert_activate": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "nl_insert_append": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I,
-                         _P, _P, _P, _P, _P],
+    "nl_insert_scan_words": [_I, _I],
+    "nl_insert": [_P, _P, _I, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "nl_insert_undo": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "nl_recenter": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
     "nl_refresh_mark": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "nl_refresh_place": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -76,8 +72,9 @@ _SIGNATURES = {
     "nl_place_samples_cdf": [_P, _P, _P, _I, _P, _P, _P],
     "nl_mesh_lattice": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "nl_marching_tets": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P],
+    "nl_range_image_part_ints": [],
+    "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _F, _I, _P, _P, _P, _P],
 }

@@ -9,17 +9,22 @@ so a frame never waits on the host: out-of-range writes that JAX drops
 off (``_set_drop`` / ``_add_drop``).
 
 Functions return a new ``MapState`` rather than editing their input, like
-the JAX code: the pipeline keeps no rewind point, but tests compare the
-before and after states.
+the JAX code, but one: ``insert_points`` (and ``insert_frame``) writes
+into the state it is given and returns ``(state, record)``;
+``undo_insert(state, record)`` puts it back exactly. The pipeline undoes
+an insert before it rewinds a frame for an overflow replay; any other
+caller that needs the pre-insert state clones it first.
 
 Kernels, each with a plain torch twin that CPU tensors take: K7
-``insert_points`` (csrc/insert.cu, twin ``insert_points_plain``); K6
-``recenter`` and ``refresh_active`` (csrc/active_set.cu, twins
-``recenter_plain`` and ``refresh_active_plain``); K5 ``reconcile``, the
-BA step's tail (csrc/reconcile.cu, twin ``reconcile_plain``, which runs
-the JAX-named pieces ``reconcile_packed``, ``bump_upd_count`` and
-``pack_embeddings``; its scratch a ``ReconcileScratch`` the pipeline
-keeps). The kernels write fresh tables, so a kept state stays valid.
+``insert_points`` and its ``undo_insert`` (csrc/insert.cu, twins
+``insert_points_plain`` and ``undo_insert_plain``, in place too; its
+scratch an ``InsertScratch`` the pipeline keeps); K6 ``recenter`` and
+``refresh_active`` (csrc/active_set.cu, twins ``recenter_plain`` and
+``refresh_active_plain``); K5 ``reconcile``, the BA step's tail
+(csrc/reconcile.cu, twin ``reconcile_plain``, which runs the JAX-named
+pieces ``reconcile_packed``, ``bump_upd_count`` and ``pack_embeddings``;
+its scratch a ``ReconcileScratch`` the pipeline keeps). K6 and K5 write
+fresh tables, so a kept state stays valid across them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from nerfloam_tpu_torch.ops.interp import CORNER_OFFSETS
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 insert_launches = 0      # K7
+insert_undo_launches = 0  # K7's undo_insert
 active_set_launches = 0  # K6: recenter and refresh_active, one each
 reconcile_launches = 0   # K5
 _INT_MAX = 2**31 - 1
@@ -467,11 +473,57 @@ def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched
     return Reconciled(emb, packed, upd_count, count)
 
 
+class InsertRecord(NamedTuple):
+    """What one ``insert_points`` call overwrote, for ``undo_insert``.
+    ``ints`` (int32): a header of 8 words (num_lat, n_active and num_cand
+    before the call, then the rows, activated voxels and appended slots it
+    wrote), then ``rows`` x 5 (the new rows from the old num_lat on: their
+    old coords, grid cell and old grid entry), ``cands`` x 10 (the
+    activated voxels in candidate order: row, old surface flag, old corner
+    rows) and ``slots`` x 6 (the appended slots from the old n_active on:
+    old id, old coords, grid_active cell, old entry); ``packed`` (slots,
+    8F) f32, their old packed rows. Only the counted prefix of each part is
+    written; ``record_parts`` cuts it out."""
+
+    ints: torch.Tensor
+    packed: torch.Tensor
+    rows: int
+    cands: int
+    slots: int
+
+
+_HEADER = 8
+
+
+def _new_record(dev, cfg: MapConfig, Pc: int, append_active: bool, make=torch.empty):
+    R, Aa = min(8 * Pc, cfg.capacity), min(Pc, acap(cfg)) if append_active else 0
+    ints = make((_HEADER + 5 * R + 10 * Pc + 6 * Aa,), dtype=torch.int32, device=dev)
+    return InsertRecord(ints, make((Aa, 8 * cfg.feat_dim), dtype=torch.float32, device=dev),
+                        R, Pc, Aa)
+
+
+def _record_views(rec: InsertRecord):
+    """(header, rows (R, 5), cands (Pc, 10), slots (Aa, 6)) views of ints."""
+    R, Pc, Aa = rec.rows, rec.cands, rec.slots
+    h, rows, cands, slots = rec.ints.split_with_sizes([_HEADER, 5 * R, 10 * Pc, 6 * Aa])
+    return h, rows.view(R, 5), cands.view(Pc, 10), slots.view(Aa, 6)
+
+
+def record_parts(rec: InsertRecord) -> dict:
+    """The written part of a record (one host read of its header): the
+    old scalars and counts, and the rows, activated voxels, appended slots
+    and their old packed rows."""
+    h, rows, cands, slots = _record_views(rec)
+    n_rows, n_act, n_app = h[3:6].tolist()
+    return {"header": h[:6], "rows": rows[:n_rows], "activated": cands[:n_act],
+            "appended": slots[:n_app], "packed": rec.packed[:n_app]}
+
+
 def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
-                        valid: torch.Tensor, cand_cap: int = 0,
-                        append_active: bool = False) -> MapState:
+                        valid: torch.Tensor, cand_cap: int = 0, append_active: bool = False):
     """Plain torch twin of K7: allocate voxels (and their corner lattice
-    points) at observed points. Each observed voxel becomes surface, its 8
+    points) at observed points, in place, returning ``(state, record)``
+    as ``insert_points`` does. Each observed voxel becomes surface, its 8
     corners are allocated if absent. Duplicates are resolved by electing
     the smallest point (corner) slot per grid cell (JAX lets any duplicate
     win, so its row ids differ but its sets are the same). Candidates are
@@ -481,10 +533,14 @@ def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Ten
     the host can grow the map."""
     dev = points_world.device
     P = points_world.shape[0]
-    C = cfg.capacity
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
     total = int(np.prod(cfg.grid_dim))
     i32 = dict(dtype=torch.int32, device=dev)
     Pc = cand_cap if 0 < cand_cap < P else P
+    rec = _new_record(dev, cfg, Pc, append_active, torch.zeros)
+    h, rec_rows, rec_act, rec_app = _record_views(rec)
+    num_lat0, n_active0, num_cand0 = (int(x) for x in (state.num_lat, state.n_active,
+                                                       state.num_cand))
 
     vox = torch.floor(div(points_world, cfg.voxel_size)).to(torch.int32)
     vflat, vox_inb = _flat_cell(vox - state.region_min, cfg.grid_dim)
@@ -497,7 +553,7 @@ def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Ten
     lid0 = state.grid[torch.clamp(vflat, 0, total - 1).long()]
     already_surface = (lid0 >= 0) & state.is_surface[torch.clamp(lid0, min=0).long()]
     cand = first & ~already_surface
-    num_cand = cand.sum(dtype=torch.int32)
+    num_cand = int(cand.sum())
 
     crank = torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
     keep = cand & (crank < Pc)
@@ -516,134 +572,207 @@ def insert_points_plain(state: MapState, cfg: MapConfig, points_world: torch.Ten
     cwinner = torch.full((total + 1,), _INT_MAX, **i32).scatter_reduce_(0, c_dest, cslot, "amin")
     cnew = c_ok & (cwinner[c_dest] == cslot)
 
-    ranks = torch.cumsum(cnew.to(torch.int32), 0, dtype=torch.int32) - 1
-    new_ids = state.num_lat + ranks
-    fits = new_ids < C
-    lat_coords = _set_drop(state.lat_coords, torch.where(cnew & fits, new_ids, C), cflat3)
-    grid = _set_drop(state.grid, torch.where(cnew & fits, c_flatidx, total), new_ids)
-    num_lat = state.num_lat + cnew.sum(dtype=torch.int32)
-    state = state._replace(lat_coords=lat_coords, grid=grid, num_lat=num_lat)
+    # the new corners take rows num_lat0 + rank, in ascending slot
+    new_ids = num_lat0 + torch.cumsum(cnew.to(torch.int32), 0, dtype=torch.int32) - 1
+    put = cnew & (new_ids < C)
+    ids, cells = new_ids[put].long(), c_flatidx[put].long()
+    n_rows = len(ids)
+    rec_rows[:n_rows, :3] = state.lat_coords[ids]
+    rec_rows[:n_rows, 3] = cells.to(torch.int32)
+    rec_rows[:n_rows, 4] = state.grid[cells]
+    state.lat_coords[ids] = cflat3[put]
+    state.grid[cells] = ids.to(torch.int32)
+    state.num_lat.fill_(num_lat0 + int(cnew.sum()))
+    state.num_cand.fill_(num_cand)
 
     c_lid2 = lookup(state, cfg, corners)
-    complete = torch.all(c_lid2 >= 0, dim=-1)
-    vox_id = c_lid2[:, 0]
-    act = cand_c & complete
-    dest = torch.where(act, vox_id, C)
-    state = state._replace(
-        is_surface=_set_drop(state.is_surface, dest, True),
-        corner_idx=_set_drop(state.corner_idx, dest, c_lid2),
-        num_cand=num_cand,
-    )
-    if not append_active:
-        return state
+    act = cand_c & torch.all(c_lid2 >= 0, dim=-1)
+    vids = c_lid2[act, 0].long()
+    n_act = len(vids)
+    rec_act[:n_act, 0] = vids.to(torch.int32)
+    rec_act[:n_act, 1] = state.is_surface[vids].to(torch.int32)
+    rec_act[:n_act, 2:] = state.corner_idx[vids]
+    state.is_surface[vids] = True
+    state.corner_idx[vids] = c_lid2[act]
+    n_app = 0
+    if append_active:  # the newly activated voxels join the active set (lazy recentering)
+        n_app = max(0, min(n_active0 + n_act, A) - n_active0)
+        pos = torch.arange(n_active0, n_active0 + n_app, device=dev)
+        vflat_c, _ = _flat_cell(vox_c[act][:n_app] - state.region_min, cfg.grid_dim)
+        cells = vflat_c.long()
+        rec_app[:n_app, 0] = state.active_ids[pos]
+        rec_app[:n_app, 1:4] = state.active_coords[pos]
+        rec_app[:n_app, 4] = cells.to(torch.int32)
+        rec_app[:n_app, 5] = state.grid_active[cells]
+        rec.packed[:n_app] = state.packed[pos]
+        state.active_ids[pos] = vids[:n_app].to(torch.int32)
+        state.active_coords[pos] = vox_c[act][:n_app]
+        state.grid_active[cells] = pos.to(torch.int32)
+        state.packed[pos] = _pack(state.embeddings, c_lid2[act][:n_app], n_app, F)
+        state.n_active.fill_(n_active0 + n_act)
+    h[:6] = torch.tensor([num_lat0, n_active0, num_cand0, n_rows, n_act, n_app], **i32)
+    return state, rec
 
-    # append the newly activated voxels to the active set (lazy recentering)
-    A, F = acap(cfg), cfg.feat_dim
-    arank = torch.cumsum(act.to(torch.int32), 0, dtype=torch.int32) - 1
-    pos = state.n_active + arank
-    afits = act & (pos < A)
-    adest = torch.where(afits, pos, A)
-    vflat_c, _ = _flat_cell(vox_c - state.region_min, cfg.grid_dim)
-    return state._replace(
-        active_ids=_set_drop(state.active_ids, adest, vox_id),
-        active_coords=_set_drop(state.active_coords, adest, vox_c),
-        grid_active=_set_drop(state.grid_active, torch.where(afits, vflat_c, total), pos),
-        packed=_set_drop(state.packed, adest, _pack(state.embeddings, c_lid2, Pc, F)),
-        n_active=state.n_active + act.sum(dtype=torch.int32),
-    )
+
+class InsertScratch:
+    """K7's scratch, owned by its caller: the pipeline keeps one for the
+    run (``NerfLoamSLAM_torch.insert_scratch``) and hands it to every
+    insert. It holds the two election grids (points, corners), filled with
+    INT_MAX once and left so by every call (each winner resets its own
+    cell), the compacted candidates and their corner cells, and the tile
+    states and tickets of the kernel's three scans (zeroed by its first
+    pass). It is allocated at its first call on the card and again for a
+    larger region, more points or a larger candidate cap, and dropped by
+    a call whose launch fails (the next call starts afresh). Calls on one
+    stream take turns with it."""
+
+    def __init__(self):
+        self.drop()
+
+    def fit(self, dev, total: int, P: int, Pc: int):
+        """The kernel's scratch pointers (winner, cwinner, vox_c, cflat,
+        scan) for a region of ``total`` cells, P points and a cap of Pc."""
+        if self.ptrs is None or dev != self.dev or total > self.total or P > self.P or Pc > self.Pc:
+            total, P, Pc = max(total, self.total), max(P, self.P), max(Pc, self.Pc, 1)
+            i32 = dict(dtype=torch.int32, device=dev)
+            self.grids = torch.full((2 * total,), _INT_MAX, **i32)
+            self._bufs = (torch.empty((3 * Pc,), **i32), torch.empty((8 * Pc,), **i32),
+                          torch.empty((kernels.lib().nl_insert_scan_words(P, Pc),),
+                                      dtype=torch.int64, device=dev))
+            self.total, self.P, self.Pc, self.dev = total, P, Pc, dev
+            g = self.grids.data_ptr()
+            self.ptrs = (g, g + 4 * total, *[t.data_ptr() for t in self._bufs])
+        return self.ptrs
+
+    def drop(self):
+        self.total = self.P = self.Pc = 0
+        self.dev = self.ptrs = self.grids = self._bufs = None
+
+
+def _check_insert(name, state: MapState, cfg: MapConfig, dev, points_world, valid):
+    """What the K7 kernel reads and writes, as it reads it; raise ValueError
+    on anything else (nothing is converted)."""
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
+    total, P = int(np.prod(cfg.grid_dim)), points_world.shape[0]
+    kernels.expect(name, dev, torch.float32, points_world=points_world, packed=state.packed)
+    kernels.expect(name, dev, torch.bool, valid=valid, is_surface=state.is_surface)
+    kernels.expect(name, dev, torch.int32, lat_coords=state.lat_coords,
+                   corner_idx=state.corner_idx, grid=state.grid, region_min=state.region_min,
+                   active_ids=state.active_ids, active_coords=state.active_coords,
+                   grid_active=state.grid_active, num_lat=state.num_lat,
+                   n_active=state.n_active, num_cand=state.num_cand)
+    if state.embeddings.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: embeddings must be float32 or bfloat16")
+    kernels.expect(name, dev, state.embeddings.dtype, embeddings=state.embeddings)
+    kernels.expect_shape(name, points_world=(points_world, (P, 3)), valid=(valid, (P,)),
+                         lat_coords=(state.lat_coords, (C, 3)), is_surface=(state.is_surface, (C,)),
+                         corner_idx=(state.corner_idx, (C, 8)), grid=(state.grid, (total,)),
+                         region_min=(state.region_min, (3,)), active_ids=(state.active_ids, (A,)),
+                         active_coords=(state.active_coords, (A, 3)),
+                         grid_active=(state.grid_active, (total,)),
+                         packed=(state.packed, (A, 8 * F)), embeddings=(state.embeddings, (C, F)),
+                         num_lat=(state.num_lat, ()), n_active=(state.n_active, ()),
+                         num_cand=(state.num_cand, ()))
+    if state.packed.data_ptr() % 16 or 8 * P >= 2**31 or 8 * C >= 2**31:
+        raise ValueError(f"{name}: packed rows must be 16-byte aligned, 8 P and 8 C < 2^31")
+    _pack_check(name, state.embeddings, A, F)
 
 
 def insert_points(state: MapState, cfg: MapConfig, points_world: torch.Tensor,
-                  valid: torch.Tensor, cand_cap: int = 0,
-                  append_active: bool = False) -> MapState:
+                  valid: torch.Tensor, cand_cap: int = 0, append_active: bool = False,
+                  scratch: InsertScratch | None = None):
     """K7. Replaces nerfloam_tpu/map/voxel_map.py:311-449 (insert_points):
     the XLA fusion of the two grid elections, the corner allocation, the
-    activation and the active-set append. CPU tensors take the plain twin
-    ``insert_points_plain``; CUDA tensors launch csrc/insert.cu, with the
-    prefix sums between its passes in torch. The tables it writes are
-    copies, so the input state stays valid (the pipeline rewinds to it on
-    overflow). Same semantics and the same tables as the twin."""
+    activation and the active-set append.
+
+    In place: the tables and the scalars num_lat, num_cand (and with
+    ``append_active`` n_active) of ``state`` are written, and
+    ``(state, record)`` comes back: ``undo_insert(state, record)`` puts
+    every one back as it was. A caller that needs the old state either
+    undoes the insert (the pipeline's overflow replay does) or clones the
+    state first. Same semantics and the same tables and record as the twin.
+
+    CPU tensors take the plain twin ``insert_points_plain``; CUDA tensors
+    launch csrc/insert.cu four times (elect; candidates with their scan,
+    compaction and corner election; the new rows; activation), and with
+    ``append_active`` a fifth (the appended packed rows),
+    on inputs as the kernel reads them (contiguous f32 points, bool valid
+    and surface flags, int32 tables and 0-d scalars, f32 or bf16
+    embeddings, 16-byte aligned rows, feat_dim % 4 == 0): nothing is
+    converted, anything else raises ValueError. ``scratch``: an
+    ``InsertScratch`` kept by the caller (without one, one made for this
+    call: two fills of the region's size)."""
     dev = points_world.device
     if dev.type == "cpu":
         return insert_points_plain(state, cfg, points_world, valid, cand_cap, append_active)
     if dev.type != "cuda":
         raise ValueError(f"insert_points: unsupported device {dev}")
     global insert_launches
-    lib = kernels.lib()
+    name = "insert_points"
+    _check_insert(name, state, cfg, dev, points_world, valid)
     P = points_world.shape[0]
     C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
-    total = int(np.prod(cfg.grid_dim))
     Pc = cand_cap if 0 < cand_cap < P else P
-    Dx, Dy, Dz = cfg.grid_dim
-    i32 = dict(dtype=torch.int32, device=dev)
-    pts = points_world.float().contiguous()
-    val = valid.to(torch.bool).contiguous()
-    rmin = state.region_min.to(torch.int32).contiguous()
-    if any(t.device != dev for t in (val, rmin, state.grid, state.is_surface)):
-        raise ValueError("insert_points: map and points must share one device")
-    if F * 8 != state.packed.shape[1] or state.embeddings.dtype not in (torch.float32,
-                                                                         torch.bfloat16):
-        raise ValueError("insert_points: packed rows must be 8 x F float32 embeddings")
-    stream = kernels.stream_ptr(dev)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-
-    winner = torch.full((total,), _INT_MAX, **i32)
-    vox = torch.empty((P, 3), **i32)
-    vflat = torch.empty((P,), **i32)
-    kernels.check(lib.nl_insert_elect(ptr(pts), ptr(val), P, cfg.voxel_size, ptr(rmin), Dx, Dy,
-                                      Dz, ptr(winner), ptr(vox), ptr(vflat), stream),
-                  "insert_elect")
-    cand = torch.empty((P,), **i32)
-    kernels.check(lib.nl_insert_candidate(ptr(vflat), ptr(winner), ptr(state.grid),
-                                          ptr(state.is_surface), P, ptr(cand), stream),
-                  "insert_candidate")
-    crank = torch.cumsum(cand, 0, dtype=torch.int32)
-    num_cand = crank[-1].clone() if P else torch.zeros((), **i32)
-
-    cwinner = winner.fill_(_INT_MAX)  # the first election is read; reuse its grid
-    vox_c = torch.zeros((Pc, 3), **i32)
-    cand_c = torch.zeros((Pc,), dtype=torch.bool, device=dev)
-    cflat = torch.full((8 * Pc,), -1, **i32)
-    kernels.check(lib.nl_insert_corners(ptr(vox), ptr(cand), ptr(crank), P, Pc, ptr(rmin), Dx,
-                                        Dy, Dz, ptr(state.grid), ptr(cwinner), ptr(vox_c),
-                                        ptr(cand_c), ptr(cflat), stream), "insert_corners")
-    cnew = torch.empty((8 * Pc,), **i32)
-    kernels.check(lib.nl_insert_corner_new(ptr(cflat), ptr(cwinner), 8 * Pc, ptr(cnew), stream),
-                  "insert_corner_new")
-    rank = torch.cumsum(cnew, 0, dtype=torch.int32)
-    num_lat0 = state.num_lat.to(torch.int32).reshape(1).contiguous()
-    lat_coords = state.lat_coords.clone()
-    grid = state.grid.clone()
-    kernels.check(lib.nl_insert_alloc(ptr(vox_c), ptr(cflat), ptr(cnew), ptr(rank), 8 * Pc,
-                                      ptr(num_lat0), C, ptr(lat_coords), ptr(grid), stream),
-                  "insert_alloc")
-    num_lat = state.num_lat + (rank[-1] if Pc else 0)
-
-    is_surface = state.is_surface.clone()
-    corner_idx = state.corner_idx.clone()
-    clid = torch.empty((Pc, 8), **i32)
-    act = torch.empty((Pc,), **i32)
-    kernels.check(lib.nl_insert_activate(ptr(vox_c), ptr(cand_c), Pc, ptr(rmin), Dx, Dy, Dz,
-                                         ptr(grid), ptr(is_surface), ptr(corner_idx), ptr(clid),
-                                         ptr(act), stream), "insert_activate")
-    state = state._replace(lat_coords=lat_coords, grid=grid, num_lat=num_lat,
-                           is_surface=is_surface, corner_idx=corner_idx, num_cand=num_cand)
-    if append_active:
-        arank = torch.cumsum(act, 0, dtype=torch.int32)
-        n_active0 = state.n_active.to(torch.int32).reshape(1).contiguous()
-        emb = state.embeddings.contiguous()
-        active_ids = state.active_ids.clone()
-        active_coords = state.active_coords.clone()
-        grid_active = state.grid_active.clone()
-        packed = state.packed.clone()
-        kernels.check(lib.nl_insert_append(
-            ptr(vox_c), ptr(act), ptr(arank), ptr(clid), Pc, ptr(n_active0), A, ptr(rmin), Dx,
-            Dy, Dz, ptr(emb), int(emb.dtype == torch.bfloat16), F, ptr(active_ids),
-            ptr(active_coords), ptr(grid_active), ptr(packed), stream), "insert_append")
-        state = state._replace(active_ids=active_ids, active_coords=active_coords,
-                               grid_active=grid_active, packed=packed,
-                               n_active=state.n_active + (arank[-1] if Pc else 0))
+    scratch = InsertScratch() if scratch is None else scratch
+    ptrs = scratch.fit(dev, int(np.prod(cfg.grid_dim)), P, Pc)
+    rec = _new_record(dev, cfg, Pc, append_active)
+    emb = state.embeddings
+    err = kernels.lib().nl_insert(
+        points_world.data_ptr(), valid.data_ptr(), P, cfg.voxel_size, state.region_min.data_ptr(),
+        *cfg.grid_dim, Pc, C, A, F, int(append_active), emb.data_ptr(),
+        int(emb.dtype == torch.bfloat16), state.lat_coords.data_ptr(),
+        state.is_surface.data_ptr(), state.corner_idx.data_ptr(), state.grid.data_ptr(),
+        state.active_ids.data_ptr(), state.active_coords.data_ptr(),
+        state.grid_active.data_ptr(), state.packed.data_ptr(), state.num_lat.data_ptr(),
+        state.n_active.data_ptr(), state.num_cand.data_ptr(), *ptrs, rec.ints.data_ptr(),
+        rec.packed.data_ptr(), rec.rows, kernels.stream_ptr(dev))
+    if err:
+        scratch.drop()  # its election grids may not be reset
+        kernels.check(err, name)
     insert_launches += 1
+    return state, rec
+
+
+def undo_insert_plain(state: MapState, rec: InsertRecord) -> MapState:
+    """Plain torch twin of ``undo_insert``."""
+    h, rows, cands, slots = _record_views(rec)
+    num_lat0, n_active0, num_cand0, n_rows, n_act, n_app = h[:6].tolist()
+    dev = rows.device
+    rows, cands, slots = rows[:n_rows], cands[:n_act].long(), slots[:n_app]
+    state.lat_coords[num_lat0:num_lat0 + n_rows] = rows[:, :3]
+    state.grid[rows[:, 3].long()] = rows[:, 4]
+    state.is_surface[cands[:, 0]] = cands[:, 1].bool()
+    state.corner_idx[cands[:, 0]] = cands[:, 2:].to(torch.int32)
+    pos = torch.arange(n_active0, n_active0 + n_app, device=dev)
+    state.active_ids[pos] = slots[:, 0]
+    state.active_coords[pos] = slots[:, 1:4]
+    state.grid_active[slots[:, 4].long()] = slots[:, 5]
+    state.packed[pos] = rec.packed[:n_app]
+    for t, v in ((state.num_lat, num_lat0), (state.n_active, n_active0),
+                 (state.num_cand, num_cand0)):
+        t.fill_(v)
+    return state
+
+
+def undo_insert(state: MapState, rec: InsertRecord) -> MapState:
+    """Put back every table and scalar that the insert which gave ``rec``
+    wrote into ``state`` (the same tensors, in place), as they were before
+    it. Undoing one record twice changes nothing more. CPU tensors take
+    ``undo_insert_plain``; CUDA tensors launch csrc/insert.cu once."""
+    dev = rec.ints.device
+    if dev.type == "cpu":
+        return undo_insert_plain(state, rec)
+    if dev.type != "cuda":
+        raise ValueError(f"undo_insert: unsupported device {dev}")
+    global insert_undo_launches
+    kernels.check(kernels.lib().nl_insert_undo(
+        rec.ints.data_ptr(), rec.packed.data_ptr(), rec.rows, rec.cands, rec.slots,
+        state.packed.shape[1] // 8, state.lat_coords.data_ptr(), state.grid.data_ptr(),
+        state.is_surface.data_ptr(), state.corner_idx.data_ptr(), state.active_ids.data_ptr(),
+        state.active_coords.data_ptr(), state.grid_active.data_ptr(), state.packed.data_ptr(),
+        state.num_lat.data_ptr(), state.n_active.data_ptr(), state.num_cand.data_ptr(),
+        kernels.stream_ptr(dev)), "undo_insert")
+    insert_undo_launches += 1
     return state
 
 
@@ -720,15 +849,17 @@ def maybe_recenter_refresh(state: MapState, cfg: MapConfig, center_world: torch.
 
 def insert_frame(state: MapState, cfg: MapConfig, points_sensor: torch.Tensor,
                  points_cos: torch.Tensor, valid: torch.Tensor, pose6: torch.Tensor,
-                 cand_cap: int = 0, append_active: bool = False) -> MapState:
-    """World transform + insert (create_voxels, JAX voxel_map.py:535-575).
-    With ``cfg.support_dist > 0`` each measured point also inserts a
-    support point that far past the surface: straight down for ground
-    points (cos < 0.999), along the ray otherwise; ``support_sym`` adds the
-    mirror point on the sensor side. One insert_points pass takes all."""
+                 cand_cap: int = 0, append_active: bool = False,
+                 scratch: InsertScratch | None = None):
+    """World transform + insert (create_voxels, JAX voxel_map.py:535-575),
+    in place as ``insert_points``: returns ``(state, record)``. With
+    ``cfg.support_dist > 0`` each measured point also inserts a support
+    point that far past the surface: straight down for ground points (cos
+    < 0.999), along the ray otherwise; ``support_sym`` adds the mirror
+    point on the sensor side. One insert_points pass takes all."""
     world = se3.transform_points(pose6, points_sensor)
     if cfg.support_dist <= 0:
-        return insert_points(state, cfg, world, valid, cand_cap, append_active)
+        return insert_points(state, cfg, world, valid, cand_cap, append_active, scratch)
     dirs = points_sensor / (torch.linalg.norm(points_sensor, dim=-1, keepdim=True) + 1e-8)
     wdirs = se3.rotate_dirs(pose6, dirs)
     down = torch.tensor([0.0, 0.0, -1.0], dtype=world.dtype, device=world.device)
@@ -737,4 +868,4 @@ def insert_frame(state: MapState, cfg: MapConfig, points_sensor: torch.Tensor,
     if cfg.support_sym:
         pts.append(world - off * cfg.support_dist)
     return insert_points(state, cfg, torch.cat(pts, 0), torch.cat([valid] * len(pts), 0),
-                         cand_cap, append_active)
+                         cand_cap, append_active, scratch)

@@ -80,6 +80,8 @@ def build_map(slam, ds, dev, gen, n_frames=3):
         p, c, v = f.device_arrays(dev)
         ms = vm.insert_frame(ms, cfg, p, c, v, torch.as_tensor(f.pose6, device=dev),
                              slam.insert_cand_cap)
+        if hasattr(vm, "undo_insert"):  # the in-place insert returns (state, record)
+            ms = ms[0]
     emb = torch.randn(ms.embeddings.shape, generator=gen, device=dev) * 0.1
     return vm.refresh_active(ms._replace(embeddings=emb.to(ms.embeddings.dtype)), cfg), frames
 

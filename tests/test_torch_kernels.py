@@ -28,8 +28,11 @@ kernel, no copy); K3 H, b and loss 1e-4 relative (another summation
 order), bit-stable from run to run, a GnSystem made once equal to a fresh
 one, one kernel a call, and its last-block counter back to zero after
 calls of every size (below one block, rays not a multiple of a block's
-warps, an all-false mask); K7 every table equal
-(both elect the smallest slot); K6 every table equal (f32 and bf16); K5
+warps, an all-false mask); K7 (in place) every table and its record
+equal to the in-place twin's (both elect the smallest slot), between two
+calls from equal clones and with the candidate cap overflowed, its kept
+election grids all INT_MAX after every call and its undo exact; K6
+every table equal (f32 and bf16); K5
 every table equal to the twin run on the CPU (f32 and bf16: both add
 each corner's deltas in ascending order, rounding after every add) and
 bit-identical between calls without a scratch and through one kept
@@ -39,7 +42,8 @@ ray and widths that are not multiples of 32); the grid render's gradients on the
 1e-5 of the CPU's largest entry (another summation order); K10a features and
 positions equal, K10b triangles and mask equal (one rounded operation at a
 time on both sides); K11a every output equal and bit-identical between two
-calls (per-pixel sums in ascending point index); K11b H, b and loss 1e-5
+calls (per-pixel sums in ascending point index), one launch of the port's
+a call; K11b H, b and loss 1e-5
 relative (another summation order) and bit-stable from run to run, and in
 the accumulating form each entry one add on the sums alone (also into a
 GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
@@ -88,7 +92,7 @@ def _case(device, R=96, seed=0):
                                 zz.ravel() + 0.25], -1))
     pts = torch.as_tensor(np.concatenate(xs), dtype=torch.float32)
     ms = vm.recenter(vm.create(T_CFG, "cpu"), T_CFG, torch.zeros(3))
-    ms = vm.insert_points(ms, T_CFG, pts, torch.ones(len(pts), dtype=torch.bool))
+    ms, _ = vm.insert_points(ms, T_CFG, pts, torch.ones(len(pts), dtype=torch.bool))
     g = torch.Generator().manual_seed(seed)
     emb = torch.randn(ms.embeddings.shape, generator=g) * 0.3
     ms = vm.refresh_active(ms._replace(embeddings=emb), T_CFG)
@@ -116,8 +120,8 @@ def _dense_case(device, R=160, seed=0):
                     indexing="ij")
     pts = torch.as_tensor(np.stack([x.ravel() + vs / 2 for x in g], -1), dtype=torch.float32)
     ms = vm.recenter(vm.create(D_CFG, "cpu"), D_CFG, torch.zeros(3))
-    ms = vm.refresh_active(vm.insert_points(ms, D_CFG, pts, torch.ones(len(pts), dtype=torch.bool)),
-                           D_CFG)
+    ms = vm.refresh_active(
+        vm.insert_points(ms, D_CFG, pts, torch.ones(len(pts), dtype=torch.bool))[0], D_CFG)
     rng = np.random.default_rng(seed)
     o = np.stack([np.full(R, -15.5), rng.uniform(-1, 1, R), rng.uniform(-1, 1, R)], -1)
     d = np.stack([np.where(rng.uniform(size=R) < 0.2, -1.0, 1.0), rng.uniform(-0.15, 0.15, R),
@@ -459,7 +463,18 @@ def test_gn_system_counter_returns_to_zero(cuda, N, MK, masked):
         assert not bool(got[0].any()) and not bool(got[1].any()) and float(got[2]) == 0.0
 
 
-def test_insert_kernel_matches_plain(cuda):
+def _clone(ms):
+    return vm.MapState(*[t.clone() for t in ms])
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
+def test_insert_kernel_matches_plain(cuda, emb_dtype):
+    """K7 in place, each call on its own clone of one state: every table and
+    the record equal to the in-place twin's (both elect the smallest slot),
+    with and without the active-set append and with the candidate cap
+    overflowed; two calls from equal clones equal; the kept scratch's
+    election grids all INT_MAX after every call; the undo on the card
+    gives back the pre-insert tables exactly; four launches a call."""
     ms, *_ = _case(cuda, seed=7)
     rng = np.random.default_rng(7)
     n = 6000
@@ -467,19 +482,56 @@ def test_insert_kernel_matches_plain(cuda):
     pts[:10] += 200.0  # out of region
     pts = torch.as_tensor(pts.astype(np.float32), device=cuda)
     val = torch.as_tensor(rng.uniform(size=n) > 0.05, device=cuda)
-    ms = ms._replace(embeddings=ms.embeddings.to(torch.bfloat16))
-    before = [t.clone() for t in ms]
-    for cap, append in ((0, False), (700, True), (n, True)):
+    ms = ms._replace(embeddings=ms.embeddings.to(emb_dtype))
+    scratch = vm.InsertScratch()
+    for cap, append in ((0, False), (700, True), (n, True), (0, True)):
+        a, b, c = _clone(ms), _clone(ms), _clone(ms)
         n0 = vm.insert_launches
-        ker = vm.insert_points(ms, T_CFG, pts, val, cap, append)
-        ref = vm.insert_points_plain(ms, T_CFG, pts, val, cap, append)
+        ker, rec = vm.insert_points(a, T_CFG, pts, val, cap, append, scratch=scratch)
+        ker2, rec2 = vm.insert_points(b, T_CFG, pts, val, cap, append, scratch=scratch)
+        ref, rec_ref = vm.insert_points_plain(c, T_CFG, pts, val, cap, append)
         torch.cuda.synchronize()
-        assert vm.insert_launches == n0 + 1
+        assert vm.insert_launches == n0 + 2
+        assert ker is a and all(x.data_ptr() == y.data_ptr() for x, y in zip(ker, a))
+        assert bool((scratch.grids == vm._INT_MAX).all())
         for name in vm.MapState._fields:
             assert torch.equal(getattr(ker, name), getattr(ref, name)), (cap, name)
+            assert torch.equal(getattr(ker, name), getattr(ker2, name)), (cap, name)
+        parts = [vm.record_parts(r) for r in (rec, rec2, rec_ref)]
+        for name in parts[0]:
+            assert torch.equal(parts[0][name], parts[2][name]), (cap, name)
+            assert torch.equal(parts[0][name], parts[1][name]), (cap, name)
         assert int(ker.num_lat) > int(ms.num_lat) and int(ker.num_cand) > 700
-    # the input state is untouched (the pipeline rewinds to it)
-    assert all(torch.equal(a, b) for a, b in zip(before, ms))
+        h = parts[0]["header"].tolist()
+        assert h[4] > 0 and h[5] == (h[4] if append else 0)
+        n1 = vm.insert_undo_launches
+        vm.undo_insert(ker, rec)
+        torch.cuda.synchronize()
+        assert vm.insert_undo_launches == n1 + 1
+        for name in vm.MapState._fields:
+            assert torch.equal(getattr(a, name), getattr(ms, name)), (cap, name)
+
+
+def test_insert_scratch_grows_and_stays_reset(cuda):
+    """One InsertScratch over inserts of growing point counts and caps (it
+    is made anew for the larger ones) and over an insert with no valid
+    point: its election grids all INT_MAX after each, every table equal to
+    the twin's on a clone."""
+    ms, *_ = _case(cuda, seed=3)
+    rng = np.random.default_rng(3)
+    scratch = vm.InsertScratch()
+    for n, cap, frac in ((500, 64, 1.0), (4000, 0, 1.0), (9000, 2000, 0.9), (300, 0, 0.0)):
+        pts = np.stack([rng.uniform(-6, 12, n), rng.uniform(-6, 6, n), rng.uniform(-3, 3, n)], -1)
+        pts = torch.as_tensor(pts.astype(np.float32), device=cuda)
+        val = torch.as_tensor(rng.uniform(size=n) < frac, device=cuda)
+        a, c = _clone(ms), _clone(ms)
+        ker, _ = vm.insert_points(a, T_CFG, pts, val, cap, True, scratch=scratch)
+        ref, _ = vm.insert_points_plain(c, T_CFG, pts, val, cap, True)
+        torch.cuda.synchronize()
+        assert bool((scratch.grids == vm._INT_MAX).all()), n
+        for name in vm.MapState._fields:
+            assert torch.equal(getattr(ker, name), getattr(ref, name)), (n, name)
+    assert scratch.P == 9000 and scratch.Pc == 4000
 
 
 def test_active_set_kernels_match_plain(cuda):
@@ -741,6 +793,15 @@ def test_build_prev_scan_kernel_matches_plain(cuda, sp):
     assert int(ref.pix_valid.sum()) > 300
     empty = ts2s.build_prev_scan(sp, pts, torch.zeros_like(valid), pose)
     assert not bool(empty.pix_valid.any()) and float(empty.elev_min) == 1e9
+    # the port's launches a call: one cooperative kernel (at most two)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(5):
+            ts2s.build_prev_scan(sp, pts, valid, pose)
+        torch.cuda.synchronize()
+    port = sum(e.count for e in prof.key_averages() if "s2s_range_image_kernel" in e.key)
+    assert 0 < port <= 2 * 5
 
 
 def test_s2s_system_kernel_matches_plain(cuda):
@@ -941,6 +1002,37 @@ def test_hits_field_wrappers_reject_what_they_would_convert(cuda):
              "upd_count must be a contiguous")):
         with pytest.raises(ValueError, match=match):
             vm.reconcile(st, T_CFG, new, mask, A)
+
+
+def test_insert_and_range_image_reject_what_they_would_convert(cuda):
+    """K7 and K11a take their inputs as they are: another dtype, a strided
+    tensor, a CPU tensor among CUDA ones or a 0-d scalar of another type
+    raises instead of being cast or copied (K7 writes the state in place,
+    so nothing may be a converted copy); nothing is written before."""
+    ms, *_ = _case(cuda, seed=15)
+    pts = torch.rand((400, 3), device=cuda) * 8.0
+    val = torch.ones(400, dtype=torch.bool, device=cuda)
+    before = _clone(ms)
+    for st, p, v, match in (
+            (ms, pts.double(), val, "points_world must be a contiguous"),
+            (ms, pts.t().contiguous().t(), val, "points_world must be a contiguous"),
+            (ms, pts, val.to(torch.uint8), "valid must be a contiguous"),
+            (ms, pts, val.cpu(), "valid must be a contiguous"),
+            (ms._replace(num_lat=ms.num_lat.long()), pts, val, "num_lat must be a contiguous"),
+            (ms._replace(grid=ms.grid.cpu()), pts, val, "grid must be a contiguous"),
+            (ms._replace(embeddings=ms.embeddings.half()), pts, val, "embeddings must be")):
+        with pytest.raises(ValueError, match=match):
+            vm.insert_points(st, T_CFG, p, v, 0, True)
+    assert all(torch.equal(x, y) for x, y in zip(ms, before))
+    scan, valid = _scan(cuda, n=600)
+    pose = torch.zeros(6, device=cuda)
+    for p, v, q, match in ((scan.double(), valid, pose, "points must be a contiguous"),
+                           (scan, valid.to(torch.uint8), pose, "valid must be a contiguous"),
+                           (scan, valid, pose.double(), "pose6 must be a contiguous"),
+                           (scan, valid, pose.cpu(), "pose6 must be a contiguous"),
+                           (scan, valid[:-1], pose, "valid has shape")):
+        with pytest.raises(ValueError, match=match):
+            ts2s.build_prev_scan(S2S, p, v, q)
 
 
 def test_wrappers_reject_other_devices():

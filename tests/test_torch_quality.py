@@ -341,7 +341,7 @@ def test_insert_frame_with_symmetric_support_matches_jax(scene):
     pose0 = jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))
     j = jvm.insert_frame(j, jcfg, p, c, v, pose0)
     t = tvm.recenter(tvm.create(tcfg, "cpu"), tcfg, torch.zeros(3))
-    t = tvm.insert_frame(t, tcfg, _t(p), _t(c), _t(v), _t(pose0))
+    t, _ = tvm.insert_frame(t, tcfg, _t(p), _t(c), _t(v), _t(pose0))
     lat_j, corners_j, _ = _coords_rows(j)
     lat_t, corners_t, _ = _coords_rows(t)
     assert int(j.num_lat) == int(t.num_lat) and lat_j == lat_t and corners_j == corners_t
@@ -361,7 +361,7 @@ def test_insert_frame_with_symmetric_support_matches_jax(scene):
     p, c, v = pad_frame(pts, cos)
     pose2 = jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))
     j = jvm.insert_frame(j, jcfg, p, c, v, pose2, cand_cap=2048, append_active=True)
-    t = tvm.insert_frame(t, tcfg, _t(p), _t(c), _t(v), _t(pose2), 2048, append_active=True)
+    t, _ = tvm.insert_frame(t, tcfg, _t(p), _t(c), _t(v), _t(pose2), 2048, append_active=True)
     assert int(j.num_cand) == int(t.num_cand) < 2048
     assert int(j.num_lat) == int(t.num_lat)
     assert int(j.n_active) == int(t.n_active)
@@ -372,8 +372,8 @@ def test_insert_frame_with_symmetric_support_matches_jax(scene):
     for cc in rows_j:
         np.testing.assert_array_equal(rows_t[cc], rows_j[cc])
     # support voxels: more surface than the measured points alone make
-    plain = tvm.insert_frame(tvm.recenter(tvm.create(T_CFG, "cpu"), T_CFG, torch.zeros(3)),
-                             T_CFG, _t(p), _t(c), _t(v), _t(pose2))
+    plain, _ = tvm.insert_frame(tvm.recenter(tvm.create(T_CFG, "cpu"), T_CFG, torch.zeros(3)),
+                                T_CFG, _t(p), _t(c), _t(v), _t(pose2))
     assert int(plain.is_surface.sum()) * 2 < int(t.is_surface.sum())
 
 

@@ -45,7 +45,7 @@ def _j_state(seed=0, **kw):
 def _t_state(seed=0, **kw):
     m = tvm.recenter(tvm.create(TCFG, "cpu"), TCFG, torch.zeros(3))
     pts, val = _points(seed)
-    return tvm.insert_points(m, TCFG, torch.as_tensor(pts), torch.as_tensor(val), **kw)
+    return tvm.insert_points(m, TCFG, torch.as_tensor(pts), torch.as_tensor(val), **kw)[0]
 
 
 def _np(state):
@@ -96,7 +96,8 @@ def test_second_insert_and_append_active_match_jax():
     t = tvm.refresh_active(_t_state(), TCFG)
     pts, val = _points(1, shift=1.3)
     j = jvm.insert_points(j, JCFG, jnp.asarray(pts), jnp.asarray(val), append_active=True)
-    t = tvm.insert_points(t, TCFG, torch.as_tensor(pts), torch.as_tensor(val), append_active=True)
+    t, _ = tvm.insert_points(t, TCFG, torch.as_tensor(pts), torch.as_tensor(val),
+                             append_active=True)
     assert _surface(j) == _surface(t)
     assert int(j.n_active) == int(t.n_active)
     jr, tr = _active(j), _active(t)
@@ -251,3 +252,56 @@ def test_grow_keeps_rows():
     assert big.lat_coords.shape[0] == cfg.capacity
     assert _surface(big) == _surface(t)
     assert int(big.num_lat) <= cfg.capacity
+
+
+# (cfg, first insert's kwargs, second insert's kwargs): the second insert
+# of each case writes new rows, activates voxels and, with append_active,
+# appends them; "cand_overflow" compacts past its cap (num_cand > cap) and
+# "capacity_overflow" runs out of rows (num_lat > capacity: the rows past
+# it are dropped)
+UNDO_CASES = {
+    "insert": ({}, {}),
+    "append_active": ({}, {"append_active": True}),
+    "cand_overflow": ({}, {"append_active": True, "cand_cap": 64}),
+    "capacity_overflow": ({"capacity": 800}, {"append_active": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNDO_CASES))
+def test_insert_then_undo_restores_every_table(case):
+    """insert_points works in place and returns a record; undo_insert on
+    that record puts every MapState table and scalar back exactly (a clone
+    of the pre-insert state), and a second undo changes nothing. The
+    record's counts are what the insert wrote."""
+    over, kw = UNDO_CASES[case]
+    cfg = TCFG._replace(**over)
+    m = tvm.recenter(tvm.create(cfg, "cpu"), cfg, torch.zeros(3))
+    pts, val = _points(0)
+    m, _ = tvm.insert_points(m, cfg, torch.as_tensor(pts), torch.as_tensor(val))
+    rng = np.random.default_rng(12)
+    m = tvm.refresh_active(m._replace(embeddings=torch.as_tensor(
+        rng.normal(size=m.embeddings.shape).astype(np.float32))), cfg)
+    before = tvm.MapState(*[t.clone() for t in m])
+    pts, val = _points(1, shift=1.3)
+    out, rec = tvm.insert_points(m, cfg, torch.as_tensor(pts), torch.as_tensor(val), **kw)
+    assert out is m  # in place
+    parts = tvm.record_parts(rec)
+    num_lat0, n_active0, num_cand0, n_rows, n_act, n_app = parts["header"].tolist()
+    assert (num_lat0, n_active0, num_cand0) == (int(before.num_lat), int(before.n_active),
+                                               int(before.num_cand))
+    assert n_rows == min(int(m.num_lat), cfg.capacity) - num_lat0 > 0
+    assert n_act > 0 and n_app == (min(n_act, tvm.acap(cfg) - n_active0)
+                                   if kw.get("append_active") else 0)
+    if case == "cand_overflow":
+        assert int(m.num_cand) > 64 and n_act <= 64
+    if case == "capacity_overflow":
+        assert int(m.num_lat) > cfg.capacity
+    changed = [nm for nm in tvm.MapState._fields
+               if not torch.equal(getattr(m, nm), getattr(before, nm))]
+    assert {"lat_coords", "grid", "is_surface", "corner_idx", "num_lat"} <= set(changed)
+    if kw.get("append_active"):
+        assert {"active_ids", "grid_active", "packed", "n_active"} <= set(changed)
+    for _ in range(2):
+        tvm.undo_insert(m, rec)
+        for nm in tvm.MapState._fields:
+            assert torch.equal(getattr(m, nm), getattr(before, nm)), (case, nm)
