@@ -39,9 +39,19 @@
    K5's wrappers beside what their earlier forms did) against their plain
    torch versions; K9a (occupancy march) and K9b (CDF placement) at the
    Adam tracker's shapes (2048 rays x 100 slots, 64 samples) and at the
-   replica gate's BA superset (768 rays x 75 slots, 32 samples); K10a
-   (mesh lattice) and K10b (marching tetrahedra) over every surface voxel
-   at res 2 and res 4 with bf16 and f32 embeddings; K11a (range image) at
+   replica gate's BA superset (768 rays x 75 slots, 32 samples), K9a
+   through march_occupancy and through CdfPlacer.march (the march
+   launched as part of making a placer, the trackers' and BA's form),
+   each with one origin per ray and with one origin expanded to every
+   ray (row stride 0), cdf and n_occ torch.equal to the twin's, one
+   launch a call, and the host us of a tracker frame's march + placer;
+   K10a (mesh lattice) and K10b (marching tetrahedra) over every surface
+   voxel (and 37 padding ids) at res 2 and res 4 with bf16 and f32
+   embeddings, K10b padded against its twin and in its compact form (the
+   mesh path's: only the valid triangles, compacted on the card) against
+   the twin's tris[valid], T equal and the triangles torch.equal, also
+   for a chunk with no triangle, twice through one kept TetScratch; K11a
+   (range image) at
    one frame's 65,536 points and 64 x 1024 pixels and K11b (point-to-plane
    system) at 2048 rays.
    K9b is checked with one origin per ray, with one origin broadcast to
@@ -82,13 +92,15 @@
    overflow counters, the final sdf_bias and the ATE against ground
    truth, and checks them: every kernel of the path launched, no drops,
    ATE in bound.
-5. torch.profiler breakdowns of a few steady frames of the quality, s2s,
-   Adam and replica-gate configs: device launches per frame, device time
-   per launch of each port kernel;
+5. torch.profiler breakdowns of a few steady frames of the budget,
+   quality, s2s, Adam and replica-gate configs: device launches and
+   device ms per frame (one summary line for all five), device time per
+   launch of each port kernel;
    then each kernel-phase call profiled alone: its device time per CUDA
-   function and its CUDA launches per call (K4 in every form, K9b, K11b,
-   K1 in both origin forms, K2's d xyz form, K3 at both shapes and K8 in
-   every form must make exactly one; K2's d packed form at most four and
+   function and its CUDA launches per call (K4 in every form, K9a in
+   every form, K9b, K10b in both forms, K11b, K1 in both origin forms,
+   K2's d xyz form, K3 at both shapes and K8 in every form must make
+   exactly one; K2's d packed form at most four and
    K7 at most five, all of them the port's (K7 profiled with the undo of
    each call, reported apart); K11a at most two of the port's, its other
    launches exactly those of its se3.pose_rotation, printed apart; K5's
@@ -96,7 +108,9 @@
    that misses one of a wrapper's CUDA functions is run again, up to three
    times, and then the run fails.
 
-Any failure raises (exit code 1). The last three lines of standard output
+A summary line gives every path's ATE (both gate seeds raw and aligned,
+the resumed run). Any failure raises (exit code 1). The last three lines
+of standard output
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
@@ -210,7 +224,11 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "hits_field_fwd, origin row stride 0", "hits_field_bwd, d xyz", "gn_system",
               "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
               "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
-              "active_field_fwd, gate band, origin row stride 0")
+              "active_field_fwd, gate band, origin row stride 0", "march_occupancy",
+              "marching_tets", "marching_tets, padded") + tuple(
+    f"{form}, {shape}" for shape in ("adam25", "gate60")
+    for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
+                 "CdfPlacer.march, origin row stride 0"))
 # at most this many CUDA launches a call, all the port's: K2's d-packed form, K7
 MAX_LAUNCHES = {"hits_field_bwd": 4, "insert": 5}
 # at most this many of the port's a call, the others only those of the rotation it builds
@@ -1149,6 +1167,28 @@ def k9b_host_costs(ms, cfg, rc, cdf, n_occ, o, d, tc, u, q):
     return costs
 
 
+def k9a_host_costs(ms, cfg, rc, o1, d, tc, M):
+    """Host us of a tracker frame's march + placer made (the card idle
+    before each call), one origin expanded to every ray: CdfPlacer.march
+    (one object, the map and t_cap checked once, one PlaceArgs for both
+    passes, no copy) beside march_occupancy + CdfPlacer over its cdf (two
+    placers made) and the conversions the earlier march made first
+    (``.float()`` / ``.to(torch.int32)`` and ``.contiguous()``, which copies
+    the expanded origin)."""
+    pieces = {
+        "CdfPlacer.march": partial(raycast.CdfPlacer.march, ms, cfg, rc, o1, d, tc, M),
+        "march_occupancy + CdfPlacer": lambda: raycast.CdfPlacer(
+            ms, cfg, rc, *raycast.march_occupancy(ms, cfg, rc, o1, d, tc), tc, M),
+        "march_occupancy": partial(raycast.march_occupancy, ms, cfg, rc, o1, d, tc),
+        "the earlier march's conversions": lambda: [t.contiguous() for t in (
+            ms.grid_active, ms.region_min.to(torch.int32), o1.float(), d.float(), tc.float())],
+    }
+    costs = {k: host_us_idle(fn) for k, fn in pieces.items()}
+    log("[K9a] host us per call, a tracker frame's march + placer (card idle before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
+
+
 def k12_host_costs(label, ht, u, o, d, packed, dfeats, xyz, aid, valid, k2, vs):
     """Host us of K1's and K2's wrappers and of their checks, beside the
     conversions their earlier wrappers made instead (each input through
@@ -1269,10 +1309,30 @@ def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
     for label, (rc, ro, rd, rt, timed) in shapes.items():
         cstep, S = raycast._coarse_shape(rc)
         C, M = ro.shape[0], rc.n_samples
-        kc, kn = raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)
         pc, pn = raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)
-        torch.cuda.synchronize()
-        check(torch.equal(kc, pc) and torch.equal(kn, pn), f"K9a cdf/n_occ differ ({label})")
+        ro1 = ro[:1].expand_as(rd)  # the trackers' form: one origin, row stride 0
+        p1c, p1n = raycast.march_occupancy_plain(ms, cfg, rc, ro1, rd, rt)
+        march_forms = {  # K9a's two wrappers in both origin forms, against the twin
+            "march_occupancy": (partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt),
+                                (pc, pn)),
+            "march_occupancy, origin row stride 0": (
+                partial(raycast.march_occupancy, ms, cfg, rc, ro1, rd, rt), (p1c, p1n)),
+            "CdfPlacer.march": (partial(raycast.CdfPlacer.march, ms, cfg, rc, ro, rd, rt, M),
+                                (pc, pn)),
+            "CdfPlacer.march, origin row stride 0": (
+                partial(raycast.CdfPlacer.march, ms, cfg, rc, ro1, rd, rt, M), (p1c, p1n)),
+        }
+        for form, (march, (tcdf, tn)) in march_forms.items():
+            n0 = raycast.march_occupancy_launches
+            got = march()
+            kc, kn = (got.cdf, got.n_occ) if isinstance(got, raycast.CdfPlacer) else got
+            torch.cuda.synchronize()
+            check(raycast.march_occupancy_launches == n0 + 1, f"K9a {form}: not one launch")
+            check(torch.equal(kc, tcdf) and torch.equal(kn, tn),
+                  f"K9a cdf/n_occ differ from the twin's ({label}, {form})")
+        log(f"[K9a] {label} C={C} S={S}: cdf and n_occ equal to the twin through march_occupancy "
+            "and CdfPlacer.march, with one origin per ray and with one origin expanded (row "
+            "stride 0)")
         u = raycast.uniform_jitter((C, M), gen, dev)
         o2 = (ro + 0.01).contiguous()
         o1 = (ro[0] + 0.01).expand_as(rd)
@@ -1346,19 +1406,31 @@ def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
             f"{loop_ms / n_loop:.4f} ms against {lib_loop_ms / n_loop:.4f} ms, in turns "
             f"({'at or under' if loop_ms <= lib_loop_ms else 'over'} it); plain {p_ms:.4f} ms; "
             f"bound {bound(nbytes, flops)[0]:.5f} ms")
+        # rays + t_cap in (one origin, or one a ray), one grid cell per
+        # slot in range, cdf + n_occ out
+        march_bytes = {k: r_bytes + 4 * in_range + C * S * 4 + C * 4
+                       for k, r_bytes in (("per ray", C * 28), ("row stride 0", 12 + C * 16))}
+        march_flops = 14 * in_range + 4 * C * S
+        stride0_ms = median_ms(march_forms["CdfPlacer.march, origin row stride 0"][0])
+        log(f"[K9a] {label}: CdfPlacer.march, origin row stride 0 (a tracker frame's march + "
+            f"placer) {stride0_ms:.4f} ms, bound "
+            f"{bound(march_bytes['row stride 0'], march_flops)[0]:.5f} ms")
         out[label] = dict(
-            a=(median_ms(lambda: raycast.march_occupancy(ms, cfg, rc, ro, rd, rt)),
+            a=(median_ms(march_forms["march_occupancy"][0]),
                median_ms(lambda: raycast.march_occupancy_plain(ms, cfg, rc, ro, rd, rt)),
-               # rays + t_cap in, one grid cell per slot in range, cdf + n_occ out
-               C * 28 + 4 * in_range + C * S * 4 + C * 4, 14 * in_range + 4 * C * S),
+               march_bytes["per ray"], march_flops),
             b=(loop_ms / n_loop, p_ms, nbytes, flops, lib_loop_ms / n_loop), err=ez,
-            dev_a=partial(raycast.march_occupancy, ms, cfg, rc, ro, rd, rt), dev_b=place)
+            dev_a=march_forms["march_occupancy"][0], dev_b=place,
+            forms_a={f"{k}, {label}": (fn, KERNEL_FUNCTIONS["march_occupancy"])
+                     for k, (fn, _) in march_forms.items() if k != "march_occupancy"})
         if label == "adam25":
             k9b_host_costs(ms, cfg, rc, pc, pn, o1, rd, rt, u, q)
+            k9a_host_costs(ms, cfg, rc, ro1, rd, rt, M)
     a = out["adam25"]
     k_ms, p_ms, nbytes, flops, lib_ms = a["b"]
     return [record("march_occupancy", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:65", 0.0,
-                   *a["a"], dev=a["dev_a"]),
+                   *a["a"], dev=a["dev_a"],
+                   forms={k: v for o_ in out.values() for k, v in o_["forms_a"].items()}),
             record("place_samples_cdf", "grid_sampler.cu", "nerfloam_tpu/ops/raycast.py:88",
                    max(o_["err"] for o_ in out.values()), k_ms, p_ms, nbytes, flops,
                    library_ms=lib_ms, dev=a["dev_b"])]
@@ -1367,61 +1439,103 @@ def grid_kernels(slam, ms, tab, rc_gate, loops, p, c, v, pose, gen):
 def mesh_kernels(slam, ms):
     """K10a and K10b over every surface voxel of the kernel phase's map, at
     res 2 (the shipped mesh_res) and res 4 (27 cells per voxel, through the
-    cell table), with bf16 and f32 embeddings; the twins run in chunks of
-    voxels. Timed at res 2 with the config's embedding type."""
+    cell table), with bf16 and f32 embeddings and 37 padding ids (-1)
+    after them; the twins run in chunks of voxels. K10b in both forms: the
+    padded one against its twin slot for slot, the compact one (the mesh
+    path's) against the padded twin's ``tris[valid]`` (T equal, the
+    triangles torch.equal), also on a chunk of padding ids alone (T = 0)
+    and twice through one kept TetScratch, left all zero. Timed at res 2
+    with the config's embedding type over the surface voxels alone, as
+    the mesh path calls them."""
     dev, cfg = slam.device, slam.map_cfg
     dec, cdt = slam.state.decoder_params, getattr(torch, slam.compute_dtype)
     ids = vm.surface_voxel_ids(ms)
     B = ids.numel()
+    ids_pad = torch.cat([ids, torch.full((37,), -1, dtype=torch.int32, device=dev)])
+    Bp = ids_pad.numel()
     step = 32768
+    scratch = marching.TetScratch()
     for dt in (torch.bfloat16, torch.float32):
         st = ms._replace(embeddings=ms.embeddings.to(dt))
         for res in (2, 4):
             cct = mesher._lattice_tables(res, dev)[2]
             ncell = cct.shape[0]
-            feats, pos = mesher.mesh_lattice(st, cfg, ids, res)
+            feats, pos = mesher.mesh_lattice(st, cfg, ids_pad, res)
             sdf = mesher.decoder_apply(dec, feats, cdt)[..., 0]
-            tris, valid = marching.marching_tets_lattice(sdf, pos, cct, ids)
+            tris, valid = marching.marching_tets_lattice(sdf, pos, cct, ids_pad)
+            ctris, T = marching.marching_tets_compact(sdf, pos, cct, ids_pad, scratch=scratch)
             torch.cuda.synchronize()
-            for i in range(0, B, step):
-                rf, rp = mesher.mesh_lattice_plain(st, cfg, ids[i:i + step], res)
+            want = []
+            for i in range(0, Bp, step):
+                rf, rp = mesher.mesh_lattice_plain(st, cfg, ids_pad[i:i + step], res)
                 check(torch.equal(feats[i:i + step], rf), f"K10a feats differ (res {res}, {dt})")
                 check(torch.equal(pos[i:i + step], rp), f"K10a pos differ (res {res}, {dt})")
                 rt, rv = marching.marching_tets_lattice_plain(sdf[i:i + step], rp, cct,
-                                                              ids[i:i + step])
+                                                              ids_pad[i:i + step])
                 sl = slice(i * ncell, (i + step) * ncell)
                 check(torch.equal(valid[sl], rv), f"K10b valid differs (res {res}, {dt})")
                 check(torch.equal(tris[sl], rt), f"K10b tris differ (res {res}, {dt})")
+                want.append(rt[rv])
+            want = torch.cat(want)
+            check(int(T) == want.shape[0] and torch.equal(ctris[:int(T)], want),
+                  f"K10b compact: T {int(T)} and its triangles against the twin's tris[valid] "
+                  f"({want.shape[0]}) (res {res}, {dt})")
+            check(not bool(valid[B * ncell:].any()), f"K10b: a padding voxel emitted (res {res})")
             if res == 2:
-                rows = st.embeddings[st.corner_idx[ids.long()].clamp(min=0).long()].float()
+                rows = st.embeddings[st.corner_idx[ids_pad.clamp(min=0).long()].clamp(min=0)
+                                     .long()].float()
                 check(torch.equal(feats, rows), f"K10a res 2 is not the corner rows ({dt})")
-            log(f"[K10] res {res} {dt}: {B} surface voxels, {B * ncell} cells, "
-                f"{int(valid.sum())} triangles; feats, pos, tris and valid equal to the twins")
-            del feats, pos, sdf, tris, valid
+            log(f"[K10] res {res} {dt}: {B} surface voxels + {Bp - B} padding ids, {Bp * ncell} "
+                f"cells, T = {int(T)} triangles; feats, pos, tris and valid equal to the twins, "
+                "the compact form's T and triangles to the twin's tris[valid]")
+            del feats, pos, sdf, tris, valid, ctris
     res, st = 2, ms
     S, F, esz = res ** 3, cfg.feat_dim, ms.embeddings.element_size()
     cct = mesher._lattice_tables(res, dev)[2]
     ncell = cct.shape[0]
     feats, pos = mesher.mesh_lattice(st, cfg, ids, res)
     sdf = mesher.decoder_apply(dec, feats, cdt)[..., 0]
+    # a chunk with no triangle (padding ids alone), then the path's chunk twice
+    none = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    e_tris, e_T = marching.marching_tets_compact(sdf[:64], pos[:64], cct, none, scratch=scratch)
+    c1 = [x.clone() for x in marching.marching_tets_compact(sdf, pos, cct, ids, scratch=scratch)]
+    c2 = marching.marching_tets_compact(sdf, pos, cct, ids, scratch=scratch)
+    rt, rv = marching.marching_tets_lattice_plain(sdf, pos, cct, ids)
+    torch.cuda.synchronize()
+    T = int(c1[1])
+    check(int(e_T) == 0, f"K10b compact: T = {int(e_T)} on a chunk of padding ids")
+    check(int(c2[1]) == T == int(rv.sum()) and torch.equal(c1[0][:T], c2[0][:T])
+          and torch.equal(c1[0][:T], rt[rv]), "K10b compact differs between two calls")
+    check(not bool(scratch.state.any()), "K10b compact left its tile states or tickets set")
+    log(f"[K10b] res 2: T = {T} triangles of {B} cells (the kernel phase's map); T = 0 on a "
+        "chunk of padding ids; two calls through one kept TetScratch equal, its tile states and "
+        "tickets all zero after each call")
     corners = int(torch.unique(st.corner_idx[ids.long()].clamp(min=0)).numel())
     ka = median_ms(lambda: mesher.mesh_lattice(st, cfg, ids, res))
     pa = median_ms(lambda: mesher.mesh_lattice_plain(st, cfg, ids, res))
-    kb = median_ms(lambda: marching.marching_tets_lattice(sdf, pos, cct, ids))
-    pb = median_ms(lambda: marching.marching_tets_lattice_plain(sdf, pos, cct, ids))
+    compact = partial(marching.marching_tets_compact, sdf, pos, cct, ids, scratch=scratch)
+    padded = partial(marching.marching_tets_lattice, sdf, pos, cct, ids)
+    kb = median_ms(compact)
+    pb = median_ms(lambda: marching.marching_tets_compact_plain(sdf, pos, cct, ids))
+    kb_pad = median_ms(padded)
     dec_ms = median_ms(lambda: mesher.decoder_apply(dec, feats, cdt))
-    log(f"[K10] res 2, {B} voxels: the decoder between K10a and K10b {dec_ms:.4f} ms")
+    # sdf and pos per lattice sample, the ids and the cell table in; the
+    # padded form 12 triangle slots and their mask per cell out, the
+    # compact form T triangles and T
+    in_bytes = B * S * 16 + B * 4 + ncell * 32
+    pad_bound = bound(in_bytes + B * ncell * 12 * 37, B * ncell * 6 * 60)[0]
+    log(f"[K10] res 2, {B} voxels: the decoder between K10a and K10b {dec_ms:.4f} ms; K10b "
+        f"padded {kb_pad:.4f} ms, bound {pad_bound:.5f} ms")
     return [
         # ids, corner ids and coords per voxel and the distinct corner rows
         # in; feats and pos out
         record("mesh_lattice", "mesh.cu", "nerfloam_tpu/map/mesher.py:59", 0.0, ka, pa,
                B * (4 + 32 + 12) + corners * F * esz + B * S * (F + 3) * 4, B * S * (15 * F + 6),
                dev=partial(mesher.mesh_lattice, st, cfg, ids, res)),
-        # sdf and pos per lattice sample, the ids and the cell table in; 12
-        # triangle slots and their mask per cell out
         record("marching_tets", "mesh.cu", "nerfloam_tpu/ops/marching.py:63", 0.0, kb, pb,
-               B * S * 16 + B * 4 + ncell * 32 + B * ncell * 12 * 37, B * ncell * 6 * 60,
-               dev=partial(marching.marching_tets_lattice, sdf, pos, cct, ids)),
+               in_bytes + T * 36 + 4, B * ncell * 6 * 60, dev=compact,
+               forms={"marching_tets, padded": (padded, KERNEL_FUNCTIONS["marching_tets"])},
+               triangles=T, padded_ms=kb_pad, padded_bound_ms=pad_bound),
     ]
 
 
@@ -1651,7 +1765,10 @@ def main_path(name, slam, ds, label=None):
             f"{ATE_JAX[name]:.4f} m); final position {poses[-1][:3, 3].tolist()}, "
             f"GT {gt[-1][:3, 3].tolist()}")
         check(ate <= ate_bound(name), f"ATE {ate} above bound {ate_bound(name)} ({label})")
-    return launches, scans, slam.prof.summary()
+    ates = {"raw": ate}
+    if name == "replica_gate60":
+        ates["aligned"] = aligned
+    return launches, scans, slam.prof.summary(), ates
 
 
 def drift_lat_cm_f(est, gt):
@@ -1730,6 +1847,7 @@ def checkpoint_phase(cfg, ds, workdir):
     check(len(poses) == len(frames) and np.isfinite(poses).all(), "resumed run lost poses")
     check(b.dropped_delta_events == 0, "dropped deltas in the resumed run")
     check(ate <= ate_bound("kitti_quality"), f"resumed ATE {ate} above bound")
+    return ate
 
 
 def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
@@ -1761,6 +1879,8 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     log(f"{tag} {n_profiled} frames: wall {wall_ms:.1f} ms (profiler on), device kernels "
         f"{total:.1f} ms, busy share {total / wall_ms:.3f}, {sum(e.count for e in events)} "
         f"kernel launches")
+    per_frame = (sum(e.count for e in events) / n_profiled, total / n_profiled)
+    log(f"{tag} per frame: {per_frame[0]:.1f} device launches, {per_frame[1]:.2f} device ms")
     for e in sorted(events, key=dev, reverse=True)[:15]:
         log(f"{tag} {dev(e) / n_profiled:9.3f} ms/frame  {e.count / n_profiled:8.1f}/frame  "
             f"{e.key[:90]}")
@@ -1768,6 +1888,7 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     for fn, (t, n) in sorted(port_kernel_times(prof).items(), key=lambda kv: -kv[1][0]):
         log(f"{tag} port kernel {fn}: {t / 1e3 / n_profiled:.4f} ms/frame, "
             f"{n / n_profiled:.1f} launches/frame, {t / n:.2f} us/launch (device)")
+    return per_frame
 
 
 def gate_path(here, seed):
@@ -1850,16 +1971,20 @@ def main(argv=None):
         log(f"[s2s] tracker ms per frame: quality {track['kitti_quality']:.3f}, quality + s2s "
             f"{track['kitti_quality_s2s']:.3f}; the s2s term adds "
             f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
-        checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
+        resumed_ate = checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
     gate_ds = {}
     for s_ in GATE60_SEEDS:
         _, gate_ds[s_], results[f"replica_gate60_s{s_}"] = gate_path(here, s_)
-    for label, cfg, d in (("kitti_quality", cfgs["kitti_quality"], ds),
-                          ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
-                          ("kitti_adam25", cfgs["kitti_adam25"], ds),
-                          ("replica_gate60_s0", gate[0], gate_ds[0])):
-        profile_phase(label, cfg, d)
+    per_frame = {label: profile_phase(label, cfg, d) for label, cfg, d in (
+        ("kitti_budget", cfgs["kitti_budget"], ds), ("kitti_quality", cfgs["kitti_quality"], ds),
+        ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
+        ("kitti_adam25", cfgs["kitti_adam25"], ds), ("replica_gate60_s0", gate[0], gate_ds[0]))}
+    log("[result] per frame (profile, 3 steady frames): " + ", ".join(
+        f"{n} {v[0]:.1f} device launches, {v[1]:.2f} device ms" for n, v in per_frame.items()))
+    log("[result] ATE (m): " + ", ".join(
+        f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
+        + f", kitti_quality resumed {resumed_ate:.4f}")
     add_device_times(records)
     for r in records:
         by_path = {n: results[n][0][r["name"]] for n in results}

@@ -3,8 +3,8 @@ nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
 One call = one BA step: a 2x ray superset per frame is drawn and, once per
 step, its hit table built (K4, hits sampler, packed into one row a ray by
-the launch) or its occupancy cdf marched (K9a, grid sampler, with K9b's
-CdfPlacer made over it); every iteration
+the launch) or its occupancy cdf marched (K9a, grid sampler, launched as
+part of making K9b's CdfPlacer, ``CdfPlacer.march``); every iteration
 trains on a random subset of it through K1 (hits) or K9b + K8 (grid, each
 ray reading its superset row of the cdf), with K8's band/anchor columns when
 the quality stack is on, and K2 in the backward (core/render
@@ -43,7 +43,6 @@ from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
     build_hit_table_packed,
-    march_occupancy,
     uniform_jitter,
     unpack_hit_table,
 )
@@ -117,8 +116,9 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                     sup_tcap.reshape(W * K))
         if use_hits:
             sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
-        else:  # K9a once and K9b's fixed arguments packed once; rows pick each ray's cdf row
-            placer = CdfPlacer(*sup_args[:3], *march_occupancy(*sup_args), sup_args[5], M, W * N)
+        else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows pick
+            # each ray's cdf row
+            placer = CdfPlacer.march(*sup_args, M, W * N)
             frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
 
     emb = map_state.packed.clone().requires_grad_(True)

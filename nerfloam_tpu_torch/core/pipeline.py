@@ -51,6 +51,7 @@ from nerfloam_tpu_torch.core.scan2scan import Scan2ScanParams, build_prev_scan
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import init_decoder
+from nerfloam_tpu_torch.ops.marching import TetScratch
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.config import Config, derive_static_shapes, quality_knobs
 from nerfloam_tpu_torch.utils.profiler import Profiler
@@ -212,11 +213,13 @@ class NerfLoamSLAM_torch:
         seed = int(tpu["seed"])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        # K5's and K7's scratch, kept for the run: K5's (C,) head table is
-        # filled once, and again only when the map grows; K7's election
-        # grids once, and again only for a larger region or cap
+        # K5's, K7's and K10b's scratch, kept for the run: K5's (C,) head
+        # table is filled once, and again only when the map grows; K7's
+        # election grids once, and again only for a larger region or cap;
+        # K10b's tile states once, and again only for a larger mesh chunk
         self.reconcile_scratch = vm.ReconcileScratch()
         self.insert_scratch = vm.InsertScratch()
+        self.mesh_scratch = TetScratch()
         self.pyrng = pyrandom.Random(seed)
         dec = cfg.decoder_specs
         params = init_decoder(
@@ -625,7 +628,7 @@ class NerfLoamSLAM_torch:
         with self.prof.section("mesh_extract"):
             tris = mesher.extract_triangles(self.state.map_state, self.map_cfg,
                                             self.state.decoder_params, res or self.mesh_res,
-                                            self.compute_dtype)
+                                            self.compute_dtype, scratch=self.mesh_scratch)
         self.host_syncs += 1
         if len(tris) == 0:
             return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)

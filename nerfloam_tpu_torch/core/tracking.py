@@ -3,8 +3,9 @@ device): the Gauss-Newton / LM tracker (40-381) and the Adam tracker
 (383-497).
 
 GN, per frame: K4 builds the hit table (hits sampler) or K9a marches the
-occupancy cdf (grid sampler) at the initial pose, and K9b's per-frame
-arguments are checked and packed once (``raycast.CdfPlacer``). Per
+occupancy cdf (grid sampler) at the initial pose, launched as part of
+making the frame's placer, which checks and packs K9b's per-frame
+arguments once (``raycast.CdfPlacer.march``). Per
 iteration: K1 (hits) or K9b then K8 (grid) place the samples and
 interpolate their features at
 the iteration's pose, K8 adds the band/anchor columns of the quality
@@ -19,7 +20,7 @@ scan's range image into K3's H, b and loss in place, with the iteration's
 rotation of the ray directions; the LM solve stays in torch.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
-draw, one K9a and one CdfPlacer per frame at the initial pose; per
+draw, one placer made by its K9a march per frame at the initial pose; per
 iteration the grid render_rays (K9b, K8, decoder, one K2 in the
 backward), the sdf losses
 with the band target, the pose gradient by autograd, and an
@@ -54,7 +55,6 @@ from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
     build_hit_table,
-    march_occupancy,
     uniform_jitter,
 )
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
@@ -300,10 +300,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     if rc.sampler == "hits":
         ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
         ray_hit = ht0.ray_mask
-    else:  # K9a once, and K9b's per-frame arguments checked and packed once
-        placer = CdfPlacer(map_state, map_cfg, rc,
-                           *march_occupancy(map_state, map_cfg, rc, origin0, wdirs0, t_cap),
-                           t_cap, rc.n_samples)
+    else:  # K9a once, into the placer that checks and packs K9b's per-frame arguments once
+        placer = CdfPlacer.march(map_state, map_cfg, rc, origin0, wdirs0, t_cap, rc.n_samples)
 
     pose6 = init_pose
     lam = 1e-2
@@ -379,10 +377,9 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
     wdirs0 = se3.rotate_dirs(init_pose, dirs)
-    placer = CdfPlacer(map_state, map_cfg, rc,
-                       *march_occupancy(map_state, map_cfg, rc,
-                                        se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0,
-                                        t_cap), t_cap, rc.n_samples)
+    placer = CdfPlacer.march(map_state, map_cfg, rc,
+                             se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0, t_cap,
+                             rc.n_samples)
     field = ActiveField(map_state, map_cfg)
 
     pose6 = init_pose.detach().clone()

@@ -3,12 +3,20 @@
 // place_samples_cdf, with map/voxel_map.py:172-180 lookup_active inlined;
 // raycast.py:346-381 sample_rays_cdf is the two in a row).
 //
-// K9a march: one warp per ray. Lane l takes slots s = 32 k + l; slot s is
-// occupied when its midpoint t_c = (s + 0.5) * cstep lies within the
-// ray's useful range t_cap and its cell floor((o + d t_c) / vs) holds an
-// active voxel in grid_active. The warp's ballot gives each lane its
-// inclusive count, so the cdf (R, S) (a running count of occupied slots)
-// is written coalesced, and n_occ (R,) is the last entry.
+// K9a march: launched as part of making a placer (CdfPlacer.march), it
+// reads the fixed arguments from the PlaceArgs that K9b then uses (grid,
+// rmin, dims, t_cap, cdf, n_occ, C rays, S slots, cstep, vs). One warp per
+// ray; lane l takes slots s = 32 k + l. Slot s is occupied when its
+// midpoint t_c = (s + 0.5) * cstep lies within the ray's useful range t_cap
+// and its cell floor((o + d t_c) / vs) holds an active voxel in
+// grid_active. The lane's rounds go four at a time: it computes the four
+// slots' cells and issues their four grid loads before the first ballot,
+// so a ray waits about one load latency per 128 slots (the loop it
+// replaced waited one per 32, one after another); then the warp's ballots
+// in slot order give each lane its inclusive count, so the cdf (C, S) (a
+// running count of occupied slots) is written coalesced, and n_occ (C,) is
+// the last entry. The origin is read with row stride 3, or 0 for one
+// origin expanded to every ray (the trackers'), as it is.
 // K9b place: one warp per ray, its cdf row staged in shared memory; per
 // sample m the stratified quantile q = ((m + u) / M) * n_occ, in JAX's
 // order; j = the number of cdf entries below q, found by binary search
@@ -21,14 +29,16 @@
 // Bound on the H100: K9a reads one 4-byte grid_active cell per slot within
 // range (the 19.9 MB grid stays in the 50 MB L2) and writes the (R, S) f32
 // cdf; K9b reads each cdf row once and one grid cell per sample and writes
-// z, aid, valid. Both are bound by those bytes; the arithmetic is a few
-// dozen operations per slot or sample. At the tracker's 2048 rays both
-// take a few microseconds, so the launch and the wrapper's host work
-// weigh more than the device time: the wrapper converts and copies
-// nothing (rays_o may be one origin broadcast with row stride 0), and
-// what stays fixed over a loop (map, cdf, t_cap, outputs) is checked and
-// packed into PlaceArgs once, so an iteration's call passes seven
-// arguments. BA's rays are a subset of its step's superset, drawn anew
+// z, aid, valid. Both are bound by those bytes (~0.3-0.9 us at the
+// trackers' 2048 rays); the arithmetic is a few dozen operations per slot
+// or sample. What they take is a launch's own start and end and, within
+// a ray, chains of dependent loads: K9a's four loads of a group are in
+// flight together, K9b's two searches' grid reads. So the launch and the
+// wrapper's host work weigh more than the device time: the wrappers
+// convert and copy nothing (rays_o may be one origin broadcast with row
+// stride 0), and what stays fixed over a loop (map, cdf, t_cap, outputs)
+// is checked and packed into PlaceArgs once, when the placer is made and
+// marches, so an iteration's call passes seven arguments. BA's rays are a subset of its step's superset, drawn anew
 // each iteration: ``rows`` gives each ray its cdf row in the superset, so
 // the cdf, n_occ and t_cap are neither gathered nor checked per
 // iteration.
@@ -42,51 +52,90 @@
 
 #include <cstddef>
 
+// K9b's arguments that stay fixed over a loop (a tracker frame, a BA
+// step), and K9a's: filled once by the wrapper; _PlaceArgs in
+// nerfloam_tpu_torch/ops/raycast.py has the same fields in the same order,
+// which the wrapper checks against nl_place_args_layout when it first
+// launches. K9a marches the C rays of t_cap into cdf and n_occ.
+struct PlaceArgs {
+  const int* grid_active;
+  const int* rmin;
+  int Dx, Dy, Dz;
+  float* cdf;
+  float* n_occ;
+  const float* t_cap;
+  int C, R, S, M;
+  float cstep, vs;
+  float* z;
+  int* aid;
+  unsigned char* valid;
+  unsigned char* ray_mask;
+};
+
 namespace {
 
+constexpr int kMarchWarps = 4;         // K9a: rays per block
+constexpr int kMarchRounds = 4;        // K9a: rounds of 32 slots whose loads a lane issues together
 constexpr int kPlaceWarps = 4;         // K9b: rays per block
 constexpr int kPlaceMaxSlots = 3072;   // K9b: 4 cdf rows fill 48 KB of shared memory
 
-__device__ __forceinline__ int grid_read(const int* grid, const float* o, const float* d, float t,
-                                         float vs, const int* rmin, int Dx, int Dy, int Dz) {
+// the flat grid index of the cell of o + d t, or -1 outside the region
+__device__ __forceinline__ int grid_index(const float* o, const float* d, float t, float vs,
+                                          const int* rmin, int Dx, int Dy, int Dz) {
   int c[3];
   for (int a = 0; a < 3; ++a)
     c[a] = (int)floorf(__fdiv_rn(__fadd_rn(o[a], __fmul_rn(d[a], t)), vs)) - rmin[a];
   if (c[0] < 0 || c[0] >= Dx || c[1] < 0 || c[1] >= Dy || c[2] < 0 || c[2] >= Dz) return -1;
-  return grid[(c[0] * Dy + c[1]) * Dz + c[2]];
+  return (c[0] * Dy + c[1]) * Dz + c[2];
 }
 
-__global__ void march_occupancy_kernel(const int* __restrict__ grid_active,
-                                       const int* __restrict__ rmin, int Dx, int Dy, int Dz,
-                                       const float* __restrict__ rays_o,
-                                       const float* __restrict__ rays_d,
-                                       const float* __restrict__ t_cap, int R, int S, float cstep,
-                                       float vs, float* __restrict__ cdf,
-                                       float* __restrict__ n_occ) {
-  int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (warp >= R) return;
-  const int r = warp;
+__device__ __forceinline__ int grid_read(const int* grid, const float* o, const float* d, float t,
+                                         float vs, const int* rmin, int Dx, int Dy, int Dz) {
+  const int i = grid_index(o, d, t, vs, rmin, Dx, Dy, Dz);
+  return i < 0 ? -1 : grid[i];
+}
+
+__global__ void __launch_bounds__(32 * kMarchWarps)
+    march_occupancy_kernel(const PlaceArgs a, const float* __restrict__ rays_o, int o_stride,
+                           const float* __restrict__ rays_d) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kMarchWarps + (threadIdx.x >> 5);
+  if (r >= a.C) return;  // whole warps leave
+  const int S = a.S;
   float o[3], d[3];
-  for (int a = 0; a < 3; ++a) {
-    o[a] = rays_o[3 * r + a];
-    d[a] = rays_d[3 * r + a];
+  for (int k = 0; k < 3; ++k) {
+    o[k] = rays_o[(size_t)r * o_stride + k];
+    d[k] = rays_d[3 * r + k];
   }
-  const float tcap = t_cap[r];
+  const float tcap = a.t_cap[r];
+  const int rm[3] = {a.rmin[0], a.rmin[1], a.rmin[2]};
   const unsigned le = 0xffffffffu >> (31 - lane);  // lanes 0..lane
+  float* row = a.cdf + (size_t)r * S;
   int run = 0;
-  for (int base = 0; base < S; base += 32) {
-    int s = base + lane;
-    bool occ = false;
-    if (s < S) {
-      float tc = __fmul_rn(__fadd_rn((float)s, 0.5f), cstep);
-      occ = tc <= tcap && grid_read(grid_active, o, d, tc, vs, rmin, Dx, Dy, Dz) >= 0;
+  for (int base = 0; base < S; base += 32 * kMarchRounds) {
+    // the group's cells first, then its loads, all in flight together
+    int cell[kMarchRounds], lid[kMarchRounds];
+#pragma unroll
+    for (int k = 0; k < kMarchRounds; ++k) {
+      const int s = base + 32 * k + lane;
+      cell[k] = -1;
+      if (s < S) {
+        const float tc = __fmul_rn(__fadd_rn((float)s, 0.5f), a.cstep);
+        if (tc <= tcap) cell[k] = grid_index(o, d, tc, a.vs, rm, a.Dx, a.Dy, a.Dz);
+      }
     }
-    unsigned ballot = __ballot_sync(0xffffffffu, occ);
-    if (s < S) cdf[(size_t)r * S + s] = (float)(run + __popc(ballot & le));
-    run += __popc(ballot);
+#pragma unroll
+    for (int k = 0; k < kMarchRounds; ++k) lid[k] = cell[k] >= 0 ? __ldg(a.grid_active + cell[k]) : -1;
+#pragma unroll
+    for (int k = 0; k < kMarchRounds; ++k) {
+      if (base + 32 * k >= S) break;  // the same for the whole warp
+      const int s = base + 32 * k + lane;
+      const unsigned ballot = __ballot_sync(0xffffffffu, lid[k] >= 0);
+      if (s < S) row[s] = (float)(run + __popc(ballot & le));
+      run += __popc(ballot);
+    }
   }
-  if (lane == 0) n_occ[r] = (float)run;
+  if (lane == 0) a.n_occ[r] = (float)run;
 }
 
 // K9b: one warp per ray, kPlaceWarps rays per block. The warp copies its
@@ -186,39 +235,15 @@ __global__ void __launch_bounds__(32 * kPlaceWarps)
 
 }  // namespace
 
-extern "C" int nl_march_occupancy(const int* grid_active, const int* rmin, int Dx, int Dy, int Dz,
-                                  const float* rays_o, const float* rays_d, const float* t_cap,
-                                  int R, int S, float cstep, float vs, float* cdf, float* n_occ,
-                                  void* stream) {
-  if (R > 0) {
-    const int threads = 128;  // 4 rays per block
-    long long n = 32LL * R;
-    march_occupancy_kernel<<<(int)((n + threads - 1) / threads), threads, 0,
-                             (cudaStream_t)stream>>>(grid_active, rmin, Dx, Dy, Dz, rays_o,
-                                                     rays_d, t_cap, R, S, cstep, vs, cdf, n_occ);
-  }
+// K9a over the C rays of a->t_cap; rays_o rows are o_stride floats apart
+// (3, or 0 for one shared origin).
+extern "C" int nl_march_occupancy(const PlaceArgs* a, const float* rays_o, int o_stride,
+                                  const float* rays_d, void* stream) {
+  if (a->C > 0)
+    march_occupancy_kernel<<<(a->C + kMarchWarps - 1) / kMarchWarps, 32 * kMarchWarps, 0,
+                             (cudaStream_t)stream>>>(*a, rays_o, o_stride, rays_d);
   return (int)cudaGetLastError();
 }
-
-// K9b's arguments that stay fixed over a loop (a tracker frame, a BA
-// step), filled once by the wrapper; _PlaceArgs in
-// nerfloam_tpu_torch/ops/raycast.py has the same fields in the same order,
-// which the wrapper checks against nl_place_args_layout when it first
-// launches.
-struct PlaceArgs {
-  const int* grid_active;
-  const int* rmin;
-  int Dx, Dy, Dz;
-  const float* cdf;
-  const float* n_occ;
-  const float* t_cap;
-  int C, R, S, M;
-  float cstep, vs;
-  float* z;
-  int* aid;
-  unsigned char* valid;
-  unsigned char* ray_mask;
-};
 
 extern "C" int nl_place_max_slots() { return kPlaceMaxSlots; }
 

@@ -66,12 +66,14 @@ _SIGNATURES = {
     "nl_reconcile_scan_tiles": [_I],
     "nl_reconcile": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P],
-    "nl_march_occupancy": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "nl_march_occupancy": [_P, _P, _I, _P, _P],
     "nl_place_max_slots": [],
     "nl_place_args_layout": [_P],
     "nl_place_samples_cdf": [_P, _P, _P, _I, _P, _P, _P],
     "nl_mesh_lattice": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "nl_marching_tets": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "nl_marching_tets_tiles": [_I],
+    "nl_marching_tets_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "nl_range_image_part_ints": [],
     "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],

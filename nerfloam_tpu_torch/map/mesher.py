@@ -5,9 +5,11 @@ marching tetrahedra on the device; the host welds duplicate vertices.
 Device passes: K10a ``mesh_lattice`` (csrc/mesh.cu) gathers each voxel's 8
 corner embeddings and interpolates features and positions on the lattice,
 the decoder turns the features into SDF values (``decoder_apply``, a plain
-matrix product as in JAX), and K10b ``ops.marching.marching_tets_lattice``
-triangulates. The valid triangles are compacted on the device with the
-mask and copied to the host once per chunk. ``clean_mesh`` culls faces far
+matrix product as in JAX), and K10b triangulates: the mesh path takes its
+compact form ``ops.marching.marching_tets_compact``, which writes only the
+valid triangles and their count on the device, and copies them to the
+host once per chunk (JAX's padded form, ``marching_tets_lattice``, is
+``_mesh_chunk``'s). ``clean_mesh`` culls faces far
 from any observed point (scipy ``cKDTree``), on the host as in JAX.
 """
 
@@ -23,7 +25,11 @@ from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops.interp import trilinear_weights
 from nerfloam_tpu_torch.ops.keys import COORD_MASK, weld_key_np
-from nerfloam_tpu_torch.ops.marching import marching_tets_lattice
+from nerfloam_tpu_torch.ops.marching import (
+    TetScratch,
+    marching_tets_compact,
+    marching_tets_lattice,
+)
 
 # K10a launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
 mesh_lattice_launches = 0
@@ -119,13 +125,22 @@ def mesh_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids: torch
 
 
 @torch.no_grad()
-def _mesh_chunk(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
-                voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32"):
-    """Triangles of B surface voxels (pad: -1): K10a, the decoder, K10b.
-    Returns (tris (B * (res-1)^3, 12, 3, 3), valid (.., 12))."""
+def _chunk_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
+                   voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32"):
+    """K10b's inputs for B surface voxels (pad: -1): K10a's lattice, the
+    decoder's sdf on it, the cell table and the ids."""
     feats, pos = mesh_lattice(map_state, map_cfg, voxel_ids, res)
     sdf = decoder_apply(decoder_params, feats, getattr(torch, compute_dtype))[..., 0]  # (B, S)
-    return marching_tets_lattice(sdf, pos, _lattice_tables(res, voxel_ids.device)[2], voxel_ids)
+    return sdf, pos, _lattice_tables(res, voxel_ids.device)[2], voxel_ids
+
+
+def _mesh_chunk(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
+                voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32"):
+    """Triangles of B surface voxels (pad: -1) in JAX's padded form: K10a,
+    the decoder, K10b. Returns (tris (B * (res-1)^3, 12, 3, 3), valid (..,
+    12))."""
+    return marching_tets_lattice(*_chunk_lattice(map_state, map_cfg, decoder_params, voxel_ids,
+                                                 res, compute_dtype))
 
 
 def weld(tris: np.ndarray):
@@ -150,29 +165,37 @@ def weld(tris: np.ndarray):
 
 def extract_triangles(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
                       res: int = 2, compute_dtype: str = "float32",
-                      chunk_cells: int = CHUNK_CELLS) -> np.ndarray:
+                      chunk_cells: int = CHUNK_CELLS,
+                      scratch: TetScratch | None = None) -> np.ndarray:
     """The map's valid triangles (T, 3, 3) on the host, in ascending
     (voxel row, cell, tetrahedron, slot) order: the device half of
-    :func:`extract_mesh`."""
+    :func:`extract_mesh`. Per chunk, K10b's compact form (through
+    ``scratch``, a TetScratch; None: one made for this call) writes the
+    valid triangles and their count T on the device; T is read once and
+    ``tris[:T]`` copied to the host."""
     ids = vm.surface_voxel_ids(map_state)
     ncell = (res - 1) ** 3
     chunk = max(1, chunk_cells // max(ncell, 1))
+    scratch = TetScratch() if scratch is None else scratch
     parts = []
     for i in range(0, ids.shape[0], chunk):
-        tris, valid = _mesh_chunk(map_state, map_cfg, decoder_params, ids[i:i + chunk], res,
-                                  compute_dtype)
-        parts.append(tris[valid].cpu().numpy())
+        tris, count = marching_tets_compact(
+            *_chunk_lattice(map_state, map_cfg, decoder_params, ids[i:i + chunk], res,
+                            compute_dtype), scratch=scratch)
+        parts.append(tris[:int(count)].cpu().numpy())
     if not parts:
         return np.zeros((0, 3, 3), np.float32)
     return np.concatenate(parts, 0)
 
 
 def extract_mesh(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params, res: int = 2,
-                 compute_dtype: str = "float32", chunk_cells: int = CHUNK_CELLS):
+                 compute_dtype: str = "float32", chunk_cells: int = CHUNK_CELLS,
+                 scratch: TetScratch | None = None):
     """Triangle mesh of the whole map. Returns (vertices (V, 3) float32,
     faces (F, 3) int32). ``res`` matches the reference's mesh_res (2 in all
     LiDAR configs: corner-only sampling, one cell per voxel)."""
-    tris = extract_triangles(map_state, map_cfg, decoder_params, res, compute_dtype, chunk_cells)
+    tris = extract_triangles(map_state, map_cfg, decoder_params, res, compute_dtype, chunk_cells,
+                             scratch)
     if len(tris) == 0:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
     return weld(tris)

@@ -4,14 +4,16 @@ Each lattice cell is split into 6 Kuhn tetrahedra sharing the main diagonal
 (corner 0 -> corner 7); the split is translation-consistent, so the surface
 is watertight across cells and across voxels. Each tetrahedron has 16 sign
 cases emitting at most 2 triangles whose vertices are linear zero crossings
-on its edges. The (cells, 12) triangle buffer is compacted with its mask by
-the caller.
+on its edges.
 
-K10b ``marching_tets_lattice`` (csrc/mesh.cu) fuses the cell gather through
-the cell-corner table, the tetrahedra and the padding mask of
-nerfloam_tpu/map/mesher.py:74-82; ``marching_tets_cells`` is the JAX
-signature (one cell per row), the same kernel with an identity table. The
-plain twins run on CPU tensors.
+K10b (csrc/mesh.cu) fuses the cell gather through the cell-corner table,
+the tetrahedra and the padding mask of nerfloam_tpu/map/mesher.py:74-82.
+Its padded form ``marching_tets_lattice`` gives JAX's (cells, 12)
+triangle slots and their mask; ``marching_tets_cells`` is the JAX
+signature (one cell per row), the same kernel with an identity table. Its
+compact form ``marching_tets_compact``, the mesh path's, writes only the
+valid triangles in the same order on the card (the compaction JAX does on
+the host) and their count. The plain twins run on CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 
-# K10b launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
+# K10b launches on CUDA tensors, both forms (plain integer; chip_smoke.py resets and
+# reads it)
 marching_tets_launches = 0
 
 # Cube corners indexed j = x<<2 | y<<1 | z (ops.interp.CORNER_OFFSETS).
@@ -95,38 +98,123 @@ def marching_tets_lattice_plain(sdf, pos, cct, voxel_ids=None):
     return tris, valid
 
 
+def marching_tets_compact_plain(sdf, pos, cct, voxel_ids=None):
+    """Plain twin of K10b's compact form: the padded twin's valid triangles
+    ``tris[valid]`` (T, 3, 3), in ascending (cell, tet, slot) order, and T
+    as a 0-d int32 tensor."""
+    tris, valid = marching_tets_lattice_plain(sdf, pos, cct, voxel_ids)
+    out = tris[valid]
+    return out, torch.tensor(out.shape[0], dtype=torch.int32, device=out.device)
+
+
+class TetScratch:
+    """K10b compact form's scratch, kept by its caller (the pipeline keeps
+    one for its meshes; ``extract_triangles`` makes one for a call without
+    it): one int64 word for the look-back's two tickets and one tile state
+    per tile of 64 cells, zero between calls (every call leaves them so:
+    its last block resets them). Filled once when it is made or grown, for
+    a call with more tiles, and dropped by a call whose launch fails. Calls
+    on one stream take turns with it."""
+
+    def __init__(self):
+        self.drop()
+
+    def fit(self, dev, tiles: int) -> int:
+        """The scratch pointer for ``tiles`` tiles on dev."""
+        if self.state is None or dev != self.dev or tiles > self.tiles:
+            self.tiles = max(tiles, self.tiles)
+            self.state = torch.zeros((self.tiles + 1,), dtype=torch.int64, device=dev)
+            self.dev = dev
+        return self.state.data_ptr()
+
+    def drop(self):
+        self.tiles, self.dev, self.state = 0, None, None
+
+
+def _tets_inputs(name: str, sdf, pos, cct, voxel_ids):
+    """Check K10b's inputs as the kernel reads them (sdf (B, S) and pos (B,
+    S, 3) contiguous f32, cct (ncell, 8) and voxel_ids (B,) contiguous
+    int32, one device) and return (device, B, S, ncell)."""
+    dev = sdf.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    B, S = sdf.shape
+    ncell = cct.shape[0]
+    kernels.expect(name, dev, torch.float32, sdf=sdf, pos=pos)
+    kernels.expect(name, dev, torch.int32, cct=cct)
+    kernels.expect_shape(name, pos=(pos, (B, S, 3)), cct=(cct, (ncell, 8)))
+    if voxel_ids is not None:
+        kernels.expect(name, dev, torch.int32, voxel_ids=voxel_ids)
+        kernels.expect_shape(name, voxel_ids=(voxel_ids, (B,)))
+    if B * ncell * 12 >= 2**31:
+        raise ValueError(f"{name}: {B} voxels x {ncell} cells x 12 triangle slots need 32-bit "
+                         "indices")
+    return dev, B, S, ncell
+
+
 def marching_tets_lattice(sdf: torch.Tensor, pos: torch.Tensor, cct: torch.Tensor,
                           voxel_ids: torch.Tensor | None = None):
-    """K10b. Replaces the XLA fusion of nerfloam_tpu/ops/marching.py:63-106
-    with the cell gather and padding mask of map/mesher.py:74-82.
+    """K10b, padded (JAX's output). Replaces the XLA fusion of
+    nerfloam_tpu/ops/marching.py:63-106 with the cell gather and padding
+    mask of map/mesher.py:74-82.
 
     sdf (B, S) and pos (B, S, 3) on each voxel's res^3 lattice, cct
     (ncell, 8) int32 lattice indices of each cell's corners, voxel_ids (B,)
     int32 (-1 = padding) or None -> (tris (B * ncell, 12, 3, 3) float32,
-    valid (B * ncell, 12) bool). CPU tensors take the plain twin; CUDA
-    tensors launch csrc/mesh.cu (one thread per cell and tetrahedron)."""
-    dev = sdf.device
+    valid (B * ncell, 12) bool). Inputs are taken as they are (f32 or
+    int32, contiguous, one device): anything else raises ValueError. CPU
+    tensors take the plain twin; CUDA tensors launch csrc/mesh.cu's kernel
+    in its padded form (a thread per cell and tetrahedron)."""
+    name = "marching_tets_lattice"
+    dev, B, S, ncell = _tets_inputs(name, sdf, pos, cct, voxel_ids)
     if dev.type == "cpu":
         return marching_tets_lattice_plain(sdf, pos, cct, voxel_ids)
-    if dev.type != "cuda":
-        raise ValueError(f"marching_tets_lattice: unsupported device {dev}")
     global marching_tets_launches
-    B, S = sdf.shape
-    ncell = cct.shape[0]
-    if pos.shape != (B, S, 3) or cct.shape[1:] != (8,):
-        raise ValueError("marching_tets_lattice: pos must be (B, S, 3) and cct (ncell, 8)")
-    sdf, pos = sdf.float().contiguous(), pos.float().contiguous()
-    cct = cct.to(torch.int32).contiguous()
-    ids = None if voxel_ids is None else voxel_ids.to(torch.int32).contiguous()
-    if any(t.device != dev for t in (pos, cct) + (() if ids is None else (ids,))):
-        raise ValueError("marching_tets_lattice: all inputs must be on one device")
     tris = torch.empty((B * ncell, 12, 3, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((B * ncell, 12), dtype=torch.bool, device=dev)
     kernels.check(kernels.lib().nl_marching_tets(
-        sdf.data_ptr(), pos.data_ptr(), cct.data_ptr(), None if ids is None else ids.data_ptr(),
-        B, S, ncell, tris.data_ptr(), valid.data_ptr(), kernels.stream_ptr(dev)), "marching_tets")
+        sdf.data_ptr(), pos.data_ptr(), cct.data_ptr(),
+        None if voxel_ids is None else voxel_ids.data_ptr(), B, S, ncell, tris.data_ptr(),
+        valid.data_ptr(), kernels.stream_ptr(dev)), name)
     marching_tets_launches += 1
     return tris, valid
+
+
+def marching_tets_compact(sdf: torch.Tensor, pos: torch.Tensor, cct: torch.Tensor,
+                          voxel_ids: torch.Tensor | None = None,
+                          scratch: TetScratch | None = None):
+    """K10b, compact (what the mesh path needs): the valid triangles of
+    ``marching_tets_lattice``'s output in its order, i.e. ``tris[valid]``,
+    written on the card, the order JAX's host compaction keeps
+    (nerfloam_tpu/map/mesher.py:113-114).
+
+    Inputs as marching_tets_lattice takes them. Returns (tris, T): on the
+    card tris is a (B * ncell * 12, 3, 3) float32 buffer, allocated and
+    never filled, whose first T rows are the triangles, and T a 0-d int32
+    tensor, both written by one launch of csrc/mesh.cu's kernel in its
+    compact form through ``scratch`` (a TetScratch; None: one made for
+    the call); CPU tensors take ``marching_tets_compact_plain`` (tris of
+    exactly T rows)."""
+    name = "marching_tets_compact"
+    dev, B, S, ncell = _tets_inputs(name, sdf, pos, cct, voxel_ids)
+    if dev.type == "cpu":
+        return marching_tets_compact_plain(sdf, pos, cct, voxel_ids)
+    global marching_tets_launches
+    lib = kernels.lib()
+    scratch = TetScratch() if scratch is None else scratch
+    state = scratch.fit(dev, lib.nl_marching_tets_tiles(B * ncell))
+    tris = torch.empty((B * ncell * 12, 3, 3), dtype=torch.float32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.nl_marching_tets_compact(
+        sdf.data_ptr(), pos.data_ptr(), cct.data_ptr(),
+        None if voxel_ids is None else voxel_ids.data_ptr(), B, S, ncell, tris.data_ptr(),
+        count.data_ptr(), state, kernels.stream_ptr(dev))
+    if err:
+        scratch.drop()
+        kernels.check(err, name)
+    if B * ncell:
+        marching_tets_launches += 1
+    return tris, count
 
 
 def marching_tets_cells(cell_pos: torch.Tensor, cell_val: torch.Tensor):

@@ -15,13 +15,17 @@ placement and the fine cell lookup), csrc/grid_sampler.cu, with plain
 twins ``march_occupancy_plain`` and ``place_samples_cdf_plain``; the
 caller always supplies the placement jitter ``u``. A tracker places
 samples over one frame's cdf in every iteration, and BA over one step's
-superset cdf, so each makes a ``CdfPlacer`` once (K9b's fixed arguments
-checked and packed, its outputs allocated) and calls it per iteration.
+superset cdf, so each makes a ``CdfPlacer`` once and calls it per
+iteration: ``CdfPlacer.march`` checks the map and packs K9b's fixed
+arguments once, allocates the cdf and the outputs, and launches K9a into
+them (``march_occupancy`` is one such march, for a caller that wants the
+cdf alone).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +40,7 @@ march_occupancy_launches = 0    # K9a
 place_samples_cdf_launches = 0  # K9b
 _HT = "build_hit_table"
 _PLACE = "place_samples_cdf"
+_MARCH = "march_occupancy"
 _F32 = torch.float32
 _ORIGIN_STRIDES = ((0, 1), (3, 1))  # rays_o of K9b and K8: one shared origin, or one per ray
 
@@ -151,10 +156,10 @@ def _hit_table_launch(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConf
     return out
 
 
-def _hit_table_device(name: str, rays_o: torch.Tensor) -> str:
-    if rays_o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {rays_o.device}")
-    return rays_o.device.type
+def _device_type(name: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
 
 
 def build_hit_table(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
@@ -168,7 +173,7 @@ def build_hit_table(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig
     of 3, or of 0 for one origin expanded to every ray (the tracker's
     form), the map's grid_active and region_min contiguous int32. Nothing
     is converted or copied: anything else raises ValueError."""
-    if _hit_table_device(_HT, rays_o) == "cpu":
+    if _device_type(_HT, rays_o) == "cpu":
         return build_hit_table_plain(state, map_cfg, rc, rays_o, rays_d, t_cap)
     return HitTable(*_hit_table_launch(state, map_cfg, rc, rays_o, rays_d, t_cap, False))
 
@@ -180,7 +185,7 @@ def build_hit_table_packed(state: vm.MapState, map_cfg: vm.MapConfig, rc: Raycas
     7H) f32 rows [aid, t_near, seg, cdf, cell xyz], written by the one
     launch (inputs as build_hit_table takes them). CPU tensors pack the
     plain twin's table."""
-    if _hit_table_device(_HT, rays_o) == "cpu":
+    if _device_type(_HT, rays_o) == "cpu":
         return pack_hit_table(build_hit_table_plain(state, map_cfg, rc, rays_o, rays_d, t_cap))
     return _hit_table_launch(state, map_cfg, rc, rays_o, rays_d, t_cap, True)[0]
 
@@ -251,15 +256,6 @@ def resolve_cells_in_hits(ht: HitTable, cells: torch.Tensor):
 # ------------------------------------------------------------ grid sampler
 
 
-def _grid_args(name, state: vm.MapState, *tensors):
-    dev = tensors[0].device
-    ins = [state.grid_active.contiguous(), state.region_min.to(torch.int32).contiguous()]
-    ins += [t.float().contiguous() for t in tensors]
-    if any(t.device != dev for t in ins):
-        raise ValueError(f"{name}: map and rays must share one device")
-    return dev, ins
-
-
 def march_occupancy_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
                           rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor):
     """Plain torch twin of K9a: (cdf (R, S), n_occ (R,)), the running count
@@ -277,26 +273,12 @@ def march_occupancy(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig
                     rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor):
     """K9a. Replaces nerfloam_tpu/ops/raycast.py:65-85 (march_occupancy,
     with voxel_map.py:172-180 lookup_active): the XLA fusion of the (R, S)
-    coarse march, grid gather and per-ray cumsum. CPU tensors take the
-    plain twin; CUDA tensors launch csrc/grid_sampler.cu (one warp per ray,
-    bound by one 4-byte grid read per slot in range and the cdf write).
-    Returns (cdf (R, S), n_occ (R,))."""
-    if rays_o.device.type == "cpu":
-        return march_occupancy_plain(state, map_cfg, rc, rays_o, rays_d, t_cap)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"march_occupancy: unsupported device {rays_o.device}")
-    global march_occupancy_launches
-    dev, (ga, rmin, o, d, tc) = _grid_args("march_occupancy", state, rays_o, rays_d, t_cap)
-    R = o.shape[0]
-    cstep, S = _coarse_shape(rc)
-    cdf = torch.empty((R, S), dtype=torch.float32, device=dev)
-    n_occ = torch.empty((R,), dtype=torch.float32, device=dev)
-    kernels.check(kernels.lib().nl_march_occupancy(
-        ga.data_ptr(), rmin.data_ptr(), *map_cfg.grid_dim, o.data_ptr(), d.data_ptr(),
-        tc.data_ptr(), R, S, cstep, rc.voxel_size, cdf.data_ptr(), n_occ.data_ptr(),
-        kernels.stream_ptr(dev)), "march_occupancy")
-    march_occupancy_launches += 1
-    return cdf, n_occ
+    coarse march, grid gather and per-ray cumsum. One march of a fresh
+    placer (``CdfPlacer.march``, which checks the inputs as it takes them
+    and raises on what it would have to convert); CPU tensors take the
+    plain twin. Returns (cdf (R, S), n_occ (R,))."""
+    placer = CdfPlacer.march(state, map_cfg, rc, rays_o, rays_d, t_cap, 0)
+    return placer.cdf, placer.n_occ
 
 
 def place_samples_cdf_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
@@ -320,7 +302,7 @@ def place_samples_cdf_plain(state: vm.MapState, map_cfg: vm.MapConfig, rc: Rayca
 
 
 class _PlaceArgs(ctypes.Structure):
-    """K9b's arguments fixed over a loop: ``PlaceArgs`` of
+    """K9b's (and K9a's) arguments fixed over a loop: ``PlaceArgs`` of
     csrc/grid_sampler.cu, the same fields in the same order (checked
     against the library's ``nl_place_args_layout`` before the first
     launch)."""
@@ -368,6 +350,10 @@ class CdfPlacer:
     device; ``rays_o`` may be one origin expanded to (R, 3)): nothing is
     converted or copied, and a tensor that would need it raises ValueError.
 
+    ``CdfPlacer.march(...)`` makes one over a march of its own (K9a): the
+    trackers and BA make theirs so, and ``cdf`` / ``n_occ`` are the
+    placer's. ``CdfPlacer(..., cdf, n_occ, ...)`` takes a given cdf.
+
     On the card a call returns the placer's own (z, aid, valid, ray_mask)
     buffers, overwritten by the next call: the trackers and BA consume them
     within the iteration. CPU tensors take ``place_samples_cdf_plain``."""
@@ -375,18 +361,66 @@ class CdfPlacer:
     def __init__(self, state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
                  cdf: torch.Tensor, n_occ: torch.Tensor, t_cap: torch.Tensor, n_samples: int,
                  n_rays: int | None = None):
+        _device_type(_PLACE, t_cap)
+        dev, C = t_cap.device, cdf.shape[0]
+        kernels.expect(_PLACE, dev, _F32, cdf=cdf, n_occ=n_occ)
+        kernels.expect_shape(_PLACE, n_occ=(n_occ, (C,)))
+        self._check_map(_PLACE, dev, state, map_cfg, t_cap, C)
+        self._setup(state, map_cfg, rc, cdf, n_occ, t_cap, n_samples, n_rays)
+
+    @classmethod
+    def march(cls, state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+              rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor, n_samples: int,
+              n_rays: int | None = None) -> "CdfPlacer":
+        """K9a, launched as part of making the placer: the C rays (rays_d
+        (C, 3) and t_cap (C,) contiguous f32; rays_o (C, 3) f32 rows with
+        a row stride of 3, or of 0 for one origin expanded to every ray, as
+        the trackers pass it) are marched into the placer's own cdf (C, S)
+        and n_occ (C,), allocated here and never filled, by one launch of
+        csrc/grid_sampler.cu that reads its fixed arguments from the
+        PlaceArgs K9b uses. The map and t_cap are checked once; nothing is
+        converted or copied: anything else raises ValueError. CPU tensors
+        take ``march_occupancy_plain``. Then the placer is ready for K9b's
+        calls (``n_samples`` M, ``n_rays`` R as in the constructor)."""
+        _device_type(_MARCH, t_cap)
+        dev, C = t_cap.device, rays_d.shape[0]
+        kernels.expect(_MARCH, dev, _F32, rays_d=rays_d)
+        kernels.expect_shape(_MARCH, rays_d=(rays_d, (C, 3)))
+        o_stride = kernels.expect_origin(_MARCH, dev, rays_o, C)
+        self = cls.__new__(cls)
+        self._check_map(_MARCH, dev, state, map_cfg, t_cap, C)
+        if dev.type == "cpu":
+            cdf, n_occ = march_occupancy_plain(state, map_cfg, rc, rays_o, rays_d, t_cap)
+        else:
+            cdf = torch.empty((C, _coarse_shape(rc)[1]), dtype=_F32, device=dev)
+            n_occ = torch.empty((C,), dtype=_F32, device=dev)
+        self._setup(state, map_cfg, rc, cdf, n_occ, t_cap, n_samples, n_rays)
+        if self._out is not None:
+            global march_occupancy_launches
+            err = self._lib.nl_march_occupancy(self._args_ptr, rays_o.data_ptr(), o_stride,
+                                               rays_d.data_ptr(), kernels.raw_stream(self._index))
+            if err:
+                kernels.check(err, _MARCH)
+            march_occupancy_launches += 1
+        return self
+
+    @staticmethod
+    def _check_map(name, dev, state, map_cfg, t_cap, C):
+        kernels.expect(name, dev, torch.int32, grid_active=state.grid_active,
+                       region_min=state.region_min)
+        kernels.expect(name, dev, _F32, t_cap=t_cap)
+        kernels.expect_shape(name, grid_active=(state.grid_active, (math.prod(map_cfg.grid_dim),)),
+                             region_min=(state.region_min, (3,)), t_cap=(t_cap, (C,)))
+
+    def _setup(self, state, map_cfg, rc, cdf, n_occ, t_cap, n_samples, n_rays):
+        """Over checked inputs: the outputs allocated and K9b's (and K9a's)
+        fixed arguments packed."""
         dev = t_cap.device
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"{_PLACE}: unsupported device {dev}")
         C, S = cdf.shape
         R = C if n_rays is None else n_rays
         M = n_samples
-        kernels.expect(_PLACE, dev, torch.int32, grid_active=state.grid_active,
-                       region_min=state.region_min)
-        kernels.expect(_PLACE, dev, _F32, cdf=cdf, n_occ=n_occ, t_cap=t_cap)
-        kernels.expect_shape(_PLACE, region_min=(state.region_min, (3,)), n_occ=(n_occ, (C,)),
-                             t_cap=(t_cap, (C,)))
         self.device, self.C, self.R, self.M = dev, C, R, M
+        self.cdf, self.n_occ = cdf, n_occ
         self._rd_shape, self._u_shape, self._u_stride, self._rows_shape = (R, 3), (R, M), (M, 1), (R,)
         self._inputs = (state, map_cfg, rc, cdf, n_occ, t_cap)  # holds what _args points at
         self._out = None
@@ -394,9 +428,9 @@ class CdfPlacer:
         if dev.type == "cpu":
             return
         self._index = t_cap.get_device()
-        lib = kernels.lib()
+        lib = self._lib = kernels.lib()
         _check_place_layout(lib)
-        if S > lib.nl_place_max_slots():
+        if M > 0 and S > lib.nl_place_max_slots():
             raise ValueError(f"{_PLACE}: {S} coarse slots > {lib.nl_place_max_slots()}, the cdf "
                              "rows the kernel holds in shared memory")
         # four allocations, not one buffer cut into views, which costs the
@@ -470,8 +504,7 @@ def place_samples_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConf
     checked, never converted); CUDA tensors launch csrc/grid_sampler.cu,
     one warp per ray with its cdf row in shared memory. Returns (z, aid,
     valid, ray_mask)."""
-    if rays_o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_PLACE}: unsupported device {rays_o.device}")
+    _device_type(_PLACE, rays_o)
     return CdfPlacer(state, map_cfg, rc, cdf, n_occ, t_cap, u.shape[-1])(rays_o, rays_d, u)
 
 

@@ -143,6 +143,59 @@ def test_march_and_place_match_jax(setup):
         np.testing.assert_allclose(to_numpy(t), np.asarray(j), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("origin", ["per ray", "expanded"])
+def test_placer_march_matches_jax(setup, origin):
+    """A placer made by its own march (``CdfPlacer.march``, as the trackers
+    and BA make theirs) holds JAX's march_occupancy cdf and n_occ, and
+    places JAX's place_samples_cdf samples, with one origin per ray (BA's
+    superset) and with one origin expanded to every ray (the trackers')."""
+    s = setup
+    jocc, _ = _occupancy(s)
+    to, td = _rays(_t(s["pose0"]), _t(s["dirs"]), tse3)
+    if origin == "per ray":
+        to = to.contiguous()
+    assert to.stride(0) == (3 if origin == "per ray" else 0)
+    placer = trc.CdfPlacer.march(s["tm"], T_CFG, T_RC, to, td, _t(s["t_cap"]), RC.n_samples)
+    np.testing.assert_array_equal(to_numpy(placer.cdf), np.asarray(jocc[0]))
+    np.testing.assert_array_equal(to_numpy(placer.n_occ), np.asarray(jocc[1]))
+    o, d = _rays(s["pose"], s["dirs"], jse3)
+    jout = jrc.place_samples_cdf(s["m"], MAP_CFG, RC, *jocc, o, d, s["t_cap"], None,
+                                 u=jnp.asarray(s["u"]))
+    to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
+    tout = placer(to.contiguous() if origin == "per ray" else to, td, _t(s["u"]))
+    for t, j in zip(tout, jout):
+        np.testing.assert_allclose(to_numpy(t), np.asarray(j), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(to_numpy(tout[1]), np.asarray(jout[1]))
+    np.testing.assert_array_equal(to_numpy(tout[2]), np.asarray(jout[2]))
+    assert 0.3 < float(np.asarray(jout[2]).mean()) < 1.0
+
+
+def test_placer_march_rejects_unconverted_inputs(setup):
+    """CdfPlacer.march (and march_occupancy, one march of a fresh placer)
+    converts and copies nothing: a wrong dtype, a strided tensor, a shape
+    other than (C, 3) / (C,) or a map table of another dtype raises."""
+    s = setup
+    to, td = _rays(_t(s["pose0"]), _t(s["dirs"]), tse3)
+    tc = _t(s["t_cap"])
+    ok = dict(rays_o=to, rays_d=td, t_cap=tc)
+    bad = [("rays_d", td.double(), "rays_d must be a contiguous"),
+           ("rays_d", td.t().contiguous().t(), "rays_d must be a contiguous"),
+           ("t_cap", tc.double(), "t_cap must be a contiguous"),
+           ("t_cap", tc[:-1], "t_cap has shape"),
+           ("rays_o", torch.cat([to, to], 1)[:, :3], "rays_o must be"),
+           ("rays_o", to.double(), "rays_o must be")]
+    for key, value, match in bad:
+        with pytest.raises(ValueError, match=match):
+            trc.CdfPlacer.march(s["tm"], T_CFG, T_RC, **{**ok, key: value},
+                                n_samples=RC.n_samples)
+        with pytest.raises(ValueError, match=match):
+            trc.march_occupancy(s["tm"], T_CFG, T_RC, **{**ok, key: value})
+    for field, value in (("region_min", s["tm"].region_min.long()),
+                         ("grid_active", s["tm"].grid_active.long())):
+        with pytest.raises(ValueError, match=f"{field} must be a contiguous"):
+            trc.march_occupancy(s["tm"]._replace(**{field: value}), T_CFG, T_RC, **ok)
+
+
 def test_place_samples_shared_origin_equals_its_copy(setup):
     """The trackers hand K9b one origin expanded to every ray (row stride
     0), through a CdfPlacer made once per frame; the wrapper reads it as it

@@ -36,19 +36,26 @@ every table equal (f32 and bf16); K5
 every table equal to the twin run on the CPU (f32 and bf16: both add
 each corner's deltas in ascending order, rounding after every add) and
 bit-identical between calls without a scratch and through one kept
-ReconcileScratch, whose head table is all -1 after every call; K9a cdf and n_occ equal, K9b aid, valid and ray_mask
+ReconcileScratch, whose head table is all -1 after every call; K9a cdf and n_occ equal,
+also launched as part of making a placer (CdfPlacer.march) with one
+origin per ray and with one expanded to every ray, one CUDA launch a
+march and no copy; K9b aid, valid and ray_mask
 equal and z within one f32 ulp (also with one origin broadcast to every
 ray and widths that are not multiples of 32); the grid render's gradients on the card
 1e-5 of the CPU's largest entry (another summation order); K10a features and
 positions equal, K10b triangles and mask equal (one rounded operation at a
-time on both sides); K11a every output equal and bit-identical between two
+time on both sides), and its compact form's T and triangles equal to the
+twin's tris[valid] (T = 0, many tiles, runs of empty tiles between full
+ones, -1 padding ids; two calls through one TetScratch equal and its tile
+states and tickets left all zero; one CUDA launch a call); K11a every output equal and bit-identical between two
 calls (per-pixel sums in ascending point index), one launch of the port's
 a call; K11b H, b and loss 1e-5
 relative (another summation order) and bit-stable from run to run, and in
 the accumulating form each entry one add on the sums alone (also into a
 GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
-GnSystem, K8's ActiveField, K4 and K5 raise on what they would have to
-convert (another device, another dtype, a strided tensor)."""
+GnSystem, K8's ActiveField, K4, K5, K9a's CdfPlacer.march and K10b
+raise on what they would have to convert (another device, another dtype,
+a strided tensor)."""
 
 import ctypes
 import os
@@ -616,6 +623,65 @@ def test_grid_sampler_kernels_match_plain(cuda):
     assert 0.2 < float(ref[2].float().mean()) < 1.0
 
 
+def _device_launches(fn, reps=10, sessions=5):
+    """{device operation: launches per call of fn} from torch.profiler over
+    ``reps`` calls after a discarded warm-up step of as many (a cold
+    session drops records); a session whose counts are not whole
+    multiples of ``reps`` (a dropped or stray record) is run again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0.0) > 0}
+        if counts and not any(n % reps for n in counts.values()):
+            return {k: n // reps for k, n in counts.items()}
+    raise AssertionError(f"the profiler kept {counts} device records of {reps} calls")
+
+
+@pytest.mark.parametrize("origin", ["per ray", "row stride 0"])
+@pytest.mark.parametrize("S", [45, 75, 100, 200])
+def test_placer_march_is_one_launch_and_matches_plain(cuda, origin, S):
+    """K9a launched as part of making a placer (CdfPlacer.march) and through
+    march_occupancy: cdf and n_occ equal to the twin's, one CUDA launch a
+    march and nothing else (the trackers' expanded origin read as it is,
+    not copied), at widths of one to two groups of four rounds."""
+    ms, o, d, tc = _case(cuda, seed=16)
+    rc = T_RC._replace(sampler="grid", n_samples=32, n_coarse=S, coarse_step=12.0 / S)
+    ro = o if origin == "per ray" else o[:1].expand_as(d)
+    pcdf, pn = trc.march_occupancy_plain(ms, T_CFG, rc, ro, d, tc)
+    n0 = trc.march_occupancy_launches
+    placer = trc.CdfPlacer.march(ms, T_CFG, rc, ro, d, tc, 32)
+    cdf, n_occ = trc.march_occupancy(ms, T_CFG, rc, ro, d, tc)
+    torch.cuda.synchronize()
+    assert trc.march_occupancy_launches == n0 + 2
+    assert placer.cdf.shape == (o.shape[0], S)
+    for got in ((placer.cdf, placer.n_occ), (cdf, n_occ)):
+        assert torch.equal(got[0], pcdf) and torch.equal(got[1], pn)
+    assert 0.3 < float((pn > 0).float().mean()) <= 1.0
+    g = torch.Generator(device=cuda).manual_seed(S)
+    u = trc.uniform_jitter((o.shape[0], 32), g, cuda)
+    ker = placer(ro, d, u)
+    ref = trc.place_samples_cdf_plain(ms, T_CFG, rc, pcdf, pn, ro, d, tc, u)
+    torch.cuda.synchronize()
+    for i, name in ((1, "aid"), (2, "valid"), (3, "ray_mask")):
+        assert torch.equal(ker[i], ref[i]), name
+    for fn in (lambda: trc.CdfPlacer.march(ms, T_CFG, rc, ro, d, tc, 32),
+               lambda: trc.march_occupancy(ms, T_CFG, rc, ro, d, tc)):
+        ops = _device_launches(fn)
+        assert len(ops) == 1 and "march_occupancy_kernel" in next(iter(ops)), ops
+        assert next(iter(ops.values())) == 1, ops
+
+
 @pytest.mark.parametrize("S, M", [(45, 37), (100, 64), (75, 32)])
 def test_place_samples_kernel_shared_origin_matches_plain(cuda, S, M):
     """K9b with one origin for every ray (row stride 0, as the trackers pass
@@ -740,6 +806,64 @@ def test_mesh_kernels_match_plain(cuda, res, emb_dtype):
     assert kt.shape == (ids.numel() * (res - 1) ** 3, 12, 3, 3)
     assert torch.equal(kv, rv) and torch.equal(kt, rt)
     assert bool(rv.any()) and not bool(rv[-37 * (res - 1) ** 3:].any())
+
+
+def _tets_chunk(device, case, seed=0):
+    """A chunk of B voxels' res-2 lattices (one cell each): random sdf
+    around 0 (about half the tets cut) and positions; ``case`` "empty":
+    every sdf positive (T = 0); "many blocks": 9,000 voxels (141 tiles of
+    64 cells); "empty runs": 9,000 voxels in runs of 7 tiles without a
+    triangle between runs of 3 with; "padding": every third id -1 and a
+    padded tail."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B = 300 if case == "empty" else 9000
+    sdf = torch.randn((B, 8), generator=g, device=device) * 0.2 + 0.05
+    pos = torch.rand((B, 1, 3), generator=g, device=device) * 20.0 + torch.rand(
+        (B, 8, 3), generator=g, device=device) * 0.2
+    ids = torch.arange(B, dtype=torch.int32, device=device)
+    if case == "empty":
+        sdf = sdf.abs() + 0.01
+    elif case == "empty runs":
+        tile = torch.arange(B, device=device) // 64
+        sdf[tile % 10 < 7] = sdf[tile % 10 < 7].abs() + 0.01
+    elif case == "padding":
+        ids[::3] = -1
+        ids[-100:] = -1
+    cct = torch.as_tensor(tmesher._cell_corner_table(2), device=device)
+    return sdf.contiguous(), pos.contiguous(), cct, ids
+
+
+@pytest.mark.parametrize("case", ["empty", "many blocks", "empty runs", "padding"])
+def test_marching_tets_compact_kernel_matches_twin(cuda, case):
+    """K10b's compact form against the padded twin's ``tris[valid]``: T and
+    the triangles equal, two calls in a row through one TetScratch equal
+    (its tile states and tickets left all zero after each call), a
+    scratch made for the call too, one CUDA launch a call."""
+    sdf, pos, cct, ids = _tets_chunk(cuda, case)
+    rt, rv = tmarch.marching_tets_lattice_plain(sdf, pos, cct, ids)
+    want = rt[rv]
+    scratch = tmarch.TetScratch()
+    n0 = tmarch.marching_tets_launches
+    outs = [tmarch.marching_tets_compact(sdf, pos, cct, ids, scratch=scratch) for _ in range(2)]
+    outs.append(tmarch.marching_tets_compact(sdf, pos, cct, ids))
+    torch.cuda.synchronize()
+    assert tmarch.marching_tets_launches == n0 + 3
+    assert not bool(scratch.state.any())
+    assert scratch.tiles == (sdf.shape[0] + 63) // 64
+    for tris, T in outs:
+        assert tris.shape == (sdf.shape[0] * 12, 3, 3) and T.dtype == torch.int32
+        assert int(T) == want.shape[0]
+        assert torch.equal(tris[:int(T)], want)
+    if case == "empty":
+        assert want.shape[0] == 0
+    else:
+        assert want.shape[0] > 2000
+    kt, kv = tmarch.marching_tets_lattice(sdf, pos, cct, ids)
+    assert torch.equal(kt[kv], want)
+    ops = _device_launches(lambda: tmarch.marching_tets_compact(sdf, pos, cct, ids,
+                                                                scratch=scratch))
+    assert len(ops) == 1 and "marching_tets_kernel" in next(iter(ops)), ops
+    assert next(iter(ops.values())) == 1, ops
 
 
 def test_marching_tets_cells_kernel_matches_plain(cuda):
@@ -1074,6 +1198,12 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tmarch.marching_tets_cells(torch.zeros(4, 8, 3, device="meta"),
                                    torch.zeros(4, 8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmarch.marching_tets_compact(torch.zeros(4, 8, device="meta"),
+                                     torch.zeros(4, 8, 3, device="meta"),
+                                     torch.zeros(1, 8, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        trc.CdfPlacer.march(ms, T_CFG, T_RC, *meta, 8)
     pts, valid = _scan("cpu", n=600)
     with pytest.raises(ValueError, match="unsupported device"):
         ts2s.build_prev_scan(S2S, pts.to("meta"), valid.to("meta"), torch.zeros(6, device="meta"))

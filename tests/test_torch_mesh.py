@@ -158,6 +158,66 @@ def test_mesh_chunk_matches_jax(jax_run, res):
     np.testing.assert_allclose(tt[both], jt[both], atol=1e-4)
 
 
+def _jax_compacted(sdf, pos, cct, ids):
+    """JAX's triangles of one chunk from the same lattice values: the cell
+    gather, marching_tets_cells and the padding mask of
+    nerfloam_tpu/map/mesher.py:74-82, compacted on the host as
+    mesher.py:113-114 does."""
+    B, ncell = sdf.shape[0], cct.shape[0]
+    tris, valid = jmarch.marching_tets_cells(jnp.asarray(pos[:, cct].reshape(B * ncell, 8, 3)),
+                                             jnp.asarray(sdf[:, cct].reshape(B * ncell, 8)))
+    valid = valid & (jnp.asarray(ids).repeat(ncell)[:, None] >= 0)
+    return np.asarray(tris)[np.asarray(valid)]
+
+
+@pytest.mark.parametrize("case", ["res 2", "res 4", "empty"])
+def test_marching_tets_compact_equals_jax_host_compaction(jax_run, case):
+    """K10b's compact form (its plain twin here) gives exactly JAX's
+    ``np.asarray(tris)[np.asarray(valid)]`` on the same lattice values, in
+    its order, with -1 padding voxels; an all-padding chunk gives T = 0."""
+    slam, tm, tcfg, tparams = jax_run
+    res = 4 if case == "res 4" else 2
+    ids = jmesher.vm.surface_snapshot(slam.state.map_state)["voxel_ids"][:200]
+    padded = np.full(256, -1, np.int32)
+    if case != "empty":
+        padded[: len(ids)] = ids
+    sdf, pos, cct, tids = tmesher._chunk_lattice(tm, tcfg, tparams, torch.as_tensor(padded), res,
+                                                 slam.compute_dtype)
+    want = _jax_compacted(sdf.numpy(), pos.numpy(), cct.numpy(), padded)
+    tris, T = tmarch.marching_tets_compact(sdf, pos, cct, tids)
+    assert T.dtype == torch.int32 and T.shape == () and int(T) == len(want)
+    np.testing.assert_array_equal(tris[:int(T)].numpy(), want)
+    if case == "empty":
+        assert int(T) == 0
+    else:
+        assert int(T) > 100
+        ptris, pvalid = tmarch.marching_tets_lattice(sdf, pos, cct, tids)
+        assert torch.equal(tris, ptris[pvalid])
+
+
+def test_marching_wrappers_reject_what_they_would_convert():
+    """Both forms of K10b take their inputs as they are, on the CPU too:
+    another dtype, a strided tensor or a shape other than (B, S, 3) /
+    (ncell, 8) / (B,) raises instead of being cast or copied."""
+    g = torch.Generator().manual_seed(0)
+    sdf = torch.randn((6, 8), generator=g)
+    pos = torch.rand((6, 8, 3), generator=g)
+    cct = torch.as_tensor(tmesher._cell_corner_table(2))
+    ids = torch.arange(6, dtype=torch.int32)
+    ok = dict(sdf=sdf, pos=pos, cct=cct, voxel_ids=ids)
+    for key, value, match in (("sdf", sdf.double(), "sdf must be a contiguous"),
+                              ("sdf", sdf.t().contiguous().t(), "sdf must be a contiguous"),
+                              ("pos", pos[:, :, [0, 1, 2]].transpose(1, 2).contiguous()
+                               .transpose(1, 2), "pos must be a contiguous"),
+                              ("pos", pos[:, :4].contiguous(), "pos has shape"),
+                              ("cct", cct.long(), "cct must be a contiguous"),
+                              ("voxel_ids", ids.long(), "voxel_ids must be a contiguous"),
+                              ("voxel_ids", ids[:5], "voxel_ids has shape")):
+        for fn in (tmarch.marching_tets_lattice, tmarch.marching_tets_compact):
+            with pytest.raises(ValueError, match=match):
+                fn(**{**ok, key: value})
+
+
 def test_extract_mesh_matches_jax(jax_run):
     slam, tm, tcfg, tparams = jax_run
     jv, jf = slam.extract_mesh(clean=False)
