@@ -53,7 +53,14 @@
    for a chunk with no triangle, twice through one kept TetScratch; K11a
    (range image) at
    one frame's 65,536 points and 64 x 1024 pixels and K11b (point-to-plane
-   system) at 2048 rays.
+   system) at 2048 rays; E1 (pack_embeddings and its transpose, the
+   exact-gradient BA's) at kitti_exact's and the replica gate's map shapes
+   (f32 tables, padding rows, a -1 corner and a corner shared by 8 voxels
+   or more): the forward torch.equal to voxel_map.pack_embeddings, the
+   transpose torch.equal to pack_embeddings_vjp_plain and between two
+   calls through one kept PackGradScratch, beside index_select /
+   index_add_; K5's sum form (reconcile_mode=sum) torch.equal to its
+   twin in bf16 and f32.
    K9b is checked with one origin per ray, with one origin broadcast to
    every ray (row stride 0, the trackers' form, timed at the Adam shapes)
    and over a superset cdf whose rows each call picks (BA's form, timed at
@@ -85,7 +92,15 @@
      raw translation error printed;
    - checkpoint and resume on the quality config: 15 frames, save, load
      into a fresh object (every saved table compared), 15 more frames and
-     finalize from the loaded one.
+     finalize from the loaded one;
+   - the reference-exact fallbacks: 30 frames of configs/kitti_exact.json
+     (kitti_adam25 with exact embedding gradients through E1, BA without a
+     ray superset, per-iteration tracker rays, f32 tables: E1 and K9a / K9b
+     on every BA and tracker iteration, no K5, no update count) against
+     the JAX package's ATE, and the replica gate (seed 0) with the three
+     fallback knobs, held to the gate's limits with its raw ATE on the
+     median over generator seeds 777-792 (each printed) and JAX's median
+     there.
    Each path's launch counts are zeroed just before it and read just
    after. Prints the tracker ms the s2s term adds to the quality path.
    Prints scans/s over frames 6 to the end, sections, host syncs,
@@ -93,7 +108,7 @@
    truth, and checks them: every kernel of the path launched, no drops,
    ATE in bound.
 5. torch.profiler breakdowns of a few steady frames of the budget,
-   quality, s2s, Adam and replica-gate configs: device launches and
+   quality, s2s, Adam, replica-gate and exact configs: device launches and
    device ms per frame (one summary line for all five), device time per
    launch of each port kernel;
    then each kernel-phase call profiled alone: its device time per CUDA
@@ -169,8 +184,28 @@ from nerfloam_tpu_torch.utils.logger import RunLogger, read_ply
 # 2026-10-16 (1341 s): the JAX Adam tracker diverges on this sequence at
 # this learning rate, so its bound is loose; kitti_quality_s2s is
 # `--quality --s2s` (tpu_specs.s2s_weight=10.0), run on 2026-10-16 (841 s)
+# kitti_exact (kitti_adam25 with the reference-exact fallbacks and f32 embeddings) is
+# `--adam25 --exact`, run on 2026-10-17 (960 s)
+KITTI_EXACT_ATE_JAX = 1.5971614366073668
 ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826,
-           "kitti_adam25": 49.932506364901286, "kitti_quality_s2s": 1.4469814645550143}
+           "kitti_adam25": 49.932506364901286, "kitti_quality_s2s": 1.4469814645550143,
+           "kitti_exact": KITTI_EXACT_ATE_JAX}
+# replica_gate60 with the reference-exact fallbacks, seed 0: the JAX package on a CPU,
+#   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 0 --exact
+# (run on 2026-10-17, 118 s; one active-set growth); printed beside the port's
+GATE60_EXACT_JAX = {"raw": 0.17483422102246532, "aligned": 0.044754717005029546}
+# the exact gate's generator seeds (tpu_specs.seed; 777 the config's) and JAX's raw ATE
+# of the exact gate (data seed 0) at each, on a CPU:
+#   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 0 --exact --tpu-seed N
+GATE60_SPREAD_SEEDS = tuple(range(777, 793))
+GATE60_EXACT_JAX_RAW = (
+    0.17483422102246532, 0.2031743713761486, 0.22137659077424693, 0.13834254191482986,
+    0.1540344387498666, 0.10957749906726641, 0.12041057388065288, 0.17778003603117476,
+    0.2517731307972032, 0.20750606620938686, 0.24917867034545058, 0.19315165279646973,
+    0.26302362144212466, 0.8874616253044396, 0.2411146730211767, 0.22975765344025875)
+# exact paths: the gate's configs get these, kitti_exact.json has them
+EXACT_OVERRIDES = {"exact_embedding_grads": True, "ba_ray_superset": 0,
+                   "track_resample_rays": True}
 # replica_gate60: the JAX gate's thresholds, tests/test_replica_gates.py:77-80
 GATE60_ATE_RAW_MAX = 0.27
 GATE60_ATE_ALIGNED_MAX = 0.17
@@ -194,6 +229,12 @@ PATH_KERNELS = {           # kernels each main path must launch
                      "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP,
     "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                        "hits_field_bwd", "gn_system") + _MAP + _MESH,
+    # exact gradients: E1 every BA iteration, no reconcile (no voxel touched)
+    "kitti_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd", "hits_field_bwd",
+                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set"),
+    "replica_gate60_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
+                             "hits_field_bwd", "gn_system", "pack_embeddings",
+                             "pack_embeddings_vjp", "insert", "active_set") + _MESH,
 }
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
@@ -216,6 +257,9 @@ KERNEL_FUNCTIONS = {
     "marching_tets": ("marching_tets_kernel",),
     "build_prev_scan": ("s2s_range_image_kernel",),
     "s2s_system": ("s2s_system_kernel",),
+    "pack_embeddings": ("active_pack_rows_kernel",),
+    "pack_embeddings_vjp": ("pack_grad_kernel",),
+    "pack_embeddings_vjp_build": ("pack_grad_link_kernel", "pack_grad_order_kernel"),
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
@@ -225,7 +269,8 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
               "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
               "active_field_fwd, gate band, origin row stride 0", "march_occupancy",
-              "marching_tets", "marching_tets, padded") + tuple(
+              "marching_tets", "marching_tets, padded", "pack_embeddings", "pack_embeddings_vjp",
+              "pack_embeddings, gate60", "pack_embeddings_vjp, gate60") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -244,11 +289,15 @@ def ate_bound(name):
     return max(1.5 * a, a + 0.05)
 
 
-def load_cfg(here, name, seed=None):
+def load_cfg(here, name, seed=None, exact=False, tpu_seed=None):
     with open(os.path.join(here, "nerfloam_tpu_torch", "configs", f"{name}.json")) as f:
         d = json.load(f)
     if seed is not None:
         d["data_specs"]["seed"] = seed
+    if tpu_seed is not None:
+        d["tpu_specs"]["seed"] = tpu_seed
+    if exact:
+        d["tpu_specs"].update(EXACT_OVERRIDES)
     return finalize(d)
 
 
@@ -334,6 +383,9 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "marching_tets": (marching, "marching_tets_launches"),
     "build_prev_scan": (s2s, "build_prev_scan_launches"),
     "s2s_system": (s2s, "s2s_system_launches"),
+    "pack_embeddings": (vm, "pack_embeddings_launches"),
+    "pack_embeddings_vjp": (vm, "pack_grad_launches"),
+    "pack_embeddings_vjp_build": (vm, "pack_grad_build_launches"),
 }
 
 
@@ -500,14 +552,15 @@ def samples_per_row(aid, valid, n_rows):
             f"{float(c.quantile(0.5)):g}, p99 {float(c.quantile(0.99)):g}, max {int(c.max())}")
 
 
-def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
+def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     """Every kernel against its plain version: K4, K1, K2, K8, K3, K7, K6,
     K5, K10a and K10b at the quality shapes, K8 and K3 also at the replica
     gate tracker's (``gate_track``: its rays and samples), K9a and K9b at
     the Adam tracker's and the replica gate's BA superset shapes
     (``rc_gate``; ``loops``: the Adam tracker's iterations a frame and the
     gate's BA iterations a step), K11a and K11b at the s2s config's image
-    (``sp``, its Scan2ScanParams)."""
+    (``sp``, its Scan2ScanParams), E1 at the exact-gradient paths' map
+    shapes (``e1_shapes``: {label: (capacity, active cap)})."""
     dev = slam.device
     cfg, rc_t, rc_m = slam.map_cfg, slam.rc_track, slam.rc_map
     gen = torch.Generator(device=dev)
@@ -834,6 +887,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp):
     records.append(k7_phase(slam, ms, frames[3]))
     o, d, tc = tables[2 * slam.bp_current.n_rays][:3]
     records += map_kernels(slam, ms, frames, gen, (o[:1].expand_as(d), d, tc))
+    records += e1_kernels(ms, cfg, gen, e1_shapes)
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
@@ -980,6 +1034,115 @@ def distinct_corners(ms, rows):
     return int(torch.unique(ms.corner_idx[ms.active_ids[rows].long()].clamp(min=0)).numel())
 
 
+def e1_map(ms, cfg, C, A, gen):
+    """The kernel phase's map cut to capacity C and active cap A with f32
+    embeddings (the exact-gradient paths'), its active set rebuilt, and
+    corner ids edited where E1's data needs them: one lattice row made a
+    corner of 8 active voxels (with its own, a list of 8 or more), then one
+    corner of an active voxel -1 (row 0 stands in for it). The active
+    rows at n_active and past are padding."""
+    n_lat = int(ms.num_lat)
+    check(n_lat <= C, f"E1: {n_lat} lattice rows do not fit {C}")
+    cut = {nm: getattr(ms, nm)[:C].clone() for nm in ("lat_coords", "is_surface", "corner_idx",
+                                                       "upd_count")}
+    ecfg = cfg._replace(capacity=C, active_cap=A, emb_dtype="float32")
+    st = vm.refresh_active(ms._replace(embeddings=ms.embeddings[:C].float().contiguous(), **cut),
+                           ecfg)
+    n = int(st.n_active)
+    check(0 < n < A, f"E1: {n} active voxels, no padding row under A = {A}")
+    ids = st.active_ids[:n].long()
+    cidx = st.corner_idx.clone()
+    pick = torch.randperm(n, generator=gen, device=gen.device)[:8]
+    shared = int(cidx[ids[pick[0]], 0])
+    cidx[ids[pick], torch.arange(8, device=gen.device)] = shared
+    cidx[ids[3], 5] = -1
+    return st._replace(corner_idx=cidx), ecfg
+
+
+def e1_kernels(ms, cfg, gen, shapes):
+    """E1 (pack_embeddings and its transpose) at the exact-gradient paths'
+    shapes (``shapes``: {label: (C, A)}, the first kitti_exact's): its
+    forward (the pack pass) torch.equal to voxel_map.pack_embeddings, its
+    transpose through one kept PackGradScratch torch.equal to
+    pack_embeddings_vjp_plain (on the card) and between two calls, the
+    scratch's head table all -1 after the build; timed against its plain
+    version and, in turns, the library call (index_select; index_add_,
+    whose float atomics add in another order: held within 1e-5 of the
+    largest entry)."""
+    records = []
+    for label, (C, A) in shapes.items():
+        st, ecfg = e1_map(ms, cfg, C, A, gen)
+        n, F = int(st.n_active), ecfg.feat_dim
+        emb = st.embeddings
+        fwd = vm.pack_embeddings_fwd(st, ecfg, emb)
+        fref = vm.pack_embeddings(st, ecfg)
+        d = torch.zeros((A, 8 * F), device=emb.device)
+        d[:n] = torch.randn((n, 8 * F), generator=gen, device=emb.device) * torch.exp2(
+            torch.randint(-10, 10, (n, 8 * F), generator=gen, device=emb.device).float())
+        scratch = vm.PackGradScratch().build(st, ecfg)
+        k1 = vm.pack_embeddings_vjp(d, scratch)
+        k2 = vm.pack_embeddings_vjp(d, scratch)
+        ref = vm.pack_embeddings_vjp_plain(d, st.active_ids, st.corner_idx, st.n_active, C)
+        torch.cuda.synchronize()
+        check(torch.equal(fwd, fref), f"E1 forward differs from pack_embeddings ({label})")
+        check(torch.equal(k1, ref), f"E1 transpose differs from its twin ({label})")
+        check(torch.equal(k1, k2), f"E1 transpose differs between calls ({label})")
+        check(bool((scratch._bufs[0] == -1).all()), f"E1's head table not reset ({label})")
+        idx = torch.clamp(st.corner_idx[st.active_ids[:n].long()], min=0).reshape(-1)
+        counts = torch.bincount(idx, minlength=C)
+        log(f"[E1] {label}: C={C}, A={A}, {n} active rows ({A - n} padding), "
+            f"{int(torch.unique(idx).numel())} corners, longest list {int(counts.max())} (row 0: "
+            f"{int(counts[0])}); forward torch.equal to pack_embeddings, transpose torch.equal to "
+            "pack_embeddings_vjp_plain and between two calls through one kept PackGradScratch")
+        lib_idx = torch.clamp(st.corner_idx[st.active_ids.long()], min=0).reshape(-1)
+        dn = d[:n].reshape(-1, F)
+
+        def lib_bwd(idx=idx, dn=dn, C=C, F=F):
+            return torch.zeros((C, F), device=dn.device).index_add_(0, idx, dn)
+
+        lib_fwd = partial(lambda e, i, A=A, F=F: torch.index_select(e, 0, i).view(A, 8 * F),
+                          emb, lib_idx)
+        lb = lib_bwd()
+        check(torch.equal(lib_fwd(), fwd), f"index_select differs from E1's forward ({label})")
+        e_lib = max_abs(lb, k1) / max(float(k1.abs().max()), 1e-30)
+        check(e_lib <= 1e-5, f"index_add_ beyond 1e-5 of E1's transpose ({label}): {e_lib}")
+        kf = partial(vm.pack_embeddings_fwd, st, ecfg, emb)
+        kb = partial(vm.pack_embeddings_vjp, d, scratch)
+        kbuild = partial(scratch.build, st, ecfg)
+        nc = int(torch.unique(lib_idx).numel())
+        # forward: active ids and corner ids of every row, distinct corners read, the table
+        # written; transpose: d packed of the active rows, the sorted heads and links, d emb
+        # written; build: ids and corner ids read, links and heads written
+        nb = {"fwd": A * 4 + A * 32 + nc * F * 4 + A * 8 * F * 4,
+              "bwd": n * 8 * F * 4 + C * 4 + 8 * n * 4 + C * F * 4,
+              "build": n * 4 + n * 32 + 2 * 8 * n * 4 + 2 * C * 4}
+        fl = {"fwd": 0, "bwd": 8 * n * F, "build": 0}
+        log(f"[E1] {label}: forward bound {bound(nb['fwd'], 0)[0]:.5f} ms, transpose "
+            f"{bound(nb['bwd'], fl['bwd'])[0]:.5f} ms, build {bound(nb['build'], 0)[0]:.5f} ms; "
+            f"index_add_ within {e_lib:.2e} of the largest entry")
+        build_form = {f"pack_embeddings_vjp, build, {label}":
+                      (kbuild, KERNEL_FUNCTIONS["pack_embeddings_vjp_build"])}
+        if records:  # a further shape: its forms, profiled with the first shape's records
+            records[0]["_forms"][f"pack_embeddings, {label}"] = (
+                kf, KERNEL_FUNCTIONS["pack_embeddings"])
+            records[1]["_forms"].update({f"pack_embeddings_vjp, {label}": (
+                kb, KERNEL_FUNCTIONS["pack_embeddings_vjp"]), **build_form})
+            continue
+        k_f, l_f = paired_median_ms(kf, lib_fwd)
+        k_b, l_b = paired_median_ms(kb, lib_bwd)
+        p_f = median_ms(partial(vm.pack_embeddings, st, ecfg))
+        p_b = median_ms(partial(vm.pack_embeddings_vjp_plain, d, st.active_ids, st.corner_idx,
+                                st.n_active, C))
+        log(f"[E1] {label}: build {median_ms(kbuild):.4f} ms a BA step (two launches)")
+        records.append(record("pack_embeddings", "active_set.cu",
+                              "nerfloam_tpu/map/voxel_map.py:301", 0.0, k_f, p_f, nb["fwd"],
+                              fl["fwd"], l_f, dev=kf))
+        records.append(record("pack_embeddings_vjp", "pack_grad.cu", "nerfloam_tpu/core/ba.py:222",
+                              0.0, k_b, p_b, nb["bwd"], fl["bwd"], l_b, dev=kb, forms=build_form,
+                              library_max_rel_err=e_lib))
+    return records
+
+
 def map_kernels(slam, ms, frames, gen, k4_rays):
     """K6 (recenter + refresh) one frame's move away, and K5 (reconcile +
     repack) on a touched set of the quality cap, against their twins; the
@@ -1054,6 +1217,19 @@ def map_kernels(slam, ms, frames, gen, k4_rays):
             f"{'identical' if bool((diff == 0).all()) else 'within one ulp'} to the twin on the "
             "CPU, every table bit-identical across three calls (one without a scratch, two "
             "through one kept scratch, its head table all -1 and scan states zero after them)")
+        # the sum form (reconcile_mode=sum): the deltas added undivided
+        s1 = vm.reconcile(s5, cfg, np5, touched, T, scratch=k5s, mode="sum")
+        s2 = vm.reconcile(s5, cfg, np5, touched, T, scratch=k5s, mode="sum")
+        sref = vm.reconcile_plain(cpu, cfg, np5.cpu(), touched.cpu(), T, "sum")
+        torch.cuda.synchronize()
+        for nm in vm.Reconciled._fields:
+            check(torch.equal(getattr(s1, nm), getattr(s2, nm)),
+                  f"K5's sum form: {nm} differs between calls ({dt})")
+            check(torch.equal(getattr(s1, nm).cpu(), getattr(sref, nm)),
+                  f"K5's sum form: {nm} differs from the twin ({dt})")
+        check(not torch.equal(s1.embeddings, k1.embeddings), f"K5's sum form equals mean ({dt})")
+        log(f"[K5] {dt}, sum form: every table torch.equal to the twin's (on the CPU) and "
+            "between two calls through the kept scratch")
     nt = min(int(touched.sum()), T)
     trows = torch.nonzero(touched).squeeze(1)[:nt]
     nc = distinct_corners(st, trows)
@@ -1692,6 +1868,7 @@ def main_path(name, slam, ds, label=None):
     both meshes and the pose files) and, on the replica gate, the cleaned
     mesh and its score. The mesh work lies outside the scans/s window."""
     label = label or name
+    path = "replica_gate60_exact" if label.startswith("replica_gate60_exact") else name
     frames = make_frames(slam, ds)
 
     zero_counters()
@@ -1736,9 +1913,11 @@ def main_path(name, slam, ds, label=None):
     check(all(bool(torch.isfinite(w).all()) for w in slam.state.decoder_params["w"]),
           "non-finite decoder")
     check(np.isfinite(slam.sdf_bias).all(), "non-finite sdf_bias")
-    for k in PATH_KERNELS[name]:
+    for k in PATH_KERNELS[path]:
         check(launches[k] > 0, f"kernel {k} never launched on the {label} path")
     check(slam.dropped_delta_events == 0, "dropped deltas")
+    if slam.bp_current.exact_embedding_grads:
+        exact_checks(tag, slam, launches, len(frames))
     if name == "kitti_quality_s2s":
         # K11a once per tracked frame (and per replayed one), K11b once per GN iteration
         replays = sum(slam.overflow_events.values())
@@ -1753,13 +1932,21 @@ def main_path(name, slam, ds, label=None):
         log(f"{tag} ATE raw {ate:.4f} m (gate {GATE60_ATE_RAW_MAX}), aligned {aligned:.4f} m "
             f"(gate {GATE60_ATE_ALIGNED_MAX}); growth events {growth}; lateral drift "
             f"{drift_lat_cm_f(poses, gt):.4f} cm/frame (printed, not gated)")
-        check(ate < GATE60_ATE_RAW_MAX, f"ATE raw {ate} not under {GATE60_ATE_RAW_MAX} ({label})")
-        check(aligned < GATE60_ATE_ALIGNED_MAX,
-              f"ATE aligned {aligned} not under {GATE60_ATE_ALIGNED_MAX} ({label})")
-        check(growth > 0, f"no growth event on the {label} path")
         err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
         log(f"{tag} raw translation error per frame (m): "
             + " ".join(f"{e:.4f}" for e in err))
+        check(aligned < GATE60_ATE_ALIGNED_MAX,
+              f"ATE aligned {aligned} not under {GATE60_ATE_ALIGNED_MAX} ({label})")
+        if path == "replica_gate60":
+            check(ate < GATE60_ATE_RAW_MAX, f"ATE raw {ate} not under {GATE60_ATE_RAW_MAX} "
+                  f"({label})")
+            check(growth > 0, f"no growth event on the {label} path")
+        else:  # one draw of the random stream; its raw ATE is held on the spread (gate_spread)
+            log(f"{tag} JAX on the same config (CPU): ATE raw {GATE60_EXACT_JAX['raw']:.4f} m, "
+                f"aligned {GATE60_EXACT_JAX['aligned']:.4f} m; this one draw's raw ATE "
+                f"{ate:.4f} m is {'under' if ate < GATE60_ATE_RAW_MAX else 'NOT under'} the "
+                f"gate's {GATE60_ATE_RAW_MAX} m; held on the median over generator seeds "
+                f"{GATE60_SPREAD_SEEDS[0]}-{GATE60_SPREAD_SEEDS[-1]} ([gate spread])")
     else:
         log(f"{tag} ATE {ate:.4f} m (bound {ate_bound(name):.4f} m from JAX "
             f"{ATE_JAX[name]:.4f} m); final position {poses[-1][:3, 3].tolist()}, "
@@ -1769,6 +1956,36 @@ def main_path(name, slam, ds, label=None):
     if name == "replica_gate60":
         ates["aligned"] = aligned
     return launches, scans, slam.prof.summary(), ates
+
+
+def exact_checks(tag, slam, launches, n_frames):
+    """The exact-gradient path's launches: a step's E1 lists built once,
+    E1's transpose on every BA iteration and its forward on every
+    iteration and once after the loop, one K9a march and one K9b placement
+    on every BA iteration (no superset), K9a on every tracker iteration
+    with ``resample_rays`` (the Adam tracker's); no K5 and no update count
+    (no voxel is marked touched)."""
+    steps, n_it = launches["pack_embeddings_vjp_build"], slam.bp_current.num_iterations
+    ba_it = steps * n_it
+    track_it = (slam.tp_first.num_iterations + (n_frames - 2) * slam.tp.num_iterations
+                if slam.track_method == "adam" and slam.tp.resample_rays else 0)
+    march, place = launches["march_occupancy"], launches["place_samples_cdf"]
+    log(f"{tag} exact: {steps} BA steps x {n_it} iterations; E1 transpose "
+        f"{launches['pack_embeddings_vjp']}, forward {launches['pack_embeddings']}, K9a {march}, "
+        f"K9b {place}, K5 {launches['reconcile']}; tracker iterations with a fresh march: "
+        f"{track_it} at least")
+    check(steps > 0 and launches["pack_embeddings_vjp"] == ba_it,
+          f"E1's transpose launched {launches['pack_embeddings_vjp']} times for {ba_it} BA "
+          "iterations")
+    check(launches["pack_embeddings"] == steps * (n_it + 1),
+          f"E1's forward launched {launches['pack_embeddings']} times for {steps} steps")
+    check(march >= ba_it + track_it, f"K9a launched {march} times for {ba_it} BA and "
+          f"{track_it} tracker iterations")
+    if track_it:  # a march and a placement on every iteration of both
+        check(place == march, f"K9b launched {place} times, K9a {march}")
+    check(launches["reconcile"] == 0, "K5 launched on the exact path")
+    check(int(slam.state.map_state.upd_count.sum()) == 0, "an update count on the exact path")
+    check(slam.overflow_events["touched"] == 0, "a touched overflow on the exact path")
 
 
 def drift_lat_cm_f(est, gt):
@@ -1891,15 +2108,61 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     return per_frame
 
 
-def gate_path(here, seed):
-    """The replica gate's main path for one data seed; (its config, its
-    dataset, main_path's result)."""
-    cfg = load_cfg(here, "replica_gate60", seed=seed)
+def gate_path(here, seed, exact=False):
+    """The replica gate's main path for one data seed (``exact``: with the
+    reference-exact fallbacks); (its config, its dataset, main_path's
+    result)."""
+    cfg = load_cfg(here, "replica_gate60", seed=seed, exact=exact)
     ds = get_dataset(cfg)
     result = main_path("replica_gate60", NerfLoamSLAM_torch(cfg, ds, device="cuda"), ds,
-                       label=f"replica_gate60_s{seed}")
+                       label=f"replica_gate60{'_exact' if exact else ''}_s{seed}")
     torch.cuda.empty_cache()
     return cfg, ds, result
+
+
+def gate_spread(here, first):
+    """The exact replica gate (data seed 0) over GATE60_SPREAD_SEEDS, the
+    random stream's seeds (``tpu_specs.seed``; ``first``: main_path's ATE
+    of the config's own seed, the first of them): one run's raw ATE is a
+    draw (over these seeds JAX's default gate crosses 0.27 m twice, at 786
+    and 790, the port's three times), so the raw ATE is held to the gate's
+    0.27 m on the median of the draws, and that median to JAX's median
+    over the same seeds (max(1.5 x, + 0.05 m); JAX's own exact gate
+    crosses 0.27 m there once, at 790, with 0.8875 m); every draw's aligned
+    ATE to the gate's 0.17 m. Each draw is printed."""
+    cfg0 = load_cfg(here, "replica_gate60", seed=0, exact=True)
+    ds = get_dataset(cfg0)
+    gt = ds.gt_trajectory()
+    raws, aligned = [first["raw"]], [first["aligned"]]
+    for ts in GATE60_SPREAD_SEEDS[1:]:
+        slam = NerfLoamSLAM_torch(load_cfg(here, "replica_gate60", seed=0, exact=True,
+                                           tpu_seed=ts), ds, device="cuda")
+        frames = make_frames(slam, ds)
+        slam.process_first_frame(frames[0])
+        for f in frames[1:]:
+            slam.process_frame(f)
+        poses = np.asarray(slam.finalize())
+        check(len(poses) == len(frames) and np.isfinite(poses).all(),
+              f"gate spread: seed {ts} lost poses")
+        check(slam.dropped_delta_events == 0, f"gate spread: dropped deltas at seed {ts}")
+        raws.append(ate_rmse(poses, gt[:len(poses)], align=False))
+        aligned.append(ate_rmse(poses, gt[:len(poses)], align=True))
+        log(f"[gate spread] replica_gate60_exact_s0, generator seed {ts}: ATE raw {raws[-1]:.4f} m, "
+            f"aligned {aligned[-1]:.4f} m")
+        del slam
+        torch.cuda.empty_cache()
+    med, jmed = float(np.median(raws)), float(np.median(GATE60_EXACT_JAX_RAW))
+    bound_ = max(1.5 * jmed, jmed + 0.05)
+    log(f"[gate spread] {len(raws)} generator seeds: raw ATE median {med:.4f} m (gate "
+        f"{GATE60_ATE_RAW_MAX}; JAX's median {jmed:.4f} m over the same seeds, bound "
+        f"{bound_:.4f} m), {sum(r >= GATE60_ATE_RAW_MAX for r in raws)} draws at or over "
+        f"{GATE60_ATE_RAW_MAX} m (JAX: {sum(r >= GATE60_ATE_RAW_MAX for r in GATE60_EXACT_JAX_RAW)}); "
+        f"aligned max {max(aligned):.4f} m (gate {GATE60_ATE_ALIGNED_MAX})")
+    check(max(aligned) < GATE60_ATE_ALIGNED_MAX,
+          f"gate spread: aligned ATE {max(aligned)} not under {GATE60_ATE_ALIGNED_MAX}")
+    check(med < GATE60_ATE_RAW_MAX and med <= bound_,
+          f"gate spread: median raw ATE {med} not under {GATE60_ATE_RAW_MAX} or above {bound_}")
+    return {"median_raw": med, "jax_median_raw": jmed, "raw": raws, "aligned": aligned}
 
 
 def kitti_paths(names, cfgs, ds, workdir):
@@ -1917,7 +2180,8 @@ def kitti_paths(names, cfgs, ds, workdir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--paths", help="comma-separated main paths (kitti_budget, kitti_quality, "
-                    "kitti_adam25, kitti_quality_s2s, replica_gate60_s<seed>): run only those")
+                    "kitti_adam25, kitti_quality_s2s, kitti_exact, replica_gate60_s<seed>, "
+                    "replica_gate60_exact_s<seed>): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1941,7 +2205,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s")
+    kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s", "kitti_exact")
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     if args.paths:
@@ -1951,6 +2215,8 @@ def main(argv=None):
         for n in names:
             if n.startswith("replica_gate60_s"):
                 gate_path(here, int(n[len("replica_gate60_s"):]))
+            if n.startswith("replica_gate60_exact_s"):
+                gate_path(here, int(n[len("replica_gate60_exact_s"):]), exact=True)
         return 0
     gate = {s_: load_cfg(here, "replica_gate60", seed=s_) for s_ in GATE60_SEEDS}
     gate_slam = NerfLoamSLAM_torch(gate[0], None, device="cuda")
@@ -1958,9 +2224,12 @@ def main(argv=None):
                                           device="cuda").tp.num_iterations,
              "gate60": gate_slam.bp_current.num_iterations}
     sp = NerfLoamSLAM_torch(cfgs["kitti_quality_s2s"], None, device="cuda").tp.s2s
+    e1_shapes = {"kitti_exact": NerfLoamSLAM_torch(cfgs["kitti_exact"], None, device="cuda"),
+                 "gate60": gate_slam}
+    e1_shapes = {k: (v.map_cfg.capacity, vm.acap(v.map_cfg)) for k, v in e1_shapes.items()}
     records = kernel_phase(NerfLoamSLAM_torch(cfgs["kitti_quality"], ds, device="cuda"), ds,
                            gate_slam.rc_map, (gate_slam.tp.n_rays, gate_slam.rc_track.n_samples),
-                           loops, sp)
+                           loops, sp, e1_shapes)
     del gate_slam
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
@@ -1976,15 +2245,19 @@ def main(argv=None):
     gate_ds = {}
     for s_ in GATE60_SEEDS:
         _, gate_ds[s_], results[f"replica_gate60_s{s_}"] = gate_path(here, s_)
+    _, _, results["replica_gate60_exact_s0"] = gate_path(here, 0, exact=True)
+    spread = gate_spread(here, results["replica_gate60_exact_s0"][3])
     per_frame = {label: profile_phase(label, cfg, d) for label, cfg, d in (
         ("kitti_budget", cfgs["kitti_budget"], ds), ("kitti_quality", cfgs["kitti_quality"], ds),
         ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
-        ("kitti_adam25", cfgs["kitti_adam25"], ds), ("replica_gate60_s0", gate[0], gate_ds[0]))}
+        ("kitti_adam25", cfgs["kitti_adam25"], ds), ("replica_gate60_s0", gate[0], gate_ds[0]),
+        ("kitti_exact", cfgs["kitti_exact"], ds))}
     log("[result] per frame (profile, 3 steady frames): " + ", ".join(
         f"{n} {v[0]:.1f} device launches, {v[1]:.2f} device ms" for n, v in per_frame.items()))
     log("[result] ATE (m): " + ", ".join(
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
-        + f", kitti_quality resumed {resumed_ate:.4f}")
+        + f", kitti_quality resumed {resumed_ate:.4f}, replica_gate60_exact_s0 median raw over "
+        f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}")
     add_device_times(records)
     for r in records:
         by_path = {n: results[n][0][r["name"]] for n in results}
@@ -1992,6 +2265,8 @@ def main(argv=None):
         r["launches_by_path"] = by_path
         if r["name"] in UNDONE_BY:  # K7's undo: only where a frame overflowed and replayed
             r["undo_launches"] = sum(results[n][0]["undo_insert"] for n in results)
+        if r["name"] == "pack_embeddings_vjp":  # its lists, built once a BA step
+            r["build_launches"] = sum(results[n][0]["pack_embeddings_vjp_build"] for n in results)
     log(f"[result] scans/s " + ", ".join(f"{n} {v[1]:.4f}" for n, v in results.items())
         + f" on {smi}")
     print(json.dumps({"kernels": records}))

@@ -15,10 +15,24 @@ call, applied as ``p - lr * u``. Frozen groups have their gradients zeroed
 before Adam, which with fresh state equals leaving them out. After the
 loop K5 (voxel_map.reconcile, through the caller's ``ReconcileScratch``)
 folds the touched voxels' deltas back into the canonical embeddings
-(mean), bumps their update counts and repacks the table from them. With
-``measure_bias`` the final field is probed at the window's measured
-points (K8 then the decoder): ``surface_bias`` is its mean there, the
-offset the pipeline's bias transfer feeds to the next tracked frame.
+(``bp.reconcile_mode``: mean or sum), bumps their update counts and
+repacks the table from them. With ``measure_bias`` the final field is
+probed at the window's measured points (K8 then the decoder):
+``surface_bias`` is its mean there, the offset the pipeline's bias
+transfer feeds to the next tracked frame.
+
+The reference-exact fallbacks (JAX ba.py:167-172, 222-227, 245-250,
+312-314, 346-347, 380-391):
+- ``ray_superset=0``: no superset; every iteration draws ``n_rays`` rays a
+  frame over all the frame's points and marches them at the current
+  poses (a ``CdfPlacer.march``, K9a), always on the grid sampler;
+- ``exact_embedding_grads`` (which implies the above): the Adam parameter
+  is the canonical (C, F) f32 table, repacked every iteration inside the
+  differentiated function by E1 (``voxel_map.PackEmbeddings``: the pack
+  pass forward, csrc/pack_grad.cu backward, its lists built once a step
+  into the caller's ``PackGradScratch``); no voxel is marked touched, so
+  no K5 runs and the update counts stay as they were; after the loop E1's
+  forward repacks the table once more.
 """
 
 from __future__ import annotations
@@ -63,6 +77,8 @@ class BAParams(NamedTuple):
     surface_anchor: int = 0  # anchor columns at the measured point (its weight)
     band_samples: int = 0    # stratified columns across the truncation band
     measure_bias: bool = True  # probe the final field (BAResult.surface_bias)
+    exact_embedding_grads: bool = False  # the canonical table as the parameter
+    reconcile_mode: str = "mean"  # K5's shared-corner combining: "mean" | "sum"
 
 
 class BAResult(NamedTuple):
@@ -85,43 +101,53 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp: BAParams,
             decoder_params, poses, points, points_cos, points_valid, frame_active, pose_free,
             update_decoder: bool, lrs, generator: torch.Generator | None = None,
-            proj_dir=None, reconcile_scratch: vm.ReconcileScratch | None = None) -> BAResult:
+            proj_dir=None, reconcile_scratch: vm.ReconcileScratch | None = None,
+            pack_scratch: vm.PackGradScratch | None = None) -> BAResult:
     """One BA step. ``poses`` (W, 6), ``points`` (W, P, 3), ``points_cos``
     and ``points_valid`` (W, P), ``frame_active`` / ``pose_free`` (W,) bool,
     ``lrs`` [emb, decoder, pose]. ``proj_dir`` (W, 3): remove that
     component from each frame's translation update every iteration.
-    ``reconcile_scratch``: K5's scratch, kept by the caller from step to
-    step (the pipeline's; None: one made for this step)."""
-    if bp.ray_superset <= 0:
-        raise NotImplementedError(
-            "BA without a ray superset is not ported yet (ROADMAP queue 1, item 15)")
+    ``reconcile_scratch``: K5's scratch, ``pack_scratch``: E1's (exact
+    gradients), each kept by the caller from step to step (the
+    pipeline's; None: one made for this step)."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
-    use_hits = rc.sampler == "hits"
+    exact = bp.exact_embedding_grads
+    if exact and map_state.embeddings.dtype != torch.float32:
+        raise ValueError(f"exact_embedding_grads needs float32 embeddings, got "
+                         f"{map_state.embeddings.dtype}")
+    use_superset = bp.ray_superset > 0 and not exact
+    use_hits = use_superset and rc.sampler == "hits"
     dev = points.device
     compute_dtype = getattr(torch, bp.compute_dtype)
     W, N, M = bp.n_frames, bp.n_rays, rc.n_samples
     K = N * bp.ray_superset
     vs = map_cfg.voxel_size
 
-    with torch.no_grad():
-        sidx, svalid = sample_ray_indices(points_valid, K, generator)
-        sup_pts = _gather_rows(points, sidx)
-        sup_cos = _gather_rows(points_cos, sidx)
-        sup_dirs = _ray_dirs(sup_pts)
-        sup_tcap = t_cap_for(sup_pts, sup_cos, bp.truncation, bp.max_depth)
-        wdirs0 = se3.rotate_dirs(poses, sup_dirs)
-        origins0 = se3.pose_translation(poses)[:, None, :].expand_as(wdirs0)
-        sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3), wdirs0.reshape(W * K, 3),
-                    sup_tcap.reshape(W * K))
-        if use_hits:
-            sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
-        else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows pick
-            # each ray's cdf row
-            placer = CdfPlacer.march(*sup_args, M, W * N)
-            frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
+    if use_superset:
+        with torch.no_grad():
+            sidx, svalid = sample_ray_indices(points_valid, K, generator)
+            sup_pts = _gather_rows(points, sidx)
+            sup_cos = _gather_rows(points_cos, sidx)
+            sup_dirs = _ray_dirs(sup_pts)
+            sup_tcap = t_cap_for(sup_pts, sup_cos, bp.truncation, bp.max_depth)
+            wdirs0 = se3.rotate_dirs(poses, sup_dirs)
+            origins0 = se3.pose_translation(poses)[:, None, :].expand_as(wdirs0)
+            sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3),
+                        wdirs0.reshape(W * K, 3), sup_tcap.reshape(W * K))
+            if use_hits:
+                sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
+            else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows
+                # pick each ray's cdf row
+                placer = CdfPlacer.march(*sup_args, M, W * N)
+                frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
 
-    emb = map_state.packed.clone().requires_grad_(True)
+    if exact:  # the canonical table, repacked by E1 every iteration
+        pack_scratch = (vm.PackGradScratch() if pack_scratch is None
+                        else pack_scratch).build(map_state, map_cfg)
+        emb = map_state.embeddings.detach().clone().requires_grad_(True)
+    else:
+        emb = map_state.packed.clone().requires_grad_(True)
     dec = {k: [p.detach().clone().requires_grad_(True) for p in v]
            for k, v in decoder_params.items()}
     pos = poses.detach().clone().requires_grad_(True)
@@ -137,13 +163,18 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     field = ActiveField(map_state, map_cfg)  # K8's grid, checked once a step
 
     for it in range(bp.num_iterations):
-        ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
-        rvalid = torch.gather(svalid, 1, ridx) & frame_active[:, None]
+        if use_superset:
+            ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
+            rvalid = torch.gather(svalid, 1, ridx)
+            pts3, pcos2, dirs = (_gather_rows(x, ridx) for x in (sup_pts, sup_cos, sup_dirs))
+        else:  # a fresh draw over all the frame's points
+            ridx, rvalid = sample_ray_indices(points_valid, N, generator)
+            pts3, pcos2 = _gather_rows(points, ridx), _gather_rows(points_cos, ridx)
+            dirs = _ray_dirs(pts3)
+        rvalid = rvalid & frame_active[:, None]
         u = uniform_jitter((W * N, M), generator, dev)
 
-        pts = _gather_rows(sup_pts, ridx).reshape(W * N, 3)
-        pcos = _gather_rows(sup_cos, ridx).reshape(W * N)
-        dirs = _gather_rows(sup_dirs, ridx)
+        pts, pcos = pts3.reshape(W * N, 3), pcos2.reshape(W * N)
         wdirs = se3.rotate_dirs(pos, dirs)
         origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
         extra = None
@@ -154,13 +185,21 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                                  bp.surface_anchor, bp.band_samples, ub)
             extra = (field, ez, rvalid.reshape(W * N))
         rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
+        packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
         if use_hits:
             ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
-            out = render_rays_hits(emb, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
+            out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
                                    compute_dtype, extra, k2_scratch)
         else:
-            rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
-            out = render_rays(emb, dec, field, *rays, rvalid.reshape(W * N), placer, u,
+            if use_superset:
+                rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
+            else:  # K9a at the current poses, into this iteration's placer
+                rows = None
+                with torch.no_grad():
+                    placer = CdfPlacer.march(
+                        map_state, map_cfg, rc, rays[0].detach(), rays[1].detach(),
+                        t_cap_for(pts, pcos, bp.truncation, bp.max_depth), M)
+            out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * N), placer, u,
                               compute_dtype, extra, rows, k2_scratch)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
@@ -168,7 +207,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
         with torch.no_grad():
-            touched |= (grads[0] != 0.0).any(-1)
+            if not exact:
+                touched |= (grads[0] != 0.0).any(-1)
             for i in range(1, len(params) - 1):
                 grads[i] = grads[i] * dec_mask
             grads[-1] = grads[-1] * pose_mask
@@ -183,8 +223,15 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                 p.sub_(lr_of[i] * upd)
 
     with torch.no_grad():
-        new_emb, packed, upd_count, touched_count = vm.reconcile(
-            map_state, map_cfg, emb.detach(), touched, bp.touched_cap, reconcile_scratch)
+        if exact:  # no voxel touched: no reconcile, the counts as they were
+            new_emb = emb.detach()
+            packed = vm.pack_embeddings_fwd(map_state, map_cfg, new_emb)
+            upd_count = map_state.upd_count
+            touched_count = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            new_emb, packed, upd_count, touched_count = vm.reconcile(
+                map_state, map_cfg, emb.detach(), touched, bp.touched_cap, reconcile_scratch,
+                bp.reconcile_mode)
     new_dec = {k: [p.detach() for p in v] for k, v in dec.items()}
     surface_bias = torch.zeros((), device=dev)
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field

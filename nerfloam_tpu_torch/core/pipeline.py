@@ -25,6 +25,13 @@ frame targets sdf = that offset on the band. Both samplers are ported:
 ``tpu_specs.sampler`` picks the hit table (hits) or the occupancy march
 (grid) for the GN tracker and BA; the Adam tracker always marches.
 
+The reference-exact fallbacks (``docs/PERF.md:157-159``) are ported:
+``exact_embedding_grads`` (BA on the canonical table through E1; f32
+embeddings only: the JAX package's BA loop cannot carry a bf16 table on
+that path), ``ba_ray_superset=0``, ``track_resample_rays`` (the Adam
+tracker's; the GN tracker ignores it, as JAX's does) and
+``reconcile_mode=sum``.
+
 Every budget overflow (capacity, active set, touched voxels, insert
 candidates) is handled as in JAX: rewind the frame to its pre-frame state,
 grow the budget and replay the frame with the same random stream
@@ -62,10 +69,6 @@ _UNPORTED = [
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
     ("tpu_specs.bias_source", lambda v: v == "window", "15 (knobs: keyframe bias probe)"),
     ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
-    ("tpu_specs.exact_embedding_grads", lambda v: not v, "15 (knobs)"),
-    ("tpu_specs.track_resample_rays", lambda v: not v, "15 (knobs)"),
-    ("tpu_specs.ba_ray_superset", lambda v: int(v) > 0, "15 (knobs)"),
-    ("tpu_specs.reconcile_mode", lambda v: v == "mean", "15 (knobs)"),
     ("tpu_specs.maturity_warmup", lambda v: int(v) == 0, "15 (knobs)"),
     ("tpu_specs.replay_freq", lambda v: int(v) == 0, "15 (knobs)"),
     ("tpu_specs.ba_pose_project", lambda v: v == "none", "15 (knobs)"),
@@ -140,7 +143,8 @@ class NerfLoamSLAM_torch:
         base_tp = dict(n_rays=int(tspec["N_rays"]), truncation=float(crit["sdf_truncation"]),
                        max_depth=shapes["max_depth"], fs_weight=float(crit["fs_weight"]),
                        sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype,
-                       surface_anchor=q["surface_anchor"], band_samples=q["band_samples"])
+                       surface_anchor=q["surface_anchor"], band_samples=q["band_samples"],
+                       resample_rays=bool(tpu.get("track_resample_rays", False)))
         self.track_method = str(tpu.get("track_method", "gn"))
         self.s2s_weight = float(tpu.get("s2s_weight", 0.0))
         if self.s2s_weight > 0 and self.track_method == "gn":
@@ -170,12 +174,24 @@ class NerfLoamSLAM_torch:
         tc = int(tpu.get("touched_cap", 0))
         tc_cur, tc_rand = (min(tc, acap_v),) * 2 if tc > 0 else (min(acap_v, 8192),
                                                                   min(acap_v, 32768))
+        exact = bool(tpu.get("exact_embedding_grads", False))
+        if exact and self.map_cfg.emb_dtype != "float32":
+            raise ValueError(
+                "tpu_specs.exact_embedding_grads needs tpu_specs.emb_dtype=float32: the JAX "
+                "package's BA loop cannot run it on a bfloat16 table (its f32 learning rate "
+                "promotes the table, and the loop carry bfloat16[C,F] comes back "
+                "float32[C,F]: nerfloam_tpu/core/ba.py:357)")
+        reconcile_mode = str(tpu.get("reconcile_mode", "mean"))
+        if reconcile_mode not in vm.RECONCILE_MODES:
+            raise ValueError(f"tpu_specs.reconcile_mode must be 'mean' or 'sum', "
+                             f"got {reconcile_mode!r}")
         base_bp = dict(truncation=float(crit["sdf_truncation"]), max_depth=shapes["max_depth"],
                        fs_weight=float(crit["fs_weight"]), sdf_weight=float(crit["sdf_weight"]),
                        compute_dtype=self.compute_dtype,
                        ray_superset=int(tpu.get("ba_ray_superset", 2)),
                        surface_anchor=q["surface_anchor"], band_samples=q["band_samples"],
-                       measure_bias=q["bias_correction"])
+                       measure_bias=q["bias_correction"], exact_embedding_grads=exact,
+                       reconcile_mode=reconcile_mode)
         self.bp_current = ba_mod.BAParams(n_frames=1, n_rays=int(mspec["N_rays_each"]),
                                           num_iterations=int(mspec["num_iterations"]),
                                           touched_cap=tc_cur, **base_bp)
@@ -213,11 +229,13 @@ class NerfLoamSLAM_torch:
         seed = int(tpu["seed"])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        # K5's, K7's and K10b's scratch, kept for the run: K5's (C,) head
-        # table is filled once, and again only when the map grows; K7's
-        # election grids once, and again only for a larger region or cap;
-        # K10b's tile states once, and again only for a larger mesh chunk
+        # K5's, E1's, K7's and K10b's scratch, kept for the run: K5's and
+        # E1's (C,) head tables are filled once, and again only when the map
+        # grows; K7's election grids once, and again only for a larger
+        # region or cap; K10b's tile states once, and again only for a
+        # larger mesh chunk
         self.reconcile_scratch = vm.ReconcileScratch()
+        self.pack_scratch = vm.PackGradScratch()
         self.insert_scratch = vm.InsertScratch()
         self.mesh_scratch = TetScratch()
         self.pyrng = pyrandom.Random(seed)
@@ -339,7 +357,7 @@ class NerfLoamSLAM_torch:
             st.map_state, self.map_cfg, self.rc_map, bp, st.decoder_params, self._tensor(poses),
             pts, cos, val, self._tensor(active, torch.bool), self._tensor(pose_free, torch.bool),
             bool(update_decoder), self.ba_lrs, self.generator,
-            reconcile_scratch=self.reconcile_scratch)
+            reconcile_scratch=self.reconcile_scratch, pack_scratch=self.pack_scratch)
 
     def _apply_ba(self, res):
         st = self.state
@@ -482,7 +500,8 @@ class NerfLoamSLAM_torch:
                                 tr.pose[None], pts[None], cos[None], val[None],
                                 torch.ones((1,), dtype=torch.bool, device=self.device),
                                 pose_free, update_decoder, self.ba_lrs, self.generator,
-                                reconcile_scratch=self.reconcile_scratch)
+                                reconcile_scratch=self.reconcile_scratch,
+                                pack_scratch=self.pack_scratch)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
             ms, rec = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,

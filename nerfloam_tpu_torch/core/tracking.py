@@ -24,7 +24,10 @@ draw, one placer made by its K9a march per frame at the initial pose; per
 iteration the grid render_rays (K9b, K8, decoder, one K2 in the
 backward), the sdf losses
 with the band target, the pose gradient by autograd, and an
-``optax.scale_by_adam`` step.
+``optax.scale_by_adam`` step. With ``TrackParams.resample_rays`` (the
+reference-exact fallback) every iteration draws fresh rays and marches
+them at the current pose instead (a ``CdfPlacer.march`` an iteration);
+the GN tracker ignores the knob, as JAX's does.
 
 Neither loop reads a value back to the host: shapes are static,
 ``torch.linalg.solve_ex`` skips the error check that would synchronise,
@@ -78,6 +81,7 @@ class TrackParams(NamedTuple):
     band_samples: int = 0    # stratified columns across the truncation band
     s2s: object = None       # core.scan2scan.Scan2ScanParams | None: add the
     #   scan-to-scan point-to-plane term to the GN system (GN tracker only)
+    resample_rays: bool = False  # Adam tracker: fresh rays and march every iteration
 
 
 class TrackResult(NamedTuple):
@@ -364,22 +368,29 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
                 decoder_params, init_pose, points, points_cos, points_valid, learning_rate,
                 generator: torch.Generator | None = None, sdf_bias=None) -> TrackResult:
     """Adam pose tracking on the sdf losses (nerfloam_tpu/core/tracking.py:
-    383-497, fixed rays): one ray draw and one K9a march at ``init_pose``,
-    then per iteration ``adam_loss`` at the current pose, its pose gradient
-    by autograd and ``pose - learning_rate * scale_by_adam(g)``. The grid
-    sampler is used whatever ``rc.sampler`` says (JAX: tracking.py:
-    410-416). A frame whose last iteration hit nothing keeps
-    ``init_pose``, decided on the device."""
+    383-497): one ray draw and one K9a march at ``init_pose`` (with
+    ``tp.resample_rays``: a draw and a march at the current pose every
+    iteration), then per iteration ``adam_loss`` at the current pose, its
+    pose gradient by autograd and ``pose - learning_rate *
+    scale_by_adam(g)``. The grid sampler is used whatever ``rc.sampler``
+    says (JAX: tracking.py:410-416). A frame whose last iteration hit
+    nothing keeps ``init_pose``, decided on the device."""
     dev = points.device
-    ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
-    pts, pcos = points[ridx], points_cos[ridx]
-    dirs = _ray_dirs(pts)
-    t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
-    bias_ray = _bias_ray(pcos, sdf_bias, dev)
-    wdirs0 = se3.rotate_dirs(init_pose, dirs)
-    placer = CdfPlacer.march(map_state, map_cfg, rc,
-                             se3.pose_translation(init_pose).expand_as(wdirs0), wdirs0, t_cap,
-                             rc.n_samples)
+
+    def rays_at(pose6):
+        """A fresh ray draw and its placer, marched at pose6."""
+        ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
+        pts, pcos = points[ridx], points_cos[ridx]
+        dirs = _ray_dirs(pts)
+        t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
+        wdirs0 = se3.rotate_dirs(pose6, dirs)
+        placer = CdfPlacer.march(map_state, map_cfg, rc,
+                                 se3.pose_translation(pose6).expand_as(wdirs0), wdirs0, t_cap,
+                                 rc.n_samples)
+        return pts, pcos, dirs, rvalid, placer, _bias_ray(pcos, sdf_bias, dev)
+
+    if not tp.resample_rays:
+        fixed = rays_at(init_pose)
     field = ActiveField(map_state, map_cfg)
 
     pose6 = init_pose.detach().clone()
@@ -387,6 +398,8 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(tp.num_iterations):
+        pts, pcos, dirs, rvalid, placer, bias_ray = (rays_at(pose6) if tp.resample_rays
+                                                     else fixed)
         u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
         ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
               if tp.band_samples else None)

@@ -1,6 +1,6 @@
 // K5: fold one BA step's packed-copy deltas back into the canonical
 // embeddings (port of nerfloam_tpu/map/voxel_map.py:233-287
-// reconcile_packed in "mean" mode and 290-298 bump_upd_count; the repack,
+// reconcile_packed, "mean" or "sum" mode, and 290-298 bump_upd_count; the repack,
 // 301-308 pack_embeddings, is the pack pass of csrc/active_set.cu), as the
 // tail of core/ba.py:378-391 calls them.
 //
@@ -28,9 +28,10 @@
 //           to at most 8 voxels. A fixed sorting network puts them in
 //           ascending i, i.e. ascending (rank, corner slot); for each in
 //           turn it loads the 16 features of new and old packed (16-byte
-//           loads) and adds each delta (new - old) / k, cast to the
-//           embedding type BEFORE the add as JAX does, rounding after
-//           every add, into the corner's 16 features. A longer list
+//           loads) and adds each delta (new - old) / k ("mean"; "sum"
+//           divides by 1, which is exact), cast to the embedding type
+//           BEFORE the add as JAX does, rounding after every add, into
+//           the corner's 16 features. A longer list
 //           (duplicate active rows) takes the ordered walk instead. Block
 //           0 zeroes the scan's tile states and ticket.
 // The list order from atomicExch varies from run to run; the sorted order
@@ -237,7 +238,8 @@ __device__ __forceinline__ void fold_entry(float* acc, int e, float kf,
 }
 
 template <typename Emb>
-__device__ __forceinline__ void fold_corner(int i, int c, const int* __restrict__ t_rows,
+__device__ __forceinline__ void fold_corner(int i, int c, bool sum_mode,
+                                            const int* __restrict__ t_rows,
                                             const int* __restrict__ next,
                                             const float* __restrict__ new_packed,
                                             const float* __restrict__ old_packed,
@@ -261,13 +263,13 @@ __device__ __forceinline__ void fold_corner(int i, int c, const int* __restrict_
     order(e[2], e[4]), order(e[3], e[5]);
     order(e[1], e[4]), order(e[3], e[6]);
     order(e[1], e[2]), order(e[3], e[4]), order(e[5], e[6]);
-    const float kf = (float)k;
+    const float kf = sum_mode ? 1.f : (float)k;
 #pragma unroll
     for (int j = 0; j < kMaxList; ++j)
       if (j < k) fold_entry<Emb>(acc, e[j], kf, t_rows, new_packed, old_packed);
   } else {  // a longer list: count it, then apply it in ascending i, one walk per entry
     for (; p >= 0; p = next[p]) ++k;
-    const float kf = (float)k;
+    const float kf = sum_mode ? 1.f : (float)k;
     int last = -1;
     for (int n = 0; n < k; ++n) {
       int cur = INT_MAX;  // the smallest entry above the last one applied
@@ -282,7 +284,7 @@ __device__ __forceinline__ void fold_corner(int i, int c, const int* __restrict_
 
 template <typename Emb>
 __global__ void __launch_bounds__(kFoldThreads) reconcile_fold_kernel(
-    const int* __restrict__ count, int T, const int* __restrict__ t_rows,
+    const int* __restrict__ count, int T, int sum_mode, const int* __restrict__ t_rows,
     const int* __restrict__ cid, const int* __restrict__ next, int* head,
     const float* __restrict__ new_packed, const float* __restrict__ old_packed,
     Emb* __restrict__ emb, unsigned long long* __restrict__ tile_state, int n_tiles,
@@ -296,7 +298,7 @@ __global__ void __launch_bounds__(kFoldThreads) reconcile_fold_kernel(
   const int c = cid[i];
   if (c < 0 || head[c] != i) return;  // not the head of its corner's list
   head[c] = -1;                       // for the next call
-  fold_corner<Emb>(i, c, t_rows, next, new_packed, old_packed, emb);
+  fold_corner<Emb>(i, c, sum_mode != 0, t_rows, next, new_packed, old_packed, emb);
 }
 
 }  // namespace
@@ -309,12 +311,13 @@ extern "C" int nl_reconcile_scan_tiles(int A) {
 // copies (16-byte aligned rows). head (C,) must hold -1 and tile_state
 // (nl_reconcile_scan_tiles) and ticket 0 on entry; both are left so.
 // t_rows and t_ids (T,), cid and next (8T,) are scratch; count (1,)
-// receives the touched count.
+// receives the touched count. sum_mode 0: "mean", else "sum".
 extern "C" int nl_reconcile(const unsigned char* touched, const int* active_ids,
                             const int* corner_idx, const float* new_packed,
                             const float* old_packed, int A, int T, int C, void* emb, int bf16,
-                            int* upd_count, int* count, int* head, void* tile_state, int* ticket,
-                            int* t_rows, int* t_ids, int* cid, int* next, void* stream) {
+                            int sum_mode, int* upd_count, int* count, int* head,
+                            void* tile_state, int* ticket, int* t_rows, int* t_ids, int* cid,
+                            int* next, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = nl_reconcile_scan_tiles(A);
   auto* states = static_cast<unsigned long long*>(tile_state);
@@ -327,11 +330,11 @@ extern "C" int nl_reconcile(const unsigned char* touched, const int* active_ids,
   const int blocks = n > 0 ? (n + kFoldThreads - 1) / kFoldThreads : 1;
   if (bf16)
     reconcile_fold_kernel<__nv_bfloat16><<<blocks, kFoldThreads, 0, s>>>(
-        count, T, t_rows, cid, next, head, new_packed, old_packed,
+        count, T, sum_mode, t_rows, cid, next, head, new_packed, old_packed,
         static_cast<__nv_bfloat16*>(emb), states, tiles, ticket);
   else
     reconcile_fold_kernel<float><<<blocks, kFoldThreads, 0, s>>>(
-        count, T, t_rows, cid, next, head, new_packed, old_packed, static_cast<float*>(emb),
-        states, tiles, ticket);
+        count, T, sum_mode, t_rows, cid, next, head, new_packed, old_packed,
+        static_cast<float*>(emb), states, tiles, ticket);
   return (int)cudaGetLastError();
 }

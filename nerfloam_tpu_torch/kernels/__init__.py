@@ -64,8 +64,10 @@ _SIGNATURES = {
     "nl_refresh_place": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "nl_active_pack": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "nl_reconcile_scan_tiles": [_I],
-    "nl_reconcile": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P],
+    "nl_reconcile": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P],
+    "nl_pack_grad_build": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "nl_pack_grad": [_P, _P, _P, _I, _P, _P],
     "nl_march_occupancy": [_P, _P, _I, _P, _P],
     "nl_place_max_slots": [],
     "nl_place_args_layout": [_P],

@@ -23,8 +23,14 @@ scratch an ``InsertScratch`` the pipeline keeps); K6 ``recenter`` and
 ``refresh_active_plain``); K5 ``reconcile``, the BA step's tail
 (csrc/reconcile.cu, twin ``reconcile_plain``, which runs the JAX-named
 pieces ``reconcile_packed``, ``bump_upd_count`` and ``pack_embeddings``;
-its scratch a ``ReconcileScratch`` the pipeline keeps). K6 and K5 write
-fresh tables, so a kept state stays valid across them.
+its scratch a ``ReconcileScratch`` the pipeline keeps); E1
+``PackEmbeddings``, the exact-gradient BA step's repack as an autograd
+function: its forward ``pack_embeddings_fwd`` (the pack pass of
+csrc/active_set.cu, twin ``pack_embeddings``) and its transpose
+``pack_embeddings_vjp`` (csrc/pack_grad.cu, twin
+``pack_embeddings_vjp_plain``; its scratch a ``PackGradScratch`` built
+once a step). K6 and K5 write fresh tables, so a kept state stays valid
+across them.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ insert_launches = 0      # K7
 insert_undo_launches = 0  # K7's undo_insert
 active_set_launches = 0  # K6: recenter and refresh_active, one each
 reconcile_launches = 0   # K5
+pack_embeddings_launches = 0  # E1's forward
+pack_grad_launches = 0        # E1's transpose
+pack_grad_build_launches = 0  # its scratch built for a BA step
+RECONCILE_MODES = ("mean", "sum")
 _INT_MAX = 2**31 - 1
 
 
@@ -300,13 +310,19 @@ def _pack(embeddings: torch.Tensor, cidx: torch.Tensor, n: int, F: int) -> torch
     return embeddings[torch.clamp(cidx, min=0).long()].float().reshape(n, 8 * F)
 
 
+def _check_mode(mode: str):
+    if mode not in RECONCILE_MODES:
+        raise ValueError(f"reconcile mode must be 'mean' or 'sum', got {mode!r}")
+
+
 def reconcile_packed(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
-                     touched: torch.Tensor, touched_cap: int) -> torch.Tensor:
+                     touched: torch.Tensor, touched_cap: int, mode: str = "mean") -> torch.Tensor:
     """Plain piece of K5's twin: fold the optimized packed-copy deltas of
     the touched voxels back into the canonical (C, F) embeddings; a corner
-    shared by k touched voxels gets the mean of its k deltas, added in
-    ascending (rank, corner slot) order on the CPU. Returns the new
-    embeddings."""
+    shared by k touched voxels gets the mean ("mean") or the sum ("sum")
+    of its k deltas, added in ascending (rank, corner slot) order on the
+    CPU. Returns the new embeddings."""
+    _check_mode(mode)
     dev = new_packed.device
     C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
     T = touched_cap
@@ -319,9 +335,10 @@ def reconcile_packed(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
     delta = (new_packed[t_rows] - state.packed[t_rows]).reshape(T * 8, F)
     cids = state.corner_idx[state.active_ids[t_rows].long()]
     cflat = torch.where(t_valid[:, None], cids, C).reshape(-1)
-    mult = _add_drop(torch.zeros((C,), dtype=torch.float32, device=dev), cflat,
-                     torch.ones_like(cflat, dtype=torch.float32))
-    delta = delta / torch.clamp(mult[torch.clamp(cflat, 0, C - 1).long()], min=1.0)[:, None]
+    if mode == "mean":
+        mult = _add_drop(torch.zeros((C,), dtype=torch.float32, device=dev), cflat,
+                         torch.ones_like(cflat, dtype=torch.float32))
+        delta = delta / torch.clamp(mult[torch.clamp(cflat, 0, C - 1).long()], min=1.0)[:, None]
     # cast the f32 deltas to the embedding type BEFORE adding, as JAX does
     return _add_in_order(state.embeddings, cflat, delta.to(state.embeddings.dtype))
 
@@ -348,10 +365,10 @@ class Reconciled(NamedTuple):
 
 
 def reconcile_plain(state: MapState, cfg: MapConfig, new_packed: torch.Tensor,
-                    touched: torch.Tensor, touched_cap: int) -> Reconciled:
+                    touched: torch.Tensor, touched_cap: int, mode: str = "mean") -> Reconciled:
     """Plain torch twin of K5: bump_upd_count, reconcile_packed and
     pack_embeddings in a row (the tail of JAX core/ba.py:378-391)."""
-    emb = reconcile_packed(state, cfg, new_packed, touched, touched_cap)
+    emb = reconcile_packed(state, cfg, new_packed, touched, touched_cap, mode)
     return Reconciled(emb, pack_embeddings(state._replace(embeddings=emb), cfg),
                       bump_upd_count(state, cfg, touched), touched.sum(dtype=torch.int32))
 
@@ -405,14 +422,16 @@ def _pack_check(name: str, emb: torch.Tensor, A: int, F: int):
 
 
 def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched: torch.Tensor,
-              touched_cap: int, scratch: ReconcileScratch | None = None) -> Reconciled:
+              touched_cap: int, scratch: ReconcileScratch | None = None,
+              mode: str = "mean") -> Reconciled:
     """K5. Replaces nerfloam_tpu/map/voxel_map.py:233-308 (reconcile_packed
-    in "mean" mode, bump_upd_count, pack_embeddings) as one BA step's tail
-    calls them: rank and compact the touched rows to ``touched_cap`` in one
-    pass (a decoupled look-back scan, which also bumps their counts), link
-    each corner's contributions, fold them in ascending (rank, corner slot)
-    order with the delta cast to the embedding type before every add, then
-    repack all A rows. Deterministic: two calls give bit-identical tables.
+    in ``mode`` "mean" or "sum", bump_upd_count, pack_embeddings) as one BA
+    step's tail calls them: rank and compact the touched rows to
+    ``touched_cap`` in one pass (a decoupled look-back scan, which also
+    bumps their counts), link each corner's contributions, fold them in
+    ascending (rank, corner slot) order with the delta (divided by the
+    corner's multiplicity in "mean" mode) cast to the embedding type before
+    every add, then repack all A rows. Deterministic: two calls give bit-identical tables.
     CPU tensors take ``reconcile_plain``; CUDA tensors launch
     csrc/reconcile.cu (three kernels) and the pack pass of
     csrc/active_set.cu, on inputs as the kernels read them (contiguous; the
@@ -427,8 +446,9 @@ def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched
     state's tables, because the pipeline replays a BA step whose touched
     count overflowed its cap from the state it started from
     (``NerfLoamSLAM_torch.do_mapping``)."""
+    _check_mode(mode)
     if _device_of("reconcile", new_packed).type == "cpu":
-        return reconcile_plain(state, cfg, new_packed, touched, touched_cap)
+        return reconcile_plain(state, cfg, new_packed, touched, touched_cap, mode)
     global reconcile_launches
     name = "reconcile"
     dev = new_packed.device
@@ -463,7 +483,8 @@ def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched
     bf16 = int(emb.dtype == torch.bfloat16)
     err = lib.nl_reconcile(touched.data_ptr(), active_ids, corner_idx, new_packed.data_ptr(),
                            state.packed.data_ptr(), A, T, C, emb.data_ptr(), bf16,
-                           upd_count.data_ptr(), count.data_ptr(), *ptrs, stream)
+                           int(mode == "sum"), upd_count.data_ptr(), count.data_ptr(), *ptrs,
+                           stream)
     if err:
         scratch.drop()  # its head table and tile states may not be reset
         kernels.check(err, name)
@@ -471,6 +492,160 @@ def reconcile(state: MapState, cfg: MapConfig, new_packed: torch.Tensor, touched
                                      packed.data_ptr(), None, stream), "active_pack")
     reconcile_launches += 1
     return Reconciled(emb, packed, upd_count, count)
+
+
+# ---------------------------------------------------------------- E1
+
+
+def pack_embeddings_fwd(state: MapState, cfg: MapConfig, embeddings: torch.Tensor) -> torch.Tensor:
+    """E1's forward. Replaces nerfloam_tpu/map/voxel_map.py:301-308
+    (pack_embeddings) as the exact-gradient BA step calls it on its (C, F)
+    parameter ``embeddings``: the (A, 8F) f32 packed rows of the state's
+    active set. CPU tensors take ``pack_embeddings``; CUDA tensors launch
+    the pack pass of csrc/active_set.cu (a warp a row), on inputs as it
+    reads them (f32 or bf16 (C, 16) embeddings and int32 active_ids and
+    corner_idx, contiguous): anything else raises ValueError."""
+    if _device_of("pack_embeddings", embeddings).type == "cpu":
+        return pack_embeddings(state._replace(embeddings=embeddings), cfg)
+    global pack_embeddings_launches
+    name = "pack_embeddings"
+    dev = embeddings.device
+    C, A, F = cfg.capacity, acap(cfg), cfg.feat_dim
+    if embeddings.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: embeddings must be float32 or bfloat16")
+    kernels.expect(name, dev, embeddings.dtype, embeddings=embeddings)
+    kernels.expect(name, dev, torch.int32, active_ids=state.active_ids,
+                   corner_idx=state.corner_idx)
+    kernels.expect_shape(name, embeddings=(embeddings, (C, F)),
+                         active_ids=(state.active_ids, (A,)), corner_idx=(state.corner_idx, (C, 8)))
+    _pack_check(name, embeddings, A, F)
+    packed = torch.empty((A, 8 * F), dtype=torch.float32, device=dev)
+    kernels.check(kernels.lib().nl_active_pack(
+        state.active_ids.data_ptr(), state.corner_idx.data_ptr(), embeddings.data_ptr(),
+        int(embeddings.dtype == torch.bfloat16), A, F, None, packed.data_ptr(), None,
+        kernels.stream_ptr(dev)), name)
+    pack_embeddings_launches += 1
+    return packed
+
+
+def pack_embeddings_vjp_plain(d_packed: torch.Tensor, active_ids: torch.Tensor,
+                              corner_idx: torch.Tensor, n_active, capacity: int) -> torch.Tensor:
+    """Plain torch twin of E1's transpose: d embeddings (C, F) f32 from d
+    packed (A, 8F) f32, each entry (row a, slot s) of the first
+    min(n_active, A) rows added into its corner max(corner_idx[
+    active_ids[a], s], 0) in ascending (a, s), from 0, rounded after
+    every add (XLA's scatter order). The padding rows past them are left
+    out: no sample reaches them, so their d packed is zero."""
+    A = active_ids.shape[0]
+    F = d_packed.shape[1] // 8
+    n = min(int(n_active), A)
+    idx = torch.clamp(corner_idx[active_ids[:n].long()], min=0).reshape(-1)
+    zero = torch.zeros((capacity, F), dtype=torch.float32, device=d_packed.device)
+    return _add_in_order(zero, idx, d_packed[:n].reshape(-1, F))
+
+
+class PackGradScratch:
+    """E1's transpose prepared for one BA step, owned by its caller (the
+    pipeline keeps one for the run and hands it to every exact-gradient
+    BA step, ``ba_step(pack_scratch=)``): ``build(state, cfg)`` takes the
+    step's active set and, on the card, links every corner's entries and
+    sorts each list once (csrc/pack_grad.cu, two launches), so that each
+    backward of the step is one launch. It holds the (C,) head table (all
+    -1 between builds: the sort pass resets it), the (8A,) links, and the
+    sorted heads (C,) and links (8A,). Buffers are allocated at the first
+    build on the card and again for a larger map (``grow``) or active
+    set; a build whose launch fails drops them. A backward reads the
+    lists of the last build: calls on one stream take turns with it. CPU
+    tensors need no buffers: a build keeps the state for the plain
+    twin."""
+
+    def __init__(self):
+        self.drop()
+
+    def build(self, state: MapState, cfg: MapConfig) -> "PackGradScratch":
+        global pack_grad_build_launches
+        name = "pack_embeddings_vjp"
+        C, A = cfg.capacity, acap(cfg)
+        dev = _device_of(name, state.active_ids)
+        self.C, self.state = C, state
+        if dev.type == "cpu":
+            return self
+        kernels.expect(name, dev, torch.int32, active_ids=state.active_ids,
+                       corner_idx=state.corner_idx, n_active=state.n_active)
+        kernels.expect_shape(name, active_ids=(state.active_ids, (A,)),
+                             corner_idx=(state.corner_idx, (C, 8)), n_active=(state.n_active, ()))
+        if 8 * A * 16 >= 2**31:
+            raise ValueError(f"{name}: A * 128 < 2^31 needed (got A = {A})")
+        if self._bufs is None or dev != self.dev or C > self.cap_c or A > self.cap_a:
+            i32 = dict(dtype=torch.int32, device=dev)
+            self.cap_c, self.cap_a = max(C, self.cap_c), max(A, self.cap_a)
+            c, e = self.cap_c, 8 * self.cap_a
+            self._bufs = (torch.full((c,), -1, **i32), torch.empty((e,), **i32),
+                          torch.empty((c,), **i32), torch.empty((e,), **i32))
+            self.dev = dev
+        head, nxt, self.shead, self.snext = self._bufs
+        err = kernels.lib().nl_pack_grad_build(
+            state.active_ids.data_ptr(), state.corner_idx.data_ptr(), state.n_active.data_ptr(),
+            A, C, head.data_ptr(), nxt.data_ptr(), self.shead.data_ptr(), self.snext.data_ptr(),
+            kernels.stream_ptr(dev))
+        if err:
+            self.drop()  # its head table may not be reset
+            kernels.check(err, name)
+        pack_grad_build_launches += 1
+        return self
+
+    def drop(self):
+        self.C = self.cap_c = self.cap_a = 0
+        self.dev = self.state = self._bufs = self.shead = self.snext = None
+
+
+def pack_embeddings_vjp(d_packed: torch.Tensor, scratch: PackGradScratch) -> torch.Tensor:
+    """E1's transpose. Replaces the scatter-add XLA emits for the gather of
+    nerfloam_tpu/map/voxel_map.py:301-308 under jax.value_and_grad
+    (core/ba.py:222-227): d embeddings (C, 16) f32 from d packed (A, 128)
+    f32, over the lists of ``scratch``'s last build. Each corner adds its
+    entries in ascending (row, slot) from 0, with no float atomics: two
+    calls give bit-identical tables, equal to ``pack_embeddings_vjp_plain``
+    (which CPU tensors take). On the card one launch of csrc/pack_grad.cu,
+    four threads a corner; d packed must be contiguous, 16-byte aligned
+    f32 (A, 128) on the scratch's device, or ValueError."""
+    name = "pack_embeddings_vjp"
+    if scratch.state is None:
+        raise ValueError(f"{name}: the scratch has not been built for this step")
+    st, C = scratch.state, scratch.C
+    if _device_of(name, d_packed).type == "cpu":
+        return pack_embeddings_vjp_plain(d_packed, st.active_ids, st.corner_idx, st.n_active, C)
+    global pack_grad_launches
+    dev = d_packed.device
+    if scratch.dev != dev:
+        raise ValueError(f"{name}: d_packed on {dev}, the scratch built on {scratch.dev}")
+    kernels.expect(name, dev, torch.float32, d_packed=d_packed)
+    kernels.expect_shape(name, d_packed=(d_packed, (st.active_ids.shape[0], 128)))
+    if d_packed.data_ptr() % 16:
+        raise ValueError(f"{name}: d_packed rows must be 16-byte aligned")
+    d_emb = torch.empty((C, 16), dtype=torch.float32, device=dev)
+    kernels.check(kernels.lib().nl_pack_grad(d_packed.data_ptr(), scratch.shead.data_ptr(),
+                                             scratch.snext.data_ptr(), C, d_emb.data_ptr(),
+                                             kernels.stream_ptr(dev)), name)
+    pack_grad_launches += 1
+    return d_emb
+
+
+class PackEmbeddings(torch.autograd.Function):
+    """E1 as the exact-gradient BA step differentiates it:
+    ``PackEmbeddings.apply(embeddings, state, cfg, scratch)`` is
+    ``pack_embeddings_fwd(state, cfg, embeddings)``, and its backward
+    ``pack_embeddings_vjp(d_packed, scratch)`` (the scratch built for the
+    step's state)."""
+
+    @staticmethod
+    def forward(ctx, embeddings, state, cfg, scratch):
+        ctx.scratch = scratch
+        return pack_embeddings_fwd(state, cfg, embeddings)
+
+    @staticmethod
+    def backward(ctx, d_packed):
+        return pack_embeddings_vjp(d_packed.contiguous(), ctx.scratch), None, None, None
 
 
 class InsertRecord(NamedTuple):

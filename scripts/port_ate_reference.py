@@ -6,6 +6,7 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --adam25   # kitti_adam25.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --s2s  # kitti_quality_s2s.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 SEED  # replica_gate60.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --adam25 --exact  # kitti_exact.json
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
 (+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off, i.e. the
@@ -19,6 +20,14 @@ finalized trajectory.
 ADAM25 is bench.ADAM25_OVERRIDES plus ``tpu_specs.track_method=adam``: the
 pipeline reads the tracker choice from tpu_specs, so bench.py's
 ``tracker_specs.track_method=adam`` alone leaves the GN tracker on.
+
+``--exact`` adds the reference-exact fallbacks to the chosen config
+(``--adam25`` or ``--gate60 SEED``): f32 embeddings, exact embedding
+gradients, BA without a ray superset and per-iteration tracker rays
+(``EXACT``); ``--adam25 --exact`` is the port's kitti_exact.json.
+
+``--tpu-seed N`` sets ``tpu_specs.seed`` (the random stream's seed; the
+data's stays the config's).
 
 ``--gate60 SEED`` runs the replica gate instead: kitti_replica_ci.yaml +
 calibrate_gate60.GATE60 + LEAN + data_specs.seed=SEED, defer_sync off,
@@ -49,6 +58,8 @@ from nerfloam_tpu.utils.config import load_config  # noqa: E402
 
 ADAM25 = bench.ADAM25_OVERRIDES + ["tpu_specs.track_method=adam"]
 S2S = ["tpu_specs.s2s_weight=10.0"]
+EXACT = ["tpu_specs.emb_dtype=float32", "tpu_specs.exact_embedding_grads=true",
+         "tpu_specs.ba_ray_superset=0", "tpu_specs.track_resample_rays=true"]
 
 
 def gate60_overrides(seed: int) -> list:
@@ -69,17 +80,18 @@ def drift_lat_cm_f(est: np.ndarray, gt: np.ndarray) -> float:
     return float(np.linalg.norm(diff - along[:, None] * fwd, axis=1).mean()) * 100
 
 
-def gate60(seed: int):
+def gate60(seed: int, exact: bool = False, extra=()):
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "kitti_replica_ci.yaml"),
-                      gate60_overrides(seed))
+                      gate60_overrides(seed) + (EXACT if exact else []) + list(extra))
     ds = get_dataset(cfg)
     slam = NerfLoamSLAM(cfg, ds)
     t0 = time.perf_counter()
     est = np.asarray(slam.run())
     gt = ds.gt_trajectory()[: len(est)]
     print(json.dumps({
-        "config": "replica_gate60",
+        "config": "replica_gate60" + ("_exact" if exact else ""),
         "seed": seed,
+        "tpu_seed": int(cfg.tpu_specs["seed"]),
         "frames": len(est),
         "ate_raw_m": evaluation.ate_rmse(est, gt, align=False),
         "ate_aligned_m": evaluation.ate_rmse(est, gt, align=True),
@@ -94,14 +106,17 @@ def gate60(seed: int):
 
 
 def main():
+    exact = "--exact" in sys.argv
+    extra = ([f"tpu_specs.seed={int(sys.argv[sys.argv.index('--tpu-seed') + 1])}"]
+             if "--tpu-seed" in sys.argv else [])
     if "--gate60" in sys.argv:
-        return gate60(int(sys.argv[sys.argv.index("--gate60") + 1]))
+        return gate60(int(sys.argv[sys.argv.index("--gate60") + 1]), exact, extra)
     quality = "--quality" in sys.argv
     adam25 = "--adam25" in sys.argv
     s2s = "--s2s" in sys.argv
     overrides = (bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if quality else [])
-                 + (ADAM25 if adam25 else []) + (S2S if s2s else [])
-                 + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"])
+                 + (ADAM25 if adam25 else []) + (S2S if s2s else []) + (EXACT if exact else [])
+                 + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"] + extra)
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
     ds = get_dataset(cfg)
@@ -119,7 +134,8 @@ def main():
     gt = ds.gt_trajectory()[: len(poses)]
     print(json.dumps({
         "config": ("kitti_quality" if quality else "kitti_adam25" if adam25
-                   else "kitti_budget") + ("_s2s" if s2s else ""),
+                   else "kitti_budget") + ("_s2s" if s2s else "")
+        + ("_exact" if exact else ""),
         "frames": len(poses),
         "ate_m": float(evaluation.ate_rmse(poses, gt, align=False)),
         "sdf_bias": [float(x) for x in slam.sdf_bias],

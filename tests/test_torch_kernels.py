@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K4 hit table, K1 hits field, K2 its backward,
 K8 active field, K3 GN normal equations, K7 voxel insert, K6 recenter +
-active set, K5 reconcile + repack, K9a occupancy march, K9b CDF
+active set, K5 reconcile + repack, E1 pack_embeddings and its transpose,
+K9a occupancy march, K9b CDF
 placement, K10a mesh lattice, K10b marching tetrahedra, K11a range image,
 K11b point-to-plane system) against their plain torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
@@ -33,10 +34,16 @@ equal to the in-place twin's (both elect the smallest slot), between two
 calls from equal clones and with the candidate cap overflowed, its kept
 election grids all INT_MAX after every call and its undo exact; K6
 every table equal (f32 and bf16); K5
-every table equal to the twin run on the CPU (f32 and bf16: both add
-each corner's deltas in ascending order, rounding after every add) and
-bit-identical between calls without a scratch and through one kept
-ReconcileScratch, whose head table is all -1 after every call; K9a cdf and n_occ equal,
+every table equal to the twin run on the CPU (f32 and bf16, "mean" and
+"sum": both add each corner's deltas in ascending order, rounding after
+every add) and bit-identical between calls without a scratch and
+through one kept ReconcileScratch, whose head table is all -1 after
+every call; E1's forward equal to pack_embeddings and its transpose to
+pack_embeddings_vjp_plain on the CPU (padding rows, -1 corners, corners
+shared by 8 voxels, a list longer than 8), bit-identical between two
+calls through one PackGradScratch, its head table all -1 after every
+build, rebuilt for a grown map, and through PackEmbeddings' autograd
+equal to the CPU's; K9a cdf and n_occ equal,
 also launched as part of making a placer (CdfPlacer.march) with one
 origin per ray and with one expanded to every ray, one CUDA launch a
 march and no copy; K9b aid, valid and ray_mask
@@ -561,8 +568,9 @@ def test_active_set_kernels_match_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(before, base))
 
 
+@pytest.mark.parametrize("mode", ["mean", "sum"])
 @pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
-def test_reconcile_kernel_matches_plain(cuda, emb_dtype):
+def test_reconcile_kernel_matches_plain(cuda, emb_dtype, mode):
     """K5, each call without a scratch and through one ReconcileScratch kept
     over calls with other touched sets, a truncating cap, an all-false mask
     and a grown map: every table equal to the twin's and between the two;
@@ -586,9 +594,9 @@ def test_reconcile_kernel_matches_plain(cuda, emb_dtype):
     for st, cfg, mask, cap in cases:
         cpu = vm.MapState(*[x.cpu() for x in st])
         n0 = vm.reconcile_launches
-        k1 = vm.reconcile(st, cfg, new_packed, mask, cap)
-        k2 = vm.reconcile(st, cfg, new_packed, mask, cap, scratch=scratch)
-        ref = vm.reconcile_plain(cpu, cfg, new_packed.cpu(), mask.cpu(), cap)
+        k1 = vm.reconcile(st, cfg, new_packed, mask, cap, mode=mode)
+        k2 = vm.reconcile(st, cfg, new_packed, mask, cap, scratch=scratch, mode=mode)
+        ref = vm.reconcile_plain(cpu, cfg, new_packed.cpu(), mask.cpu(), cap, mode)
         torch.cuda.synchronize()
         assert vm.reconcile_launches == n0 + 2
         for name in vm.Reconciled._fields:
@@ -597,6 +605,71 @@ def test_reconcile_kernel_matches_plain(cuda, emb_dtype):
         assert torch.equal(k1.embeddings, st.embeddings) == (not bool(mask.any()))
         assert scratch.head.numel() == cfg.capacity and bool((scratch.head == -1).all())
         assert not bool(scratch.scan_state.any())
+
+
+def test_pack_embeddings_kernels_match_plain(cuda):
+    """E1: the forward (the pack pass) equal to pack_embeddings; the
+    transpose through one PackGradScratch equal to the twin on the CPU and
+    between two calls, over padding rows, twelve -1 corners (row 0's list
+    longer than 8) and the thick wall's corners shared by 8 voxels; the
+    scratch's head table all -1 after each build, and a grown map's
+    build; PackEmbeddings' gradient on the card equal to the CPU's."""
+    ms, *_ = _case(cuda, seed=10)
+    A, n = ms.packed.shape[0], int(ms.n_active)
+    cidx = ms.corner_idx.clone()
+    rows = ms.active_ids[torch.arange(0, 12 * 7, 7, device=cuda)].long()
+    cidx[rows, torch.arange(12, device=cuda) % 8] = -1
+    ms = ms._replace(corner_idx=cidx)
+    cpu = vm.MapState(*[x.cpu() for x in ms])
+    used = torch.clamp(cidx[ms.active_ids[:n].long()], min=0).reshape(-1)
+    counts = torch.bincount(used, minlength=T_CFG.capacity)
+    assert n < A and int(counts[0]) > 8 and int((counts[1:] == 8).sum()) > 0
+    g = torch.Generator(device=cuda).manual_seed(10)
+    d = torch.randn((A, 128), generator=g, device=cuda) * torch.exp2(
+        torch.randint(-12, 12, (A, 128), generator=g, device=cuda).float())
+    d[n:] = 0.0
+    n0, b0, f0 = vm.pack_grad_launches, vm.pack_grad_build_launches, vm.pack_embeddings_launches
+    fwd = vm.pack_embeddings_fwd(ms, T_CFG, ms.embeddings)
+    scratch = vm.PackGradScratch().build(ms, T_CFG)
+    k1 = vm.pack_embeddings_vjp(d, scratch)
+    k2 = vm.pack_embeddings_vjp(d, scratch)
+    ref = vm.pack_embeddings_vjp_plain(d.cpu(), cpu.active_ids, cpu.corner_idx, cpu.n_active,
+                                       T_CFG.capacity)
+    torch.cuda.synchronize()
+    assert (vm.pack_grad_launches - n0, vm.pack_grad_build_launches - b0,
+            vm.pack_embeddings_launches - f0) == (2, 1, 1)
+    assert torch.equal(fwd, vm.pack_embeddings(ms, T_CFG))
+    assert torch.equal(k1, k2) and torch.equal(k1.cpu(), ref)
+    head = scratch._bufs[0]
+    assert bool((head == -1).all())
+    big, big_cfg = vm.grow(ms, T_CFG._replace(active_cap=A), 2 * T_CFG.capacity)
+    scratch.build(big, big_cfg)
+    kb = vm.pack_embeddings_vjp(d, scratch)
+    assert kb.shape == (big_cfg.capacity, 16) and torch.equal(kb[:T_CFG.capacity], k1)
+    assert not bool(kb[T_CFG.capacity:].any()) and bool((scratch._bufs[0] == -1).all())
+    # the autograd function on the card and on the CPU
+    w = torch.randn((A, 128), generator=g, device=cuda)
+    grads = []
+    for st, dev in ((ms, cuda), (cpu, torch.device("cpu"))):
+        e = st.embeddings.clone().requires_grad_(True)
+        sc = vm.PackGradScratch().build(st, T_CFG)
+        (vm.PackEmbeddings.apply(e, st, T_CFG, sc) * w.to(dev)).sum().backward()
+        grads.append(e.grad)
+    assert torch.equal(grads[0].cpu(), grads[1])
+
+
+def test_pack_embeddings_wrappers_reject_what_they_cannot_read():
+    """E1's wrappers raise on a scratch never built, and the forward on a
+    device it does not know; they run everywhere."""
+    ms, *_ = _case("cpu", seed=10)
+    with pytest.raises(ValueError, match="not been built"):
+        vm.pack_embeddings_vjp(torch.zeros_like(ms.packed), vm.PackGradScratch())
+    with pytest.raises(ValueError, match="unsupported device"):
+        vm.pack_embeddings_fwd(ms, T_CFG, ms.embeddings.to("meta"))
+    scratch = vm.PackGradScratch().build(ms, T_CFG)
+    assert scratch._bufs is None  # the CPU twin needs no buffers
+    d = torch.zeros_like(ms.packed)
+    assert not bool(vm.pack_embeddings_vjp(d, scratch).any())
 
 
 def test_grid_sampler_kernels_match_plain(cuda):
@@ -1218,7 +1291,8 @@ def test_kernel_library_is_built_lazily():
     srcs = kernels.sources()
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
-        "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu"}
+        "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu",
+        "pack_grad.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

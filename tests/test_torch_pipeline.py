@@ -119,10 +119,9 @@ def test_kitti_budget_json_matches_jax_config():
 
 
 @pytest.mark.parametrize("knob", [
-    "tpu_specs.track_resample_rays=true", "tpu_specs.reconcile_mode=sum",
     "tpu_specs.defer_sync=true",
     "tpu_specs.dp=2",
-    "tpu_specs.exact_embedding_grads=true", "tpu_specs.maturity_warmup=4",
+    "tpu_specs.maturity_warmup=4",
     "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
     "mapper_specs.remove_back=true", "tpu_specs.bias_source=keyframe",
     "tpu_specs.bias_classes=2",
@@ -151,12 +150,22 @@ def test_unported_knobs_raise(knob):
      and s.tp_first.s2s == s.tp.s2s),
     ("debug_args.mesh_freq=100", lambda s: s.mesh_freq == 100 and s.mesh_res == 2),
     ("debug_args.ckpt_freq=7", lambda s: s.ckpt_freq == 7 and s.save_data_freq == -1),
+    ("tpu_specs.track_resample_rays=true",
+     lambda s: s.tp.resample_rays and s.tp_first.resample_rays),
+    ("tpu_specs.reconcile_mode=sum",
+     lambda s: s.bp_current.reconcile_mode == s.bp_random.reconcile_mode == "sum"),
+    ("tpu_specs.exact_embedding_grads=true",
+     lambda s: s.bp_current.exact_embedding_grads and s.bp_random.exact_embedding_grads
+     and s.map_cfg.emb_dtype == "float32"),
+    ("tpu_specs.ba_ray_superset=0",
+     lambda s: s.bp_current.ray_superset == s.bp_random.ray_superset == 0
+     and not s.bp_current.exact_embedding_grads),
 ])
 def test_ported_knobs_construct(knob, check):
     """The quality-stack knobs (queue-1 item 10), the grid sampler and the
-    Adam tracker (item 11), the s2s term (item 15), mesh intervals and
-    checkpoints (items 12, 13) no longer raise: each reaches the map,
-    tracker and BA parameters it sets."""
+    Adam tracker (item 11), the s2s term and the reference-exact fallbacks
+    (item 15), mesh intervals and checkpoints (items 12, 13) no longer
+    raise: each reaches the map, tracker and BA parameters it sets."""
     cfg = load_config(CFG_PATH, SLICE + [knob])
     slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
     assert check(slam)

@@ -139,8 +139,9 @@ def test_maybe_recenter_refresh_matches_jax():
         assert _active(j2).keys() == _active(t2).keys()
 
 
+@pytest.mark.parametrize("mode", ["mean", "sum"])
 @pytest.mark.parametrize("emb_dtype", ["float32", "bfloat16"])
-def test_reconcile_pack_bump_match_jax(emb_dtype):
+def test_reconcile_pack_bump_match_jax(emb_dtype, mode):
     cfg_j = JCFG._replace(emb_dtype=emb_dtype)
     cfg_t = TCFG._replace(emb_dtype=emb_dtype)
     j = jvm.refresh_active(_j_state(), cfg_j)
@@ -154,9 +155,10 @@ def test_reconcile_pack_bump_match_jax(emb_dtype):
     touched = np.zeros(A, bool)
     touched[rng.choice(n, n // 3, replace=False)] = True
     for cap in (A, max(n // 6, 1)):  # second cap truncates the touched set
-        je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jnp.asarray(touched), cap)
+        je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jnp.asarray(touched), cap,
+                                  mode)
         te = tvm.reconcile_packed(t, cfg_t, torch.as_tensor(new_packed),
-                                  torch.as_tensor(touched), cap)
+                                  torch.as_tensor(touched), cap, mode)
         # bf16: both add the same f32 deltas after casting them to bf16; a
         # corner shared by k touched voxels takes k bf16 adds whose order
         # differs, so the bound is one bf16 ulp of the embedding scale
@@ -205,8 +207,9 @@ def test_reconcile_with_kept_scratch_matches_jax(emb_dtype):
     assert scratch.ptrs is None and scratch.head is None
 
 
+@pytest.mark.parametrize("mode", ["mean", "sum"])
 @pytest.mark.parametrize("emb_dtype", ["float32", "bfloat16"])
-def test_reconcile_adds_in_jax_order(emb_dtype):
+def test_reconcile_adds_in_jax_order(emb_dtype, mode):
     """Exactly JAX's table: a corner shared by k touched voxels takes k adds
     in index order, each rounded to the embedding type, as XLA applies
     ``at[].add`` (the twin of K5 splits the duplicates into rounds of
@@ -224,23 +227,26 @@ def test_reconcile_adds_in_jax_order(emb_dtype):
     new_packed = np.asarray(j.packed) + rng.uniform(1e-3, 3e-3, size=j.packed.shape).astype(
         np.float32)
     touched = np.arange(A) < n
-    je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jnp.asarray(touched), A)
-    te = tvm.reconcile_packed(t, cfg_t, torch.as_tensor(new_packed), torch.as_tensor(touched), A)
+    je = jvm.reconcile_packed(j, cfg_j, jnp.asarray(new_packed), jnp.asarray(touched), A, mode)
+    te = tvm.reconcile_packed(t, cfg_t, torch.as_tensor(new_packed), torch.as_tensor(touched), A,
+                              mode)
     np.testing.assert_array_equal(to_numpy(te), np.asarray(je, np.float32))
     assert not np.array_equal(np.asarray(je, np.float32), np.asarray(j.embeddings, np.float32))
     if emb_dtype == "bfloat16":  # the single-rounding sum would differ here
         once = torch.as_tensor(np.asarray(j.embeddings, np.float32))
-        cflat, delta = _corner_deltas(t, cfg_t, torch.as_tensor(new_packed), A)
+        cflat, delta = _corner_deltas(t, cfg_t, torch.as_tensor(new_packed), A, mode)
         once = once.index_add_(0, cflat, delta.to(torch.bfloat16).float()).to(torch.bfloat16)
         assert not torch.equal(once.float(), torch.as_tensor(to_numpy(te)))
 
 
-def _corner_deltas(t, cfg, new_packed, A):
-    """(corner rows, mean deltas) of every active voxel, as reconcile_packed
-    forms them."""
+def _corner_deltas(t, cfg, new_packed, A, mode="mean"):
+    """(corner rows, mean or sum deltas) of every active voxel, as
+    reconcile_packed forms them."""
     F = cfg.feat_dim
     cflat = t.corner_idx[t.active_ids[:int(t.n_active)].long()].reshape(-1).long()
     delta = (new_packed - t.packed)[:int(t.n_active)].reshape(-1, F)
+    if mode == "sum":
+        return cflat, delta
     mult = torch.zeros(cfg.capacity).index_add_(0, cflat, torch.ones(len(cflat)))
     return cflat, delta / mult[cflat][:, None]
 
