@@ -38,6 +38,7 @@ from nerfloam_tpu_torch.ops.raycast import (
     HitTable,
     cells_of,
     div,
+    rdiv,
     resolve_cells_in_hits,
     sample_from_hits,
 )
@@ -430,7 +431,7 @@ def band_sample_z(depth, cos, truncation: float, n: int, u):
     """(R, n) stratified depths across the cosine-widened truncation band
     around the measured distance: z = d + ((i + u) / n * 2 - 1) T / cos."""
     off = div(torch.arange(n, dtype=torch.float32, device=depth.device) + u, float(n)) * 2.0 - 1.0
-    half = truncation / torch.clamp(cos, min=0.05)
+    half = rdiv(truncation, torch.clamp(cos, min=0.05))
     return depth[:, None] + off * half[:, None]
 
 

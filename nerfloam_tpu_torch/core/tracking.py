@@ -36,8 +36,10 @@ and the total-miss fallback is a ``torch.where`` on the device.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nerfloam_tpu_torch import kernels
@@ -51,7 +53,7 @@ from nerfloam_tpu_torch.core.render import (
     render_rays,
 )
 from nerfloam_tpu_torch.core.scan2scan import s2s_system
-from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
+from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import (
@@ -90,13 +92,37 @@ class TrackResult(NamedTuple):
     loss: torch.Tensor       # () last-iteration loss
 
 
+@functools.lru_cache(maxsize=None)
+def _bias_corrections(t: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(1 - b1^t, 1 - b2^t) as optax forms them under jit: b^t rounded once
+    to float32 (XLA's power; the double power rounded to float32 equals it
+    for every t under 2958), then 1 - it in float32. 0-d float32 tensors on
+    ``device``, made once per (t, device): a tensor divisor keeps the IEEE
+    division that a Python one turns into a reciprocal multiply on CUDA."""
+    b = np.asarray([_B1, _B2], np.float32).astype(np.float64)
+    bc = np.float32(1.0) - (b ** t).astype(np.float32)
+    return tuple(torch.tensor(v, device=device) for v in bc)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """sqrt rounded once, as XLA's: CUDA's sqrtf is, torch's vectorised CPU
+    sqrt is not (an ulp off on ~0.7% of inputs), so the CPU takes the
+    double root rounded to float32 (exact for a float32 input)."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(x.dtype)
+
+
 def scale_by_adam_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, t: int) -> torch.Tensor:
     """One ``optax.scale_by_adam()`` step (b1 0.9, b2 0.999, eps 1e-8,
     eps_root 0, bias-corrected) at step t >= 1: updates the moments mu and
-    nu in place and returns the update (applied as ``p - lr * update``)."""
-    mu.mul_(_B1).add_(g, alpha=1.0 - _B1)
-    nu.mul_(_B2).addcmul_(g, g, value=1.0 - _B2)
-    return (mu / (1.0 - _B1 ** t)) / (torch.sqrt(nu / (1.0 - _B2 ** t)) + _EPS)
+    nu in place and returns the update (applied as ``p - lr * update``).
+    Bit for bit optax's: each moment (1 - b) * g^k + b * m as two rounded
+    products and a rounded add (no fused multiply-add), the bias
+    corrections as optax forms them (``_bias_corrections``), two IEEE
+    divisions and a correctly rounded sqrt."""
+    bc1, bc2 = _bias_corrections(t, g.device)
+    mu.mul_(_B1).add_(g * (1.0 - _B1))
+    nu.mul_(_B2).add_((g * g).mul_(1.0 - _B2))
+    return (mu / bc1) / (_sqrt_rn(nu / bc2) + _EPS)
 
 
 def _bias_ray(pcos, sdf_bias, dev):
@@ -109,7 +135,7 @@ def _bias_ray(pcos, sdf_bias, dev):
 def t_cap_for(points: torch.Tensor, cos: torch.Tensor, truncation: float, max_depth: float):
     """Per-ray useful range: measured distance + cosine-widened band."""
     d = torch.linalg.norm(points, dim=-1)
-    band = truncation / torch.clamp(cos, min=0.05)
+    band = rdiv(truncation, torch.clamp(cos, min=0.05))
     return torch.clamp(d + band + 0.5, max=max_depth)
 
 
@@ -246,14 +272,22 @@ def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackPar
                                                                      vmask)
 
 
+def trust_region(delta):
+    """The LM step (6,) clipped to 0.5 m of translation and 0.1 rad of
+    rotation (tracking.py:329-332): each half scaled by min(1, r / (|v| +
+    1e-12)), r / (...) one IEEE division as in JAX. Returns (dt, dth)."""
+    dt, dth = delta[:3], delta[3:]
+    dt = dt * torch.clamp(rdiv(0.5, torch.linalg.norm(dt) + 1e-12), max=1.0)
+    dth = dth * torch.clamp(rdiv(0.1, torch.linalg.norm(dth) + 1e-12), max=1.0)
+    return dt, dth
+
+
 def lm_update(pose6, H, b, lam):
     """Damped solve, trust region (0.5 m / 0.1 rad), left-multiplied update."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     Hd = H + lam * torch.diag(torch.diag(H)) + 1e-6 * eye
     delta = -torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
-    dt, dth = delta[:3], delta[3:]
-    dt = dt * torch.clamp(0.5 / (torch.linalg.norm(dt) + 1e-12), max=1.0)
-    dth = dth * torch.clamp(0.1 / (torch.linalg.norm(dth) + 1e-12), max=1.0)
+    dt, dth = trust_region(delta)
     R_new = se3.compose_matrices(se3.exp_so3(dth), se3.pose_rotation(pose6))
     return torch.cat([pose6[:3] + dt, se3.log_so3(R_new)])
 

@@ -160,6 +160,14 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
+def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
+    """s / x rounded as IEEE division, as JAX divides a Python scalar by an
+    array. torch evaluates ``s / x`` as ``x.reciprocal() * s``, two
+    roundings on the CPU and on CUDA; a same-device 0-d tensor numerator
+    keeps one (__fdiv_rn on the card)."""
+    return torch.full((), s, dtype=x.dtype, device=x.device) / x
+
+
 def _flat_cell(rel: torch.Tensor, grid_dim: tuple):
     """(..., 3) region-relative cells -> flat index + in-bounds mask."""
     Dx, Dy, Dz = grid_dim

@@ -63,7 +63,7 @@ def _coarse_shape(rc: RaycastConfig) -> tuple[float, int]:
     return step, n
 
 
-div = vm.div
+div, rdiv = vm.div, vm.rdiv
 
 
 def cells_of(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:

@@ -110,35 +110,45 @@ def _rays(pose6, dirs, lib):
     return (t.expand_as(d) if lib is tse3 else jnp.broadcast_to(t, d.shape)), d
 
 
-def _occupancy(s):
+def _occupancy(s, j_cap=None, t_cap=None):
+    """Both sides' march at pose0, each over its t_cap (default: the
+    fixture's, JAX's at TRUNC, on both)."""
+    j_cap = s["t_cap"] if j_cap is None else j_cap
+    t_cap = _t(s["t_cap"]) if t_cap is None else t_cap
     o, d = _rays(s["pose0"], s["dirs"], jse3)
-    jocc = jrc.march_occupancy(s["m"], MAP_CFG, RC, o, d, s["t_cap"])
+    jocc = jrc.march_occupancy(s["m"], MAP_CFG, RC, o, d, j_cap)
     to, td = _rays(_t(s["pose0"]), _t(s["dirs"]), tse3)
-    tocc = trc.march_occupancy(s["tm"], T_CFG, T_RC, to, td, _t(s["t_cap"]))
+    tocc = trc.march_occupancy(s["tm"], T_CFG, T_RC, to, td, t_cap)
     return jocc, tocc
 
 
-def test_march_and_place_match_jax(setup):
+@pytest.mark.parametrize("trunc", [0.5, 0.3])
+def test_march_and_place_match_jax(setup, trunc):
+    """Each side's t_cap_for at the truncation (0.3: the shipped configs';
+    0.5 is a power of two, where a reciprocal times it is the division),
+    bit-equal, then the march and the placement over it."""
     s = setup
-    jocc, tocc = _occupancy(s)
+    j_cap = jtr.t_cap_for(s["p"], s["c"], trunc, MAX_DEPTH)
+    t_cap = ttr.t_cap_for(_t(s["p"]), _t(s["c"]), trunc, MAX_DEPTH)
+    np.testing.assert_array_equal(to_numpy(t_cap), np.asarray(j_cap))
+    jocc, tocc = _occupancy(s, j_cap, t_cap)
     np.testing.assert_array_equal(to_numpy(tocc[0]), np.asarray(jocc[0]))
     np.testing.assert_array_equal(to_numpy(tocc[1]), np.asarray(jocc[1]))
     assert 0.5 < float(np.mean(np.asarray(jocc[1]) > 0)) <= 1.0
     o, d = _rays(s["pose"], s["dirs"], jse3)
-    jz, jaid, jvalid, jmask = jrc.place_samples_cdf(s["m"], MAP_CFG, RC, *jocc, o, d, s["t_cap"],
+    jz, jaid, jvalid, jmask = jrc.place_samples_cdf(s["m"], MAP_CFG, RC, *jocc, o, d, j_cap,
                                                     None, u=jnp.asarray(s["u"]))
     to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
     tz, taid, tvalid, tmask = trc.place_samples_cdf(s["tm"], T_CFG, T_RC, *tocc, to, td,
-                                                    _t(s["t_cap"]), _t(s["u"]))
+                                                    t_cap, _t(s["u"]))
     np.testing.assert_array_equal(to_numpy(taid), np.asarray(jaid))
     np.testing.assert_array_equal(to_numpy(tvalid), np.asarray(jvalid))
     np.testing.assert_array_equal(to_numpy(tmask), np.asarray(jmask))
     np.testing.assert_allclose(to_numpy(tz), np.asarray(jz), rtol=0, atol=1e-6)
     assert 0.3 < float(np.asarray(jvalid).mean()) < 1.0
     # sample_rays_cdf is the two passes in a row (raycast.py:346-381)
-    jall = jrc.sample_rays_cdf(s["m"], MAP_CFG, RC, o, d, s["t_cap"], None,
-                               u=jnp.asarray(s["u"]))
-    tall = trc.sample_rays_cdf(s["tm"], T_CFG, T_RC, to, td, _t(s["t_cap"]), _t(s["u"]))
+    jall = jrc.sample_rays_cdf(s["m"], MAP_CFG, RC, o, d, j_cap, None, u=jnp.asarray(s["u"]))
+    tall = trc.sample_rays_cdf(s["tm"], T_CFG, T_RC, to, td, t_cap, _t(s["u"]))
     for t, j in zip(tall, jall):
         np.testing.assert_allclose(to_numpy(t), np.asarray(j), rtol=0, atol=1e-6)
 

@@ -658,6 +658,35 @@ def test_pack_embeddings_kernels_match_plain(cuda):
     assert torch.equal(grads[0].cpu(), grads[1])
 
 
+def test_divisions_and_adam_on_card_match_cpu(cuda):
+    """The repaired divisions and the Adam step round on the card as on the
+    CPU (where tests/test_torch_quality.py, test_torch_tracking.py and
+    test_torch_adam.py hold them bit for bit to JAX and optax): a Python
+    scalar over a tensor (``voxel_map.rdiv``: t_cap_for's band and the LM
+    trust region's 0.5 / n and 0.1 / n) and band_sample_z at truncation
+    0.3, one IEEE division each; and 400 Adam steps (two rounded products
+    and an add per moment, tensor divisors, a sqrt rounded once). The norms
+    around them are not held here: torch's CUDA vector norm rounds its sum
+    of squares otherwise than its CPU one."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.exp(torch.rand((1 << 16,), generator=g) * 24 - 12)
+    for s_ in (0.3, 0.1, 0.5):
+        assert torch.equal(vm.rdiv(s_, x.to(cuda)).cpu(), vm.rdiv(s_, x))
+    c = torch.rand((4096,), generator=g)
+    u = torch.rand((4096, 8), generator=g)
+    d = torch.rand((4096,), generator=g) * 40.0
+    assert torch.equal(trender.band_sample_z(d.to(cuda), c.to(cuda), 0.3, 8, u.to(cuda)).cpu(),
+                       trender.band_sample_z(d, c, 0.3, 8, u))
+    grads = torch.randn((400, 4096), generator=g) * torch.logspace(-8, 3, 4096)
+    m_c, n_c = torch.zeros(4096, device=cuda), torch.zeros(4096, device=cuda)
+    m, n = torch.zeros(4096), torch.zeros(4096)
+    for t, gr in enumerate(grads, start=1):
+        upd_c = ttr.scale_by_adam_(gr.to(cuda), m_c, n_c, t)
+        upd = ttr.scale_by_adam_(gr, m, n, t)
+        assert torch.equal(upd_c.cpu(), upd), f"step {t}"
+    assert torch.equal(m_c.cpu(), m) and torch.equal(n_c.cpu(), n)
+
+
 def test_pack_embeddings_wrappers_reject_what_they_cannot_read():
     """E1's wrappers raise on a scratch never built, and the forward on a
     device it does not know; they run everywhere."""

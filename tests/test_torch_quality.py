@@ -122,15 +122,19 @@ def _rays(pose6, dirs, lib):
     return (t.expand_as(d) if lib is tse3 else jnp.broadcast_to(t, d.shape)), d
 
 
-def test_band_columns_match_jax(setup):
+@pytest.mark.parametrize("trunc", [0.5, 0.3])
+def test_band_columns_match_jax(setup, trunc):
+    """The band columns at the truncation (0.3: the shipped configs'; 0.5 is
+    a power of two, where a reciprocal times it is the division): depths
+    and validity bit-equal, sdf within 1e-5."""
     s = setup
     o, d = _rays(s["pose"], s["dirs"], jse3)
     dnorm = jnp.linalg.norm(s["p"], axis=-1)
     jz, jsdf, jvalid = jrender.extra_surface_columns(
-        s["m"], MAP_CFG, s["params"], s["meta"], o, d, dnorm, s["c"], s["ray_valid"], TRUNC,
+        s["m"], MAP_CFG, s["params"], s["meta"], o, d, dnorm, s["c"], s["ray_valid"], trunc,
         N_ANCHOR, N_BAND, None, band_u=jnp.asarray(s["band_u"]))
     to, td = _rays(_t(s["pose"]), _t(s["dirs"]), tse3)
-    ez = trender.extra_surface_z(_t(dnorm), _t(s["c"]), TRUNC, N_ANCHOR, N_BAND, _t(s["band_u"]))
+    ez = trender.extra_surface_z(_t(dnorm), _t(s["c"]), trunc, N_ANCHOR, N_BAND, _t(s["band_u"]))
     out = trender.render_rays_hits(s["tm"].packed, s["tparams"], MAP_CFG.voxel_size, to, td,
                                    s["tht"], _t(s["ray_valid"]), _t(s["u"]),
                                    extra=(trender.ActiveField(s["tm"], T_CFG), ez,
@@ -150,9 +154,29 @@ def test_band_columns_match_jax(setup):
         np.testing.assert_allclose(to_numpy(esdf), np.asarray(jsdf), atol=1e-5)
     # band depths alone: exact against band_sample_z
     np.testing.assert_array_equal(
-        to_numpy(trender.band_sample_z(_t(dnorm), _t(s["c"]), TRUNC, N_BAND, _t(s["band_u"]))),
-        np.asarray(jrender.band_sample_z(None, dnorm, s["c"], TRUNC, N_BAND,
+        to_numpy(trender.band_sample_z(_t(dnorm), _t(s["c"]), trunc, N_BAND, _t(s["band_u"]))),
+        np.asarray(jrender.band_sample_z(None, dnorm, s["c"], trunc, N_BAND,
                                          u=jnp.asarray(s["band_u"]))))
+
+
+@pytest.mark.parametrize("trunc", [0.5, 0.3])
+def test_t_cap_and_band_depths_match_jax(trunc):
+    """t_cap_for and band_sample_z bit-equal to JAX's on 4,096 random rays
+    (cosines in [0, 1], 8 band samples): truncation / cos is one IEEE
+    division on both sides (at 0.3 torch's ``0.3 / x``, a reciprocal times
+    0.3, moves dozens of rays by an ulp)."""
+    rng = np.random.default_rng(12)
+    p = rng.normal(size=(4096, 3)).astype(np.float32) * 10.0
+    c = rng.uniform(0.0, 1.0, size=4096).astype(np.float32)
+    u = rng.uniform(size=(4096, N_BAND)).astype(np.float32)
+    d = np.linalg.norm(p, axis=-1).astype(np.float32)
+    np.testing.assert_array_equal(
+        to_numpy(ttr.t_cap_for(_t(p), _t(c), trunc, MAX_DEPTH)),
+        np.asarray(jtr.t_cap_for(jnp.asarray(p), jnp.asarray(c), trunc, MAX_DEPTH)))
+    np.testing.assert_array_equal(
+        to_numpy(trender.band_sample_z(_t(d), _t(c), trunc, N_BAND, _t(u))),
+        np.asarray(jrender.band_sample_z(None, jnp.asarray(d), jnp.asarray(c), trunc, N_BAND,
+                                         u=jnp.asarray(u))))
 
 
 def _j_loss(s, packed, params, pose6):

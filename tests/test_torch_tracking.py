@@ -8,6 +8,7 @@ contract of tests/test_render_track.py::test_tracking_gn_recovers_pose)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from nerfloam_tpu.core import render as jrender
@@ -47,8 +48,13 @@ def _rel_err(got, ref):
     return np.abs(to_numpy(got).astype(np.float64) - ref).max() / np.abs(ref).max()
 
 
-def test_gn_normal_equations_match_jax(scene):
+@pytest.mark.parametrize("trunc", [0.5, 0.3])
+def test_gn_normal_equations_match_jax(scene, trunc):
+    """At the truncation (0.3: the shipped configs'; 0.5 is a power of two,
+    where a reciprocal times it is the division): the port's t_cap_for
+    bit-equal to JAX's, then one iteration's normal equations."""
     _, frames = scene
+    tp_ = TP._replace(truncation=trunc)
     m = build_map(frames)
     rng = np.random.default_rng(1)
     emb = rng.normal(size=m.embeddings.shape).astype(np.float32) * 0.2
@@ -61,8 +67,10 @@ def test_gn_normal_equations_match_jax(scene):
     dirs = p / (jnp.linalg.norm(p, axis=-1, keepdims=True) + 1e-8)
     init6 = jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))
     d0 = jse3.rotate_dirs(init6, dirs)
-    ht0 = jrc.build_hit_table(m, MAP_CFG, RCH, jnp.broadcast_to(init6[:3], d0.shape), d0,
-                              jtr.t_cap_for(p, c, TP.truncation, MAX_DEPTH))
+    j_cap = jtr.t_cap_for(p, c, trunc, MAX_DEPTH)
+    np.testing.assert_array_equal(to_numpy(ttr.t_cap_for(_t(p), _t(c), trunc, MAX_DEPTH)),
+                                  np.asarray(j_cap))
+    ht0 = jrc.build_hit_table(m, MAP_CFG, RCH, jnp.broadcast_to(init6[:3], d0.shape), d0, j_cap)
     rvalid = jnp.asarray(rng.uniform(size=len(idx)) > 0.05)
     M = RCH.n_samples
     u = rng.uniform(1e-4, 1 - 1e-4, size=(len(idx), M)).astype(np.float32)
@@ -83,7 +91,7 @@ def test_gn_normal_equations_match_jax(scene):
 
     sdf = field(xyz)
     g = jax.grad(lambda x: jnp.sum(field(x)))(xyz)
-    T_ = TP.truncation
+    T_ = tp_.truncation
     pcos = c
     d_meas = jnp.linalg.norm(p, axis=-1) * pcos
     depth_ok = (d_meas > 0) & (d_meas < MAX_DEPTH)
@@ -94,7 +102,7 @@ def test_gn_normal_equations_match_jax(scene):
     nf, ns = jnp.sum(front), jnp.sum(band)
     tot = jnp.maximum(nf + ns, 1).astype(jnp.float32)
     r = jnp.where(front, sdf - 1.0, (zc + sdf * T_) - dd)
-    w = jnp.where(front, TP.fs_weight * (1 - nf / tot), TP.sdf_weight * (1 - ns / tot)) * (front | band)
+    w = jnp.where(front, tp_.fs_weight * (1 - nf / tot), tp_.sdf_weight * (1 - ns / tot)) * (front | band)
     gj = g * jnp.where(front, 1.0, T_)[..., None]
     J = jnp.concatenate([gj, jnp.cross(xyz - t_pos, gj)], -1)
     H = jnp.einsum("nmi,nmj->ij", J * w[..., None], J, precision=jax.lax.Precision.HIGHEST)
@@ -112,13 +120,13 @@ def test_gn_normal_equations_match_jax(scene):
     tp, tc = _t(p), _t(c)
     tdm = torch.linalg.norm(tp, dim=-1) * tc
     tH, tb, tloss = ttr.gn_system(txyz, tpose[:3], tz, tsdf, tg, tvalid & _t(rvalid)[:, None], tc,
-                                  tdm, (tdm > 0) & (tdm < MAX_DEPTH), TP)
+                                  tdm, (tdm > 0) & (tdm < MAX_DEPTH), tp_)
     np.testing.assert_array_equal(to_numpy(tvalid & _t(rvalid)[:, None]), np.asarray(vmask))
     assert _rel_err(tH, H) <= 1e-4
     assert _rel_err(tb, b) <= 1e-4
     np.testing.assert_allclose(float(tloss), float(jnp.sum(w * r * r)), rtol=1e-4)
     # the tracker's form: a GnSystem made once for the frame, called twice
-    system = ttr.GnSystem(tc, tdm, (tdm > 0) & (tdm < MAX_DEPTH), torch.zeros_like(tc), TP, M)
+    system = ttr.GnSystem(tc, tdm, (tdm > 0) & (tdm < MAX_DEPTH), torch.zeros_like(tc), tp_, M)
     for _ in range(2):
         sH, sb, sloss = system(txyz, tpose[:3], tz, tsdf, tg, tvalid & _t(rvalid)[:, None])
         assert _rel_err(sH, H) <= 1e-4
@@ -126,6 +134,37 @@ def test_gn_normal_equations_match_jax(scene):
         np.testing.assert_allclose(float(sloss), float(jnp.sum(w * r * r)), rtol=1e-4)
     new = ttr.lm_update(tpose, tH, tb, 1e-2)
     assert torch.isfinite(new).all() and float((new - tpose).abs().max()) <= 0.5
+
+
+def _jax_trust_region(delta):
+    """nerfloam_tpu/core/tracking.py:329-332, the trust region of one LM step."""
+    dt = delta[:3]
+    dth = delta[3:]
+    dt = dt * jnp.minimum(1.0, 0.5 / (jnp.linalg.norm(dt) + 1e-12))
+    dth = dth * jnp.minimum(1.0, 0.1 / (jnp.linalg.norm(dth) + 1e-12))
+    return dt, dth
+
+
+def test_trust_region_matches_jax():
+    """The LM step's trust-region scaling bit for bit against JAX's
+    expression, eager and under jit, on 2,000 random steps over seven
+    decades of size (clipped and not): 0.5 / n and 0.1 / n are one IEEE
+    division on both sides. On many of these norms torch's ``0.1 / n``
+    (a reciprocal times 0.1) differs; the case is checked to be among
+    them."""
+    rng = np.random.default_rng(3)
+    deltas = (rng.normal(size=(2000, 6)) * np.exp(rng.uniform(-9, 7, (2000, 1)))).astype(
+        np.float32)
+    jit_trust = jax.jit(_jax_trust_region)
+    two_roundings = 0
+    for delta in deltas:
+        got = [to_numpy(x) for x in ttr.trust_region(_t(delta))]
+        for want in (_jax_trust_region(jnp.asarray(delta)), jit_trust(jnp.asarray(delta))):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, np.asarray(w))
+        n = torch.linalg.norm(_t(delta[3:])) + 1e-12
+        two_roundings += int(float(0.1 / n) != float(np.float32(0.1) / to_numpy(n)))
+    assert two_roundings > 50
 
 
 def test_track_frame_gn_recovers_pose(scene):
