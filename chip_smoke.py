@@ -269,8 +269,9 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "gn_system, gate", "active_field_fwd", "active_field_fwd, band, origin row stride 0",
               "active_field_fwd, probe", "active_field_fwd, gate grid columns, origin row stride 0",
               "active_field_fwd, gate band, origin row stride 0", "march_occupancy",
-              "marching_tets", "marching_tets, padded", "pack_embeddings", "pack_embeddings_vjp",
-              "pack_embeddings, gate60", "pack_embeddings_vjp, gate60") + tuple(
+              "mesh_lattice", "mesh_lattice, res 4", "marching_tets", "marching_tets, padded",
+              "pack_embeddings", "pack_embeddings_vjp", "pack_embeddings, gate60",
+              "pack_embeddings_vjp, gate60") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -1365,6 +1366,23 @@ def k9a_host_costs(ms, cfg, rc, o1, d, tc, M):
     return costs
 
 
+def k10a_host_costs(ms, cfg, ids, res):
+    """Host us of K10a's wrapper (the card idle before each call) beside
+    its checks alone and the conversions the earlier wrapper made instead
+    (``.to(torch.int32).contiguous()`` of the ids and ``.contiguous()`` of
+    the three tables, each a no-op on these inputs, not a check)."""
+    pieces = {
+        "mesh_lattice": partial(mesher.mesh_lattice, ms, cfg, ids, res),
+        "its checks (_lattice_inputs)": partial(mesher._lattice_inputs, ms, cfg, ids, res),
+        "the earlier wrapper's conversions": lambda: (ids.to(torch.int32).contiguous(), [
+            t.contiguous() for t in (ms.corner_idx, ms.lat_coords, ms.embeddings)]),
+    }
+    costs = {k: host_us_idle(fn) for k, fn in pieces.items()}
+    log(f"[K10a] host us per call, res {res}, {ids.numel()} voxels (card idle before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    return costs
+
+
 def k12_host_costs(label, ht, u, o, d, packed, dfeats, xyz, aid, valid, k2, vs):
     """Host us of K1's and K2's wrappers and of their checks, beside the
     conversions their earlier wrappers made instead (each input through
@@ -1636,6 +1654,10 @@ def mesh_kernels(slam, ms):
         for res in (2, 4):
             cct = mesher._lattice_tables(res, dev)[2]
             ncell = cct.shape[0]
+            n0 = mesher.mesh_lattice_launches
+            e_f, e_p = mesher.mesh_lattice(st, cfg, ids_pad[:0], res)  # B = 0: no launch
+            check(e_f.shape == (0, res ** 3, cfg.feat_dim) and e_p.shape == (0, res ** 3, 3)
+                  and mesher.mesh_lattice_launches == n0, f"K10a at B = 0 (res {res}, {dt})")
             feats, pos = mesher.mesh_lattice(st, cfg, ids_pad, res)
             sdf = mesher.decoder_apply(dec, feats, cdt)[..., 0]
             tris, valid = marching.marching_tets_lattice(sdf, pos, cct, ids_pad)
@@ -1702,12 +1724,16 @@ def mesh_kernels(slam, ms):
     pad_bound = bound(in_bytes + B * ncell * 12 * 37, B * ncell * 6 * 60)[0]
     log(f"[K10] res 2, {B} voxels: the decoder between K10a and K10b {dec_ms:.4f} ms; K10b "
         f"padded {kb_pad:.4f} ms, bound {pad_bound:.5f} ms")
+    host = k10a_host_costs(st, cfg, ids, res)
     return [
         # ids, corner ids and coords per voxel and the distinct corner rows
         # in; feats and pos out
         record("mesh_lattice", "mesh.cu", "nerfloam_tpu/map/mesher.py:59", 0.0, ka, pa,
                B * (4 + 32 + 12) + corners * F * esz + B * S * (F + 3) * 4, B * S * (15 * F + 6),
-               dev=partial(mesher.mesh_lattice, st, cfg, ids, res)),
+               dev=partial(mesher.mesh_lattice, st, cfg, ids, res),
+               forms={"mesh_lattice, res 4": (partial(mesher.mesh_lattice, st, cfg, ids, 4),
+                                              KERNEL_FUNCTIONS["mesh_lattice"])},
+               host_us=host),
         record("marching_tets", "mesh.cu", "nerfloam_tpu/ops/marching.py:63", 0.0, kb, pb,
                in_bytes + T * 36 + 4, B * ncell * 6 * 60, dev=compact,
                forms={"marching_tets, padded": (padded, KERNEL_FUNCTIONS["marching_tets"])},
@@ -1844,6 +1870,49 @@ def mesh_report(tag, slam):
         f"{sec['mesh_extract']['mean_ms']:.3f}, host weld {sec['mesh_weld']['mean_ms']:.3f}, "
         f"clean {sec['mesh_clean']['mean_ms']:.3f} "
         f"({sec['mesh_extract']['count']} extractions)")
+    mesh_split(tag, slam)
+
+
+def mesh_split(tag, slam, calls=5):
+    """Where one mesh extract's time goes (``extract_triangles``, as the
+    pipeline's ``extract_mesh`` calls it, on the path's final map): the
+    wall ms of a first call and the median of ``calls`` more without the
+    profiler, then torch.profiler over ``calls`` calls: every device
+    operation by name (launches and device us a call) and the host
+    operations with the most self CPU time. The launch counters are put
+    back after it: the path counts only its own meshes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = counters()
+    fn = partial(mesher.extract_triangles, slam.state.map_state, slam.map_cfg,
+                 slam.state.decoder_params, slam.mesh_res, slam.compute_dtype,
+                 scratch=slam.mesh_scratch)
+    walls = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for k, (mod, attr) in _COUNTERS.items():
+        setattr(mod, attr, saved[k])
+    events = prof.key_averages()
+    on_dev = [e for e in events if _on_device(e)]
+    dev = lambda e: getattr(e, "self_device_time_total", 0.0) / calls  # noqa: E731
+    log(f"{tag} mesh split, one extract_triangles call (res {slam.mesh_res}): wall "
+        f"{walls[0]:.3f} ms the first call, {float(np.median(walls[1:])):.3f} ms the median of "
+        f"{calls} more (no profiler); device {sum(map(dev, on_dev)) / 1e3:.3f} ms in "
+        f"{sum(e.count for e in on_dev) / calls:g} launches a call (profile):")
+    for e in sorted(on_dev, key=dev, reverse=True):
+        log(f"{tag} mesh split device {dev(e):10.2f} us {e.count / calls:6g} x  {e.key[:100]}")
+    host = sorted((e for e in events if not _on_device(e)), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:15]:
+        log(f"{tag} mesh split host {e.self_cpu_time_total / calls / 1e3:8.3f} ms self CPU "
+            f"{e.count / calls:6g} x  {e.key[:100]}")
 
 
 def gate_mesh(tag, slam, ds, poses, gt):

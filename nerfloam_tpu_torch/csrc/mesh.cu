@@ -3,13 +3,20 @@
 // marching.py:63-106 marching_tets_cells). The decoder runs between them
 // in torch (a plain matrix product, as in JAX).
 //
-// K10a mesh_lattice: one thread per (surface voxel b, lattice sample s,
-// feature f). The voxel's 8 corner rows are read through clip(cidx, 0) as
-// JAX reads them, widened to f32, and summed with the sample's trilinear
-// weights in corner order j = x<<2 | y<<1 | z, one rounded product and one
-// rounded add per corner (no FMA), so at res 2 (weights 0 / 1) the
-// features are the corner rows themselves. Threads f < 3 also write the
-// sample's world position base + fr * vs.
+// K10a mesh_lattice: a group of G = F / 4 lanes per surface voxel b, each
+// lane owning four features. The group reads the voxel's id and its 8
+// corner ids once (lanes split the loads and pass them by shuffle), and
+// each lane its four features of the 8 corner rows, through clip(cidx, 0)
+// as JAX reads them, in one 16-byte (f32) or 8-byte (bf16) load a row,
+// widened to f32 and kept in registers. The block stages the (S, 8)
+// trilinear weights and the (S, 3) fractions in shared memory once. A lane
+// then walks the S samples, summing in corner order j = x<<2 | y<<1 | z,
+// one rounded product and one rounded add per corner (no FMA), from the
+// first product, and stores one float4 a sample, so at res 2 (weights 0 /
+// 1) the features are the corner rows themselves. The group's lanes also
+// write the voxel's (S, 3) positions base + fr * vs, consecutive floats.
+// Templated on F (8, 16, 32) and res (2, 3, 4): every index is 32-bit
+// arithmetic on compile-time divisors (the wrapper bounds B * S * F).
 //
 // K10b marching_tets: a thread per (cell, Kuhn tetrahedron), 64 cells (a
 // tile) per block. A tet gathers its 4 lattice samples through the
@@ -39,8 +46,8 @@
 //            call, and the output buffer is allocated, never filled.
 //
 // Bound on the H100: both are memory-bound by their bytes. K10a reads 8
-// rows of F embeddings per voxel (L2 serves the S samples' re-reads) and
-// writes S * (F + 3) floats per voxel. K10b reads 4 floats per lattice
+// rows of F embeddings per voxel (once, into registers) and writes S * (F
+// + 3) floats per voxel. K10b reads 4 floats per lattice
 // sample (B * S * 16 bytes; L1 and L2 serve the 6 tets' re-reads); the
 // padded form writes 12 x (36 + 1) bytes per cell, 444 B, by 4-byte
 // stores 72 B apart, which take most of its time; the compact form writes
@@ -57,7 +64,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kLatThreads = 256;                // K10a: threads per block
 constexpr int kTetCells = 64;                   // K10b: cells per block (a tile)
 constexpr int kTetThreads = 6 * kTetCells;      // a thread per (cell, tetrahedron)
 constexpr int kTetWarps = kTetThreads / 32;
@@ -65,39 +72,92 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kAggregate = 1ull << 32;  // a tile's own count is published
 constexpr unsigned long long kPrefix = 2ull << 32;     // its inclusive prefix is
 
-inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+// four embedding entries from 16 (f32) or 8 (bf16) aligned bytes, as f32
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));  // entry 2i in x's low half
+  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct LatticeArgs {
+  const int* voxel_ids;   // (B,), -1 pads
+  const int* corner_idx;  // (C, 8)
+  const void* emb;        // (C, F) f32 or bf16
+  const int* lat_coords;  // (C, 3)
+  const float* fr;        // (S, 3) lattice fractions
+  const float* w;         // (S, 8) trilinear weights
+  int B;
+  float vs;
+  float* feats;  // (B, S, F)
+  float* pos;    // (B, S, 3)
+};
 
-template <typename Emb>
-__global__ void mesh_lattice_kernel(const int* __restrict__ voxel_ids,
-                                    const int* __restrict__ corner_idx,
-                                    const Emb* __restrict__ emb,
-                                    const int* __restrict__ lat_coords,
-                                    const float* __restrict__ fr, const float* __restrict__ w,
-                                    long long n, int S, int F, float vs,
-                                    float* __restrict__ feats, float* __restrict__ pos) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  int f = (int)(t % F);
-  long long bs = t / F;
-  int s = (int)(bs % S);
-  long long b = bs / S;
-  int v = voxel_ids[b];
-  if (v < 0) v = 0;
-  const int* c = corner_idx + 8LL * v;
-  float acc = 0.0f;
+template <typename Emb, int F, int RES>
+__global__ void __launch_bounds__(kLatThreads) mesh_lattice_kernel(const LatticeArgs a) {
+  constexpr int S = RES * RES * RES;
+  constexpr int G = F / 4;                 // lanes per voxel
+  constexpr int kVoxels = kLatThreads / G;  // voxels per block
+  static_assert(F % 4 == 0 && 32 % G == 0, "a voxel's group must tile a warp");
+  __shared__ float s_w[S * 8], s_fr[S * 3];
+  for (int i = threadIdx.x; i < S * 8; i += kLatThreads) s_w[i] = a.w[i];
+  for (int i = threadIdx.x; i < S * 3; i += kLatThreads) s_fr[i] = a.fr[i];
+  __syncthreads();
+  const int q = threadIdx.x % G;
+  const int b = blockIdx.x * kVoxels + threadIdx.x / G;
+  if (b >= a.B) return;  // the whole group: its lanes share b
+  const int lane = threadIdx.x % 32;
+  const unsigned group = G == 32 ? kFull : ((1u << G) - 1u) << (lane - q);
+  // the voxel's row, then its corners' and its coords, the loads split
+  // over the group's lanes and passed by shuffle
+  int v = q == 0 ? a.voxel_ids[b] : 0;
+  v = __shfl_sync(group, v < 0 ? 0 : v, 0, G);
+  constexpr int kPer = (8 + G - 1) / G;
+  int mine[kPer], cmine[(3 + G - 1) / G];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = q + k * G;
+    const int c = j < 8 ? a.corner_idx[8 * v + j] : 0;
+    mine[k] = c < 0 ? 0 : c;
+  }
+#pragma unroll
+  for (int k = 0; k < (3 + G - 1) / G; ++k) {
+    const int c = q + k * G;
+    cmine[k] = c < 3 ? a.lat_coords[3 * v + c] : 0;
+  }
+  const Emb* emb = static_cast<const Emb*>(a.emb);
+  float e[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    int row = c[j] < 0 ? 0 : c[j];
-    float p = __fmul_rn(w[8 * s + j], to_f(emb[(size_t)row * F + f]));
-    acc = j == 0 ? p : __fadd_rn(acc, p);
+    const int row = __shfl_sync(group, mine[j / G], j % G, G);
+    load4(emb + (size_t)row * F + 4 * q, e[j]);
   }
-  feats[t] = acc;
-  if (f < 3) {
-    float base = __fmul_rn((float)lat_coords[3LL * v + f], vs);
-    pos[bs * 3 + f] = __fadd_rn(base, __fmul_rn(fr[3 * s + f], vs));
+  float base[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    base[c] = __fmul_rn((float)__shfl_sync(group, cmine[c / G], c % G, G), a.vs);
+  float* out = a.feats + b * (S * F) + 4 * q;
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    float acc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = __fmul_rn(s_w[8 * s], e[0][k]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      const float wj = s_w[8 * s + j];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, e[j][k]));
+    }
+    *reinterpret_cast<float4*>(out + s * F) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+  float* po = a.pos + b * (S * 3);
+  for (int i = q; i < 3 * S; i += G) {
+    const int c = i % 3;
+    const float bc = c == 0 ? base[0] : (c == 1 ? base[1] : base[2]);
+    po[i] = __fadd_rn(bc, __fmul_rn(s_fr[i], a.vs));
   }
 }
 
@@ -308,25 +368,47 @@ __global__ void __launch_bounds__(kTetThreads)
   }
 }
 
+template <typename Emb, int F, int RES>
+void launch_lattice(const LatticeArgs& a, cudaStream_t st) {
+  constexpr int kVoxels = kLatThreads / (F / 4);
+  mesh_lattice_kernel<Emb, F, RES><<<(a.B + kVoxels - 1) / kVoxels, kLatThreads, 0, st>>>(a);
+}
+
+template <typename Emb, int F>
+bool launch_lattice(int res, const LatticeArgs& a, cudaStream_t st) {
+  switch (res) {
+    case 2: return launch_lattice<Emb, F, 2>(a, st), true;
+    case 3: return launch_lattice<Emb, F, 3>(a, st), true;
+    case 4: return launch_lattice<Emb, F, 4>(a, st), true;
+  }
+  return false;
+}
+
+template <typename Emb>
+bool launch_lattice(int F, int res, const LatticeArgs& a, cudaStream_t st) {
+  switch (F) {
+    case 8: return launch_lattice<Emb, 8>(res, a, st);
+    case 16: return launch_lattice<Emb, 16>(res, a, st);
+    case 32: return launch_lattice<Emb, 32>(res, a, st);
+  }
+  return false;
+}
+
 }  // namespace
 
-// feats (B, S, F) and pos (B, S, 3) for B voxel ids (-1 pads read row 0)
+// feats (B, res^3, F) and pos (B, res^3, 3) for B voxel ids (-1 pads read
+// row 0); F in {8, 16, 32}, res in {2, 3, 4}, B * res^3 * F < 2^31, emb
+// 16-byte aligned
 extern "C" int nl_mesh_lattice(const int* voxel_ids, const int* corner_idx, const void* emb,
                                int bf16, const int* lat_coords, const float* fr, const float* w,
-                               int B, int S, int F, float vs, float* feats, float* pos,
+                               int B, int res, int F, float vs, float* feats, float* pos,
                                void* stream) {
-  long long n = (long long)B * S * F;
+  if ((long long)B * res * res * res * F >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const LatticeArgs a{voxel_ids, corner_idx, emb, lat_coords, fr, w, B, vs, feats, pos};
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0) {
-    if (bf16)
-      mesh_lattice_kernel<__nv_bfloat16><<<blocks(n), kThreads, 0, st>>>(
-          voxel_ids, corner_idx, static_cast<const __nv_bfloat16*>(emb), lat_coords, fr, w, n, S,
-          F, vs, feats, pos);
-    else
-      mesh_lattice_kernel<float><<<blocks(n), kThreads, 0, st>>>(
-          voxel_ids, corner_idx, static_cast<const float*>(emb), lat_coords, fr, w, n, S, F, vs,
-          feats, pos);
-  }
+  if (B > 0 && !(bf16 ? launch_lattice<__nv_bfloat16>(F, res, a, st)
+                      : launch_lattice<float>(F, res, a, st)))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

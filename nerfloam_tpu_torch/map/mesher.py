@@ -33,6 +33,7 @@ from nerfloam_tpu_torch.ops.marching import (
 
 # K10a launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
 mesh_lattice_launches = 0
+_K10A = "mesh_lattice"
 # lattice cells per device chunk: the (cells, 12, 3, 3) triangle buffer of a
 # chunk stays under 1 GiB
 CHUNK_CELLS = 1 << 21
@@ -86,6 +87,39 @@ def mesh_lattice_plain(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids:
     return feats, pos
 
 
+def _lattice_inputs(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids: torch.Tensor,
+                    res: int):
+    """Check K10a's inputs as the kernel reads them (voxel_ids (B,) and the
+    (C, 8) corner and (C, 3) coordinate tables int32, the (C, F) embeddings
+    f32 or bf16, each contiguous and on one device) and return the device;
+    on the card also F in (8, 16, 32), res in (2, 3, 4), B * res^3 * F
+    under 2^31 and the embeddings 16-byte aligned."""
+    dev = voxel_ids.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_K10A}: unsupported device {dev}")
+    emb, F = map_state.embeddings, map_cfg.feat_dim
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{_K10A}: embeddings must be float32 or bfloat16; got {emb.dtype}")
+    if voxel_ids.dim() != 1:
+        raise ValueError(f"{_K10A}: voxel_ids must be (B,); got {tuple(voxel_ids.shape)}")
+    cidx, lat = map_state.corner_idx, map_state.lat_coords
+    kernels.expect(_K10A, dev, torch.int32, voxel_ids=voxel_ids, corner_idx=cidx, lat_coords=lat)
+    kernels.expect(_K10A, dev, emb.dtype, embeddings=emb)
+    C = cidx.shape[0]
+    kernels.expect_shape(_K10A, corner_idx=(cidx, (C, 8)), lat_coords=(lat, (C, 3)),
+                         embeddings=(emb, (emb.shape[0], F)))
+    if dev.type == "cuda":
+        if F not in (8, 16, 32) or res not in (2, 3, 4):
+            raise ValueError(f"{_K10A}: the kernel takes feat_dim 8, 16 or 32 and res 2, 3 or "
+                             f"4; got {F} and {res}")
+        if voxel_ids.shape[0] * res ** 3 * F >= 2**31:
+            raise ValueError(f"{_K10A}: {voxel_ids.shape[0]} voxels x {res ** 3} samples x {F} "
+                             "features need 32-bit indices")
+        if emb.data_ptr() % 16:
+            raise ValueError(f"{_K10A}: embeddings must be 16-byte aligned")
+    return dev
+
+
 def mesh_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids: torch.Tensor,
                  res: int):
     """K10a. Replaces the XLA fusion of nerfloam_tpu/map/mesher.py:59-72
@@ -93,34 +127,26 @@ def mesh_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids: torch
     ``_mesh_chunk``).
 
     voxel_ids (B,) int32 lattice rows of surface voxels (-1 = padding, reads
-    row 0) -> (feats (B, res^3, F) float32, pos (B, res^3, 3) float32). CPU
-    tensors take ``mesh_lattice_plain``; CUDA tensors launch csrc/mesh.cu
-    (one thread per voxel, sample and feature)."""
-    dev = voxel_ids.device
+    row 0) -> (feats (B, res^3, F) float32, pos (B, res^3, 3) float32).
+    Inputs are taken as they are (``_lattice_inputs``): anything else
+    raises ValueError. CPU tensors take ``mesh_lattice_plain``; CUDA
+    tensors launch csrc/mesh.cu once (a group of F / 4 lanes per voxel)."""
+    dev = _lattice_inputs(map_state, map_cfg, voxel_ids, res)
     if dev.type == "cpu":
         return mesh_lattice_plain(map_state, map_cfg, voxel_ids, res)
-    if dev.type != "cuda":
-        raise ValueError(f"mesh_lattice: unsupported device {dev}")
     global mesh_lattice_launches
-    F = map_cfg.feat_dim
-    if F < 3:
-        raise ValueError("mesh_lattice: the kernel needs feat_dim >= 3")
-    emb = map_state.embeddings
-    if emb.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("mesh_lattice takes float32 or bfloat16 embeddings")
-    ids = voxel_ids.to(torch.int32).contiguous()
-    cidx, lat, emb = (t.contiguous() for t in (map_state.corner_idx, map_state.lat_coords, emb))
-    if any(t.device != dev for t in (cidx, lat, emb)):
-        raise ValueError("mesh_lattice: the map and voxel_ids must be on one device")
+    emb, F = map_state.embeddings, map_cfg.feat_dim
     fr, w, _ = _lattice_tables(res, dev)
-    B, S = ids.shape[0], fr.shape[0]
+    B, S = voxel_ids.shape[0], fr.shape[0]
     feats = torch.empty((B, S, F), dtype=torch.float32, device=dev)
     pos = torch.empty((B, S, 3), dtype=torch.float32, device=dev)
     kernels.check(kernels.lib().nl_mesh_lattice(
-        ids.data_ptr(), cidx.data_ptr(), emb.data_ptr(), int(emb.dtype == torch.bfloat16),
-        lat.data_ptr(), fr.data_ptr(), w.data_ptr(), B, S, F, map_cfg.voxel_size,
-        feats.data_ptr(), pos.data_ptr(), kernels.stream_ptr(dev)), "mesh_lattice")
-    mesh_lattice_launches += 1
+        voxel_ids.data_ptr(), map_state.corner_idx.data_ptr(), emb.data_ptr(),
+        int(emb.dtype == torch.bfloat16), map_state.lat_coords.data_ptr(), fr.data_ptr(),
+        w.data_ptr(), B, res, F, map_cfg.voxel_size, feats.data_ptr(), pos.data_ptr(),
+        kernels.stream_ptr(dev)), _K10A)
+    if B:
+        mesh_lattice_launches += 1
     return feats, pos
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Device and host time of K9a (occupancy march) and K10b (marching
-tetrahedra) at the shapes the main paths give them, on one CUDA card,
+"""Device and host time of K9a (occupancy march), K10a (mesh lattice) and
+K10b (marching tetrahedra) at the shapes the main paths give them, on
+one CUDA card,
 through the functions every tree of the port has since its fourth slice
-(``raycast.march_occupancy``, ``raycast.CdfPlacer`` and
-``marching.marching_tets_lattice`` followed by the ``tris[valid]`` that
+(``raycast.march_occupancy``, ``raycast.CdfPlacer``,
+``mesher.mesh_lattice`` and ``marching.marching_tets_lattice`` followed
+by the ``tris[valid]`` that
 compacted its output), with every device operation of a call listed by
 name: the port's kernels and the torch operations around them (an
 origin's copy, the boolean index's nonzero and gather), each with its
@@ -26,9 +28,11 @@ config's first three frames, random embeddings) and rays of its frame 0.
 K9a at the Adam tracker's 2048 rays x 100 slots (one origin per ray, and
 the trackers' one origin expanded to every ray), a tracker frame's march
 + placer made at adam25's shape and at the replica gate tracker's, and
-BA's superset march + placer at the gate's 768 rows. K10b over every
-surface voxel of the map at res 2 (the shipped mesh_res), on the
-decoder's sdf of K10a's lattice. Prints no result line.
+BA's superset march + placer at the gate's 768 rows. K10a over every
+surface voxel of the map at res 2 (the shipped mesh_res) and res 4, with
+the config's bf16 and with f32 embeddings, beside the host us of the
+conversions its first wrapper made. K10b over every surface voxel at res
+2, on the decoder's sdf of K10a's lattice. Prints no result line.
 """
 
 import os
@@ -89,6 +93,24 @@ def k9a(ms, cfg, shapes):
             op_split(f"K9a CdfPlacer.march {label}", marched)
             pieces["CdfPlacer.march"] = marched
         host(f"K9a {label}", pieces)
+
+
+def k10a(slam, ms):
+    """K10a over the map's surface voxels: every device operation of a
+    call at res 2 and 4, bf16 and f32, and the wrapper's host us at res 2
+    beside the conversions the first wrapper made (a no-op here: the ids
+    are int32, the tables contiguous)."""
+    cfg, ids = slam.map_cfg, vm.surface_voxel_ids(ms)
+    log(f"[K10a] {ids.numel()} surface voxels, feat_dim {cfg.feat_dim}")
+    for dt in (ms.embeddings.dtype, torch.float32):
+        st = ms._replace(embeddings=ms.embeddings.to(dt))
+        for res in (2, 4):
+            op_split(f"K10a mesh_lattice res {res} {dt}", partial(mesher.mesh_lattice, st, cfg,
+                                                                   ids, res))
+    host("K10a res 2", {
+        "mesh_lattice": partial(mesher.mesh_lattice, ms, cfg, ids, 2),
+        "the first wrapper's conversions": lambda: (ids.to(torch.int32).contiguous(), [
+            t.contiguous() for t in (ms.corner_idx, ms.lat_coords, ms.embeddings)])})
 
 
 def k10b(slam, ms, res=2):
@@ -158,6 +180,7 @@ def main():
         "gate60 tracker": (rc_gt, rc_gt.n_samples, None, "origin row stride 0", rg),
         "gate60 BA superset": (rc_gb, rc_gb.n_samples, nb, "origin per ray", rb),
     })
+    k10a(q, ms)
     k10b(q, ms)
     return 0
 

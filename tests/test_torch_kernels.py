@@ -687,6 +687,32 @@ def test_divisions_and_adam_on_card_match_cpu(cuda):
     assert torch.equal(m_c.cpu(), m) and torch.equal(n_c.cpu(), n)
 
 
+def test_mesh_lattice_rejects_what_it_would_convert():
+    """K10a's wrapper takes its inputs as they are, on the CPU too: int64 or
+    strided voxel ids, a strided or int64 table, embeddings of another type
+    or width raise ValueError instead of being converted; what it takes,
+    the CPU twin computes."""
+    ms, *_ = _case("cpu", seed=11)
+    ids = vm.surface_voxel_ids(ms)
+    assert ids.dtype == torch.int32 and ids.numel() > 8
+    feats, pos = tmesher.mesh_lattice(ms, T_CFG, ids, 2)
+    rf, rp = tmesher.mesh_lattice_plain(ms, T_CFG, ids, 2)
+    assert torch.equal(feats, rf) and torch.equal(pos, rp)
+    wide = torch.zeros((ms.embeddings.shape[0], 32))
+    for voxel_ids, state, match in (
+            (ids.long(), ms, "voxel_ids must be a contiguous torch.int32"),
+            (ids[::2], ms, "voxel_ids must be a contiguous"),
+            (ids[None], ms, r"voxel_ids must be \(B,\)"),
+            (ids, ms._replace(corner_idx=ms.corner_idx.t().contiguous().t()),
+             "corner_idx must be a contiguous"),
+            (ids, ms._replace(lat_coords=ms.lat_coords.long()), "lat_coords must be a contiguous"),
+            (ids, ms._replace(embeddings=ms.embeddings.half()), "float32 or bfloat16"),
+            (ids, ms._replace(embeddings=wide[:, ::2]), "embeddings must be a contiguous"),
+            (ids, ms._replace(embeddings=wide), "embeddings has shape")):
+        with pytest.raises(ValueError, match=match):
+            tmesher.mesh_lattice(state, T_CFG, voxel_ids, 2)
+
+
 def test_pack_embeddings_wrappers_reject_what_they_cannot_read():
     """E1's wrappers raise on a scratch never built, and the forward on a
     device it does not know; they run everywhere."""
@@ -890,10 +916,17 @@ def test_mesh_kernels_match_plain(cuda, res, emb_dtype):
     assert ids.numel() > 100
     ids = torch.cat([ids, torch.full((37,), -1, dtype=torch.int32, device=cuda)])
     n0 = (tmesher.mesh_lattice_launches, tmarch.marching_tets_launches)
+    # B = 0: empty outputs, no launch
+    ef, ep = tmesher.mesh_lattice(ms, T_CFG, ids[:0], res)
+    assert ef.shape == (0, res ** 3, 16) and ep.shape == (0, res ** 3, 3)
+    assert tmesher.mesh_lattice_launches == n0[0]
     kf, kp = tmesher.mesh_lattice(ms, T_CFG, ids, res)
     rf, rp = tmesher.mesh_lattice_plain(ms, T_CFG, ids, res)
     assert kf.shape == (ids.numel(), res ** 3, 16) and kp.shape == (ids.numel(), res ** 3, 3)
     assert torch.equal(kf, rf) and torch.equal(kp, rp)
+    # a chunk that ends inside a block (voxels of a block past B are skipped)
+    kf7, kp7 = tmesher.mesh_lattice(ms, T_CFG, ids[:7], res)
+    assert torch.equal(kf7, rf[:7]) and torch.equal(kp7, rp[:7])
     if res == 2:  # weights 0 / 1: the corner rows themselves
         rows = ms.embeddings[ms.corner_idx[ids.clamp(min=0).long()].clamp(min=0).long()].float()
         assert torch.equal(kf, rows)
@@ -903,7 +936,7 @@ def test_mesh_kernels_match_plain(cuda, res, emb_dtype):
     kt, kv = tmarch.marching_tets_lattice(sdf, rp, cct, ids)
     rt, rv = tmarch.marching_tets_lattice_plain(sdf, rp, cct, ids)
     torch.cuda.synchronize()
-    assert (tmesher.mesh_lattice_launches, tmarch.marching_tets_launches) == (n0[0] + 1,
+    assert (tmesher.mesh_lattice_launches, tmarch.marching_tets_launches) == (n0[0] + 2,
                                                                               n0[1] + 1)
     assert kt.shape == (ids.numel() * (res - 1) ** 3, 12, 3, 3)
     assert torch.equal(kv, rv) and torch.equal(kt, rt)
