@@ -47,7 +47,9 @@
    launch a call, and the host us of a tracker frame's march + placer;
    K10a (mesh lattice) and K10b (marching tetrahedra) over every surface
    voxel (and 37 padding ids) at res 2 and res 4 with bf16 and f32
-   embeddings, K10b padded against its twin and in its compact form (the
+   embeddings, K10a also at B = 0 (no launch) and with the host us of its
+   wrapper beside the conversions its first wrapper made, K10b padded
+   against its twin and in its compact form (the
    mesh path's: only the valid triangles, compacted on the card) against
    the twin's tris[valid], T equal and the triangles torch.equal, also
    for a chunk with no triangle, twice through one kept TetScratch; K11a
@@ -79,7 +81,9 @@
      of the quality stack (configs/kitti_quality.json: support voxels
      both sides, 8 band samples, bias transfer; run with a RunLogger in a
      temporary directory, so finalize writes both meshes and the pose
-     files, which are read back and checked), of the Adam tracker at the
+     files, which are read back and checked, and one mesh extract on its
+     final map is split by operation: device us by name, host CPU by
+     operation), of the Adam tracker at the
      KITTI budget (configs/kitti_adam25.json: 25 iterations x 2048 rays x
      64 grid samples, BA on the hit table) and of the quality stack with
      the scan-to-scan term (configs/kitti_quality_s2s.json: s2s_weight 10,
@@ -100,28 +104,29 @@
      the JAX package's ATE, and the replica gate (seed 0) with the three
      fallback knobs, held to the gate's limits with its raw ATE on the
      median over generator seeds 777-792 (each printed) and JAX's median
-     there.
+     there (the 16 draws run in four processes side by side on the card;
+     the config's own seed must repeat the main path's digits).
    Each path's launch counts are zeroed just before it and read just
    after. Prints the tracker ms the s2s term adds to the quality path.
    Prints scans/s over frames 6 to the end, sections, host syncs,
    overflow counters, the final sdf_bias and the ATE against ground
    truth, and checks them: every kernel of the path launched, no drops,
    ATE in bound.
-5. torch.profiler breakdowns of a few steady frames of the budget,
-   quality, s2s, Adam, replica-gate and exact configs: device launches and
-   device ms per frame (one summary line for all five), device time per
-   launch of each port kernel;
-   then each kernel-phase call profiled alone: its device time per CUDA
+5. Each kernel-phase call profiled alone: its device time per CUDA
    function and its CUDA launches per call (K4 in every form, K9a in
-   every form, K9b, K10b in both forms, K11b, K1 in both origin forms,
-   K2's d xyz form, K3 at both shapes and K8 in every form must make
-   exactly one; K2's d packed form at most four and
-   K7 at most five, all of them the port's (K7 profiled with the undo of
-   each call, reported apart); K11a at most two of the port's, its other
+   every form, K9b, K10a at res 2 and 4, K10b in both forms, K11b, K1 in
+   both origin forms, K2's d xyz form, K3 at both shapes and K8 in every
+   form must make exactly one; K2's d packed form at most four and K7 at
+   most five, all of them the port's (K7 profiled with the undo of each
+   call, reported apart); K11a at most two of the port's, its other
    launches exactly those of its se3.pose_rotation, printed apart; K5's
-   and K6's pack share printed). A session
-   that misses one of a wrapper's CUDA functions is run again, up to three
-   times, and then the run fails.
+   and K6's pack share printed). A session that misses one of a
+   wrapper's CUDA functions is run again, up to eight sessions, and then
+   the run fails. Then torch.profiler breakdowns of a few steady frames
+   of the budget, quality, s2s, Adam, replica-gate and exact configs:
+   device launches and device ms per frame (one summary line for all
+   six), device time per launch of each port kernel.
+   A "[time]" line after each phase gives the seconds from the start.
 
 A summary line gives every path's ATE (both gate seeds raw and aligned,
 the resumed run). Any failure raises (exit code 1). The last three lines
@@ -140,8 +145,10 @@ inflates less than the wall clock.
 """
 
 import argparse
+import concurrent.futures
 import gc
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -198,6 +205,7 @@ GATE60_EXACT_JAX = {"raw": 0.17483422102246532, "aligned": 0.044754717005029546}
 # of the exact gate (data seed 0) at each, on a CPU:
 #   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 0 --exact --tpu-seed N
 GATE60_SPREAD_SEEDS = tuple(range(777, 793))
+SPREAD_WORKERS = 4  # the spread's draws side by side: each is host-bound (~1 core)
 GATE60_EXACT_JAX_RAW = (
     0.17483422102246532, 0.2031743713761486, 0.22137659077424693, 0.13834254191482986,
     0.1540344387498666, 0.10957749906726641, 0.12041057388065288, 0.17778003603117476,
@@ -414,7 +422,7 @@ def port_kernel_times(prof):
     return out
 
 
-def device_us(name, fn, reps=20, sessions=5, want=None):
+def device_us(name, fn, reps=20, sessions=8, want=None):
     """Device microseconds per launch of each CUDA function a wrapper call
     launches, averaged over the launches torch.profiler captured in
     ``reps`` calls, their sum (the device time of one call, each function
@@ -2189,6 +2197,25 @@ def gate_path(here, seed, exact=False):
     return cfg, ds, result
 
 
+def spread_draw(here, ts):
+    """One draw of the exact gate (data seed 0, generator seed ``ts``) in a
+    worker process of gate_spread: (raw ATE, aligned ATE, every pose there
+    and finite, dropped delta events)."""
+    torch.set_num_threads(2)
+    cfg = load_cfg(here, "replica_gate60", seed=0, exact=True, tpu_seed=ts)
+    ds = get_dataset(cfg)
+    slam = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    frames = make_frames(slam, ds)
+    slam.process_first_frame(frames[0])
+    for f in frames[1:]:
+        slam.process_frame(f)
+    poses = np.asarray(slam.finalize())
+    gt = ds.gt_trajectory()[:len(poses)]
+    return (ate_rmse(poses, gt, align=False), ate_rmse(poses, gt, align=True),
+            len(poses) == len(frames) and bool(np.isfinite(poses).all()),
+            slam.dropped_delta_events)
+
+
 def gate_spread(here, first):
     """The exact replica gate (data seed 0) over GATE60_SPREAD_SEEDS, the
     random stream's seeds (``tpu_specs.seed``; ``first``: main_path's ATE
@@ -2198,31 +2225,27 @@ def gate_spread(here, first):
     0.27 m on the median of the draws, and that median to JAX's median
     over the same seeds (max(1.5 x, + 0.05 m); JAX's own exact gate
     crosses 0.27 m there once, at 790, with 0.8875 m); every draw's aligned
-    ATE to the gate's 0.17 m. Each draw is printed."""
-    cfg0 = load_cfg(here, "replica_gate60", seed=0, exact=True)
-    ds = get_dataset(cfg0)
-    gt = ds.gt_trajectory()
-    raws, aligned = [first["raw"]], [first["aligned"]]
-    for ts in GATE60_SPREAD_SEEDS[1:]:
-        slam = NerfLoamSLAM_torch(load_cfg(here, "replica_gate60", seed=0, exact=True,
-                                           tpu_seed=ts), ds, device="cuda")
-        frames = make_frames(slam, ds)
-        slam.process_first_frame(frames[0])
-        for f in frames[1:]:
-            slam.process_frame(f)
-        poses = np.asarray(slam.finalize())
-        check(len(poses) == len(frames) and np.isfinite(poses).all(),
-              f"gate spread: seed {ts} lost poses")
-        check(slam.dropped_delta_events == 0, f"gate spread: dropped deltas at seed {ts}")
-        raws.append(ate_rmse(poses, gt[:len(poses)], align=False))
-        aligned.append(ate_rmse(poses, gt[:len(poses)], align=True))
-        log(f"[gate spread] replica_gate60_exact_s0, generator seed {ts}: ATE raw {raws[-1]:.4f} m, "
-            f"aligned {aligned[-1]:.4f} m")
-        del slam
-        torch.cuda.empty_cache()
+    ATE to the gate's 0.17 m. Each draw is printed. The draws run in
+    SPREAD_WORKERS processes side by side on the card, the config's own
+    seed among them: its draw must repeat main_path's to the last digit."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            SPREAD_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        draws = list(pool.map(partial(spread_draw, here), GATE60_SPREAD_SEEDS))
+    for ts, (raw, al, ok, dropped) in zip(GATE60_SPREAD_SEEDS, draws):
+        log(f"[gate spread] replica_gate60_exact_s0, generator seed {ts}: ATE raw {raw:.4f} m, "
+            f"aligned {al:.4f} m")
+        check(ok, f"gate spread: seed {ts} lost poses")
+        check(dropped == 0, f"gate spread: dropped deltas at seed {ts}")
+    check(draws[0][:2] == (first["raw"], first["aligned"]),
+          f"gate spread: the draw at seed {GATE60_SPREAD_SEEDS[0]} ({draws[0][:2]}) differs from "
+          f"the main path's ({first['raw']}, {first['aligned']})")
+    raws, aligned = [d[0] for d in draws], [d[1] for d in draws]
     med, jmed = float(np.median(raws)), float(np.median(GATE60_EXACT_JAX_RAW))
     bound_ = max(1.5 * jmed, jmed + 0.05)
-    log(f"[gate spread] {len(raws)} generator seeds: raw ATE median {med:.4f} m (gate "
+    log(f"[gate spread] {len(raws)} generator seeds in {time.perf_counter() - t0:.1f} s "
+        f"({SPREAD_WORKERS} processes; seed {GATE60_SPREAD_SEEDS[0]} repeats the main path's "
+        f"digits): raw ATE median {med:.4f} m (gate "
         f"{GATE60_ATE_RAW_MAX}; JAX's median {jmed:.4f} m over the same seeds, bound "
         f"{bound_:.4f} m), {sum(r >= GATE60_ATE_RAW_MAX for r in raws)} draws at or over "
         f"{GATE60_ATE_RAW_MAX} m (JAX: {sum(r >= GATE60_ATE_RAW_MAX for r in GATE60_EXACT_JAX_RAW)}); "
@@ -2257,6 +2280,10 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
+    t_run = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[time] {phase} done {time.perf_counter() - t_run:.1f} s from the start")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2302,6 +2329,7 @@ def main(argv=None):
     del gate_slam
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
+    stamp("the kernel phase")
     with tempfile.TemporaryDirectory() as workdir:
         results = kitti_paths(kitti, cfgs, ds, workdir)
         track = {n: results[n][2]["track"]["mean_ms"]
@@ -2311,11 +2339,15 @@ def main(argv=None):
             f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
         resumed_ate = checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
+    stamp("the KITTI paths and the checkpoint")
     gate_ds = {}
     for s_ in GATE60_SEEDS:
         _, gate_ds[s_], results[f"replica_gate60_s{s_}"] = gate_path(here, s_)
     _, _, results["replica_gate60_exact_s0"] = gate_path(here, 0, exact=True)
     spread = gate_spread(here, results["replica_gate60_exact_s0"][3])
+    stamp("the gate paths and the spread")
+    add_device_times(records)
+    stamp("the kernel-phase calls profiled")
     per_frame = {label: profile_phase(label, cfg, d) for label, cfg, d in (
         ("kitti_budget", cfgs["kitti_budget"], ds), ("kitti_quality", cfgs["kitti_quality"], ds),
         ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
@@ -2327,7 +2359,7 @@ def main(argv=None):
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
         + f", kitti_quality resumed {resumed_ate:.4f}, replica_gate60_exact_s0 median raw over "
         f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}")
-    add_device_times(records)
+    stamp("the frame profiles")
     for r in records:
         by_path = {n: results[n][0][r["name"]] for n in results}
         r["launches"] = sum(by_path.values())
