@@ -226,6 +226,10 @@ TIMED_RUNS = 20
 PAIRED_RUNS = 200          # K9b and K11b against their library calls, in turns
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
+# Host sleep at each edge of a profiled window. The trace's device
+# timestamps stray from the host clock by up to ~7 ms, and kineto drops the
+# records that fall outside the window (scripts/profiler_sessions.py).
+PROFILE_PAD_S = 0.025
 _MAP = ("insert", "reconcile", "active_set")
 _MESH = ("mesh_lattice", "marching_tets")
 _QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "active_field_fwd")
@@ -429,7 +433,8 @@ def device_us(name, fn, reps=20, sessions=8, want=None):
     launching once per call), and the device launches (the port's
     kernels, torch's, copies) per call. Each session traces a warm-up step of
     ``reps`` calls that it discards (a cold session drops kernel records)
-    before the ``reps`` it keeps. Every function of KERNEL_FUNCTIONS[name]
+    before the ``reps`` it keeps, each step's calls between two sleeps of
+    PROFILE_PAD_S. Every function of KERNEL_FUNCTIONS[name]
     (or of ``want``, a form's own functions) must show ``reps`` launches at
     least, and every device operation that recurs a whole multiple of
     ``reps``: a session that drops records, or keeps a stray few of the
@@ -445,9 +450,11 @@ def device_us(name, fn, reps=20, sessions=8, want=None):
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      acc_events=True) as prof:
             for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
                 prof.step()
         times = port_kernel_times(prof)
         # device work that recurs on every call (a session also holds a
@@ -1903,9 +1910,11 @@ def mesh_split(tag, slam, calls=5):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     for k, (mod, attr) in _COUNTERS.items():
         setattr(mod, attr, saved[k])
     events = prof.key_averages()
@@ -2160,12 +2169,14 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     for f in frames[1:-n_profiled]:
         slam.process_frame(f)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
         for f in frames[-n_profiled:]:
             slam.process_frame(f)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     events = [e for e in prof.key_averages() if _on_device(e)]
     dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
     total = sum(dev(e) for e in events)
