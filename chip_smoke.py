@@ -170,7 +170,7 @@ from nerfloam_tpu_torch.core.tracking import _ray_dirs, t_cap_for
 from nerfloam_tpu_torch.data import get_dataset
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.ops import marching, raycast, se3
+from nerfloam_tpu_torch.ops import ieee, interp, marching, raycast, se3
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
 from nerfloam_tpu_torch.utils.checkpoint import (
     DERIVED_MAP_FIELDS,
@@ -231,22 +231,25 @@ FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 # records that fall outside the window (scripts/profiler_sessions.py).
 PROFILE_PAD_S = 0.025
 _MAP = ("insert", "reconcile", "active_set")
+# every path's rays, depths, t_cap and LM step take the norm (ops/ieee.py)
+_NORM = ("norm3",)
 _MESH = ("mesh_lattice", "marching_tets")
 _QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "active_field_fwd")
 PATH_KERNELS = {           # kernels each main path must launch
-    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP,
-    "kitti_quality": _QUALITY + _MAP + _MESH,
-    "kitti_quality_s2s": _QUALITY + _MAP + ("build_prev_scan", "s2s_system"),
+    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP
+    + _NORM,
+    "kitti_quality": _QUALITY + _MAP + _MESH + _NORM,
+    "kitti_quality_s2s": _QUALITY + _MAP + ("build_prev_scan", "s2s_system") + _NORM,
     "kitti_adam25": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                     "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP,
+                     "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP + _NORM,
     "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                       "hits_field_bwd", "gn_system") + _MAP + _MESH,
+                       "hits_field_bwd", "gn_system") + _MAP + _MESH + _NORM,
     # exact gradients: E1 every BA iteration, no reconcile (no voxel touched)
     "kitti_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd", "hits_field_bwd",
-                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set"),
+                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set") + _NORM,
     "replica_gate60_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                              "hits_field_bwd", "gn_system", "pack_embeddings",
-                             "pack_embeddings_vjp", "insert", "active_set") + _MESH,
+                             "pack_embeddings_vjp", "insert", "active_set") + _MESH + _NORM,
 }
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
@@ -272,6 +275,7 @@ KERNEL_FUNCTIONS = {
     "pack_embeddings": ("active_pack_rows_kernel",),
     "pack_embeddings_vjp": ("pack_grad_kernel",),
     "pack_embeddings_vjp_build": ("pack_grad_link_kernel", "pack_grad_order_kernel"),
+    "norm3": ("norm3_kernel",),
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
@@ -283,7 +287,7 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "active_field_fwd, gate band, origin row stride 0", "march_occupancy",
               "mesh_lattice", "mesh_lattice, res 4", "marching_tets", "marching_tets, padded",
               "pack_embeddings", "pack_embeddings_vjp", "pack_embeddings, gate60",
-              "pack_embeddings_vjp, gate60") + tuple(
+              "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -399,6 +403,7 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "pack_embeddings": (vm, "pack_embeddings_launches"),
     "pack_embeddings_vjp": (vm, "pack_grad_launches"),
     "pack_embeddings_vjp_build": (vm, "pack_grad_build_launches"),
+    "norm3": (ieee, "norm3_launches"),
 }
 
 
@@ -907,7 +912,64 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
+    records.append(ieee_phase(p, tables[slam.tp.n_rays][4], gen))
     return records
+
+
+def ieee_phase(p, pts, gen):
+    """[ieee]: the arithmetic the port rounds as JAX rounds it on the CPU
+    (ops/ieee.py). norm3 on the card (csrc/norm3.cu) torch.equal to its
+    plain form on the CPU over one frame's (65,536, 3) points and a
+    tracker frame's 2048 rays, with torch.linalg.norm's rows that differ
+    from it printed for the record (on the card and on the CPU); the
+    routed divisions (ieee.div and rdiv, exp_so3's series coefficients,
+    interp_corner_features' / voxel_size) equal to the CPU's, beside the
+    rows torch's own division by a Python number gets wrong; norm3 timed
+    against torch.linalg.norm in turns. Returns norm3's record."""
+    p_cpu = p.cpu()
+    ref = ieee.norm3(p_cpu)
+    got = ieee.norm3(p)
+    torch.cuda.synchronize()
+    check(torch.equal(got.cpu(), ref), "[ieee] norm3 on the card differs from the CPU")
+    check(torch.equal(ieee.norm3(pts).cpu(), ieee.norm3(pts.cpu())),
+          "[ieee] norm3 at the tracker's rays differs from the CPU")
+    check(torch.equal(ieee.norm3(p, keepdim=True).cpu(), ref[:, None]),
+          "[ieee] norm3 keepdim differs from the CPU")
+    lib = torch.linalg.norm(p, dim=-1)
+    lib_rows = int((lib.cpu() != ref).sum())
+    cpu_rows = int((torch.linalg.norm(p_cpu, dim=-1) != ref).sum())
+    log(f"[ieee] norm3 on the card torch.equal to the CPU on all {len(ref)} rows of a frame's "
+        f"points and on {len(pts)} tracker rays; torch.linalg.norm differs from it on {lib_rows} "
+        f"rows on the card and on {cpu_rows} on the CPU")
+    t2 = torch.rand((1 << 16,), generator=gen, device=p.device) * 1e-8
+    for k, (a, b) in enumerate(zip(se3._sinc_coeffs(t2), se3._sinc_coeffs(t2.cpu()))):
+        check(torch.equal(a.cpu(), b), f"[ieee] exp_so3's series coefficient {'AB'[k]} differs")
+    x = torch.rand((1 << 16,), generator=gen, device=p.device) * 40.0 + 1e-3
+    wrong = {}
+    for s_ in (0.3, 0.2, 0.4, 6.0, 24.0, 120.0, 720.0):
+        check(torch.equal(ieee.div(x, s_).cpu(), ieee.div(x.cpu(), s_)), f"[ieee] div by {s_}")
+        check(torch.equal(ieee.rdiv(s_, x).cpu(), ieee.rdiv(s_, x.cpu())), f"[ieee] rdiv {s_}")
+        wrong[s_] = int(((x / s_).cpu() != ieee.div(x.cpu(), s_)).sum())
+    for vs in (0.2, 0.3, 0.4):
+        c = (torch.floor(torch.randn((4096, 3), generator=gen, device=p.device) * 5) + 0.5) * vs
+        q = c + (torch.rand((4096, 3), generator=gen, device=p.device) - 0.5) * vs
+        f = torch.randn((4096, 8, 16), generator=gen, device=p.device)
+        check(torch.equal(interp.interp_corner_features(q, c, f, vs).cpu(),
+                          interp.interp_corner_features(q.cpu(), c.cpu(), f.cpu(), vs)),
+              f"[ieee] interp_corner_features at voxel size {vs} differs from the CPU")
+    log("[ieee] div, rdiv, exp_so3's series (65,536 angles) and interp_corner_features (voxel "
+        "sizes 0.2, 0.3, 0.4) give the CPU's digits; torch's x / s on the card differs from one "
+        "IEEE division on " + ", ".join(f"{n} of {len(x)} (s = {s_})" for s_, n in wrong.items()))
+    n = len(p)
+    k_ms, lib_ms = paired_median_ms(partial(ieee.norm3, p), partial(torch.linalg.norm, p, dim=-1))
+    plain_ms = median_ms(partial(ieee.norm3_plain, p))
+    k2, lib2 = paired_median_ms(partial(ieee.norm3, pts), partial(torch.linalg.norm, pts, dim=-1))
+    log(f"[ieee] norm3 in turns with torch.linalg.norm: {n} rows {k_ms:.4f} against "
+        f"{lib_ms:.4f} ms, {len(pts)} rows {k2:.4f} against {lib2:.4f} ms")
+    return record("norm3", "norm3.cu", "nerfloam_tpu/core/tracking.py:158 (jnp.linalg.norm's "
+                  "reduce fusion, at every site)", max_abs(got, ref.to(p.device)), k_ms, plain_ms,
+                  16 * n, 6 * n, lib_ms, dev=partial(ieee.norm3, p),
+                  forms={"norm3, R=2048": (partial(ieee.norm3, pts), KERNEL_FUNCTIONS["norm3"])})
 
 
 def clone_state(ms):

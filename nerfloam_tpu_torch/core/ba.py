@@ -53,6 +53,7 @@ from nerfloam_tpu_torch.core.render import (
 from nerfloam_tpu_torch.core.tracking import _ray_dirs, scale_by_adam_, t_cap_for
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import se3
+from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -181,7 +182,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if bp.surface_anchor or bp.band_samples:
             ub = (torch.rand((W, N, bp.band_samples), generator=generator,
                              device=dev).reshape(W * N, -1) if bp.band_samples else None)
-            ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, bp.truncation,
+            ez = extra_surface_z(norm3(pts), pcos, bp.truncation,
                                  bp.surface_anchor, bp.band_samples, ub)
             extra = (field, ez, rvalid.reshape(W * N))
         rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
@@ -237,7 +238,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field
         with torch.no_grad():
             xyz = se3.transform_points(pos.detach(), points)             # (W, P, 3)
-            depth = torch.linalg.norm(points, dim=-1)
+            depth = norm3(points)
             ok = points_valid & frame_active[:, None] & (depth < bp.max_depth)
             sdf_pts, m = field_at_points(field, packed, new_dec,
                                          xyz.reshape(-1, 1, 3), depth.reshape(-1, 1),

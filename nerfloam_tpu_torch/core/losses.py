@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from nerfloam_tpu_torch.ops.ieee import norm3
+
 MAX_DEPTH = 10000.0  # sentinel depth for invalid samples
 
 
@@ -27,7 +29,7 @@ def sdf_losses(
     sdf_bias=0.0,
 ):
     """Weighted free-space + truncated-SDF loss: (loss, loss dict)."""
-    gt_distance = torch.linalg.norm(gt_points, dim=-1) * points_cos
+    gt_distance = norm3(gt_points) * points_cos
     z = z_vals * points_cos[:, None]
     d = gt_distance[:, None]
     valid = valid_mask & ray_mask[:, None]

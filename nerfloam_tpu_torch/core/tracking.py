@@ -56,6 +56,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import decoder_apply
 from nerfloam_tpu_torch.ops import se3
+from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -134,13 +135,13 @@ def _bias_ray(pcos, sdf_bias, dev):
 
 def t_cap_for(points: torch.Tensor, cos: torch.Tensor, truncation: float, max_depth: float):
     """Per-ray useful range: measured distance + cosine-widened band."""
-    d = torch.linalg.norm(points, dim=-1)
+    d = norm3(points)
     band = rdiv(truncation, torch.clamp(cos, min=0.05))
     return torch.clamp(d + band + 0.5, max=max_depth)
 
 
 def _ray_dirs(pts: torch.Tensor) -> torch.Tensor:
-    return pts / (torch.linalg.norm(pts, dim=-1, keepdim=True) + 1e-8)
+    return pts / (norm3(pts, keepdim=True) + 1e-8)
 
 
 def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
@@ -277,8 +278,8 @@ def trust_region(delta):
     rotation (tracking.py:329-332): each half scaled by min(1, r / (|v| +
     1e-12)), r / (...) one IEEE division as in JAX. Returns (dt, dth)."""
     dt, dth = delta[:3], delta[3:]
-    dt = dt * torch.clamp(rdiv(0.5, torch.linalg.norm(dt) + 1e-12), max=1.0)
-    dth = dth * torch.clamp(rdiv(0.1, torch.linalg.norm(dth) + 1e-12), max=1.0)
+    dt = dt * torch.clamp(rdiv(0.5, norm3(dt) + 1e-12), max=1.0)
+    dth = dth * torch.clamp(rdiv(0.1, norm3(dth) + 1e-12), max=1.0)
     return dt, dth
 
 
@@ -324,10 +325,10 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     pcos = points_cos[ridx]
     dirs = _ray_dirs(pts)
     t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
-    d_meas = torch.linalg.norm(pts, dim=-1) * pcos
+    d_meas = norm3(pts) * pcos
     depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
-    dnorm = torch.linalg.norm(pts, dim=-1)
+    dnorm = norm3(pts)
     n_extra = tp.surface_anchor + tp.band_samples
     # what stays fixed over the frame, checked once: K8's grid and K3's rays
     field = ActiveField(map_state, map_cfg)
@@ -387,7 +388,7 @@ def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, 
     origin = se3.pose_translation(pose6).expand_as(wdirs)
     extra = None
     if tp.surface_anchor or tp.band_samples:
-        ez = extra_surface_z(torch.linalg.norm(pts, dim=-1), pcos, tp.truncation,
+        ez = extra_surface_z(norm3(pts), pcos, tp.truncation,
                              tp.surface_anchor, tp.band_samples, band_u)
         extra = (field, ez, rvalid)
     out = render_rays(field.state.packed, decoder_params, field, origin, wdirs, rvalid, placer, u,

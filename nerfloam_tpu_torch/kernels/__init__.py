@@ -79,6 +79,7 @@ _SIGNATURES = {
     "nl_range_image_part_ints": [],
     "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],
+    "nl_norm3": [_P, _I, _P, _P],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _F, _I, _P, _P, _P, _P],
 }

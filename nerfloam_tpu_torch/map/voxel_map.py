@@ -42,6 +42,7 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.ops import se3
+from nerfloam_tpu_torch.ops.ieee import div, norm3, rdiv  # noqa: F401 (div, rdiv re-exported)
 from nerfloam_tpu_torch.ops.interp import CORNER_OFFSETS
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
@@ -150,22 +151,6 @@ def _add_in_order(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor)
         m = occ == o
         out.index_add_(0, ci[m], vals[m])
     return out
-
-
-def div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s rounded as IEEE division. torch on CUDA turns division by a
-    Python scalar into a multiply by its reciprocal, which can move
-    floor(x / voxel_size) across a voxel face; a same-device 0-d tensor
-    divisor keeps the true division the kernels use (__fdiv_rn)."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
-
-
-def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
-    """s / x rounded as IEEE division, as JAX divides a Python scalar by an
-    array. torch evaluates ``s / x`` as ``x.reciprocal() * s``, two
-    roundings on the CPU and on CUDA; a same-device 0-d tensor numerator
-    keeps one (__fdiv_rn on the card)."""
-    return torch.full((), s, dtype=x.dtype, device=x.device) / x
 
 
 def _flat_cell(rel: torch.Tensor, grid_dim: tuple):
@@ -1043,7 +1028,7 @@ def insert_frame(state: MapState, cfg: MapConfig, points_sensor: torch.Tensor,
     world = se3.transform_points(pose6, points_sensor)
     if cfg.support_dist <= 0:
         return insert_points(state, cfg, world, valid, cand_cap, append_active, scratch)
-    dirs = points_sensor / (torch.linalg.norm(points_sensor, dim=-1, keepdim=True) + 1e-8)
+    dirs = points_sensor / (norm3(points_sensor, keepdim=True) + 1e-8)
     wdirs = se3.rotate_dirs(pose6, dirs)
     down = torch.tensor([0.0, 0.0, -1.0], dtype=world.dtype, device=world.device)
     off = torch.where(points_cos[:, None] < 0.999, down[None, :], wdirs)

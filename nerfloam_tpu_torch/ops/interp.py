@@ -7,16 +7,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nerfloam_tpu_torch.ops.ieee import div
+
 # (8, 3) corner offsets in the reference corner order.
 CORNER_OFFSETS = np.array([[(j >> 2) & 1, (j >> 1) & 1, j & 1] for j in range(8)], dtype=np.int32)
 
 
 def trilinear_weights(p: torch.Tensor) -> torch.Tensor:
     """Weights for fractional position p (..., 3) in [0,1]^3 -> (..., 8):
-    w_j = prod_axis (p q_j + (1-p)(1-q_j))."""
+    w_j = prod_axis (p q_j + (1-p)(1-q_j)), multiplied x, y, z in turn
+    (XLA's reduction order, and the kernels')."""
     q = torch.as_tensor(CORNER_OFFSETS, dtype=p.dtype, device=p.device)
     pq = p[..., None, :] * q + (1.0 - p[..., None, :]) * (1.0 - q)
-    return torch.prod(pq, dim=-1)
+    return (pq[..., 0] * pq[..., 1]) * pq[..., 2]
 
 
 def interp_corner_features(
@@ -26,7 +29,14 @@ def interp_corner_features(
     voxel_size: float,
 ) -> torch.Tensor:
     """Interpolate (..., 8, F) corner features at world points (..., 3);
-    p = (x - center)/voxel_size + 0.5 lies in [0,1]^3 inside the voxel."""
-    p = (sample_xyz - voxel_center) / voxel_size + 0.5
+    p = (x - center)/voxel_size + 0.5 lies in [0,1]^3 inside the voxel
+    (one IEEE division, as JAX's). The eight weighted rows are added in
+    corner order, each product and sum rounded on its own: XLA's CPU
+    reduction and the kernels' order (``torch.sum`` adds in another)."""
+    p = div(sample_xyz - voxel_center, voxel_size) + 0.5
     w = trilinear_weights(p)
-    return torch.sum(w[..., None] * corner_feats.to(w.dtype), dim=-2)
+    f = corner_feats.to(w.dtype)
+    out = w[..., 0, None] * f[..., 0, :]
+    for j in range(1, 8):
+        out = out + w[..., j, None] * f[..., j, :]
+    return out

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from nerfloam_tpu_torch.ops.ieee import div, norm3
+
 _SMALL = 1e-8  # theta^2 switch point for the series branches
 
 
@@ -29,14 +31,16 @@ def skew(w: torch.Tensor) -> torch.Tensor:
 def _sinc_coeffs(theta2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A = sin(t)/t and B = (1-cos(t))/t^2 with a grad-safe small-angle
     branch: the value fed to sqrt is clamped on the series side so the
-    branch not taken stays finite and differentiable."""
+    branch not taken stays finite and differentiable. The series terms
+    divide as JAX does (one IEEE division each, ``ieee.div``)."""
     small = theta2 < _SMALL
     safe_t2 = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(safe_t2)
     a_exact = torch.sin(theta) / theta
     b_exact = (1.0 - torch.cos(theta)) / safe_t2
-    a_series = 1.0 - theta2 / 6.0 + theta2 * theta2 / 120.0
-    b_series = 0.5 - theta2 / 24.0 + theta2 * theta2 / 720.0
+    t4 = theta2 * theta2
+    a_series = 1.0 - div(theta2, 6.0) + div(t4, 120.0)
+    b_series = 0.5 - div(theta2, 24.0) + div(t4, 720.0)
     return torch.where(small, a_series, a_exact), torch.where(small, b_series, b_exact)
 
 
@@ -76,7 +80,7 @@ def log_so3(R: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     q = torch.where(idx == 0, qw, torch.where(idx == 1, qx, torch.where(idx == 2, qy, qz)))
     q = q * torch.where(q[..., 0:1] < 0.0, -1.0, 1.0)
     vec = q[..., 1:4]
-    n = torch.linalg.norm(vec, dim=-1)
+    n = norm3(vec.contiguous())
     theta = 2.0 * torch.atan2(n, q[..., 0])
     small = n < 1e-6
     scale = torch.where(small, torch.full_like(n, 2.0), theta / torch.where(small, torch.ones_like(n), n))

@@ -77,6 +77,8 @@ from nerfloam_tpu_torch.core import scan2scan as ts2s
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.map import mesher as tmesher
 from nerfloam_tpu_torch.map import voxel_map as vm
+from nerfloam_tpu_torch.ops import ieee
+from nerfloam_tpu_torch.ops import interp as tinterp
 from nerfloam_tpu_torch.ops import marching as tmarch
 from nerfloam_tpu_torch.ops import raycast as trc
 from nerfloam_tpu_torch.ops import se3 as tse3
@@ -685,6 +687,44 @@ def test_divisions_and_adam_on_card_match_cpu(cuda):
         upd = ttr.scale_by_adam_(gr, m, n, t)
         assert torch.equal(upd_c.cpu(), upd), f"step {t}"
     assert torch.equal(m_c.cpu(), m) and torch.equal(n_c.cpu(), n)
+
+
+def test_norm3_and_divisions_on_card_match_cpu(cuda):
+    """norm3 on the card (csrc/norm3.cu, one launch) is torch.equal to its
+    plain form on the CPU (which tests/test_torch_ops.py holds bit for bit
+    to jnp.linalg.norm) on 65,536 rows with magnitudes 1e-3 to 1e3 and
+    zero rows, keepdim, batched, a (3,) vector and an empty input (no
+    launch); it raises on what it cannot take. The routed divisions:
+    exp_so3's series coefficients and interp_corner_features' / voxel_size
+    give the CPU's digits."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((1 << 16, 3), generator=g) * torch.exp(torch.rand((1 << 16, 1), generator=g)
+                                                          * 13.8 - 6.9)
+    x[::97] = 0.0
+    before = ieee.norm3_launches
+    assert torch.equal(ieee.norm3(x.to(cuda)).cpu(), ieee.norm3(x))
+    assert torch.equal(ieee.norm3(x.to(cuda), keepdim=True).cpu(), ieee.norm3(x, keepdim=True))
+    y = x[:65535].reshape(5, 13107, 3)
+    assert torch.equal(ieee.norm3(y.to(cuda)).cpu(), ieee.norm3(y))
+    assert torch.equal(ieee.norm3(x[5].to(cuda)).cpu(), ieee.norm3(x[5]))
+    assert ieee.norm3(torch.zeros((0, 3), device=cuda)).shape == (0,)
+    assert ieee.norm3_launches == before + 4
+    assert torch.equal(ieee.norm3_plain(x.to(cuda)).cpu(), ieee.norm3(x))
+    for bad in (x.to(cuda).double(), x.to(cuda)[:, :2], x.to(cuda).t(),
+                x.to(cuda).requires_grad_(True)):
+        with pytest.raises(ValueError):
+            ieee.norm3(bad)
+    t2 = torch.rand((8192,), generator=g) * 1e-8
+    for got, ref in zip(tse3._sinc_coeffs(t2.to(cuda)), tse3._sinc_coeffs(t2)):
+        assert torch.equal(got.cpu(), ref)
+    for vs in (0.2, 0.3, 0.4):
+        c = (torch.floor(torch.randn((4096, 3), generator=g) * 5) + 0.5) * vs
+        p = c + (torch.rand((4096, 3), generator=g) - 0.5) * vs
+        f = torch.randn((4096, 8, 16), generator=g)
+        assert torch.equal(tinterp.interp_corner_features(p.to(cuda), c.to(cuda), f.to(cuda),
+                                                          vs).cpu(),
+                           tinterp.interp_corner_features(p, c, f, vs))
+        assert torch.equal(ieee.div(p.to(cuda), vs).cpu(), ieee.div(p, vs))
 
 
 def test_mesh_lattice_rejects_what_it_would_convert():

@@ -16,6 +16,7 @@ from nerfloam_tpu.ops import sampling as jsampling
 from nerfloam_tpu.ops import se3 as jse3
 from nerfloam_tpu_torch.core import losses as tlosses
 from nerfloam_tpu_torch.models import decoder as tdec
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import interp as tinterp
 from nerfloam_tpu_torch.ops import sampling as tsampling
 from nerfloam_tpu_torch.ops import se3 as tse3
@@ -91,6 +92,75 @@ def test_interp_matches_jax():
            jinterp.interp_corner_features(jnp.asarray(xyz), jnp.asarray(center),
                                           jnp.asarray(feats), vs))
     assert (tinterp.CORNER_OFFSETS == jinterp.CORNER_OFFSETS).all()
+
+
+def _vectors(n, seed):
+    """n seeded (n, 3) f32 rows, magnitudes 1e-3 to 1e3, every 97th zero."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, 3)) * 10 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    x[::97] = 0.0
+    return x
+
+
+def test_norm3_matches_jax_bit_for_bit():
+    """ieee.norm3 is jnp.linalg.norm(axis=-1) bit for bit on 65,536 rows
+    (and with keepdims, batched, on single (3,) vectors), where the form
+    with three products and two adds is not: XLA's CPU reduction contracts
+    into fused multiply-adds."""
+    x = _vectors(65536, 0)
+    ref = np.asarray(jnp.linalg.norm(jnp.asarray(x), axis=-1))
+    got = ieee.norm3(torch.as_tensor(x)).numpy()
+    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    a, b, c = (torch.as_tensor(x[:, i]) for i in range(3))
+    three_adds = torch.sqrt(((a * a + b * b) + c * c).double()).float().numpy()
+    assert (three_adds != ref).sum() > 1000  # the order the fused form is chosen over
+    keep = ieee.norm3(torch.as_tensor(x), keepdim=True).numpy()
+    assert keep.shape == (65536, 1) and np.array_equal(keep[:, 0], ref)
+    y = x[:65535].reshape(5, 13107, 3)
+    assert np.array_equal(ieee.norm3(torch.as_tensor(y)).numpy(),
+                          np.asarray(jnp.linalg.norm(jnp.asarray(y), axis=-1)))
+    jit_norm = jax.jit(lambda v: jnp.linalg.norm(v))
+    for v in x[:300]:
+        assert float(ieee.norm3(torch.as_tensor(v))) == float(jit_norm(jnp.asarray(v)))
+
+
+def test_ieee_divisions_match_jax_and_keep_one_constant():
+    """div and rdiv divide once, as JAX's array / number and number /
+    array, and make their 0-d constant once per (value, dtype, device)."""
+    x = np.abs(_vectors(4096, 1)).reshape(-1) + np.float32(1e-3)
+    for s in (0.3, 0.2, 6.0, 720.0):
+        assert np.array_equal(ieee.div(torch.as_tensor(x), s).numpy(),
+                              np.asarray(jnp.asarray(x) / s))
+        assert np.array_equal(ieee.rdiv(s, torch.as_tensor(x)).numpy(),
+                              np.asarray(s / jnp.asarray(x)))
+    assert ieee.const(0.3, torch.float32, "cpu") is ieee.const(0.3, torch.float32, "cpu")
+    assert ieee.const(0.3, torch.float64, "cpu").dtype == torch.float64
+
+
+def test_sinc_coeffs_series_matches_jax():
+    """The small-angle series of exp_so3 (theta^2 < 1e-8, its four
+    divisions by 6, 24, 120 and 720 each one IEEE division) is JAX's bit
+    for bit, as are both coefficients at zero."""
+    rng = np.random.default_rng(4)
+    t2 = np.concatenate([rng.uniform(0, 1e-8, 8192), rng.uniform(0, 1e-12, 1024),
+                         [0.0, 9.99e-9]]).astype(np.float32)
+    a, b = tse3._sinc_coeffs(torch.as_tensor(t2))
+    ja, jb = jse3._sinc_coeffs(jnp.asarray(t2))
+    assert np.array_equal(a.numpy(), np.asarray(ja))
+    assert np.array_equal(b.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("vs", [0.2, 0.3])
+def test_interp_corner_features_bit_equal_to_jax(vs):
+    rng = np.random.default_rng(5)
+    center = (np.floor(rng.normal(size=(4096, 3)) * 5) + 0.5).astype(np.float32) * np.float32(vs)
+    xyz = (center + rng.uniform(-0.5, 0.5, size=(4096, 3)) * vs).astype(np.float32)
+    feats = rng.normal(size=(4096, 8, 16)).astype(np.float32)
+    got = tinterp.interp_corner_features(torch.as_tensor(xyz), torch.as_tensor(center),
+                                         torch.as_tensor(feats), vs)
+    ref = jinterp.interp_corner_features(jnp.asarray(xyz), jnp.asarray(center),
+                                         jnp.asarray(feats), vs)
+    assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
