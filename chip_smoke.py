@@ -62,7 +62,12 @@
    transpose torch.equal to pack_embeddings_vjp_plain and between two
    calls through one kept PackGradScratch, beside index_select /
    index_add_; K5's sum form (reconcile_mode=sum) torch.equal to its
-   twin in bf16 and f32.
+   twin in bf16 and f32; [ieee]: norm3 (csrc/norm3.cu, the length of
+   3-vectors in XLA's CPU order) torch.equal to its plain form on the CPU
+   over one frame's 65,536 points and 2048 tracker rays, beside the rows
+   torch.linalg.norm gets otherwise, the routed divisions (ieee.div /
+   rdiv, exp_so3's series, interp_corner_features) equal to the CPU's, and
+   norm3 timed in turns with torch.linalg.norm.
    K9b is checked with one origin per ray, with one origin broadcast to
    every ray (row stride 0, the trackers' form, timed at the Adam shapes)
    and over a superset cdf whose rows each call picks (BA's form, timed at
@@ -94,6 +99,15 @@
      thresholds with growth events and no dropped deltas, and to its mesh
      thresholds (f_score, Chamfer-L1) on the cleaned mesh; each frame's
      raw translation error printed;
+   - the off-by-default knobs, 30 frames each, held to the JAX package's
+     ATE on the same config: configs/kitti_knobs.json (quality + replay
+     every 5 frames, ba_pose_project=along, remove_back; its replay steps
+     equal to JAX's, its BA-delta telemetry's along column ~0, remove_back's
+     share of the points JAX's), configs/kitti_mapping_gt.json (quality on
+     ground-truth poses, mapping only: no K3; its rows and mesh beside
+     JAX's) and configs/kitti_decoder_pe.json (budget + a decoder skip and
+     the nerf embedder, multires 4); and 10 frames of the budget config
+     with the gaussian embedder, finite;
    - checkpoint and resume on the quality config: 15 frames, save, load
      into a fresh object (every saved table compared), 15 more frames and
      finalize from the loaded one;
@@ -194,9 +208,27 @@ from nerfloam_tpu_torch.utils.logger import RunLogger, read_ply
 # kitti_exact (kitti_adam25 with the reference-exact fallbacks and f32 embeddings) is
 # `--adam25 --exact`, run on 2026-10-17 (960 s)
 KITTI_EXACT_ATE_JAX = 1.5971614366073668
+# the off-by-default knobs' paths: `--knobs`, `--mapping-gt`, `--decoder-pe`
+# (kitti_knobs.json, kitti_mapping_gt.json, kitti_decoder_pe.json), run on
+# 2026-10-18 (1445, 1046 and 1246 s); beside each ATE, what the JAX run
+# printed that the path is held to or printed beside
+KNOBS_JAX = {"ate": 1.4092449944450205, "replay_steps": 4,
+             "max_abs_along_m": 6.877073627996923e-06, "remove_back_dropped": 0.07804941289772938}
+MAPPING_GT_JAX = {"ate": 0.007943602417526424, "num_lat": 153702, "mesh_triangles": 357018,
+                  "mesh_triangles_clean": 64810}
+# the nerf-embedded decoder drifts at the budget, JAX's too
+DECODER_PE_ATE_JAX = 11.336090479594267
 ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826,
            "kitti_adam25": 49.932506364901286, "kitti_quality_s2s": 1.4469814645550143,
-           "kitti_exact": KITTI_EXACT_ATE_JAX}
+           "kitti_exact": KITTI_EXACT_ATE_JAX, "kitti_knobs": KNOBS_JAX["ate"],
+           "kitti_mapping_gt": MAPPING_GT_JAX["ate"], "kitti_decoder_pe": DECODER_PE_ATE_JAX}
+# the along column of the BA-delta telemetry under ba_pose_project=along: BA
+# projects the motion direction out of every pose update, so it reads 0 up to
+# the f32 rounding of the pose (JAX pipeline.py:811-816): an ulp of a
+# coordinate is 1.9-3.8e-6 m at 16-32 m, and each of BA's 25 updates rounds
+# once (JAX reads 6.9e-6 m on this config)
+ALONG_MAX_M = 1e-4
+GAUSSIAN_FRAMES = 10  # the gaussian embedder's run on the card: finite, no bound
 # replica_gate60 with the reference-exact fallbacks, seed 0: the JAX package on a CPU,
 #   JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 0 --exact
 # (run on 2026-10-17, 118 s; one active-set growth); printed beside the port's
@@ -250,7 +282,17 @@ PATH_KERNELS = {           # kernels each main path must launch
     "replica_gate60_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                              "hits_field_bwd", "gn_system", "pack_embeddings",
                              "pack_embeddings_vjp", "insert", "active_set") + _MESH + _NORM,
+    # the off-by-default knobs: replay, along, remove_back on the quality stack
+    "kitti_knobs": _QUALITY + _MAP + _MESH + _NORM,
+    # mapping only on GT poses: BA (K4, K1, K2, K8) and the map, no tracker (no K3)
+    "kitti_mapping_gt": ("hit_table", "hits_field_fwd", "hits_field_bwd", "active_field_fwd")
+    + _MAP + _MESH + _NORM,
+    # a decoder skip and the nerf embedder on the budget row
+    "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP
+    + _NORM,
 }
+# paths run with a RunLogger: finalize writes both meshes and the pose files
+LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt")
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
     "hit_table": ("hit_table_warp_kernel",),
@@ -306,9 +348,14 @@ def ate_bound(name):
     return max(1.5 * a, a + 0.05)
 
 
-def load_cfg(here, name, seed=None, exact=False, tpu_seed=None):
+def load_cfg(here, name, seed=None, exact=False, tpu_seed=None, **groups):
+    """A config of nerfloam_tpu_torch/configs/ with the data seed, the
+    generator seed, the exact fallbacks and ``groups`` ({group: {key:
+    value}}) set."""
     with open(os.path.join(here, "nerfloam_tpu_torch", "configs", f"{name}.json")) as f:
         d = json.load(f)
+    for group, values in groups.items():
+        d[group].update(values)
     if seed is not None:
         d["data_specs"]["seed"] = seed
     if tpu_seed is not None:
@@ -416,12 +463,12 @@ def zero_counters():
         setattr(mod, attr, 0)
 
 
-def port_kernel_times(prof):
+def port_kernel_times(averages):
     """{CUDA function of csrc/*.cu: (device us in all, launches)} from a
-    torch.profiler run."""
+    torch.profiler run's ``key_averages()``."""
     ours = {fn for fns in KERNEL_FUNCTIONS.values() for fn in fns}
     out = {}
-    for e in prof.key_averages():
+    for e in averages:
         m = re.search(r"\(anonymous namespace\)::(\w+)", e.key)
         dev_us = getattr(e, "self_device_time_total", 0.0)
         if m is None or m.group(1) not in ours or not e.count or not dev_us:
@@ -461,12 +508,13 @@ def device_us(name, fn, reps=20, sessions=8, want=None):
                 torch.cuda.synchronize()
                 time.sleep(PROFILE_PAD_S)
                 prof.step()
-        times = port_kernel_times(prof)
+        averages = prof.key_averages()
+        times = port_kernel_times(averages)
         # device work that recurs on every call (a session also holds a
         # stray record or two of the profiler's own; an operation with
         # half its records or more is counted, so that one which lost some
         # fails the whole-multiple test)
-        recurring = [e.count for e in prof.key_averages()
+        recurring = [e.count for e in averages
                      if _on_device(e) and e.count >= reps // 2]
         if all(times.get(f, (0, 0))[1] >= reps for f in want) and not any(
                 n % reps for n in recurring):
@@ -1906,11 +1954,14 @@ def s2s_kernels(slam, sp, frames, gen):
     ]
 
 
-def make_frames(slam, ds):
+def make_frames(slam, ds, n=None):
+    """The dataset's frames (its first ``n``); a dataset with ground-truth
+    poses (``data_specs.use_gt``) gives mapping-only frames."""
     frames = []
-    for i in range(len(ds)):
-        idx, pts, cos, _ = ds[i]
-        frames.append(Frame.from_raw(idx, pts, cos, None, slam.points_pad))
+    for i in range(len(ds) if n is None else n):
+        idx, pts, cos, pose = ds[i]
+        frames.append(Frame.from_raw(idx, pts, cos, pose, slam.points_pad,
+                                     has_gt_pose=pose is not None))
     frames[0].pose6 = pose6_from_matrix_np(ds.get_init_pose(0))
     for f in frames:
         f.device_arrays(slam.device)
@@ -1947,7 +1998,9 @@ def mesh_report(tag, slam):
         f"{sec['mesh_extract']['mean_ms']:.3f}, host weld {sec['mesh_weld']['mean_ms']:.3f}, "
         f"clean {sec['mesh_clean']['mean_ms']:.3f} "
         f"({sec['mesh_extract']['count']} extractions)")
-    mesh_split(tag, slam)
+    if tag == "[main kitti_quality]":
+        mesh_split(tag, slam)
+    return len(tris), len(f), len(fc)
 
 
 def mesh_split(tag, slam, calls=5):
@@ -2018,6 +2071,9 @@ def main_path(name, slam, ds, label=None):
     label = label or name
     path = "replica_gate60_exact" if label.startswith("replica_gate60_exact") else name
     frames = make_frames(slam, ds)
+    # remove_back's share, from the frames as the pipeline receives them (no
+    # motion yet: the rule takes +x, as in JAX); the first frame is not mapped so
+    back = back_share(frames[1:], slam.key_distance) if slam.remove_back else None
 
     zero_counters()
     t_start = time.perf_counter()
@@ -2037,8 +2093,7 @@ def main_path(name, slam, ds, label=None):
     tag = f"[main {label}]"
     if name == "replica_gate60":
         gate_mesh(tag, slam, ds, poses, gt)
-    if slam.logger is not None:
-        mesh_report(tag, slam)
+    mesh = mesh_report(tag, slam) if slam.logger is not None else None
     launches = counters()
     n_timed = len(frames) - WARMUP_FRAMES
     scans = n_timed / dt
@@ -2066,6 +2121,10 @@ def main_path(name, slam, ds, label=None):
     check(slam.dropped_delta_events == 0, "dropped deltas")
     if slam.bp_current.exact_embedding_grads:
         exact_checks(tag, slam, launches, len(frames))
+    if name == "kitti_knobs":
+        knobs_checks(tag, slam, len(frames), back)
+    if name == "kitti_mapping_gt":
+        mapping_gt_checks(tag, slam, launches, mesh, gt)
     if name == "kitti_quality_s2s":
         # K11a once per tracked frame (and per replayed one), K11b once per GN iteration
         replays = sum(slam.overflow_events.values())
@@ -2104,6 +2163,77 @@ def main_path(name, slam, ds, label=None):
     if name == "replica_gate60":
         ates["aligned"] = aligned
     return launches, scans, slam.prof.summary(), ates
+
+
+def back_share(frames, key_distance):
+    """The share of the frames' valid points that remove_back drops."""
+    kept = sum(int(f.without_back_points(key_distance).valid.sum()) for f in frames)
+    total = sum(int(f.valid.sum()) for f in frames)
+    return (total - kept) / max(total, 1)
+
+
+def knobs_checks(tag, slam, n_frames, back):
+    """kitti_knobs: the replay steps the schedule took (those of JAX's run
+    of the same config and frames), the BA-delta telemetry (a row for every
+    tracked frame, its along column ~0 under ba_pose_project=along) and
+    remove_back's share of the points (data alone: JAX's to the digit)."""
+    steps = slam.prof.summary().get("replay", {}).get("count", 0)
+    rows = slam.state.ba_delta_telemetry
+    along = max(abs(r[1]) for r in rows) if rows else float("nan")
+    lat = max(abs(r[2]) for r in rows) if rows else float("nan")
+    log(f"{tag} replay steps {steps} (JAX {KNOBS_JAX['replay_steps']}); BA-delta telemetry "
+        f"{len(rows)} rows, largest |along| {along:.3e} m (JAX {KNOBS_JAX['max_abs_along_m']:.3e}; "
+        f"bound {ALONG_MAX_M:g}), largest |lateral| {lat:.3e} m; remove_back dropped "
+        f"{back:.6f} of the valid points (JAX {KNOBS_JAX['remove_back_dropped']:.6f})")
+    check(steps == KNOBS_JAX["replay_steps"],
+          f"{steps} replay steps where JAX took {KNOBS_JAX['replay_steps']}")
+    check(len(rows) == n_frames - 1, f"{len(rows)} BA-delta rows for {n_frames - 1} tracked frames")
+    check(along < ALONG_MAX_M, f"the along column reads {along} m under ba_pose_project=along")
+    check(abs(back - KNOBS_JAX["remove_back_dropped"]) < 1e-6,
+          f"remove_back dropped {back} of the points, JAX {KNOBS_JAX['remove_back_dropped']}")
+
+
+def mapping_gt_checks(tag, slam, launches, mesh, gt):
+    """kitti_mapping_gt: no tracker (no K3 launch, no tracker telemetry),
+    the tracking trajectory the GT poses; the map's rows and the mesh's
+    triangles printed beside JAX's CPU run of the same config."""
+    traj = np.asarray(slam.get_raw_trajectory())
+    err = float(np.abs(traj[:, :3, 3] - gt[:len(traj), :3, 3]).max())
+    tris, faces, faces_clean = mesh
+    log(f"{tag} mapping only: num_lat {int(slam.state.map_state.num_lat)} (JAX "
+        f"{MAPPING_GT_JAX['num_lat']}); mesh {faces} triangles welded, {faces_clean} after "
+        f"clean_mesh (JAX {MAPPING_GT_JAX['mesh_triangles']}, "
+        f"{MAPPING_GT_JAX['mesh_triangles_clean']}); {tris} before the weld; tracking "
+        f"trajectory against GT {err:.2e} m; K3 launches {launches['gn_system']}")
+    check(launches["gn_system"] == 0, "the tracker's K3 launched on the mapping-only path")
+    check(not slam.state.frame_telemetry and not slam.state.ba_delta_telemetry,
+          "tracker telemetry on the mapping-only path")
+    check(err < 1e-5, f"the tracking trajectory is {err} m off the GT poses")
+
+
+def gaussian_run(here, ds):
+    """The gaussian positional embedder on the card: 10 frames of the
+    budget config with ``decoder_specs.embedder=gaussian`` (its B trained
+    by BA with the decoder), every pose, table and decoder tensor finite."""
+    cfg = load_cfg(here, "kitti_budget", decoder_specs={"embedder": "gaussian"})
+    slam = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    frames = make_frames(slam, ds, GAUSSIAN_FRAMES)
+    slam.process_first_frame(frames[0])
+    for f in frames[1:]:
+        slam.process_frame(f)
+    poses = np.asarray(slam.finalize())
+    torch.cuda.synchronize()
+    dec = slam.state.decoder_params
+    ate = ate_rmse(poses, ds.gt_trajectory()[:len(poses)], align=False)
+    log(f"[gaussian kitti_budget] {len(poses)} frames, embedder gaussian (B {tuple(dec['gaussian_B'].shape)}"
+        f", first layer {tuple(dec['w'][0].shape)}): ATE {ate:.4f} m (printed, not bounded), "
+        f"dropped {slam.dropped_delta_events}")
+    check(np.isfinite(poses).all() and len(poses) == GAUSSIAN_FRAMES, "gaussian: a pose is lost")
+    check(bool(torch.isfinite(slam.state.map_state.embeddings.float()).all())
+          and all(bool(torch.isfinite(t).all()) for t in dec["w"] + dec["b"] + [dec["gaussian_B"]]),
+          "gaussian: a non-finite table or decoder tensor")
+    check(slam.dropped_delta_events == 0, "gaussian: dropped deltas")
+    return ate
 
 
 def exact_checks(tag, slam, launches, n_frames):
@@ -2218,7 +2348,9 @@ def checkpoint_phase(cfg, ds, workdir):
 def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     """torch.profiler over a few steady frames of a fresh run: device time
     by kernel, the port kernels' device time per launch on the path, and
-    the device's busy share of the window."""
+    the device's busy share of the window. Only the device activity is
+    traced: the host's op events, which nothing here reads, made most of
+    the phase's time in their processing."""
     from torch.profiler import ProfilerActivity, profile
 
     slam = NerfLoamSLAM_torch(cfg, ds, device=device)
@@ -2231,7 +2363,8 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
     for f in frames[1:-n_profiled]:
         slam.process_frame(f)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for f in frames[-n_profiled:]:
@@ -2239,20 +2372,22 @@ def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_PAD_S)
-    events = [e for e in prof.key_averages() if _on_device(e)]
+    averages = prof.key_averages()
+    t_prof = time.perf_counter() - t_prof
+    events = [e for e in averages if _on_device(e)]
     dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
     total = sum(dev(e) for e in events)
     tag = f"[profile {label}]"
     log(f"{tag} {n_profiled} frames: wall {wall_ms:.1f} ms (profiler on), device kernels "
         f"{total:.1f} ms, busy share {total / wall_ms:.3f}, {sum(e.count for e in events)} "
-        f"kernel launches")
+        f"kernel launches; the profiler's window and processing {t_prof:.1f} s")
     per_frame = (sum(e.count for e in events) / n_profiled, total / n_profiled)
     log(f"{tag} per frame: {per_frame[0]:.1f} device launches, {per_frame[1]:.2f} device ms")
     for e in sorted(events, key=dev, reverse=True)[:15]:
         log(f"{tag} {dev(e) / n_profiled:9.3f} ms/frame  {e.count / n_profiled:8.1f}/frame  "
             f"{e.key[:90]}")
     # the port's own kernels (csrc/*.cu): device time per launch on the path
-    for fn, (t, n) in sorted(port_kernel_times(prof).items(), key=lambda kv: -kv[1][0]):
+    for fn, (t, n) in sorted(port_kernel_times(averages).items(), key=lambda kv: -kv[1][0]):
         log(f"{tag} port kernel {fn}: {t / 1e3 / n_profiled:.4f} ms/frame, "
             f"{n / n_profiled:.1f} launches/frame, {t / n:.2f} us/launch (device)")
     return per_frame
@@ -2331,13 +2466,14 @@ def gate_spread(here, first):
 
 
 def kitti_paths(names, cfgs, ds, workdir):
-    """The KITTI configs' main paths in turn, the quality path with a
-    RunLogger in ``workdir``; {name: main_path's result}."""
+    """The KITTI configs' main paths in turn, those of LOGGED with a
+    RunLogger in ``workdir``; {name: main_path's result}. The mapping-only
+    path reads its own dataset (the same frames with their GT poses)."""
     results = {}
     for n in names:
-        logger = RunLogger(workdir, n, config=cfgs[n].as_dict()) if n == "kitti_quality" else None
-        results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], ds, device="cuda", logger=logger),
-                               ds)
+        logger = RunLogger(workdir, n, config=cfgs[n].as_dict()) if n in LOGGED else None
+        d = get_dataset(cfgs[n]) if cfgs[n].data_specs.get("use_gt", False) else ds
+        results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], d, device="cuda", logger=logger), d)
         torch.cuda.empty_cache()
     return results
 
@@ -2345,7 +2481,8 @@ def kitti_paths(names, cfgs, ds, workdir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--paths", help="comma-separated main paths (kitti_budget, kitti_quality, "
-                    "kitti_adam25, kitti_quality_s2s, kitti_exact, replica_gate60_s<seed>, "
+                    "kitti_adam25, kitti_quality_s2s, kitti_exact, kitti_knobs, "
+                    "kitti_mapping_gt, kitti_decoder_pe, replica_gate60_s<seed>, "
                     "replica_gate60_exact_s<seed>): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2374,7 +2511,8 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s", "kitti_exact")
+    kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s", "kitti_exact",
+             "kitti_knobs", "kitti_mapping_gt", "kitti_decoder_pe")
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     if args.paths:
@@ -2412,6 +2550,8 @@ def main(argv=None):
             f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
         resumed_ate = checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
+    gaussian_ate = gaussian_run(here, ds)
+    torch.cuda.empty_cache()
     stamp("the KITTI paths and the checkpoint")
     gate_ds = {}
     for s_ in GATE60_SEEDS:
@@ -2431,7 +2571,8 @@ def main(argv=None):
     log("[result] ATE (m): " + ", ".join(
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
         + f", kitti_quality resumed {resumed_ate:.4f}, replica_gate60_exact_s0 median raw over "
-        f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}")
+        f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}, kitti_budget gaussian "
+        f"{GAUSSIAN_FRAMES} frames {gaussian_ate:.4f}")
     stamp("the frame profiles")
     for r in records:
         by_path = {n: results[n][0][r["name"]] for n in results}

@@ -52,6 +52,7 @@ from nerfloam_tpu_torch.core.render import (
 )
 from nerfloam_tpu_torch.core.tracking import _ray_dirs, scale_by_adam_, t_cap_for
 from nerfloam_tpu_torch.map import voxel_map as vm
+from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_leaves, map_decoder
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.raycast import (
@@ -103,14 +104,18 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             decoder_params, poses, points, points_cos, points_valid, frame_active, pose_free,
             update_decoder: bool, lrs, generator: torch.Generator | None = None,
             proj_dir=None, reconcile_scratch: vm.ReconcileScratch | None = None,
-            pack_scratch: vm.PackGradScratch | None = None) -> BAResult:
+            pack_scratch: vm.PackGradScratch | None = None,
+            dec_meta: DecoderMeta = PLAIN) -> BAResult:
     """One BA step. ``poses`` (W, 6), ``points`` (W, P, 3), ``points_cos``
     and ``points_valid`` (W, P), ``frame_active`` / ``pose_free`` (W,) bool,
     ``lrs`` [emb, decoder, pose]. ``proj_dir`` (W, 3): remove that
     component from each frame's translation update every iteration.
     ``reconcile_scratch``: K5's scratch, ``pack_scratch``: E1's (exact
     gradients), each kept by the caller from step to step (the
-    pipeline's; None: one made for this step)."""
+    pipeline's; None: one made for this step). ``dec_meta``: the decoder's
+    skips and embedder; every decoder tensor (``decoder_leaves``, the
+    gaussian embedder's B too) takes the decoder's learning rate, mask and
+    Adam step, as JAX's optax step over the decoder pytree."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
     exact = bp.exact_embedding_grads
@@ -149,10 +154,9 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         emb = map_state.embeddings.detach().clone().requires_grad_(True)
     else:
         emb = map_state.packed.clone().requires_grad_(True)
-    dec = {k: [p.detach().clone().requires_grad_(True) for p in v]
-           for k, v in decoder_params.items()}
+    dec = map_decoder(decoder_params, lambda p: p.detach().clone().requires_grad_(True))
     pos = poses.detach().clone().requires_grad_(True)
-    params = [emb, *dec["w"], *dec["b"], pos]
+    params = [emb, *decoder_leaves(dec), pos]
     mu = [torch.zeros_like(p) for p in params]
     nu = [torch.zeros_like(p) for p in params]
     lr_of = [lrs[0]] + [lrs[1]] * (len(params) - 2) + [lrs[2]]
@@ -190,7 +194,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if use_hits:
             ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
             out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
-                                   compute_dtype, extra, k2_scratch)
+                                   compute_dtype, extra, k2_scratch, dec_meta)
         else:
             if use_superset:
                 rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
@@ -201,7 +205,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                         map_state, map_cfg, rc, rays[0].detach(), rays[1].detach(),
                         t_cap_for(pts, pcos, bp.truncation, bp.max_depth), M)
             out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * N), placer, u,
-                              compute_dtype, extra, rows, k2_scratch)
+                              compute_dtype, extra, rows, k2_scratch, dec_meta)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -233,7 +237,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             new_emb, packed, upd_count, touched_count = vm.reconcile(
                 map_state, map_cfg, emb.detach(), touched, bp.touched_cap, reconcile_scratch,
                 bp.reconcile_mode)
-    new_dec = {k: [p.detach() for p in v] for k, v in dec.items()}
+    new_dec = map_decoder(dec, torch.Tensor.detach)
     surface_bias = torch.zeros((), device=dev)
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field
         with torch.no_grad():
@@ -242,7 +246,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             ok = points_valid & frame_active[:, None] & (depth < bp.max_depth)
             sdf_pts, m = field_at_points(field, packed, new_dec,
                                          xyz.reshape(-1, 1, 3), depth.reshape(-1, 1),
-                                         ok.reshape(-1), compute_dtype)
+                                         ok.reshape(-1), compute_dtype, dec_meta)
             surface_bias = sdf_pts.sum() / torch.clamp(m.sum(), min=1).to(torch.float32)
     return BAResult(new_emb, packed, new_dec, pos.detach(), loss.detach(), touched_count,
                     surface_bias, upd_count)

@@ -110,3 +110,21 @@ class Frame:
         f.pose6 = self.pose6.copy()
         f.has_gt_pose = self.has_gt_pose
         return f
+
+    def without_back_points(self, key_distance: float) -> "Frame":
+        """remove_back_points (mapping.py:235-255; JAX core/frame.py:151-174):
+        the valid mask without the far points opposite the motion
+        direction, cos(angle to -motion_xy) >= 0.7 beyond key_distance. The
+        motion is ``rel_pose``'s translation in xy, (1, 0) while it is None."""
+        if self.rel_pose is None:
+            rel_xy = np.array([1.0, 0.0])
+        else:
+            rel_xy = np.array([self.rel_pose[0, 3], self.rel_pose[1, 3]])
+        pts_xy = self.points[:, :2]
+        norm = np.linalg.norm(pts_xy, axis=-1) * (np.linalg.norm(rel_xy) + 1e-12)
+        cos_back = np.sum(-pts_xy * rel_xy, axis=-1) / np.maximum(norm, 1e-12)
+        dist = np.linalg.norm(self.points, axis=-1)
+        remove = (cos_back >= 0.7) & (dist > key_distance)
+        valid = self.valid & ~remove
+        return Frame(self.index, self.points.copy(), self.points_cos.copy(), valid,
+                     int(valid.sum()), self.pose6.copy(), self.rel_pose, self.has_gt_pose)

@@ -25,6 +25,17 @@ frame targets sdf = that offset on the band. Both samplers are ported:
 ``tpu_specs.sampler`` picks the hit table (hits) or the occupancy march
 (grid) for the GN tracker and BA; the Adam tracker always marches.
 
+The off-by-default knobs are ported: ``replay_freq`` (a BA step over a
+random keyframe window every n frames, then a recenter on the vehicle),
+``ba_pose_project=along`` (BA's translation update kept off the tracked
+motion direction, computed on the device inside the frame), the BA-delta
+telemetry (each tracked frame's BA refinement in the motion frame, on the
+host in float64), ``remove_back`` (the mapper's copy of a frame drops
+far points behind the motion; BA and the insert take its mask, the
+tracker the full one), mapping-only frames on ground-truth poses
+(``data_specs.use_gt``: no tracker; recenter, BA, insert, one host read)
+and the decoder's skips and positional embedders (``DecoderMeta``).
+
 The reference-exact fallbacks (``docs/PERF.md:157-159``) are ported:
 ``exact_embedding_grads`` (BA on the canonical table through E1; f32
 embeddings only: the JAX package's BA loop cannot carry a bf16 table on
@@ -57,7 +68,8 @@ from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
 from nerfloam_tpu_torch.core.scan2scan import Scan2ScanParams, build_prev_scan
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.models.decoder import init_decoder
+from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, init_decoder
+from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.marching import TetScratch
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.config import Config, derive_static_shapes, quality_knobs
@@ -67,12 +79,9 @@ from nerfloam_tpu_torch.utils.profiler import Profiler
 _UNPORTED = [
     ("tpu_specs.defer_sync", lambda v: not v, "14 (defer_sync)"),
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
-    ("tpu_specs.bias_source", lambda v: v == "window", "15 (knobs: keyframe bias probe)"),
+    ("tpu_specs.bias_source", lambda v: v == "window", "15 (dropped: keyframe bias probe)"),
     ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
-    ("tpu_specs.maturity_warmup", lambda v: int(v) == 0, "15 (knobs)"),
-    ("tpu_specs.replay_freq", lambda v: int(v) == 0, "15 (knobs)"),
-    ("tpu_specs.ba_pose_project", lambda v: v == "none", "15 (knobs)"),
-    ("mapper_specs.remove_back", lambda v: not v, "15 (knobs)"),
+    ("tpu_specs.maturity_warmup", lambda v: int(v) == 0, "15 (dropped: maturity warmup)"),
 ]
 
 
@@ -88,6 +97,7 @@ def check_ported(cfg: Config):
 class SlamState:
     map_state: vm.MapState
     decoder_params: dict
+    decoder_meta: DecoderMeta = PLAIN
     keyframes: list = field(default_factory=list)
     current_keyframe: Frame | None = None
     frame_poses: list = field(default_factory=list)    # (kf_idx, rel 4x4)
@@ -99,6 +109,9 @@ class SlamState:
     frames_processed: int = 0
     frame_telemetry: list = field(default_factory=list)  # (index, hit_ratio, loss,
     #   pooled surface bias) per tracked frame
+    ba_delta_telemetry: list = field(default_factory=list)  # (index, along_m, lat_m,
+    #   dz_m) per tracked frame whose BA freed the pose: BA's pose minus the
+    #   tracker's, in the motion frame (JAX SlamState.ba_delta_telemetry)
 
 
 class NerfLoamSLAM_torch:
@@ -205,6 +218,12 @@ class NerfLoamSLAM_torch:
         self.freeze_frame = int(mspec["freeze_frame"])
         self.keyframe_gap = float(mspec["keyframe_gap"])
         self.key_distance = float(mspec["key_distance"])
+        self.remove_back = bool(mspec.get("remove_back", False))
+        self.replay_freq = int(tpu.get("replay_freq", 0))
+        self.ba_pose_project = str(tpu.get("ba_pose_project", "none"))
+        if self.ba_pose_project not in ("none", "along"):
+            raise ValueError(f"tpu_specs.ba_pose_project must be 'none' or 'along', "
+                             f"got {self.ba_pose_project!r}")
         self.final_iter = bool(mspec.get("final_iter", False))
         self.mesh_res = int(mspec.get("mesh_res", 2))
         self.mesh_freq = int(cfg.debug_args.get("mesh_freq", -1))
@@ -240,12 +259,14 @@ class NerfLoamSLAM_torch:
         self.mesh_scratch = TetScratch()
         self.pyrng = pyrandom.Random(seed)
         dec = cfg.decoder_specs
+        meta = DecoderMeta(tuple(dec.get("skips", []) or []), str(dec.get("embedder", "none")),
+                           int(dec.get("multires", 0)))
         params = init_decoder(
             depth=int(dec["depth"]), width=int(dec["width"]), in_dim=int(dec["in_dim"]),
-            skips=tuple(dec.get("skips", []) or []), embedder=dec.get("embedder", "none"),
-            multires=int(dec.get("multires", 0)), generator=self.generator, device=self.device)
+            skips=meta.skips, embedder=meta.embedder, multires=meta.multires,
+            generator=self.generator, device=self.device)
         self.state = SlamState(map_state=vm.create(self.map_cfg, self.device),
-                               decoder_params=params)
+                               decoder_params=params, decoder_meta=meta)
 
     # ------------------------------------------------------------------ util
 
@@ -357,7 +378,8 @@ class NerfLoamSLAM_torch:
             st.map_state, self.map_cfg, self.rc_map, bp, st.decoder_params, self._tensor(poses),
             pts, cos, val, self._tensor(active, torch.bool), self._tensor(pose_free, torch.bool),
             bool(update_decoder), self.ba_lrs, self.generator,
-            reconcile_scratch=self.reconcile_scratch, pack_scratch=self.pack_scratch)
+            reconcile_scratch=self.reconcile_scratch, pack_scratch=self.pack_scratch,
+            dec_meta=st.decoder_meta)
 
     def _apply_ba(self, res):
         st = self.state
@@ -475,15 +497,30 @@ class NerfLoamSLAM_torch:
                 last = st.last_frame
                 prev_pts, _, prev_val = last.device_arrays(self.device)
                 prev = build_prev_scan(tp.s2s, prev_pts, prev_val, self._tensor(last.pose6))
-            return tr_mod.track_frame_gn(*args, self.generator, sdf_bias, prev)
+            return tr_mod.track_frame_gn(*args, self.generator, sdf_bias, prev,
+                                         dec_meta=st.decoder_meta)
         lr = self.track_lr * 2 if st.frames_processed < 2 else self.track_lr / 3
-        return tr_mod.track_frame(*args, lr, self.generator, sdf_bias)
+        return tr_mod.track_frame(*args, lr, self.generator, sdf_bias, dec_meta=st.decoder_meta)
 
-    def _megastep(self, tp, init6, pts, cos, val, pose_free, update_decoder, sdf_bias):
+    @staticmethod
+    def _along_dir(pose6, prev_pose6):
+        """The tracked motion direction (1, 3) on the device, or zero for
+        a frame that moved 1e-6 m or less (JAX pipeline.py:1005-1019):
+        BA's ``proj_dir`` under ``ba_pose_project=along``."""
+        mvec = pose6[:3] - prev_pose6[:3]
+        n = norm3(mvec)
+        fwd = torch.where(n > 1e-6, mvec / torch.clamp(n, min=1e-9), torch.zeros_like(mvec))
+        return fwd[None]
+
+    def _megastep(self, tp, init6, pts, cos, val, val_m, pose_free, update_decoder, sdf_bias,
+                  prev_pose6):
         """track -> lazy recenter + refresh -> BA(current) -> insert, all on
         the device; returns the new map state, the decoder, the tensors to
         fetch and the insert's record (the insert writes into tables the
-        pre-frame state shares: a replay undoes it first)."""
+        pre-frame state shares: a replay undoes it first). The tracker takes
+        the frame's mask ``val``, BA and the insert the mapper's ``val_m``
+        (``remove_back``); ``prev_pose6`` is the previous tracked pose on the
+        device (``ba_pose_project=along``'s direction; else None)."""
         st = self.state
         cfg = self.map_cfg
         with self.prof.section("track"):
@@ -496,29 +533,36 @@ class NerfLoamSLAM_torch:
             else:
                 ms = vm.recenter_refresh(st.map_state, cfg, tr.pose[:3])
         with self.prof.section("ba"):
+            proj = (self._along_dir(tr.pose, prev_pose6) if self.ba_pose_project == "along"
+                    else None)
             ba = ba_mod.ba_step(ms, cfg, self.rc_map, self.bp_current, st.decoder_params,
-                                tr.pose[None], pts[None], cos[None], val[None],
+                                tr.pose[None], pts[None], cos[None], val_m[None],
                                 torch.ones((1,), dtype=torch.bool, device=self.device),
                                 pose_free, update_decoder, self.ba_lrs, self.generator,
-                                reconcile_scratch=self.reconcile_scratch,
-                                pack_scratch=self.pack_scratch)
+                                proj_dir=proj, reconcile_scratch=self.reconcile_scratch,
+                                pack_scratch=self.pack_scratch, dec_meta=st.decoder_meta)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
-            ms, rec = vm.insert_frame(ms, cfg, pts, cos, val, ba.poses[0], self.insert_cand_cap,
+            ms, rec = vm.insert_frame(ms, cfg, pts, cos, val_m, ba.poses[0], self.insert_cand_cap,
                                       self.recenter_margin > 0, self.insert_scratch)
         outs = (tr.pose, tr.hit_count, ba.poses[0], ms.num_lat, ms.n_active,
                 ba.touched_count, ms.num_cand, tr.loss, ba.surface_bias)
         return ms, ba.decoder_params, outs, rec
 
     def process_frame(self, frame: Frame):
-        """One tracked frame, synchronous: the whole frame runs on the
-        device and the host reads its results once at the end."""
-        if frame.has_gt_pose:
-            raise NotImplementedError("mapping-only frames with GT poses are not ported yet "
-                                      "(ROADMAP queue 1, item 15)")
+        """One frame, synchronous: the whole frame runs on the device and
+        the host reads its results once at the end. A frame with a
+        ground-truth pose is mapped without the tracker
+        (``_process_gt_frame``)."""
         st = self.state
         mapper_frame = self._mapper_copy(frame)
+        if self.remove_back:
+            # JAX's order: the new frame has no rel_pose yet, so the rule
+            # takes its default motion (+x); a GT frame's is set after
+            mapper_frame = mapper_frame.without_back_points(self.key_distance)
         update_decoder = (mapper_frame.index - st.first_frame_id) < self.freeze_frame
+        if frame.has_gt_pose:
+            return self._process_gt_frame(frame, mapper_frame, update_decoder)
         last = st.last_frame
         last_T = last.pose_matrix()
         const_T = last_T.copy()
@@ -531,14 +575,16 @@ class NerfLoamSLAM_torch:
         init6 = self._tensor(pose6_from_matrix_np(const_T))
         tp = self.tp_first if first else self.tp
         pts, cos, val = frame.device_arrays(self.device)
+        val_m = mapper_frame.device_arrays(self.device)[2] if self.remove_back else val
         pose_free_b = frame.index != st.first_frame_id
         pose_free = self._tensor([pose_free_b], torch.bool)
         sdf_bias = self._tensor(self.sdf_bias if self.bias_correction else np.zeros(2, np.float32))
+        prev_pose6 = self._tensor(last.pose6) if self.ba_pose_project == "along" else None
 
         pre = (st.map_state, st.decoder_params, self.generator.get_state())
         for _ in range(8):  # each round at least doubles a budget
-            ms, dec, outs, rec = self._megastep(tp, init6, pts, cos, val, pose_free,
-                                                update_decoder, sdf_bias)
+            ms, dec, outs, rec = self._megastep(tp, init6, pts, cos, val, val_m, pose_free,
+                                                update_decoder, sdf_bias, prev_pose6)
             with self.prof.section("sync"):
                 got = self._fetch(*outs)
             num_lat, n_active, touched, num_cand = (int(got[i]) for i in (3, 4, 5, 6))
@@ -566,8 +612,79 @@ class NerfLoamSLAM_torch:
         mapper_frame.pose6 = frame.pose6
         if pose_free_b:
             mapper_frame.pose6 = got[2].astype(np.float32)
+            self._record_ba_delta(frame, mapper_frame, last.pose6)
         st.last_frame = frame
         self._post_frame(frame, mapper_frame)
+
+    def _process_gt_frame(self, frame: Frame, mapper_frame: Frame, update_decoder: bool):
+        """A mapping-only frame at its ground-truth pose (JAX pipeline.py:
+        1104-1175): no tracker; recenter on the pose, one BA step on the
+        mapper's copy that refines it, the insert at BA's pose, one host
+        read; the tracker's motion state and trajectory kept from the GT
+        poses. An overflow rewinds and replays the frame as a tracked one's
+        does (the insert undone, the map, decoder and generator put back,
+        the budgets grown)."""
+        st = self.state
+        targets, bp = [mapper_frame], self.bp_current
+        pose_free = [frame.index != st.first_frame_id]
+        pts, cos, val = mapper_frame.device_arrays(self.device)
+        pre = (st.map_state, st.decoder_params, self.generator.get_state())
+        for _ in range(8):  # each round at least doubles a budget
+            with self.prof.section("recenter"):
+                self._recenter(frame.pose6[:3])
+            with self.prof.section("do_mapping"):
+                res = self._ba(bp, targets, pose_free, update_decoder)
+                ms = st.map_state._replace(embeddings=res.embeddings, packed=res.packed,
+                                           upd_count=res.upd_count)
+            with self.prof.section("create_voxels"):
+                ms, rec = vm.insert_frame(ms, self.map_cfg, pts, cos, val, res.poses[0],
+                                          self.insert_cand_cap, self.recenter_margin > 0,
+                                          self.insert_scratch)
+            with self.prof.section("sync"):
+                got = self._fetch(res.poses, ms.num_lat, ms.n_active, res.touched_count,
+                                  ms.num_cand, res.surface_bias)
+            num_lat, n_active, touched, num_cand = (int(got[i]) for i in (1, 2, 3, 4))
+            st.map_state, st.decoder_params = pre[0], pre[1]
+            if not self._grow_budgets(num_lat, n_active, touched, num_cand,
+                                      rewind=partial(vm.undo_insert, ms, rec)):
+                break
+            bp = self.bp_current
+            self.generator.set_state(pre[2])
+            pre = (st.map_state, st.decoder_params, pre[2])
+        else:  # the last round's map update was undone: the frame's deltas are dropped
+            self.dropped_delta_events += 1
+            ms, res = pre[0], None
+        st.map_state = ms
+        if res is not None:
+            st.decoder_params = res.decoder_params
+            self._update_sdf_bias(got[5])
+        # the tracker's motion state, kept from the GT poses (JAX :1151-1161)
+        st.rel_pose = np.linalg.inv(st.last_frame.pose_matrix()) @ frame.pose_matrix()
+        frame.rel_pose = mapper_frame.rel_pose = st.rel_pose
+        st.last_frame = frame
+        st.tracking_trajectory.append(frame.pose_matrix())
+        if res is not None and pose_free[0]:
+            mapper_frame.pose6 = got[0][0].astype(np.float32)
+        self._post_frame(frame, mapper_frame)
+
+    def _record_ba_delta(self, frame: Frame, mapper_frame: Frame, prev_pose6: np.ndarray):
+        """BA-delta telemetry (JAX pipeline.py:805-830): the current-frame
+        BA step's pose refinement (mapper pose minus tracker pose) in the
+        motion frame, in float64 on the host: along-track from the previous
+        frame's translation, lateral = up x fwd, dz = world z. Under
+        ``ba_pose_project=along`` its along column reads ~0."""
+        d = mapper_frame.pose6[:3].astype(np.float64) - frame.pose6[:3]
+        m = frame.pose6[:3].astype(np.float64) - prev_pose6[:3]
+        n = np.linalg.norm(m)
+        if n < 1e-9:
+            fwd = np.zeros(3)
+            lat = np.zeros(3)
+        else:
+            fwd = m / n
+            lat = np.cross([0.0, 0.0, 1.0], fwd)
+            lat /= np.linalg.norm(lat) + 1e-12
+        self.state.ba_delta_telemetry.append(
+            (frame.index, float(d @ fwd), float(d @ lat), float(d[2])))
 
     def _post_frame(self, frame: Frame, mapper_frame: Frame):
         """Keyframe-gap insertion, the trajectory record, and the periodic
@@ -577,6 +694,12 @@ class NerfLoamSLAM_torch:
         if gap > self.keyframe_gap:
             self.insert_keyframe(mapper_frame)
         self._record_trajectory(mapper_frame)
+        if (self.replay_freq > 0 and len(st.keyframes) > 1
+                and st.frames_processed % self.replay_freq == 0):
+            with self.prof.section("replay"):
+                self._replay(1)
+                # the replay recentered on a random keyframe: back around the vehicle
+                self._recenter(mapper_frame.pose6[:3])
         if self.mesh_freq > 0 and frame.index % self.mesh_freq == 0:
             self._mesh_interval(mapper_frame)
         if self.logger is not None and self.ckpt_freq > 0 and frame.index % self.ckpt_freq == 0:
@@ -647,7 +770,8 @@ class NerfLoamSLAM_torch:
         with self.prof.section("mesh_extract"):
             tris = mesher.extract_triangles(self.state.map_state, self.map_cfg,
                                             self.state.decoder_params, res or self.mesh_res,
-                                            self.compute_dtype, scratch=self.mesh_scratch)
+                                            self.compute_dtype, scratch=self.mesh_scratch,
+                                            dec_meta=self.state.decoder_meta)
         self.host_syncs += 1
         if len(tris) == 0:
             return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)

@@ -30,7 +30,7 @@ import torch
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core.losses import MAX_DEPTH
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.models.decoder import decoder_apply
+from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops.interp import interp_corner_features
 from nerfloam_tpu_torch.ops.raycast import (
     _ORIGIN_STRIDES,
@@ -519,9 +519,10 @@ def field_columns(packed, rays_o, rays_d, ht: HitTable, u, voxel_size, extra=Non
         lambda p, o, d: columns_fwd(ht, u, o, d, p, voxel_size, extra), voxel_size, scratch)
 
 
-def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compute_dtype):
+def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compute_dtype,
+                dec_meta: DecoderMeta):
     valid = valid & ray_valid[:, None]
-    sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
+    sdf = decoder_apply(decoder_params, feats, compute_dtype, dec_meta)[..., 0]
     sdf = torch.where(valid, sdf, 1.0)
     z_out = torch.where(valid, z, MAX_DEPTH)
     return RenderOutput(z_out, sdf, ray_mask & ray_valid, valid, xyz)
@@ -529,7 +530,7 @@ def _render_out(decoder_params, feats, z, valid, xyz, ray_mask, ray_valid, compu
 
 def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, ht: HitTable,
                      ray_valid, jitter_u, compute_dtype=torch.float32,
-                     extra=None, scratch=None) -> RenderOutput:
+                     extra=None, scratch=None, dec_meta: DecoderMeta = PLAIN) -> RenderOutput:
     """render_rays over a prebuilt HitTable: K1 -> decoder -> masked sdf.
     ``jitter_u`` (R, M) is the placement jitter (JAX draws it internally
     unless given; the port always takes it). ``extra = (field, ez,
@@ -537,16 +538,17 @@ def render_rays_hits(packed, decoder_params, voxel_size: float, rays_o, rays_d, 
     depths ez (R, K), i.e. JAX's
     extra_surface_columns concatenated onto the render output (ba.py:
     282-304); one decoder call and one K2 take both. ``scratch``: K2's
-    ``DpackedScratch`` (BA's, made once a step)."""
+    ``DpackedScratch`` (BA's, made once a step); ``dec_meta`` the
+    decoder's skips and embedder."""
     feats, z, valid, _, xyz = field_columns(packed, rays_o, rays_d, ht, jitter_u, voxel_size,
                                             extra, scratch)
     return _render_out(decoder_params, feats, z, valid, xyz, ht.ray_mask, ray_valid,
-                       compute_dtype)
+                       compute_dtype, dec_meta)
 
 
 def render_rays(packed, decoder_params, field: ActiveField, rays_o, rays_d, ray_valid,
                 placer: CdfPlacer, jitter_u, compute_dtype=torch.float32, extra=None, rows=None,
-                scratch=None) -> RenderOutput:
+                scratch=None, dec_meta: DecoderMeta = PLAIN) -> RenderOutput:
     """render_rays with the grid sampler (nerfloam_tpu/core/render.py:
     242-279, the march hoisted: ``placer`` is a ``raycast.CdfPlacer`` over
     K9a's cdf, ``rows`` each ray's row in it where the rays are a subset):
@@ -566,15 +568,15 @@ def render_rays(packed, decoder_params, field: ActiveField, rays_o, rays_d, ray_
     feats, z, valid, _, xyz = _FieldColumns.apply(packed, rays_o, rays_d, fwd, field.voxel_size,
                                                   scratch)
     return _render_out(decoder_params, feats, z, valid, xyz, side["ray_mask"], ray_valid,
-                       compute_dtype)
+                       compute_dtype, dec_meta)
 
 
 def field_at_points(field: ActiveField, packed, decoder_params, xyz, z, point_valid,
-                    compute_dtype=torch.float32):
+                    compute_dtype=torch.float32, dec_meta: DecoderMeta = PLAIN):
     """sdf at world points xyz (R, K, 3) in active voxels (JAX field_at with
     its lookup_active): K8 (``field``, an ``ActiveField``) with given
     points, then the decoder. ``z`` and ``point_valid`` (R,) gate validity
     as in ActiveField. Returns (sdf, valid); sdf is 0 where not valid."""
     _, valid, _, feats = field(packed, None, None, z, point_valid, xyz)
-    sdf = decoder_apply(decoder_params, feats, compute_dtype)[..., 0]
+    sdf = decoder_apply(decoder_params, feats, compute_dtype, dec_meta)[..., 0]
     return torch.where(valid, sdf, 0.0), valid

@@ -54,7 +54,7 @@ from nerfloam_tpu_torch.core.render import (
 )
 from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
-from nerfloam_tpu_torch.models.decoder import decoder_apply
+from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.raycast import (
@@ -293,12 +293,13 @@ def lm_update(pose6, H, b, lam):
     return torch.cat([pose6[:3] + dt, se3.log_so3(R_new)])
 
 
-def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, compute_dtype):
+def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, compute_dtype,
+                   dec_meta: DecoderMeta = PLAIN):
     """sdf and d sdf / d xyz per sample: decoder forward and backward to
     d sdf / d feats in torch, then K2 with the packed gradient off."""
     with torch.enable_grad():
         f = feats.detach().requires_grad_(True)
-        sdf = decoder_apply(decoder_params, f, compute_dtype)[..., 0]
+        sdf = decoder_apply(decoder_params, f, compute_dtype, dec_meta)[..., 0]
         (dfeats,) = torch.autograd.grad(sdf.sum(), f)
     g, _ = hits_field_bwd(dfeats, xyz, aid, valid, packed, voxel_size, want_dpacked=False)
     return sdf.detach(), g
@@ -308,12 +309,13 @@ def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, c
 def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
                    decoder_params, init_pose, points, points_cos, points_valid,
                    generator: torch.Generator | None = None, sdf_bias=None,
-                   prev_scan=None) -> TrackResult:
+                   prev_scan=None, dec_meta: DecoderMeta = PLAIN) -> TrackResult:
     """LM pose tracking on the truncated-SDF residuals over one frame's
     (padded) points. ``sdf_bias`` (2,) [ground, non-ground] is the band
     target (the mapped field's surface offset, bias transfer); None = 0.
     ``prev_scan`` (core.scan2scan.PrevScan) is the rasterized previous scan
-    of the s2s term, used iff ``tp.s2s`` is set."""
+    of the s2s term, used iff ``tp.s2s`` is set. ``dec_meta``: the
+    decoder's skips and embedder."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
     dev = points.device
@@ -364,7 +366,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
             (z, valid, aid, xyz, feats), ray_hit = grid_columns_fwd(
                 field, placer, u, origin, wdirs, packed, extra)
         vmask = valid & rvalid[:, None]
-        sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype)
+        sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype,
+                                dec_meta)
         H, b, loss = system(xyz, t_pos, z, sdf, g, vmask)
         if tp.s2s is not None and prev_scan is not None:
             # adds in place into K3's outputs, which its next call overwrites
@@ -376,7 +379,7 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
 
 
 def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, pts, pcos, rvalid,
-              placer: CdfPlacer, u, band_u, bias_ray):
+              placer: CdfPlacer, u, band_u, bias_ray, dec_meta: DecoderMeta = PLAIN):
     """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
     rays): grid render_rays of the map's packed table through ``placer``
     and ``field`` (the frame's CdfPlacer over the hoisted march and its
@@ -392,7 +395,7 @@ def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, 
                              tp.surface_anchor, tp.band_samples, band_u)
         extra = (field, ez, rvalid)
     out = render_rays(field.state.packed, decoder_params, field, origin, wdirs, rvalid, placer, u,
-                      compute_dtype, extra)
+                      compute_dtype, extra, dec_meta=dec_meta)
     loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                          tp.truncation, tp.max_depth, tp.fs_weight, tp.sdf_weight,
                          sdf_bias=bias_ray[:, None])
@@ -401,7 +404,8 @@ def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, 
 
 def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
                 decoder_params, init_pose, points, points_cos, points_valid, learning_rate,
-                generator: torch.Generator | None = None, sdf_bias=None) -> TrackResult:
+                generator: torch.Generator | None = None, sdf_bias=None,
+                dec_meta: DecoderMeta = PLAIN) -> TrackResult:
     """Adam pose tracking on the sdf losses (nerfloam_tpu/core/tracking.py:
     383-497): one ray draw and one K9a march at ``init_pose`` (with
     ``tp.resample_rays``: a draw and a march at the current pose every
@@ -441,7 +445,7 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
         with torch.enable_grad():
             p = pose6.requires_grad_(True)
             loss, out = adam_loss(field, tp, decoder_params, p, dirs, pts, pcos, rvalid, placer,
-                                  u, ub, bias_ray)
+                                  u, ub, bias_ray, dec_meta)
             (g,) = torch.autograd.grad(loss, p)
         with torch.no_grad():
             pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)

@@ -22,7 +22,7 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.models.decoder import decoder_apply
+from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops.interp import trilinear_weights
 from nerfloam_tpu_torch.ops.keys import COORD_MASK, weld_key_np
 from nerfloam_tpu_torch.ops.marching import (
@@ -152,21 +152,24 @@ def mesh_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, voxel_ids: torch
 
 @torch.no_grad()
 def _chunk_lattice(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
-                   voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32"):
+                   voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32",
+                   dec_meta: DecoderMeta = PLAIN):
     """K10b's inputs for B surface voxels (pad: -1): K10a's lattice, the
     decoder's sdf on it, the cell table and the ids."""
     feats, pos = mesh_lattice(map_state, map_cfg, voxel_ids, res)
-    sdf = decoder_apply(decoder_params, feats, getattr(torch, compute_dtype))[..., 0]  # (B, S)
+    sdf = decoder_apply(decoder_params, feats, getattr(torch, compute_dtype),
+                        dec_meta)[..., 0]  # (B, S)
     return sdf, pos, _lattice_tables(res, voxel_ids.device)[2], voxel_ids
 
 
 def _mesh_chunk(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
-                voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32"):
+                voxel_ids: torch.Tensor, res: int, compute_dtype: str = "float32",
+                dec_meta: DecoderMeta = PLAIN):
     """Triangles of B surface voxels (pad: -1) in JAX's padded form: K10a,
     the decoder, K10b. Returns (tris (B * (res-1)^3, 12, 3, 3), valid (..,
     12))."""
     return marching_tets_lattice(*_chunk_lattice(map_state, map_cfg, decoder_params, voxel_ids,
-                                                 res, compute_dtype))
+                                                 res, compute_dtype, dec_meta))
 
 
 def weld(tris: np.ndarray):
@@ -192,7 +195,8 @@ def weld(tris: np.ndarray):
 def extract_triangles(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params,
                       res: int = 2, compute_dtype: str = "float32",
                       chunk_cells: int = CHUNK_CELLS,
-                      scratch: TetScratch | None = None) -> np.ndarray:
+                      scratch: TetScratch | None = None,
+                      dec_meta: DecoderMeta = PLAIN) -> np.ndarray:
     """The map's valid triangles (T, 3, 3) on the host, in ascending
     (voxel row, cell, tetrahedron, slot) order: the device half of
     :func:`extract_mesh`. Per chunk, K10b's compact form (through
@@ -207,7 +211,7 @@ def extract_triangles(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_par
     for i in range(0, ids.shape[0], chunk):
         tris, count = marching_tets_compact(
             *_chunk_lattice(map_state, map_cfg, decoder_params, ids[i:i + chunk], res,
-                            compute_dtype), scratch=scratch)
+                            compute_dtype, dec_meta), scratch=scratch)
         parts.append(tris[:int(count)].cpu().numpy())
     if not parts:
         return np.zeros((0, 3, 3), np.float32)
@@ -216,12 +220,12 @@ def extract_triangles(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_par
 
 def extract_mesh(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params, res: int = 2,
                  compute_dtype: str = "float32", chunk_cells: int = CHUNK_CELLS,
-                 scratch: TetScratch | None = None):
+                 scratch: TetScratch | None = None, dec_meta: DecoderMeta = PLAIN):
     """Triangle mesh of the whole map. Returns (vertices (V, 3) float32,
     faces (F, 3) int32). ``res`` matches the reference's mesh_res (2 in all
     LiDAR configs: corner-only sampling, one cell per voxel)."""
     tris = extract_triangles(map_state, map_cfg, decoder_params, res, compute_dtype, chunk_cells,
-                             scratch)
+                             scratch, dec_meta)
     if len(tris) == 0:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
     return weld(tris)

@@ -35,8 +35,8 @@ def interp_corner_features(
     reduction and the kernels' order (``torch.sum`` adds in another)."""
     p = div(sample_xyz - voxel_center, voxel_size) + 0.5
     w = trilinear_weights(p)
-    f = corner_feats.to(w.dtype)
-    out = w[..., 0, None] * f[..., 0, :]
+    wf = w[..., None] * corner_feats.to(w.dtype)
+    out = wf[..., 0, :]
     for j in range(1, 8):
-        out = out + w[..., j, None] * f[..., j, :]
+        out = out + wf[..., j, :]
     return out

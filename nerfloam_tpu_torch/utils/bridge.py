@@ -13,11 +13,12 @@ import torch
 
 from nerfloam_tpu_torch.core.scan2scan import PrevScan
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState
-from nerfloam_tpu_torch.models.decoder import decoder_params_from_jax
+from nerfloam_tpu_torch.models.decoder import decoder_meta_from_jax, decoder_params_from_jax
 from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.raycast import HitTable
 
-__all__ = ["decoder_params_from_jax", "map_config_from_jax", "map_state_from_numpy",
+__all__ = ["decoder_params_from_jax", "decoder_meta_from_jax", "map_config_from_jax",
+           "map_state_from_numpy",
            "hit_table_from_numpy", "prev_scan_from_numpy", "load_jax_checkpoint", "to_numpy"]
 
 
@@ -70,7 +71,8 @@ def load_jax_checkpoint(path: str, slam) -> None:
     ``NerfLoamSLAM_torch`` built from the same config. The two packages
     share the npz keys and the manifest; ``jax_key`` has no meaning here, so
     the generator is seeded from the config, and the deferred-sync pose
-    recurrence is dropped (the port runs the synchronous schedule)."""
+    recurrence is dropped (the port runs the synchronous schedule). The
+    BA-delta telemetry rows and a gaussian embedder's B come across."""
     from nerfloam_tpu_torch.utils.checkpoint import load_checkpoint
 
     load_checkpoint(path, slam)

@@ -73,6 +73,8 @@ def save_checkpoint(path: str, slam) -> None:
         arrays[f"dec_b{i}"] = _to_numpy(bs[i])
     arrays["dec_out_w"] = _to_numpy(ws[-1])
     arrays["dec_out_b"] = _to_numpy(bs[-1])
+    if "gaussian_B" in st.decoder_params:
+        arrays["dec_gaussian_B"] = _to_numpy(st.decoder_params["gaussian_B"])
     for i, kf in enumerate(st.keyframes):
         arrays[f"kf{i}_points"] = kf.points
         arrays[f"kf{i}_cos"] = kf.points_cos
@@ -90,7 +92,7 @@ def save_checkpoint(path: str, slam) -> None:
         fp_rel=stack44([r for _, r in st.frame_poses]),
         tracking_traj=stack44(st.tracking_trajectory),
         frame_telemetry=np.asarray(st.frame_telemetry, np.float64).reshape(-1, 4),
-        ba_delta_telemetry=np.zeros((0, 4)),  # BA-delta telemetry is not ported
+        ba_delta_telemetry=np.asarray(st.ba_delta_telemetry, np.float64).reshape(-1, 4),
         last_pose6=st.last_frame.pose6 if st.last_frame else np.zeros(6),
         rel_pose=st.rel_pose if st.rel_pose is not None else np.eye(4),
         # random states: resume is bit-reproducible against an uninterrupted run
@@ -153,6 +155,8 @@ def load_checkpoint(path: str, slam) -> None:
         "w": [_to_tensor(data[w], torch.float32, dev) for w, _ in names],
         "b": [_to_tensor(data[b], torch.float32, dev) for _, b in names],
     }
+    if "dec_gaussian_B" in data:
+        st.decoder_params["gaussian_B"] = _to_tensor(data["dec_gaussian_B"], torch.float32, dev)
 
     st.keyframes = [
         Frame(index=manifest["kf_indices"][i], points=data[f"kf{i}_points"],
@@ -167,6 +171,8 @@ def load_checkpoint(path: str, slam) -> None:
         st.tracking_trajectory = list(data["tracking_traj"])
     if "frame_telemetry" in data:
         st.frame_telemetry = [tuple(r) for r in data["frame_telemetry"]]
+    if "ba_delta_telemetry" in data:
+        st.ba_delta_telemetry = [tuple(r) for r in data["ba_delta_telemetry"]]
     st.first_frame_id = manifest["first_frame_id"]
     st.frames_processed = manifest["frames_processed"]
     if manifest["last_frame_index"] >= 0:

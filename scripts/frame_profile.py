@@ -16,6 +16,7 @@ compare two trees in one call, copy it into the other tree's
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -46,9 +47,11 @@ def profile(name, top):
         slam.process_frame(f)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(cs.PROFILE_PAD_S)  # the device clock strays: keep the records in the window
         for f in frames[WARMUP:]:
             slam.process_frame(f)
         torch.cuda.synchronize()
+        time.sleep(cs.PROFILE_PAD_S)
     events = [e for e in prof.key_averages() if cs._on_device(e)]
     ms = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3 / FRAMES  # noqa: E731
     tag = f"[frame {name}]"

@@ -7,6 +7,9 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --s2s  # kitti_quality_s2s.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --gate60 SEED  # replica_gate60.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --adam25 --exact  # kitti_exact.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --knobs        # kitti_knobs.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --mapping-gt   # kitti_mapping_gt.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --decoder-pe   # kitti_decoder_pe.json
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
 (+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off, i.e. the
@@ -25,6 +28,17 @@ pipeline reads the tracker choice from tpu_specs, so bench.py's
 (``--adam25`` or ``--gate60 SEED``): f32 embeddings, exact embedding
 gradients, BA without a ray superset and per-iteration tracker rays
 (``EXACT``); ``--adam25 --exact`` is the port's kitti_exact.json.
+
+``--knobs`` is the quality config with the off-by-default knobs on
+(``KNOBS``: replay every 5 frames, BA's pose update kept off the motion
+direction, back points dropped from the mapper's copy); it also prints
+the replay steps taken before finalize, the largest |along| of the
+BA-delta telemetry and the share of valid points the back-point rule
+dropped. ``--mapping-gt`` is the quality config on ground-truth poses
+(``data_specs.use_gt=true``: every frame mapping-only); it also prints
+the map's row count and the mesh's triangles (welded, and after
+clean_mesh). ``--decoder-pe`` is the budget config with a decoder skip
+and the nerf positional embedder (``DECODER_PE``).
 
 ``--tpu-seed N`` sets ``tpu_specs.seed`` (the random stream's seed; the
 data's stays the config's).
@@ -58,6 +72,13 @@ from nerfloam_tpu.utils.config import load_config  # noqa: E402
 
 ADAM25 = bench.ADAM25_OVERRIDES + ["tpu_specs.track_method=adam"]
 S2S = ["tpu_specs.s2s_weight=10.0"]
+KNOBS = ["tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
+         "mapper_specs.remove_back=true"]
+MAPPING_GT = ["data_specs.use_gt=true"]
+# load_config parses no list from an override ("[0]" stays a string), so the
+# skips are set on the loaded config
+DECODER_PE = ["decoder_specs.embedder=nerf", "decoder_specs.multires=4"]
+DECODER_PE_SKIPS = [0]
 EXACT = ["tpu_specs.emb_dtype=float32", "tpu_specs.exact_embedding_grads=true",
          "tpu_specs.ba_ray_superset=0", "tpu_specs.track_resample_rays=true"]
 
@@ -111,38 +132,77 @@ def main():
              if "--tpu-seed" in sys.argv else [])
     if "--gate60" in sys.argv:
         return gate60(int(sys.argv[sys.argv.index("--gate60") + 1]), exact, extra)
-    quality = "--quality" in sys.argv
+    knobs = "--knobs" in sys.argv
+    mapping_gt = "--mapping-gt" in sys.argv
+    decoder_pe = "--decoder-pe" in sys.argv
+    quality = "--quality" in sys.argv or knobs or mapping_gt
     adam25 = "--adam25" in sys.argv
     s2s = "--s2s" in sys.argv
     overrides = (bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if quality else [])
                  + (ADAM25 if adam25 else []) + (S2S if s2s else []) + (EXACT if exact else [])
+                 + (KNOBS if knobs else []) + (MAPPING_GT if mapping_gt else [])
+                 + (DECODER_PE if decoder_pe else [])
                  + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"] + extra)
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
+    if decoder_pe:
+        cfg.decoder_specs["skips"] = list(DECODER_PE_SKIPS)
     ds = get_dataset(cfg)
     slam = NerfLoamSLAM(cfg, ds)
     frames = []
     for i in range(len(ds)):
-        idx, pts, cos, _ = ds[i]
-        frames.append(Frame.from_raw(idx, pts, cos, None, slam.points_pad))
+        idx, pts, cos, pose = ds[i]
+        frames.append(Frame.from_raw(idx, pts, cos, pose, slam.points_pad,
+                                     has_gt_pose=pose is not None))
     frames[0].pose6 = pose6_from_matrix_np(ds.get_init_pose(0))
+    replays, back = [0], [0, 0]
+    if knobs:
+        replay = slam._replay
+
+        def counted_replay(n_calls):
+            replays[0] += n_calls
+            return replay(n_calls)
+
+        slam._replay = counted_replay
+        without_back = Frame.without_back_points
+
+        def counted_without_back(f, key_distance):
+            out = without_back(f, key_distance)
+            back[0] += int(f.valid.sum()) - int(out.valid.sum())
+            back[1] += int(f.valid.sum())
+            return out
+
+        Frame.without_back_points = counted_without_back
     t0 = time.perf_counter()
     slam.process_first_frame(frames[0])
     for f in frames[1:]:
         slam.process_frame(f)
+    replay_steps = replays[0]
     poses = np.asarray(slam.finalize())
     gt = ds.gt_trajectory()[: len(poses)]
-    print(json.dumps({
-        "config": ("kitti_quality" if quality else "kitti_adam25" if adam25
-                   else "kitti_budget") + ("_s2s" if s2s else "")
-        + ("_exact" if exact else ""),
+    name = ("kitti_knobs" if knobs else "kitti_mapping_gt" if mapping_gt
+            else "kitti_decoder_pe" if decoder_pe else "kitti_quality" if quality
+            else "kitti_adam25" if adam25 else "kitti_budget")
+    out = {
+        "config": name + ("_s2s" if s2s else "") + ("_exact" if exact else ""),
         "frames": len(poses),
         "ate_m": float(evaluation.ate_rmse(poses, gt, align=False)),
         "sdf_bias": [float(x) for x in slam.sdf_bias],
         "overflow_events": {k: int(v) for k, v in slam.overflow_events.items()},
         "seconds": time.perf_counter() - t0,
         "backend": jax.default_backend(),
-    }))
+    }
+    if knobs:
+        along = [abs(r[1]) for r in slam.state.ba_delta_telemetry]
+        out.update(replay_steps=replay_steps, ba_delta_rows=len(along),
+                   max_abs_along_m=max(along) if along else None,
+                   remove_back_dropped=back[0] / max(back[1], 1))
+    if mapping_gt:
+        v, f = slam.extract_mesh(clean=False)
+        out.update(num_lat=int(slam.state.map_state.num_lat), mesh_vertices=int(len(v)),
+                   mesh_triangles=int(len(f)),
+                   mesh_triangles_clean=int(len(slam.extract_mesh(clean=True)[1])))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -183,8 +183,20 @@ def test_decoder_init_shapes_and_bounds():
     assert shapes == [(16, 256), (256, 256), (256, 1)]
     for w in params["w"]:
         assert float(w.abs().max()) <= 1.0 / np.sqrt(w.shape[0])
-    with pytest.raises(NotImplementedError):
-        tdec.init_decoder(skips=(1,), device="cpu")
+    # skips and positional embedders take JAX's layer widths (a skip widens
+    # the next layer's input by the embedded input; the gaussian B is 16 x 93)
+    for kw in ({"skips": (1,)}, {"skips": (0,), "embedder": "nerf", "multires": 4},
+               {"depth": 3, "skips": (0, 1), "embedder": "gaussian"}):
+        params = tdec.init_decoder(generator=g, device="cpu", **kw)
+        jp, _ = jdec.init_decoder(jax.random.key(0), **kw)
+        assert ([tuple(w.shape) for w in params["w"]]
+                == [tuple(lay["w"].shape) for lay in jp["layers"]] + [tuple(jp["out"]["w"].shape)])
+        assert ("gaussian_B" in params) == ("gaussian_B" in jp)
+        for w in params["w"]:
+            assert float(w.abs().max()) <= 1.0 / np.sqrt(w.shape[0])
+    assert tuple(params["gaussian_B"].shape) == (16, 93)
+    with pytest.raises(ValueError):
+        tdec.init_decoder(embedder="fourier", device="cpu")
 
 
 def test_sdf_losses_match_jax():

@@ -118,12 +118,34 @@ def test_kitti_budget_json_matches_jax_config():
         assert json.load(f)["tpu_specs"]["defer_sync"] is False
 
 
+@pytest.mark.parametrize("name, extra", [
+    ("kitti_knobs", ["tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
+                     "mapper_specs.remove_back=true"]),
+    ("kitti_mapping_gt", ["data_specs.use_gt=true"]),
+    ("kitti_decoder_pe", ["decoder_specs.embedder=nerf", "decoder_specs.multires=4"]),
+])
+def test_knob_jsons_match_jax_config(name, extra):
+    """The three knob paths' JSON configs are the JAX package's config of
+    the same overrides (scripts/port_ate_reference.py --knobs, --mapping-gt,
+    --decoder-pe: the runs their ATE bounds come from)."""
+    sys.path.insert(0, ROOT)
+    import bench
+
+    base = bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if name != "kitti_decoder_pe" else [])
+    ref = load_config(CFG_PATH, base + extra + ["data_specs.n_frames=30",
+                                                 "tpu_specs.defer_sync=false"])
+    if name == "kitti_decoder_pe":
+        ref.decoder_specs["skips"] = [0]
+    cfg = load_json_config(os.path.join(ROOT, "nerfloam_tpu_torch", "configs", f"{name}.json"))
+    assert cfg.as_dict() == ref.as_dict()
+    assert derive_static_shapes(cfg) == j_shapes(ref)
+
+
 @pytest.mark.parametrize("knob", [
     "tpu_specs.defer_sync=true",
     "tpu_specs.dp=2",
     "tpu_specs.maturity_warmup=4",
-    "tpu_specs.replay_freq=5", "tpu_specs.ba_pose_project=along",
-    "mapper_specs.remove_back=true", "tpu_specs.bias_source=keyframe",
+    "tpu_specs.bias_source=keyframe",
     "tpu_specs.bias_classes=2",
 ])
 def test_unported_knobs_raise(knob):
@@ -160,13 +182,31 @@ def test_unported_knobs_raise(knob):
     ("tpu_specs.ba_ray_superset=0",
      lambda s: s.bp_current.ray_superset == s.bp_random.ray_superset == 0
      and not s.bp_current.exact_embedding_grads),
+    ("tpu_specs.replay_freq=5", lambda s: s.replay_freq == 5),
+    ("tpu_specs.ba_pose_project=along",
+     lambda s: s.ba_pose_project == "along" and s.state.ba_delta_telemetry == []),
+    ("mapper_specs.remove_back=true", lambda s: s.remove_back and s.key_distance == 12.0),
+    ("decoder_specs.skips=[0]",
+     lambda s: s.state.decoder_meta.skips == (0,)
+     and tuple(s.state.decoder_params["w"][1].shape) == (272, 256)),
+    ("decoder_specs.embedder=gaussian",
+     lambda s: s.state.decoder_meta.embedder == "gaussian"
+     and tuple(s.state.decoder_params["gaussian_B"].shape) == (16, 93)),
 ])
 def test_ported_knobs_construct(knob, check):
     """The quality-stack knobs (queue-1 item 10), the grid sampler and the
-    Adam tracker (item 11), the s2s term and the reference-exact fallbacks
-    (item 15), mesh intervals and checkpoints (items 12, 13) no longer
-    raise: each reaches the map, tracker and BA parameters it sets."""
-    cfg = load_config(CFG_PATH, SLICE + [knob])
+    Adam tracker (item 11), the s2s term, the reference-exact fallbacks and
+    the off-by-default knobs (item 15: replay_freq, ba_pose_project,
+    remove_back, decoder skips and embedders), mesh intervals and
+    checkpoints (items 12, 13) no longer raise: each reaches the map,
+    tracker, BA and decoder parameters it sets."""
+    key, _, val = knob.partition("=")
+    if val.startswith("["):  # load_config keeps "[0]" a string: set the list
+        cfg = load_config(CFG_PATH, SLICE)
+        group, name = key.split(".")
+        cfg[group][name] = json.loads(val)
+    else:
+        cfg = load_config(CFG_PATH, SLICE + [knob])
     slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
     assert check(slam)
     assert not NerfLoamSLAM_torch(finalize(load_config(CFG_PATH, SLICE).as_dict()), None,
