@@ -151,12 +151,15 @@ def load_checkpoint(path: str, slam) -> None:
     st.map_state = vm.refresh_active(st.map_state, slam.map_cfg)
     n_layers = len(st.decoder_params["w"])
     names = [(f"dec_w{i}", f"dec_b{i}") for i in range(n_layers - 1)] + [("dec_out_w", "dec_out_b")]
-    st.decoder_params = {
+    dec = {
         "w": [_to_tensor(data[w], torch.float32, dev) for w, _ in names],
         "b": [_to_tensor(data[b], torch.float32, dev) for _, b in names],
     }
     if "dec_gaussian_B" in data:
-        st.decoder_params["gaussian_B"] = _to_tensor(data["dec_gaussian_B"], torch.float32, dev)
+        dec["gaussian_B"] = _to_tensor(data["dec_gaussian_B"], torch.float32, dev)
+    elif "gaussian_B" in st.decoder_params:  # a file without it keeps the config's, as JAX's
+        dec["gaussian_B"] = st.decoder_params["gaussian_B"]
+    st.decoder_params = dec
 
     st.keyframes = [
         Frame(index=manifest["kf_indices"][i], points=data[f"kf{i}_points"],
