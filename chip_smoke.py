@@ -111,6 +111,23 @@
    - checkpoint and resume on the quality config: 15 frames, save, load
      into a fresh object (every saved table compared), 15 more frames and
      finalize from the loaded one;
+   - the deferred schedule (tpu_specs.defer_sync, both packages' default):
+     configs/kitti_quality_defer.json (30 frames with a logger, every
+     kernel of the quality path launched, no overflow found with a frame
+     in flight, printed beside the synchronous quality run: keyframes,
+     the trajectories' difference, sdf_bias) and
+     configs/kitti_budget_defer_grow.json (an active set that grows with a
+     frame in flight: a deferred replay, K7 undone twice for each), each
+     against the JAX package's deferred run; [defer] syncs, the
+     synchronizing calls of a steady frame by site
+     (torch.cuda.set_sync_debug_mode); [defer] fetch, that a finalize
+     returns while a device sleep queued behind its frame still runs (it
+     waits on its own staged outputs only); the checkpoint and resume
+     above under defer_sync (the device pose recurrence equal after the
+     load); [defer] pairs, the quality config synchronous and deferred in
+     turns (sync, defer, defer, sync): scans/s, host CPU s a frame, the
+     sync section's ms, host syncs a frame and, after the profiles, the
+     device's busy share;
    - the reference-exact fallbacks: 30 frames of configs/kitti_exact.json
      (kitti_adam25 with exact embedding gradients through E1, BA without a
      ray superset, per-iteration tracker rays, f32 tables: E1 and K9a / K9b
@@ -137,10 +154,11 @@
    and K6's pack share printed). A session that misses one of a
    wrapper's CUDA functions is run again, up to sixteen sessions, and then
    the run fails. Then torch.profiler breakdowns of a few steady frames
-   of the budget, quality, s2s, Adam, replica-gate and exact configs:
-   device launches and device ms per frame (one summary line for all
-   six), device time per launch of each port kernel.
-   A "[time]" line after each phase gives the seconds from the start.
+   of the budget, quality, s2s, Adam, replica-gate, exact and deferred
+   quality configs: device launches and device ms per frame (one summary
+   line for all seven), device time per launch of each port kernel.
+   A "[time]" line after each phase gives the seconds from the start, and
+   one at the end the whole script's.
 
 A summary line gives every path's ATE (both gate seeds raw and aligned,
 the resumed run). Any failure raises (exit code 1). The last three lines
@@ -151,7 +169,8 @@ are the kernels' JSON record, the card's name and power limit, and
     python3 chip_smoke.py --paths kitti_budget,kitti_quality
 
 runs only those configs' main paths (step 4; their checks too; also
-replica_gate60_s<seed>) and prints no result line: to compare two trees
+replica_gate60_s<seed>, and the deferred phases defer_checks and
+defer_pairs) and prints no result line: to compare two trees
 of the port in one call, in turns, run each tree's package under this
 script (copy it into the other tree's root). Each path prints its scans/s
 and the host CPU seconds its process spent a frame, which a loaded host
@@ -169,6 +188,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
+from collections import Counter
 from functools import partial
 
 import numpy as np
@@ -218,10 +240,21 @@ MAPPING_GT_JAX = {"ate": 0.007943602417526424, "num_lat": 153702, "mesh_triangle
                   "mesh_triangles_clean": 64810}
 # the nerf-embedded decoder drifts at the budget, JAX's too
 DECODER_PE_ATE_JAX = 11.336090479594267
+# the deferred schedule (defer_sync, the default of both packages):
+#   `--quality --defer` (kitti_quality_defer.json), run on 2026-10-18 (1084 s;
+#   4 keyframes, no deferred replay), and `--defer --active-cap 16384`
+#   (kitti_budget_defer_grow.json), run on 2026-10-18 (1039 s; the active set
+#   grew twice, 16384 -> 32768 -> 65536, each growth found with a frame in
+#   flight). Its active_cap: the card's `[main kitti_budget]` line reads
+#   n_active 6,616 after the first frame and 36,942 after 30 (NVIDIA H100
+#   80GB HBM3, 700 W); 16384 lies between, so the set grows mid-run.
+DEFER_JAX = {"kitti_quality_defer": 1.4735098996105005,
+             "kitti_budget_defer_grow": 2.0133160920374866}
 ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.4708145094137826,
            "kitti_adam25": 49.932506364901286, "kitti_quality_s2s": 1.4469814645550143,
            "kitti_exact": KITTI_EXACT_ATE_JAX, "kitti_knobs": KNOBS_JAX["ate"],
-           "kitti_mapping_gt": MAPPING_GT_JAX["ate"], "kitti_decoder_pe": DECODER_PE_ATE_JAX}
+           "kitti_mapping_gt": MAPPING_GT_JAX["ate"], "kitti_decoder_pe": DECODER_PE_ATE_JAX,
+           **DEFER_JAX}
 # the along column of the BA-delta telemetry under ba_pose_project=along: BA
 # projects the motion direction out of every pose update, so it reads 0 up to
 # the f32 rounding of the pose (JAX pipeline.py:811-816): an ulp of a
@@ -293,8 +326,14 @@ PATH_KERNELS = {           # kernels each main path must launch
     "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP
     + _NORM,
 }
+# the deferred schedule runs the same kernels as its synchronous config; the
+# budget run whose active set grows with a frame in flight also undoes K7
+PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"]
+PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert",)
+DEFER_PATHS = ("kitti_quality_defer", "kitti_budget_defer_grow")
 # paths run with a RunLogger: finalize writes both meshes and the pose files
-LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt")
+LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt", "kitti_quality_defer")
+DEFER_SLEEP_MS = 50  # the [defer] fetch check's device sleep behind a finalize
 # the CUDA functions behind each wrapper (csrc/*.cu), for the profile
 KERNEL_FUNCTIONS = {
     "hit_table": ("hit_table_warp_kernel",),
@@ -2080,12 +2119,14 @@ def main_path(name, slam, ds, label=None):
     zero_counters()
     t_start = time.perf_counter()
     slam.process_first_frame(frames[0])
+    n_active0 = int(slam.state.map_state.n_active)  # outside the window
     for f in frames[1:WARMUP_FRAMES]:
         slam.process_frame(f)
     torch.cuda.synchronize()
     t0, c0 = time.perf_counter(), time.process_time()
     for f in frames[WARMUP_FRAMES:]:
         slam.process_frame(f)
+    slam._drain()  # defer_sync: the last frame's finalize inside the window
     torch.cuda.synchronize()
     dt, cpu = time.perf_counter() - t0, time.process_time() - c0
     poses = np.asarray(slam.finalize())
@@ -2111,7 +2152,8 @@ def main_path(name, slam, ds, label=None):
         {k: round(v["mean_ms"], 3) for k, v in slam.prof.summary().items()}))
     ms = slam.state.map_state
     log(f"{tag} final sdf_bias {slam.sdf_bias.tolist()}, num_lat {int(ms.num_lat)}, "
-        f"n_active {int(ms.n_active)}, keyframes {len(slam.state.keyframes)}")
+        f"n_active {int(ms.n_active)} (after the first frame {n_active0}; active_cap "
+        f"{slam.map_cfg.active_cap}), keyframes {len(slam.state.keyframes)}")
     check(len(poses) == len(frames), f"{len(poses)} poses for {len(frames)} frames")
     check(np.isfinite(poses).all(), "non-finite pose")
     check(bool(torch.isfinite(ms.embeddings.float()).all()), "non-finite embeddings")
@@ -2127,6 +2169,8 @@ def main_path(name, slam, ds, label=None):
         knobs_checks(tag, slam, len(frames), back)
     if name == "kitti_mapping_gt":
         mapping_gt_checks(tag, slam, launches, mesh, gt)
+    if name in DEFER_PATHS:
+        defer_checks(name, tag, slam, launches, len(frames))
     if name == "kitti_quality_s2s":
         # K11a once per tracked frame (and per replayed one), K11b once per GN iteration
         replays = sum(slam.overflow_events.values())
@@ -2164,7 +2208,31 @@ def main_path(name, slam, ds, label=None):
     ates = {"raw": ate}
     if name == "replica_gate60":
         ates["aligned"] = aligned
-    return launches, scans, slam.prof.summary(), ates
+    run = {"poses": poses, "keyframes": len(slam.state.keyframes),
+           "sdf_bias": slam.sdf_bias.tolist()}
+    return launches, scans, slam.prof.summary(), ates, run
+
+
+def defer_checks(name, tag, slam, launches, n_frames):
+    """A deferred path: nothing in flight after finalize, a telemetry row
+    for every tracked frame; on the quality config no overflow found with a
+    frame in flight, on the growing budget config at least one active-set
+    growth found so, and K7 undone at least twice for each (the newer
+    frame's insert and the older one's)."""
+    replays, undo = slam._defer_replays, launches["undo_insert"]
+    rows = len(slam.state.frame_telemetry)
+    log(f"{tag} defer_sync: {replays} deferred replays, overflow events "
+        f"{slam.overflow_events}, K7 undone {undo} times, {rows} telemetry rows for "
+        f"{n_frames - 1} tracked frames, in flight after finalize: {slam._inflight is not None}")
+    check(slam.defer_sync, f"{tag} does not run defer_sync")
+    check(slam._inflight is None, f"{tag}: a frame is in flight after finalize")
+    check(rows == n_frames - 1, f"{tag}: {rows} telemetry rows for {n_frames - 1} tracked frames")
+    if name == "kitti_budget_defer_grow":
+        check(slam.overflow_events["active"] >= 1, f"{tag}: the active set never grew")
+        check(replays >= 1, f"{tag}: no overflow was found with a frame in flight")
+        check(undo >= 2 * replays, f"{tag}: K7 undone {undo} times for {replays} deferred replays")
+    else:
+        check(replays == 0, f"{tag}: {replays} deferred replays")
 
 
 def back_share(frames, key_distance):
@@ -2278,18 +2346,19 @@ def drift_lat_cm_f(est, gt):
     return float(np.linalg.norm(diff - along[:, None] * fwd, axis=1).mean()) * 100
 
 
-def checkpoint_phase(cfg, ds, workdir):
-    """Checkpoint and resume on the quality config: frames 0 to CKPT_FRAME,
+def checkpoint_phase(cfg, ds, workdir, name="kitti_quality"):
+    """Checkpoint and resume on a quality config: frames 0 to CKPT_FRAME,
     save, load into a fresh object, compare all that was saved, then the
     remaining frames and finalize from the loaded object, its ATE held to
-    the config's bound."""
-    tag = "[checkpoint kitti_quality]"
+    the config's bound. Under defer_sync the save drains the frame in
+    flight, and the device pose recurrence comes back equal."""
+    tag = f"[checkpoint {name}]"
     a = NerfLoamSLAM_torch(cfg, ds, device="cuda")
     frames = make_frames(a, ds)
     a.process_first_frame(frames[0])
     for f in frames[1:CKPT_FRAME + 1]:
         a.process_frame(f)
-    path = os.path.join(workdir, "ckpt", f"{CKPT_FRAME:05d}")
+    path = os.path.join(workdir, "ckpt", name, f"{CKPT_FRAME:05d}")
     t0 = time.perf_counter()
     save_checkpoint(path, a)
     t_save = time.perf_counter() - t0
@@ -2323,6 +2392,12 @@ def checkpoint_phase(cfg, ds, workdir):
     check(torch.equal(a.generator.get_state(), b.generator.get_state()),
           "checkpoint: the device generator's state differs")
     check(a.pyrng.getstate() == b.pyrng.getstate(), "checkpoint: the host generator differs")
+    check(a._inflight is None and b._inflight is None, "checkpoint: a frame in flight")
+    for nm in ("_dev_last_pose6", "_dev_prev_pose6"):  # defer_sync's; None when synchronous
+        pa, pb = getattr(a, nm), getattr(b, nm)
+        check((pa is None and pb is None) if not a.defer_sync
+              else (pa is not None and pb is not None and torch.equal(pa, pb)),
+              f"checkpoint: {nm} differs")
     check(np.array_equal(a.sdf_bias, b.sdf_bias) and np.array_equal(sa.rel_pose, sb.rel_pose)
           and sa.frames_processed == sb.frames_processed == CKPT_FRAME + 1
           and np.array_equal(sa.last_frame.pose6, sb.last_frame.pose6)
@@ -2331,7 +2406,8 @@ def checkpoint_phase(cfg, ds, workdir):
     size_mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
     log(f"{tag} saved after frame {CKPT_FRAME} in {t_save:.2f} s ({size_mb:.1f} MB), loaded in "
         f"{t_load:.2f} s; map tables, decoder, {len(sb.keyframes)} keyframes, budgets and both "
-        "generator states equal")
+        "generator states equal" + ("; the device pose recurrence equal: last "
+                                   f"{b._dev_last_pose6.tolist()}" if a.defer_sync else ""))
     del a
     for f in frames[CKPT_FRAME + 1:]:
         b.process_frame(f)
@@ -2340,11 +2416,136 @@ def checkpoint_phase(cfg, ds, workdir):
     gt = ds.gt_trajectory()[: len(poses)]
     ate = ate_rmse(poses, gt, align=False)
     log(f"{tag} resumed frames {CKPT_FRAME + 1}-{len(frames) - 1} + finalize: {len(poses)} poses, "
-        f"ATE {ate:.4f} m (bound {ate_bound('kitti_quality'):.4f} m)")
+        f"ATE {ate:.4f} m (bound {ate_bound(name):.4f} m)")
     check(len(poses) == len(frames) and np.isfinite(poses).all(), "resumed run lost poses")
     check(b.dropped_delta_events == 0, "dropped deltas in the resumed run")
-    check(ate <= ate_bound("kitti_quality"), f"resumed ATE {ate} above bound")
+    check(b._inflight is None, "a frame in flight after the resumed run's finalize")
+    check(ate <= ate_bound(name), f"resumed ATE {ate} above bound ({name})")
     return ate
+
+
+def sync_sites(slam, frame):
+    """The synchronizing CUDA calls of one frame (``process_frame``: under
+    defer_sync the frame's dispatch and the previous frame's finalize) by
+    site, from torch.cuda.set_sync_debug_mode("warn"): the innermost frame
+    of the repository's code on each warning's stack, with its caller
+    (outside the repository: the stack's last three frames). ``frame``
+    None: the mode switched on and off around nothing, what the switch
+    itself reports."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        full = [f for f in traceback.extract_stack()[:-1] if "/warnings.py" not in f.filename]
+        stack = [f for f in full
+                 if f.filename.startswith(here) and not f.filename.endswith("chip_smoke.py")]
+        where = [f"{os.path.relpath(f.filename, here) if f.filename.startswith(here) else f.filename}"
+                 f":{f.lineno} ({f.name})" for f in (stack[-2:] or full[-3:])]
+        sites[" < ".join(reversed(where))] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            if frame is not None:
+                slam.process_frame(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def defer_phase(cfg, ds):
+    """Two checks of the deferred schedule on kitti_quality_defer:
+    [defer] syncs, the synchronizing calls of a steady frame by site;
+    [defer] fetch, that a finalize waits for its own frame's staged
+    outputs alone: a frame is dispatched and its outputs copied out, a
+    DEFER_SLEEP_MS device sleep is enqueued behind it, and finalize must
+    return while the stream is still busy (a blocking read would have
+    waited for the sleep)."""
+    slam = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    frames = make_frames(slam, ds, WARMUP_FRAMES + 2)
+    slam.process_first_frame(frames[0])
+    for f in frames[1:WARMUP_FRAMES]:
+        slam.process_frame(f)
+    empty = sync_sites(slam, None)
+    sites = sync_sites(slam, frames[WARMUP_FRAMES])
+    log(f"[defer] syncs: {sum(sites.values())} synchronizing calls in frame {WARMUP_FRAMES}'s "
+        f"process_frame (its dispatch, frame {WARMUP_FRAMES - 1}'s finalize), by site; the mode "
+        f"switched on and off around nothing reports {sum(empty.values())} "
+        f"({', '.join(empty) or 'none'}):")
+    for site, n in sites.most_common():
+        log(f"[defer] syncs   {n:3d}  {site}")
+    slam._drain()
+    torch.cuda.synchronize()
+    # the device sleep's cycles for DEFER_SLEEP_MS, from one timed sleep
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(10_000_000)
+    e1.record()
+    e1.synchronize()
+    cycles = int(10_000_000 * DEFER_SLEEP_MS / e0.elapsed_time(e1))
+    f = frames[WARMUP_FRAMES + 1]
+    update_decoder = (f.index - slam.state.first_frame_id) < slam.freeze_frame
+    rec = slam._mega_dispatch(f, slam._mapper_copy(f), update_decoder)
+    rec.outs.event.synchronize()  # its outputs are on the host
+    e0.record()
+    torch.cuda._sleep(cycles)  # the work of a newer frame, queued behind it
+    t0 = time.perf_counter()
+    slam._mega_finalize(rec)
+    t_fin = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    e1.record()
+    e1.synchronize()
+    log(f"[defer] fetch: finalize of frame {f.index} took {t_fin:.3f} ms on the host while a "
+        f"{e0.elapsed_time(e1):.1f} ms device sleep ran behind the frame; the stream was "
+        f"{'still busy' if busy else 'idle'} when it returned; pose {f.pose6[:3].tolist()}")
+    check(busy, "[defer] fetch: finalize waited for the work queued after its frame")
+    check(np.isfinite(f.pose6).all() and len(slam.state.frame_telemetry) == WARMUP_FRAMES + 1,
+          "[defer] fetch: the finalized frame's bookkeeping is missing")
+    return sites
+
+
+def pair_run(cfg, ds):
+    """One 30-frame run of a config without a logger, timed as main_path
+    times it: scans/s over frames WARMUP_FRAMES to the end (the last
+    frame's finalize inside the window), host CPU s a frame, the ``sync``
+    section's mean ms (a finalize's wait for its outputs) and host syncs a
+    frame."""
+    slam = NerfLoamSLAM_torch(cfg, ds, device="cuda")
+    frames = make_frames(slam, ds)
+    slam.process_first_frame(frames[0])
+    for f in frames[1:WARMUP_FRAMES]:
+        slam.process_frame(f)
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.process_time()
+    for f in frames[WARMUP_FRAMES:]:
+        slam.process_frame(f)
+    slam._drain()
+    torch.cuda.synchronize()
+    dt, cpu = time.perf_counter() - t0, time.process_time() - c0
+    slam.finalize()
+    n = len(frames) - WARMUP_FRAMES
+    return {"scans": n / dt, "cpu": cpu / n, "sync_ms": slam.prof.summary()["sync"]["mean_ms"],
+            "syncs": slam.host_syncs / len(frames)}
+
+
+def defer_pairs(cfgs, ds):
+    """[defer] pairs: kitti_quality and kitti_quality_defer in turns (sync,
+    defer, defer, sync) in one call; printed, not gated."""
+    runs = []
+    for name in ("kitti_quality", "kitti_quality_defer", "kitti_quality_defer", "kitti_quality"):
+        r = pair_run(cfgs[name], ds)
+        runs.append((name, r))
+        log(f"[defer] pairs {name}: {r['scans']:.4f} scans/s, host CPU {r['cpu']:.4f} s a frame, "
+            f"sync section {r['sync_ms']:.3f} ms, host syncs {r['syncs']:.2f} a frame")
+        torch.cuda.empty_cache()
+    return runs
+
 
 
 def profile_phase(label, cfg, ds, n_frames=8, n_profiled=3, device="cuda"):
@@ -2477,15 +2678,32 @@ def kitti_paths(names, cfgs, ds, workdir):
         d = get_dataset(cfgs[n]) if cfgs[n].data_specs.get("use_gt", False) else ds
         results[n] = main_path(n, NerfLoamSLAM_torch(cfgs[n], d, device="cuda", logger=logger), d)
         torch.cuda.empty_cache()
+    if "kitti_quality" in results and "kitti_quality_defer" in results:
+        compare_defer(results["kitti_quality"], results["kitti_quality_defer"])
     return results
+
+
+def compare_defer(sync, defer):
+    """The deferred quality run beside the synchronous one: keyframes, the
+    trajectories' difference and the bias target (printed, not gated: the
+    schedules differ by design, keyframes and the bias EMA act a frame
+    later under defer_sync)."""
+    a, b = sync[4], defer[4]
+    d = np.linalg.norm(a["poses"][:, :3, 3] - b["poses"][:, :3, 3], axis=1)
+    log(f"[defer] kitti_quality vs kitti_quality_defer: keyframes {a['keyframes']} / "
+        f"{b['keyframes']}; trajectory difference {ate_rmse(b['poses'], a['poses'], align=False):.4f}"
+        f" m RMSE, {d.max():.4f} m at most; ATE {sync[3]['raw']:.4f} / {defer[3]['raw']:.4f} m; "
+        f"sdf_bias {a['sdf_bias']} / {b['sdf_bias']}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--paths", help="comma-separated main paths (kitti_budget, kitti_quality, "
                     "kitti_adam25, kitti_quality_s2s, kitti_exact, kitti_knobs, "
-                    "kitti_mapping_gt, kitti_decoder_pe, replica_gate60_s<seed>, "
-                    "replica_gate60_exact_s<seed>): run only those")
+                    "kitti_mapping_gt, kitti_decoder_pe, kitti_quality_defer, "
+                    "kitti_budget_defer_grow, replica_gate60_s<seed>, "
+                    "replica_gate60_exact_s<seed>) and defer phases (defer_checks: [defer] "
+                    "syncs, [defer] fetch and the defer checkpoint; defer_pairs): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2497,10 +2715,10 @@ def main(argv=None):
     def stamp(phase):
         log(f"[time] {phase} done {time.perf_counter() - t_run:.1f} s from the start")
 
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    log(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[device] {device_kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
@@ -2514,13 +2732,19 @@ def main(argv=None):
                 log(f"[build] {src}: {line.strip()}")
 
     kitti = ("kitti_budget", "kitti_quality", "kitti_adam25", "kitti_quality_s2s", "kitti_exact",
-             "kitti_knobs", "kitti_mapping_gt", "kitti_decoder_pe")
+             "kitti_knobs", "kitti_mapping_gt", "kitti_decoder_pe") + DEFER_PATHS
     cfgs = {n: load_cfg(here, n) for n in kitti}
     ds = get_dataset(cfgs["kitti_quality"])  # the KITTI-budget configs share the data
     if args.paths:
         names = args.paths.split(",")
         with tempfile.TemporaryDirectory() as workdir:
             kitti_paths([n for n in names if n in kitti], cfgs, ds, workdir)
+            if "defer_checks" in names:
+                defer_phase(cfgs["kitti_quality_defer"], ds)
+                checkpoint_phase(cfgs["kitti_quality_defer"], ds, workdir, "kitti_quality_defer")
+        if "defer_pairs" in names:
+            defer_pairs(cfgs, ds)
+        log(f"[time] the whole script {time.perf_counter() - t_run:.1f} s")
         for n in names:
             if n.startswith("replica_gate60_s"):
                 gate_path(here, int(n[len("replica_gate60_s"):]))
@@ -2552,6 +2776,11 @@ def main(argv=None):
             f"{track['kitti_quality_s2s'] - track['kitti_quality']:.3f} ms")
         resumed_ate = checkpoint_phase(cfgs["kitti_quality"], ds, workdir)
         torch.cuda.empty_cache()
+        defer_phase(cfgs["kitti_quality_defer"], ds)
+        resumed_defer_ate = checkpoint_phase(cfgs["kitti_quality_defer"], ds, workdir,
+                                             "kitti_quality_defer")
+        torch.cuda.empty_cache()
+    pairs = defer_pairs(cfgs, ds)
     gaussian_ate = gaussian_run(here, ds)
     torch.cuda.empty_cache()
     stamp("the KITTI paths and the checkpoint")
@@ -2567,12 +2796,14 @@ def main(argv=None):
         ("kitti_budget", cfgs["kitti_budget"], ds), ("kitti_quality", cfgs["kitti_quality"], ds),
         ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),
         ("kitti_adam25", cfgs["kitti_adam25"], ds), ("replica_gate60_s0", gate[0], gate_ds[0]),
-        ("kitti_exact", cfgs["kitti_exact"], ds))}
+        ("kitti_exact", cfgs["kitti_exact"], ds),
+        ("kitti_quality_defer", cfgs["kitti_quality_defer"], ds))}
     log("[result] per frame (profile, 3 steady frames): " + ", ".join(
         f"{n} {v[0]:.1f} device launches, {v[1]:.2f} device ms" for n, v in per_frame.items()))
     log("[result] ATE (m): " + ", ".join(
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
-        + f", kitti_quality resumed {resumed_ate:.4f}, replica_gate60_exact_s0 median raw over "
+        + f", kitti_quality resumed {resumed_ate:.4f}, kitti_quality_defer resumed "
+        f"{resumed_defer_ate:.4f}, replica_gate60_exact_s0 median raw over "
         f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}, kitti_budget gaussian "
         f"{GAUSSIAN_FRAMES} frames {gaussian_ate:.4f}")
     stamp("the frame profiles")
@@ -2586,9 +2817,14 @@ def main(argv=None):
             r["build_launches"] = sum(results[n][0]["pack_embeddings_vjp_build"] for n in results)
     log(f"[result] scans/s " + ", ".join(f"{n} {v[1]:.4f}" for n, v in results.items())
         + f" on {smi}")
+    for cfg_name, r in pairs:  # the device's busy share: the profile's device ms a frame x scans/s
+        ms_frame = per_frame[cfg_name][1]
+        log(f"[defer] pairs {cfg_name}: busy share {ms_frame * r['scans'] / 1e3:.3f} "
+            f"({ms_frame:.2f} device ms a frame x {r['scans']:.4f} scans/s)")
+    log(f"[time] the whole script {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,6 +1,7 @@
 """Host-side frame containers with static-shape padding (port of
 nerfloam_tpu/core/frame.py:22-174, which imports jax). Point buffers are
-padded to a static size and uploaded once to an explicit device."""
+padded to a static size and uploaded once to an explicit device, through
+``upload``: a CUDA upload waits for nothing queued on the card."""
 
 from __future__ import annotations
 
@@ -8,6 +9,20 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array (numpy, list or scalar) as a tensor on ``device``. A
+    CUDA upload goes through pinned memory with ``non_blocking=True``: a
+    copy from pageable memory waits for all the work queued on the stream
+    first, which under ``defer_sync`` is the whole frame in flight
+    (PyTorch's pinned allocator keeps the staging block until the copy has
+    run). A CPU upload is ``torch.as_tensor``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    host = torch.as_tensor(np.asarray(a), dtype=dtype)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def pose6_from_matrix_np(T: np.ndarray) -> np.ndarray:
@@ -71,15 +86,12 @@ class Frame:
     _dev: tuple | None = None  # (device, points, cos, valid) uploaded once
 
     def device_arrays(self, device):
-        """Copies of the immutable point buffers on ``device``, uploaded once."""
+        """Copies of the immutable point buffers on ``device``, uploaded once
+        (``upload``)."""
         device = torch.device(device)
         if self._dev is None or self._dev[0] != device:
-            self._dev = (
-                device,
-                torch.as_tensor(self.points, device=device),
-                torch.as_tensor(self.points_cos, device=device),
-                torch.as_tensor(self.valid, device=device),
-            )
+            self._dev = (device, upload(self.points, device), upload(self.points_cos, device),
+                         upload(self.valid, device))
         return self._dev[1:]
 
     @classmethod

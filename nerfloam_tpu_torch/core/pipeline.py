@@ -1,15 +1,31 @@
 """Single-process SLAM orchestration (port of nerfloam_tpu/core/pipeline.py,
-synchronous schedule, single device).
+single device).
 
 frame 0: insert -> active refresh -> keyframe -> ``bootstrap_steps`` BA steps.
 frame k: track (GN or Adam, ``track_method``) -> lazy recenter + active
-refresh -> BA on the tracked frame -> voxel insert, then ONE host fetch of
-the frame's results (poses, hit count, row counts, the BA's surface-bias
-probe) and the host bookkeeping: the bias EMA and ``_post_frame``'s
+refresh -> BA on the tracked frame -> voxel insert (the megastep,
+``_mega_dispatch``), then ONE host fetch of the frame's results (poses,
+hit count, row counts, the BA's surface-bias probe) and the host
+bookkeeping (``_mega_finalize``): the bias EMA and ``_post_frame``'s
 keyframe-gap insertion, trajectory record and periodic mesh / checkpoint /
 debug dumps.
 finalize: the no-replay mesh, the ``final_iter`` random replay, the final
 poses and mesh, all written through the run logger when there is one.
+
+``tpu_specs.defer_sync`` (the default) runs the frames one deep, as JAX's
+schedule does: frame k is dispatched, then frame k-1 is finalized while the
+card runs k. The warm start is computed on the device from the last two
+tracked poses (``_const_vel``); keyframe insertion and the bias EMA act one
+frame late. A frame's outputs are copied out at its dispatch (the insert of
+the next frame overwrites the map's counters in place), into pinned memory
+without blocking, and its finalize waits on that copy's event alone. An
+overflow found at finalize while a newer frame is in flight undoes the
+newer frame's insert, then the older's, puts back the older frame's
+pre-frame state, grows the budgets and replays the older frame, then the
+newer one on top, each from its own saved generator state
+(``_defer_replays`` counts them). ``_drain`` finalizes the frame in flight
+before anything that needs the loop caught up: a replay step, a mesh, a
+checkpoint, a ground-truth frame, ``finalize``.
 
 With ``tpu_specs.s2s_weight > 0`` the GN tracker adds the scan-to-scan
 point-to-plane term (core/scan2scan.py): the previous frame's points, valid
@@ -48,7 +64,7 @@ candidates) is handled as in JAX: rewind the frame to its pre-frame state,
 grow the budget and replay the frame with the same random stream
 (the generator state is saved with the map), so growth never loses data.
 
-Knobs the port does not implement yet raise ``NotImplementedError`` at
+Knobs the port does not implement raise ``NotImplementedError`` at
 construction, naming their ROADMAP queue-1 item; none is ignored.
 """
 
@@ -64,11 +80,12 @@ import torch
 
 from nerfloam_tpu_torch.core import ba as ba_mod
 from nerfloam_tpu_torch.core import tracking as tr_mod
-from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
+from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np, upload
 from nerfloam_tpu_torch.core.scan2scan import Scan2ScanParams, build_prev_scan
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, init_decoder
+from nerfloam_tpu_torch.ops import se3
 from nerfloam_tpu_torch.ops.ieee import norm3
 from nerfloam_tpu_torch.ops.marching import TetScratch
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
@@ -77,7 +94,6 @@ from nerfloam_tpu_torch.utils.profiler import Profiler
 
 # (knob, value that is implemented, ROADMAP queue-1 item that ports the rest)
 _UNPORTED = [
-    ("tpu_specs.defer_sync", lambda v: not v, "14 (defer_sync)"),
     ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
     ("tpu_specs.bias_source", lambda v: v == "window", "15 (dropped: keyframe bias probe)"),
     ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
@@ -91,6 +107,49 @@ def check_ported(cfg: Config):
         if name in cfg[group] and not ok(cfg[group][name]):
             raise NotImplementedError(
                 f"{key}={cfg[group][name]!r} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def _const_vel(last6: torch.Tensor, prev6: torch.Tensor, full: bool) -> torch.Tensor:
+    """The constant-velocity warm start on the device from the raw tracked
+    poses of the two previous frames (JAX ``_const_vel_jit``, pipeline.py:
+    60-72): rel = inv(T_prev) T_last, init = T_last rel; ``full=False``
+    moves the translation only."""
+    t_last = se3.pose_matrix(last6)
+    t_prev = se3.pose_matrix(prev6)
+    rel = se3.compose_matrices(se3.invert_matrix(t_prev), t_last)
+    t_const = se3.compose_matrices(t_last, rel)
+    if not full:
+        t_const = torch.cat([torch.cat([t_last[:3, :3], t_const[:3, 3:]], 1), t_last[3:]], 0)
+    return se3.pose_from_matrix(t_const)
+
+
+class _Staged:
+    """Small device tensors copied out in one piece: float64 values in a
+    host buffer (pinned, filled by a copy that does not block, with an
+    event after it, on the card), their shapes, and that event."""
+
+    __slots__ = ("host", "shapes", "event")
+
+    def __init__(self, host, shapes, event):
+        self.host, self.shapes, self.event = host, shapes, event
+
+
+class _Dispatch:
+    """One tracked frame's megastep (JAX's dispatch record, pipeline.py:
+    1250-1275): the frame, its mapper copy, the previous frame, its
+    TrackParams and whether BA frees its pose; the megastep's device inputs
+    (``args``); the state before it (``pre``: map state and decoder) and the
+    generator's state before it; the state after it (``post``), its K7
+    ``InsertRecord`` and its outputs, staged at dispatch."""
+
+    __slots__ = ("frame", "mapper_frame", "prev_frame", "tp", "pose_free", "args", "pre",
+                 "gen_state", "post", "insert", "outs")
+
+    def __init__(self, frame, mapper_frame, prev_frame, tp, pose_free, args, pre, gen_state):
+        self.frame, self.mapper_frame, self.prev_frame = frame, mapper_frame, prev_frame
+        self.tp, self.pose_free, self.args = tp, pose_free, args
+        self.pre, self.gen_state = pre, gen_state
+        self.post = self.insert = self.outs = None
 
 
 @dataclass
@@ -220,6 +279,11 @@ class NerfLoamSLAM_torch:
         self.key_distance = float(mspec["key_distance"])
         self.remove_back = bool(mspec.get("remove_back", False))
         self.replay_freq = int(tpu.get("replay_freq", 0))
+        self.defer_sync = bool(tpu.get("defer_sync", True))
+        self._inflight = None        # the dispatched, not yet finalized frame (_Dispatch)
+        self._dev_last_pose6 = None  # defer_sync: raw tracked pose of the last dispatched frame
+        self._dev_prev_pose6 = None  # ... and of the frame before it (device tensors)
+        self._defer_replays = 0      # overflows found with a newer frame in flight
         self.ba_pose_project = str(tpu.get("ba_pose_project", "none"))
         if self.ba_pose_project not in ("none", "along"):
             raise ValueError(f"tpu_specs.ba_pose_project must be 'none' or 'along', "
@@ -270,17 +334,38 @@ class NerfLoamSLAM_torch:
 
     # ------------------------------------------------------------------ util
 
-    def _fetch(self, *tensors) -> list:
-        """One device -> host read of several scalars / small tensors."""
-        self.host_syncs += 1
+    def _stage(self, *tensors) -> _Staged:
+        """Copy several scalars / small tensors out, as they are now: one
+        float64 buffer made on the device (so a later in-place write cannot
+        reach it), and on the card copied into pinned host memory without
+        blocking, an event recorded after the copy."""
         flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
-        vals = flat.cpu().numpy()
+        shapes = [t.shape for t in tensors]
+        if flat.device.type != "cuda":
+            return _Staged(flat, shapes, None)
+        host = torch.empty(flat.shape, dtype=torch.float64, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _Staged(host, shapes, event)
+
+    def _collect(self, staged: _Staged) -> list:
+        """The staged values as numpy arrays: one device -> host read, which
+        waits for the staging copy's event only."""
+        self.host_syncs += 1
+        if staged.event is not None:
+            staged.event.synchronize()
+        vals = staged.host.numpy()
         out, i = [], 0
-        for t in tensors:
-            n = t.numel()
-            out.append(vals[i:i + n].reshape(t.shape))
+        for shape in staged.shapes:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(vals[i:i + n].reshape(shape))
             i += n
         return out
+
+    def _fetch(self, *tensors) -> list:
+        """One device -> host read of several scalars / small tensors."""
+        return self._collect(self._stage(*tensors))
 
     def _pad_for_ba(self, frames: list, n_frames: int):
         devs = [f.device_arrays(self.device) for f in frames[:n_frames]]
@@ -295,7 +380,7 @@ class NerfLoamSLAM_torch:
         return pts, cos, val, poses, active
 
     def _tensor(self, x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        return upload(x, self.device, dtype)
 
     # ----------------------------------------------------------------- mapper
 
@@ -320,6 +405,14 @@ class NerfLoamSLAM_torch:
                 break
         self.state.map_state = ms
 
+    def _overflowed(self, num_lat: int, n_active: int, touched: int, num_cand: int,
+                    bp=None) -> bool:
+        """Whether the counts overflow a budget (``bp``'s touched cap, the
+        current BA's by default)."""
+        bp = self.bp_current if bp is None else bp
+        return (num_lat > self.map_cfg.capacity or n_active > vm.acap(self.map_cfg)
+                or touched > bp.touched_cap or num_cand > self.insert_cand_cap)
+
     def _grow_budgets(self, num_lat: int, n_active: int, touched: int, num_cand: int,
                       which: str = "current", rewind=None) -> bool:
         """Grow every budget the counts overflowed, without re-running
@@ -328,8 +421,7 @@ class NerfLoamSLAM_torch:
         the insert that wrote into the pre-frame map)."""
         st = self.state
         bp = self.bp_current if which == "current" else self.bp_random
-        if not (num_lat > self.map_cfg.capacity or n_active > vm.acap(self.map_cfg)
-                or touched > bp.touched_cap or num_cand > self.insert_cand_cap):
+        if not self._overflowed(num_lat, n_active, touched, num_cand, bp):
             return False
         if rewind is not None:
             rewind()
@@ -487,19 +579,17 @@ class NerfLoamSLAM_torch:
         if np.isfinite(sb):
             self.sdf_bias = (0.8 * self.sdf_bias + 0.2 * sb).astype(np.float32)
 
-    def _track(self, tp, init6, pts, cos, val, sdf_bias):
+    def _track(self, tp, init6, lr, pts, cos, val, sdf_bias, prev_frame, prev_pose6):
         st = self.state
         args = (st.map_state, self.map_cfg, self.rc_track, tp, st.decoder_params, init6, pts, cos,
                 val)
         if self.track_method == "gn":
             prev = None
             if tp.s2s is not None:  # rasterize the previous scan once per frame
-                last = st.last_frame
-                prev_pts, _, prev_val = last.device_arrays(self.device)
-                prev = build_prev_scan(tp.s2s, prev_pts, prev_val, self._tensor(last.pose6))
+                prev_pts, _, prev_val = prev_frame.device_arrays(self.device)
+                prev = build_prev_scan(tp.s2s, prev_pts, prev_val, prev_pose6)
             return tr_mod.track_frame_gn(*args, self.generator, sdf_bias, prev,
                                          dec_meta=st.decoder_meta)
-        lr = self.track_lr * 2 if st.frames_processed < 2 else self.track_lr / 3
         return tr_mod.track_frame(*args, lr, self.generator, sdf_bias, dec_meta=st.decoder_meta)
 
     @staticmethod
@@ -512,19 +602,21 @@ class NerfLoamSLAM_torch:
         fwd = torch.where(n > 1e-6, mvec / torch.clamp(n, min=1e-9), torch.zeros_like(mvec))
         return fwd[None]
 
-    def _megastep(self, tp, init6, pts, cos, val, val_m, pose_free, update_decoder, sdf_bias,
-                  prev_pose6):
+    def _megastep(self, rec: _Dispatch):
         """track -> lazy recenter + refresh -> BA(current) -> insert, all on
         the device; returns the new map state, the decoder, the tensors to
         fetch and the insert's record (the insert writes into tables the
         pre-frame state shares: a replay undoes it first). The tracker takes
         the frame's mask ``val``, BA and the insert the mapper's ``val_m``
         (``remove_back``); ``prev_pose6`` is the previous tracked pose on the
-        device (``ba_pose_project=along``'s direction; else None)."""
+        device (the s2s term's previous scan and ``ba_pose_project=along``'s
+        direction; else None)."""
         st = self.state
         cfg = self.map_cfg
+        init6, lr, pts, cos, val, val_m, pose_free, update_decoder, sdf_bias, prev_pose6 = rec.args
         with self.prof.section("track"):
-            tr = self._track(tp, init6, pts, cos, val, sdf_bias)
+            tr = self._track(rec.tp, init6, lr, pts, cos, val, sdf_bias, rec.prev_frame,
+                             prev_pose6)
         with self.prof.section("recenter"):
             if self.recenter_margin > 0:
                 self.host_syncs += 1  # lax.cond in JAX, a host branch here
@@ -543,17 +635,19 @@ class NerfLoamSLAM_torch:
                                 pack_scratch=self.pack_scratch, dec_meta=st.decoder_meta)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
-            ms, rec = vm.insert_frame(ms, cfg, pts, cos, val_m, ba.poses[0], self.insert_cand_cap,
+            ms, ins = vm.insert_frame(ms, cfg, pts, cos, val_m, ba.poses[0], self.insert_cand_cap,
                                       self.recenter_margin > 0, self.insert_scratch)
         outs = (tr.pose, tr.hit_count, ba.poses[0], ms.num_lat, ms.n_active,
                 ba.touched_count, ms.num_cand, tr.loss, ba.surface_bias)
-        return ms, ba.decoder_params, outs, rec
+        return ms, ba.decoder_params, outs, ins
 
     def process_frame(self, frame: Frame):
-        """One frame, synchronous: the whole frame runs on the device and
-        the host reads its results once at the end. A frame with a
-        ground-truth pose is mapped without the tracker
-        (``_process_gt_frame``)."""
+        """One frame. A tracked frame is dispatched (``_mega_dispatch``).
+        The synchronous schedule finalizes it at once; under ``defer_sync``
+        the frame dispatched before it is finalized instead (JAX
+        pipeline.py:1069-1102). A frame with a ground-truth pose is mapped
+        without the tracker (``_process_gt_frame``), after the frame in
+        flight."""
         st = self.state
         mapper_frame = self._mapper_copy(frame)
         if self.remove_back:
@@ -562,59 +656,140 @@ class NerfLoamSLAM_torch:
             mapper_frame = mapper_frame.without_back_points(self.key_distance)
         update_decoder = (mapper_frame.index - st.first_frame_id) < self.freeze_frame
         if frame.has_gt_pose:
+            self._drain()
             return self._process_gt_frame(frame, mapper_frame, update_decoder)
+        rec = self._mega_dispatch(frame, mapper_frame, update_decoder)
+        if self.defer_sync:
+            prev, self._inflight = self._inflight, rec
+            if prev is not None:
+                self._mega_finalize(prev)
+        else:
+            self._mega_finalize(rec)
+
+    def _mega_dispatch(self, frame: Frame, mapper_frame: Frame,
+                       update_decoder: bool) -> _Dispatch:
+        """Enqueue one tracked frame's megastep and return its record (JAX
+        pipeline.py:1200-1284). Under ``defer_sync`` the warm start comes
+        from the device poses of the two frames before (``_const_vel``), so
+        nothing of the frame in flight is read; after a resume or a switch
+        from ground-truth frames it is seeded from the host state. The
+        tracker's chain state (``last_frame``) moves on at dispatch."""
+        st = self.state
         last = st.last_frame
-        last_T = last.pose_matrix()
-        const_T = last_T.copy()
-        first = st.rel_pose is None
-        if not first:
-            if self.const_vel_full:
-                const_T = last_T @ st.rel_pose
+        first = st.rel_pose is None and self._dev_last_pose6 is None
+        if self.defer_sync:
+            if first:
+                init6 = self._tensor(last.pose6)
+                prev_pose6 = init6
             else:
-                const_T[:3, 3] = (last_T @ st.rel_pose)[:3, 3]
-        init6 = self._tensor(pose6_from_matrix_np(const_T))
-        tp = self.tp_first if first else self.tp
+                dev_last, dev_prev = self._dev_last_pose6, self._dev_prev_pose6
+                if dev_last is None:  # seed from the host (resume / GT -> tracked)
+                    dev_last = self._tensor(last.pose6)
+                    dev_prev = self._tensor(pose6_from_matrix_np(
+                        last.pose_matrix() @ np.linalg.inv(st.rel_pose)))
+                init6 = _const_vel(dev_last, dev_prev, self.const_vel_full)
+                prev_pose6 = dev_last
+        else:
+            last_T = last.pose_matrix()
+            const_T = last_T.copy()
+            if not first:
+                if self.const_vel_full:
+                    const_T = last_T @ st.rel_pose
+                else:
+                    const_T[:3, 3] = (last_T @ st.rel_pose)[:3, 3]
+            init6 = self._tensor(pose6_from_matrix_np(const_T))
+            prev_pose6 = (self._tensor(last.pose6)
+                          if self.tp.s2s is not None or self.ba_pose_project == "along" else None)
+        # the frame count as the finalized frames will stand once the frame in
+        # flight is done (JAX :1247-1248): the Adam tracker's learning rate
+        eff = st.frames_processed + (1 if self._inflight is not None else 0)
+        lr = self.track_lr * 2 if eff < 2 else self.track_lr / 3
         pts, cos, val = frame.device_arrays(self.device)
         val_m = mapper_frame.device_arrays(self.device)[2] if self.remove_back else val
-        pose_free_b = frame.index != st.first_frame_id
-        pose_free = self._tensor([pose_free_b], torch.bool)
+        pose_free = frame.index != st.first_frame_id
         sdf_bias = self._tensor(self.sdf_bias if self.bias_correction else np.zeros(2, np.float32))
-        prev_pose6 = self._tensor(last.pose6) if self.ba_pose_project == "along" else None
+        args = (init6, lr, pts, cos, val, val_m, self._tensor([pose_free], torch.bool),
+                bool(update_decoder), sdf_bias, prev_pose6)
+        rec = _Dispatch(frame, mapper_frame, last, self.tp_first if first else self.tp, pose_free,
+                        args, (st.map_state, st.decoder_params), self.generator.get_state())
+        self._mega_run(rec)
+        st.last_frame = frame
+        return rec
 
-        pre = (st.map_state, st.decoder_params, self.generator.get_state())
-        for _ in range(8):  # each round at least doubles a budget
-            ms, dec, outs, rec = self._megastep(tp, init6, pts, cos, val, val_m, pose_free,
-                                                update_decoder, sdf_bias, prev_pose6)
-            with self.prof.section("sync"):
-                got = self._fetch(*outs)
-            num_lat, n_active, touched, num_cand = (int(got[i]) for i in (3, 4, 5, 6))
-            st.map_state, st.decoder_params = pre[0], pre[1]
-            if not self._grow_budgets(num_lat, n_active, touched, num_cand,
-                                      rewind=partial(vm.undo_insert, ms, rec)):
-                break
-            self.generator.set_state(pre[2])
-            pre = (st.map_state, st.decoder_params, pre[2])
-        else:  # the last round's map update was undone: the frame's deltas are dropped
-            self.dropped_delta_events += 1
-            ms, dec = pre[0], pre[1]
+    def _mega_run(self, rec: _Dispatch):
+        """Run the megastep of a record on the current state (its dispatch,
+        or a replay after an overflow) and stage its outputs at once, before
+        anything of a newer frame is enqueued: the newer insert writes the
+        map's counters in place."""
+        st = self.state
+        ms, dec, outs, ins = self._megastep(rec)
+        rec.post, rec.insert, rec.outs = (ms, dec), ins, self._stage(*outs)
         st.map_state, st.decoder_params = ms, dec
+        if self.defer_sync:  # the device pose recurrence of the next warm start
+            self._dev_prev_pose6, self._dev_last_pose6 = rec.args[-1], outs[0]
+
+    def _mega_finalize(self, rec: _Dispatch):
+        """Read a dispatched frame's outputs and do its host bookkeeping
+        (JAX pipeline.py:1315-1393). An overflow is handled first: with a
+        newer frame in flight, its insert is undone before this frame's;
+        this frame's pre-frame state is put back, the budgets grown and the
+        frame replayed from its own generator state (up to eight rounds;
+        past them its deltas are dropped and counted); then the newer frame
+        is replayed on top from its own. The bookkeeping reads the final
+        outputs."""
+        st = self.state
+        frame, mapper_frame = rec.frame, rec.mapper_frame
+        with self.prof.section("sync"):
+            got = self._collect(rec.outs)
+        counts = [int(got[i]) for i in (3, 4, 5, 6)]
+        if self._overflowed(*counts):
+            newer = self._inflight if self._inflight is not rec else None
+            if newer is not None:  # it wrote into the tables this frame's state shares
+                vm.undo_insert(newer.post[0], newer.insert)
+            for round_ in range(8):  # each round at least doubles a budget
+                st.map_state, st.decoder_params = rec.pre
+                self._grow_budgets(*counts, rewind=partial(vm.undo_insert, rec.post[0],
+                                                           rec.insert))
+                rec.pre = (st.map_state, st.decoder_params)
+                if round_ == 7:  # the last round's map update was undone: its deltas are dropped
+                    self.dropped_delta_events += 1
+                    break
+                self.generator.set_state(rec.gen_state)
+                self._mega_run(rec)
+                got = self._collect(rec.outs)
+                counts = [int(got[i]) for i in (3, 4, 5, 6)]
+                if not self._overflowed(*counts):
+                    break
+            if newer is not None:
+                newer.pre = (st.map_state, st.decoder_params)
+                self.generator.set_state(newer.gen_state)
+                self._mega_run(newer)
+                self._defer_replays += 1
 
         frame.pose6 = got[0].astype(np.float32)
         hits = int(got[1])
         if hits > 0:
             frame.hit_ratio = hits / self.tp.n_rays
         st.tracking_trajectory.append(frame.pose_matrix())
-        st.rel_pose = np.linalg.inv(last.pose_matrix()) @ frame.pose_matrix()
+        st.rel_pose = np.linalg.inv(rec.prev_frame.pose_matrix()) @ frame.pose_matrix()
         frame.rel_pose = st.rel_pose
         st.frame_telemetry.append((frame.index, hits / self.tp.n_rays, float(got[7]),
                                    self._pooled_bias(got[8])))
         self._update_sdf_bias(got[8])  # from the accepted run only
         mapper_frame.pose6 = frame.pose6
-        if pose_free_b:
+        if rec.pose_free:
             mapper_frame.pose6 = got[2].astype(np.float32)
-            self._record_ba_delta(frame, mapper_frame, last.pose6)
-        st.last_frame = frame
+            self._record_ba_delta(frame, mapper_frame, rec.prev_frame.pose6)
+        # release the pre-frame generation so that its tables can be freed
+        rec.pre = rec.post = rec.insert = None
         self._post_frame(frame, mapper_frame)
+
+    def _drain(self):
+        """Finalize the frame in flight, if any (``defer_sync``): before
+        host work that needs the frame loop caught up."""
+        rec, self._inflight = self._inflight, None
+        if rec is not None:
+            self._mega_finalize(rec)
 
     def _process_gt_frame(self, frame: Frame, mapper_frame: Frame, update_decoder: bool):
         """A mapping-only frame at its ground-truth pose (JAX pipeline.py:
@@ -688,7 +863,10 @@ class NerfLoamSLAM_torch:
 
     def _post_frame(self, frame: Frame, mapper_frame: Frame):
         """Keyframe-gap insertion, the trajectory record, and the periodic
-        mesh / checkpoint / debug dumps."""
+        replay, mesh, checkpoint and debug dumps. Under ``defer_sync`` the
+        replay, the mesh and the checkpoint drain the frame in flight first,
+        whose own ``_post_frame`` then runs inside this one (JAX pipeline.py:
+        1403-1467): the trajectory is recorded before that."""
         st = self.state
         gap = np.linalg.norm(mapper_frame.pose6[:3] - st.current_keyframe.pose6[:3])
         if gap > self.keyframe_gap:
@@ -697,14 +875,19 @@ class NerfLoamSLAM_torch:
         if (self.replay_freq > 0 and len(st.keyframes) > 1
                 and st.frames_processed % self.replay_freq == 0):
             with self.prof.section("replay"):
+                # a replay step between two frames in flight would be erased by
+                # an overflow rewind of the older one
+                self._drain()
                 self._replay(1)
                 # the replay recentered on a random keyframe: back around the vehicle
                 self._recenter(mapper_frame.pose6[:3])
         if self.mesh_freq > 0 and frame.index % self.mesh_freq == 0:
+            self._drain()
             self._mesh_interval(mapper_frame)
         if self.logger is not None and self.ckpt_freq > 0 and frame.index % self.ckpt_freq == 0:
             from nerfloam_tpu_torch.utils.checkpoint import save_checkpoint
 
+            self._drain()
             save_checkpoint(os.path.join(self.logger.dir, "ckpt", f"{frame.index:05d}"), self)
         if (self.logger is not None and self.save_data_freq > 0
                 and frame.index % self.save_data_freq == 0):
@@ -786,8 +969,9 @@ class NerfLoamSLAM_torch:
         return v, f
 
     def finalize(self):
-        """End of sequence: the no-replay mesh, the final_iter random
-        replay, then the final poses and mesh."""
+        """End of sequence: the frame in flight finalized, the no-replay
+        mesh, the final_iter random replay, then the final poses and mesh."""
+        self._drain()
         if self.logger is not None:
             v, f = self.extract_mesh()
             self.logger.log_mesh(v, f, name="final_mesh_noreplay.ply")

@@ -42,7 +42,8 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import div, norm3, rdiv  # noqa: F401 (div, rdiv re-exported)
+from nerfloam_tpu_torch.ops.ieee import (  # noqa: F401 (div, rdiv re-exported)
+    const, div, norm3, rdiv)
 from nerfloam_tpu_torch.ops.interp import CORNER_OFFSETS
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
@@ -180,7 +181,7 @@ def lookup_active(state: MapState, cfg: MapConfig, coords: torch.Tensor) -> torc
 
 
 def _region_min(cfg: MapConfig, center_world: torch.Tensor) -> torch.Tensor:
-    dims = torch.tensor(cfg.grid_dim, dtype=torch.int32, device=center_world.device)
+    dims = const(tuple(cfg.grid_dim), torch.int32, center_world.device)
     return torch.floor(div(center_world.float(), cfg.voxel_size)).to(torch.int32) - dims // 2
 
 
@@ -1000,7 +1001,7 @@ def needs_recenter(state: MapState, cfg: MapConfig, center_world: torch.Tensor,
                    margin: float) -> torch.Tensor:
     """() bool on the device: the sensor moved more than ``margin`` meters
     (max-abs over axes) from the current region center."""
-    dims = torch.tensor(cfg.grid_dim, dtype=torch.int32, device=state.grid.device)
+    dims = const(tuple(cfg.grid_dim), torch.int32, state.grid.device)
     region_center = (state.region_min + dims // 2).to(torch.float32) * cfg.voxel_size
     return torch.max(torch.abs(center_world - region_center)) > margin
 
@@ -1030,7 +1031,7 @@ def insert_frame(state: MapState, cfg: MapConfig, points_sensor: torch.Tensor,
         return insert_points(state, cfg, world, valid, cand_cap, append_active, scratch)
     dirs = points_sensor / (norm3(points_sensor, keepdim=True) + 1e-8)
     wdirs = se3.rotate_dirs(pose6, dirs)
-    down = torch.tensor([0.0, 0.0, -1.0], dtype=world.dtype, device=world.device)
+    down = const((0.0, 0.0, -1.0), world.dtype, world.device)
     off = torch.where(points_cos[:, None] < 0.999, down[None, :], wdirs)
     pts = [world, world + off * cfg.support_dist]
     if cfg.support_sym:

@@ -31,12 +31,16 @@ _CONSTS: dict = {}
 norm3_launches = 0
 
 
-def const(s: float, dtype, device) -> torch.Tensor:
-    """The 0-d tensor ``s`` of ``dtype`` on ``device``, made once."""
-    key = (float(s), dtype, torch.device(device))
+def const(s, dtype, device) -> torch.Tensor:
+    """The tensor ``s`` of ``dtype`` on ``device``, made once and never
+    written: a number gives a 0-d tensor (a fill, no upload), a tuple (of
+    tuples) a vector (matrix). A number or a host array put into a frame's
+    work on the card is an upload, which waits for the work queued there."""
+    key = (s if isinstance(s, tuple) else float(s), dtype, torch.device(device))
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.full((), s, dtype=dtype, device=device)
+        t = _CONSTS[key] = (torch.tensor(s, dtype=dtype, device=device) if isinstance(s, tuple)
+                            else torch.full((), s, dtype=dtype, device=device))
     return t
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from nerfloam_tpu_torch.ops.ieee import div, norm3
+from nerfloam_tpu_torch.ops.ieee import const, div, norm3
 
 _SMALL = 1e-8  # theta^2 switch point for the series branches
 
@@ -99,8 +99,7 @@ def pose_matrix(p6: torch.Tensor) -> torch.Tensor:
     """pose6 (..., 6) -> homogeneous transform (..., 4, 4)."""
     R = pose_rotation(p6)
     t = pose_translation(p6)
-    bottom = torch.zeros(p6.shape[:-1] + (1, 4), dtype=p6.dtype, device=p6.device)
-    bottom[..., 0, 3] = 1.0
+    bottom = const(((0.0, 0.0, 0.0, 1.0),), p6.dtype, p6.device).expand(p6.shape[:-1] + (1, 4))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

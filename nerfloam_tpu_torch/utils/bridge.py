@@ -70,9 +70,9 @@ def load_jax_checkpoint(path: str, slam) -> None:
     wrote (``nerfloam_tpu.utils.checkpoint.save_checkpoint``) into a
     ``NerfLoamSLAM_torch`` built from the same config. The two packages
     share the npz keys and the manifest; ``jax_key`` has no meaning here, so
-    the generator is seeded from the config, and the deferred-sync pose
-    recurrence is dropped (the port runs the synchronous schedule). The
-    BA-delta telemetry rows and a gaussian embedder's B come across."""
+    the generator is seeded from the config. The deferred schedule's device
+    pose recurrence (``dev_last_pose6``, ``dev_prev_pose6``), the BA-delta
+    telemetry rows and a gaussian embedder's B come across."""
     from nerfloam_tpu_torch.utils.checkpoint import load_checkpoint
 
     load_checkpoint(path, slam)

@@ -13,8 +13,12 @@ directory written by either package loads here:
   ``bf16_as_uint16`` in the manifest: numpy cannot name the type, so an
   ``ml_dtypes`` array comes back as 2-byte void records, which is how a
   file written by the JAX package arrives and is read here too.
-- the deferred-sync pose recurrence (``dev_*_pose6``) is not written: the
-  port runs the synchronous schedule only.
+- a save drains the frame in flight first (``defer_sync``), and writes
+  the device pose recurrence of the deferred schedule (``dev_last_pose6``,
+  ``dev_prev_pose6``: the raw tracked poses of the last two dispatched
+  frames, NaN where there are none, as the JAX package writes them). A
+  load restores both where they are finite, else the next dispatch seeds
+  them from the host poses, and leaves nothing in flight.
 """
 
 from __future__ import annotations
@@ -51,7 +55,14 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _pose6_or_nan(t) -> np.ndarray:
+    return (np.full(6, np.nan, np.float32) if t is None
+            else t.detach().cpu().numpy().astype(np.float32))
+
+
 def save_checkpoint(path: str, slam) -> None:
+    # a checkpoint holds a caught-up frame loop, or resume would redo the frame in flight
+    slam._drain()
     os.makedirs(path, exist_ok=True)
     st = slam.state
     # Align the live state with what load will rebuild: the frame loop's
@@ -95,6 +106,10 @@ def save_checkpoint(path: str, slam) -> None:
         ba_delta_telemetry=np.asarray(st.ba_delta_telemetry, np.float64).reshape(-1, 4),
         last_pose6=st.last_frame.pose6 if st.last_frame else np.zeros(6),
         rel_pose=st.rel_pose if st.rel_pose is not None else np.eye(4),
+        # defer_sync's device pose recurrence, exact: the host reseed goes through
+        # a float64 matrix and would not repeat the uninterrupted run's digits
+        dev_last_pose6=_pose6_or_nan(slam._dev_last_pose6),
+        dev_prev_pose6=_pose6_or_nan(slam._dev_prev_pose6),
         # random states: resume is bit-reproducible against an uninterrupted run
         torch_generator=slam.generator.get_state().numpy(),
         py_rng=np.asarray(slam.pyrng.getstate()[1], np.uint32),
@@ -208,3 +223,12 @@ def load_checkpoint(path: str, slam) -> None:
     cc = int(manifest.get("insert_cand_cap", 0))
     if cc > 0:
         slam.insert_cand_cap = cc
+    # defer_sync: nothing is in flight at a (drained) save; the device pose
+    # recurrence comes back where the file has it, else the host reseeds it
+    slam._inflight = slam._dev_last_pose6 = slam._dev_prev_pose6 = None
+    if "dev_last_pose6" in data:
+        dl = np.asarray(data["dev_last_pose6"], np.float32)
+        dp = np.asarray(data["dev_prev_pose6"], np.float32)
+        if np.isfinite(dl).all() and np.isfinite(dp).all():
+            slam._dev_last_pose6 = _to_tensor(dl, torch.float32, dev)
+            slam._dev_prev_pose6 = _to_tensor(dp, torch.float32, dev)

@@ -10,9 +10,12 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --knobs        # kitti_knobs.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --mapping-gt   # kitti_mapping_gt.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --decoder-pe   # kitti_decoder_pe.json
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --defer  # kitti_quality_defer
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --defer --active-cap N  # ..._defer_grow
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
-(+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off, i.e. the
+(+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off unless
+``--defer``, i.e. the
 port's JSON config of the same name; frames are fed as bench.py feeds
 them. Prints one JSON line with the unaligned ATE RMSE (m) of the
 finalized trajectory.
@@ -39,6 +42,14 @@ dropped. ``--mapping-gt`` is the quality config on ground-truth poses
 the map's row count and the mesh's triangles (welded, and after
 clean_mesh). ``--decoder-pe`` is the budget config with a decoder skip
 and the nerf positional embedder (``DECODER_PE``).
+
+``--defer`` runs the chosen config under ``tpu_specs.defer_sync=true``
+(the JAX package's default schedule: frame k dispatched before frame k-1
+is finalized; ``--quality --defer`` is kitti_quality_defer.json) and also
+prints the deferred replays (overflows found with a newer frame in
+flight) and the keyframe count. ``--active-cap N`` sets
+``tpu_specs.active_cap`` (``--defer --active-cap N`` on the budget config is
+kitti_budget_defer_grow.json: an active set that grows mid-run).
 
 ``--tpu-seed N`` sets ``tpu_specs.seed`` (the random stream's seed; the
 data's stays the config's).
@@ -138,11 +149,15 @@ def main():
     quality = "--quality" in sys.argv or knobs or mapping_gt
     adam25 = "--adam25" in sys.argv
     s2s = "--s2s" in sys.argv
+    defer = "--defer" in sys.argv
+    if "--active-cap" in sys.argv:
+        extra.append(f"tpu_specs.active_cap={int(sys.argv[sys.argv.index('--active-cap') + 1])}")
     overrides = (bench.BENCH_OVERRIDES + (bench.QUALITY_OVERRIDES if quality else [])
                  + (ADAM25 if adam25 else []) + (S2S if s2s else []) + (EXACT if exact else [])
                  + (KNOBS if knobs else []) + (MAPPING_GT if mapping_gt else [])
                  + (DECODER_PE if decoder_pe else [])
-                 + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"] + extra)
+                 + ["data_specs.n_frames=30", f"tpu_specs.defer_sync={str(defer).lower()}"]
+                 + extra)
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
     if decoder_pe:
@@ -183,6 +198,8 @@ def main():
     name = ("kitti_knobs" if knobs else "kitti_mapping_gt" if mapping_gt
             else "kitti_decoder_pe" if decoder_pe else "kitti_quality" if quality
             else "kitti_adam25" if adam25 else "kitti_budget")
+    if defer:
+        name += "_defer" + ("_grow" if "--active-cap" in sys.argv else "")
     out = {
         "config": name + ("_s2s" if s2s else "") + ("_exact" if exact else ""),
         "frames": len(poses),
@@ -192,6 +209,10 @@ def main():
         "seconds": time.perf_counter() - t0,
         "backend": jax.default_backend(),
     }
+    if defer:
+        out.update(defer_replays=int(slam._defer_replays), keyframes=len(slam.state.keyframes),
+                   dropped_delta_events=int(slam.dropped_delta_events),
+                   active_cap=int(slam.map_cfg.active_cap))
     if knobs:
         along = [abs(r[1]) for r in slam.state.ba_delta_telemetry]
         out.update(replay_steps=replay_steps, ba_delta_rows=len(along),

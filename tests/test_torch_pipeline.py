@@ -7,8 +7,8 @@ test_pipeline.py::test_trajectory_accuracy, and within 0.10 m of each
 other. Also: the port imports neither jax, yaml nor the JAX package, the
 KITTI-budget JSON equals the JAX package's config of the same overrides,
 the ported knobs (quality stack, samplers, trackers, the s2s term, mesh
-intervals, a logger) construct, and every knob the port lacks raises at
-construction."""
+intervals, a logger, the deferred schedule) construct, and every knob
+the port lacks raises at construction."""
 
 import json
 import os
@@ -142,7 +142,6 @@ def test_knob_jsons_match_jax_config(name, extra):
 
 
 @pytest.mark.parametrize("knob", [
-    "tpu_specs.defer_sync=true",
     "tpu_specs.dp=2",
     "tpu_specs.maturity_warmup=4",
     "tpu_specs.bias_source=keyframe",
@@ -192,14 +191,18 @@ def test_unported_knobs_raise(knob):
     ("decoder_specs.embedder=gaussian",
      lambda s: s.state.decoder_meta.embedder == "gaussian"
      and tuple(s.state.decoder_params["gaussian_B"].shape) == (16, 93)),
+    ("tpu_specs.defer_sync=true",
+     lambda s: s.defer_sync and s._inflight is None and s._dev_last_pose6 is None
+     and s._defer_replays == 0),
 ])
 def test_ported_knobs_construct(knob, check):
     """The quality-stack knobs (queue-1 item 10), the grid sampler and the
     Adam tracker (item 11), the s2s term, the reference-exact fallbacks and
     the off-by-default knobs (item 15: replay_freq, ba_pose_project,
     remove_back, decoder skips and embedders), mesh intervals and
-    checkpoints (items 12, 13) no longer raise: each reaches the map,
-    tracker, BA and decoder parameters it sets."""
+    checkpoints (items 12, 13) and the deferred schedule (item 14) no
+    longer raise: each reaches the map, tracker, BA and decoder parameters
+    it sets."""
     key, _, val = knob.partition("=")
     if val.startswith("["):  # load_config keeps "[0]" a string: set the list
         cfg = load_config(CFG_PATH, SLICE)
