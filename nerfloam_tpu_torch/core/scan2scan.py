@@ -19,7 +19,10 @@ current one by the tracker, which rotates its ray directions with it.
 Both kernels live in csrc/scan2scan.cu; the plain twins beside the wrappers
 run on CPU tensors and repeat the kernels' arithmetic one rounded operation
 at a time (no matrix products, whose summation order the library picks),
-so bins, pixels and validity agree exactly on the card.
+so bins, pixels and validity agree exactly on the card. The lengths (the
+range, the horizontal range, a pixel's depth and its normal's length) are
+``jnp.linalg.norm``'s, bit for bit: XLA's CPU chain of fused multiply-adds
+(``ieee.norm3_plain`` / ``norm2_plain``; csrc/ieee.cuh in the kernels).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.map.voxel_map import _add_in_order, div
 from nerfloam_tpu_torch.ops import se3
+from nerfloam_tpu_torch.ops.ieee import norm2_plain, norm3_plain
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 build_prev_scan_launches = 0  # K11a
@@ -67,10 +71,6 @@ class PrevScan(NamedTuple):
     t: torch.Tensor          # (3,) se3.pose_translation(pose6)
 
 
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
-
-
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
@@ -88,11 +88,10 @@ def _rotate(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _angles(pts: torch.Tensor):
     """(..., 3) sensor-frame points -> (azimuth, elevation, range)."""
-    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
-    d = _norm3(pts)
-    az = torch.atan2(y, x)                                  # [-pi, pi]
-    horiz = torch.sqrt(x * x + y * y)
-    return az, torch.atan2(z, horiz + 1e-12), d
+    d = norm3_plain(pts)
+    az = torch.atan2(pts[..., 1], pts[..., 0])              # [-pi, pi]
+    horiz = norm2_plain(pts)
+    return az, torch.atan2(pts[..., 2], horiz + 1e-12), d
 
 
 def _bin(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -139,7 +138,7 @@ def build_prev_scan_plain(sp: Scan2ScanParams, points, valid, pose6) -> PrevScan
     ve1 = torch.cat([V_img[1:], torch.zeros_like(V_img[-1:])], 0)
     ve0 = torch.cat([torch.zeros_like(V_img[:1]), V_img[:-1]], 0)
     n = _cross(pa1 - pa0, pe1 - pe0)
-    nn = _norm3(n)
+    nn = norm3_plain(n)
     n = n / torch.clamp(nn, min=1e-9)[..., None]
     # orient toward the sensor (sensor-frame origin): n . p <= 0
     n = torch.where((_dot3(n, P_img) > 0)[..., None], -n, n)
@@ -147,8 +146,8 @@ def build_prev_scan_plain(sp: Scan2ScanParams, points, valid, pose6) -> PrevScan
 
     R, t = se3.pose_rotation(pose6), se3.pose_translation(pose6)
     return PrevScan(q_w=_rotate(R, P_img) + t, n_w=_rotate(R, n), pix_valid=n_ok,
-                    depth=_norm3(pts3).reshape(B, A), pose6=pose6, elev_min=e_min, elev_max=e_max,
-                    R=R, t=t)
+                    depth=norm3_plain(pts3).reshape(B, A), pose6=pose6, elev_min=e_min,
+                    elev_max=e_max, R=R, t=t)
 
 
 def build_prev_scan(sp: Scan2ScanParams, points: torch.Tensor, valid: torch.Tensor,

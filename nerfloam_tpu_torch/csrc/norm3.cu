@@ -9,10 +9,10 @@
 //
 // Rounding: XLA's CPU backend contracts the reduction into fused
 // multiply-adds in index order, sqrt(fma(x2, x2, fma(x1, x1, x0 * x0))),
-// and so does this kernel, step by step with the _rn intrinsics (the
-// library is built with -fmad=false; explicit intrinsics are kept as
-// written). torch.linalg.norm on CUDA reduces in another order and
-// differs from the CPU on ~14% of random rows.
+// and so does this kernel, step by step with the _rn intrinsics
+// (ieee_norm3 in ieee.cuh, the chain every kernel of the port shares).
+// torch.linalg.norm on CUDA reduces in another order and differs from the
+// CPU on ~14% of random rows.
 //
 // One thread a row: its 12 bytes read, 4 written; a warp reads 384
 // contiguous bytes. Bound on the H100: 16 B a row over 3.35 TB/s, e.g.
@@ -20,6 +20,8 @@
 // more than its bytes.
 
 #include <cuda_runtime.h>
+
+#include "ieee.cuh"
 
 namespace {
 
@@ -30,8 +32,7 @@ __global__ void __launch_bounds__(kThreads) norm3_kernel(const float* __restrict
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const float* p = x + 3 * (size_t)i;
-  const float a = p[0], b = p[1], c = p[2];
-  out[i] = __fsqrt_rn(__fmaf_rn(c, c, __fmaf_rn(b, b, __fmul_rn(a, a))));
+  out[i] = ieee_norm3(p[0], p[1], p[2]);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in ``nerfloam_tpu_torch/csrc/*.cu`` exposes a plain C
-interface. At first use every source is compiled by its own ``nvcc``
+interface; the rounding they share lives in ``csrc/ieee.cuh``. At first use every source is compiled by its own ``nvcc``
 process for ``sm_90a``, all started together, into a shared library under
 ``kernels/build/`` (listed in .gitignore) whose file name carries a hash of
 that source and the flags; the libraries are then loaded with ctypes and
@@ -92,10 +92,17 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path(src: str) -> str:
+    """The library built from ``src``: its name carries a hash of the
+    flags, the source and every shared header (csrc/*.cuh)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(os.path.basename(src).encode() + f.read())
+    for path in (src, *headers()):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

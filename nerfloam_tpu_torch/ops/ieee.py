@@ -1,6 +1,6 @@
 """Arithmetic rounded as the JAX package rounds it on the CPU, on both
 devices: divisions by (and of) a Python number, and the length of
-3-vectors.
+3-vectors and of their (x, y) part.
 
 - ``div(x, s)`` / ``rdiv(s, x)``: one IEEE division. torch turns a
   division by a Python scalar into a multiply by its reciprocal on CUDA,
@@ -19,6 +19,12 @@ devices: divisions by (and of) a Python number, and the length of
   which replaces the XLA reduce fusion of ``jnp.linalg.norm`` (no Pallas
   kernel; it keeps a frame's norms at one launch each instead of the five
   eager ops of the plain chain).
+- ``norm2_plain(x)``: ``jnp.linalg.norm(x[..., :2], axis=-1)``, the same
+  chain with z = 0, ``sqrt(fma(y, y, x * x))`` (the scan-to-scan range
+  image's horizontal range; ``sqrt(x * x + y * y)`` differs on ~9% of
+  rows).
+
+csrc/ieee.cuh holds the same chains for the kernels.
 """
 
 from __future__ import annotations
@@ -80,6 +86,13 @@ def norm3_plain(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     s = _fma_f32(c, c, _fma_f32(b, b, a * a))
     n = torch.sqrt(s.double()).float()
     return n[..., None] if keepdim else n
+
+
+def norm2_plain(x: torch.Tensor) -> torch.Tensor:
+    """|(x, y)| of (..., >= 2) f32 vectors in XLA's CPU order:
+    sqrt(fma(y, y, x * x)), each step rounded once to f32."""
+    a, b = x[..., 0], x[..., 1]
+    return torch.sqrt(_fma_f32(b, b, a * a).double()).float()
 
 
 def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
