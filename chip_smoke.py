@@ -1011,6 +1011,8 @@ def ieee_phase(p, pts, gen):
     plain form on the CPU over one frame's (65,536, 3) points and a
     tracker frame's 2048 rays, with torch.linalg.norm's rows that differ
     from it printed for the record (on the card and on the CPU); the
+    scan-to-scan twin's 3- and 2-vector chains and exp_so3's float64
+    cosine (65,536 angles in each of three ranges) equal to the CPU's; the
     routed divisions (ieee.div and rdiv, exp_so3's series coefficients,
     interp_corner_features' / voxel_size) equal to the CPU's, beside the
     rows torch's own division by a Python number gets wrong; norm3 timed
@@ -1030,6 +1032,22 @@ def ieee_phase(p, pts, gen):
     log(f"[ieee] norm3 on the card torch.equal to the CPU on all {len(ref)} rows of a frame's "
         f"points and on {len(pts)} tracker rays; torch.linalg.norm differs from it on {lib_rows} "
         f"rows on the card and on {cpu_rows} on the CPU")
+    # the scan-to-scan twin's lengths (K11a's and K11b's chains, csrc/ieee.cuh)
+    for nm, fn in (("norm3_plain", ieee.norm3_plain), ("norm2_plain", ieee.norm2_plain)):
+        check(torch.equal(fn(p).cpu(), fn(p_cpu)), f"[ieee] {nm} on the card differs from the CPU")
+    # exp_so3's cosine, in float64 rounded once, at exact-branch angles of the
+    # three ranges of theta^2 (the same thetas on both devices)
+    cos_rows = {}
+    for lo, hi in ((1e-8, 1e-6), (1e-6, 1e-2), (1e-2, 0.25)):
+        th = torch.sqrt(torch.rand((1 << 16,), generator=gen, device=p.device) * (hi - lo) + lo)
+        got_c = torch.cos(th.double()).float().cpu()
+        check(torch.equal(got_c, torch.cos(th.cpu().double()).float()),
+              f"[ieee] exp_so3's cosine differs from the CPU's at theta^2 in ({lo}, {hi})")
+        cos_rows[lo, hi] = int((torch.cos(th).cpu() != got_c).sum())
+    log("[ieee] ieee.norm3_plain / norm2_plain (the scan-to-scan twin's lengths) and exp_so3's "
+        "cosine (float64, rounded once; 65,536 angles in each theta^2 range) give the CPU's "
+        "digits on the card; torch's f32 cos there differs from it on "
+        + ", ".join(f"{n} ({lo:g}-{hi:g})" for (lo, hi), n in cos_rows.items()))
     t2 = torch.rand((1 << 16,), generator=gen, device=p.device) * 1e-8
     for k, (a, b) in enumerate(zip(se3._sinc_coeffs(t2), se3._sinc_coeffs(t2.cpu()))):
         check(torch.equal(a.cpu(), b), f"[ieee] exp_so3's series coefficient {'AB'[k]} differs")

@@ -113,27 +113,41 @@ def _pose_pairs(seed: int, w_sigma: float, n: int = 1000):
 
 
 @pytest.mark.parametrize("full", [True, False], ids=["full", "translation"])
-@pytest.mark.parametrize("branch", ["series", "exact"])
+@pytest.mark.parametrize("branch", ["series", "exact", "exact_small"])
 def test_const_vel_matches_jax(branch, full):
     """1,000 seeded pose pairs, each through one call of JAX's
     ``_const_vel_jit`` (as its pipeline calls it) and of the port's
     ``_const_vel``. Rotations under 1e-4 rad take exp_so3's series branch,
     where the port's se3 is JAX's bit for bit (its matrix products and
     inverse are XLA's on the CPU): equal. Larger ones (sigma 0.8 rad) take
-    its exact branch, whose cos rounds otherwise than XLA's (ROADMAP queue
-    3), and the warm start composes that rotation twice: within 3 ulp of
-    each pose's largest entry (measured: 3.0 here, 2.0-3.0 over seeds
-    14-16; up to 23 ulp of the largest rotation entry)."""
-    last, prev = _pose_pairs(14, 3e-5 if branch == "series" else 0.8)
+    its exact branch, where the sine (and the cosine past ~0.1 rad) rounds
+    otherwise than XLA's, and the warm start composes that rotation twice:
+    within 2 ulp of each pose's largest entry with the rotation moved, 3
+    with the translation alone (measured: 2.0 and 3.0 here; 3.0 for both
+    before the cosine was taken in float64 and rounded once). Exact-branch
+    angles under 0.01 rad (sigma 1e-3), where that cosine is XLA's: the
+    translation equal, the rotation within half an ulp of its largest
+    entry and 99.9% of the poses bit-equal (measured: 0.5 and 0.0625 ulp,
+    999 of 1,000 poses; before the repair 2 ulp of the translation, 85-91%
+    bit-equal at sigma 2e-3)."""
+    sigma = {"series": 3e-5, "exact": 0.8, "exact_small": 1e-3}[branch]
+    last, prev = _pose_pairs(14, sigma)
     ref = np.stack([np.asarray(_const_vel_jit(jnp.asarray(a), jnp.asarray(b), full))
                     for a, b in zip(last, prev)])
     got = np.stack([_const_vel(torch.from_numpy(a), torch.from_numpy(b), full).numpy()
                     for a, b in zip(last, prev)])
     if branch == "series":
         np.testing.assert_array_equal(got, ref)
-    else:
+    elif branch == "exact":
         ulp = np.spacing(np.abs(ref).max(1, keepdims=True))
-        assert (np.abs(got - ref) <= 3 * ulp).all(), (np.abs(got - ref) / ulp).max()
+        bound = 2 if full else 3
+        assert (np.abs(got - ref) <= bound * ulp).all(), (np.abs(got - ref) / ulp).max()
+    else:
+        assert np.abs(ref[:, 3:]).max() < 0.01 and np.linalg.norm(last[:, 3:], axis=1).min() > 1e-4
+        np.testing.assert_array_equal(got[:, :3], ref[:, :3])
+        ulp = np.spacing(np.abs(ref[:, 3:]).max(1, keepdims=True))
+        assert (np.abs(got - ref)[:, 3:] <= 0.5 * ulp).all(), (np.abs(got - ref)[:, 3:] / ulp).max()
+        assert (got == ref).all(1).mean() >= 0.999
 
 
 @pytest.mark.parametrize("name, base, extra", [
