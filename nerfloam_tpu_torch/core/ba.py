@@ -1,7 +1,9 @@
 """Windowed bundle adjustment on a ray superset (port of
 nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
-One call = one BA step: a 2x ray superset per frame is drawn and, once per
+One call = one BA step: a 2x ray superset per frame is drawn, its
+directions, ranges and lengths taken in one launch (``tracking.ray_prep``:
+every iteration gathers its rays' with them) and, once per
 step, its hit table built (K4, hits sampler, packed into one row a ray by
 the launch) or its occupancy cdf marched (K9a, grid sampler, launched as
 part of making K9b's CdfPlacer, ``CdfPlacer.march``); every iteration
@@ -50,7 +52,7 @@ from nerfloam_tpu_torch.core.render import (
     render_rays,
     render_rays_hits,
 )
-from nerfloam_tpu_torch.core.tracking import _ray_dirs, scale_by_adam_, t_cap_for
+from nerfloam_tpu_torch.core.tracking import ray_prep, scale_by_adam_
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_leaves, map_decoder
 from nerfloam_tpu_torch.ops import se3
@@ -135,8 +137,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             sidx, svalid = sample_ray_indices(points_valid, K, generator)
             sup_pts = _gather_rows(points, sidx)
             sup_cos = _gather_rows(points_cos, sidx)
-            sup_dirs = _ray_dirs(sup_pts)
-            sup_tcap = t_cap_for(sup_pts, sup_cos, bp.truncation, bp.max_depth)
+            sup_dirs, sup_tcap, _, _, sup_dnorm = ray_prep(sup_pts, sup_cos, bp.truncation,
+                                                           bp.max_depth)
             wdirs0 = se3.rotate_dirs(poses, sup_dirs)
             origins0 = se3.pose_translation(poses)[:, None, :].expand_as(wdirs0)
             sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3),
@@ -171,23 +173,24 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if use_superset:
             ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
             rvalid = torch.gather(svalid, 1, ridx)
-            pts3, pcos2, dirs = (_gather_rows(x, ridx) for x in (sup_pts, sup_cos, sup_dirs))
+            pts3, pcos2, dirs, dnorm = (_gather_rows(x, ridx)
+                                        for x in (sup_pts, sup_cos, sup_dirs, sup_dnorm))
         else:  # a fresh draw over all the frame's points
             ridx, rvalid = sample_ray_indices(points_valid, N, generator)
             pts3, pcos2 = _gather_rows(points, ridx), _gather_rows(points_cos, ridx)
-            dirs = _ray_dirs(pts3)
+            dirs, t_cap, _, _, dnorm = ray_prep(pts3, pcos2, bp.truncation, bp.max_depth)
         rvalid = rvalid & frame_active[:, None]
         u = uniform_jitter((W * N, M), generator, dev)
 
-        pts, pcos = pts3.reshape(W * N, 3), pcos2.reshape(W * N)
+        pts, pcos, dnorm = pts3.reshape(W * N, 3), pcos2.reshape(W * N), dnorm.reshape(W * N)
         wdirs = se3.rotate_dirs(pos, dirs)
         origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
         extra = None
         if bp.surface_anchor or bp.band_samples:
             ub = (torch.rand((W, N, bp.band_samples), generator=generator,
                              device=dev).reshape(W * N, -1) if bp.band_samples else None)
-            ez = extra_surface_z(norm3(pts), pcos, bp.truncation,
-                                 bp.surface_anchor, bp.band_samples, ub)
+            ez = extra_surface_z(dnorm, pcos, bp.truncation, bp.surface_anchor, bp.band_samples,
+                                 ub)
             extra = (field, ez, rvalid.reshape(W * N))
         rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
         packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
@@ -201,13 +204,13 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             else:  # K9a at the current poses, into this iteration's placer
                 rows = None
                 with torch.no_grad():
-                    placer = CdfPlacer.march(
-                        map_state, map_cfg, rc, rays[0].detach(), rays[1].detach(),
-                        t_cap_for(pts, pcos, bp.truncation, bp.max_depth), M)
+                    placer = CdfPlacer.march(map_state, map_cfg, rc, rays[0].detach(),
+                                             rays[1].detach(), t_cap.reshape(W * N), M)
             out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * N), placer, u,
                               compute_dtype, extra, rows, k2_scratch, dec_meta)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
-                             bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight)
+                             bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight,
+                             gt_norm=dnorm)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 

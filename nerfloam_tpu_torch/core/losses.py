@@ -27,9 +27,13 @@ def sdf_losses(
     fs_weight: float,
     sdf_weight: float,
     sdf_bias=0.0,
+    gt_norm=None,              # (R,) |gt_points|, when the caller has it
 ):
-    """Weighted free-space + truncated-SDF loss: (loss, loss dict)."""
-    gt_distance = norm3(gt_points) * points_cos
+    """Weighted free-space + truncated-SDF loss: (loss, loss dict).
+    ``gt_norm``: the measured points' lengths, as ``ieee.norm3`` gives
+    them (the trackers and BA take them once, ``tracking.ray_prep``, and
+    gather them with their rays); None takes the norm here."""
+    gt_distance = (norm3(gt_points) if gt_norm is None else gt_norm) * points_cos
     z = z_vals * points_cos[:, None]
     d = gt_distance[:, None]
     valid = valid_mask & ray_mask[:, None]

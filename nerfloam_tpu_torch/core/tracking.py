@@ -2,7 +2,9 @@
 device): the Gauss-Newton / LM tracker (40-381) and the Adam tracker
 (383-497).
 
-GN, per frame: K4 builds the hit table (hits sampler) or K9a marches the
+GN, per frame: ``ray_prep`` (csrc/ray_prep.cu) takes the drawn rays'
+directions, ranges and measured depths in one launch; K4 builds the hit
+table (hits sampler) or K9a marches the
 occupancy cdf (grid sampler) at the initial pose, launched as part of
 making the frame's placer, which checks and packs K9b's per-frame
 arguments once (``raycast.CdfPlacer.march``). Per
@@ -56,7 +58,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import norm3
+from nerfloam_tpu_torch.ops.ieee import norm3, norm3_plain
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -65,8 +67,9 @@ from nerfloam_tpu_torch.ops.raycast import (
 )
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
 
-# K3 launches on CUDA tensors (plain integer; chip_smoke.py resets and reads it)
-gn_system_launches = 0
+# launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
+gn_system_launches = 0  # K3
+ray_prep_launches = 0
 _K3 = "gn_system"
 _F32 = torch.float32
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
@@ -142,6 +145,59 @@ def t_cap_for(points: torch.Tensor, cos: torch.Tensor, truncation: float, max_de
 
 def _ray_dirs(pts: torch.Tensor) -> torch.Tensor:
     return pts / (norm3(pts, keepdim=True) + 1e-8)
+
+
+class RayPrep(NamedTuple):
+    """A ray draw's per-ray setup (``ray_prep``), for points p (..., 3)."""
+
+    dirs: torch.Tensor      # (..., 3) p / (|p| + 1e-8)
+    t_cap: torch.Tensor     # (...) t_cap_for(p, cos, truncation, max_depth)
+    d_meas: torch.Tensor    # (...) |p| cos
+    depth_ok: torch.Tensor  # (...) bool: 0 < d_meas < max_depth
+    dnorm: torch.Tensor     # (...) |p|
+
+
+def ray_prep_plain(pts: torch.Tensor, pcos: torch.Tensor, truncation: float,
+                   max_depth: float) -> RayPrep:
+    """Plain torch twin of ``ray_prep``: the directions (``_ray_dirs``),
+    ``t_cap_for``, the measured depth and its gate from one
+    ``ieee.norm3_plain`` of the points, op by op as JAX rounds them
+    (tracking.py:156-160, 374-381)."""
+    n = norm3_plain(pts)
+    dirs = pts / (n[..., None] + 1e-8)
+    t_cap = torch.clamp(n + rdiv(truncation, torch.clamp(pcos, min=0.05)) + 0.5, max=max_depth)
+    d_meas = n * pcos
+    return RayPrep(dirs, t_cap, d_meas, (d_meas > 0.0) & (d_meas < max_depth), n)
+
+
+def ray_prep(pts: torch.Tensor, pcos: torch.Tensor, truncation: float,
+             max_depth: float) -> RayPrep:
+    """A ray draw's setup: directions, t_cap, measured depth, its gate and
+    the points' lengths (the XLA fusion of nerfloam_tpu/core/tracking.py:
+    156-160 and t_cap_for, and BA's superset's). Points (..., 3) and their
+    cosines (...), contiguous f32 on one device. CPU tensors take
+    ``ray_prep_plain``; CUDA tensors one launch of csrc/ray_prep.cu (none
+    for no ray), equal to it bit for bit; anything the kernel cannot read
+    raises ValueError."""
+    name, dev = "ray_prep", pts.device
+    if dev.type == "cpu":
+        return ray_prep_plain(pts, pcos, truncation, max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    global ray_prep_launches
+    kernels.expect(name, dev, _F32, pts=pts, pcos=pcos)
+    kernels.expect_shape(name, pts=(pts, tuple(pcos.shape) + (3,)))
+    n = pcos.numel()
+    out = torch.empty((6 * n,), dtype=_F32, device=dev)
+    depth_ok = torch.empty(pcos.shape, dtype=torch.bool, device=dev)
+    if n:
+        o = out.data_ptr()
+        kernels.check(kernels.lib().nl_ray_prep(
+            pts.data_ptr(), pcos.data_ptr(), n, truncation, max_depth, o, o + 12 * n, o + 16 * n,
+            o + 20 * n, depth_ok.data_ptr(), kernels.stream_ptr(dev)), name)
+        ray_prep_launches += 1
+    return RayPrep(out[:3 * n].view(pts.shape), out[3 * n:4 * n].view(pcos.shape),
+                   out[4 * n:5 * n].view(pcos.shape), depth_ok, out[5 * n:].view(pcos.shape))
 
 
 def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
@@ -325,12 +381,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
     pts = points[ridx]
     pcos = points_cos[ridx]
-    dirs = _ray_dirs(pts)
-    t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
-    d_meas = norm3(pts) * pcos
-    depth_ok = (d_meas > 0.0) & (d_meas < tp.max_depth)
+    dirs, t_cap, d_meas, depth_ok, dnorm = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
     bias_ray = _bias_ray(pcos, sdf_bias, dev)
-    dnorm = norm3(pts)
     n_extra = tp.surface_anchor + tp.band_samples
     # what stays fixed over the frame, checked once: K8's grid and K3's rays
     field = ActiveField(map_state, map_cfg)
@@ -379,26 +431,29 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
 
 
 def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, pts, pcos, rvalid,
-              placer: CdfPlacer, u, band_u, bias_ray, dec_meta: DecoderMeta = PLAIN):
+              placer: CdfPlacer, u, band_u, bias_ray, dec_meta: DecoderMeta = PLAIN, dnorm=None):
     """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
     rays): grid render_rays of the map's packed table through ``placer``
     and ``field`` (the frame's CdfPlacer over the hoisted march and its
     ActiveField over the map) with jitter u, the anchor and band columns
     (jitter band_u), then ``sdf_losses`` with the per-ray band target
-    bias_ray (R,). Returns (loss, RenderOutput)."""
+    bias_ray (R,). ``dnorm`` (R,): |pts| from the draw's ``ray_prep``
+    (None: taken here). Returns (loss, RenderOutput)."""
+    if dnorm is None:
+        dnorm = norm3(pts)
     compute_dtype = getattr(torch, tp.compute_dtype)
     wdirs = se3.rotate_dirs(pose6, dirs)
     origin = se3.pose_translation(pose6).expand_as(wdirs)
     extra = None
     if tp.surface_anchor or tp.band_samples:
-        ez = extra_surface_z(norm3(pts), pcos, tp.truncation,
-                             tp.surface_anchor, tp.band_samples, band_u)
+        ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples,
+                             band_u)
         extra = (field, ez, rvalid)
     out = render_rays(field.state.packed, decoder_params, field, origin, wdirs, rvalid, placer, u,
                       compute_dtype, extra, dec_meta=dec_meta)
     loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                          tp.truncation, tp.max_depth, tp.fs_weight, tp.sdf_weight,
-                         sdf_bias=bias_ray[:, None])
+                         sdf_bias=bias_ray[:, None], gt_norm=dnorm)
     return loss, out
 
 
@@ -420,13 +475,12 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
         """A fresh ray draw and its placer, marched at pose6."""
         ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
         pts, pcos = points[ridx], points_cos[ridx]
-        dirs = _ray_dirs(pts)
-        t_cap = t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
-        wdirs0 = se3.rotate_dirs(pose6, dirs)
+        rp = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
+        wdirs0 = se3.rotate_dirs(pose6, rp.dirs)
         placer = CdfPlacer.march(map_state, map_cfg, rc,
-                                 se3.pose_translation(pose6).expand_as(wdirs0), wdirs0, t_cap,
+                                 se3.pose_translation(pose6).expand_as(wdirs0), wdirs0, rp.t_cap,
                                  rc.n_samples)
-        return pts, pcos, dirs, rvalid, placer, _bias_ray(pcos, sdf_bias, dev)
+        return pts, pcos, rp.dirs, rp.dnorm, rvalid, placer, _bias_ray(pcos, sdf_bias, dev)
 
     if not tp.resample_rays:
         fixed = rays_at(init_pose)
@@ -437,15 +491,15 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(tp.num_iterations):
-        pts, pcos, dirs, rvalid, placer, bias_ray = (rays_at(pose6) if tp.resample_rays
-                                                     else fixed)
+        pts, pcos, dirs, dnorm, rvalid, placer, bias_ray = (rays_at(pose6) if tp.resample_rays
+                                                            else fixed)
         u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
         ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
               if tp.band_samples else None)
         with torch.enable_grad():
             p = pose6.requires_grad_(True)
             loss, out = adam_loss(field, tp, decoder_params, p, dirs, pts, pcos, rvalid, placer,
-                                  u, ub, bias_ray, dec_meta)
+                                  u, ub, bias_ray, dec_meta, dnorm)
             (g,) = torch.autograd.grad(loss, p)
         with torch.no_grad():
             pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)

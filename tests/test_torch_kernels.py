@@ -3,7 +3,8 @@ K8 active field, K3 GN normal equations, K7 voxel insert, K6 recenter +
 active set, K5 reconcile + repack, E1 pack_embeddings and its transpose,
 K9a occupancy march, K9b CDF
 placement, K10a mesh lattice, K10b marching tetrahedra, K11a range image,
-K11b point-to-plane system) against their plain torch twins, at small shapes. On a machine
+K11b point-to-plane system, the ray setup ray_prep) against their plain
+torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
 run them on the card with
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`
@@ -62,7 +63,9 @@ the accumulating form each entry one add on the sums alone (also into a
 GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
 GnSystem, K8's ActiveField, K4, K5, K9a's CdfPlacer.march and K10b
 raise on what they would have to convert (another device, another dtype,
-a strided tensor)."""
+a strided tensor). ray_prep every output equal to its twin on the card
+and on the CPU (and in BA's (W, K, 3) form); it raises on what it cannot
+take."""
 
 import ctypes
 import os
@@ -727,6 +730,36 @@ def test_norm3_and_divisions_on_card_match_cpu(cuda):
         assert torch.equal(ieee.div(p.to(cuda), vs).cpu(), ieee.div(p, vs))
 
 
+@pytest.mark.parametrize("trunc", [0.3, 0.5])
+def test_ray_prep_kernel_matches_plain(cuda, trunc):
+    """ray_prep (csrc/ray_prep.cu, one launch) torch.equal to ray_prep_plain
+    on the card and on the CPU for every output, at a tracker's 2048 rays
+    of magnitudes 1e-2 to 1e2 with zero rows and cosines below 0.05, and in
+    BA's (W, K, 3) form; no launch for no ray; it raises on what it cannot
+    take."""
+    rng = np.random.default_rng(4)
+    pts = (rng.standard_normal((2048, 3)) * 10 ** rng.uniform(-2, 2, (2048, 1))).astype(np.float32)
+    pts[::97] = 0.0
+    c = rng.uniform(-0.2, 1.0, 2048).astype(np.float32)
+    for p_, c_ in ((pts, c), (pts.reshape(2, 1024, 3), c.reshape(2, 1024))):
+        p_, c_ = torch.as_tensor(p_), torch.as_tensor(c_)
+        before = ttr.ray_prep_launches
+        ker = ttr.ray_prep(p_.to(cuda), c_.to(cuda), trunc, 60.0)
+        assert ttr.ray_prep_launches == before + 1
+        dev = ttr.ray_prep_plain(p_.to(cuda), c_.to(cuda), trunc, 60.0)
+        cpu = ttr.ray_prep_plain(p_, c_, trunc, 60.0)
+        for k, d, h in zip(ker, dev, cpu):
+            assert k.shape == h.shape and torch.equal(k.cpu(), d.cpu()) and torch.equal(k.cpu(), h)
+    empty = ttr.ray_prep(torch.zeros((0, 3), device=cuda), torch.zeros((0,), device=cuda), trunc,
+                         60.0)
+    assert empty.dirs.shape == (0, 3) and empty.depth_ok.shape == (0,)
+    pc, cc = torch.as_tensor(pts).to(cuda), torch.as_tensor(c).to(cuda)
+    for bad in ((pc.double(), cc), (pc[:, :2].contiguous(), cc), (pc, cc[:100]),
+                (pc.t().contiguous().t(), cc)):
+        with pytest.raises(ValueError):
+            ttr.ray_prep(*bad, trunc, 60.0)
+
+
 def test_mesh_lattice_rejects_what_it_would_convert():
     """K10a's wrapper takes its inputs as they are, on the CPU too: int64 or
     strided voxel ids, a strided or int64 table, embeddings of another type
@@ -1385,6 +1418,8 @@ def test_wrappers_reject_other_devices():
     prev = ts2s.build_prev_scan(S2S, pts, valid, torch.zeros(6))
     with pytest.raises(ValueError, match="unsupported device"):
         ts2s.s2s_system(S2S, prev, torch.zeros(6), pts.to("meta"), valid.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttr.ray_prep(pts.to("meta"), torch.ones(len(pts), device="meta"), 0.3, 60.0)
 
 
 def test_kernel_library_is_built_lazily():
@@ -1394,7 +1429,7 @@ def test_kernel_library_is_built_lazily():
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
         "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu",
-        "pack_grad.cu"}
+        "pack_grad.cu", "norm3.cu", "ray_prep.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

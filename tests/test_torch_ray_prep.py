@@ -1,6 +1,19 @@
 """Port parity: the lengths of the port's ray setup and of the
 scan-to-scan range image, bit for bit against the JAX package on the CPU.
 
+- ``tracking.ray_prep_plain`` (csrc/ray_prep.cu's twin; what ``ray_prep``
+  takes on the CPU) against JAX's ray directions, ``t_cap_for``, measured
+  depth, its gate and the points' lengths (nerfloam_tpu/core/tracking.py:
+  156-160, 374-381) at truncation 0.3 and 0.5, eager and under jit; and
+  against the functions the port took them from before (``_ray_dirs``,
+  ``t_cap_for``, ``ieee.norm3``).
+- The depths hoisted out of the loops: a BA step (hit table and grid
+  sampler over the ray superset, the grid without one) and the Adam
+  tracker (fixed rays and a draw every iteration), band and anchor
+  columns on, take every iteration's measured lengths from the draw's
+  ``ray_prep`` (gathered with the rays from the superset): each is
+  ``ieee.norm3`` of the iteration's points, and the step's every output
+  equals the loop form's, where ``sdf_losses`` takes the norm itself.
 - The scan-to-scan twin (core/scan2scan.py, K11a's and K11b's plain
   versions) takes ``jnp.linalg.norm``'s lengths at JAX's four sites
   (nerfloam_tpu/core/scan2scan.py:72 the range, :74 the horizontal range,
@@ -10,13 +23,28 @@ scan-to-scan range image, bit for bit against the JAX package on the CPU.
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nerfloam_tpu.core import tracking as jtr
+from nerfloam_tpu.map import voxel_map as jvm
+from nerfloam_tpu.models.decoder import init_decoder
+from nerfloam_tpu.ops import se3 as jse3
+from nerfloam_tpu_torch.core import ba as tba
 from nerfloam_tpu_torch.core import scan2scan as ts2s
+from nerfloam_tpu_torch.core import tracking as ttr
+from nerfloam_tpu_torch.models.decoder import decoder_leaves
 from nerfloam_tpu_torch.ops import ieee
+from nerfloam_tpu_torch.ops.raycast import RaycastConfig
+from nerfloam_tpu_torch.utils.bridge import (
+    decoder_params_from_jax,
+    map_config_from_jax,
+    map_state_from_numpy,
+)
+from tests.test_render_track import MAP_CFG, MAX_DEPTH, RC, build_map, pad_frame, scene  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_scan2scan import SP as JSP, corridor_scan  # noqa: E402
@@ -75,3 +103,132 @@ def test_norm2_plain_matches_jax():
     x = _vectors(65536, 2)
     ref = np.asarray(jnp.linalg.norm(jnp.asarray(x[:, :2]), axis=-1))
     np.testing.assert_array_equal(ieee.norm2_plain(torch.as_tensor(x)).numpy(), ref)
+
+
+def _jax_ray_prep(p, c, trunc):
+    """JAX's per-ray setup (tracking.py:156-160, t_cap_for)."""
+    n = jnp.linalg.norm(p, axis=-1)
+    d_meas = jnp.linalg.norm(p, axis=-1) * c
+    return (p / (jnp.linalg.norm(p, axis=-1, keepdims=True) + 1e-8),
+            jtr.t_cap_for(p, c, trunc, MAX_DEPTH), d_meas, (d_meas > 0.0) & (d_meas < MAX_DEPTH), n)
+
+
+@pytest.mark.parametrize("trunc", [0.3, 0.5])
+def test_ray_prep_plain_matches_jax(trunc):
+    """Every output of ray_prep (the plain twin on the CPU) equals JAX's,
+    eager and jitted, and the port's earlier functions, on 16,384 seeded
+    rays (magnitudes 1e-3 to 1e3, zero rows, cosines below 0.05 and
+    negative, depths past max_depth)."""
+    x = _vectors(16384, 3)
+    c = np.random.default_rng(3).uniform(-0.2, 1.0, 16384).astype(np.float32)
+    tx, tc = torch.as_tensor(x), torch.as_tensor(c)
+    got = ttr.ray_prep(tx, tc, trunc, MAX_DEPTH)
+    assert isinstance(got, ttr.RayPrep)
+    jit_prep = jax.jit(_jax_ray_prep, static_argnums=2)
+    for ref in (_jax_ray_prep(jnp.asarray(x), jnp.asarray(c), trunc),
+                jit_prep(jnp.asarray(x), jnp.asarray(c), trunc)):
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    before = (ttr._ray_dirs(tx), ttr.t_cap_for(tx, tc, trunc, MAX_DEPTH), ieee.norm3(tx) * tc)
+    for g, b in zip(got, before):
+        assert torch.equal(g, b)
+    assert 0 < int(got.depth_ok.sum()) < 16384 and (got.t_cap == MAX_DEPTH).any()
+    w = ttr.ray_prep(tx.reshape(4, 4096, 3), tc.reshape(4, 4096), trunc, MAX_DEPTH)
+    for g, b in zip(got, w):
+        assert torch.equal(g, b.reshape(g.shape))
+
+
+@pytest.fixture(scope="module")
+def trained(scene):
+    """A map with random embeddings over the scene's frames, a decoder, and
+    two padded frames with their poses, on the port's side."""
+    _, frames = scene
+    m = build_map(frames)
+    emb = np.random.default_rng(5).normal(size=m.embeddings.shape).astype(np.float32) * 0.2
+    m = jvm.refresh_active(m._replace(embeddings=jnp.asarray(emb)), MAP_CFG)
+    params, _ = init_decoder(jax.random.key(3))
+    padded = [pad_frame(pts, cos) for pts, cos, _ in frames[:2]]
+    poses = [np.asarray(jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))) for *_, T in frames[:2]]
+    return dict(ms=map_state_from_numpy(jax.device_get(m), device="cpu"),
+                params=decoder_params_from_jax(jax.device_get(params), device="cpu"),
+                P=torch.as_tensor(np.stack([np.asarray(f[0]) for f in padded])),
+                C=torch.as_tensor(np.stack([np.asarray(f[1]) for f in padded])),
+                V=torch.as_tensor(np.stack([np.asarray(f[2]) for f in padded])),
+                poses=torch.as_tensor(np.stack(poses)))
+
+
+def _loop_form(monkeypatch, module):
+    """Patch ``module``'s extra_surface_z to record the depths it is handed
+    and its sdf_losses to take the points' norm itself (the loop form),
+    recording the length it was handed and ieee.norm3 of its points; returns
+    the records, one [ez depths, loss length, loss norm] an iteration."""
+    seen = []
+    ez_fn, loss_fn = module.extra_surface_z, module.sdf_losses
+
+    def extra_surface_z(dnorm, *a, **k):
+        seen.append([dnorm])
+        return ez_fn(dnorm, *a, **k)
+
+    def sdf_losses(z, sdf, valid, ray_mask, gt_points, *a, gt_norm=None, **k):
+        seen[-1] += [gt_norm, ieee.norm3(gt_points)]
+        return loss_fn(z, sdf, valid, ray_mask, gt_points, *a, **k)
+
+    monkeypatch.setattr(module, "extra_surface_z", extra_surface_z)
+    monkeypatch.setattr(module, "sdf_losses", sdf_losses)
+    return seen
+
+
+def _check_records(seen, n):
+    assert len(seen) == n
+    for ez_depth, loss_norm, ref in seen:
+        assert torch.equal(ez_depth, ref) and torch.equal(loss_norm, ref)
+
+
+@pytest.mark.parametrize("sampler, superset", [("hits", 2), ("grid", 2), ("grid", 0)])
+def test_ba_step_hoisted_depths_equal_the_loop_form(trained, monkeypatch, sampler, superset):
+    s = trained
+    rc = RaycastConfig(**RC._replace(sampler=sampler, max_hits=20)._asdict())
+    bp = tba.BAParams(n_frames=2, n_rays=64, num_iterations=3, truncation=0.5,
+                      max_depth=MAX_DEPTH, fs_weight=1.0, sdf_weight=1e4, ray_superset=superset,
+                      surface_anchor=1, band_samples=8)
+    cfg = map_config_from_jax(MAP_CFG)
+
+    def step():
+        return tba.ba_step(s["ms"], cfg, rc, bp, s["params"], s["poses"], s["P"], s["C"], s["V"],
+                           torch.ones(2, dtype=torch.bool), torch.tensor([False, True]), True,
+                           [0.01, 0.005, 0.001], torch.Generator().manual_seed(4))
+
+    hoisted = step()
+    seen = _loop_form(monkeypatch, tba)
+    loop = step()
+    _check_records(seen, bp.num_iterations)
+    for name in tba.BAResult._fields:
+        a, b = getattr(hoisted, name), getattr(loop, name)
+        for x, y in (zip(decoder_leaves(a), decoder_leaves(b)) if name == "decoder_params"
+                     else [(a, b)]):
+            assert torch.equal(x, y), name
+    assert float(hoisted.loss) > 0 and int(hoisted.touched_count) > 0
+
+
+@pytest.mark.parametrize("resample", [False, True])
+def test_adam_tracker_hoisted_depths_equal_the_loop_form(trained, monkeypatch, resample):
+    s = trained
+    rc = RaycastConfig(**RC._asdict())
+    tp = ttr.TrackParams(n_rays=96, num_iterations=3, truncation=0.5, max_depth=MAX_DEPTH,
+                         fs_weight=1.0, sdf_weight=1e4, surface_anchor=1, band_samples=8,
+                         resample_rays=resample)
+    cfg = map_config_from_jax(MAP_CFG)
+    init = s["poses"][1] + torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.004])
+
+    def track():
+        return ttr.track_frame(s["ms"], cfg, rc, tp, s["params"], init, s["P"][1], s["C"][1],
+                               s["V"][1], 0.01, torch.Generator().manual_seed(6),
+                               torch.tensor([0.01, -0.005]))
+
+    hoisted = track()
+    seen = _loop_form(monkeypatch, ttr)
+    loop = track()
+    _check_records(seen, tp.num_iterations)
+    for a, b in zip(hoisted, loop):
+        assert torch.equal(a, b)
+    assert int(hoisted.hit_count) > 0 and not torch.equal(hoisted.pose, init)
