@@ -19,7 +19,9 @@ residuals, the count-balanced weights and the 6x6 normal equations; with
 ``TrackParams.s2s`` set, K11b (``core.scan2scan.s2s_system``) adds the
 scan-to-scan point-to-plane term on the same rays against the previous
 scan's range image into K3's H, b and loss in place, with the iteration's
-rotation of the ray directions; the LM solve stays in torch.
+rotation of the ray directions; the damped LM solve stays in torch, and
+``lm_step`` (csrc/lm_step.cu) takes the rest of the update, trust region to
+log map, in one launch and hands the next iteration its rotation.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
 draw, one placer made by its K9a march per frame at the initial pose; per
@@ -58,7 +60,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import norm3, norm3_plain
+from nerfloam_tpu_torch.ops.ieee import const, norm3, norm3_plain
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -69,6 +71,7 @@ from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 gn_system_launches = 0  # K3
+lm_step_launches = 0
 ray_prep_launches = 0
 _K3 = "gn_system"
 _F32 = torch.float32
@@ -330,23 +333,77 @@ def gn_system(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackPar
 
 
 def trust_region(delta):
-    """The LM step (6,) clipped to 0.5 m of translation and 0.1 rad of
+    """The LM steps (..., 6) clipped to 0.5 m of translation and 0.1 rad of
     rotation (tracking.py:329-332): each half scaled by min(1, r / (|v| +
     1e-12)), r / (...) one IEEE division as in JAX. Returns (dt, dth)."""
-    dt, dth = delta[:3], delta[3:]
-    dt = dt * torch.clamp(rdiv(0.5, norm3(dt) + 1e-12), max=1.0)
-    dth = dth * torch.clamp(rdiv(0.1, norm3(dth) + 1e-12), max=1.0)
+    dt, dth = delta[..., :3].contiguous(), delta[..., 3:].contiguous()  # a batch: copies
+    dt = dt * torch.clamp(rdiv(0.5, norm3(dt, keepdim=True) + 1e-12), max=1.0)
+    dth = dth * torch.clamp(rdiv(0.1, norm3(dth, keepdim=True) + 1e-12), max=1.0)
     return dt, dth
 
 
-def lm_update(pose6, H, b, lam):
-    """Damped solve, trust region (0.5 m / 0.1 rad), left-multiplied update."""
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    Hd = H + lam * torch.diag(torch.diag(H)) + 1e-6 * eye
-    delta = -torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
-    dt, dth = trust_region(delta)
+def lm_step_plain(pose6, step):
+    """Plain torch twin of ``lm_step``: the LM update after the solve
+    (tracking.py:326-334), op by op. ``step`` (..., 6) is the solve's
+    solution, delta = -step; returns (the new pose (..., 6), its rotation
+    ``se3.pose_rotation`` (..., 3, 3))."""
+    dt, dth = trust_region(-step)
     R_new = se3.compose_matrices(se3.exp_so3(dth), se3.pose_rotation(pose6))
-    return torch.cat([pose6[:3] + dt, se3.log_so3(R_new)])
+    new = torch.cat([pose6[..., :3] + dt, se3.log_so3(R_new)], -1)
+    return new, se3.pose_rotation(new)
+
+
+def lm_step(pose6, step):
+    """The LM update after the damped solve, replacing the XLA fusion of
+    nerfloam_tpu/core/tracking.py:326-334: trust region (0.5 m / 0.1 rad),
+    exp_so3 of the rotation step left-multiplied onto the pose's, log_so3,
+    the translation added; also the new pose's rotation matrix, which the
+    next iteration rotates its rays with. ``pose6`` and ``step`` (the
+    solve's solution; delta = -step) are (..., 6) contiguous f32 on one
+    device, needing no gradient. CPU tensors take ``lm_step_plain``; CUDA
+    tensors one launch of csrc/lm_step.cu (one thread a step): its
+    translation equal to the twin's, its rotation within a few ulp (sinf
+    and atan2f are CUDA's). Returns (pose (..., 6), R (..., 3, 3)), views
+    of one new buffer."""
+    global lm_step_launches
+    index, shape = pose6.get_device(), pose6.shape
+    # the tracker's call on the card in one expression; anything else goes
+    # through the full checks, which raise
+    if not (index >= 0 and pose6.dtype is _F32 and step.dtype is _F32 and shape == step.shape
+            and shape and shape[-1] == 6 and pose6.is_contiguous() and step.is_contiguous()
+            and step.get_device() == index
+            and not (torch.is_grad_enabled() and (pose6.requires_grad or step.requires_grad))):
+        name, dev = "lm_step", pose6.device
+        if dev.type == "cpu":
+            return lm_step_plain(pose6, step)
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {dev}")
+        kernels.expect(name, dev, _F32, pose6=pose6, step=step)
+        if pose6.dim() == 0 or pose6.shape[-1] != 6 or step.shape != pose6.shape:
+            raise ValueError(f"{name}: pose6 and step must be (..., 6) alike; got "
+                             f"{tuple(pose6.shape)} and {tuple(step.shape)}")
+        raise ValueError(f"{name}: no backward; pass tensors that need no gradient")
+    n = pose6.numel() // 6
+    out = pose6.new_empty(15 * n)
+    if n:
+        o = out.data_ptr()
+        err = kernels.lib().nl_lm_step(step.data_ptr(), pose6.data_ptr(), n, o, o + 24 * n,
+                                       kernels.raw_stream(index))
+        if err:
+            kernels.check(err, "lm_step")
+        lm_step_launches += 1
+    return out[:6 * n].view(shape), out[6 * n:].view(shape[:-1] + (3, 3))
+
+
+# 1e-6 I, the damping's floor, made once per device
+_DAMP_FLOOR = tuple(tuple(1e-6 if i == j else 0.0 for j in range(6)) for i in range(6))
+
+
+def lm_update(pose6, H, b, lam):
+    """Damped solve, trust region (0.5 m / 0.1 rad), left-multiplied update
+    (``lm_step``). Returns (the new pose, its rotation)."""
+    Hd = H + lam * torch.diag(torch.diag(H)) + const(_DAMP_FLOOR, H.dtype, H.device)
+    return lm_step(pose6, torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0])
 
 
 def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, compute_dtype,
@@ -388,7 +445,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     field = ActiveField(map_state, map_cfg)
     system = GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, rc.n_samples + n_extra)
 
-    wdirs0 = se3.rotate_dirs(init_pose, dirs)
+    R = se3.pose_rotation(init_pose)  # then lm_step's, one iteration to the next
+    wdirs0 = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(init_pose, dirs)
     origin0 = se3.pose_translation(init_pose).expand_as(wdirs0)
     if rc.sampler == "hits":
         ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
@@ -401,7 +459,6 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(tp.num_iterations):
-        R = se3.pose_rotation(pose6)  # shared with K11b
         wdirs = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(pose6, dirs)
         t_pos = se3.pose_translation(pose6)
         origin = t_pos.expand_as(wdirs)
@@ -424,7 +481,7 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         if tp.s2s is not None and prev_scan is not None:
             # adds in place into K3's outputs, which its next call overwrites
             H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
-        pose6 = lm_update(pose6, H, b, lam)
+        pose6, R = lm_update(pose6, H, b, lam)
         hits = (ray_hit & rvalid).sum()
     pose6 = torch.where(hits > 0, pose6, init_pose)
     return TrackResult(pose6, hits, loss)

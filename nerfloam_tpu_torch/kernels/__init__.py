@@ -80,6 +80,7 @@ _SIGNATURES = {
     "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],
     "nl_norm3": [_P, _I, _P, _P],
+    "nl_lm_step": [_P, _P, _I, _P, _P, _P],
     "nl_ray_prep": [_P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _F, _I, _P, _P, _P, _P],

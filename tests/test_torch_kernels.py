@@ -3,8 +3,8 @@ K8 active field, K3 GN normal equations, K7 voxel insert, K6 recenter +
 active set, K5 reconcile + repack, E1 pack_embeddings and its transpose,
 K9a occupancy march, K9b CDF
 placement, K10a mesh lattice, K10b marching tetrahedra, K11a range image,
-K11b point-to-plane system, the ray setup ray_prep) against their plain
-torch twins, at small shapes. On a machine
+K11b point-to-plane system, the ray setup ray_prep and the LM update lm_step)
+against their plain torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
 run them on the card with
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`
@@ -64,8 +64,10 @@ GnSystem's own outputs, as the tracker calls it). K9b, K11b, K1, K2, K3's
 GnSystem, K8's ActiveField, K4, K5, K9a's CdfPlacer.march and K10b
 raise on what they would have to convert (another device, another dtype,
 a strided tensor). ray_prep every output equal to its twin on the card
-and on the CPU (and in BA's (W, K, 3) form); it raises on what it cannot
-take."""
+and on the CPU (and in BA's (W, K, 3) form); lm_step's translation equal
+to its twin's on the card and on the CPU, its rotation within 4 ulp of
+each pose's largest entry (CUDA's sinf and atan2f), its one-step form the
+batch's row; both raise on what they cannot take."""
 
 import ctypes
 import os
@@ -728,6 +730,51 @@ def test_norm3_and_divisions_on_card_match_cpu(cuda):
                                                           vs).cpu(),
                            tinterp.interp_corner_features(p, c, f, vs))
         assert torch.equal(ieee.div(p.to(cuda), vs).cpu(), ieee.div(p, vs))
+
+
+def _lm_steps(n, seed):
+    """n seeded (pose, solve solution) pairs: the first half at small angles
+    (exp_so3's series branch), the rest at 0.8 rad rotations and 0.05 rad
+    steps; translation steps of 1 mm to 1 m."""
+    rng = np.random.default_rng(seed)
+    small = (np.arange(n) < n // 2)[:, None]
+    pose = np.concatenate([rng.normal(0, 10, (n, 3)), np.where(
+        small, rng.normal(0, 3e-5, (n, 3)), rng.normal(0, 0.8, (n, 3)))], 1)
+    step = np.concatenate([rng.normal(0, 0.3, (n, 3)) * np.exp(rng.uniform(-6, 1, (n, 1))),
+                           np.where(small, rng.normal(0, 3e-5, (n, 3)),
+                                    rng.normal(0, 0.05, (n, 3)))], 1)
+    return torch.as_tensor(pose.astype(np.float32)), torch.as_tensor(step.astype(np.float32))
+
+
+def test_lm_step_kernel_matches_plain(cuda):
+    """lm_step (csrc/lm_step.cu, one launch for a batch, one thread a step)
+    against lm_step_plain on 2,000 steps, on the card and one step a call on
+    the CPU: the translation torch.equal, the rotation within 4 ulp of each
+    pose's largest entry (CUDA's sinf and atan2f may round otherwise than
+    the host's), the small-angle half (no sine) at least 90% bit-equal; its
+    rotation matrix within 4 ulp of the twin's; the one-step form (the
+    tracker's) equal to the batch's row; it raises on what it cannot take."""
+    P, S = _lm_steps(2000, 3)
+    before = ttr.lm_step_launches
+    kp, kR = ttr.lm_step(P.to(cuda), S.to(cuda))
+    assert ttr.lm_step_launches == before + 1
+    assert kp.shape == (2000, 6) and kR.shape == (2000, 3, 3)
+    dp, dR = ttr.lm_step_plain(P.to(cuda), S.to(cuda))
+    one = [ttr.lm_step_plain(P[i], S[i]) for i in range(0, 2000, 4)]
+    cp = torch.stack([x for x, _ in one])
+    for got, ref in ((kp.cpu(), dp.cpu()), (kp[::4].cpu(), cp)):
+        assert torch.equal(got[:, :3], ref[:, :3])
+        ulp = torch.as_tensor(np.spacing(ref.abs().max(1, keepdim=True)[0].numpy()))
+        assert ((got - ref).abs()[:, 3:] <= 4 * ulp).all()
+        half = len(got) // 2
+        assert (got[:half] == ref[:half]).all(1).float().mean() >= 0.9
+    assert ((kR.cpu() - dR.cpu()).abs() <= 4 * np.spacing(np.float32(1.0))).all()
+    k1p, k1R = ttr.lm_step(P[9].to(cuda), S[9].to(cuda))
+    assert torch.equal(k1p.cpu(), kp[9].cpu()) and torch.equal(k1R.cpu(), kR[9].cpu())
+    for bad in ((P.to(cuda).double(), S.to(cuda).double()), (P.to(cuda)[:, :5], S.to(cuda)[:, :5]),
+                (P.to(cuda), S.to(cuda)[:1000]), (P.to(cuda).t(), S.to(cuda).t())):
+        with pytest.raises(ValueError):
+            ttr.lm_step(*bad)
 
 
 @pytest.mark.parametrize("trunc", [0.3, 0.5])
@@ -1419,6 +1466,8 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ts2s.s2s_system(S2S, prev, torch.zeros(6), pts.to("meta"), valid.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
+        ttr.lm_step(torch.zeros(6, device="meta"), torch.zeros(6, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
         ttr.ray_prep(pts.to("meta"), torch.ones(len(pts), device="meta"), 0.3, 60.0)
 
 
@@ -1429,7 +1478,7 @@ def test_kernel_library_is_built_lazily():
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
         "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu",
-        "pack_grad.cu", "norm3.cu", "ray_prep.cu"}
+        "pack_grad.cu", "norm3.cu", "lm_step.cu", "ray_prep.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

@@ -22,6 +22,7 @@ from nerfloam_tpu_torch.core import render as trender
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.map.voxel_map import MapConfig
 from nerfloam_tpu_torch.models.decoder import init_decoder as t_init_decoder
+from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.bridge import (
     decoder_params_from_jax,
@@ -132,8 +133,9 @@ def test_gn_normal_equations_match_jax(scene, trunc):
         assert _rel_err(sH, H) <= 1e-4
         assert _rel_err(sb, b) <= 1e-4
         np.testing.assert_allclose(float(sloss), float(jnp.sum(w * r * r)), rtol=1e-4)
-    new = ttr.lm_update(tpose, tH, tb, 1e-2)
+    new, R = ttr.lm_update(tpose, tH, tb, 1e-2)
     assert torch.isfinite(new).all() and float((new - tpose).abs().max()) <= 0.5
+    assert torch.equal(R, tse3.pose_rotation(new))
 
 
 def _jax_trust_region(delta):
