@@ -66,8 +66,19 @@
    3-vectors in XLA's CPU order) torch.equal to its plain form on the CPU
    over one frame's 65,536 points and 2048 tracker rays, beside the rows
    torch.linalg.norm gets otherwise, the routed divisions (ieee.div /
-   rdiv, exp_so3's series, interp_corner_features) equal to the CPU's, and
-   norm3 timed in turns with torch.linalg.norm.
+   rdiv, exp_so3's series, interp_corner_features) equal to the CPU's, the
+   scan-to-scan twin's 3- and 2-vector chains and exp_so3's float64 cosine
+   equal to the CPU's, and norm3 timed in turns with torch.linalg.norm;
+   [ray_prep] (a ray draw's directions, t_cap, measured depth, its gate and
+   lengths in one launch) torch.equal to its twin on the card and on the
+   CPU at the tracker's 2048 rays and BA's superset (2 frames); [lm_step]
+   (the LM update after the solve, one thread a step) on 10,000 seeded
+   steps, half at small angles, against its twin on the card and on the
+   CPU (batched, and one step a call): the translation torch.equal, the
+   rotation within 4 ulp of each pose's largest entry, its largest gap and
+   the share of poses bit-equal printed; and a GN tracker frame at 2 and
+   16 iterations making the same exp_so3 and log_so3 calls and norm3
+   launches (none inside the loop after its first rotation).
    K9b is checked with one origin per ray, with one origin broadcast to
    every ray (row stride 0, the trackers' form, timed at the Adam shapes)
    and over a superset cdf whose rows each call picks (BA's form, timed at
@@ -138,7 +149,8 @@
      there (the 16 draws run in four processes side by side on the card;
      the config's own seed must repeat the main path's digits).
    Each path's launch counts are zeroed just before it and read just
-   after. Prints the tracker ms the s2s term adds to the quality path.
+   after; a GN path launches lm_step once a GN iteration. Prints the
+   tracker ms the s2s term adds to the quality path.
    Prints scans/s over frames 6 to the end, sections, host syncs,
    overflow counters, the final sdf_bias and the ATE against ground
    truth, and checks them: every kernel of the path launched, no drops,
@@ -146,8 +158,9 @@
 5. Each kernel-phase call profiled alone: its device time per CUDA
    function and its CUDA launches per call (K4 in every form, K9a in
    every form, K9b, K10a at res 2 and 4, K10b in both forms, K11b, K1 in
-   both origin forms, K2's d xyz form, K3 at both shapes and K8 in every
-   form must make exactly one; K2's d packed form at most four and K7 at
+   both origin forms, K2's d xyz form, K3 at both shapes, K8 in every
+   form, lm_step and ray_prep in both forms must make exactly one; K2's
+   d packed form at most four and K7 at
    most five, all of them the port's (K7 profiled with the undo of each
    call, reported apart); K11a at most two of the port's, its other
    launches exactly those of its se3.pose_rotation, printed apart; K5's
@@ -156,7 +169,9 @@
    the run fails. Then torch.profiler breakdowns of a few steady frames
    of the budget, quality, s2s, Adam, replica-gate, exact and deferred
    quality configs: device launches and device ms per frame (one summary
-   line for all seven), device time per launch of each port kernel.
+   line for all seven, and one beside the launches a frame of the tree
+   before lm_step and ray_prep), device time per launch of each port
+   kernel.
    A "[time]" line after each phase gives the seconds from the start, and
    one at the end the whole script's.
 
@@ -297,39 +312,50 @@ FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 # last records of a window, up to 5 sessions in a row), and kineto drops the
 # records that fall outside the window.
 PROFILE_PAD_S = 0.1
+# device launches a frame (the profile phase's 3 steady frames) of the tree before
+# the LM update and the ray setup became kernels (lm_step, ray_prep) and exp_so3's
+# cosine was taken in float64, on an NVIDIA H100 80GB HBM3 at 700 W: printed
+# beside this run's
+LAUNCHES_BEFORE_FUSION = {"kitti_budget": 14785.3, "kitti_quality": 15630.0,
+                          "kitti_adam25": 17151.3, "kitti_quality_s2s": 15684.7,
+                          "replica_gate60_s0": 9414.0, "kitti_exact": 19924.3,
+                          "kitti_quality_defer": 15786.0}
 _MAP = ("insert", "reconcile", "active_set")
-# every path's rays, depths, t_cap and LM step take the norm (ops/ieee.py)
+# every path's BA step and tracker take a ray draw's setup in one launch
+_RAYS = ("ray_prep",)
+# the norm's own launch is left to the cold sites (ops/ieee.py): the bias probe
+# and the support directions of the quality stack, the deferred warm start's log
 _NORM = ("norm3",)
+_GN = ("gn_system", "lm_step")  # a GN iteration's normal equations and pose update
 _MESH = ("mesh_lattice", "marching_tets")
-_QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system", "active_field_fwd")
+_QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "active_field_fwd") + _GN
 PATH_KERNELS = {           # kernels each main path must launch
-    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP
-    + _NORM,
-    "kitti_quality": _QUALITY + _MAP + _MESH + _NORM,
-    "kitti_quality_s2s": _QUALITY + _MAP + ("build_prev_scan", "s2s_system") + _NORM,
+    "kitti_budget": ("hit_table", "hits_field_fwd", "hits_field_bwd") + _GN + _MAP + _RAYS,
+    "kitti_quality": _QUALITY + _MAP + _MESH + _RAYS + _NORM,
+    "kitti_quality_s2s": _QUALITY + _MAP + ("build_prev_scan", "s2s_system") + _RAYS + _NORM,
     "kitti_adam25": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                     "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP + _NORM,
+                     "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP + _RAYS,
     "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                       "hits_field_bwd", "gn_system") + _MAP + _MESH + _NORM,
+                       "hits_field_bwd") + _GN + _MAP + _MESH + _RAYS + _NORM,
     # exact gradients: E1 every BA iteration, no reconcile (no voxel touched)
     "kitti_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd", "hits_field_bwd",
-                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set") + _NORM,
+                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set") + _RAYS,
     "replica_gate60_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
-                             "hits_field_bwd", "gn_system", "pack_embeddings",
-                             "pack_embeddings_vjp", "insert", "active_set") + _MESH + _NORM,
+                             "hits_field_bwd", "pack_embeddings", "pack_embeddings_vjp", "insert",
+                             "active_set") + _GN + _MESH + _RAYS + _NORM,
     # the off-by-default knobs: replay, along, remove_back on the quality stack
-    "kitti_knobs": _QUALITY + _MAP + _MESH + _NORM,
+    "kitti_knobs": _QUALITY + _MAP + _MESH + _RAYS + _NORM,
     # mapping only on GT poses: BA (K4, K1, K2, K8) and the map, no tracker (no K3)
     "kitti_mapping_gt": ("hit_table", "hits_field_fwd", "hits_field_bwd", "active_field_fwd")
-    + _MAP + _MESH + _NORM,
+    + _MAP + _MESH + _RAYS + _NORM,
     # a decoder skip and the nerf embedder on the budget row
-    "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd", "gn_system") + _MAP
-    + _NORM,
+    "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd") + _GN + _MAP + _RAYS,
 }
 # the deferred schedule runs the same kernels as its synchronous config; the
-# budget run whose active set grows with a frame in flight also undoes K7
+# budget run whose active set grows with a frame in flight also undoes K7, and
+# its warm start on the device (log_so3) takes the norm
 PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"]
-PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert",)
+PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert",) + _NORM
 DEFER_PATHS = ("kitti_quality_defer", "kitti_budget_defer_grow")
 # paths run with a RunLogger: finalize writes both meshes and the pose files
 LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt", "kitti_quality_defer")
@@ -359,6 +385,8 @@ KERNEL_FUNCTIONS = {
     "pack_embeddings_vjp": ("pack_grad_kernel",),
     "pack_embeddings_vjp_build": ("pack_grad_link_kernel", "pack_grad_order_kernel"),
     "norm3": ("norm3_kernel",),
+    "lm_step": ("lm_step_kernel",),
+    "ray_prep": ("ray_prep_kernel",),
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
@@ -370,7 +398,8 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "active_field_fwd, gate band, origin row stride 0", "march_occupancy",
               "mesh_lattice", "mesh_lattice, res 4", "marching_tets", "marching_tets, padded",
               "pack_embeddings", "pack_embeddings_vjp", "pack_embeddings, gate60",
-              "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048") + tuple(
+              "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048", "lm_step", "ray_prep",
+              "ray_prep, BA superset") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -492,6 +521,8 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "pack_embeddings_vjp": (vm, "pack_grad_launches"),
     "pack_embeddings_vjp_build": (vm, "pack_grad_build_launches"),
     "norm3": (ieee, "norm3_launches"),
+    "lm_step": (tr, "lm_step_launches"),
+    "ray_prep": (tr, "ray_prep_launches"),
 }
 
 
@@ -1001,6 +1032,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     records += grid_kernels(slam, ms, tables[slam.tp.n_rays], rc_gate, loops, p, c, v, pose, gen)
     records += mesh_kernels(slam, ms)
     records += s2s_kernels(slam, sp, frames, gen)
+    records += tracker_step_kernels(slam, ms, frames, gen, 2 * slam.bp_current.n_rays)
     records.append(ieee_phase(p, tables[slam.tp.n_rays][4], gen))
     return records
 
@@ -2013,6 +2045,149 @@ def s2s_kernels(slam, sp, frames, gen):
     ]
 
 
+def ulp_gap(got, ref):
+    """(the largest |got - ref| of the rotation half (..., 3:) in ulp of each
+    pose's largest entry, the same in ulp of the rotation's largest entry,
+    the share of poses bit-equal); (N, 6) tensors."""
+    g, r = got.cpu().double().numpy(), ref.cpu().double().numpy()
+    d = np.abs(g - r)[:, 3:]
+    pose_ulp = np.spacing(np.abs(r).max(1, keepdims=True).astype(np.float32)).astype(np.float64)
+    rot_ulp = np.spacing(np.abs(r[:, 3:]).max(1, keepdims=True).astype(np.float32)).astype(
+        np.float64)
+    return float((d / pose_ulp).max()), float((d / rot_ulp).max()), float((g == r).all(1).mean())
+
+
+def lm_steps(n, seed=0):
+    """n seeded (pose, solve solution) pairs like a GN iteration's: poses
+    10 m from the origin, the first half at small angles (exp_so3's series
+    branch for the pose and the step), the rest at rotations of 0.8 rad
+    and steps of 0.05 rad; translation steps of 1 mm to 1 m."""
+    rng = np.random.default_rng(seed)
+    small = (np.arange(n) < n // 2)[:, None]
+    pose = np.concatenate([rng.normal(0, 10, (n, 3)), np.where(
+        small, rng.normal(0, 3e-5, (n, 3)), rng.normal(0, 0.8, (n, 3)))], 1)
+    step = np.concatenate([rng.normal(0, 0.3, (n, 3)) * np.exp(rng.uniform(-6, 1, (n, 1))),
+                           np.where(small, rng.normal(0, 3e-5, (n, 3)),
+                                    rng.normal(0, 0.05, (n, 3)))], 1)
+    return (torch.as_tensor(pose.astype(np.float32)), torch.as_tensor(step.astype(np.float32)))
+
+
+def gn_frame_calls(slam, ms, frame, iterations):
+    """Calls of se3.exp_so3 and se3.log_so3 and norm3 launches in one GN
+    tracker frame (the quality config's, on ``ms``) at ``iterations``."""
+    calls = Counter()
+    wrapped = {}
+    for nm in ("exp_so3", "log_so3"):
+        fn = wrapped[nm] = getattr(se3, nm)
+        setattr(se3, nm, partial(lambda fn, nm, *a, **k: calls.update([nm]) or fn(*a, **k),
+                                 fn, nm))
+    n0 = ieee.norm3_launches
+    try:
+        p, c, v = frame.device_arrays(slam.device)
+        gen = torch.Generator(device=slam.device)
+        gen.manual_seed(5)
+        tr.track_frame_gn(ms, slam.map_cfg, slam.rc_track,
+                          slam.tp._replace(num_iterations=iterations),
+                          slam.state.decoder_params, torch.as_tensor(frame.pose6,
+                                                                     device=slam.device),
+                          p, c, v, gen)
+        torch.cuda.synchronize()
+    finally:
+        for nm, fn in wrapped.items():
+            setattr(se3, nm, fn)
+    return calls["exp_so3"], calls["log_so3"], ieee.norm3_launches - n0
+
+
+def tracker_step_kernels(slam, ms, frames, gen, R_ba):
+    """[ray_prep] at the tracker's rays (2048 of a frame's points) and at
+    BA's superset (``R_ba`` rays of each of 2 frames, (2, R_ba, 3)),
+    torch.equal to its twin on the card and on the CPU; [lm_step] on
+    10,000 seeded steps (half at small angles) in one batched launch,
+    against its twin on the card and on the CPU (batched, and one step a
+    call on every fifth, the tracker's form), the translation torch.equal,
+    the rotation's largest ulp gap and the share of poses bit-equal
+    printed, the rotation within 4 ulp of each pose's largest entry; the
+    tracker's one-step form equal to the batch's row; and a GN tracker
+    frame at 2 and at 16 iterations making the same calls of exp_so3 and
+    log_so3 and the same norm3 launches (none inside the loop after its
+    first rotation)."""
+    dev = slam.device
+    tp = slam.tp
+    p, c, v = frames[0].device_arrays(dev)
+    idx, _ = sample_ray_indices(v, tp.n_rays, gen)
+    pts, pcos = p[idx], c[idx]
+    p1, c1, v1 = frames[1].device_arrays(dev)
+    sidx = torch.stack([sample_ray_indices(vv, R_ba, gen)[0] for vv in (v, v1)])
+    pw = torch.stack([p, p1])[torch.arange(2, device=dev)[:, None], sidx]
+    cw = torch.stack([c, c1])[torch.arange(2, device=dev)[:, None], sidx]
+    cases = {"tracker": (pts, pcos, tp.truncation, tp.max_depth),
+             "BA superset": (pw, cw, slam.bp_current.truncation, slam.bp_current.max_depth)}
+    err = 0.0
+    for label, (a, b, trunc, md) in cases.items():
+        ker = tr.ray_prep(a, b, trunc, md)
+        again = tr.ray_prep(a, b, trunc, md)
+        twin = tr.ray_prep_plain(a, b, trunc, md)
+        cpu = tr.ray_prep_plain(a.cpu(), b.cpu(), trunc, md)
+        torch.cuda.synchronize()
+        for nm, k, k2, t, t_cpu in zip(tr.RayPrep._fields, ker, again, twin, cpu):
+            check(torch.equal(k, t) and torch.equal(k.cpu(), t_cpu) and torch.equal(k, k2),
+                  f"ray_prep {nm} differs from its twin on the card or the CPU ({label})")
+            err = max(err, max_abs(k.float(), t.float()))
+        log(f"[ray_prep] {label} {tuple(b.shape)}: dirs, t_cap, d_meas, depth_ok and dnorm "
+            "torch.equal to the twin on the card and on the CPU, and between two calls")
+    n = pcos.numel()
+    k_ms = median_ms(partial(tr.ray_prep, *cases["tracker"]))
+    p_ms = median_ms(partial(tr.ray_prep_plain, *cases["tracker"]))
+    ba_ms = median_ms(partial(tr.ray_prep, *cases["BA superset"]))
+    log(f"[ray_prep] BA superset {tuple(cw.shape)}: kernel {ba_ms:.4f} ms")
+    rec_ray = record("ray_prep", "ray_prep.cu", "nerfloam_tpu/core/tracking.py:156-160 (dirs, "
+                     "t_cap_for, d_meas, depth_ok)", err, k_ms, p_ms, 41 * n, 30 * n,
+                     dev=partial(tr.ray_prep, *cases["tracker"]),
+                     forms={"ray_prep, BA superset": (partial(tr.ray_prep, *cases["BA superset"]),
+                                                      KERNEL_FUNCTIONS["ray_prep"])})
+
+    P, S = lm_steps(10000)
+    kp, kR = tr.lm_step(P.to(dev), S.to(dev))
+    tp_dev, tR_dev = tr.lm_step_plain(P.to(dev), S.to(dev))
+    tp_cpu, _ = tr.lm_step_plain(P, S)
+    one = [tr.lm_step_plain(P[i], S[i]) for i in range(0, len(P), 5)]
+    one_p, one_R = torch.stack([x for x, _ in one]), torch.stack([r for _, r in one])
+    k1p, k1R = tr.lm_step(P[7].to(dev), S[7].to(dev))
+    torch.cuda.synchronize()
+    check(torch.equal(k1p, kp[7]) and torch.equal(k1R, kR[7]),
+          "lm_step's one-step form differs from the batch's row")
+    half = len(P) // 2
+    for label, ref, rows in (("the twin on the card", tp_dev, slice(None)),
+                             ("the twin on the CPU, batched", tp_cpu, slice(None)),
+                             ("the twin on the CPU, one step a call", one_p, slice(None, None, 5))):
+        got = kp[rows].cpu()
+        check(torch.equal(got[:, :3], ref[:, :3].cpu()),
+              f"lm_step's translation differs from {label}")
+        worst, worst_rot, share = ulp_gap(got, ref)
+        sub = len(got) * half // len(P)
+        _, _, share_small = ulp_gap(got[:sub], ref[:sub])
+        log(f"[lm_step] {len(got)} steps against {label}: translation torch.equal; rotation "
+            f"within {worst:.4g} ulp of each pose's largest entry ({worst_rot:.4g} of the "
+            f"rotation's); poses bit-equal {share:.4f} (small-angle half {share_small:.4f})")
+        check(worst <= 4.0, f"lm_step's rotation {worst} ulp from {label}")
+    rot_err = float((kR.cpu() - tR_dev.cpu()).abs().max())
+    log(f"[lm_step] its rotation matrix against se3.pose_rotation of the twin's pose on the card: "
+        f"max |diff| {rot_err:.3g}; against the CPU's one step a call "
+        f"{float((kR[::5].cpu() - one_R).abs().max()):.3g}")
+    pose1, step1 = P[7].to(dev), S[7].to(dev)
+    k_ms = median_ms(partial(tr.lm_step, pose1, step1))
+    p_ms = median_ms(partial(tr.lm_step_plain, pose1, step1))
+    calls = {it: gn_frame_calls(slam, ms, frames[1], it) for it in (2, 16)}
+    log("[lm_step] a GN tracker frame's exp_so3 calls, log_so3 calls and norm3 launches: "
+        + ", ".join(f"{it} iterations {c_}" for it, c_ in calls.items()))
+    check(calls[2] == calls[16], "exp_so3, log_so3 or norm3 launch inside the GN loop")
+    # 48 B in, 60 B out; ~600 f32 operations
+    rec_lm = record("lm_step", "lm_step.cu", "nerfloam_tpu/core/tracking.py:326-334 (trust "
+                    "region, exp_so3, compose, log_so3)", max_abs(kp, tp_dev), k_ms, p_ms, 108, 600,
+                    dev=partial(tr.lm_step, pose1, step1))
+    return [rec_ray, rec_lm]
+
+
 def make_frames(slam, ds, n=None):
     """The dataset's frames (its first ``n``); a dataset with ground-truth
     poses (``data_specs.use_gt``) gives mapping-only frames."""
@@ -2180,6 +2355,8 @@ def main_path(name, slam, ds, label=None):
     check(np.isfinite(slam.sdf_bias).all(), "non-finite sdf_bias")
     for k in PATH_KERNELS[path]:
         check(launches[k] > 0, f"kernel {k} never launched on the {label} path")
+    check(launches["lm_step"] == launches["gn_system"],
+          f"{launches['lm_step']} LM steps for {launches['gn_system']} GN iterations ({label})")
     check(slam.dropped_delta_events == 0, "dropped deltas")
     if slam.bp_current.exact_embedding_grads:
         exact_checks(tag, slam, launches, len(frames))
@@ -2818,6 +2995,10 @@ def main(argv=None):
         ("kitti_quality_defer", cfgs["kitti_quality_defer"], ds))}
     log("[result] per frame (profile, 3 steady frames): " + ", ".join(
         f"{n} {v[0]:.1f} device launches, {v[1]:.2f} device ms" for n, v in per_frame.items()))
+    log("[result] device launches a frame, this tree against the one before lm_step and "
+        "ray_prep: " + ", ".join(f"{n} {v[0]:.1f} ({LAUNCHES_BEFORE_FUSION[n]:.1f}, "
+                                 f"{v[0] - LAUNCHES_BEFORE_FUSION[n]:+.1f})"
+                                 for n, v in per_frame.items()))
     log("[result] ATE (m): " + ", ".join(
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
         + f", kitti_quality resumed {resumed_ate:.4f}, kitti_quality_defer resumed "
