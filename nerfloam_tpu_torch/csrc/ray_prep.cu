@@ -1,6 +1,6 @@
 // ray_prep: a tracked frame's (or a BA step's) per-ray setup in one launch
 // (port of the XLA fusion of nerfloam_tpu/core/tracking.py:156-160, the
-// ray directions, t_cap_for (tracking.py:355-362), the measured depth and
+// ray directions, t_cap_for (tracking.py:374-381), the measured depth and
 // its gate; the same at core/ba.py's superset; no Pallas kernel). Per ray,
 // from its sensor-frame point p and its ground-normal cosine c:
 //   n = |p|, dirs = p / (n + 1e-8), t_cap = min(n + T / max(c, 0.05) + 0.5,

@@ -40,10 +40,13 @@ def test_sinc_coeffs_cosine_matches_jax(lo, hi, most):
     t2 = np.random.default_rng(2).uniform(lo, hi, 100000).astype(np.float32)
     _, jb = jse3._sinc_coeffs(jnp.asarray(t2))
     _, b = tse3._sinc_coeffs(torch.as_tensor(t2))
-    assert int((b.numpy() != np.asarray(jb)).sum()) <= most
+    differ = int((b.numpy() != np.asarray(jb)).sum())
     theta = torch.sqrt(torch.as_tensor(t2))
     f32_cos = (1.0 - torch.cos(theta)) / torch.as_tensor(t2)
-    assert int((f32_cos.numpy() != np.asarray(jb)).sum()) > 5000
+    f32_differ = int((f32_cos.numpy() != np.asarray(jb)).sum())
+    print(f"[sinc] t^2 in ({lo:g}, {hi:g}): B differs from JAX's on {differ} of 100,000, "
+          f"with torch's f32 cosine on {f32_differ}")
+    assert differ <= most and f32_differ > 5000
 
 
 def _steps(n, branch, seed=0):

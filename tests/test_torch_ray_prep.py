@@ -93,6 +93,8 @@ def test_s2s_twin_norms_match_jax(site, monkeypatch):
     cols = 2 if helper == "norm2_plain" else 3
     adds = np.sqrt(sum((x[..., i] * x[..., i]).astype(np.float32) for i in range(cols))
                    .astype(np.float32))
+    print(f"[s2s] {site}: {got.numel()} lengths equal to jnp.linalg.norm; the products-and-adds "
+          f"form differs on {int((adds != ref).sum())}")
     if site != "normal length":  # unit-scale normals' lengths round alike more often
         assert (adds != ref).sum() > 50
 
