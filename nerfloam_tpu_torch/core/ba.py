@@ -97,11 +97,6 @@ class BAResult(NamedTuple):
     upd_count: torch.Tensor    # (C,)
 
 
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (W, K, ...) gathered along dim 1 by idx (W, N)."""
-    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
-
-
 def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp: BAParams,
             decoder_params, poses, points, points_cos, points_valid, frame_active, pose_free,
             update_decoder: bool, lrs, generator: torch.Generator | None = None,
@@ -131,12 +126,12 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     W, N, M = bp.n_frames, bp.n_rays, rc.n_samples
     K = N * bp.ray_superset
     vs = map_cfg.voxel_size
+    frame = torch.arange(W, device=dev)[:, None]  # x[frame, idx]: x (W, K, ...) by idx (W, N)
 
     if use_superset:
         with torch.no_grad():
             sidx, svalid = sample_ray_indices(points_valid, K, generator)
-            sup_pts = _gather_rows(points, sidx)
-            sup_cos = _gather_rows(points_cos, sidx)
+            sup_pts, sup_cos = points[frame, sidx], points_cos[frame, sidx]
             sup_dirs, sup_tcap, _, _, sup_dnorm = ray_prep(sup_pts, sup_cos, bp.truncation,
                                                            bp.max_depth)
             wdirs0 = se3.rotate_dirs(poses, sup_dirs)
@@ -148,7 +143,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows
                 # pick each ray's cdf row
                 placer = CdfPlacer.march(*sup_args, M, W * N)
-                frame_row0 = (torch.arange(W, device=dev) * K)[:, None]
+                frame_row0 = frame * K
 
     if exact:  # the canonical table, repacked by E1 every iteration
         pack_scratch = (vm.PackGradScratch() if pack_scratch is None
@@ -173,11 +168,11 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if use_superset:
             ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
             rvalid = torch.gather(svalid, 1, ridx)
-            pts3, pcos2, dirs, dnorm = (_gather_rows(x, ridx)
+            pts3, pcos2, dirs, dnorm = (x[frame, ridx]
                                         for x in (sup_pts, sup_cos, sup_dirs, sup_dnorm))
         else:  # a fresh draw over all the frame's points
             ridx, rvalid = sample_ray_indices(points_valid, N, generator)
-            pts3, pcos2 = _gather_rows(points, ridx), _gather_rows(points_cos, ridx)
+            pts3, pcos2 = points[frame, ridx], points_cos[frame, ridx]
             dirs, t_cap, _, _, dnorm = ray_prep(pts3, pcos2, bp.truncation, bp.max_depth)
         rvalid = rvalid & frame_active[:, None]
         u = uniform_jitter((W * N, M), generator, dev)
@@ -195,7 +190,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
         packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
         if use_hits:
-            ht = unpack_hit_table(_gather_rows(sup_hits, ridx).reshape(W * N, -1))
+            ht = unpack_hit_table(sup_hits[frame, ridx].reshape(W * N, -1))
             out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
                                    compute_dtype, extra, k2_scratch, dec_meta)
         else:
