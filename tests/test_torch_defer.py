@@ -128,8 +128,7 @@ def test_const_vel_matches_jax(branch, full):
     angles under 0.01 rad (sigma 1e-3), where that cosine is XLA's: the
     translation equal, the rotation within half an ulp of its largest
     entry and 99.9% of the poses bit-equal (measured: 0.5 and 0.0625 ulp,
-    999 of 1,000 poses; before the repair 2 ulp of the translation, 85-91%
-    bit-equal at sigma 2e-3)."""
+    999 of 1,000 poses; torch's f32 cosine in its place fails the case)."""
     sigma = {"series": 3e-5, "exact": 0.8, "exact_small": 1e-3}[branch]
     last, prev = _pose_pairs(14, sigma)
     ref = np.stack([np.asarray(_const_vel_jit(jnp.asarray(a), jnp.asarray(b), full))
