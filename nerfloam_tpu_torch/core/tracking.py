@@ -139,22 +139,12 @@ def _bias_ray(pcos, sdf_bias, dev):
     return torch.where(pcos < 0.999, b2[0], b2[1])
 
 
-def t_cap_for(points: torch.Tensor, cos: torch.Tensor, truncation: float, max_depth: float):
-    """Per-ray useful range: measured distance + cosine-widened band."""
-    d = norm3(points)
-    band = rdiv(truncation, torch.clamp(cos, min=0.05))
-    return torch.clamp(d + band + 0.5, max=max_depth)
-
-
-def _ray_dirs(pts: torch.Tensor) -> torch.Tensor:
-    return pts / (norm3(pts, keepdim=True) + 1e-8)
-
-
 class RayPrep(NamedTuple):
     """A ray draw's per-ray setup (``ray_prep``), for points p (..., 3)."""
 
     dirs: torch.Tensor      # (..., 3) p / (|p| + 1e-8)
-    t_cap: torch.Tensor     # (...) t_cap_for(p, cos, truncation, max_depth)
+    t_cap: torch.Tensor     # (...) the useful range: |p| + truncation / max(cos, 0.05) + 0.5,
+    #                         at most max_depth
     d_meas: torch.Tensor    # (...) |p| cos
     depth_ok: torch.Tensor  # (...) bool: 0 < d_meas < max_depth
     dnorm: torch.Tensor     # (...) |p|
@@ -162,8 +152,8 @@ class RayPrep(NamedTuple):
 
 def ray_prep_plain(pts: torch.Tensor, pcos: torch.Tensor, truncation: float,
                    max_depth: float) -> RayPrep:
-    """Plain torch twin of ``ray_prep``: the directions (``_ray_dirs``),
-    ``t_cap_for``, the measured depth and its gate from one
+    """Plain torch twin of ``ray_prep``: the directions, the useful range
+    (JAX's ``t_cap_for``), the measured depth and its gate from one
     ``ieee.norm3_plain`` of the points, op by op as JAX rounds them
     (tracking.py:156-160, 374-381)."""
     n = norm3_plain(pts)
@@ -365,32 +355,25 @@ def lm_step(pose6, step):
     translation equal to the twin's, its rotation within a few ulp (sinf
     and atan2f are CUDA's). Returns (pose (..., 6), R (..., 3, 3)), views
     of one new buffer."""
+    name, dev = "lm_step", pose6.device
+    if dev.type == "cpu":
+        return lm_step_plain(pose6, step)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
     global lm_step_launches
-    index, shape = pose6.get_device(), pose6.shape
-    # the tracker's call on the card in one expression; anything else goes
-    # through the full checks, which raise
-    if not (index >= 0 and pose6.dtype is _F32 and step.dtype is _F32 and shape == step.shape
-            and shape and shape[-1] == 6 and pose6.is_contiguous() and step.is_contiguous()
-            and step.get_device() == index
-            and not (torch.is_grad_enabled() and (pose6.requires_grad or step.requires_grad))):
-        name, dev = "lm_step", pose6.device
-        if dev.type == "cpu":
-            return lm_step_plain(pose6, step)
-        if dev.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {dev}")
-        kernels.expect(name, dev, _F32, pose6=pose6, step=step)
-        if pose6.dim() == 0 or pose6.shape[-1] != 6 or step.shape != pose6.shape:
-            raise ValueError(f"{name}: pose6 and step must be (..., 6) alike; got "
-                             f"{tuple(pose6.shape)} and {tuple(step.shape)}")
+    kernels.expect(name, dev, _F32, pose6=pose6, step=step)
+    shape = tuple(pose6.shape)
+    if not shape or shape[-1] != 6:
+        raise ValueError(f"{name}: pose6 must be (..., 6); got {shape}")
+    kernels.expect_shape(name, step=(step, shape))
+    if torch.is_grad_enabled() and (pose6.requires_grad or step.requires_grad):
         raise ValueError(f"{name}: no backward; pass tensors that need no gradient")
     n = pose6.numel() // 6
     out = pose6.new_empty(15 * n)
     if n:
         o = out.data_ptr()
-        err = kernels.lib().nl_lm_step(step.data_ptr(), pose6.data_ptr(), n, o, o + 24 * n,
-                                       kernels.raw_stream(index))
-        if err:
-            kernels.check(err, "lm_step")
+        kernels.check(kernels.lib().nl_lm_step(step.data_ptr(), pose6.data_ptr(), n, o,
+                                               o + 24 * n, kernels.stream_ptr(dev)), name)
         lm_step_launches += 1
     return out[:6 * n].view(shape), out[6 * n:].view(shape[:-1] + (3, 3))
 
@@ -487,17 +470,15 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     return TrackResult(pose6, hits, loss)
 
 
-def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, pts, pcos, rvalid,
-              placer: CdfPlacer, u, band_u, bias_ray, dec_meta: DecoderMeta = PLAIN, dnorm=None):
+def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, pts, dnorm, pcos,
+              rvalid, placer: CdfPlacer, u, band_u, bias_ray, dec_meta: DecoderMeta = PLAIN):
     """The Adam tracker's loss at pose6 (JAX tracking.py:435-470, fixed
     rays): grid render_rays of the map's packed table through ``placer``
     and ``field`` (the frame's CdfPlacer over the hoisted march and its
     ActiveField over the map) with jitter u, the anchor and band columns
     (jitter band_u), then ``sdf_losses`` with the per-ray band target
-    bias_ray (R,). ``dnorm`` (R,): |pts| from the draw's ``ray_prep``
-    (None: taken here). Returns (loss, RenderOutput)."""
-    if dnorm is None:
-        dnorm = norm3(pts)
+    bias_ray (R,). ``dnorm`` (R,): |pts|, from the draw's ``ray_prep``.
+    Returns (loss, RenderOutput)."""
     compute_dtype = getattr(torch, tp.compute_dtype)
     wdirs = se3.rotate_dirs(pose6, dirs)
     origin = se3.pose_translation(pose6).expand_as(wdirs)
@@ -555,8 +536,8 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
               if tp.band_samples else None)
         with torch.enable_grad():
             p = pose6.requires_grad_(True)
-            loss, out = adam_loss(field, tp, decoder_params, p, dirs, pts, pcos, rvalid, placer,
-                                  u, ub, bias_ray, dec_meta, dnorm)
+            loss, out = adam_loss(field, tp, decoder_params, p, dirs, pts, dnorm, pcos, rvalid,
+                                  placer, u, ub, bias_ray, dec_meta)
             (g,) = torch.autograd.grad(loss, p)
         with torch.no_grad():
             pose6 = pose6.detach() - learning_rate * scale_by_adam_(g, mu, nu, it + 1)

@@ -88,10 +88,11 @@ def tracker_columns(slam, ms, frame, pose, n_rays, rc, gen):
     p, c, v = frame.device_arrays(dev)
     idx, rvalid = sample_ray_indices(v, n_rays, gen)
     pts, pcos = p[idx], c[idx]
-    d = se3.rotate_dirs(pose, tr._ray_dirs(pts)).contiguous()
+    rp = tr.ray_prep(pts, pcos, tp.truncation, tp.max_depth)
+    d = se3.rotate_dirs(pose, rp.dirs).contiguous()
     t_pos = se3.pose_translation(pose)
     o1 = t_pos.expand_as(d)
-    tc = tr.t_cap_for(pts, pcos, tp.truncation, tp.max_depth)
+    tc = rp.t_cap
     u = raycast.uniform_jitter((n_rays, rc.n_samples), gen, dev)
     if rc.sampler == "hits":
         ht = raycast.build_hit_table(ms, cfg, rc, o1.contiguous(), d, tc)

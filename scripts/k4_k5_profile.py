@@ -93,9 +93,10 @@ def k4(slam, ms, frame, ds, gen):
     has_packed = hasattr(raycast, "build_hit_table_packed")
     for R in (slam.tp.n_rays, 2 * slam.bp_current.n_rays):
         idx, _ = sample_ray_indices(v, R, gen)
-        d = se3.rotate_dirs(pose, tr._ray_dirs(p[idx])).contiguous()
+        rp = tr.ray_prep(p[idx], c[idx], slam.tp.truncation, slam.tp.max_depth)
+        d = se3.rotate_dirs(pose, rp.dirs).contiguous()
         o1 = se3.pose_translation(pose).expand_as(d)
-        tc = tr.t_cap_for(p[idx], c[idx], slam.tp.truncation, slam.tp.max_depth)
+        tc = rp.t_cap
         forms = {"origin per ray": o1.contiguous(), "origin row stride 0": o1}
         for form, o in forms.items():
             call = partial(raycast.build_hit_table, ms, cfg, rc, o, d, tc)

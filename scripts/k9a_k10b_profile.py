@@ -49,7 +49,7 @@ import chip_smoke as cs  # noqa: E402
 from k7_k11a_profile import build_map, host, op_split  # noqa: E402
 from nerfloam_tpu_torch import kernels  # noqa: E402
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch  # noqa: E402
-from nerfloam_tpu_torch.core.tracking import _ray_dirs, t_cap_for  # noqa: E402
+from nerfloam_tpu_torch.core.tracking import ray_prep  # noqa: E402
 from nerfloam_tpu_torch.data import get_dataset  # noqa: E402
 from nerfloam_tpu_torch.map import mesher  # noqa: E402
 from nerfloam_tpu_torch.map import voxel_map as vm  # noqa: E402
@@ -68,9 +68,10 @@ def rays(frame, n, max_depth, gen, dev):
     p, c, v = frame.device_arrays(dev)
     pose = torch.as_tensor(frame.pose6, device=dev)
     idx, _ = sample_ray_indices(v, n, gen)
-    d = se3.rotate_dirs(pose, _ray_dirs(p[idx])).contiguous()
+    rp = ray_prep(p[idx], c[idx], 0.3, max_depth)
+    d = se3.rotate_dirs(pose, rp.dirs).contiguous()
     o1 = se3.pose_translation(pose).expand_as(d)
-    return o1.contiguous(), o1, d, t_cap_for(p[idx], c[idx], 0.3, max_depth)
+    return o1.contiguous(), o1, d, rp.t_cap
 
 
 def k9a(ms, cfg, shapes):

@@ -47,6 +47,7 @@ from nerfloam_tpu_torch.core import render as trender
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
 from nerfloam_tpu_torch.map import voxel_map as tvm
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import raycast as trc
 from nerfloam_tpu_torch.utils.bridge import (
     decoder_params_from_jax,
@@ -120,7 +121,8 @@ def test_adam_iteration_loss_and_pose_gradient_match_jax(scene):
     tpose = _t(pose).requires_grad_(True)
     placer = trc.CdfPlacer(tm, T_CFG, T_RC, _t(occ[0]), _t(occ[1]), _t(t_cap), RC.n_samples)
     tl, tout = ttr.adam_loss(trender.ActiveField(tm, T_CFG), TP, tparams, tpose, _t(dirs), _t(p),
-                             _t(c), _t(rvalid), placer, _t(u), _t(band_u), _t(bias_ray))
+                             ieee.norm3(_t(p)), _t(c), _t(rvalid), placer, _t(u), _t(band_u),
+                             _t(bias_ray))
     (tg,) = torch.autograd.grad(tl, tpose)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     assert int(tout.ray_mask.sum()) == int(jhits) > 100

@@ -124,12 +124,12 @@ def _occupancy(s, j_cap=None, t_cap=None):
 
 @pytest.mark.parametrize("trunc", [0.5, 0.3])
 def test_march_and_place_match_jax(setup, trunc):
-    """Each side's t_cap_for at the truncation (0.3: the shipped configs';
-    0.5 is a power of two, where a reciprocal times it is the division),
-    bit-equal, then the march and the placement over it."""
+    """Each side's useful range (JAX's t_cap_for, the port's ray_prep_plain)
+    at the truncation (0.3: the shipped configs'; 0.5 is a power of two,
+    where a reciprocal times it is the division), bit-equal, then the march and the placement over it."""
     s = setup
     j_cap = jtr.t_cap_for(s["p"], s["c"], trunc, MAX_DEPTH)
-    t_cap = ttr.t_cap_for(_t(s["p"]), _t(s["c"]), trunc, MAX_DEPTH)
+    t_cap = ttr.ray_prep_plain(_t(s["p"]), _t(s["c"]), trunc, MAX_DEPTH).t_cap
     np.testing.assert_array_equal(to_numpy(t_cap), np.asarray(j_cap))
     jocc, tocc = _occupancy(s, j_cap, t_cap)
     np.testing.assert_array_equal(to_numpy(tocc[0]), np.asarray(jocc[0]))

@@ -161,9 +161,9 @@ def test_band_columns_match_jax(setup, trunc):
 
 @pytest.mark.parametrize("trunc", [0.5, 0.3])
 def test_t_cap_and_band_depths_match_jax(trunc):
-    """t_cap_for and band_sample_z bit-equal to JAX's on 4,096 random rays
-    (cosines in [0, 1], 8 band samples): truncation / cos is one IEEE
-    division on both sides (at 0.3 torch's ``0.3 / x``, a reciprocal times
+    """The useful range (ray_prep_plain's t_cap against JAX's t_cap_for) and
+    band_sample_z bit-equal to JAX's on 4,096 random rays (cosines in
+    [0, 1], 8 band samples): truncation / cos is one IEEE division on both sides (at 0.3 torch's ``0.3 / x``, a reciprocal times
     0.3, moves dozens of rays by an ulp)."""
     rng = np.random.default_rng(12)
     p = rng.normal(size=(4096, 3)).astype(np.float32) * 10.0
@@ -171,7 +171,7 @@ def test_t_cap_and_band_depths_match_jax(trunc):
     u = rng.uniform(size=(4096, N_BAND)).astype(np.float32)
     d = np.linalg.norm(p, axis=-1).astype(np.float32)
     np.testing.assert_array_equal(
-        to_numpy(ttr.t_cap_for(_t(p), _t(c), trunc, MAX_DEPTH)),
+        to_numpy(ttr.ray_prep_plain(_t(p), _t(c), trunc, MAX_DEPTH).t_cap),
         np.asarray(jtr.t_cap_for(jnp.asarray(p), jnp.asarray(c), trunc, MAX_DEPTH)))
     np.testing.assert_array_equal(
         to_numpy(trender.band_sample_z(_t(d), _t(c), trunc, N_BAND, _t(u))),

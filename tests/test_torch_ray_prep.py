@@ -5,8 +5,7 @@ scan-to-scan range image, bit for bit against the JAX package on the CPU.
   takes on the CPU) against JAX's ray directions, ``t_cap_for``, measured
   depth, its gate and the points' lengths (nerfloam_tpu/core/tracking.py:
   156-160, 374-381) at truncation 0.3 and 0.5, eager and under jit; and
-  against the functions the port took them from before (``_ray_dirs``,
-  ``t_cap_for``, ``ieee.norm3``).
+  against ``ieee.norm3`` of the points and the division by it.
 - The depths hoisted out of the loops: a BA step (hit table and grid
   sampler over the ray superset, the grid without one) and the Adam
   tracker (fixed rays and a draw every iteration), band and anchor
@@ -118,8 +117,8 @@ def _jax_ray_prep(p, c, trunc):
 @pytest.mark.parametrize("trunc", [0.3, 0.5])
 def test_ray_prep_plain_matches_jax(trunc):
     """Every output of ray_prep (the plain twin on the CPU) equals JAX's,
-    eager and jitted, and the port's earlier functions, on 16,384 seeded
-    rays (magnitudes 1e-3 to 1e3, zero rows, cosines below 0.05 and
+    eager and jitted, and the same formulas on ``ieee.norm3``, on 16,384
+    seeded rays (magnitudes 1e-3 to 1e3, zero rows, cosines below 0.05 and
     negative, depths past max_depth)."""
     x = _vectors(16384, 3)
     c = np.random.default_rng(3).uniform(-0.2, 1.0, 16384).astype(np.float32)
@@ -131,7 +130,9 @@ def test_ray_prep_plain_matches_jax(trunc):
                 jit_prep(jnp.asarray(x), jnp.asarray(c), trunc)):
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
-    before = (ttr._ray_dirs(tx), ttr.t_cap_for(tx, tc, trunc, MAX_DEPTH), ieee.norm3(tx) * tc)
+    n = ieee.norm3(tx)
+    band = ieee.rdiv(trunc, torch.clamp(tc, min=0.05))
+    before = (tx / (n[:, None] + 1e-8), torch.clamp(n + band + 0.5, max=MAX_DEPTH), n * tc)
     for g, b in zip(got, before):
         assert torch.equal(g, b)
     assert 0 < int(got.depth_ok.sum()) < 16384 and (got.t_cap == MAX_DEPTH).any()

@@ -52,8 +52,9 @@ def _rel_err(got, ref):
 @pytest.mark.parametrize("trunc", [0.5, 0.3])
 def test_gn_normal_equations_match_jax(scene, trunc):
     """At the truncation (0.3: the shipped configs'; 0.5 is a power of two,
-    where a reciprocal times it is the division): the port's t_cap_for
-    bit-equal to JAX's, then one iteration's normal equations."""
+    where a reciprocal times it is the division): the port's useful range
+    (ray_prep_plain's t_cap) bit-equal to JAX's, then one iteration's
+    normal equations."""
     _, frames = scene
     tp_ = TP._replace(truncation=trunc)
     m = build_map(frames)
@@ -69,7 +70,7 @@ def test_gn_normal_equations_match_jax(scene, trunc):
     init6 = jse3.pose_from_matrix(jnp.asarray(T, jnp.float32))
     d0 = jse3.rotate_dirs(init6, dirs)
     j_cap = jtr.t_cap_for(p, c, trunc, MAX_DEPTH)
-    np.testing.assert_array_equal(to_numpy(ttr.t_cap_for(_t(p), _t(c), trunc, MAX_DEPTH)),
+    np.testing.assert_array_equal(to_numpy(ttr.ray_prep_plain(_t(p), _t(c), trunc, MAX_DEPTH).t_cap),
                                   np.asarray(j_cap))
     ht0 = jrc.build_hit_table(m, MAP_CFG, RCH, jnp.broadcast_to(init6[:3], d0.shape), d0, j_cap)
     rvalid = jnp.asarray(rng.uniform(size=len(idx)) > 0.05)
