@@ -2208,8 +2208,8 @@ def tracker_step_kernels(slam, ms, frames, gen, R_ba):
     check(calls[2] == calls[16], "exp_so3, log_so3 or norm3 launch inside the GN loop")
     # 48 B in, 60 B out; ~600 f32 operations
     rec_lm = record("lm_step", "lm_step.cu", "nerfloam_tpu/core/tracking.py:326-334 (trust "
-                    "region, exp_so3, compose, log_so3)", max(max_abs(kp, tp_dev), rot_err), k_ms,
-                    p_ms, 108, 600,
+                    "region, exp_so3, compose, log_so3)", max(max_abs(kp, tp_dev.cpu()), rot_err),
+                    k_ms, p_ms, 108, 600,
                     dev=partial(tr.lm_step, pose1, step1))
     return [rec_ray, rec_lm]
 
