@@ -144,5 +144,6 @@ def test_lm_step_plain_matches_jax(steps, branch):
     assert np.abs(got[:, :3] - ref[:, :3]).max() <= np.spacing(np.abs(ref[:, :3]).max())
     print(f"[lm_step] {branch}: rotation entries bit-equal to JAX's jitted step "
           f"{(got[:, 3:] == ref[:, 3:]).mean():.4f}, to its op-by-op step "
-          f"{(got[:500, 3:] == eager[:, 3:]).mean():.4f}; translations equal to the jitted step "
-          f"{(got[:, :3] == ref[:, :3]).all(1).mean():.4f}")
+          f"{(got[:500, 3:] == eager[:, 3:]).mean():.4f} (largest gaps {_rot_ulps(got, ref):g} "
+          f"and {_rot_ulps(got[:500], eager):g} ulp of the rotation's largest entry); "
+          f"translations equal to the jitted step {(got[:, :3] == ref[:, :3]).all(1).mean():.4f}")
