@@ -151,6 +151,21 @@
      median over generator seeds 777-792 (each printed) and JAX's median
      there (the 16 draws run in four processes side by side on the card;
      the config's own seed must repeat the main path's digits).
+   - the host data path and the runners over several pipelines: [loader]
+     (the quality config's 30 scans written as a KITTI directory and run
+     through NerfLoamSLAM_torch.run() on the port's KITTI loader, its C++
+     filter and segmenter, then on a local subclass that takes the numpy
+     twins, one pair: wall s, scans/s, host CPU s a frame and __getitem__ ms
+     of each; the segmenter alone on a ~118k-point HDL-64 scan of the
+     kitti_replica world; the C++ results equal between calls, JAX's native
+     test on its own scene, masks and cosines beside the twins'; the C++
+     run's ATE against the JAX package's on the same files), [subscene]
+     (SubsceneRunner over the quality config's 30 frames, 10 to a submap:
+     3 submaps, the chained pose6 exact, face blocks offset, the card's
+     allocated bytes after each submap's del within 64 MB of the first's,
+     the ATE against the JAX package's chained run) and [sequences]
+     (run_sequences_parallel with two 8-frame budget jobs on the one card,
+     each np.array_equal to the same job run alone).
    Each path's launch counts are zeroed just before it and read just
    after; a GN path launches lm_step once a GN iteration. Prints the
    tracker ms the s2s term adds to the quality path.
@@ -187,10 +202,12 @@ are the kernels' JSON record, the card's name and power limit, and
     python3 chip_smoke.py --paths kitti_budget,kitti_quality
 
 runs only those configs' main paths (step 4; their checks too; also
-replica_gate60_s<seed>, and the deferred phases defer_checks and
-defer_pairs) and prints no result line: to compare two trees
-of the port in one call, in turns, run each tree's package under this
-script (copy it into the other tree's root). Each path prints its scans/s
+replica_gate60_s<seed>, the deferred phases defer_checks and defer_pairs,
+and loader, subscene and sequences; loader_pairs, only there, runs the
+C++ and numpy-twin loaders' runs in ten pairs in turns) and prints no
+result line: to compare
+two trees of the port in one call, in turns, run each tree's package under
+this script (copy it into the other tree's root). Each path prints its scans/s
 and the host CPU seconds its process spent a frame, which a loaded host
 inflates less than the wall clock.
 """
@@ -198,6 +215,7 @@ inflates less than the wall clock.
 import argparse
 import concurrent.futures
 import gc
+import hashlib
 import json
 import multiprocessing
 import os
@@ -220,11 +238,15 @@ from nerfloam_tpu_torch.core import scan2scan as s2s
 from nerfloam_tpu_torch.core import tracking as tr
 from nerfloam_tpu_torch.core.frame import Frame, pose6_from_matrix_np
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
-from nerfloam_tpu_torch.data import get_dataset
+from nerfloam_tpu_torch.data import SyntheticDataset, get_dataset, ground
+from nerfloam_tpu_torch.data.kitti import DataLoader as KittiLoader
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import ieee, interp, marching, raycast, se3
+from nerfloam_tpu_torch.native import segment_ground_native
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.parallel import subscene
+from nerfloam_tpu_torch.parallel.subscene import SubsceneRunner, run_sequences_parallel
 from nerfloam_tpu_torch.utils.checkpoint import (
     DERIVED_MAP_FIELDS,
     load_checkpoint,
@@ -272,6 +294,22 @@ ATE_JAX = {"kitti_budget": 2.0099257979398644, "kitti_quality": 1.47081450941378
            "kitti_exact": KITTI_EXACT_ATE_JAX, "kitti_knobs": KNOBS_JAX["ate"],
            "kitti_mapping_gt": MAPPING_GT_JAX["ate"], "kitti_decoder_pe": DECODER_PE_ATE_JAX,
            **DEFER_JAX}
+# the host data path and the runners over several pipelines: the JAX
+# package on a CPU: `--quality --kitti-dir DIR` (the quality config's scans as
+# a KITTI directory, write_kitti_dir, read by JAX's kitti.DataLoader with its
+# C++ path) and `--quality --subscene 10` (parallel.subscene.SubsceneRunner,
+# 10 frames to a submap)
+LOADER_ATE_JAX = 1.5808414038044512  # 935 s on 8 cores, 2026-10-18
+SUBSCENE_ATE_JAX = 2.6745405051961355  # 1255 s on 8 cores, 2026-10-18
+SUBSCENE_FRAMES = 10
+SUBSCENE_MEM_SLACK = 64 << 20  # bytes allocated after each submap's del, against the first's
+SEQUENCE_SEEDS = (3, 4)        # run_sequences_parallel's two budget jobs (data seeds)
+SEQUENCE_FRAMES = 8
+# the C++ segmenter against its numpy twin: JAX's tolerance (tests/test_native.py:
+# 41-44), and the share of ground points a cell's other plane may move past it
+TWIN_MASK_AGREE = 0.9
+TWIN_COS_TOL = 0.05
+TWIN_COS_SHARE = 1e-3
 # the along column of the BA-delta telemetry under ba_pose_project=along: BA
 # projects the motion direction out of every pose update, so it reads 0 up to
 # the f32 rounding of the pose (JAX pipeline.py:811-816): an ulp of a
@@ -354,6 +392,9 @@ PATH_KERNELS = {           # kernels each main path must launch
     # a decoder skip and the nerf embedder on the budget row
     "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd") + _GN + _MAP + _RAYS,
 }
+# the loader's run has no logger (no mesh); the subscene runner meshes each
+# submap; the sequences jobs mesh the budget config
+PATH_KERNELS["loader"] = _QUALITY + _MAP + _RAYS + _NORM
 # the deferred schedule runs the same kernels as its synchronous config; the
 # budget run whose active set grows with a frame in flight also undoes K7, and
 # its warm start on the device (log_so3) takes the norm
@@ -2214,6 +2255,34 @@ def tracker_step_kernels(slam, ms, frames, gen, R_ba):
     return [rec_ray, rec_lm]
 
 
+def write_kitti_dir(ds, path):
+    """The dataset's scans as a KITTI odometry directory: velodyne/%06d.bin
+    (x y z and a zero reflectance, f32) and poses_lidar.txt (each ground-truth
+    pose relative to the first, 3 x 4 rows: a KITTI loader without use_gt
+    starts at the identity). Returns those relative poses (n, 4, 4).
+    scripts/port_ate_reference.py --kitti-dir writes the same files."""
+    os.makedirs(os.path.join(path, "velodyne"), exist_ok=True)
+    gt = np.asarray(ds.gt_trajectory(), np.float64)
+    rel = np.linalg.inv(gt[0]) @ gt
+    for i in range(len(ds)):
+        _, pts, _, _ = ds[i]
+        xyzr = np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1)
+        xyzr.astype(np.float32).tofile(os.path.join(path, "velodyne", f"{i:06d}.bin"))
+    np.savetxt(os.path.join(path, "poses_lidar.txt"), rel[:, :3, :].reshape(len(rel), 12))
+    return rel
+
+
+def kitti_dir_digest(path):
+    """sha256 (first 16 hex digits) of a KITTI directory's scans and poses,
+    in file order: the same files on every machine that writes them."""
+    h = hashlib.sha256()
+    names = sorted(os.listdir(os.path.join(path, "velodyne")))
+    for name in [os.path.join("velodyne", n) for n in names] + ["poses_lidar.txt"]:
+        with open(os.path.join(path, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def make_frames(slam, ds, n=None):
     """The dataset's frames (its first ``n``); a dataset with ground-truth
     poses (``data_specs.use_gt``) gives mapping-only frames."""
@@ -2525,6 +2594,336 @@ def gaussian_run(here, ds):
           "gaussian: a non-finite table or decoder tensor")
     check(slam.dropped_delta_events == 0, "gaussian: dropped deltas")
     return ate
+
+
+class TimedKitti(KittiLoader):
+    """The port's KITTI loader (its C++ filter and segmenter), the wall ms
+    of each ``__getitem__`` kept (the prefetching thread's, in a run)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.ms = []
+
+    def __getitem__(self, index):
+        t0 = time.perf_counter()
+        out = super().__getitem__(index)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+class NumpyKitti(TimedKitti):
+    """The same loader on the numpy twins, ``filter_scan`` and
+    ``ground.segment_ground`` (the JAX package's fallback): chip_smoke's
+    comparison, not a knob of the package."""
+
+    def __getitem__(self, index):
+        t0 = time.perf_counter()
+        points = self.filter_scan(self.read_scan(index).astype(np.float32))
+        _, cos = ground.segment_ground(points)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return index, points, cos, None
+
+
+def twin_agreement(tag, points, mask, cos):
+    """The C++ segmenter's mask and cosines against the numpy twin's on the
+    same points: the share of equal mask entries (at least TWIN_MASK_AGREE,
+    JAX's tests/test_native.py:41), and, where both say ground, the points
+    whose cosines differ by more than TWIN_COS_TOL (JAX's atol there). The
+    two pick a cell's seeds otherwise (an order statistic against an
+    interpolated quantile), so a few cells fit another plane: those points
+    may be at most TWIN_COS_SHARE of the ground points both find."""
+    mt, ct = ground.segment_ground(points)
+    agree = float((mask == mt).mean()) if len(points) else 1.0
+    both = mask & mt
+    gap = np.abs(cos[both] - ct[both])
+    n_over = int((gap > TWIN_COS_TOL).sum())
+    check(agree >= TWIN_MASK_AGREE, f"{tag}: masks equal on {agree} of the points")
+    check(n_over <= TWIN_COS_SHARE * both.sum(),
+          f"{tag}: cosine gaps over {TWIN_COS_TOL} on {n_over} of {int(both.sum())} points")
+    return agree, (n_over, int(both.sum()), float(gap.max()) if len(gap) else 0.0)
+
+
+def jax_scene_checks():
+    """tests/test_native.py:32-44 of the JAX package, on its own scene
+    (6,000 ground points at -1.7 m, a wall of 800 at x = 9 m), for the
+    port's library as it is built on this host: the ground found and the
+    wall rejected, masks 90% equal to the numpy twin's, and every cosine
+    within 0.05 of the twin's where both say ground."""
+    rng = np.random.default_rng(0)
+    n = 6000
+    ang, r = rng.uniform(0, 2 * np.pi, n), rng.uniform(2, 25, n)
+    floor_ = np.stack([r * np.cos(ang), r * np.sin(ang), np.full(n, -1.7) + rng.normal(0, 0.02, n)],
+                      -1)
+    wall = np.stack([np.full(800, 9.0), rng.uniform(-6, 6, 800), rng.uniform(-1.5, 3.0, 800)], -1)
+    pts = np.concatenate([floor_, wall]).astype(np.float32)
+    m, c = segment_ground_native(pts)
+    mt, ct = ground.segment_ground(pts)
+    both = m & mt
+    gap = float(np.abs(c[both] - ct[both]).max())
+    log(f"[loader] JAX's native test scene: ground found on {m[:n].mean():.4f} of the floor, "
+        f"{m[n:].mean():.4f} of the wall; masks equal to the twin's on {(m == mt).mean():.4f}; "
+        f"largest cosine gap {gap:.3e} where both say ground")
+    check(m[:n].mean() > 0.8 and m[n:].mean() < 0.3 and (m == mt).mean() > TWIN_MASK_AGREE
+          and gap <= TWIN_COS_TOL, "[loader] the C++ segmenter fails JAX's native test")
+
+
+def loader_run(cfg, kds, label, gt, device="cuda"):
+    """``NerfLoamSLAM_torch.run()`` on a KITTI loader (the prefetching
+    loader feeds it): wall s, scans/s over frames WARMUP_FRAMES to the end
+    (from the entry of that frame's process_frame to the entry of finalize,
+    synchronized), host CPU s a frame, the launches, the ATE."""
+    slam = NerfLoamSLAM_torch(cfg, kds, device=device)
+    stamps, process_frame, fin = [], slam.process_frame, slam.finalize
+
+    def timed_frame(frame):
+        stamps.append((time.perf_counter(), time.process_time()))
+        return process_frame(frame)
+
+    def timed_finalize():
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), time.process_time()))
+        return fin()
+
+    slam.process_frame, slam.finalize = timed_frame, timed_finalize
+    zero_counters()
+    t0 = time.perf_counter()
+    poses = np.asarray(slam.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    n_timed = len(poses) - WARMUP_FRAMES
+    (w0, c0), (w1, c1) = stamps[WARMUP_FRAMES - 1], stamps[-1]  # stamps[0] is frame 1
+    ate = ate_rmse(poses, gt[: len(poses)], align=False)
+    log(f"[loader] {label}: {len(poses)} frames in {wall:.2f} s (run(), finalize included); "
+        f"scans/s over frames {WARMUP_FRAMES}-{len(poses) - 1}: {n_timed / (w1 - w0):.4f}; host "
+        f"CPU {(c1 - c0) / n_timed:.4f} s a frame; __getitem__ in the prefetching thread: median "
+        f"{np.median(kds.ms):.3f} ms over {len(kds.ms)} scans; ATE {ate:.4f} m")
+    check(len(poses) == len(gt) and np.isfinite(poses).all(), f"[loader] {label}: a pose is lost")
+    check(bool(torch.isfinite(slam.state.map_state.embeddings.float()).all())
+          and all(bool(torch.isfinite(w).all()) for w in slam.state.decoder_params["w"]),
+          f"[loader] {label}: a non-finite table or decoder tensor")
+    check(slam.dropped_delta_events == 0, f"[loader] {label}: dropped deltas")
+    return {"launches": launches, "scans": n_timed / (w1 - w0), "cpu": (c1 - c0) / n_timed,
+            "wall": wall, "ate": ate}
+
+
+def loader_phase(cfg, ds, workdir, device="cuda"):
+    """[loader]: the quality config's 30 scans written as a KITTI directory
+    and read back by the port's KITTI loader (its C++ filter and segmenter,
+    nerfloam_tpu_torch/native) and by a local subclass on the numpy twins.
+    Checks the JAX package's native test on its own scene; the C++ results
+    equal between two calls, on every scan and on a ~120k-point HDL-64 scan,
+    and against the twins (``twin_agreement``); times __getitem__ and the
+    segmenter alone; runs the pipeline once on each loader (one pair, the
+    C++ run first; ``loader_pairs`` runs pairs in turns), every
+    kernel of the quality path launched, the native run's ATE held to the
+    JAX package's on the same files. Returns the native run's launches."""
+    kdir = os.path.join(workdir, "kitti_seq")
+    gt = write_kitti_dir(ds, kdir)
+    plain = KittiLoader(kdir, max_depth=40.0, min_depth=2.0)
+    twin = NumpyKitti(kdir, max_depth=40.0, min_depth=2.0)
+    jax_scene_checks()
+    agree, gaps, scans_differ, n_pts, ms_native = [], [], 0, [], []
+    for i in range(len(plain)):
+        t0 = time.perf_counter()
+        _, p, c, _ = plain[i]
+        ms_native.append((time.perf_counter() - t0) * 1e3)
+        _, p2, c2, _ = plain[i]
+        check(np.array_equal(p, p2) and np.array_equal(c, c2),
+              f"[loader] scan {i}: two calls of the C++ path differ")
+        scans_differ += not np.array_equal(twin[i][1], p)
+        m, mc = segment_ground_native(p)
+        check(np.array_equal(mc, c), f"[loader] scan {i}: the loader's cosines are not the "
+              "segmenter's")
+        a, g = twin_agreement(f"[loader] scan {i}", p, m, c)
+        agree.append(a)
+        gaps.append(g)
+        n_pts.append(len(p))
+    log(f"[loader] {len(plain)} KITTI scans (files' sha256 {kitti_dir_digest(kdir)}) of "
+        f"{min(n_pts)}-{max(n_pts)} points (2-40 m, z > -3): "
+        f"__getitem__ median {np.median(ms_native):.3f} ms with the C++ path, "
+        f"{np.median(twin.ms):.3f} ms on the numpy twins (alone, in turns); the numpy filter's "
+        f"rows differ from the C++ filter's in {scans_differ} scans; against the numpy "
+        f"segmenter: masks equal on {min(agree):.5f}-{max(agree):.5f} of the points; where both "
+        f"say ground, cosine gaps over {TWIN_COS_TOL} on {sum(n for n, _, _ in gaps)} of "
+        f"{sum(b for _, b, _ in gaps)} points (at most {max(n for n, _, _ in gaps)} a scan), "
+        f"largest {max(x for _, _, x in gaps):.4f}")
+    big = SyntheticDataset(n_frames=30, max_depth=80.0, min_depth=1.0, seed=0, n_beams=64,
+                           n_azimuth=2048, world="kitti_replica")[0][1]
+    m1, c1 = segment_ground_native(big)
+    m2, c2 = segment_ground_native(big)
+    check(np.array_equal(m1, m2) and np.array_equal(c1, c2),
+          "[loader] the HDL-64 scan: two calls of the C++ segmenter differ")
+    a, (n_over, n_both, gap) = twin_agreement("[loader] the HDL-64 scan", big, m1, c1)
+    t_nat, t_np = [], []
+    for _ in range(5):
+        for fn, ts in ((segment_ground_native, t_nat), (ground.segment_ground, t_np)):
+            t0 = time.perf_counter()
+            fn(big)
+            ts.append((time.perf_counter() - t0) * 1e3)
+    log(f"[loader] segmenter alone on one HDL-64 scan (64 x 2048, kitti_replica world, {len(big)} "
+        f"points): C++ {np.median(t_nat):.3f} ms, numpy twin {np.median(t_np):.3f} ms (median of 5, "
+        f"in turns); masks equal on {a:.5f}; cosine gaps over {TWIN_COS_TOL} on {n_over} of "
+        f"{n_both} points where both say ground, largest {gap:.4f}")
+    native = loader_run(cfg, TimedKitti(kdir, max_depth=40.0, min_depth=2.0), "C++ loader", gt,
+                        device)
+    twin = loader_run(cfg, NumpyKitti(kdir, max_depth=40.0, min_depth=2.0),
+                      "numpy-twin loader", gt, device)
+    for k in PATH_KERNELS["loader"]:
+        check(native["launches"][k] > 0, f"kernel {k} never launched on the loader path")
+    bound_ = max(1.5 * LOADER_ATE_JAX, LOADER_ATE_JAX + 0.05)
+    log(f"[loader] scans/s C++ {native['scans']:.4f}, numpy twin {twin['scans']:.4f} (one pair, "
+        f"the C++ run first; loader_pairs runs pairs in turns); ATE C++ {native['ate']:.4f} m "
+        f"(bound {bound_:.4f} from JAX {LOADER_ATE_JAX:.4f} m on the same files), numpy twin "
+        f"{twin['ate']:.4f} m (printed)")
+    check(native["ate"] <= bound_, f"[loader] ATE {native['ate']} above bound {bound_}")
+    return native["launches"]
+
+
+LOADER_PAIR_ORDER = ("C++", "numpy", "numpy", "C++") * 5
+
+
+def loader_pairs(cfg, ds, workdir, device="cuda"):
+    """[loader] pairs: NerfLoamSLAM_torch.run() on the quality scans as
+    KITTI files through the C++ loader and the numpy-twin loader, ten pairs
+    in turns (LOADER_PAIR_ORDER: each loader first in half of them): each
+    run's scans/s, host CPU s a frame and wall s; then each pair's scans/s
+    ratio, the pairs the C++ loader wins, each loader's median scans/s and
+    the distance between the quartiles of each loader's own runs. Printed,
+    not gated."""
+    kdir = os.path.join(workdir, "kitti_pairs")
+    gt = write_kitti_dir(ds, kdir)
+    make = {"C++": TimedKitti, "numpy": NumpyKitti}
+    runs = [(name, loader_run(cfg, make[name](kdir, max_depth=40.0, min_depth=2.0),
+                              f"pairs run {i} {name} loader", gt, device))
+            for i, name in enumerate(LOADER_PAIR_ORDER)]
+    pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
+    ratio = [p["C++"]["scans"] / p["numpy"]["scans"] for p in pairs]
+    d_cpu = [p["C++"]["cpu"] - p["numpy"]["cpu"] for p in pairs]
+    d_wall = [p["C++"]["wall"] - p["numpy"]["wall"] for p in pairs]
+    scans = {k: [r["scans"] for n, r in runs if n == k] for k in make}
+    spread = {k: float(np.subtract(*np.percentile(v, [75, 25]))) for k, v in scans.items()}
+    log(f"[loader] pairs in turns ({len(pairs)}, {', '.join(LOADER_PAIR_ORDER[:4])} repeated): "
+        f"scans/s C++ / numpy twin {', '.join(f'{r:.4f}' for r in ratio)} (median "
+        f"{np.median(ratio):.4f}; the C++ loader faster in {sum(r > 1 for r in ratio)} of "
+        f"{len(pairs)}); host CPU s a frame, C++ minus twin, "
+        f"{', '.join(f'{d:+.4f}' for d in d_cpu)} (median {np.median(d_cpu):+.4f}); wall s of "
+        f"run(), C++ minus twin, {', '.join(f'{d:+.2f}' for d in d_wall)} (median "
+        f"{np.median(d_wall):+.2f})")
+    log(f"[loader] pairs: median scans/s C++ {np.median(scans['C++']):.4f}, numpy twin "
+        f"{np.median(scans['numpy']):.4f}; quartile distance of each loader's own runs C++ "
+        f"{spread['C++']:.4f}, numpy twin {spread['numpy']:.4f}")
+    return runs
+
+
+def subscene_phase(cfg, ds, device="cuda"):
+    """[subscene]: SubsceneRunner over the quality config's 30 frames,
+    SUBSCENE_FRAMES to a submap. A local subclass of the pipeline, swapped
+    into parallel/subscene.py for the phase, records each submap's first
+    pose6, last tracked pose, mesh size and the card's allocated bytes when
+    it is made (after the previous submap's ``del``). Checks: 3 submaps, 30
+    poses; each later submap's first pose6 exactly that of the previous
+    submap's last_frame.pose_matrix(); face blocks offset by the vertices
+    before them; the allocated bytes after each submap's del within
+    SUBSCENE_MEM_SLACK of those after the first; every kernel of the quality
+    path launched; the ATE within the bound of the JAX package's chained run.
+    Returns the launches."""
+    records = []
+
+    class Spy(NerfLoamSLAM_torch):
+        def __init__(self, *a, **kw):
+            records.append({"allocated": torch.cuda.memory_allocated()})
+            super().__init__(*a, **kw)
+
+        def process_first_frame(self, frame):
+            records[-1]["first_pose6"] = frame.pose6.copy()
+            return super().process_first_frame(frame)
+
+        def finalize(self):
+            poses = super().finalize()
+            records[-1]["last_pose"] = self.state.last_frame.pose_matrix()
+            return poses
+
+        def extract_mesh(self, *a, **kw):
+            v, f = super().extract_mesh(*a, **kw)
+            records[-1]["mesh"] = (len(v), len(f))
+            return v, f
+
+    zero_counters()
+    t0 = time.perf_counter()
+    subscene.NerfLoamSLAM_torch = Spy
+    try:
+        poses, (verts, faces), n_sub = SubsceneRunner(
+            cfg, ds, device=device, frames_per_subscene=SUBSCENE_FRAMES).run()
+    finally:
+        subscene.NerfLoamSLAM_torch = NerfLoamSLAM_torch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    allocated = [r["allocated"] for r in records[1:]] + [torch.cuda.memory_allocated()]
+    launches = counters()
+    poses = np.asarray(poses)
+    gt = ds.gt_trajectory()[: len(poses)]
+    ate = ate_rmse(poses, gt, align=False)
+    bound_ = max(1.5 * SUBSCENE_ATE_JAX, SUBSCENE_ATE_JAX + 0.05)
+    log(f"[subscene] {n_sub} submaps of {SUBSCENE_FRAMES} frames, {len(poses)} poses in {wall:.2f} s; "
+        f"meshes {[r['mesh'] for r in records]} (vertices, faces), {len(verts)} vertices and "
+        f"{len(faces)} faces in all; MB allocated after each submap's del "
+        f"{[round(a / 2**20, 2) for a in allocated]}; ATE {ate:.4f} m (bound {bound_:.4f} from JAX "
+        f"{SUBSCENE_ATE_JAX:.4f} m, chained the same way); launches {launches}")
+    check(n_sub == 3 and len(records) == 3 and len(poses) == len(ds),
+          f"[subscene] {n_sub} submaps and {len(poses)} poses")
+    check(np.isfinite(poses).all() and np.isfinite(verts).all(), "[subscene] non-finite output")
+    for k in (1, 2):
+        check(np.array_equal(records[k]["first_pose6"],
+                             pose6_from_matrix_np(records[k - 1]["last_pose"])),
+              f"[subscene] submap {k} does not start at submap {k - 1}'s last tracked pose")
+    v0 = f0 = 0
+    for nv, nf in (r["mesh"] for r in records):
+        block = faces[f0:f0 + nf]
+        check(nf > 0 and block.min() >= v0 and block.max() < v0 + nv,
+              "[subscene] a mesh block's faces leave its vertices")
+        v0, f0 = v0 + nv, f0 + nf
+    check(v0 == len(verts) and f0 == len(faces), "[subscene] the mesh is not the blocks' union")
+    check(max(abs(a - allocated[0]) for a in allocated) <= SUBSCENE_MEM_SLACK,
+          f"[subscene] allocated bytes after each submap {allocated}: not bounded")
+    for k in PATH_KERNELS["kitti_quality"]:
+        check(launches[k] > 0, f"kernel {k} never launched on the subscene path")
+    check(ate <= bound_, f"[subscene] ATE {ate} above bound {bound_}")
+    return launches
+
+
+def sequences_phase(here, device="cuda"):
+    """[sequences]: run_sequences_parallel with two budget jobs (data seeds
+    SEQUENCE_SEEDS, SEQUENCE_FRAMES frames each) on the one card, then each
+    job alone on a fresh NerfLoamSLAM_torch: poses and mesh np.array_equal.
+    Returns the runner's launches."""
+    cfgs = [load_cfg(here, "kitti_budget", seed=s, data_specs={"n_frames": SEQUENCE_FRAMES})
+            for s in SEQUENCE_SEEDS]
+    zero_counters()
+    t0 = time.perf_counter()
+    out = run_sequences_parallel([(c, get_dataset(c)) for c in cfgs],
+                                 None if device == "cuda" else [torch.device(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    t1 = time.perf_counter()
+    alone = []
+    for c in cfgs:
+        slam = NerfLoamSLAM_torch(c, get_dataset(c), device=device)
+        alone.append((np.asarray(slam.run()), *slam.extract_mesh()))
+        del slam
+    torch.cuda.synchronize()
+    log(f"[sequences] {len(out)} budget jobs (data seeds {SEQUENCE_SEEDS}, {SEQUENCE_FRAMES} frames) "
+        f"on {[o['device'] for o in out]} in {wall:.2f} s (one worker on one card: in turn); alone "
+        f"{time.perf_counter() - t1:.2f} s; meshes {[len(o['mesh'][1]) for o in out]} faces")
+    for s_, o, (poses, v, f) in zip(SEQUENCE_SEEDS, out, alone):
+        check(np.array_equal(np.asarray(o["poses"]), poses) and np.array_equal(o["mesh"][0], v)
+              and np.array_equal(o["mesh"][1], f),
+              f"[sequences] the job of data seed {s_} differs from the same job run alone")
+        check(len(f) > 0 and len(poses) == SEQUENCE_FRAMES, f"[sequences] seed {s_}: no mesh")
+    for k in PATH_KERNELS["kitti_budget"] + _MESH:
+        check(launches[k] > 0, f"kernel {k} never launched on the sequences path")
+    return launches
 
 
 def exact_checks(tag, slam, launches, n_frames):
@@ -2904,6 +3303,26 @@ def kitti_paths(names, cfgs, ds, workdir):
     return results
 
 
+RUNNER_PHASES = ("loader", "subscene", "sequences")
+
+
+def runner_phases(here, names, cfgs, ds, workdir, stamp):
+    """The host data path and the runners over several pipelines, each
+    phase's launch counts zeroed before it and read after: {phase: counts}."""
+    out = {}
+    for name in names:
+        if name == "loader":
+            out[name] = loader_phase(cfgs["kitti_quality"], ds, workdir)
+        elif name == "subscene":
+            out[name] = subscene_phase(cfgs["kitti_quality"], ds)
+        else:
+            out[name] = sequences_phase(here)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamp(f"[{name}]")
+    return out
+
+
 def compare_defer(sync, defer):
     """The deferred quality run beside the synchronous one: keyframes, the
     trajectories' difference and the bias target (printed, not gated: the
@@ -2923,8 +3342,10 @@ def main(argv=None):
                     "kitti_adam25, kitti_quality_s2s, kitti_exact, kitti_knobs, "
                     "kitti_mapping_gt, kitti_decoder_pe, kitti_quality_defer, "
                     "kitti_budget_defer_grow, replica_gate60_s<seed>, "
-                    "replica_gate60_exact_s<seed>) and defer phases (defer_checks: [defer] "
-                    "syncs, [defer] fetch and the defer checkpoint; defer_pairs): run only those")
+                    "replica_gate60_exact_s<seed>), defer phases (defer_checks: [defer] "
+                    "syncs, [defer] fetch and the defer checkpoint; defer_pairs) and the host "
+                    "data path and runners (loader, subscene, sequences; loader_pairs: the two "
+                    "loaders' runs in ten pairs in turns): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2963,8 +3384,13 @@ def main(argv=None):
             if "defer_checks" in names:
                 defer_phase(cfgs["kitti_quality_defer"], ds)
                 checkpoint_phase(cfgs["kitti_quality_defer"], ds, workdir, "kitti_quality_defer")
+            runner_phases(here, [n for n in names if n in RUNNER_PHASES], cfgs, ds, workdir,
+                          stamp)
         if "defer_pairs" in names:
             defer_pairs(cfgs, ds)
+        if "loader_pairs" in names:
+            with tempfile.TemporaryDirectory() as workdir:
+                loader_pairs(cfgs["kitti_quality"], ds, workdir)
         log(f"[time] the whole script {time.perf_counter() - t_run:.1f} s")
         for n in names:
             if n.startswith("replica_gate60_s"):
@@ -3005,6 +3431,8 @@ def main(argv=None):
     gaussian_ate = gaussian_run(here, ds)
     torch.cuda.empty_cache()
     stamp("the KITTI paths and the checkpoint")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_launches = runner_phases(here, RUNNER_PHASES, cfgs, ds, workdir, stamp)
     gate_ds = {}
     for s_ in GATE60_SEEDS:
         _, gate_ds[s_], results[f"replica_gate60_s{s_}"] = gate_path(here, s_)
@@ -3032,14 +3460,16 @@ def main(argv=None):
         f"{len(spread['raw'])} generator seeds {spread['median_raw']:.4f}, kitti_budget gaussian "
         f"{GAUSSIAN_FRAMES} frames {gaussian_ate:.4f}")
     stamp("the frame profiles")
+    path_launches = {**{n: results[n][0] for n in results}, **phase_launches}
     for r in records:
-        by_path = {n: results[n][0][r["name"]] for n in results}
+        by_path = {n: c[r["name"]] for n, c in path_launches.items()}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         if r["name"] in UNDONE_BY:  # K7's undo: only where a frame overflowed and replayed
-            r["undo_launches"] = sum(results[n][0]["undo_insert"] for n in results)
+            r["undo_launches"] = sum(c["undo_insert"] for c in path_launches.values())
         if r["name"] == "pack_embeddings_vjp":  # its lists, built once a BA step
-            r["build_launches"] = sum(results[n][0]["pack_embeddings_vjp_build"] for n in results)
+            r["build_launches"] = sum(c["pack_embeddings_vjp_build"]
+                                      for c in path_launches.values())
     log(f"[result] scans/s " + ", ".join(f"{n} {v[1]:.4f}" for n, v in results.items())
         + f" on {smi}")
     for cfg_name, r in pairs:  # the device's busy share: the profile's device ms a frame x scans/s

@@ -1,6 +1,9 @@
 """Dataset base: the reference DataLoader contract (copy of
-nerfloam_tpu/data/base.py with its numpy paths only; the JAX package's
-native C++ filter and segmenter are not carried over).
+nerfloam_tpu/data/base.py). ``__getitem__`` takes the JAX loader's default
+path: the port's C++ range filter and ground segmenter
+(``nerfloam_tpu_torch/native``), bit for bit what the JAX package feeds its
+tracker. ``filter_scan`` and ``data/ground.segment_ground`` are their numpy
+twins, kept for the tests; no path calls them.
 
 __getitem__ -> (index, points (N,3) f32, points_cos (N,) f32, pose | None)
 with range filtering and ground-cosine computation, matching
@@ -14,7 +17,7 @@ import os.path as osp
 
 import numpy as np
 
-from nerfloam_tpu_torch.data.ground import segment_ground
+from nerfloam_tpu_torch.native import filter_scan_native, segment_ground_native
 
 
 class LidarDataset:
@@ -57,15 +60,19 @@ class LidarDataset:
         return points[mask]
 
     def filter_scan(self, raw: np.ndarray) -> np.ndarray:
-        """z cutoff + range ball on a raw (N, >=3) scan."""
+        """z cutoff + range ball on a raw (N, >=3) scan: the numpy twin of
+        ``filter_scan_native`` (the JAX package's fallback)."""
         pts = raw[:, :3]
         if np.isfinite(self.z_min):
             pts = pts[pts[:, 2] > self.z_min]
         return self.filter_range(pts)
 
     def __getitem__(self, index: int):
-        points = self.filter_scan(self.read_scan(index).astype(np.float32))
-        _, cos = segment_ground(points)
+        raw = self.read_scan(index).astype(np.float32)
+        # one C++ pass over the raw scan (z cutoff + range ball), then the
+        # C++ segmenter; both release the GIL in the prefetching thread
+        points = filter_scan_native(raw, self.z_min, self.min_depth, self.max_depth)
+        _, cos = segment_ground_native(points)
         pose = (
             np.concatenate((self.gt_pose[index], [0, 0, 0, 1])).reshape(4, 4)
             if self.use_gt

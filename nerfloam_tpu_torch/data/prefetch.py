@@ -1,13 +1,15 @@
 """Background scan prefetcher: overlap host IO/preprocessing with device work.
 
-Copy of nerfloam_tpu/data/prefetch.py (numpy only): the port imports nothing
-of the JAX package.
+Copy of nerfloam_tpu/data/prefetch.py: the port imports nothing of the JAX
+package.
 
 The reference loads + segments each scan synchronously inside the tracking
 loop (src/tracking.py:75 -> src/dataset/kitti.py:40-70, tens of ms of host
 work serialized with GPU compute). Here a worker thread stays one-or-more
-frames ahead: while the TPU optimizes frame k, the host reads, filters, and
-ground-segments frame k+1 (using the native C++ path when built).
+frames ahead: while the card optimizes frame k, the host reads, filters, and
+ground-segments frame k+1. The port's file-based loaders filter and
+segment in C++ (``nerfloam_tpu_torch/native``), whose ctypes calls release
+the GIL, so the worker does not hold up the main thread's launches.
 """
 
 from __future__ import annotations

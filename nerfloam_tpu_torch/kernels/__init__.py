@@ -24,6 +24,7 @@ import glob
 import hashlib
 import os
 import subprocess
+import threading
 import time
 import types
 
@@ -87,6 +88,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lock = threading.Lock()  # two pipelines on two threads build and load once
 build_info: dict = {}
 
 
@@ -124,7 +126,7 @@ def build() -> list[str]:
     procs = []
     for src, path in zip(sources(), paths):
         if not os.path.exists(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
             procs.append((src, path, tmp, subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -145,23 +147,30 @@ def build() -> list[str]:
 
 
 def lib() -> types.SimpleNamespace:
-    """The entry points of every kernel library, built at first call."""
+    """The entry points of every kernel library, built at first call (once,
+    under a lock; a launch reads the loaded object without taking it)."""
     global _lib
     if _lib is None:
-        fns = {}
-        for path in build():
-            loaded = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(loaded, name, None)
-                if fn is not None:
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[name] = fn
-        missing = sorted(set(_SIGNATURES) - set(fns))
-        if missing:
-            raise RuntimeError(f"kernel entry points missing from the libraries: {missing}")
-        _lib = types.SimpleNamespace(**fns)
+        with _lock:
+            if _lib is None:
+                _lib = _load()
     return _lib
+
+
+def _load() -> types.SimpleNamespace:
+    fns = {}
+    for path in build():
+        loaded = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(fns))
+    if missing:
+        raise RuntimeError(f"kernel entry points missing from the libraries: {missing}")
+    return types.SimpleNamespace(**fns)
 
 
 # raw_stream(index): the raw pointer of PyTorch's current stream on CUDA

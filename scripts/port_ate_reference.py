@@ -12,6 +12,8 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --decoder-pe   # kitti_decoder_pe.json
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --defer  # kitti_quality_defer
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --defer --active-cap N  # ..._defer_grow
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --subscene 10  # [subscene]
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --kitti-dir DIR  # [loader]
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
 (+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off unless
@@ -53,6 +55,17 @@ kitti_budget_defer_grow.json: an active set that grows mid-run).
 
 ``--tpu-seed N`` sets ``tpu_specs.seed`` (the random stream's seed; the
 data's stays the config's).
+
+``--subscene N`` runs the chosen config through the JAX package's
+``parallel.subscene.SubsceneRunner``, N frames to a submap (chip_smoke.py's
+``[subscene]``: ``--quality --subscene 10``), and also prints the submaps and
+the mesh's size. ``--kitti-dir DIR`` writes the config's 30 scans into DIR
+as a KITTI odometry directory (``chip_smoke.write_kitti_dir``: the files
+chip_smoke.py's ``[loader]`` writes from the same config) unless DIR holds
+one, and runs the config through ``NerfLoamSLAM.run()`` on the JAX package's
+``kitti.DataLoader(DIR, max_depth=40, min_depth=2)``, whose default path
+filters and segments each scan in C++; the ATE is taken against
+DIR/poses_lidar.txt.
 
 ``--gate60 SEED`` runs the replica gate instead: kitti_replica_ci.yaml +
 calibrate_gate60.GATE60 + LEAN + data_specs.seed=SEED, defer_sync off,
@@ -137,6 +150,45 @@ def gate60(seed: int, exact: bool = False, extra=()):
     }))
 
 
+def subscene(cfg, ds, n):
+    """The JAX package's chained submaps, ``n`` frames to a submap."""
+    from nerfloam_tpu.parallel.subscene import SubsceneRunner
+
+    t0 = time.perf_counter()
+    poses, (verts, faces), n_sub = SubsceneRunner(cfg, ds, frames_per_subscene=n).run()
+    poses = np.asarray(poses)
+    gt = ds.gt_trajectory()[: len(poses)]
+    print(json.dumps({
+        "config": "kitti_quality_subscene", "frames_per_subscene": n, "subscenes": n_sub,
+        "frames": len(poses), "ate_m": float(evaluation.ate_rmse(poses, gt, align=False)),
+        "mesh_vertices": int(len(verts)), "mesh_faces": int(len(faces)),
+        "seconds": time.perf_counter() - t0, "backend": jax.default_backend(),
+    }))
+
+
+def kitti_dir(cfg, ds, path):
+    """The config's scans written as a KITTI directory and read back through
+    the JAX package's KITTI loader (its native C++ path)."""
+    import chip_smoke
+    from nerfloam_tpu.data import kitti
+
+    if not os.path.isdir(os.path.join(path, "velodyne")):
+        chip_smoke.write_kitti_dir(ds, path)
+    kds = kitti.DataLoader(path, max_depth=40.0, min_depth=2.0)
+    gt = np.loadtxt(os.path.join(path, "poses_lidar.txt")).reshape(-1, 3, 4)
+    gt = np.concatenate([gt, np.tile([[[0.0, 0.0, 0.0, 1.0]]], (len(gt), 1, 1))], 1)
+    slam = NerfLoamSLAM(cfg, kds)
+    t0 = time.perf_counter()
+    poses = np.asarray(slam.run())
+    print(json.dumps({
+        "config": "kitti_quality_kitti_dir", "frames": len(poses),
+        "ate_m": float(evaluation.ate_rmse(poses, gt[: len(poses)], align=False)),
+        "sdf_bias": [float(x) for x in slam.sdf_bias],
+        "overflow_events": {k: int(v) for k, v in slam.overflow_events.items()},
+        "seconds": time.perf_counter() - t0, "backend": jax.default_backend(),
+    }))
+
+
 def main():
     exact = "--exact" in sys.argv
     extra = ([f"tpu_specs.seed={int(sys.argv[sys.argv.index('--tpu-seed') + 1])}"]
@@ -163,6 +215,10 @@ def main():
     if decoder_pe:
         cfg.decoder_specs["skips"] = list(DECODER_PE_SKIPS)
     ds = get_dataset(cfg)
+    if "--subscene" in sys.argv:
+        return subscene(cfg, ds, int(sys.argv[sys.argv.index("--subscene") + 1]))
+    if "--kitti-dir" in sys.argv:
+        return kitti_dir(cfg, ds, sys.argv[sys.argv.index("--kitti-dir") + 1])
     slam = NerfLoamSLAM(cfg, ds)
     frames = []
     for i in range(len(ds)):

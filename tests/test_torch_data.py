@@ -1,8 +1,9 @@
 """The port's copy of the numpy dataset code (nerfloam_tpu_torch/data)
 against the JAX package's: the synthetic sequences of the two configs the
 port runs give bit-identical scans, cosines and poses; the copied ground
-segmentation, range filter and KITTI reader give exactly what the JAX
-package's numpy functions give on a seeded cloud."""
+segmentation and range filter give exactly what the JAX package's numpy
+functions give on a seeded cloud, and the KITTI reader exactly what the JAX
+package's reader gives (its default path, the C++ filter and segmenter)."""
 
 import os
 
@@ -74,5 +75,10 @@ def test_range_filter_and_reader_match_jax(tmp_path):
     idx, p, c, pose = tds[0]
     assert idx == 0 and pose is None and len(tds) == 1
     np.testing.assert_array_equal(p, ref)
-    np.testing.assert_array_equal(c, jground.segment_ground(ref)[1])
+    # the loader's cosines are what the JAX loader feeds its tracker: its
+    # default __getitem__, the C++ segmenter (not the numpy twin)
+    jidx, jp, jc, jpose = jds[0]
+    assert jidx == 0 and jpose is None
+    np.testing.assert_array_equal(p, jp)
+    np.testing.assert_array_equal(c, jc)
     assert len(ref) < len(raw)

@@ -88,7 +88,8 @@ def test_port_imports_neither_jax_nor_yaml():
         "import chip_smoke\n"
         "assert len(mods) >= 22, mods\n"
         "need = {'core.scan2scan', 'map.mesher', 'ops.marching', 'ops.keys', 'utils.logger',\n"
-        "        'utils.checkpoint', 'utils.evaluation', 'utils.bridge'}\n"
+        "        'utils.checkpoint', 'utils.evaluation', 'utils.bridge', 'native',\n"
+        "        'parallel.subscene'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "import runpy\n"
         "runpy.run_path('demo/run_torch.py', run_name='not_main')\n"
