@@ -67,8 +67,19 @@
    over one frame's 65,536 points and 2048 tracker rays, beside the rows
    torch.linalg.norm gets otherwise, the routed divisions (ieee.div /
    rdiv, exp_so3's series, interp_corner_features) equal to the CPU's, the
-   scan-to-scan twin's 3- and 2-vector chains and exp_so3's float64 cosine
+   scan-to-scan twin's 3- and 2-vector chains and exp_so3's sine and cosine
    equal to the CPU's, and norm3 timed in turns with torch.linalg.norm;
+   [trig] (csrc/trig.cu: glibc's sinf, cosf and atan2f as native/trig.h
+   copies them, which lm_step.cu and scan2scan.cu include too) bit-equal
+   to the host copies on every f32 of [0, pi] for sin and cos and on 10^8
+   seeded atan2 pairs with the specials, its backward equal to the CPU's,
+   atan2 timed beside the host copy and torch.atan2; [exp_so3]
+   (csrc/exp_so3.cu, every rotation of the se3 ops on the card, one launch
+   each way) torch.equal to its plain chain on the CPU forward, within 1e-5
+   of each gradient's largest entry backward, in three theta^2 ranges,
+   timed at BA's window beside the chain on the card; K3's dp form (the
+   58 per-class sums the tracker all-reduces under dp) against
+   gn_sums_plain, and combined against the one-launch form;
    [ray_prep] (a ray draw's directions, t_cap, measured depth, its gate and
    lengths in one launch) torch.equal to its twin on the card and on the
    CPU at the tracker's 2048 rays and BA's superset (2 frames); [lm_step]
@@ -76,7 +87,8 @@
    steps, half at small angles, against its twin on the card and on the
    CPU (batched, and one step a call): the translation and the
    small-angle half torch.equal, the rest's rotation within 4 ulp of each
-   pose's largest entry and 8 of the rotation's, the rotation matrix it
+   pose's largest entry and 8 of the rotation's (its sine, cosine and
+   atan2 are the host's: 0-1 ulp expected), the rotation matrix it
    hands the next iteration within 8 ulp of 1 of the twin's and the twin's
    exp_so3 of the kernel's own pose, the largest gaps and the share of
    poses bit-equal printed; and a GN tracker frame at 2 and
@@ -165,7 +177,15 @@
      allocated bytes after each submap's del within 64 MB of the first's,
      the ATE against the JAX package's chained run) and [sequences]
      (run_sequences_parallel with two 8-frame budget jobs on the one card,
-     each np.array_equal to the same job run alone).
+     each np.array_equal to the same job run alone), and [dp] (the quality
+     config's first 10 frames on two ranks of the one card through
+     parallel/sharding.run_dp, gloo by the backend rule, beside one process
+     on the same seed: frame 1's tracker on the one-process run's inputs
+     within 2e-4 and its hit count equal, the whole runs' frame 1 within
+     2e-2 (what dp moves the JAX package's own runs), the ATE under the
+     quality bound, both ranks' trajectories and
+     packed tables bit-equal, each rank's launches by kernel in the kernels
+     line; every frame's pose gap and the wall time printed).
    Each path's launch counts are zeroed just before it and read just
    after; a GN path launches lm_step once a GN iteration. Prints the
    tracker ms the s2s term adds to the quality path.
@@ -177,7 +197,8 @@
    function and its CUDA launches per call (K4 in every form, K9a in
    every form, K9b, K10a at res 2 and 4, K10b in both forms, K11b, K1 in
    both origin forms, K2's d xyz form, K3 at both shapes, K8 in every
-   form, lm_step and ray_prep in both forms must make exactly one; K2's
+   form, lm_step, ray_prep, trig and exp_so3 in both forms must make
+   exactly one; K2's
    d packed form at most four and K7 at
    most five, all of them the port's (K7 profiled with the undo of each
    call, reported apart); K11a at most two of the port's, its other
@@ -242,10 +263,10 @@ from nerfloam_tpu_torch.data import SyntheticDataset, get_dataset, ground
 from nerfloam_tpu_torch.data.kitti import DataLoader as KittiLoader
 from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
-from nerfloam_tpu_torch.ops import ieee, interp, marching, raycast, se3
+from nerfloam_tpu_torch.ops import ieee, interp, marching, raycast, se3, trig
 from nerfloam_tpu_torch.native import segment_ground_native
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
-from nerfloam_tpu_torch.parallel import subscene
+from nerfloam_tpu_torch.parallel import sharding, subscene
 from nerfloam_tpu_torch.parallel.subscene import SubsceneRunner, run_sequences_parallel
 from nerfloam_tpu_torch.utils.checkpoint import (
     DERIVED_MAP_FIELDS,
@@ -304,7 +325,7 @@ SUBSCENE_ATE_JAX = 2.6745405051961355  # 1255 s on 8 cores, 2026-10-18
 SUBSCENE_FRAMES = 10
 SUBSCENE_MEM_SLACK = 64 << 20  # bytes allocated after each submap's del, against the first's
 SEQUENCE_SEEDS = (3, 4)        # run_sequences_parallel's two budget jobs (data seeds)
-SEQUENCE_FRAMES = 8
+SEQUENCE_FRAMES = 5  # cut from 8 to make room for [trig] and [dp]: equality needs no depth
 # the C++ segmenter against its numpy twin: JAX's tolerance (tests/test_native.py:
 # 41-44), and the share of ground points a cell's other plane may move past it
 TWIN_MASK_AGREE = 0.9
@@ -352,18 +373,28 @@ FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 # last records of a window, up to 5 sessions in a row), and kineto drops the
 # records that fall outside the window.
 PROFILE_PAD_S = 0.1
-# device launches a frame (the profile phase's 3 steady frames) of commit 8d15440,
-# the tree before the LM update and the ray setup became kernels (lm_step,
-# ray_prep) and exp_so3's cosine was taken in float64, on an NVIDIA H100 80GB
-# HBM3 at 700 W: printed beside this run's. Fixed figures of one commit: a
-# change that moves the launches again replaces them or drops the table
-LAUNCHES_BEFORE_FUSION = {"kitti_budget": 14785.3, "kitti_quality": 15630.0,
-                          "kitti_adam25": 17151.3, "kitti_quality_s2s": 15684.7,
-                          "replica_gate60_s0": 9414.0, "kitti_exact": 19924.3,
-                          "kitti_quality_defer": 15786.0}
+# [dp]: the quality config on two ranks of one card (gloo, parallel/sharding.run_dp)
+# beside one process, over DP_FRAMES frames; frame 1's tracked pose within JAX's
+# dp tolerance of the one-process run's (tests/test_sharding.py:253-256)
+DP_RANKS = 2
+DP_FRAMES = 10
+DP_POSE_TOL = 2e-4
+# ... and in the whole runs, whose frame 0 BA is split too, frame 1's tracked
+# pose within this many m (or rad) of one process's: the JAX package's own dp=4
+# run moves its first 6 tracked poses up to 2.12e-2 from its dp=1 run's (1.89e-3
+# at frame 1) on synthetic_small, scripts/dp_gap_witness.py on a CPU
+DP_RUN_TOL = 2e-2
+# [trig]: seeded atan2 pairs of the device copies against the host copies, in
+# chunks of TRIG_CHUNK (every float of [0, pi] for sin and cos goes the same way)
+TRIG_PAIRS = 10 ** 8
+# [exp_so3]: the backward's largest gap to autograd of the plain chain, relative
+# to each gradient's largest entry (the sums of a reduction run in another order)
+EXP_SO3_GRAD_TOL = 1e-5
+TRIG_CHUNK = 1 << 26
 _MAP = ("insert", "reconcile", "active_set")
-# every path's BA step and tracker take a ray draw's setup in one launch
-_RAYS = ("ray_prep",)
+# every path's BA step and tracker take a ray draw's setup in one launch, and
+# every rotation (se3.exp_so3) one launch of csrc/exp_so3.cu each way
+_RAYS = ("ray_prep", "exp_so3")
 # the norm's own launch is left to the cold sites (ops/ieee.py): the bias probe
 # and the support directions of the quality stack, the deferred warm start's log
 _NORM = ("norm3",)
@@ -395,11 +426,13 @@ PATH_KERNELS = {           # kernels each main path must launch
 # the loader's run has no logger (no mesh); the subscene runner meshes each
 # submap; the sequences jobs mesh the budget config
 PATH_KERNELS["loader"] = _QUALITY + _MAP + _RAYS + _NORM
-# the deferred schedule runs the same kernels as its synchronous config; the
+# the deferred schedule runs the same kernels as its synchronous config, and its
+# warm start on the device (log_so3) the angle's atan2 (csrc/trig.cu); the
 # budget run whose active set grows with a frame in flight also undoes K7, and
-# its warm start on the device (log_so3) takes the norm
-PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"]
-PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert",) + _NORM
+# its warm start takes the norm
+PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"] + ("trig",)
+PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert", "trig"
+                                                                          ) + _NORM
 DEFER_PATHS = ("kitti_quality_defer", "kitti_budget_defer_grow")
 # paths run with a RunLogger: finalize writes both meshes and the pose files
 LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt", "kitti_quality_defer")
@@ -431,6 +464,11 @@ KERNEL_FUNCTIONS = {
     "norm3": ("norm3_kernel",),
     "lm_step": ("lm_step_kernel",),
     "ray_prep": ("ray_prep_kernel",),
+    "trig": ("trig_fwd_kernel",),
+    "trig_bwd": ("trig_bwd_kernel",),  # its backward, a form of the trig record
+    "exp_so3": ("exp_so3_fwd_kernel",),
+    "exp_so3_bwd": ("exp_so3_bwd_kernel",),  # its backward, a form of the exp_so3 record
+    "gn_sums": ("gn_system_kernel",),  # K3's dp form: the same kernel, its sums written
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
@@ -443,7 +481,8 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "mesh_lattice", "mesh_lattice, res 4", "marching_tets", "marching_tets, padded",
               "pack_embeddings", "pack_embeddings_vjp", "pack_embeddings, gate60",
               "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048", "lm_step", "ray_prep",
-              "ray_prep, BA superset") + tuple(
+              "ray_prep, BA superset", "trig", "trig, atan2 backward", "gn_sums", "exp_so3",
+              "exp_so3, backward") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -567,6 +606,9 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "norm3": (ieee, "norm3_launches"),
     "lm_step": (tr, "lm_step_launches"),
     "ray_prep": (tr, "ray_prep_launches"),
+    "trig": (trig, "trig_launches"),
+    "exp_so3": (se3, "exp_so3_launches"),
+    "gn_sums": (tr, "gn_sums_launches"),
 }
 
 
@@ -670,8 +712,10 @@ def add_device_times(records):
     for r in records:
         undo = UNDONE_BY.get(r["name"])
         dev_fn = r.pop("_dev")
-        per_fn, per_call, launches = device_us(
-            r["name"], dev_fn, want=KERNEL_FUNCTIONS[r["name"]] + ((undo,) if undo else ()))
+        # K11a's call builds its rotation: one exp_so3 launch, wanted too
+        want = (KERNEL_FUNCTIONS[r["name"]] + ((undo,) if undo else ())
+                + (KERNEL_FUNCTIONS["exp_so3"] if r["name"] in MAX_PORT_LAUNCHES else ()))
+        per_fn, per_call, launches = device_us(r["name"], dev_fn, want=want)
         if undo is not None:  # the profiled call undoes its insert: the undo apart
             r["undo_device_us"] = per_fn.pop(undo)
             per_call -= r["undo_device_us"]
@@ -685,19 +729,24 @@ def add_device_times(records):
             + f"; {per_call:.2f} us per call; {launches:g} CUDA launches per call (profile)")
         if r["name"] in MAX_PORT_LAUNCHES:  # the others: the rotation the wrapper builds
             rotation = r.pop("_rotation")
+            # its own kernels' launches; the others (csrc/exp_so3.cu's) are the
+            # rotation's
+            own = lambda fns: sum(1 for f in fns if f in KERNEL_FUNCTIONS[r["name"]])
             for _ in range(3):  # a session that lost a whole operation's records: again
-                _, _, rot = device_us(r["name"], rotation, want=())
-                if launches - len(per_fn) == rot:
+                # the rotation is one exp_so3 launch: wanted, so that a session
+                # that dropped its records is run again
+                _, _, rot = device_us(r["name"], rotation, want=KERNEL_FUNCTIONS["exp_so3"])
+                if launches - own(per_fn) == rot:
                     break
-                log(f"[{r['name']}] {launches:g} launches a call, {len(per_fn)} of them the "
-                    f"port's, against {rot:g} of the rotation alone; profiling both again")
-                per_fn, per_call, launches = device_us(r["name"], dev_fn)
-            port = len(per_fn)
+                log(f"[{r['name']}] {launches:g} launches a call, {own(per_fn)} of them its "
+                    f"own, against {rot:g} of the rotation alone; profiling both again")
+                per_fn, per_call, launches = device_us(r["name"], dev_fn, want=want)
+            port = own(per_fn)
             r["device_launches_port"], r["device_launches_rotation"] = port, launches - port
-            log(f"[{r['name']}] {launches:g} CUDA launches per call: {port} the port's, "
+            log(f"[{r['name']}] {launches:g} CUDA launches per call: {port} its own, "
                 f"{launches - port:g} of its rotation (se3.pose_rotation alone: {rot:g})")
             check(port <= MAX_PORT_LAUNCHES[r["name"]] and launches - port == rot,
-                  f"{r['name']}: {port} of the port's launches a call (at most "
+                  f"{r['name']}: {port} of its own launches a call (at most "
                   f"{MAX_PORT_LAUNCHES[r['name']]}) and {launches - port:g} others, where the "
                   f"rotation alone makes {rot:g}")
         if r["name"] in ONE_LAUNCH:
@@ -1069,6 +1118,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
                                    KERNEL_FUNCTIONS["gn_system"])}))
     k38_host_costs(ms, cfg, field, k8_cases["band, origin row stride 0"][:4], tp,
                    *k3_cases["quality"])
+    records.append(k3_dp_form(systems["quality"], k3_cases["quality"], tp, lib_ms))
 
     records.append(k7_phase(slam, ms, frames[3]))
     o, d, tc = tables[2 * slam.bp_current.n_rays][:3]
@@ -1079,7 +1129,199 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     records += s2s_kernels(slam, sp, frames, gen)
     records += tracker_step_kernels(slam, ms, frames, gen, 2 * slam.bp_current.n_rays)
     records.append(ieee_phase(p, tables[slam.tp.n_rays][4], gen))
+    records.append(trig_phase(p, gen))
+    records.append(exp_so3_phase(slam, gen))
     return records
+
+
+def k3_dp_form(system, case, tp, lib_ms):
+    """K3's dp form (``GnSystem(sums=True)``, the tracker's under a dp
+    process group) at the quality tracker's shape: its 58 sums equal
+    between two calls, the two counts torch.equal to ``gn_sums_plain``'s and
+    each class's 28 sums within 1e-4 of them relative to their largest;
+    ``gn_combine`` of them within 1e-4 of the one-launch form's H, b and
+    loss. Returns its record."""
+    samples, per_ray = case
+    dp_system = tr.GnSystem(*per_ray, tp, samples[2].shape[1], sums=True)
+    ks = dp_system(*samples).clone()
+    again = dp_system(*samples)
+    rs = tr.gn_sums_plain(*samples, *per_ray[:3], tp, per_ray[3])
+    one = [x.clone() for x in system(*samples)]
+    torch.cuda.synchronize()
+    check(torch.equal(ks, again), "K3's dp form differs between two calls")
+    check(torch.equal(ks[56:], rs[56:]), f"K3's dp form counts {ks[56:]} against {rs[56:]}")
+    err = 0.0
+    for nm, sl in (("front", slice(0, 28)), ("band", slice(28, 56))):
+        rel = max_abs(ks[sl], rs[sl]) / max(float(rs[sl].abs().max()), 1e-30)
+        err = max(err, max_abs(ks[sl], rs[sl]))
+        check(rel <= 1e-4, f"K3's dp form {nm} sums rel error {rel}")
+        log(f"[K3 dp form] {nm} sums: rel err {rel:.3g} against gn_sums_plain")
+    for nm, k, r in zip(("H", "b", "loss"), tr.gn_combine(ks, tp), one):
+        rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
+        check(rel <= 1e-4, f"K3's dp form combined {nm} rel error {rel}")
+        log(f"[K3 dp form] gn_combine {nm}: rel err {rel:.3g} against the one-launch form")
+    k_ms = median_ms(partial(dp_system, *samples))
+    p_ms = median_ms(partial(tr.gn_sums_plain, *samples, *per_ray[:3], tp, per_ray[3]))
+    z, vmask = samples[2], samples[5]
+    n, nv, R = z.numel(), int(vmask.sum()), z.shape[0]
+    return record("gn_sums", "gn_system.cu", "nerfloam_tpu/core/tracking.py:217 (under "
+                  "shard_map, the psum'd counts and sums: :232-233, 310-315)", err, k_ms, p_ms,
+                  33 * n + 13 * R + 12 + 232, 100 * nv, lib_ms, dev=partial(dp_system, *samples))
+
+
+def host_trig(op, *xs):
+    """The port's host copies (native/trig.cpp) over f32 numpy arrays, the
+    array split across the host's cores (ctypes lets the GIL go)."""
+    from nerfloam_tpu_torch import native
+
+    lib = native.get_trig_lib()
+    out = np.empty_like(xs[0])
+    n = out.size
+    step = -(-n // (os.cpu_count() or 1))
+
+    def part(lo):
+        m = min(step, n - lo)
+        ptrs = [x.ctypes.data + 4 * lo for x in xs]
+        if op == "atan2":
+            lib.nl_atan2f_n(ptrs[0], ptrs[1], m, out.ctypes.data + 4 * lo)
+        else:
+            getattr(lib, f"nl_{op}f_n")(ptrs[0], m, out.ctypes.data + 4 * lo)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        list(ex.map(part, range(0, n, step)))
+    return out
+
+
+def _same_bits(a, b):
+    """Elements with the same f32 bits, or NaN on both sides."""
+    return (a.view(np.uint32) == b.view(np.uint32)) | (np.isnan(a) & np.isnan(b))
+
+
+def trig_phase(p, gen):
+    """[trig]: csrc/trig.cu (native/trig.h compiled by nvcc) against the
+    host copies (the same header by g++, native/trig.cpp), bit for bit:
+    sin and cos on every f32 of [0, pi], atan2 on TRIG_PAIRS seeded pairs
+    (half normal, half random bit patterns) and every pair of the specials
+    (the axes, signed zeros, subnormals, signed infinities, NaN; NaN
+    against NaN of any payload); the backward of each against its CPU form
+    on 2^20 seeded arguments. atan2 of a frame's 65,536 points timed
+    beside its plain twin (the host copy, with the copies there and back)
+    and torch.atan2. Returns its record."""
+    dev = p.device
+    t0 = time.perf_counter()
+    last = int(np.float32(np.pi).view(np.uint32))
+    differ = {"sin": 0, "cos": 0, "atan2": 0}
+    for lo in range(0, last + 1, TRIG_CHUNK):
+        hi = min(lo + TRIG_CHUNK, last + 1)
+        x_host = np.arange(lo, hi, dtype=np.uint32).view(np.float32)
+        x = torch.arange(lo, hi, dtype=torch.int32, device=dev).view(torch.float32)
+        for op, fn in (("sin", trig.sin), ("cos", trig.cos)):  # no NaN in [0, pi]
+            differ[op] += int(np.count_nonzero(fn(x).cpu().numpy().view(np.uint32)
+                                               != host_trig(op, x_host).view(np.uint32)))
+    every = last + 1
+    rng = np.random.default_rng(17)
+    specials = np.asarray([0.0, -0.0, 1e-45, -1e-45, 1e-38, 1.0, -1.0, 3.4e38, -3.4e38, np.inf,
+                           -np.inf, np.nan], np.float32)
+    sy, sx = (a.ravel() for a in np.meshgrid(specials, specials))
+    done = 0
+    while done < TRIG_PAIRS:
+        m = min(TRIG_CHUNK, TRIG_PAIRS - done)
+        h = m // 2
+        y, x_ = (np.concatenate([rng.normal(size=h).astype(np.float32), rng.integers(
+            0, 2 ** 32, m - h, dtype=np.uint64).astype(np.uint32).view(np.float32)])
+            for _ in range(2))
+        if done == 0:
+            y, x_ = np.concatenate([y, sy]), np.concatenate([x_, sx])
+        got = trig.atan2(torch.from_numpy(y).to(dev), torch.from_numpy(x_).to(dev)).cpu().numpy()
+        differ["atan2"] += int((~_same_bits(got, host_trig("atan2", y, x_))).sum())
+        done += m
+    log(f"[trig] csrc/trig.cu against the host copies: sin differs on {differ['sin']} and cos on "
+        f"{differ['cos']} of all {every:,} floats of [0, pi]; atan2 on {differ['atan2']} of "
+        f"{TRIG_PAIRS:,} seeded pairs and {len(sy)} pairs of specials "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(not any(differ.values()), f"[trig] the card's copies differ from the host's: {differ}")
+    a = torch.randn((1 << 20,), generator=gen, device=dev) * 3.0
+    b = torch.randn((1 << 20,), generator=gen, device=dev)
+    g = torch.randn((1 << 20,), generator=gen, device=dev)
+    for op, args in ((trig.SIN, (a, None)), (trig.COS, (a, None)), (trig.ATAN2, (a, b))):
+        k = trig._launch_bwd(op, args[0], args[1], g)
+        r = trig._bwd_plain(op, args[0].cpu(), None if args[1] is None else args[1].cpu(),
+                            g.cpu())
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(k, r) if y is not None),
+              f"[trig] the backward of {trig._NAMES[op]} differs from its CPU form")
+    log("[trig] the backward of sin, cos and atan2 torch.equal to the CPU's on 2^20 arguments")
+    y, x_ = p[:, 1].contiguous(), p[:, 0].contiguous()
+    n = len(y)
+    err = max_abs(trig.atan2(y, x_), trig.atan2_plain(y, x_))
+    k_ms = median_ms(partial(trig.atan2, y, x_))
+    p_ms = median_ms(partial(trig.atan2_plain, y, x_))
+    lib_ms = median_ms(partial(torch.atan2, y, x_))
+    log(f"[trig] atan2 of {n} points: kernel {k_ms:.4f} ms, the host copy with its copies "
+        f"{p_ms:.4f} ms, torch.atan2 {lib_ms:.4f} ms")
+    # 8 B in, 4 B out; ~40 f32 operations an atan2
+    return record("trig", "trig.cu", "nerfloam_tpu/ops/se3.py:49-50, 107 and "
+                  "core/scan2scan.py:73-75 (XLA's elementwise sin, cos and atan2; no TPU "
+                  "kernel)", err, k_ms, p_ms, 12 * n, 40 * n, lib_ms,
+                  dev=partial(trig.atan2, y, x_),
+                  forms={"trig, atan2 backward": (partial(trig._launch_bwd, trig.ATAN2, y, x_,
+                                                          torch.ones_like(y)),
+                                                  KERNEL_FUNCTIONS["trig_bwd"])})
+
+
+def exp_so3_phase(slam, gen):
+    """[exp_so3]: csrc/exp_so3.cu against its plain twin (se3.exp_so3_plain,
+    the chain of ops, on the CPU) on 65,536 seeded rotation vectors in each
+    of three theta^2 ranges (the series, small, large): the forward
+    torch.equal; the backward, against autograd of the twin with a seeded
+    cotangent, within EXP_SO3_GRAD_TOL of each gradient's largest entry.
+    Timed at BA's shape, the window's poses (W, 6) read in place, forward
+    and backward, beside the chain on the card. Returns its record."""
+    dev = slam.device
+    worst = 0.0
+    for lo, hi in ((0.0, 1e-8), (1e-8, 1e-2), (1e-2, 9.0)):
+        d = torch.randn((65536, 3), generator=gen, device=dev)
+        t2 = lo + (hi - lo) * torch.rand((65536,), generator=gen, device=dev)
+        w = d / d.norm(dim=-1, keepdim=True) * t2.sqrt()[:, None]
+        G = torch.randn((65536, 3, 3), generator=gen, device=dev)
+        wk = w.clone().requires_grad_(True)
+        R = se3.exp_so3(wk)
+        (gk,) = torch.autograd.grad(R, wk, G)
+        wc = w.cpu().requires_grad_(True)
+        Rc = se3.exp_so3_plain(wc)
+        (gc,) = torch.autograd.grad(Rc, wc, G.cpu())
+        check(torch.equal(R.detach().cpu(), Rc.detach()),
+              f"[exp_so3] the forward differs from its twin at theta^2 in ({lo}, {hi})")
+        scale = gc.abs().amax(-1).clamp_min(1e-30)
+        rel = float(((gk.cpu() - gc).abs().amax(-1) / scale).max())
+        worst = max(worst, rel)
+        check(rel <= EXP_SO3_GRAD_TOL, f"[exp_so3] the backward at theta^2 in ({lo}, {hi}) is "
+              f"{rel:.3g} of its largest entry off its twin's (limit {EXP_SO3_GRAD_TOL})")
+    log(f"[exp_so3] csrc/exp_so3.cu: the forward torch.equal to its twin's on 3 x 65,536 "
+        f"rotations; the backward within {worst:.3g} of each gradient's largest entry (limit "
+        f"{EXP_SO3_GRAD_TOL})")
+    W = slam.window_size
+    poses = torch.randn((W, 6), generator=gen, device=dev) * 0.3
+    pw = poses.clone().requires_grad_(True)
+    G = torch.randn((W, 3, 3), generator=gen, device=dev)
+
+    def both(fn):
+        (g,) = torch.autograd.grad(fn(pw[:, 3:6]), pw, G)
+        return g
+
+    err = max_abs(se3.pose_rotation(poses), se3.exp_so3_plain(poses[:, 3:6].cpu()).to(dev))
+    k_ms = median_ms(partial(both, se3.exp_so3))
+    p_ms = median_ms(partial(both, se3.exp_so3_plain))
+    f_ms = median_ms(partial(se3.exp_so3, poses[:, 3:6]))
+    fp_ms = median_ms(partial(se3.exp_so3_plain, poses[:, 3:6]))
+    log(f"[exp_so3] BA's window of {W} poses, forward and backward (autograd.grad): kernel "
+        f"{k_ms:.4f} ms, the chain of ops on the card {p_ms:.4f} ms; forward alone {f_ms:.4f} "
+        f"and {fp_ms:.4f} ms")
+    # forward 12 B in, 36 out; backward 48 in, 12 out; ~300 f32 operations each way
+    return record("exp_so3", "exp_so3.cu", "nerfloam_tpu/ops/se3.py:42-62 (XLA's elementwise "
+                  "chain and 3x3 dot; no TPU kernel)", err, k_ms, p_ms, 108 * W, 600 * W,
+                  dev=partial(se3.pose_rotation, poses),
+                  forms={"exp_so3, backward": (partial(se3.exp_so3_bwd, poses[:, 3:6], G),
+                                               KERNEL_FUNCTIONS["exp_so3_bwd"])})
 
 
 def ieee_phase(p, pts, gen):
@@ -1088,8 +1330,9 @@ def ieee_phase(p, pts, gen):
     plain form on the CPU over one frame's (65,536, 3) points and a
     tracker frame's 2048 rays, with torch.linalg.norm's rows that differ
     from it printed for the record (on the card and on the CPU); the
-    scan-to-scan twin's 3- and 2-vector chains and exp_so3's float64
-    cosine (65,536 angles in each of three ranges) equal to the CPU's; the
+    scan-to-scan twin's 3- and 2-vector chains, exp_so3's sine and cosine
+    (65,536 angles in each of three ranges), the 3x3 product chain and
+    exp_so3 / log_so3 of 65,536 rotations equal to the CPU's; the
     routed divisions (ieee.div and rdiv, exp_so3's series coefficients,
     interp_corner_features' / voxel_size) equal to the CPU's, beside the
     rows torch's own division by a Python number gets wrong; norm3 timed
@@ -1112,19 +1355,36 @@ def ieee_phase(p, pts, gen):
     # the scan-to-scan twin's lengths (K11a's and K11b's chains, csrc/ieee.cuh)
     for nm, fn in (("norm3_plain", ieee.norm3_plain), ("norm2_plain", ieee.norm2_plain)):
         check(torch.equal(fn(p).cpu(), fn(p_cpu)), f"[ieee] {nm} on the card differs from the CPU")
-    # exp_so3's cosine, in float64 rounded once, at exact-branch angles of the
-    # three ranges of theta^2 (the same thetas on both devices)
+    # exp_so3's sine and cosine (ops/trig: csrc/trig.cu on the card, the host
+    # copies on the CPU) at exact-branch angles of the three ranges of theta^2
     cos_rows = {}
     for lo, hi in ((1e-8, 1e-6), (1e-6, 1e-2), (1e-2, 0.25)):
         th = torch.sqrt(torch.rand((1 << 16,), generator=gen, device=p.device) * (hi - lo) + lo)
-        got_c = torch.cos(th.double()).float().cpu()
-        check(torch.equal(got_c, torch.cos(th.cpu().double()).float()),
-              f"[ieee] exp_so3's cosine differs from the CPU's at theta^2 in ({lo}, {hi})")
+        got_c = trig.cos(th).cpu()
+        check(torch.equal(got_c, trig.cos(th.cpu())) and torch.equal(trig.sin(th).cpu(),
+                                                                     trig.sin(th.cpu())),
+              f"[ieee] exp_so3's sine or cosine differs from the CPU's at theta^2 in ({lo}, {hi})")
         cos_rows[lo, hi] = int((torch.cos(th).cpu() != got_c).sum())
     log("[ieee] ieee.norm3_plain / norm2_plain (the scan-to-scan twin's lengths) and exp_so3's "
-        "cosine (float64, rounded once; 65,536 angles in each theta^2 range) give the CPU's "
+        "sine and cosine (ops/trig; 65,536 angles in each theta^2 range) give the CPU's "
         "digits on the card; torch's f32 cos there differs from it on "
         + ", ".join(f"{n} ({lo:g}-{hi:g})" for (lo, hi), n in cos_rows.items()))
+    # the 3x3 product as XLA's CPU dot rounds it (se3._matmul3: addcmul's fused
+    # multiply-adds on the card, the chain emulated on the CPU), and exp_so3 /
+    # log_so3 of seeded rotations up to pi
+    A3 = torch.randn((1 << 16, 3, 3), generator=gen, device=p.device)
+    B3 = torch.randn((1 << 16, 3, 3), generator=gen, device=p.device)
+    check(torch.equal(se3._matmul3(A3, B3).cpu(), se3._matmul3(A3.cpu(), B3.cpu())),
+          "[ieee] the 3x3 product on the card differs from the CPU's")
+    w3 = torch.randn((1 << 16, 3), generator=gen, device=p.device) * 0.9
+    R3 = se3.exp_so3(w3)
+    check(torch.equal(R3.cpu(), se3.exp_so3(w3.cpu()))
+          and torch.equal(se3.log_so3(R3).cpu(), se3.log_so3(R3.cpu())),
+          "[ieee] exp_so3 or log_so3 on the card differs from the CPU's")
+    mm_rows = int((torch.matmul(A3, B3).cpu() != se3._matmul3(A3.cpu(), B3.cpu())).any(-1).any(
+        -1).sum())
+    log(f"[ieee] the 3x3 product chain, exp_so3 and log_so3 (65,536 each) give the CPU's digits "
+        f"on the card; torch.matmul there differs from the chain on {mm_rows} products")
     t2 = torch.rand((1 << 16,), generator=gen, device=p.device) * 1e-8
     for k, (a, b) in enumerate(zip(se3._sinc_coeffs(t2), se3._sinc_coeffs(t2.cpu()))):
         check(torch.equal(a.cpu(), b), f"[ieee] exp_so3's series coefficient {'AB'[k]} differs")
@@ -2225,9 +2485,10 @@ def tracker_step_kernels(slam, ms, frames, gen, R_ba):
             f"small-angle half pose and R torch.equal; rotation within {worst:.4g} ulp of each "
             f"pose's largest entry ({worst_rot:.4g} of the rotation's); poses bit-equal "
             f"{share:.4f}; R within {r_ulp:.4g} ulp of 1 of the twin's")
-        # CUDA's sinf (2 ulp) and atan2f (3 ulp) against the host's: up to 6
-        # ulp seen on an H100; a transposed R, or the old pose's, is off by
-        # at least the step's angle, ~5e-5 rad (~400 ulp of 1) in the
+        # the kernel's sine, cosine and atan2 are the host's (native/trig.h):
+        # 0-1 ulp expected, where CUDA's sinf and atan2f read up to 6 on an
+        # H100; the limit stays 4. A transposed R, or the old pose's, is off
+        # by at least the step's angle, ~5e-5 rad (~400 ulp of 1) in the
         # small-angle half and 0.05 rad in the rest
         check(worst <= 4.0 and worst_rot <= 8.0,
               f"lm_step's rotation {worst} ulp of the pose ({worst_rot} of the rotation) "
@@ -2926,6 +3187,137 @@ def sequences_phase(here, device="cuda"):
     return launches
 
 
+def dp_probe(first, slam, rank):
+    """A [dp] rank's own record, read after its run (its process starts
+    with every launch count at zero): its launches by kernel, each tracked
+    frame's hit ratio and the tracker's raw poses; then, with ``first``
+    (the one-process run's first tracked frame's inputs, or None), that
+    frame's GN tracker on those inputs, its rays split over the group (the
+    launches already read: a comparison, not the path)."""
+    import torch.distributed as dist
+
+    out = {"launches": counters(),
+           "hits": [h for _, h, *_ in slam.state.frame_telemetry],
+           "tracked6": np.stack([pose6_from_matrix_np(np.asarray(t))
+                                 for t in slam.get_raw_trajectory()])}
+    if first is not None:
+        a, dev = first, slam.device
+        ms = vm.MapState(*[t.to(dev) for t in a["map_state"]])
+        dec = {k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+               for k, v in a["decoder"].items()}
+        gen = torch.Generator(device=dev)
+        gen.set_state(a["gen_state"])
+        res = tr.track_frame_gn(ms, a["map_cfg"], a["rc"], a["tp"], dec, *(
+            a[k].to(dev) for k in ("init6", "pts", "cos", "val")), gen, a["sdf_bias"].to(dev),
+            None, dec_meta=a["dec_meta"], group=dist.group.WORLD)
+        out["track"] = {"pose": res.pose.cpu().numpy(), "hits": int(res.hit_count)}
+    return out
+
+
+def dp_phase(here, device="cuda"):
+    """[dp]: the quality config at its full width (2048 tracker rays, 1024 a
+    rank; BA's 2048 from its 2x superset) over DP_FRAMES frames as
+    DP_RANKS ranks on the one card (parallel/sharding.run_dp; the backend
+    rule gives gloo for ranks that share a card) and as one process, the
+    same seed. Checks: frame 1's tracked pose within DP_POSE_TOL of the
+    one process's with the same hit count (below); the ATE under the quality
+    bound; every rank's trajectory, tracked poses and packed table equal
+    to rank 0's (run_dp checks the final poses); every kernel of the
+    quality path, with K3's dp form for its one-launch form, launched on
+    every rank. Frame 1's pose is held to one process's on the tracker
+    alone, as JAX's tolerance is: the one-process run's first tracked
+    frame's inputs (its map after frame 0, init pose, generator state) fed
+    to the tracker on DP_RANKS ranks after their run (``dp_probe``). In the
+    whole runs frame 0's BA is split too, and Adam's first steps turn the
+    sums' other order into other updates of near-zero gradients: their
+    frame-1 gap is held within DP_RUN_TOL (what dp alone moves the JAX
+    package's own runs) and printed with every frame's. Prints each rank's launches
+    by kernel and the wall time (no scans/s: gloo stages every all-reduce
+    through the host). Returns {"dp rank r": launches}."""
+    cfg = load_cfg(here, "kitti_quality", data_specs={"n_frames": DP_FRAMES})
+    zero_counters()  # the one-process run is the comparison; its launches are not the path's
+    t1 = time.perf_counter()
+    # its first tracked frame's inputs, kept on the host as the tracker got
+    # them, and what it returned
+    first, real_track = {}, tr.track_frame_gn
+
+    def keep_first(*args, **kw):
+        out = real_track(*args, **kw) if first else None
+        if not first:
+            ms, map_cfg, rc, tp, dec, init6, pts, cos, val, gen, sdf_bias = args[:11]
+            first.update(map_state=tuple(t.cpu() for t in ms), map_cfg=map_cfg, rc=rc, tp=tp,
+                         decoder={k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+                                  for k, v in dec.items()},
+                         init6=init6.cpu(), pts=pts.cpu(), cos=cos.cpu(), val=val.cpu(),
+                         gen_state=gen.get_state(), sdf_bias=sdf_bias.cpu(),
+                         dec_meta=kw["dec_meta"])
+            check(args[11] is None and kw.get("group") is None, "[dp] an s2s or dp tracker")
+            out = real_track(*args, **kw)
+            first["one"] = {"pose": out.pose.cpu().numpy(), "hits": int(out.hit_count)}
+        return out
+
+    tr.track_frame_gn = keep_first
+    try:
+        one = NerfLoamSLAM_torch(cfg, get_dataset(cfg), device=device)
+        one_poses = np.asarray(one.run())
+    finally:
+        tr.track_frame_gn = real_track
+    one_probe = dp_probe(None, one, 0)
+    wall_one = time.perf_counter() - t1
+    del one
+    one_first = first.pop("one")
+    t0 = time.perf_counter()
+    res = sharding.run_dp(cfg, get_dataset, DP_RANKS, [device] * DP_RANKS,
+                          probe=partial(dp_probe, first))
+    wall = time.perf_counter() - t0
+    track = [r["probe"]["track"] for r in res["ranks"]]
+    ranks = res["ranks"]
+    gt = get_dataset(cfg).gt_trajectory()[:DP_FRAMES]
+    ate, ate_one = ate_rmse(res["poses"], gt, align=False), ate_rmse(one_poses, gt, align=False)
+    gaps = np.abs(res["poses"] - one_poses).max(axis=(1, 2))
+    tracked_gaps = np.abs(ranks[0]["probe"]["tracked6"] - one_probe["tracked6"]).max(axis=1)
+    log(f"[dp] {DP_RANKS} ranks on one card: {DP_FRAMES} frames in {wall:.2f} s wall (spawn, "
+        f"rendezvous, build and the tracker check included), one process {wall_one:.2f} s; "
+        f"ATE {ate:.4f} m "
+        f"(one process {ate_one:.4f}, bound {ate_bound('kitti_quality'):.4f})")
+    log("[dp] each frame's largest gap to one process, final poses: "
+        + ", ".join(f"{g_:.3g}" for g_ in gaps) + "; tracked pose6: "
+        + ", ".join(f"{g_:.3g}" for g_ in tracked_gaps))
+    log(f"[dp] frame 1 hit ratio {ranks[0]['probe']['hits'][0]!r} (one process "
+        f"{one_probe['hits'][0]!r}); packed table sha256 by rank "
+        f"{[r['packed_sha256'][:16] for r in ranks]}")
+    track_gap = max(float(np.abs(t["pose"] - one_first["pose"]).max()) for t in track)
+    log(f"[dp] frame 1's tracker on the one-process run's own inputs (its map after frame 0, "
+        f"init pose, generator state), its rays split over {DP_RANKS} ranks: pose within "
+        f"{track_gap:.3g} of one process's (limit {DP_POSE_TOL:g}), hits "
+        f"{[t['hits'] for t in track]} against {one_first['hits']}")
+    for r in ranks:
+        log(f"[dp] rank {r['rank']} launches: {r['probe']['launches']}")
+    check(track_gap <= DP_POSE_TOL, f"[dp] frame 1's tracked pose {track_gap} from one process's")
+    log(f"[dp] the whole runs' frame 1 tracked pose6 within {tracked_gaps[1]:.3g} of one "
+        f"process's (limit {DP_RUN_TOL:g})")
+    check(tracked_gaps[1] <= DP_RUN_TOL,
+          f"[dp] the whole runs' frame 1 tracked pose {tracked_gaps[1]} from one process's")
+    check(all(t["hits"] == one_first["hits"] for t in track)
+          and all(np.array_equal(t["pose"], track[0]["pose"]) for t in track),
+          "[dp] frame 1's hit count differs from one process's, or the ranks' poses differ")
+    check(ranks[0]["probe"]["hits"][0] == one_probe["hits"][0],
+          "[dp] the runs' frame 1 hit count differs from one process's")
+    check(ate <= ate_bound("kitti_quality"), f"[dp] ATE {ate} above its bound")
+    need = tuple(k for k in PATH_KERNELS["loader"] if k != "gn_system") + ("gn_sums",)
+    for r in ranks:
+        check(np.array_equal(r["poses"], ranks[0]["poses"])
+              and np.array_equal(r["probe"]["tracked6"], ranks[0]["probe"]["tracked6"])
+              and r["packed_sha256"] == ranks[0]["packed_sha256"],
+              f"[dp] rank {r['rank']}'s trajectory or packed table differs from rank 0's")
+        for k in need:
+            check(r["probe"]["launches"][k] > 0,
+                  f"kernel {k} never launched on the dp path's rank {r['rank']}")
+        check(r["probe"]["launches"]["gn_system"] == 0,
+              f"[dp] rank {r['rank']} launched K3's one-launch form")
+    return {f"dp rank {r['rank']}": r["probe"]["launches"] for r in ranks}
+
+
 def exact_checks(tag, slam, launches, n_frames):
     """The exact-gradient path's launches: a step's E1 lists built once,
     E1's transpose on every BA iteration and its forward on every
@@ -3156,9 +3548,10 @@ def pair_run(cfg, ds):
 
 def defer_pairs(cfgs, ds):
     """[defer] pairs: kitti_quality and kitti_quality_defer in turns (sync,
-    defer, defer, sync) in one call; printed, not gated."""
+    then defer: one pair, cut from two to make room for [trig] and [dp]) in
+    one call; printed, not gated."""
     runs = []
-    for name in ("kitti_quality", "kitti_quality_defer", "kitti_quality_defer", "kitti_quality"):
+    for name in ("kitti_quality", "kitti_quality_defer"):
         r = pair_run(cfgs[name], ds)
         runs.append((name, r))
         log(f"[defer] pairs {name}: {r['scans']:.4f} scans/s, host CPU {r['cpu']:.4f} s a frame, "
@@ -3303,7 +3696,7 @@ def kitti_paths(names, cfgs, ds, workdir):
     return results
 
 
-RUNNER_PHASES = ("loader", "subscene", "sequences")
+RUNNER_PHASES = ("loader", "subscene", "sequences", "dp")
 
 
 def runner_phases(here, names, cfgs, ds, workdir, stamp):
@@ -3315,6 +3708,8 @@ def runner_phases(here, names, cfgs, ds, workdir, stamp):
             out[name] = loader_phase(cfgs["kitti_quality"], ds, workdir)
         elif name == "subscene":
             out[name] = subscene_phase(cfgs["kitti_quality"], ds)
+        elif name == "dp":
+            out.update(dp_phase(here))
         else:
             out[name] = sequences_phase(here)
         gc.collect()
@@ -3449,10 +3844,6 @@ def main(argv=None):
         ("kitti_quality_defer", cfgs["kitti_quality_defer"], ds))}
     log("[result] per frame (profile, 3 steady frames): " + ", ".join(
         f"{n} {v[0]:.1f} device launches, {v[1]:.2f} device ms" for n, v in per_frame.items()))
-    log("[result] device launches a frame, this tree against the one before lm_step and "
-        "ray_prep: " + ", ".join(f"{n} {v[0]:.1f} ({LAUNCHES_BEFORE_FUSION[n]:.1f}, "
-                                 f"{v[0] - LAUNCHES_BEFORE_FUSION[n]:+.1f})"
-                                 for n, v in per_frame.items()))
     log("[result] ATE (m): " + ", ".join(
         f"{n} " + " / ".join(f"{k} {a:.4f}" for k, a in v[3].items()) for n, v in results.items())
         + f", kitti_quality resumed {resumed_ate:.4f}, kitti_quality_defer resumed "

@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from nerfloam_tpu_torch.core.losses import sdf_losses
 from nerfloam_tpu_torch.core.render import (
@@ -65,6 +66,7 @@ from nerfloam_tpu_torch.ops.raycast import (
     unpack_hit_table,
 )
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.parallel.sharding import all_reduce_sum, dp_cols
 
 
 class BAParams(NamedTuple):
@@ -102,7 +104,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             update_decoder: bool, lrs, generator: torch.Generator | None = None,
             proj_dir=None, reconcile_scratch: vm.ReconcileScratch | None = None,
             pack_scratch: vm.PackGradScratch | None = None,
-            dec_meta: DecoderMeta = PLAIN) -> BAResult:
+            dec_meta: DecoderMeta = PLAIN, group=None) -> BAResult:
     """One BA step. ``poses`` (W, 6), ``points`` (W, P, 3), ``points_cos``
     and ``points_valid`` (W, P), ``frame_active`` / ``pose_free`` (W,) bool,
     ``lrs`` [emb, decoder, pose]. ``proj_dir`` (W, 3): remove that
@@ -112,7 +114,19 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     pipeline's; None: one made for this step). ``dec_meta``: the decoder's
     skips and embedder; every decoder tensor (``decoder_leaves``, the
     gaussian embedder's B too) takes the decoder's learning rate, mask and
-    Adam step, as JAX's optax step over the decoder pytree."""
+    Adam step, as JAX's optax step over the decoder pytree.
+
+    ``group``: a ``torch.distributed`` group of dp ranks (JAX's sharded
+    step, ba.py:115-126, 308, 336-344). Every rank draws the same global
+    rays, jitter and band draws and trains on its block of n_rays / dp
+    columns (``dp_cols``); the superset, its hit table or march, and the
+    map, decoder, poses and Adam state are replicated. ``sdf_losses`` takes
+    the global counts; after the backward one all-reduce (SUM) of every
+    gradient makes the global gradient on every rank (torch's backward of
+    the local loss is already a partial sum: no divide by dp; the packed
+    table's over the rows some rank touched, the others being 0 on every
+    rank), from which ``touched`` is taken; Adam, reconcile and the repack then run alike on
+    every rank. The loss returned is the ranks' sum. None: one device."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
     exact = bp.exact_embedding_grads
@@ -125,6 +139,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     compute_dtype = getattr(torch, bp.compute_dtype)
     W, N, M = bp.n_frames, bp.n_rays, rc.n_samples
     K = N * bp.ray_superset
+    cols = dp_cols(group, N)  # this rank's columns of a global (W, N, ...) draw
+    Nl = cols.stop - cols.start
     vs = map_cfg.voxel_size
     frame = torch.arange(W, device=dev)[:, None]  # x[frame, idx]: x (W, K, ...) by idx (W, N)
 
@@ -142,7 +158,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                 sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
             else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows
                 # pick each ray's cdf row
-                placer = CdfPlacer.march(*sup_args, M, W * N)
+                placer = CdfPlacer.march(*sup_args, M, W * Nl)
                 frame_row0 = frame * K
 
     if exact:  # the canonical table, repacked by E1 every iteration
@@ -168,46 +184,52 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
         if use_superset:
             ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
             rvalid = torch.gather(svalid, 1, ridx)
+            ridx, rvalid = ridx[:, cols], rvalid[:, cols]
             pts3, pcos2, dirs, dnorm = (x[frame, ridx]
                                         for x in (sup_pts, sup_cos, sup_dirs, sup_dnorm))
         else:  # a fresh draw over all the frame's points
             ridx, rvalid = sample_ray_indices(points_valid, N, generator)
+            ridx, rvalid = ridx[:, cols], rvalid[:, cols]
             pts3, pcos2 = points[frame, ridx], points_cos[frame, ridx]
             dirs, t_cap, _, _, dnorm = ray_prep(pts3, pcos2, bp.truncation, bp.max_depth)
         rvalid = rvalid & frame_active[:, None]
         u = uniform_jitter((W * N, M), generator, dev)
+        if group is not None:
+            u = u.view(W, N, M)[:, cols].reshape(W * Nl, M)
 
-        pts, pcos, dnorm = pts3.reshape(W * N, 3), pcos2.reshape(W * N), dnorm.reshape(W * N)
+        pts, pcos, dnorm = pts3.reshape(W * Nl, 3), pcos2.reshape(W * Nl), dnorm.reshape(W * Nl)
         wdirs = se3.rotate_dirs(pos, dirs)
         origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
         extra = None
         if bp.surface_anchor or bp.band_samples:
             ub = (torch.rand((W, N, bp.band_samples), generator=generator,
-                             device=dev).reshape(W * N, -1) if bp.band_samples else None)
+                             device=dev)[:, cols].reshape(W * Nl, -1) if bp.band_samples else None)
             ez = extra_surface_z(dnorm, pcos, bp.truncation, bp.surface_anchor, bp.band_samples,
                                  ub)
-            extra = (field, ez, rvalid.reshape(W * N))
-        rays = (origins.reshape(W * N, 3), wdirs.reshape(W * N, 3))
+            extra = (field, ez, rvalid.reshape(W * Nl))
+        rays = (origins.reshape(W * Nl, 3), wdirs.reshape(W * Nl, 3))
         packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
         if use_hits:
-            ht = unpack_hit_table(sup_hits[frame, ridx].reshape(W * N, -1))
-            out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * N), u,
+            ht = unpack_hit_table(sup_hits[frame, ridx].reshape(W * Nl, -1))
+            out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * Nl), u,
                                    compute_dtype, extra, k2_scratch, dec_meta)
         else:
             if use_superset:
-                rows = (frame_row0 + ridx).reshape(W * N).to(torch.int32)
+                rows = (frame_row0 + ridx).reshape(W * Nl).to(torch.int32)
             else:  # K9a at the current poses, into this iteration's placer
                 rows = None
                 with torch.no_grad():
                     placer = CdfPlacer.march(map_state, map_cfg, rc, rays[0].detach(),
-                                             rays[1].detach(), t_cap.reshape(W * N), M)
-            out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * N), placer, u,
+                                             rays[1].detach(), t_cap.reshape(W * Nl), M)
+            out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * Nl), placer, u,
                               compute_dtype, extra, rows, k2_scratch, dec_meta)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight,
-                             gt_norm=dnorm)
+                             gt_norm=dnorm, group=group)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if group is not None:
+            grads = all_reduce_sum(grads, group)
 
         with torch.no_grad():
             if not exact:
@@ -236,6 +258,9 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                 map_state, map_cfg, emb.detach(), touched, bp.touched_cap, reconcile_scratch,
                 bp.reconcile_mode)
     new_dec = map_decoder(dec, torch.Tensor.detach)
+    loss = loss.detach()
+    if group is not None:
+        dist.all_reduce(loss, group=group)
     surface_bias = torch.zeros((), device=dev)
     if bp.measure_bias:  # ba.py:398-413, on the reconciled field
         with torch.no_grad():
@@ -246,5 +271,5 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                                          xyz.reshape(-1, 1, 3), depth.reshape(-1, 1),
                                          ok.reshape(-1), compute_dtype, dec_meta)
             surface_bias = sdf_pts.sum() / torch.clamp(m.sum(), min=1).to(torch.float32)
-    return BAResult(new_emb, packed, new_dec, pos.detach(), loss.detach(), touched_count,
+    return BAResult(new_emb, packed, new_dec, pos.detach(), loss, touched_count,
                     surface_bias, upd_count)

@@ -1,5 +1,6 @@
-"""Single-process SLAM orchestration (port of nerfloam_tpu/core/pipeline.py,
-single device).
+"""SLAM orchestration (port of nerfloam_tpu/core/pipeline.py): one device,
+or with ``tpu_specs.dp`` > 1 one rank of a ``torch.distributed`` group that
+splits the GN tracker's and BA's rays (``parallel/sharding.run_dp``).
 
 frame 0: insert -> active refresh -> keyframe -> ``bootstrap_steps`` BA steps.
 frame k: track (GN or Adam, ``track_method``) -> lazy recenter + active
@@ -77,6 +78,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerfloam_tpu_torch.core import ba as ba_mod
 from nerfloam_tpu_torch.core import tracking as tr_mod
@@ -94,7 +96,6 @@ from nerfloam_tpu_torch.utils.profiler import Profiler
 
 # (knob, value that is implemented, ROADMAP queue-1 item that ports the rest)
 _UNPORTED = [
-    ("tpu_specs.dp", lambda v: int(v) == 1, "16 (parallel/)"),
     ("tpu_specs.bias_source", lambda v: v == "window", "15 (dropped: keyframe bias probe)"),
     ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
     ("tpu_specs.maturity_warmup", lambda v: int(v) == 0, "15 (dropped: maturity warmup)"),
@@ -301,6 +302,27 @@ class NerfLoamSLAM_torch:
                 raise ValueError(f"tpu_specs.recenter_margin={self.recenter_margin} exceeds "
                                  f"region slack {slack:.1f} m; rays would leave the grid")
         self.bootstrap_steps = int(tpu["bootstrap_steps"])
+        # ray data parallelism (JAX pipeline.py:384-398, 1055-1061): the GN
+        # tracker and every BA step split their rays over the ranks of the
+        # process group that parallel.sharding.run_dp starts; only rank 0
+        # writes the logger's files
+        self.dp = int(tpu.get("dp", 1))
+        self.group = None
+        if self.dp > 1:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise ValueError(
+                    f"tpu_specs.dp={self.dp} needs a torch.distributed process group of "
+                    f"{self.dp} ranks, one a process: start them with "
+                    "nerfloam_tpu_torch.parallel.sharding.run_dp")
+            if dist.get_world_size() != self.dp:
+                raise ValueError(f"tpu_specs.dp={self.dp} but the process group has "
+                                 f"{dist.get_world_size()} ranks")
+            for n, lbl in ((self.tp.n_rays, "tracker"), (self.bp_current.n_rays, "mapper")):
+                if n % self.dp != 0:
+                    raise ValueError(f"{lbl} N_rays {n} not divisible by dp {self.dp}")
+            self.group = dist.group.WORLD
+            if dist.get_rank() != 0:
+                self.logger = None
         # bias transfer: EMA of BAResult.surface_bias, the next tracked
         # frame's band target, as (2,) [ground, non-ground] (pooled: equal)
         self.bias_correction = q["bias_correction"]
@@ -471,7 +493,7 @@ class NerfLoamSLAM_torch:
             pts, cos, val, self._tensor(active, torch.bool), self._tensor(pose_free, torch.bool),
             bool(update_decoder), self.ba_lrs, self.generator,
             reconcile_scratch=self.reconcile_scratch, pack_scratch=self.pack_scratch,
-            dec_meta=st.decoder_meta)
+            dec_meta=st.decoder_meta, group=self.group)
 
     def _apply_ba(self, res):
         st = self.state
@@ -589,7 +611,9 @@ class NerfLoamSLAM_torch:
                 prev_pts, _, prev_val = prev_frame.device_arrays(self.device)
                 prev = build_prev_scan(tp.s2s, prev_pts, prev_val, prev_pose6)
             return tr_mod.track_frame_gn(*args, self.generator, sdf_bias, prev,
-                                         dec_meta=st.decoder_meta)
+                                         dec_meta=st.decoder_meta, group=self.group)
+        # the Adam tracker runs whole on every rank (JAX: only BA is sharded,
+        # pipeline.py:1089-1105)
         return tr_mod.track_frame(*args, lr, self.generator, sdf_bias, dec_meta=st.decoder_meta)
 
     @staticmethod
@@ -632,7 +656,8 @@ class NerfLoamSLAM_torch:
                                 torch.ones((1,), dtype=torch.bool, device=self.device),
                                 pose_free, update_decoder, self.ba_lrs, self.generator,
                                 proj_dir=proj, reconcile_scratch=self.reconcile_scratch,
-                                pack_scratch=self.pack_scratch, dec_meta=st.decoder_meta)
+                                pack_scratch=self.pack_scratch, dec_meta=st.decoder_meta,
+                                group=self.group)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
         with self.prof.section("insert"):
             ms, ins = vm.insert_frame(ms, cfg, pts, cos, val_m, ba.poses[0], self.insert_cand_cap,

@@ -34,7 +34,7 @@ import torch
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.map.voxel_map import _add_in_order, div
-from nerfloam_tpu_torch.ops import se3
+from nerfloam_tpu_torch.ops import se3, trig
 from nerfloam_tpu_torch.ops.ieee import norm2_plain, norm3_plain
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
@@ -89,9 +89,9 @@ def _rotate(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _angles(pts: torch.Tensor):
     """(..., 3) sensor-frame points -> (azimuth, elevation, range)."""
     d = norm3_plain(pts)
-    az = torch.atan2(pts[..., 1], pts[..., 0])              # [-pi, pi]
+    az = trig.atan2(pts[..., 1], pts[..., 0])              # [-pi, pi]
     horiz = norm2_plain(pts)
-    return az, torch.atan2(pts[..., 2], horiz + 1e-12), d
+    return az, trig.atan2(pts[..., 2], horiz + 1e-12), d
 
 
 def _bin(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -283,7 +283,8 @@ def s2s_system(sp: Scan2ScanParams, prev: PrevScan, pose6: torch.Tensor, pts: to
     dev = pts.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"s2s_system: unsupported device {dev}")
-    if R is None:
+    if R is None:  # pose6 checked before its rotation is built of it
+        kernels.expect("s2s_system", dev, torch.float32, pose6=pose6)
         R = se3.pose_rotation(pose6)
     _check_s2s_args(sp, prev, pose6, pts, rvalid, R, acc)
     if dev.type == "cpu":

@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerfloam_tpu_torch import kernels
 from nerfloam_tpu_torch.core.losses import sdf_losses
@@ -60,7 +61,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import const, norm3, norm3_plain
+from nerfloam_tpu_torch.ops.ieee import const, norm3, norm3_plain, sqrt_rn
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -68,9 +69,11 @@ from nerfloam_tpu_torch.ops.raycast import (
     uniform_jitter,
 )
 from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.parallel.sharding import dp_cols
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 gn_system_launches = 0  # K3
+gn_sums_launches = 0  # K3's dp form
 lm_step_launches = 0
 ray_prep_launches = 0
 _K3 = "gn_system"
@@ -111,13 +114,6 @@ def _bias_corrections(t: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.tensor(v, device=device) for v in bc)
 
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """sqrt rounded once, as XLA's: CUDA's sqrtf is, torch's vectorised CPU
-    sqrt is not (an ulp off on ~0.7% of inputs), so the CPU takes the
-    double root rounded to float32 (exact for a float32 input)."""
-    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(x.dtype)
-
-
 def scale_by_adam_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, t: int) -> torch.Tensor:
     """One ``optax.scale_by_adam()`` step (b1 0.9, b2 0.999, eps 1e-8,
     eps_root 0, bias-corrected) at step t >= 1: updates the moments mu and
@@ -129,7 +125,7 @@ def scale_by_adam_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, t: int) 
     bc1, bc2 = _bias_corrections(t, g.device)
     mu.mul_(_B1).add_(g * (1.0 - _B1))
     nu.mul_(_B2).add_((g * g).mul_(1.0 - _B2))
-    return (mu / bc1) / (_sqrt_rn(nu / bc2) + _EPS)
+    return (mu / bc1) / (sqrt_rn(nu / bc2) + _EPS)
 
 
 def _bias_ray(pcos, sdf_bias, dev):
@@ -193,11 +189,9 @@ def ray_prep(pts: torch.Tensor, pcos: torch.Tensor, truncation: float,
                    out[4 * n:5 * n].view(pcos.shape), depth_ok, out[5 * n:].view(pcos.shape))
 
 
-def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
-                    bias_ray=None):
-    """Plain torch twin of K3: residuals, count-balanced weights and the
-    6x6 normal equations (tracking.py:217-244, 300-315), the band target
-    being sdf = bias_ray (N,) (None = 0). Returns (H, b, loss)."""
+def _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams, bias_ray):
+    """K3's per-sample classes, residuals and Jacobians (tracking.py:
+    217-244, 300-302): (front, band, r, J (N, M, 6))."""
     T = tp.truncation
     if bias_ray is None:
         bias_ray = torch.zeros_like(pcos)
@@ -205,21 +199,74 @@ def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: Tr
     d = d_meas[:, None]
     front = (zc < (d - T)) & vmask
     band = vmask & ~front & ~(zc > (d + T)) & depth_ok[:, None]
+    r = torch.where(front, sdf - 1.0, (zc + (sdf - bias_ray[:, None]) * T) - d)
+    jscale = torch.where(front, 1.0, T)
+    q = xyz - t_pos
+    gj = g * jscale[..., None]
+    J = torch.cat([gj, torch.linalg.cross(q, gj, dim=-1)], -1)
+    return front, band, r, J
+
+
+def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
+                    bias_ray=None):
+    """Plain torch twin of K3: residuals, count-balanced weights and the
+    6x6 normal equations (tracking.py:217-244, 300-315), the band target
+    being sdf = bias_ray (N,) (None = 0). Returns (H, b, loss)."""
+    front, band, r, J = _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
+                                  bias_ray)
     num_fs = front.sum()
     num_sdf = band.sum()
     tot = torch.clamp(num_fs + num_sdf, min=1).to(torch.float32)
     w_fs = tp.fs_weight * (1.0 - num_fs / tot)
     w_sdf = tp.sdf_weight * (1.0 - num_sdf / tot)
-    r = torch.where(front, sdf - 1.0, (zc + (sdf - bias_ray[:, None]) * T) - d)
     w = torch.where(front, w_fs, w_sdf) * (front | band)
-    jscale = torch.where(front, 1.0, T)
-    q = xyz - t_pos
-    gj = g * jscale[..., None]
-    J = torch.cat([gj, torch.linalg.cross(q, gj, dim=-1)], -1)
     Jw = J * w[..., None]
     H = torch.einsum("nmi,nmj->ij", Jw, J)
     b = torch.einsum("nmi,nm->i", Jw, r)
     return H, b, torch.sum(w * r * r)
+
+
+_CLS = 28  # K3's sums a class: J J^T's upper triangle (21), J r (6), r^2 (1)
+GN_SUMS = 2 * _CLS + 2  # K3's dp form: the front sums, the band sums, the two counts
+_UPPER = [(a, c) for a in range(6) for c in range(a, 6)]  # J J^T's upper entries, in order
+_H_OF_UPPER: dict = {}  # device -> (36,) index of H's entries in the upper-entry order
+
+
+def gn_sums_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
+                  bias_ray=None):
+    """Plain torch twin of K3's dp form (``GnSystem(..., sums=True)``): its
+    unweighted per-class sums, (58,) f32: for the front samples then the
+    band samples the upper triangle of sum J J^T (21, row by row), sum J r
+    (6) and sum r^2 (1); then the two classes' counts. ``gn_combine`` makes
+    (H, b, loss) of them once they are all-reduced."""
+    front, band, r, J = _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
+                                  bias_ray)
+    iu = torch.tensor(_UPPER, device=J.device).T
+    parts = []
+    for cls in (front, band):
+        m = cls.to(torch.float32)
+        Jm = J * m[..., None]
+        parts += [torch.einsum("nmi,nmj->ij", Jm, J)[iu[0], iu[1]],
+                  torch.einsum("nmi,nm->i", Jm, r), torch.sum(m * r * r)[None]]
+    parts.append(torch.stack([front.sum(), band.sum()]).to(torch.float32))
+    return torch.cat(parts)
+
+
+def gn_combine(sums: torch.Tensor, tp: TrackParams):
+    """(H (6, 6), b (6,), loss ()) from K3's 58 sums (all-reduced over the
+    dp ranks): the count-balanced weights of the global counts, w_fs
+    S_front + w_sdf S_band, as K3's one-launch form combines them."""
+    nf, ns = sums[2 * _CLS], sums[2 * _CLS + 1]
+    tot = torch.clamp(nf + ns, min=1.0)
+    w_fs = tp.fs_weight * (1.0 - nf / tot)
+    w_sdf = tp.sdf_weight * (1.0 - ns / tot)
+    comb = w_fs * sums[:_CLS] + w_sdf * sums[_CLS:2 * _CLS]
+    idx = _H_OF_UPPER.get(sums.device)
+    if idx is None:
+        at = {ac: k for k, ac in enumerate(_UPPER)}
+        idx = _H_OF_UPPER[sums.device] = torch.tensor(
+            [at[(min(i, j), max(i, j))] for i in range(6) for j in range(6)], device=sums.device)
+    return comb[idx].view(6, 6), comb[21:27], comb[27]
 
 
 class GnSystem:
@@ -236,9 +283,13 @@ class GnSystem:
     too. On the card it makes one launch and returns the object's own H,
     b and loss, overwritten by its next call: the tracker consumes them
     (K11b adds into them in place, the LM step reads them) within the
-    iteration. CPU tensors take ``gn_system_plain``."""
+    iteration. CPU tensors take ``gn_system_plain``. With ``sums=True``
+    (the dp form) a call returns K3's 58 per-class sums instead (its own
+    buffer; ``gn_sums_plain`` on the CPU), for the caller to all-reduce and
+    ``gn_combine``."""
 
-    def __init__(self, pcos, d_meas, depth_ok, bias_ray, tp: TrackParams, n_cols: int):
+    def __init__(self, pcos, d_meas, depth_ok, bias_ray, tp: TrackParams, n_cols: int,
+                 sums: bool = False):
         dev = pcos.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"{_K3}: unsupported device {dev}")
@@ -250,7 +301,7 @@ class GnSystem:
         if N * n_cols >= 1 << 24:
             raise ValueError(f"{_K3}: {N} x {n_cols} samples; the kernel counts them in f32, "
                              "exact below 2^24")
-        self.device, self.tp = dev, tp
+        self.device, self.tp, self.sums = dev, tp, sums
         self._rays = (pcos, d_meas, depth_ok, bias_ray)
         self._s_shape, self._x_shape = (N, n_cols), (N, n_cols, 3)
         self._index = -2  # matches no tensor's get_device(): CPU calls take the full checks
@@ -261,12 +312,14 @@ class GnSystem:
         # the partial rows, then the counter (0.0's bits are an unsigned 0)
         self._scratch = torch.zeros((lib.nl_gn_partial_values() * lib.nl_gn_max_blocks() + 1,),
                                     dtype=_F32, device=dev)
-        out = torch.empty((43,), dtype=_F32, device=dev)
+        out = torch.empty((43 + (GN_SUMS if sums else 0),), dtype=_F32, device=dev)
         self._out = (out[:36].view(6, 6), out[36:42], out[42])
+        self._sums = out[43:] if sums else None
         self._launch = lib.nl_gn_system
         self._fixed = (*(t.data_ptr() for t in self._rays), N, n_cols, tp.truncation,
                        tp.fs_weight, tp.sdf_weight, self._scratch.data_ptr(),
-                       *(t.data_ptr() for t in self._out))
+                       *(t.data_ptr() for t in self._out),
+                       self._sums.data_ptr() if sums else None)
 
     def __call__(self, xyz, t_pos, z, sdf, g, vmask):
         index, s, x = self._index, self._s_shape, self._x_shape
@@ -284,15 +337,19 @@ class GnSystem:
             self._check(xyz, t_pos, z, sdf, g, vmask)
             if index < 0:
                 pcos, d_meas, depth_ok, bias_ray = self._rays
-                return gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok,
-                                       self.tp, bias_ray)
-        global gn_system_launches
+                plain = gn_sums_plain if self.sums else gn_system_plain
+                return plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, self.tp,
+                             bias_ray)
+        global gn_system_launches, gn_sums_launches
         err = self._launch(xyz.data_ptr(), z.data_ptr(), sdf.data_ptr(), g.data_ptr(),
                            vmask.data_ptr(), *self._fixed[:4], t_pos.data_ptr(),
                            *self._fixed[4:], kernels.raw_stream(index))
         if err:
             self._scratch.zero_()  # the counter may not be zero
             kernels.check(err, _K3)
+        if self.sums:
+            gn_sums_launches += 1
+            return self._sums
         gn_system_launches += 1
         return self._out
 
@@ -405,13 +462,22 @@ def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, c
 def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: TrackParams,
                    decoder_params, init_pose, points, points_cos, points_valid,
                    generator: torch.Generator | None = None, sdf_bias=None,
-                   prev_scan=None, dec_meta: DecoderMeta = PLAIN) -> TrackResult:
+                   prev_scan=None, dec_meta: DecoderMeta = PLAIN, group=None) -> TrackResult:
     """LM pose tracking on the truncated-SDF residuals over one frame's
     (padded) points. ``sdf_bias`` (2,) [ground, non-ground] is the band
     target (the mapped field's surface offset, bias transfer); None = 0.
     ``prev_scan`` (core.scan2scan.PrevScan) is the rasterized previous scan
     of the s2s term, used iff ``tp.s2s`` is set. ``dec_meta``: the
-    decoder's skips and embedder."""
+    decoder's skips and embedder.
+
+    ``group``: a ``torch.distributed`` group of dp ranks (JAX's sharded
+    ``_track_gn_core``, tracking.py:145-153, 310-340). Every rank draws the
+    frame's rays and each iteration's jitter and band draws globally and
+    keeps its contiguous block of n_rays / dp; K3 takes its dp form, whose
+    58 sums (and K11b's H, b and loss) are all-reduced in one collective an
+    iteration before ``gn_combine`` weighs them by the global counts; every
+    rank then solves the same system and takes the same LM step. The hit
+    count is all-reduced once, after the loop. None: one device."""
     if rc.sampler not in ("hits", "grid"):
         raise ValueError(f"unknown sampler {rc.sampler!r}")
     dev = points.device
@@ -419,6 +485,8 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     vs = map_cfg.voxel_size
     packed = map_state.packed
     ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
+    rows = dp_cols(group, tp.n_rays)  # this rank's block of the global draws
+    ridx, rvalid = ridx[rows], rvalid[rows]
     pts = points[ridx]
     pcos = points_cos[ridx]
     dirs, t_cap, d_meas, depth_ok, dnorm = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
@@ -426,7 +494,9 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     n_extra = tp.surface_anchor + tp.band_samples
     # what stays fixed over the frame, checked once: K8's grid and K3's rays
     field = ActiveField(map_state, map_cfg)
-    system = GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, rc.n_samples + n_extra)
+    system = GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, rc.n_samples + n_extra,
+                      sums=group is not None)
+    s2s_on = tp.s2s is not None and prev_scan is not None
 
     R = se3.pose_rotation(init_pose)  # then lm_step's, one iteration to the next
     wdirs0 = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(init_pose, dirs)
@@ -445,10 +515,10 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         wdirs = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(pose6, dirs)
         t_pos = se3.pose_translation(pose6)
         origin = t_pos.expand_as(wdirs)
-        u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)
+        u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)[rows]
         extra = None
         if n_extra:
-            ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)
+            ub = (torch.rand((tp.n_rays, tp.band_samples), generator=generator, device=dev)[rows]
                   if tp.band_samples else None)
             ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples, ub)
             extra = (field, ez, rvalid)
@@ -460,12 +530,26 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype,
                                 dec_meta)
-        H, b, loss = system(xyz, t_pos, z, sdf, g, vmask)
-        if tp.s2s is not None and prev_scan is not None:
-            # adds in place into K3's outputs, which its next call overwrites
-            H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
+        if group is None:
+            H, b, loss = system(xyz, t_pos, z, sdf, g, vmask)
+            if s2s_on:
+                # adds in place into K3's outputs, which its next call overwrites
+                H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
+        else:  # K3's sums (and K11b's system) over every rank's rays, in one all-reduce
+            parts = [system(xyz, t_pos, z, sdf, g, vmask)]
+            if s2s_on:
+                Hs, bs, ls = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R)
+                parts += [Hs.reshape(36), bs, ls.reshape(1)]
+            buf = torch.cat(parts)
+            dist.all_reduce(buf, group=group)
+            H, b, loss = gn_combine(buf[:GN_SUMS], tp)
+            if s2s_on:
+                H, b, loss = (H + buf[GN_SUMS:GN_SUMS + 36].view(6, 6),
+                              b + buf[GN_SUMS + 36:GN_SUMS + 42], loss + buf[GN_SUMS + 42])
         pose6, R = lm_update(pose6, H, b, lam)
         hits = (ray_hit & rvalid).sum()
+    if group is not None:
+        dist.all_reduce(hits, group=group)
     pose6 = torch.where(hits > 0, pose6, init_pose)
     return TrackResult(pose6, hits, loss)
 

@@ -39,7 +39,11 @@
 //     per value, each lane the rows lane, lane + 32, ... (all loaded
 //     before the adds), then a butterfly; 36 + 6 + 1 threads form H, b and
 //     the loss in parallel, and it resets the counter, so no call needs a
-//     memset.
+//     memset;
+//   - the dp form (a sums pointer): under ray data parallelism the weights
+//     depend on the counts of every rank, so the last block writes its 58
+//     sums (front 28, band 28, the two counts) instead, and the caller
+//     all-reduces them and combines (tracking.gn_combine).
 // Sum order, for a given N x MK: a thread adds its samples in ascending
 // index; the butterfly pairs lanes at distances 16, 8, 4, 2, 1; a block
 // adds its warps in order; the last block adds partial rows j = lane +
@@ -102,7 +106,7 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
     const unsigned char* __restrict__ depth_ok, const float* __restrict__ bias_ray,
     const float* __restrict__ t_pos, int N, int MK, float T, float fs_weight, float sdf_weight,
     float* __restrict__ partial, unsigned* __restrict__ counter, float* __restrict__ H,
-    float* __restrict__ b, float* __restrict__ loss) {
+    float* __restrict__ b, float* __restrict__ loss, float* __restrict__ sums) {
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = gridDim.x;
   // values 0..27 front, 28..55 band, 56 / 57 the counts, 58..63 zero
@@ -226,6 +230,14 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
     if (lane == 0 && val < kVals) tot[val] = s;
   }
   __syncthreads();
+  if (sums != nullptr) {  // the dp form: the 58 sums, combined after their all-reduce
+    if (threadIdx.x < kVals) {
+      sums[threadIdx.x] = tot[threadIdx.x];
+    } else if (threadIdx.x == kVals) {
+      *counter = 0u;
+    }
+    return;
+  }
   const float nf = tot[2 * kCls], ns = tot[2 * kCls + 1];
   const float all = fmaxf(nf + ns, 1.0f);
   const float w_fs = fs_weight * (1.0f - nf / all);
@@ -252,13 +264,15 @@ extern "C" int nl_gn_partial_values() { return kVals; }
 extern "C" int nl_gn_max_blocks() { return kMaxBlocks; }
 
 // scratch: nl_gn_partial_values() x nl_gn_max_blocks() floats of partial
-// rows, then one unsigned counter that is zero between calls
+// rows, then one unsigned counter that is zero between calls. sums: null
+// for the one-launch form (H, b, loss written); else the dp form writes the
+// nl_gn_partial_values() sums there and leaves H, b and loss unwritten
 extern "C" int nl_gn_system(const float* xyz, const float* z, const float* sdf, const float* g,
                             const unsigned char* vmask, const float* pcos, const float* d_meas,
                             const unsigned char* depth_ok, const float* bias_ray,
                             const float* t_pos, int N, int MK, float T, float fs_weight,
                             float sdf_weight, float* scratch, float* H, float* b, float* loss,
-                            void* stream) {
+                            float* sums, void* stream) {
   // blocks enough for one batch of samples a thread, one an SM at the most
   const int n = N * MK;
   int nb = (n + kThreads * kBatch - 1) / (kThreads * kBatch);
@@ -266,6 +280,6 @@ extern "C" int nl_gn_system(const float* xyz, const float* z, const float* sdf, 
   unsigned* counter = reinterpret_cast<unsigned*>(scratch + kVals * kMaxBlocks);
   gn_system_kernel<<<nb, kThreads, 0, (cudaStream_t)stream>>>(
       xyz, z, sdf, g, vmask, pcos, d_meas, depth_ok, bias_ray, t_pos, N, MK, T, fs_weight,
-      sdf_weight, scratch, counter, H, b, loss);
+      sdf_weight, scratch, counter, H, b, loss, sums);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,8 @@
 //   sqrt(fma(z, z, fma(y, y, x * x))) (sqrt(fma(y, y, x * x))).
 // - ieee_div: one IEEE division (JAX divides once where torch may take a
 //   reciprocal and a product).
-// - ieee_cos_f64: exp_so3's cosine, taken in double and rounded once to
-//   float, as the correctly rounded cosine of XLA's CPU backend at the
-//   angles of a pose step.
+// - sin, cos and atan2 (nl_trig:: in native/trig.h, included here): glibc
+//   2.36's sinf, cosf and atan2f, which XLA's CPU backend calls.
 //
 // Every step is an _rn intrinsic, so the result does not depend on
 // -fmad (the library is built with -fmad=false: no product is contracted
@@ -19,6 +18,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "../native/trig.h"
 
 __device__ __forceinline__ float ieee_norm3(float x, float y, float z) {
   return __fsqrt_rn(__fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x))));
@@ -29,7 +30,3 @@ __device__ __forceinline__ float ieee_norm2(float x, float y) {
 }
 
 __device__ __forceinline__ float ieee_div(float a, float b) { return __fdiv_rn(a, b); }
-
-__device__ __forceinline__ float ieee_cos_f64(float t) {
-  return __double2float_rn(cos((double)t));
-}

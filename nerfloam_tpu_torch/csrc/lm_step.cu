@@ -13,12 +13,11 @@
 // Rounding: the plain version is the same chain of torch ops
 // (tracking.lm_step_plain), and every step here is one IEEE-rounded
 // operation in its order on the CPU: the norms and the division of
-// ieee.cuh, theta^2 summed left to right, the cosine in double rounded
-// once, the 3x3 products as torch's CPU product (and XLA's) forms them,
+// ieee.cuh, theta^2 summed left to right, the sine, cosine and atan2 of
+// native/trig.h (glibc's, as the plain version's ops/trig), the 3x3
+// products as torch's CPU product (and XLA's) forms them,
 // fma(a2, b2, fma(a1, b1, a0 * b0)), log_so3's quaternion branch select by
-// the first largest of (tw, tx, ty, tz). sinf and atan2f are CUDA's (within
-// 2 ulp) and may round otherwise than the host's sin and atan2; the
-// translation has neither and equals the plain version's bit for bit.
+// the first largest of (tw, tx, ty, tz).
 //
 // Design: one thread a step (the tracker takes one; a batch of steps, one
 // thread each, for the checks). The work is a few hundred dependent
@@ -31,46 +30,11 @@
 #include <cuda_runtime.h>
 
 #include "ieee.cuh"
+#include "so3.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-// C = A B of row-major 3x3 matrices, each entry fma(a2, b2, fma(a1, b1, a0 b0))
-__device__ __forceinline__ void matmul3(const float (&A)[9], const float (&B)[9],
-                                        float (&C)[9]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      C[3 * i + j] = __fmaf_rn(A[3 * i + 2], B[6 + j],
-                               __fmaf_rn(A[3 * i + 1], B[3 + j], __fmul_rn(A[3 * i], B[j])));
-    }
-  }
-}
-
-// se3.exp_so3: R = I + A [w]x + B [w]x^2, A = sin t / t, B = (1 - cos t) / t^2,
-// the series below t^2 = 1e-8
-__device__ __forceinline__ void exp_so3(float w0, float w1, float w2, float (&R)[9]) {
-  const float t2 =
-      __fadd_rn(__fadd_rn(__fmul_rn(w0, w0), __fmul_rn(w1, w1)), __fmul_rn(w2, w2));
-  const bool small = t2 < 1e-8f;
-  const float safe = small ? 1.0f : t2;
-  const float th = __fsqrt_rn(safe);
-  const float t4 = __fmul_rn(t2, t2);
-  const float a = small ? __fadd_rn(__fsub_rn(1.0f, ieee_div(t2, 6.0f)), ieee_div(t4, 120.0f))
-                        : ieee_div(sinf(th), th);
-  const float b = small ? __fadd_rn(__fsub_rn(0.5f, ieee_div(t2, 24.0f)), ieee_div(t4, 720.0f))
-                        : ieee_div(__fsub_rn(1.0f, ieee_cos_f64(th)), safe);
-  const float K[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
-  float K2[9];
-  matmul3(K, K, K2);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const float eye = (i % 4 == 0) ? 1.0f : 0.0f;
-    R[i] = __fadd_rn(__fadd_rn(eye, __fmul_rn(a, K[i])), __fmul_rn(b, K2[i]));
-  }
-}
 
 __device__ __forceinline__ float two_sqrt(float t) {  // 2 sqrt(max(t, 1e-12))
   return __fmul_rn(2.0f, __fsqrt_rn(t < 1e-12f ? 1e-12f : t));
@@ -115,7 +79,7 @@ __device__ __forceinline__ void log_so3(const float (&R)[9], float (&w)[3]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) q[k] = __fmul_rn(q[k], sign);
   const float n = ieee_norm3(q[1], q[2], q[3]);
-  const float theta = __fmul_rn(2.0f, atan2f(n, q[0]));
+  const float theta = __fmul_rn(2.0f, nl_trig::atan2f(n, q[0]));
   const bool small = n < 1e-6f;
   const float scale = small ? 2.0f : ieee_div(theta, n);
 #pragma unroll

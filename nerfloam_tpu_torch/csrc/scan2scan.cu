@@ -94,8 +94,8 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, fl
 __device__ __forceinline__ void angles(float x, float y, float z, float& az, float& elev,
                                        float& d) {
   d = ieee_norm3(x, y, z);
-  az = atan2f(y, x);
-  elev = atan2f(z, __fadd_rn(ieee_norm2(x, y), 1e-12f));
+  az = nl_trig::atan2f(y, x);
+  elev = nl_trig::atan2f(z, __fadd_rn(ieee_norm2(x, y), 1e-12f));
 }
 
 __device__ __forceinline__ int clip_bin(float v, int n) {

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in ``nerfloam_tpu_torch/csrc/*.cu`` exposes a plain C
-interface; the rounding they share lives in ``csrc/ieee.cuh``. At first use every source is compiled by its own ``nvcc``
+interface; the rounding they share lives in ``csrc/ieee.cuh`` and
+``native/trig.h`` (sin, cos and atan2 as glibc rounds them). At first use every source is compiled by its own ``nvcc``
 process for ``sm_90a``, all started together, into a shared library under
 ``kernels/build/`` (listed in .gitignore) whose file name carries a hash of
 that source and the flags; the libraries are then loaded with ctypes and
@@ -33,6 +34,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
+TRIG_HEADER = os.path.join(os.path.dirname(_HERE), "native", "trig.h")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +43,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 _SIGNATURES = {
     "nl_hit_table": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _F, _F,
                      _P, _P, _P, _P, _P, _P, _P, _P],
@@ -55,7 +58,7 @@ _SIGNATURES = {
     "nl_gn_partial_values": [],
     "nl_gn_max_blocks": [],
     "nl_gn_system": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                     _P, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _P, _P],
     "nl_insert_scan_words": [_I, _I],
     "nl_insert": [_P, _P, _I, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -81,7 +84,11 @@ _SIGNATURES = {
     "nl_build_prev_scan": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],
     "nl_norm3": [_P, _I, _P, _P],
+    "nl_trig_fwd": [_I, _P, _L, _P, _L, _I, _P, _P],
+    "nl_trig_bwd": [_I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _P],
     "nl_lm_step": [_P, _P, _I, _P, _P, _P],
+    "nl_exp_so3_fwd": [_P, _L, _I, _P, _P],
+    "nl_exp_so3_bwd": [_P, _L, _P, _I, _P, _P],
     "nl_ray_prep": [_P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _F, _I, _P, _P, _P, _P],
@@ -97,12 +104,14 @@ def sources() -> list[str]:
 
 
 def headers() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    """The headers every source may include: csrc/*.cuh and the trig
+    copies that native/ shares with the host (native/trig.h)."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [TRIG_HEADER]
 
 
 def library_path(src: str) -> str:
     """The library built from ``src``: its name carries a hash of the
-    flags, the source and every shared header (csrc/*.cuh)."""
+    flags, the source and every shared header (``headers()``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in (src, *headers()):
         with open(path, "rb") as f:

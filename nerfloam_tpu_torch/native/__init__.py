@@ -1,6 +1,8 @@
-"""The port's host-native scan preprocessing (C++ via ctypes): the range
-filter and the ground segmenter that every file-based loader runs
-(``data/base.py``), the counterpart of nerfloam_tpu/native/__init__.py.
+"""The port's host-native code (C++ via ctypes): the range filter and the
+ground segmenter that every file-based loader runs (``data/base.py``), the
+counterpart of nerfloam_tpu/native/__init__.py, and the host copies of
+sinf, cosf and atan2f (``trig.cpp`` over ``trig.h``) that ``ops/trig.py``
+runs on CPU tensors.
 
 ``ground_seg.cpp`` is compiled by g++ with the JAX package's flags at first
 use, into a shared library under ``native/build/`` (listed in .gitignore)
@@ -9,6 +11,11 @@ version and the target ``-march=native`` selects on this host; nothing is
 built at import. The build runs under a lock, so that two loader threads
 build it once, and writes a temporary file of its own before renaming it,
 so that two processes building at once each leave a whole library.
+
+``trig.cpp`` is its own library (``trig_library_path``, ``get_trig_lib``),
+built the same way with ``TRIG_FLAGS``: the JAX package's flags, which let
+g++ contract products into FMAs in C++ modes, plus ``-ffp-contract=off``,
+so that only the fused operations ``trig.h`` writes are fused.
 
 There is no numpy fallback: a build or load that fails raises, naming the
 command and the compiler's output. ``data/ground.segment_ground`` and
@@ -32,11 +39,17 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "ground_seg.cpp")
 BUILD_DIR = os.path.join(_HERE, "build")
 CXX = "g++"
-# the JAX package's flags (nerfloam_tpu/native/__init__.py): with -std=c++17
-# g++ contracts no product into an FMA, so both libraries round alike
+# the JAX package's flags (nerfloam_tpu/native/__init__.py), so both
+# libraries round alike (g++ may contract a * b + c into an FMA in C++ modes,
+# in both)
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+TRIG_SRC = os.path.join(_HERE, "trig.cpp")
+TRIG_HEADER = os.path.join(_HERE, "trig.h")
+TRIG_FLAGS = [*CXX_FLAGS, "-ffp-contract=off"]
 
 _F = ctypes.POINTER(ctypes.c_float)
+_V = ctypes.c_void_p
+_L = ctypes.c_long
 _SIGNATURES = {
     "segment_ground": [_F, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -45,8 +58,15 @@ _SIGNATURES = {
                     ctypes.c_float, _F],
 }
 
+_TRIG_SIGNATURES = {
+    "nl_sinf_n": [_V, _L, _V],
+    "nl_cosf_n": [_V, _L, _V],
+    "nl_atan2f_n": [_V, _V, _L, _V],
+}
+
 _lock = threading.Lock()
 _lib = None
+_trig_lib = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,28 +88,39 @@ def _compiler_id(cxx: str, flags: tuple) -> bytes:
     return out
 
 
+def _hashed_path(stem: str, flags: list, files: tuple) -> str:
+    """``BUILD_DIR/lib<stem>_<hash>.so``: the hash covers the compiler, its
+    version, the flags, the target they select on this host and ``files``."""
+    h = hashlib.sha256(" ".join([CXX, *flags]).encode())
+    h.update(_compiler_id(CXX, tuple(flags)))
+    for path in files:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
 def library_path() -> str:
     """The library built from ``SRC`` by ``CXX`` into ``BUILD_DIR``: its
     name carries a hash of the compiler, its version, the flags, the target
     they select on this host and the source."""
-    h = hashlib.sha256(" ".join([CXX, *CXX_FLAGS]).encode())
-    h.update(_compiler_id(CXX, tuple(CXX_FLAGS)))
-    with open(SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libground_seg_{h.hexdigest()[:16]}.so")
+    return _hashed_path("ground_seg", CXX_FLAGS, (SRC,))
 
 
-def build() -> str:
-    """Compile ``SRC`` unless its hashed library exists; return its path.
+def trig_library_path() -> str:
+    """The library built from ``TRIG_SRC`` with ``TRIG_FLAGS``; its name
+    hashes ``trig.h`` too."""
+    return _hashed_path("trig", TRIG_FLAGS, (TRIG_SRC, TRIG_HEADER))
+
+
+def _compile(src: str, flags: list, path: str) -> str:
+    """Compile ``src`` into ``path`` unless it exists; return ``path``.
     Raises RuntimeError with the command and the compiler's output if the
     compiler fails or cannot be started."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = library_path()
     if os.path.exists(path):
         return path
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [CXX, *CXX_FLAGS, SRC, "-o", tmp]
+    cmd = [CXX, *flags, src, "-o", tmp]
     try:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -105,6 +136,20 @@ def build() -> str:
     return path
 
 
+def build() -> str:
+    """Compile ``SRC`` unless its hashed library exists; return its path.
+    Raises RuntimeError with the command and the compiler's output if the
+    compiler fails or cannot be started."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return _compile(SRC, CXX_FLAGS, library_path())
+
+
+def build_trig() -> str:
+    """Compile ``TRIG_SRC`` unless its hashed library exists; its path."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return _compile(TRIG_SRC, TRIG_FLAGS, trig_library_path())
+
+
 def get_lib() -> ctypes.CDLL:
     """The loaded library, built at first call (once, under a lock)."""
     global _lib
@@ -118,6 +163,21 @@ def get_lib() -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
                 _lib = lib
     return _lib
+
+
+def get_trig_lib() -> ctypes.CDLL:
+    """The loaded trig library, built at first call (once, under a lock)."""
+    global _trig_lib
+    if _trig_lib is None:
+        with _lock:
+            if _trig_lib is None:
+                lib = ctypes.CDLL(build_trig())
+                for name, argtypes in _TRIG_SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _trig_lib = lib
+    return _trig_lib
 
 
 def _fptr(a: np.ndarray):

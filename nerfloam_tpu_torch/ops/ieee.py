@@ -19,6 +19,9 @@ devices: divisions by (and of) a Python number, and the length of
   which replaces the XLA reduce fusion of ``jnp.linalg.norm`` (no Pallas
   kernel; it keeps a frame's norms at one launch each instead of the five
   eager ops of the plain chain).
+- ``sqrt_rn(x)``: the correctly rounded square root (torch's vectorised
+  CPU sqrt is not; CUDA's is); ``fma_f32(a, b, c)``: a fused multiply-add
+  of f32 tensors, emulated exactly in float64 on either device.
 - ``norm2_plain(x)``: ``jnp.linalg.norm(x[..., :2], axis=-1)``, the same
   chain with z = 0, ``sqrt(fma(y, y, x * x))`` (the scan-to-scan range
   image's horizontal range; ``sqrt(x * x + y * y)`` differs on ~9% of
@@ -29,6 +32,7 @@ csrc/ieee.cuh holds the same chains for the kernels.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from nerfloam_tpu_torch import kernels
@@ -62,7 +66,19 @@ def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
     return const(s, x.dtype, x.device) / x
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """sqrt rounded once, as XLA's: CUDA's sqrtf is, torch's vectorised CPU
+    sqrt is not (an ulp off on ~0.7% of inputs), so the CPU takes numpy's
+    (the IEEE instruction) for an f32 tensor that needs no gradient, and
+    else the double root rounded to the input's dtype (exact for f32)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    if x.dtype is torch.float32 and not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """fma(a, b, c) of f32 tensors rounded once to f32, as a fused
     multiply-add: a * b is exact in float64; the float64 sum is rounded to
     odd (an inexact sum takes the neighbour whose last bit is 1), which
@@ -83,7 +99,7 @@ def norm3_plain(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     sqrt(fma(z, z, fma(y, y, x * x))), each step rounded once to f32
     (torch's vectorised CPU sqrt is not correctly rounded: float64)."""
     a, b, c = x[..., 0], x[..., 1], x[..., 2]
-    s = _fma_f32(c, c, _fma_f32(b, b, a * a))
+    s = fma_f32(c, c, fma_f32(b, b, a * a))
     n = torch.sqrt(s.double()).float()
     return n[..., None] if keepdim else n
 
@@ -92,7 +108,7 @@ def norm2_plain(x: torch.Tensor) -> torch.Tensor:
     """|(x, y)| of (..., >= 2) f32 vectors in XLA's CPU order:
     sqrt(fma(y, y, x * x)), each step rounded once to f32."""
     a, b = x[..., 0], x[..., 1]
-    return torch.sqrt(_fma_f32(b, b, a * a).double()).float()
+    return torch.sqrt(fma_f32(b, b, a * a).double()).float()
 
 
 def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:

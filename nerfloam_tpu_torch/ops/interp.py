@@ -19,7 +19,8 @@ def trilinear_weights(p: torch.Tensor) -> torch.Tensor:
     (XLA's reduction order, and the kernels')."""
     q = torch.as_tensor(CORNER_OFFSETS, dtype=p.dtype, device=p.device)
     pq = p[..., None, :] * q + (1.0 - p[..., None, :]) * (1.0 - q)
-    return (pq[..., 0] * pq[..., 1]) * pq[..., 2]
+    fx, fy, fz = pq.unbind(-1)  # one backward (a stack) where indexing takes three
+    return (fx * fy) * fz
 
 
 def interp_corner_features(
@@ -35,8 +36,8 @@ def interp_corner_features(
     reduction and the kernels' order (``torch.sum`` adds in another)."""
     p = div(sample_xyz - voxel_center, voxel_size) + 0.5
     w = trilinear_weights(p)
-    wf = w[..., None] * corner_feats.to(w.dtype)
-    out = wf[..., 0, :]
+    wf = (w[..., None] * corner_feats.to(w.dtype)).unbind(-2)  # one backward, a stack
+    out = wf[0]
     for j in range(1, 8):
-        out = out + wf[..., j, :]
+        out = out + wf[j]
     return out

@@ -120,15 +120,15 @@ def test_const_vel_matches_jax(branch, full):
     ``_const_vel``. Rotations under 1e-4 rad take exp_so3's series branch,
     where the port's se3 is JAX's bit for bit (its matrix products and
     inverse are XLA's on the CPU): equal. Larger ones (sigma 0.8 rad) take
-    its exact branch, where the sine (and the cosine past ~0.1 rad) rounds
-    otherwise than XLA's, and the warm start composes that rotation twice:
-    within 2 ulp of each pose's largest entry with the rotation moved, 3
-    with the translation alone (measured: 2.0 and 3.0 here; 3.0 for both
-    before the cosine was taken in float64 and rounded once). Exact-branch
-    angles under 0.01 rad (sigma 1e-3), where that cosine is XLA's: the
-    translation equal, the rotation within half an ulp of its largest
-    entry and 99.9% of the poses bit-equal (measured: 0.5 and 0.0625 ulp,
-    999 of 1,000 poses; torch's f32 cosine in its place fails the case)."""
+    its exact branch, whose sine and cosine are glibc's as XLA's are
+    (ops/trig); what is left is XLA's fusion of the jitted warm start, which
+    composes that rotation twice: within 2 ulp of each pose's largest entry
+    with the rotation moved, 3 with the translation alone (measured: 2.0
+    and 3.0, before and after the sine and cosine were made glibc's).
+    Exact-branch angles under 0.01 rad (sigma 1e-3): the translation equal,
+    the rotation within half an ulp of its largest entry and 99.9% of the
+    poses bit-equal (measured: 0.5 and 0.0625 ulp, 999 of 1,000 poses;
+    torch's f32 cosine in its place fails the case)."""
     sigma = {"series": 3e-5, "exact": 0.8, "exact_small": 1e-3}[branch]
     last, prev = _pose_pairs(14, sigma)
     ref = np.stack([np.asarray(_const_vel_jit(jnp.asarray(a), jnp.asarray(b), full))

@@ -28,7 +28,8 @@ def test_demo_run_torch_cpu(tmp_path):
     cfg = load_config(CFG_PATH, SLICE + ["data_specs.n_frames=4"]).as_dict()
     with open(tmp_path / "cfg.json", "w") as f:
         json.dump(cfg, f)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the run's own process takes the test's two threads, not every core
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "2"}
     base = [sys.executable, os.path.join(ROOT, "demo", "run_torch.py"), str(tmp_path / "cfg.json"),
             "--device", "cpu", "--set", f"log_dir={tmp_path}", "--set", "debug_args.ckpt_freq=2"]
     out = subprocess.run(base + ["--set", "exp_name=first"], cwd=tmp_path, env=env,

@@ -36,19 +36,12 @@ Tolerances:
 - the GN tracker ignores ``resample_rays``: the same digits with it on;
 - exact gradients with bfloat16 embeddings: the JAX BA loop fails as it
   is traced, and the port raises at construction;
-- a 6-frame slice of synthetic_small.yaml with all four fallbacks (f32
-  embeddings, exact gradients, superset 0, the Adam tracker with fresh
-  rays) on both sides: ATE under 0.30 m each and within 0.20 m of each
-  other (the Adam slice's bounds, test_torch_adam.py; the random streams
-  differ), no touched voxel and no update count, and a checkpoint of the
-  port's run loads back equal;
-- kitti_exact.json equals the JAX package's config of the overrides
-  scripts/port_ate_reference.py --adam25 --exact runs.
+- a 6-frame slice with all four fallbacks and kitti_exact.json:
+  tests/test_torch_exact_runs.py (its own file, so that the test runner's
+  workers can take the two files side by side).
 """
 
-import importlib.util
 import os
-import sys
 
 import numpy as np
 import jax
@@ -60,12 +53,9 @@ from nerfloam_tpu.core import ba as jba
 from nerfloam_tpu.core import losses as jlosses
 from nerfloam_tpu.core import render as jrender
 from nerfloam_tpu.core import tracking as jtr
-from nerfloam_tpu.core.pipeline import NerfLoamSLAM
-from nerfloam_tpu.data import get_dataset
 from nerfloam_tpu.map import voxel_map as jvm
 from nerfloam_tpu.models.decoder import init_decoder
 from nerfloam_tpu.ops import se3 as jse3
-from nerfloam_tpu.utils import evaluation as ev
 from nerfloam_tpu.utils.config import load_config
 from nerfloam_tpu_torch.core import ba as tba
 from nerfloam_tpu_torch.core import losses as tlosses
@@ -73,6 +63,7 @@ from nerfloam_tpu_torch.core import render as trender
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
 from nerfloam_tpu_torch.map import voxel_map as tvm
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import raycast as trc
 from nerfloam_tpu_torch.ops import sampling as tsampling
 from nerfloam_tpu_torch.ops import se3 as tse3
@@ -82,7 +73,7 @@ from nerfloam_tpu_torch.utils.bridge import (
     map_state_from_numpy,
     to_numpy,
 )
-from nerfloam_tpu_torch.utils.config import finalize, load_json_config
+from nerfloam_tpu_torch.utils.config import finalize
 from tests.test_render_track import MAP_CFG, MAX_DEPTH, RC, build_map, pad_frame, scene  # noqa: F401
 
 from _canon import CANON
@@ -215,7 +206,7 @@ def _exact_loss_port(s, emb, params, pose, scratch):
     out = trender.render_rays(packed, params, field, o, d, rv, placer, _t(s["u"]),
                               extra=(field, ez, rv))
     loss, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc,
-                                 TRUNC, MAX_DEPTH, FS_W, SDF_W)
+                                 TRUNC, MAX_DEPTH, FS_W, SDF_W, gt_norm=ieee.norm3(tp))
     return loss, packed
 
 
@@ -423,70 +414,3 @@ def test_exact_with_bf16_embeddings_fails_in_jax_and_raises_in_port(setup):
                     _tparams(s), _t(pose0)[None], _t(p)[None], _t(c)[None], _t(v)[None],
                     torch.ones((1,), dtype=torch.bool), torch.ones((1,), dtype=torch.bool), True,
                     [0.02, 0.005, 0.001])
-
-
-SLICE = CANON + [
-    "data_specs.n_frames=6",
-    "tpu_specs.bootstrap_steps=4",
-    "tpu_specs.track_method=adam",
-    "tpu_specs.recenter_margin=8.0",
-    "tpu_specs.defer_sync=false",
-    "tpu_specs.emb_dtype=float32",
-    "tpu_specs.exact_embedding_grads=true",
-    "tpu_specs.ba_ray_superset=0",
-    "tpu_specs.track_resample_rays=true",
-]
-
-
-@pytest.fixture(scope="module")
-def exact_runs():
-    cfg = load_config(CFG_PATH, SLICE)
-    ds = get_dataset(cfg)
-    gt = ds.gt_trajectory()
-    jax_poses = np.asarray(NerfLoamSLAM(cfg, ds).run())
-    slam = NerfLoamSLAM_torch(finalize(cfg.as_dict()), get_dataset(cfg), device="cpu")
-    port_poses = np.asarray(slam.run())
-    return cfg, gt, jax_poses, port_poses, slam
-
-
-def test_fallback_slice_matches_jax(exact_runs, tmp_path):
-    from nerfloam_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-
-    cfg, gt, jax_poses, port_poses, slam = exact_runs
-    assert slam.tp.resample_rays and slam.bp_current.exact_embedding_grads
-    assert slam.bp_random.ray_superset == 0 and slam.track_method == "adam"
-    assert port_poses.shape == jax_poses.shape == (6, 4, 4)
-    ate_jax = ev.ate_rmse(jax_poses, gt[:6], align=False)
-    ate_port = ev.ate_rmse(port_poses, gt[:6], align=False)
-    assert ate_jax < 0.30, ate_jax
-    assert ate_port < 0.30, ate_port
-    assert abs(ate_port - ate_jax) <= 0.20, (ate_port, ate_jax)
-    assert slam.dropped_delta_events == 0 and slam.overflow_events["touched"] == 0
-    ms = slam.state.map_state
-    assert int(ms.upd_count.sum()) == 0  # no voxel is ever marked touched
-    # a resumed exact run loads: every table back as saved
-    save_checkpoint(str(tmp_path / "ckpt"), slam)
-    fresh = NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
-    load_checkpoint(str(tmp_path / "ckpt"), fresh)
-    for name in ("embeddings", "packed", "corner_idx", "active_ids", "upd_count"):
-        assert torch.equal(getattr(fresh.state.map_state, name), getattr(ms, name)), name
-
-
-def test_kitti_exact_json_matches_jax_config():
-    sys.path.insert(0, ROOT)
-    import bench
-
-    spec = importlib.util.spec_from_file_location(
-        "port_ate_reference", os.path.join(ROOT, "scripts", "port_ate_reference.py"))
-    ref_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref_mod)
-    ref = load_config(CFG_PATH, bench.BENCH_OVERRIDES + ref_mod.ADAM25 + ref_mod.EXACT
-                      + ["data_specs.n_frames=30", "tpu_specs.defer_sync=false"])
-    cfg = load_json_config(os.path.join(ROOT, "nerfloam_tpu_torch", "configs",
-                                        "kitti_exact.json"))
-    assert cfg.as_dict() == ref.as_dict()
-    slam = NerfLoamSLAM_torch(cfg, None, device="cpu")
-    assert slam.track_method == "adam" and slam.tp.resample_rays
-    assert slam.bp_current.exact_embedding_grads and slam.bp_current.ray_superset == 0
-    assert slam.map_cfg.emb_dtype == "float32" and slam.compute_dtype == "bfloat16"
-    assert slam.state.map_state.embeddings.dtype == torch.float32

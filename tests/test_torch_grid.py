@@ -42,6 +42,7 @@ from nerfloam_tpu_torch.core import losses as tlosses
 from nerfloam_tpu_torch.core import render as trender
 from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import raycast as trc
 from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.utils import evaluation as tev
@@ -407,7 +408,7 @@ def test_ba_grid_gradients_match_jax(setup):
     out = trender.render_rays(packed, params, field, o, d, rv, placer, _t(s["u"]),
                               extra=(field, ez, rv))
     tl, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc, TRUNC,
-                               MAX_DEPTH, FS_W, SDF_W)
+                               MAX_DEPTH, FS_W, SDF_W, gt_norm=ieee.norm3(tp))
     grads = torch.autograd.grad(tl, [packed, *flat, pose])
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     jp, jd, jpose = jax.device_get(jg)

@@ -215,7 +215,8 @@ def test_sdf_losses_match_jax():
         jl, jd = jlosses.sdf_losses(*map(jnp.asarray, (z, sdf, valid, ray_mask, gt, cos)), *args,
                                     sdf_bias=b)
         tl, td = tlosses.sdf_losses(*map(torch.as_tensor, (z, sdf, valid, ray_mask, gt, cos)),
-                                    *args, sdf_bias=torch.as_tensor(b))
+                                    *args, gt_norm=ieee.norm3(torch.as_tensor(gt)),
+                                    sdf_bias=torch.as_tensor(b))
         for k in ("fs_loss", "sdf_loss", "loss"):
             _close(td[k], jd[k])
 

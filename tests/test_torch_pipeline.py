@@ -89,7 +89,7 @@ def test_port_imports_neither_jax_nor_yaml():
         "assert len(mods) >= 22, mods\n"
         "need = {'core.scan2scan', 'map.mesher', 'ops.marching', 'ops.keys', 'utils.logger',\n"
         "        'utils.checkpoint', 'utils.evaluation', 'utils.bridge', 'native',\n"
-        "        'parallel.subscene'}\n"
+        "        'parallel.subscene', 'parallel.sharding', 'ops.trig'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "import runpy\n"
         "runpy.run_path('demo/run_torch.py', run_name='not_main')\n"
@@ -143,7 +143,6 @@ def test_knob_jsons_match_jax_config(name, extra):
 
 
 @pytest.mark.parametrize("knob", [
-    "tpu_specs.dp=2",
     "tpu_specs.maturity_warmup=4",
     "tpu_specs.bias_source=keyframe",
     "tpu_specs.bias_classes=2",
@@ -151,6 +150,14 @@ def test_knob_jsons_match_jax_config(name, extra):
 def test_unported_knobs_raise(knob):
     cfg = load_config(CFG_PATH, SLICE + [knob])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
+
+
+def test_dp_without_process_group_raises():
+    """tpu_specs.dp > 1 runs only as ranks of a process group
+    (parallel/sharding.run_dp); without one the pipeline says so."""
+    cfg = load_config(CFG_PATH, SLICE + ["tpu_specs.dp=2"])
+    with pytest.raises(ValueError, match="run_dp"):
         NerfLoamSLAM_torch(finalize(cfg.as_dict()), None, device="cpu")
 
 

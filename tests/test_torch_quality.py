@@ -48,6 +48,7 @@ from nerfloam_tpu_torch.core import tracking as ttr
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch
 from nerfloam_tpu_torch.map import voxel_map as tvm
 from nerfloam_tpu_torch.models.decoder import decoder_apply
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.bridge import (
@@ -211,7 +212,7 @@ def test_ba_loss_gradients_with_band_columns_match_jax(setup):
     out = trender.render_rays_hits(packed, params, MAP_CFG.voxel_size, o, d, s["tht"], rv,
                                    _t(s["u"]), extra=(trender.ActiveField(s["tm"], T_CFG), ez, rv))
     tl, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, tp, tc, TRUNC,
-                               MAX_DEPTH, FS_W, SDF_W)
+                               MAX_DEPTH, FS_W, SDF_W, gt_norm=ieee.norm3(tp))
     grads = torch.autograd.grad(tl, [packed, *flat, pose])
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     jp, jd, jpose = jax.device_get(jg)

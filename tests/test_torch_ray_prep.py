@@ -174,7 +174,8 @@ def _loop_form(monkeypatch, module):
 
     def sdf_losses(z, sdf, valid, ray_mask, gt_points, *a, gt_norm=None, **k):
         seen[-1] += [gt_norm, ieee.norm3(gt_points)]
-        return loss_fn(z, sdf, valid, ray_mask, gt_points, *a, **k)
+        return loss_fn(z, sdf, valid, ray_mask, gt_points, *a, gt_norm=ieee.norm3(gt_points),
+                       **k)
 
     monkeypatch.setattr(module, "extra_surface_z", extra_surface_z)
     monkeypatch.setattr(module, "sdf_losses", sdf_losses)

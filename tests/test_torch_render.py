@@ -19,6 +19,7 @@ from nerfloam_tpu.ops import raycast as jrc
 from nerfloam_tpu.ops import se3 as jse3
 from nerfloam_tpu_torch.core import losses as tlosses
 from nerfloam_tpu_torch.core import render as trender
+from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.utils.bridge import decoder_params_from_jax, hit_table_from_numpy, to_numpy
 from tests.test_render_track import MAP_CFG, MAX_DEPTH, RC, build_map, pad_frame, scene  # noqa: F401
@@ -75,7 +76,8 @@ def _t_loss(s, packed, params, pose6):
                                    hit_table_from_numpy(jax.device_get(s["ht"]), device="cpu"),
                                    _t(s["ray_valid"]), _t(s["u"]))
     loss, _ = tlosses.sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, _t(s["p"]),
-                                 _t(s["c"]), TRUNC, MAX_DEPTH, FS_W, SDF_W)
+                                 _t(s["c"]), TRUNC, MAX_DEPTH, FS_W, SDF_W,
+                                 gt_norm=ieee.norm3(_t(s["p"])))
     return loss, out
 
 
