@@ -79,7 +79,10 @@
    of each gradient's largest entry backward, in three theta^2 ranges,
    timed at BA's window beside the chain on the card; K3's dp form (the
    58 per-class sums the tracker all-reduces under dp) against
-   gn_sums_plain, and combined against the one-launch form;
+   gn_sums_plain, and combined against the one-launch form; K3's maturity
+   form (tpu_specs.maturity_warmup: each sample's terms weighted by its
+   row's BA-touch count, one launch) against the weighted twin, its dp form
+   too;
    [ray_prep] (a ray draw's directions, t_cap, measured depth, its gate and
    lengths in one launch) torch.equal to its twin on the card and on the
    CPU at the tracker's 2048 rays and BA's superset (2 frames); [lm_step]
@@ -185,7 +188,20 @@
      2e-2 (what dp moves the JAX package's own runs), the ATE under the
      quality bound, both ranks' trajectories and
      packed tables bit-equal, each rank's launches by kernel in the kernels
-     line; every frame's pose gap and the wall time printed).
+     line; every frame's pose gap and the wall time printed),
+     [knobs_dropped] (10 quality frames with the knobs the JAX package
+     dropped: maturity_warmup 4, the keyframe bias probe, two bias
+     classes: K3's maturity form on every GN iteration and its plain form
+     never, every other kernel of the quality path launched, the ATE under
+     max(1.5 x, + 0.05 m) of the JAX package's; then one
+     do_mapping(selection_method="previous") on its keyframes) and [tp]
+     (JAX's dp x tp layout, parallel/sharding.make_sharded_ba_iteration, as
+     four gloo ranks spawned once on the card: the tp decoder on 65,536
+     rows within 2e-5 of one process's; 5 steps over 2,048 rays on
+     [knobs_dropped]'s final map and decoder, the ranks equal where JAX's
+     devices are, the loss and pose within their tolerances of the same
+     steps in one process, K9a, K9b, K8 and K2 launched on every rank; the
+     wall time printed).
    Each path's launch counts are zeroed just before it and read just
    after; a GN path launches lm_step once a GN iteration. Prints the
    tracker ms the s2s term adds to the quality path.
@@ -224,8 +240,8 @@ are the kernels' JSON record, the card's name and power limit, and
 
 runs only those configs' main paths (step 4; their checks too; also
 replica_gate60_s<seed>, the deferred phases defer_checks and defer_pairs,
-and loader, subscene and sequences; loader_pairs, only there, runs the
-C++ and numpy-twin loaders' runs in ten pairs in turns) and prints no
+and loader, subscene, sequences, dp, knobs_dropped and tp; loader_pairs,
+only there, runs the C++ and numpy-twin loaders' runs in ten pairs in turns) and prints no
 result line: to compare
 two trees of the port in one call, in turns, run each tree's package under
 this script (copy it into the other tree's root). Each path prints its scans/s
@@ -386,6 +402,27 @@ DP_POSE_TOL = 2e-4
 DP_RUN_TOL = 2e-2
 # [trig]: seeded atan2 pairs of the device copies against the host copies, in
 # chunks of TRIG_CHUNK (every float of [0, pi] for sin and cos goes the same way)
+# [knobs_dropped]: the knobs the JAX package measured and dropped, on the
+# quality config's first frames; JAX's ATE on the CPU for the same config
+# and frames: scripts/port_ate_reference.py --dropped
+MATURITY_WARMUP = 4
+KNOBS_DROPPED = {"maturity_warmup": MATURITY_WARMUP, "bias_source": "keyframe",
+                 "bias_classes": 2}
+KNOBS_DROPPED_FRAMES = 10
+KNOBS_DROPPED_ATE_JAX = 0.031597230851823796  # 644 s on 8 cores, 2026-10-18
+# [tp]: JAX's dp x tp layout (parallel/sharding.make_sharded_ba_iteration) as
+# TP_RANKS gloo ranks on the one card, on [knobs_dropped]'s final map and decoder
+TP_RANKS = 4               # dp = 2 x tp = 2, make_mesh's rule
+TP_ROWS = 65536            # feature rows of the tp decoder check
+TP_DEC_TOL = 2e-5          # tests/test_sharding.py::test_tp_decoder_matches_single_device
+TP_RAYS = 2048             # 1024 a dp rank
+TP_STEPS = 5
+# JAX's own tp mesh against one device (scripts: tests/test_torch_tp.py's
+# problem, 5 steps on the CPU): its pose within 2 lr a step (Adam moves a
+# component by about lr a step, and the tp ranks' pose gradients are each
+# their own column block's share) and its loss within 10% (each dp rank's
+# loss takes its own counts); held here to 2 x TP_STEPS x lr_pose and 15%
+TP_LOSS_RTOL = 0.15
 TRIG_PAIRS = 10 ** 8
 # [exp_so3]: the backward's largest gap to autograd of the plain chain, relative
 # to each gradient's largest entry (the sums of a reduction run in another order)
@@ -426,6 +463,9 @@ PATH_KERNELS = {           # kernels each main path must launch
 # the loader's run has no logger (no mesh); the subscene runner meshes each
 # submap; the sequences jobs mesh the budget config
 PATH_KERNELS["loader"] = _QUALITY + _MAP + _RAYS + _NORM
+# the dropped knobs on the quality stack, no logger: K3 in its maturity form
+PATH_KERNELS["knobs_dropped"] = tuple(k for k in PATH_KERNELS["loader"] if k != "gn_system") + (
+    "gn_system_maturity",)
 # the deferred schedule runs the same kernels as its synchronous config, and its
 # warm start on the device (log_so3) the angle's atan2 (csrc/trig.cu); the
 # budget run whose active set grows with a frame in flight also undoes K7, and
@@ -469,6 +509,7 @@ KERNEL_FUNCTIONS = {
     "exp_so3": ("exp_so3_fwd_kernel",),
     "exp_so3_bwd": ("exp_so3_bwd_kernel",),  # its backward, a form of the exp_so3 record
     "gn_sums": ("gn_system_kernel",),  # K3's dp form: the same kernel, its sums written
+    "gn_system_maturity": ("gn_system_kernel",),  # K3's maturity form: the same kernel
 }
 # wrappers (and forms of one) that launch one kernel and no torch op
 ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
@@ -481,7 +522,8 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "mesh_lattice", "mesh_lattice, res 4", "marching_tets", "marching_tets, padded",
               "pack_embeddings", "pack_embeddings_vjp", "pack_embeddings, gate60",
               "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048", "lm_step", "ray_prep",
-              "ray_prep, BA superset", "trig", "trig, atan2 backward", "gn_sums", "exp_so3",
+              "ray_prep, BA superset", "trig", "trig, atan2 backward", "gn_sums",
+              "gn_system_maturity", "exp_so3",
               "exp_so3, backward") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
@@ -609,6 +651,7 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "trig": (trig, "trig_launches"),
     "exp_so3": (se3, "exp_so3_launches"),
     "gn_sums": (tr, "gn_sums_launches"),
+    "gn_system_maturity": (tr, "gn_maturity_launches"),
 }
 
 
@@ -1050,7 +1093,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     u = raycast.uniform_jitter((R, rc_t.n_samples), gen, dev)
     t_pos = se3.pose_translation(pose)
     dec, cdt = slam.state.decoder_params, getattr(torch, tp.compute_dtype)
-    k3_cases = {}
+    k3_cases, k3_aid = {}, {}
     for label, cols, (ro, rd, zz, rv), rp, rc_ in (
             ("quality", render.columns_fwd(ht, u, o1, d, ms.packed, cfg.voxel_size,
                                            (field, ez, rvalid)), (o1, d, ez, rvalid), pts, pcos),
@@ -1065,6 +1108,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
         bias_ray = torch.where(rc_ < 0.999, 0.01, -0.005)
         k3_cases[label] = ((xyz, t_pos, z, sdf, g, valid & rv[:, None]),
                            (rc_, d_meas, depth_ok, bias_ray))
+        k3_aid[label] = aid.contiguous()
     e3, systems = 0.0, {}
     for label, (samples, per_ray) in k3_cases.items():
         system = tr.GnSystem(*per_ray, tp, samples[2].shape[1])
@@ -1119,6 +1163,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     k38_host_costs(ms, cfg, field, k8_cases["band, origin row stride 0"][:4], tp,
                    *k3_cases["quality"])
     records.append(k3_dp_form(systems["quality"], k3_cases["quality"], tp, lib_ms))
+    records.append(k3_maturity_form(k3_cases["quality"], k3_aid["quality"], tp, ms, gen, lib_ms))
 
     records.append(k7_phase(slam, ms, frames[3]))
     o, d, tc = tables[2 * slam.bp_current.n_rays][:3]
@@ -1167,6 +1212,62 @@ def k3_dp_form(system, case, tp, lib_ms):
     return record("gn_sums", "gn_system.cu", "nerfloam_tpu/core/tracking.py:217 (under "
                   "shard_map, the psum'd counts and sums: :232-233, 310-315)", err, k_ms, p_ms,
                   33 * n + 13 * R + 12 + 232, 100 * nv, lib_ms, dev=partial(dp_system, *samples))
+
+
+def k3_maturity_form(case, aid, tp, ms, gen, lib_ms):
+    """K3's maturity form (``tpu_specs.maturity_warmup``: ``GnSystem(...,
+    cnt=)`` called with the samples' active rows) at the quality tracker's
+    shape, with BA-touch counts 0-8 drawn for the map's active rows and a
+    warmup of MATURITY_WARMUP: one launch a call (its own counter), two
+    calls equal, H, b and the loss within K3's 1e-4 of their largest
+    entries of ``gn_system_plain`` under ``maturity_weights``; its dp form
+    (sums) likewise against ``gn_sums_plain``, its counts torch.equal to the
+    unweighted ones. Returns its record."""
+    samples, per_ray = case
+    tpm = tp._replace(maturity_warmup=MATURITY_WARMUP)
+    A = ms.packed.shape[0]
+    cnt = torch.randint(0, 9, (A,), generator=gen, device=ms.packed.device).to(torch.float32)
+    MK = samples[2].shape[1]
+    system = tr.GnSystem(*per_ray, tpm, MK, cnt=cnt)
+    before = tr.gn_maturity_launches
+    kH, kb, kl = (x.clone() for x in system(*samples, aid))
+    again = system(*samples, aid)
+    torch.cuda.synchronize()
+    check(tr.gn_maturity_launches - before == 2, "K3's maturity form: not one launch a call")
+    check(all(torch.equal(x, y) for x, y in zip((kH, kb, kl), again)),
+          "K3's maturity form differs between two calls")
+    w = tr.maturity_weights(cnt, aid, tpm)
+    rH, rb, rl = tr.gn_system_plain(*samples, *per_ray[:3], tpm, per_ray[3], w)
+    plain = tr.gn_system_plain(*samples, *per_ray[:3], tp, per_ray[3])
+    err = 0.0
+    for nm, k, r, r0 in (("H", kH, rH, plain[0]), ("b", kb, rb, plain[1]),
+                         ("loss", kl, rl, plain[2])):
+        rel = max_abs(k, r) / max(float(r.abs().max()), 1e-30)
+        moved = max_abs(r, r0) / max(float(r.abs().max()), 1e-30)
+        err = max(err, max_abs(k, r))
+        check(rel <= 1e-4, f"K3's maturity form {nm} rel error {rel}")
+        log(f"[K3 maturity form] {nm}: rel err {rel:.3g} against the weighted twin (the "
+            f"weights move it by {moved:.3g} from the unweighted twin)")
+    check(max_abs(rH, plain[0]) > 0, "K3's maturity form: the weights change nothing")
+    sums_sys = tr.GnSystem(*per_ray, tpm, MK, sums=True, cnt=cnt)
+    ks = sums_sys(*samples, aid).clone()
+    rs = tr.gn_sums_plain(*samples, *per_ray[:3], tpm, per_ray[3], w)
+    torch.cuda.synchronize()
+    check(torch.equal(ks[56:], rs[56:]), f"K3's maturity dp form counts {ks[56:]} / {rs[56:]}")
+    for nm, sl in (("front", slice(0, 28)), ("band", slice(28, 56))):
+        rel = max_abs(ks[sl], rs[sl]) / max(float(rs[sl].abs().max()), 1e-30)
+        check(rel <= 1e-4, f"K3's maturity dp form {nm} sums rel error {rel}")
+        log(f"[K3 maturity form] dp form {nm} sums: rel err {rel:.3g}")
+    k_ms = median_ms(partial(system, *samples, aid))
+    p_ms = median_ms(partial(tr.gn_system_plain, *samples, *per_ray[:3], tpm, per_ray[3], w))
+    z, vmask = samples[2], samples[5]
+    n, nv, R = z.numel(), int(vmask.sum()), z.shape[0]
+    # K3's bytes and an aid (4 B) a sample and the (A,) counts; its flops
+    # and ~10 more a valid sample for the weight and the weighted terms
+    return record("gn_system_maturity", "gn_system.cu",
+                  "nerfloam_tpu/core/tracking.py:217 (with the maturity weights of :184-197, "
+                  "240-241, 270, 298)", err, k_ms, p_ms, 37 * n + 13 * R + 4 * A + 12 + 172,
+                  110 * nv, lib_ms, dev=partial(system, *samples, aid))
 
 
 def host_trig(op, *xs):
@@ -3318,6 +3419,202 @@ def dp_phase(here, device="cuda"):
     return {f"dp rank {r['rank']}": r["probe"]["launches"] for r in ranks}
 
 
+def knobs_dropped_phase(here, device="cuda"):
+    """[knobs_dropped]: KNOBS_DROPPED_FRAMES frames of the quality config
+    with the knobs the JAX package measured and dropped on (KNOBS_DROPPED:
+    the GN tracker's maturity weights, K3's maturity form; the keyframe
+    bias probe, K8's given-points form; two bias classes). Checks: finite
+    poses and a finite per-class bias target; K3's maturity form launched
+    on every GN iteration and its plain form never; every other kernel of
+    the quality path launched; the ATE under max(1.5 x, + 0.05 m) of the
+    JAX package's on the CPU (KNOBS_DROPPED_ATE_JAX). Then one BA step over
+    the last window_size keyframes (``do_mapping(selection_method=
+    "previous")``), its own launches printed (not the path's). Returns the
+    run's launches and [tp]'s input: the final map, decoder, a frame's
+    points and its pose on the host."""
+    cfg = load_cfg(here, "kitti_quality", data_specs={"n_frames": KNOBS_DROPPED_FRAMES},
+                   tpu_specs=dict(KNOBS_DROPPED))
+    ds = get_dataset(cfg)
+    slam = NerfLoamSLAM_torch(cfg, ds, device=device)
+    frames = make_frames(slam, ds)
+    zero_counters()
+    t0 = time.perf_counter()
+    slam.process_first_frame(frames[0])
+    for f in frames[1:]:
+        slam.process_frame(f)
+    poses = np.asarray(slam.finalize())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    gt = ds.gt_trajectory()[: len(poses)]
+    ate = ate_rmse(poses, gt, align=False)
+    jax_ate = KNOBS_DROPPED_ATE_JAX
+    bound_ = max(1.5 * jax_ate, jax_ate + 0.05)
+    n_it = slam.tp_first.num_iterations + (len(frames) - 2) * slam.tp.num_iterations
+    log(f"[knobs_dropped] {len(frames)} frames of kitti_quality with {KNOBS_DROPPED} in "
+        f"{wall:.2f} s wall; ATE {ate:.4f} m (JAX on the CPU {jax_ate:.4f} m, bound "
+        f"{bound_:.4f}); sdf_bias [ground, non-ground] {slam.sdf_bias.tolist()}; keyframes "
+        f"{len(slam.state.keyframes)}; K3 maturity form {launches['gn_system_maturity']} "
+        f"launches for {n_it} GN iterations, plain form {launches['gn_system']}")
+    log(f"[knobs_dropped] launches: {launches}")
+    check(len(poses) == len(frames) and np.isfinite(poses).all(), "[knobs_dropped] poses")
+    check(np.isfinite(slam.sdf_bias).all(), "[knobs_dropped] non-finite sdf_bias")
+    check(launches["gn_system_maturity"] == n_it == launches["lm_step"],
+          f"[knobs_dropped] {launches['gn_system_maturity']} K3 maturity launches, "
+          f"{launches['lm_step']} LM steps, {n_it} GN iterations")
+    check(launches["gn_system"] == 0, "[knobs_dropped] K3's plain form launched")
+    for k in PATH_KERNELS["knobs_dropped"]:
+        check(launches[k] > 0, f"kernel {k} never launched on the knobs_dropped path")
+    check(ate <= bound_, f"[knobs_dropped] ATE {ate} above its bound {bound_}")
+    kfs = slam.state.keyframes
+    window = [f.index for f in slam._select_previous_window()]
+    zero_counters()
+    res = slam.do_mapping(None, selection_method="previous")
+    torch.cuda.synchronize()
+    log(f"[knobs_dropped] do_mapping(selection_method='previous') over keyframes {window} (of "
+        f"{[f.index for f in kfs]}): loss {float(res.loss):.6g}, touched "
+        f"{int(res.touched_count)}; its launches {counters()}")
+    check(window == [f.index for f in kfs[-slam.window_size:]] and np.isfinite(float(res.loss)),
+          "[knobs_dropped] the previous window")
+    last = frames[-1]
+    ms = slam.state.map_state
+    tp_input = {"map_cfg": slam.map_cfg, "rc": slam.rc_map,
+                "state": tuple(t.cpu() for t in ms),
+                "decoder": {k: [t.cpu() for t in v] for k, v in slam.state.decoder_params.items()
+                            if k in ("w", "b")},
+                "points": torch.as_tensor(last.points), "cos": torch.as_tensor(last.points_cos),
+                "valid": torch.as_tensor(last.valid), "pose6": torch.as_tensor(last.pose6),
+                "crit": (slam.bp_current.truncation, slam.bp_current.max_depth,
+                         slam.bp_current.fs_weight, slam.bp_current.sdf_weight),
+                "lrs": list(slam.ba_lrs)}
+    del slam
+    return launches, tp_input
+
+
+def tp_rank(rank, world_size, device, inputs):
+    """One [tp] rank (module level: parallel.sharding.spawn pickles it by
+    name): the dp x tp mesh, the tp decoder on TP_ROWS feature rows
+    against one process's decoder_apply, then TP_STEPS steps of
+    make_sharded_ba_iteration on this rank's dp block of the rays. Returns
+    its launches by kernel (zeroed before the steps), the decoder error, and
+    after each step the loss, the pose, the packed table's digest and the
+    replicated decoder leaves' digest."""
+    from nerfloam_tpu_torch.models.decoder import decoder_apply
+
+    mesh = sharding.make_mesh(world_size)
+    state = vm.MapState(*[t.to(device) for t in inputs["state"]])
+    dec = {k: [t.to(device) for t in v] for k, v in inputs["decoder"].items()}
+    x = inputs["x"].to(device)
+    local = sharding.shard_decoder_params(dec, mesh)
+    dec_err = max_abs(sharding.tp_decoder_apply(local, x, mesh), decoder_apply(dec, x))
+    R = inputs["pts"].shape[0]
+    n = R // mesh.dp
+    rows = slice(mesh.dp_index * n, (mesh.dp_index + 1) * n)
+    sync = torch.cuda.synchronize if state.packed.is_cuda else (lambda: None)
+    sync()
+    zero_counters()
+    t0 = time.perf_counter()
+    steps = tp_steps(inputs, mesh, state, local, rows, inputs["u"])
+    sync()
+    return {"mesh": (mesh.dp, mesh.tp, mesh.dp_index, mesh.tp_index), "dec_err": dec_err,
+            "steps": steps, "launches": counters(), "seconds": time.perf_counter() - t0}
+
+
+def tp_steps(inputs, mesh, state, local, rows, u):
+    """[tp]'s steps of make_sharded_ba_iteration over the rays ``rows``
+    with the jitter ``u``, on the device of ``state``: after each step the
+    loss, the pose, the packed table's digest and the replicated decoder
+    leaves' digest."""
+    dev = state.packed.device
+    pts, cos, val = (inputs[k][rows].to(dev) for k in ("pts", "cos", "val"))
+    u, pose = u.to(dev), inputs["pose6"].to(dev)
+    step, init_opt = sharding.make_sharded_ba_iteration(inputs["map_cfg"], inputs["rc"],
+                                                        *inputs["crit"], mesh=mesh)
+    opt = init_opt(state, local, pose)
+    out = []
+    for _ in range(inputs["steps"]):
+        packed, local, pose, loss, opt = step(state, local, pose, pts, cos, val, inputs["lrs"], u,
+                                              opt)
+        state = state._replace(packed=packed)
+        rep = torch.cat([local["w"][-1].reshape(-1), *local["b"][1:]])
+        out.append({"loss": float(loss), "pose": pose.cpu().numpy(),
+                    "packed": hashlib.sha256(packed.cpu().numpy().tobytes()).hexdigest(),
+                    "replicated": hashlib.sha256(rep.cpu().numpy().tobytes()).hexdigest()})
+    return out
+
+
+def tp_phase(inp, device="cuda"):
+    """[tp]: JAX's dp x tp layout (parallel/sharding.py: make_mesh,
+    shard_decoder_params, tp_decoder_apply, make_sharded_ba_iteration) as
+    TP_RANKS gloo ranks sharing the card, spawned once, at the shipped
+    decoder's width (16 -> 256 -> 256 -> 1, [knobs_dropped]'s trained
+    decoder) on [knobs_dropped]'s final map: the tp decoder on TP_ROWS rows
+    within TP_DEC_TOL of one process's; TP_STEPS steps over TP_RAYS rays of
+    its last frame at the mapper's sample count, the same jitter on every
+    dp rank (as JAX's replicated key draws it). Checks: the ranks hold the
+    same packed table, pose and replicated decoder leaves where JAX's
+    devices do (a tp column's dp replicas always; the replicated leaves on
+    every rank after step 1; JAX's tp ranks of a row part on the table and
+    the pose, as the port's do: printed); each rank's loss within
+    TP_LOSS_RTOL and its pose within 2 x TP_STEPS x lr_pose of the same
+    steps in one process (dp = tp = 1, the same jitter for every ray);
+    K9a, K9b, K8 and K2 launched on every rank. Returns {"tp rank r":
+    launches}."""
+    gen = torch.Generator().manual_seed(5)
+    idx, rvalid = sample_ray_indices(inp["valid"], TP_RAYS, gen)
+    x = torch.randn((TP_ROWS, 16), generator=gen) * 0.1
+    dp, _ = sharding.mesh_shape(TP_RANKS)
+    u_local = raycast.uniform_jitter((TP_RAYS // dp, inp["rc"].n_samples), gen, "cpu")
+    inputs = {**{k: inp[k] for k in ("map_cfg", "rc", "state", "decoder", "pose6", "crit",
+                                     "lrs")},
+              "x": x, "pts": inp["points"][idx].contiguous(), "cos": inp["cos"][idx].contiguous(),
+              "val": rvalid.contiguous(), "u": u_local, "dp": dp, "steps": TP_STEPS}
+    t0 = time.perf_counter()
+    ranks = sharding.spawn(tp_rank, TP_RANKS, [device] * TP_RANKS, "gloo", (inputs,))
+    wall = time.perf_counter() - t0
+    # the comparison in this process over all the rays, each dp block's rays
+    # taking the jitter the ranks share: its launches are not the path's
+    one = {"steps": tp_steps(
+        inputs, sharding.Mesh(1, 1, 0, 0), vm.MapState(*[t.to(device) for t in inputs["state"]]),
+        {k: [t.to(device) for t in v] for k, v in inputs["decoder"].items()}, slice(None),
+        inputs["u"].repeat(dp, 1))}
+    tp_ = ranks[0]["mesh"][1]
+    for r in ranks:
+        log(f"[tp] rank {r['mesh']}: decoder on {TP_ROWS} rows within {r['dec_err']:.3g} of one "
+            f"process (limit {TP_DEC_TOL:g}); losses {[round(s['loss'], 6) for s in r['steps']]};"
+            f" {r['seconds']:.2f} s for {TP_STEPS} steps; launches {r['launches']}")
+    lr_pose = inputs["lrs"][2]
+    pose_tol = 2 * TP_STEPS * lr_pose
+    gaps = [float(np.abs(r["steps"][-1]["pose"] - one["steps"][-1]["pose"]).max()) for r in ranks]
+    lgaps = [abs(r["steps"][-1]["loss"] - one["steps"][-1]["loss"]) / abs(one["steps"][-1]["loss"])
+             for r in ranks]
+    log(f"[tp] {TP_RANKS} ranks (dp {ranks[0]['mesh'][0]} x tp {tp_}) on one card: {wall:.2f} s "
+        f"wall (spawn, rendezvous and the decoder check included); after {TP_STEPS} steps the "
+        f"pose within {max(gaps):.3g} of one process's (limit {pose_tol:g}), the loss within "
+        f"{max(lgaps):.3g} relative (limit {TP_LOSS_RTOL:g}); one process's losses "
+        f"{[round(s['loss'], 6) for s in one['steps']]}")
+    for r in ranks:
+        check(r["dec_err"] <= TP_DEC_TOL, f"[tp] rank {r['mesh']} decoder error {r['dec_err']}")
+    for k in range(TP_STEPS):
+        for r in ranks:
+            q = ranks[r["mesh"][3]]  # the dp replica in row 0 of this rank's tp column
+            check(r["steps"][k]["packed"] == q["steps"][k]["packed"]
+                  and np.array_equal(r["steps"][k]["pose"], q["steps"][k]["pose"]),
+                  f"[tp] step {k}: rank {r['mesh']} differs from its tp column's dp replica")
+        check(all(r["steps"][0]["replicated"] == ranks[0]["steps"][0]["replicated"]
+                  for r in ranks), "[tp] step 1: the replicated decoder leaves differ")
+    parted = [k for k in range(TP_STEPS)
+              if ranks[0]["steps"][k]["packed"] != ranks[1]["steps"][k]["packed"]]
+    log(f"[tp] the tp ranks of a row part on the packed table after steps {parted} (JAX's "
+        "devices do: their pose and table gradients are each rank's column block's share)")
+    check(max(gaps) <= pose_tol, f"[tp] pose {max(gaps)} from one process's")
+    check(max(lgaps) <= TP_LOSS_RTOL, f"[tp] loss {max(lgaps)} from one process's")
+    for r in ranks:
+        for k_ in ("march_occupancy", "place_samples_cdf", "active_field_fwd", "hits_field_bwd"):
+            check(r["launches"][k_] > 0, f"kernel {k_} never launched on [tp] rank {r['mesh']}")
+    return {f"tp rank {i}": r["launches"] for i, r in enumerate(ranks)}
+
+
 def exact_checks(tag, slam, launches, n_frames):
     """The exact-gradient path's launches: a step's E1 lists built once,
     E1's transpose on every BA iteration and its forward on every
@@ -3696,13 +3993,15 @@ def kitti_paths(names, cfgs, ds, workdir):
     return results
 
 
-RUNNER_PHASES = ("loader", "subscene", "sequences", "dp")
+RUNNER_PHASES = ("loader", "subscene", "sequences", "dp", "knobs_dropped", "tp")
 
 
 def runner_phases(here, names, cfgs, ds, workdir, stamp):
     """The host data path and the runners over several pipelines, each
-    phase's launch counts zeroed before it and read after: {phase: counts}."""
-    out = {}
+    phase's launch counts zeroed before it and read after: {phase: counts}.
+    [tp] runs on [knobs_dropped]'s final map (which it runs first when it
+    is asked for alone)."""
+    out, tp_input = {}, None
     for name in names:
         if name == "loader":
             out[name] = loader_phase(cfgs["kitti_quality"], ds, workdir)
@@ -3710,6 +4009,12 @@ def runner_phases(here, names, cfgs, ds, workdir, stamp):
             out[name] = subscene_phase(cfgs["kitti_quality"], ds)
         elif name == "dp":
             out.update(dp_phase(here))
+        elif name == "knobs_dropped":
+            out[name], tp_input = knobs_dropped_phase(here)
+        elif name == "tp":
+            if tp_input is None:
+                _, tp_input = knobs_dropped_phase(here)
+            out.update(tp_phase(tp_input))
         else:
             out[name] = sequences_phase(here)
         gc.collect()
@@ -3739,8 +4044,9 @@ def main(argv=None):
                     "kitti_budget_defer_grow, replica_gate60_s<seed>, "
                     "replica_gate60_exact_s<seed>), defer phases (defer_checks: [defer] "
                     "syncs, [defer] fetch and the defer checkpoint; defer_pairs) and the host "
-                    "data path and runners (loader, subscene, sequences; loader_pairs: the two "
-                    "loaders' runs in ten pairs in turns): run only those")
+                    "data path, the runners and the layouts (loader, subscene, sequences, dp, "
+                    "knobs_dropped, tp; loader_pairs: the two loaders' runs in ten pairs in "
+                    "turns): run only those")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",

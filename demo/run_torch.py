@@ -1,19 +1,22 @@
 """CLI entry point of the PyTorch + CUDA port:
 
-    python demo/run_torch.py <config.json> [--set group.key=value]...
-        [--resume DIR] [--device cuda]
+    python demo/run_torch.py <config.json> [--group.key value]...
+        [--set group.key=value]... [--resume DIR] [--device cuda] [--debug]
 
-Loads a JSON config (nerfloam_tpu_torch/configs/*.json, or any dict of the
-JAX package's config groups), runs the whole SLAM pipeline on the device,
-and writes the trajectory (misc/frame_poses.{npy,txt}), the meshes
-(mesh/final_mesh.ply) and a final checkpoint (ckpt/final) into a
-timestamped run directory under ``log_dir``/``exp_name``. ``--set`` takes
-one override per occurrence (values are parsed as JSON, else kept as
-strings); ``--resume`` continues from a checkpoint directory.
+Loads a JSON config (nerfloam_tpu_torch/configs/*.json, the JSON twins of
+the JAX package's YAML configs under nerfloam_tpu_torch/configs/shipped/,
+or any dict of the JAX package's config groups), runs the whole SLAM
+pipeline on the device, and writes the trajectory
+(misc/frame_poses.{npy,txt}), the meshes (mesh/final_mesh.ply) and a final
+checkpoint (ckpt/final) into a timestamped run directory under
+``log_dir``/``exp_name``. As the JAX package's ``demo/run.py``, every leaf
+key of the config is a flag (``--exp_name X``,
+``--tracker_specs.num_iterations 10``); ``--set`` takes one override per
+occurrence, applied last (values parsed as JSON, else as the JAX CLI
+parses them); ``--resume`` continues from a checkpoint directory;
+``--debug`` is accepted as the JAX CLI accepts it.
 """
 
-import argparse
-import json
 import os
 import sys
 
@@ -24,37 +27,12 @@ import numpy as np  # noqa: E402
 from nerfloam_tpu_torch.core.pipeline import NerfLoamSLAM_torch  # noqa: E402
 from nerfloam_tpu_torch.data import get_dataset  # noqa: E402
 from nerfloam_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
-from nerfloam_tpu_torch.utils.config import finalize  # noqa: E402
+from nerfloam_tpu_torch.utils.config import parse_cli  # noqa: E402
 from nerfloam_tpu_torch.utils.logger import RunLogger  # noqa: E402
 
 
-def apply_override(d: dict, item: str):
-    key, sep, raw = item.partition("=")
-    if not sep or not key:
-        raise SystemExit(f"--set takes group.key=value, got {item!r}")
-    try:
-        value = json.loads(raw)
-    except json.JSONDecodeError:
-        value = raw
-    *groups, name = key.split(".")
-    for g in groups:
-        d = d.setdefault(g, {})
-    d[name] = value
-
-
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("config")
-    p.add_argument("--set", action="append", default=[], metavar="group.key=value")
-    p.add_argument("--resume", default=None, metavar="DIR")
-    p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-
-    with open(args.config) as f:
-        d = json.load(f)
-    for item in args.set:
-        apply_override(d, item)
-    cfg = finalize(d)
+    args, cfg = parse_cli(argv)
     np.random.seed(int(cfg.tpu_specs["seed"]))
 
     dataset = get_dataset(cfg)

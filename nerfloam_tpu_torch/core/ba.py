@@ -273,3 +273,32 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             surface_bias = sdf_pts.sum() / torch.clamp(m.sum(), min=1).to(torch.float32)
     return BAResult(new_emb, packed, new_dec, pos.detach(), loss, touched_count,
                     surface_bias, upd_count)
+
+
+@torch.no_grad()
+def surface_bias_at(map_state: vm.MapState, map_cfg: vm.MapConfig, decoder_params, dec_meta,
+                    pose6, points, points_valid, max_depth: float,
+                    compute_dtype=torch.float32, points_cos=None) -> torch.Tensor:
+    """The settled-bias probe (JAX ba.py:420-477, ``tpu_specs.bias_source=
+    keyframe``): the field's mean value at one frame's measured points
+    (P, 3) under ``pose6``, per class. A point counts where it is valid, in
+    an active voxel and at a depth in (0, max_depth); ground where its
+    cosine is under 0.999 (no cosines: no ground). K8 in its given-points
+    form reads the packed rows (one launch on the card), then the decoder.
+    Returns (2, 2) f32: [ground mean, non-ground mean], then the two
+    counts (a mean over max(count, 1))."""
+    xyz = se3.transform_points(pose6, points)
+    depth = norm3(points)
+    ok = points_valid & (depth > 0) & (depth < max_depth)
+    sdf, m = field_at_points(ActiveField(map_state, map_cfg), map_state.packed, decoder_params,
+                             xyz.reshape(-1, 1, 3), depth.reshape(-1, 1), ok, compute_dtype,
+                             dec_meta)
+    sdf, m = sdf[:, 0], m[:, 0]
+    ground = (torch.zeros_like(m) if points_cos is None else points_cos < 0.999)
+    out = []
+    for cls in (m & ground, m & ~ground):
+        c = cls.sum()
+        s = torch.where(cls, sdf, 0.0).sum()
+        out.append((s / torch.clamp(c, min=1).to(torch.float32), c.to(torch.float32)))
+    (bg, cg), (bn, cn) = out
+    return torch.stack([torch.stack([bg, bn]), torch.stack([cg, cn])])

@@ -65,8 +65,14 @@ candidates) is handled as in JAX: rewind the frame to its pre-frame state,
 grow the budget and replay the frame with the same random stream
 (the generator state is saved with the map), so growth never loses data.
 
-Knobs the port does not implement raise ``NotImplementedError`` at
-construction, naming their ROADMAP queue-1 item; none is ignored.
+The knobs measured and dropped in the JAX package's rounds are ported too:
+``maturity_warmup`` / ``maturity_floor`` (the GN tracker weighs each sample
+by its voxel's BA-touch count, K3's maturity form), ``bias_source=keyframe``
+(the bias probe at the current keyframe's points on the post-BA field,
+``ba.surface_bias_at``, in place of BA's window probe) and
+``bias_classes=2`` (separate ground / non-ground EMAs of that probe); and
+``do_mapping``'s ``selection_method="previous"`` (the last ``window_size``
+keyframes).
 """
 
 from __future__ import annotations
@@ -93,22 +99,6 @@ from nerfloam_tpu_torch.ops.marching import TetScratch
 from nerfloam_tpu_torch.ops.raycast import RaycastConfig
 from nerfloam_tpu_torch.utils.config import Config, derive_static_shapes, quality_knobs
 from nerfloam_tpu_torch.utils.profiler import Profiler
-
-# (knob, value that is implemented, ROADMAP queue-1 item that ports the rest)
-_UNPORTED = [
-    ("tpu_specs.bias_source", lambda v: v == "window", "15 (dropped: keyframe bias probe)"),
-    ("tpu_specs.bias_classes", lambda v: int(v) == 1, "15 (dropped: per-class bias)"),
-    ("tpu_specs.maturity_warmup", lambda v: int(v) == 0, "15 (dropped: maturity warmup)"),
-]
-
-
-def check_ported(cfg: Config):
-    for key, ok, item in _UNPORTED:
-        group, name = key.split(".")
-        if name in cfg[group] and not ok(cfg[group][name]):
-            raise NotImplementedError(
-                f"{key}={cfg[group][name]!r} is not ported yet (ROADMAP queue 1, item {item})")
-
 
 def _const_vel(last6: torch.Tensor, prev6: torch.Tensor, full: bool) -> torch.Tensor:
     """The constant-velocity warm start on the device from the raw tracked
@@ -176,7 +166,6 @@ class SlamState:
 
 class NerfLoamSLAM_torch:
     def __init__(self, cfg: Config, dataset, device, logger=None):
-        check_ported(cfg)
         self.cfg = cfg
         self.dataset = dataset
         self.logger = logger  # utils.logger.RunLogger | None: meshes, poses, checkpoints
@@ -217,7 +206,9 @@ class NerfLoamSLAM_torch:
                        max_depth=shapes["max_depth"], fs_weight=float(crit["fs_weight"]),
                        sdf_weight=float(crit["sdf_weight"]), compute_dtype=self.compute_dtype,
                        surface_anchor=q["surface_anchor"], band_samples=q["band_samples"],
-                       resample_rays=bool(tpu.get("track_resample_rays", False)))
+                       resample_rays=bool(tpu.get("track_resample_rays", False)),
+                       maturity_warmup=int(tpu.get("maturity_warmup", 0)),
+                       maturity_floor=float(tpu.get("maturity_floor", 0.25)))
         self.track_method = str(tpu.get("track_method", "gn"))
         self.s2s_weight = float(tpu.get("s2s_weight", 0.0))
         if self.s2s_weight > 0 and self.track_method == "gn":
@@ -258,12 +249,25 @@ class NerfLoamSLAM_torch:
         if reconcile_mode not in vm.RECONCILE_MODES:
             raise ValueError(f"tpu_specs.reconcile_mode must be 'mean' or 'sum', "
                              f"got {reconcile_mode!r}")
+        # where the bias transfer's offset is measured (JAX pipeline.py:
+        # 229-248): "window", BA's probe of its own points on the post-BA
+        # field; "keyframe", the current keyframe's points (surface_bias_at)
+        self.bias_source = str(tpu.get("bias_source", "window"))
+        if self.bias_source not in ("window", "keyframe"):
+            raise ValueError(f"tpu_specs.bias_source must be 'window' or 'keyframe', "
+                             f"got {self.bias_source!r}")
+        self.bias_classes = int(tpu.get("bias_classes", 1))
+        if self.bias_classes == 2 and self.bias_source != "keyframe":
+            raise ValueError(
+                "tpu_specs.bias_classes=2 requires bias_source='keyframe' (the window probe is "
+                "pooled; its per-class split was measured worse — docs/PERF.md round-2)")
         base_bp = dict(truncation=float(crit["sdf_truncation"]), max_depth=shapes["max_depth"],
                        fs_weight=float(crit["fs_weight"]), sdf_weight=float(crit["sdf_weight"]),
                        compute_dtype=self.compute_dtype,
                        ray_superset=int(tpu.get("ba_ray_superset", 2)),
                        surface_anchor=q["surface_anchor"], band_samples=q["band_samples"],
-                       measure_bias=q["bias_correction"], exact_embedding_grads=exact,
+                       measure_bias=q["bias_correction"] and self.bias_source == "window",
+                       exact_embedding_grads=exact,
                        reconcile_mode=reconcile_mode)
         self.bp_current = ba_mod.BAParams(n_frames=1, n_rays=int(mspec["N_rays_each"]),
                                           num_iterations=int(mspec["num_iterations"]),
@@ -323,9 +327,11 @@ class NerfLoamSLAM_torch:
             self.group = dist.group.WORLD
             if dist.get_rank() != 0:
                 self.logger = None
-        # bias transfer: EMA of BAResult.surface_bias, the next tracked
-        # frame's band target, as (2,) [ground, non-ground] (pooled: equal)
+        # bias transfer: EMA of the probe (BAResult.surface_bias, or the
+        # keyframe's surface_bias_at), the next tracked frame's band target,
+        # as (2,) [ground, non-ground] (pooled: equal)
         self.bias_correction = q["bias_correction"]
+        self.kf_bias = self.bias_correction and self.bias_source == "keyframe"
         self.sdf_bias = np.zeros(2, np.float32)
         self.overflow_events = {"capacity": 0, "active": 0, "touched": 0, "cand": 0}
         self.dropped_delta_events = 0
@@ -503,18 +509,23 @@ class NerfLoamSLAM_torch:
 
     def do_mapping(self, tracked_frame: Frame | None, update_pose=True, update_decoder=True,
                    selection_method="current"):
-        """One BA step on the tracked frame ("current") or a random
-        keyframe window ("random"), with the lossless touched-overflow
-        replay (same generator state, grown reconcile budget)."""
+        """One BA step on the tracked frame ("current"), a random keyframe
+        window ("random") or the last ``window_size`` keyframes
+        ("previous"; JAX pipeline.py:722-733), with the lossless
+        touched-overflow replay (same generator state, grown reconcile
+        budget). The two windows share ``bp_random`` and its overflow
+        class."""
         st = self.state
         if selection_method == "current":
             targets, bp, which = [tracked_frame], self.bp_current, "current"
-        elif selection_method == "random":
-            targets, bp, which = self._select_random_window(), self.bp_random, "random"
+        elif selection_method in ("random", "previous"):
+            targets = (self._select_random_window() if selection_method == "random"
+                       else self._select_previous_window())
+            bp, which = self.bp_random, "random"
             if not targets:
                 return None
         else:
-            raise NotImplementedError(f"selection_method {selection_method!r} is not ported yet")
+            raise NotImplementedError(selection_method)
         pose_free = [update_pose and f.index != st.first_frame_id for f in targets]
         pose_free += [False] * (bp.n_frames - len(targets))
         gen_state = self.generator.get_state()
@@ -532,6 +543,12 @@ class NerfLoamSLAM_torch:
             if pose_free[i]:
                 f.pose6 = poses_np[i].astype(np.float32)
         return res
+
+    def _select_previous_window(self) -> list:
+        """The last ``window_size`` keyframes (JAX pipeline.py:831-837): a
+        keyframe replay window, the tracked frame not in it."""
+        kfs = self.state.keyframes
+        return kfs[-self.window_size:] if kfs else []
 
     def _select_random_window(self) -> list:
         kfs = self.state.keyframes
@@ -593,13 +610,40 @@ class NerfLoamSLAM_torch:
 
     def _update_sdf_bias(self, surface_bias):
         """EMA (0.8 / 0.2) of the measured surface offset into the band
-        target (JAX pipeline.py:569-592, bias_classes=1: both entries track
-        the pooled value)."""
+        target (JAX pipeline.py:566-590): bias_classes=1, both entries track
+        the pooled value; bias_classes=2 (the keyframe probe's (2, 2)), each
+        class its own mean, a class with no sample this frame keeping its
+        estimate."""
         if not self.bias_correction:
+            return
+        arr = np.asarray(surface_bias, np.float64)
+        if self.bias_classes == 2 and arr.ndim == 2:
+            b, c = arr[0], arr[1]
+            upd = (c > 0) & np.isfinite(b)
+            self.sdf_bias = np.where(upd, 0.8 * self.sdf_bias + 0.2 * b,
+                                     self.sdf_bias).astype(np.float32)
             return
         sb = self._pooled_bias(surface_bias)
         if np.isfinite(sb):
             self.sdf_bias = (0.8 * self.sdf_bias + 0.2 * sb).astype(np.float32)
+
+    def _kf_probe(self, kf: Frame | None):
+        """The current keyframe's (points, cosines, mask, pose6) on the
+        device for the keyframe bias probe, or None without it."""
+        if not self.kf_bias:
+            return None
+        pts, cos, val = kf.device_arrays(self.device)
+        return pts, cos, val, self._tensor(kf.pose6)
+
+    def _surface_bias(self, ms, dec, probe, window_bias):
+        """The frame's bias probe: ``ba.surface_bias_at`` at the keyframe's
+        points (``probe`` from ``_kf_probe``) on the map ``ms`` and decoder
+        ``dec``, or BA's window probe ``window_bias``."""
+        if probe is None:
+            return window_bias
+        pts, cos, val, pose6 = probe
+        return ba_mod.surface_bias_at(ms, self.map_cfg, dec, self.state.decoder_meta, pose6,
+                                      pts, val, self.rc_map.max_depth, points_cos=cos)
 
     def _track(self, tp, init6, lr, pts, cos, val, sdf_bias, prev_frame, prev_pose6):
         st = self.state
@@ -637,7 +681,8 @@ class NerfLoamSLAM_torch:
         direction; else None)."""
         st = self.state
         cfg = self.map_cfg
-        init6, lr, pts, cos, val, val_m, pose_free, update_decoder, sdf_bias, prev_pose6 = rec.args
+        (init6, lr, pts, cos, val, val_m, pose_free, update_decoder, sdf_bias, kf,
+         prev_pose6) = rec.args
         with self.prof.section("track"):
             tr = self._track(rec.tp, init6, lr, pts, cos, val, sdf_bias, rec.prev_frame,
                              prev_pose6)
@@ -659,11 +704,13 @@ class NerfLoamSLAM_torch:
                                 pack_scratch=self.pack_scratch, dec_meta=st.decoder_meta,
                                 group=self.group)
         ms = ms._replace(embeddings=ba.embeddings, packed=ba.packed, upd_count=ba.upd_count)
+        # the keyframe probe on the post-BA field, before the insert (JAX :1028-1040)
+        surface_bias = self._surface_bias(ms, ba.decoder_params, kf, ba.surface_bias)
         with self.prof.section("insert"):
             ms, ins = vm.insert_frame(ms, cfg, pts, cos, val_m, ba.poses[0], self.insert_cand_cap,
                                       self.recenter_margin > 0, self.insert_scratch)
         outs = (tr.pose, tr.hit_count, ba.poses[0], ms.num_lat, ms.n_active,
-                ba.touched_count, ms.num_cand, tr.loss, ba.surface_bias)
+                ba.touched_count, ms.num_cand, tr.loss, surface_bias)
         return ms, ba.decoder_params, outs, ins
 
     def process_frame(self, frame: Frame):
@@ -734,7 +781,7 @@ class NerfLoamSLAM_torch:
         pose_free = frame.index != st.first_frame_id
         sdf_bias = self._tensor(self.sdf_bias if self.bias_correction else np.zeros(2, np.float32))
         args = (init6, lr, pts, cos, val, val_m, self._tensor([pose_free], torch.bool),
-                bool(update_decoder), sdf_bias, prev_pose6)
+                bool(update_decoder), sdf_bias, self._kf_probe(st.current_keyframe), prev_pose6)
         rec = _Dispatch(frame, mapper_frame, last, self.tp_first if first else self.tp, pose_free,
                         args, (st.map_state, st.decoder_params), self.generator.get_state())
         self._mega_run(rec)
@@ -829,20 +876,28 @@ class NerfLoamSLAM_torch:
         pose_free = [frame.index != st.first_frame_id]
         pts, cos, val = mapper_frame.device_arrays(self.device)
         pre = (st.map_state, st.decoder_params, self.generator.get_state())
-        for _ in range(8):  # each round at least doubles a budget
+        probe = self._kf_probe(st.current_keyframe)
+        for round_ in range(8):  # each round at least doubles a budget
             with self.prof.section("recenter"):
                 self._recenter(frame.pose6[:3])
             with self.prof.section("do_mapping"):
                 res = self._ba(bp, targets, pose_free, update_decoder)
                 ms = st.map_state._replace(embeddings=res.embeddings, packed=res.packed,
                                            upd_count=res.upd_count)
+            # the keyframe probe on the post-BA field before the insert (JAX
+            # :1121-1130); a replayed round measures after it, as JAX's
+            # touched-overflow retry does (:1182-1190)
+            if round_ == 0:
+                bias = self._surface_bias(ms, res.decoder_params, probe, res.surface_bias)
             with self.prof.section("create_voxels"):
                 ms, rec = vm.insert_frame(ms, self.map_cfg, pts, cos, val, res.poses[0],
                                           self.insert_cand_cap, self.recenter_margin > 0,
                                           self.insert_scratch)
+            if round_ > 0:
+                bias = self._surface_bias(ms, res.decoder_params, probe, res.surface_bias)
             with self.prof.section("sync"):
                 got = self._fetch(res.poses, ms.num_lat, ms.n_active, res.touched_count,
-                                  ms.num_cand, res.surface_bias)
+                                  ms.num_cand, bias)
             num_lat, n_active, touched, num_cand = (int(got[i]) for i in (1, 2, 3, 4))
             st.map_state, st.decoder_params = pre[0], pre[1]
             if not self._grow_budgets(num_lat, n_active, touched, num_cand,

@@ -61,7 +61,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import const, norm3, norm3_plain, sqrt_rn
+from nerfloam_tpu_torch.ops.ieee import const, div, norm3, norm3_plain, sqrt_rn
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -74,6 +74,7 @@ from nerfloam_tpu_torch.parallel.sharding import dp_cols
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
 gn_system_launches = 0  # K3
 gn_sums_launches = 0  # K3's dp form
+gn_maturity_launches = 0  # K3's maturity form (one-launch or dp)
 lm_step_launches = 0
 ray_prep_launches = 0
 _K3 = "gn_system"
@@ -94,6 +95,10 @@ class TrackParams(NamedTuple):
     s2s: object = None       # core.scan2scan.Scan2ScanParams | None: add the
     #   scan-to-scan point-to-plane term to the GN system (GN tracker only)
     resample_rays: bool = False  # Adam tracker: fresh rays and march every iteration
+    maturity_warmup: int = 0  # > 0: the GN tracker weighs each sample by its voxel's
+    #   maturity, floor + (1 - floor) min(count / warmup, 1), count the BA steps
+    #   that touched its row (MapState.upd_count)
+    maturity_floor: float = 0.25
 
 
 class TrackResult(NamedTuple):
@@ -207,11 +212,22 @@ def _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackPar
     return front, band, r, J
 
 
+def maturity_weights(cnt_active, aid, tp: TrackParams):
+    """Each sample's voxel-maturity weight (JAX tracking.py:192-195), op by
+    op as JAX rounds it: floor + (1 - floor) min(cnt / warmup, 1), cnt the
+    BA-touch count (f32) of the sample's active row, ``aid`` clamped at 0."""
+    cnt = cnt_active[torch.clamp(aid, min=0).long()]
+    frac = torch.clamp(div(cnt, float(tp.maturity_warmup)), max=1.0)
+    return tp.maturity_floor + (1.0 - tp.maturity_floor) * frac
+
+
 def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
-                    bias_ray=None):
+                    bias_ray=None, mat_w=None):
     """Plain torch twin of K3: residuals, count-balanced weights and the
     6x6 normal equations (tracking.py:217-244, 300-315), the band target
-    being sdf = bias_ray (N,) (None = 0). Returns (H, b, loss)."""
+    being sdf = bias_ray (N,) (None = 0); ``mat_w`` (N, M+K) the samples'
+    maturity weights multiplied into the weights (None: none). Returns
+    (H, b, loss)."""
     front, band, r, J = _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
                                   bias_ray)
     num_fs = front.sum()
@@ -220,6 +236,8 @@ def gn_system_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: Tr
     w_fs = tp.fs_weight * (1.0 - num_fs / tot)
     w_sdf = tp.sdf_weight * (1.0 - num_sdf / tot)
     w = torch.where(front, w_fs, w_sdf) * (front | band)
+    if mat_w is not None:
+        w = w * mat_w
     Jw = J * w[..., None]
     H = torch.einsum("nmi,nmj->ij", Jw, J)
     b = torch.einsum("nmi,nm->i", Jw, r)
@@ -233,18 +251,22 @@ _H_OF_UPPER: dict = {}  # device -> (36,) index of H's entries in the upper-entr
 
 
 def gn_sums_plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams,
-                  bias_ray=None):
+                  bias_ray=None, mat_w=None):
     """Plain torch twin of K3's dp form (``GnSystem(..., sums=True)``): its
     unweighted per-class sums, (58,) f32: for the front samples then the
     band samples the upper triangle of sum J J^T (21, row by row), sum J r
-    (6) and sum r^2 (1); then the two classes' counts. ``gn_combine`` makes
-    (H, b, loss) of them once they are all-reduced."""
+    (6) and sum r^2 (1); then the two classes' counts, each sample's
+    contributions weighted by ``mat_w`` (N, M+K) where given, its counts
+    not. ``gn_combine`` makes (H, b, loss) of them once they are
+    all-reduced."""
     front, band, r, J = _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp,
                                   bias_ray)
     iu = torch.tensor(_UPPER, device=J.device).T
     parts = []
     for cls in (front, band):
         m = cls.to(torch.float32)
+        if mat_w is not None:
+            m = m * mat_w
         Jm = J * m[..., None]
         parts += [torch.einsum("nmi,nmj->ij", Jm, J)[iu[0], iu[1]],
                   torch.einsum("nmi,nm->i", Jm, r), torch.sum(m * r * r)[None]]
@@ -286,10 +308,14 @@ class GnSystem:
     iteration. CPU tensors take ``gn_system_plain``. With ``sums=True``
     (the dp form) a call returns K3's 58 per-class sums instead (its own
     buffer; ``gn_sums_plain`` on the CPU), for the caller to all-reduce and
-    ``gn_combine``."""
+    ``gn_combine``. With ``tp.maturity_warmup`` > 0 (the maturity form, of
+    either) ``cnt`` (A,) f32 is the active rows' BA-touch counts, fixed
+    over the frame, and each call takes ``aid`` (N, n_cols) int32, the
+    samples' active rows: each sample's terms are weighted by
+    ``maturity_weights``, in the same one launch."""
 
     def __init__(self, pcos, d_meas, depth_ok, bias_ray, tp: TrackParams, n_cols: int,
-                 sums: bool = False):
+                 sums: bool = False, cnt=None):
         dev = pcos.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"{_K3}: unsupported device {dev}")
@@ -301,6 +327,14 @@ class GnSystem:
         if N * n_cols >= 1 << 24:
             raise ValueError(f"{_K3}: {N} x {n_cols} samples; the kernel counts them in f32, "
                              "exact below 2^24")
+        self.maturity = tp.maturity_warmup > 0
+        if self.maturity:
+            kernels.expect(_K3, dev, _F32, cnt=cnt)
+            if cnt.dim() != 1 or cnt.shape[0] < 1:
+                raise ValueError(f"{_K3}: cnt must be (A,) with A >= 1; got {tuple(cnt.shape)}")
+        elif cnt is not None:
+            raise ValueError(f"{_K3}: cnt given with tp.maturity_warmup = 0")
+        self._cnt = cnt
         self.device, self.tp, self.sums = dev, tp, sums
         self._rays = (pcos, d_meas, depth_ok, bias_ray)
         self._s_shape, self._x_shape = (N, n_cols), (N, n_cols, 3)
@@ -320,8 +354,16 @@ class GnSystem:
                        tp.fs_weight, tp.sdf_weight, self._scratch.data_ptr(),
                        *(t.data_ptr() for t in self._out),
                        self._sums.data_ptr() if sums else None)
+        if self.maturity:
+            self._launch_m = lib.nl_gn_system_maturity
+            self._mat = (cnt.data_ptr(), cnt.shape[0], float(tp.maturity_warmup),
+                         float(tp.maturity_floor), float(1.0 - tp.maturity_floor))
 
-    def __call__(self, xyz, t_pos, z, sdf, g, vmask):
+    def __call__(self, xyz, t_pos, z, sdf, g, vmask, aid=None):
+        if self.maturity:
+            return self._call_maturity(xyz, t_pos, z, sdf, g, vmask, aid)
+        if aid is not None:
+            raise ValueError(f"{_K3}: aid given with tp.maturity_warmup = 0")
         index, s, x = self._index, self._s_shape, self._x_shape
         # the usual case on the card in one expression; anything else, and
         # every CPU call, goes through the full checks, which raise
@@ -352,6 +394,29 @@ class GnSystem:
             return self._sums
         gn_system_launches += 1
         return self._out
+
+    def _call_maturity(self, xyz, t_pos, z, sdf, g, vmask, aid):
+        """The maturity form: the full checks every call, one launch."""
+        self._check(xyz, t_pos, z, sdf, g, vmask)
+        if aid is None:
+            raise ValueError(f"{_K3}: the maturity form takes each sample's active row, aid")
+        kernels.expect(_K3, self.device, torch.int32, aid=aid)
+        kernels.expect_shape(_K3, aid=(aid, self._s_shape))
+        if self._index < 0:
+            pcos, d_meas, depth_ok, bias_ray = self._rays
+            plain = gn_sums_plain if self.sums else gn_system_plain
+            return plain(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, self.tp, bias_ray,
+                         maturity_weights(self._cnt, aid, self.tp))
+        global gn_maturity_launches
+        err = self._launch_m(xyz.data_ptr(), z.data_ptr(), sdf.data_ptr(), g.data_ptr(),
+                             vmask.data_ptr(), *self._fixed[:4], t_pos.data_ptr(),
+                             *self._fixed[4:], self._mat[0], aid.data_ptr(), *self._mat[1:],
+                             kernels.raw_stream(self._index))
+        if err:
+            self._scratch.zero_()  # the counter may not be zero
+            kernels.check(err, _K3)
+        gn_maturity_launches += 1
+        return self._sums if self.sums else self._out
 
     def _check(self, xyz, t_pos, z, sdf, g, vmask):
         dev = self.device
@@ -494,8 +559,13 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     n_extra = tp.surface_anchor + tp.band_samples
     # what stays fixed over the frame, checked once: K8's grid and K3's rays
     field = ActiveField(map_state, map_cfg)
+    # voxel maturity (JAX tracking.py:184-197): the active rows' BA-touch
+    # counts, gathered once a frame; K3 weighs each sample by its row's
+    cnt = (map_state.upd_count[map_state.active_ids.long()].to(torch.float32)
+           if tp.maturity_warmup > 0 else None)
     system = GnSystem(pcos, d_meas, depth_ok, bias_ray, tp, rc.n_samples + n_extra,
-                      sums=group is not None)
+                      sums=group is not None, cnt=cnt)
+
     s2s_on = tp.s2s is not None and prev_scan is not None
 
     R = se3.pose_rotation(init_pose)  # then lm_step's, one iteration to the next
@@ -530,13 +600,14 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
         vmask = valid & rvalid[:, None]
         sdf, g = field_and_grad(decoder_params, feats, xyz, aid, valid, packed, vs, compute_dtype,
                                 dec_meta)
+        mat = (aid,) if cnt is not None else ()
         if group is None:
-            H, b, loss = system(xyz, t_pos, z, sdf, g, vmask)
+            H, b, loss = system(xyz, t_pos, z, sdf, g, vmask, *mat)
             if s2s_on:
                 # adds in place into K3's outputs, which its next call overwrites
                 H, b, loss = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R, (H, b, loss))
         else:  # K3's sums (and K11b's system) over every rank's rays, in one all-reduce
-            parts = [system(xyz, t_pos, z, sdf, g, vmask)]
+            parts = [system(xyz, t_pos, z, sdf, g, vmask, *mat)]
             if s2s_on:
                 Hs, bs, ls = s2s_system(tp.s2s, prev_scan, pose6, pts, rvalid, R)
                 parts += [Hs.reshape(36), bs, ls.reshape(1)]

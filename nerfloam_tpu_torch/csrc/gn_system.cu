@@ -44,6 +44,13 @@
 //     depend on the counts of every rank, so the last block writes its 58
 //     sums (front 28, band 28, the two counts) instead, and the caller
 //     all-reduces them and combines (tracking.gn_combine).
+//   - the maturity form (a counts pointer, tpu_specs.maturity_warmup,
+//     JAX tracking.py:184-197, 240-241, 270, 298): each sample's weight
+//     m = floor + (1 - floor) min(cnt[aid] / warmup, 1), cnt the BA-touch
+//     count of the sample's active row, multiplies its J J^T, J r and r^2
+//     contributions (the sums take m J_a J_c, m J_a r and (m r) r); the
+//     class counts stay unweighted. A template flag, so the plain form's
+//     code and digits are as they were.
 // Sum order, for a given N x MK: a thread adds its samples in ascending
 // index; the butterfly pairs lanes at distances 16, 8, 4, 2, 1; a block
 // adds its warps in order; the last block adds partial rows j = lane +
@@ -99,6 +106,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kMat>
 __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
     const float* __restrict__ xyz, const float* __restrict__ z, const float* __restrict__ sdf,
     const float* __restrict__ g, const unsigned char* __restrict__ vmask,
@@ -106,7 +114,9 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
     const unsigned char* __restrict__ depth_ok, const float* __restrict__ bias_ray,
     const float* __restrict__ t_pos, int N, int MK, float T, float fs_weight, float sdf_weight,
     float* __restrict__ partial, unsigned* __restrict__ counter, float* __restrict__ H,
-    float* __restrict__ b, float* __restrict__ loss, float* __restrict__ sums) {
+    float* __restrict__ b, float* __restrict__ loss, float* __restrict__ sums,
+    const float* __restrict__ cnt, const int* __restrict__ aid, int A, float warmup,
+    float mfloor, float momf) {
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = gridDim.x;
   // values 0..27 front, 28..55 band, 56 / 57 the counts, 58..63 zero
@@ -120,7 +130,7 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
     // issued before the sums; a sample past the end reads the last one and
     // is masked
     float zs[kBatch], ss[kBatch], gs[kBatch][3], qs[kBatch][3], pcs[kBatch], ds[kBatch],
-        bs[kBatch];
+        bs[kBatch], cs[kBatch];
     bool ms[kBatch], oks[kBatch];
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
@@ -139,6 +149,10 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
       ds[k] = d_meas[ray];
       bs[k] = bias_ray[ray];
       oks[k] = depth_ok[ray];
+      if constexpr (kMat) {
+        const int a = aid[j];
+        cs[k] = cnt[a < 0 ? 0 : (a >= A ? A - 1 : a)];
+      }
     }
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
@@ -150,28 +164,47 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) gn_system_kernel(
       const float gx = gs[k][0] * js, gy = gs[k][1] * js, gz = gs[k][2] * js;
       const float qx = qs[k][0] - t0, qy = qs[k][1] - t1, qz = qs[k][2] - t2;
       const float J[6] = {gx, gy, gz, qy * gz - qz * gy, qz * gx - qx * gz, qx * gy - qy * gx};
-      float Jf[6], Jb[6];
+      float Jf[6], Jb[6], Mf[6], Mb[6];
 #pragma unroll
       for (int a = 0; a < 6; ++a) {
         Jf[a] = front ? J[a] : 0.0f;
         Jb[a] = band ? J[a] : 0.0f;
       }
       const float rf = front ? r : 0.0f, rb = band ? r : 0.0f;
+      float mrf = rf, mrb = rb;
+      if constexpr (kMat) {
+        // IEEE steps, as JAX's f32 ops: cnt / warmup, min(., 1), floor + (1 - floor) frac
+        const float frac = fminf(__fdiv_rn(cs[k], warmup), 1.0f);
+        const float m = __fadd_rn(mfloor, __fmul_rn(momf, frac));
+#pragma unroll
+        for (int a = 0; a < 6; ++a) {
+          Mf[a] = __fmul_rn(Jf[a], m);
+          Mb[a] = __fmul_rn(Jb[a], m);
+        }
+        mrf = __fmul_rn(rf, m);
+        mrb = __fmul_rn(rb, m);
+      } else {
+#pragma unroll
+        for (int a = 0; a < 6; ++a) {
+          Mf[a] = Jf[a];
+          Mb[a] = Jb[a];
+        }
+      }
       int e = 0;
 #pragma unroll
       for (int a = 0; a < 6; ++a)
 #pragma unroll
         for (int c = a; c < 6; ++c, ++e) {
-          v[e] = __fmaf_rn(Jf[a], Jf[c], v[e]);
-          v[kCls + e] = __fmaf_rn(Jb[a], Jb[c], v[kCls + e]);
+          v[e] = __fmaf_rn(Mf[a], Jf[c], v[e]);
+          v[kCls + e] = __fmaf_rn(Mb[a], Jb[c], v[kCls + e]);
         }
 #pragma unroll
       for (int a = 0; a < 6; ++a) {
-        v[21 + a] = __fmaf_rn(Jf[a], rf, v[21 + a]);
-        v[kCls + 21 + a] = __fmaf_rn(Jb[a], rb, v[kCls + 21 + a]);
+        v[21 + a] = __fmaf_rn(Mf[a], rf, v[21 + a]);
+        v[kCls + 21 + a] = __fmaf_rn(Mb[a], rb, v[kCls + 21 + a]);
       }
-      v[27] = __fmaf_rn(rf, rf, v[27]);
-      v[kCls + 27] = __fmaf_rn(rb, rb, v[kCls + 27]);
+      v[27] = __fmaf_rn(mrf, rf, v[27]);
+      v[kCls + 27] = __fmaf_rn(mrb, rb, v[kCls + 27]);
       v[2 * kCls] += front ? 1.0f : 0.0f;
       v[2 * kCls + 1] += band ? 1.0f : 0.0f;
     }
@@ -266,20 +299,43 @@ extern "C" int nl_gn_max_blocks() { return kMaxBlocks; }
 // scratch: nl_gn_partial_values() x nl_gn_max_blocks() floats of partial
 // rows, then one unsigned counter that is zero between calls. sums: null
 // for the one-launch form (H, b, loss written); else the dp form writes the
-// nl_gn_partial_values() sums there and leaves H, b and loss unwritten
+// nl_gn_partial_values() sums there and leaves H, b and loss unwritten.
+// cnt: null for the plain form; else the maturity form, cnt (A,) the
+// active rows' BA-touch counts as floats and aid (N, MK) each sample's
+// active row (clamped into [0, A)), warmup > 0, floor and 1 - floor
+extern "C" int nl_gn_system_maturity(const float* xyz, const float* z, const float* sdf,
+                                     const float* g, const unsigned char* vmask,
+                                     const float* pcos, const float* d_meas,
+                                     const unsigned char* depth_ok, const float* bias_ray,
+                                     const float* t_pos, int N, int MK, float T,
+                                     float fs_weight, float sdf_weight, float* scratch, float* H,
+                                     float* b, float* loss, float* sums, const float* cnt,
+                                     const int* aid, int A, float warmup, float mfloor,
+                                     float momf, void* stream) {
+  // blocks enough for one batch of samples a thread, one an SM at the most
+  const int n = N * MK;
+  int nb = (n + kThreads * kBatch - 1) / (kThreads * kBatch);
+  nb = nb < 1 ? 1 : (nb > kMaxBlocks ? kMaxBlocks : nb);
+  unsigned* counter = reinterpret_cast<unsigned*>(scratch + kVals * kMaxBlocks);
+  if (cnt != nullptr) {
+    gn_system_kernel<true><<<nb, kThreads, 0, (cudaStream_t)stream>>>(
+        xyz, z, sdf, g, vmask, pcos, d_meas, depth_ok, bias_ray, t_pos, N, MK, T, fs_weight,
+        sdf_weight, scratch, counter, H, b, loss, sums, cnt, aid, A, warmup, mfloor, momf);
+  } else {
+    gn_system_kernel<false><<<nb, kThreads, 0, (cudaStream_t)stream>>>(
+        xyz, z, sdf, g, vmask, pcos, d_meas, depth_ok, bias_ray, t_pos, N, MK, T, fs_weight,
+        sdf_weight, scratch, counter, H, b, loss, sums, nullptr, nullptr, 0, 1.0f, 0.0f, 1.0f);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int nl_gn_system(const float* xyz, const float* z, const float* sdf, const float* g,
                             const unsigned char* vmask, const float* pcos, const float* d_meas,
                             const unsigned char* depth_ok, const float* bias_ray,
                             const float* t_pos, int N, int MK, float T, float fs_weight,
                             float sdf_weight, float* scratch, float* H, float* b, float* loss,
                             float* sums, void* stream) {
-  // blocks enough for one batch of samples a thread, one an SM at the most
-  const int n = N * MK;
-  int nb = (n + kThreads * kBatch - 1) / (kThreads * kBatch);
-  nb = nb < 1 ? 1 : (nb > kMaxBlocks ? kMaxBlocks : nb);
-  unsigned* counter = reinterpret_cast<unsigned*>(scratch + kVals * kMaxBlocks);
-  gn_system_kernel<<<nb, kThreads, 0, (cudaStream_t)stream>>>(
-      xyz, z, sdf, g, vmask, pcos, d_meas, depth_ok, bias_ray, t_pos, N, MK, T, fs_weight,
-      sdf_weight, scratch, counter, H, b, loss, sums);
-  return (int)cudaGetLastError();
+  return nl_gn_system_maturity(xyz, z, sdf, g, vmask, pcos, d_meas, depth_ok, bias_ray, t_pos, N,
+                               MK, T, fs_weight, sdf_weight, scratch, H, b, loss, sums, nullptr,
+                               nullptr, 0, 1.0f, 0.0f, 1.0f, stream);
 }

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "nl_gn_max_blocks": [],
     "nl_gn_system": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                      _P, _P, _P, _P, _P, _P],
+    "nl_gn_system_maturity": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                              _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P],
     "nl_insert_scan_words": [_I, _I],
     "nl_insert": [_P, _P, _I, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],

@@ -515,3 +515,119 @@ def sample_rays_cdf(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig
     then K9b (nerfloam_tpu/ops/raycast.py:346-381)."""
     cdf, n_occ = march_occupancy(state, map_cfg, rc, rays_o, rays_d, t_cap)
     return place_samples_cdf(state, map_cfg, rc, cdf, n_occ, rays_o, rays_d, t_cap, u)
+
+
+# ------------------------------------------------ the reference's contracts
+#
+# Plain torch ports of the JAX package's functions that no path of either
+# package runs, kept for their reference contracts (JAX ops/raycast.py:
+# 327-519): explicit depths against a hit table, the ray/voxel
+# intersection list and its inverse-cdf sampler, and the dense jittered
+# grid sampler. As everywhere in the port, the caller supplies the jitter.
+
+
+def match_z_in_hits(ht: HitTable, z: torch.Tensor):
+    """Resolve explicit depths z (R, K) against the hit list: the first
+    hit segment containing each depth (R, K), its aid (-1 where none does)
+    and found (R, K). JAX returns the one-hot of that segment (averaged
+    over duplicate entries of one voxel, which carry the same aid) where
+    this returns its index."""
+    inside = ((z[..., None] >= ht.t_near[:, None, :])
+              & (z[..., None] < ht.t_near[:, None, :] + ht.seg[:, None, :])
+              & (ht.aid[:, None, :] >= 0))                               # (R, K, H)
+    found = inside.any(-1)
+    idx = torch.argmax(inside.to(torch.int32), -1)
+    aid = torch.gather(ht.aid, 1, idx)
+    return idx, torch.where(found, aid, -1), found
+
+
+def ray_intersect(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                  rays_o: torch.Tensor, rays_d: torch.Tensor, max_hits: int = 20):
+    """The reference's ray_intersect contract: up to ``max_hits`` hit voxels
+    a ray, in order of entry depth, with the exact entry and exit depths of
+    the voxel's box; -1 / +inf padding. Candidates are the coarse march's
+    first-touch slots. Returns (aid (R, H), t_near (R, H), t_far (R, H),
+    hit_mask (R,))."""
+    R, H = rays_o.shape[0], max_hits
+    cstep, S = _coarse_shape(rc)
+    dev = rays_o.device
+    t_c = (torch.arange(S, dtype=_F32, device=dev) + 0.5) * cstep
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t_c[None, :, None]
+    cells = cells_of(pts, rc.voxel_size)
+    lid = vm.lookup_active(state, map_cfg, cells)                          # (R, S)
+    prev = torch.cat([torch.full((R, 1), -2, dtype=torch.int32, device=dev), lid[:, :-1]], 1)
+    new_hit = (lid >= 0) & (lid != prev)
+    vmin = cells.to(_F32) * rc.voxel_size
+    vmax = vmin + rc.voxel_size
+    inv_d = rdiv(1.0, torch.where(torch.abs(rays_d) < 1e-9, 1e-9, rays_d))
+    t0 = (vmin - rays_o[:, None, :]) * inv_d[:, None, :]
+    t1 = (vmax - rays_o[:, None, :]) * inv_d[:, None, :]
+    t_near = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
+    t_far = torch.maximum(t0, t1).amin(-1)
+    pos = torch.cumsum(new_hit.to(torch.int32), -1) - 1
+    keep = new_hit & (pos < H)
+    dest = torch.where(keep, pos, H).long()
+    # only kept slots are written (the (H + 1)-th column takes the rest)
+    aid = torch.full((R, H + 1), -1, dtype=torch.int32, device=dev)
+    tn = torch.full((R, H + 1), float("inf"), dtype=_F32, device=dev)
+    tf = torch.full((R, H + 1), float("inf"), dtype=_F32, device=dev)
+    r_i, s_i = keep.nonzero(as_tuple=True)
+    d_i = dest[r_i, s_i]
+    aid[r_i, d_i] = lid[r_i, s_i]
+    tn[r_i, d_i] = t_near[r_i, s_i]
+    tf[r_i, d_i] = t_far[r_i, s_i]
+    return aid[:, :H], tn[:, :H], tf[:, :H], new_hit.any(-1)
+
+
+def ray_sample(aid: torch.Tensor, t_near: torch.Tensor, t_far: torch.Tensor, n_samples: int,
+               u: torch.Tensor | None = None):
+    """The reference's ray_sample contract: inverse-cdf samples over an
+    explicit hit list, distributed by segment length, stratified; ``u``
+    (R, M) the jitter (None: 0.5, JAX's ``jitter=False``). Returns (z
+    (R, M), aid (R, M), valid (R, M)), z = 0 and aid = -1 where not
+    valid."""
+    R, H = aid.shape
+    M = n_samples
+    dev = aid.device
+    seg = torch.where(aid >= 0, torch.clamp(t_far - t_near, min=0.0), 0.0)
+    cdf = torch.cumsum(seg, -1)
+    total = cdf[:, -1]
+    if u is None:
+        u = torch.full((R, M), 0.5, dtype=_F32, device=dev)
+    q = div(torch.arange(M, dtype=_F32, device=dev)[None, :] + u, float(M)) * total[:, None]
+    j = torch.clamp((cdf[:, None, :] < q[:, :, None]).sum(-1), 0, H - 1)
+    cdf_j, seg_j = torch.gather(cdf, 1, j), torch.gather(seg, 1, j)
+    frac = torch.clamp((q - (cdf_j - seg_j)) / torch.where(seg_j > 0, seg_j, 1.0), 0.0, 1.0)
+    z = torch.gather(t_near, 1, j) + frac * seg_j
+    ids = torch.gather(aid, 1, j)
+    valid = (total[:, None] > 0) & (ids >= 0)
+    return torch.where(valid, z, 0.0), torch.where(valid, ids, -1), valid
+
+
+def sample_along_rays(state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig,
+                      rays_o: torch.Tensor, rays_d: torch.Tensor, t_cap: torch.Tensor,
+                      u: torch.Tensor | None = None):
+    """The dense jittered-grid sampler: ``rc.n_slots`` depths (k + u) x
+    step_world a ray, ``u`` (R, n_slots) the jitter (None: 0.5), the ones
+    in an active voxel and within t_cap compacted to the first
+    ``rc.n_samples`` columns. Returns (z, aid, valid (R, n_samples),
+    ray_mask (R,)); z = 0 and aid = -1 in unused columns."""
+    R, S, M = rays_o.shape[0], rc.n_slots, rc.n_samples
+    dev = rays_o.device
+    if u is None:
+        u = torch.full((R, S), 0.5, dtype=_F32, device=dev)
+    t = (torch.arange(S, dtype=_F32, device=dev)[None, :] + u) * rc.step_world
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+    lid = vm.lookup_active(state, map_cfg, cells_of(pts, rc.voxel_size))
+    valid = (lid >= 0) & (t <= t_cap[:, None])
+    pos = torch.cumsum(valid.to(torch.int32), -1) - 1
+    keep = valid & (pos < M)
+    r_i, s_i = keep.nonzero(as_tuple=True)
+    d_i = pos[r_i, s_i].long()
+    z = torch.zeros((R, M), dtype=_F32, device=dev)
+    aid = torch.full((R, M), -1, dtype=torch.int32, device=dev)
+    val = torch.zeros((R, M), dtype=torch.bool, device=dev)
+    z[r_i, d_i] = t[r_i, s_i]
+    aid[r_i, d_i] = lid[r_i, s_i]
+    val[r_i, d_i] = True
+    return z, aid, val, valid.any(-1)

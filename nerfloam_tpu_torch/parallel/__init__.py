@@ -1,5 +1,7 @@
 """Runners over several pipelines and ranks (port of nerfloam_tpu/parallel/):
 chained submaps of one long sequence and independent sequences, one worker
-per device (``subscene``), and ray data parallelism over
-``torch.distributed`` ranks (``sharding``: the dp layout of JAX's
-``make_mesh``; its tensor-parallel decoder demo is not ported)."""
+per device (``subscene``), and the multi-rank layouts over
+``torch.distributed`` (``sharding``): ray data parallelism of the pipeline
+(``run_dp``), and JAX's dp x tp layout (``make_mesh``,
+``shard_decoder_params``, ``tp_decoder_apply``,
+``make_sharded_ba_iteration``)."""

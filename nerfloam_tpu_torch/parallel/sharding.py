@@ -1,6 +1,9 @@
 """Ray data parallelism over ``torch.distributed`` (port of the dp layout of
 nerfloam_tpu/parallel/sharding.py:37-45, ``make_mesh``, and of the
-pipeline's ``("dp",)`` mesh, nerfloam_tpu/core/pipeline.py:384-398).
+pipeline's ``("dp",)`` mesh, nerfloam_tpu/core/pipeline.py:384-398), and the
+dp x tp layout of the rest of that module (below: ``make_mesh``,
+``shard_decoder_params``, ``tp_decoder_apply``,
+``make_sharded_ba_iteration``).
 
 Layout: one process a rank, rank r on a device named for it. The map, the
 decoder, the poses and the optimizer state are replicated. Every rank draws
@@ -34,6 +37,7 @@ import os
 import pickle
 import shutil
 import tempfile
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -214,3 +218,256 @@ def run_dp(cfg, dataset_fn, world_size: int, devices=None, backend: str | None =
             raise RuntimeError(f"run_dp: rank {r['rank']}'s final poses differ from rank 0's: "
                                "the replicated state drifted")
     return {**ranks[0], "ranks": ranks}
+
+
+# ------------------------------------------------- the dp x tp layout (tp)
+#
+# Port of nerfloam_tpu/parallel/sharding.py:37-228: make_mesh's dp x tp
+# split, the Megatron decoder split and the multi-chip BA iteration that
+# __graft_entry__.dryrun_multichip runs as its layout 2. JAX runs the body
+# under shard_map(check_vma=False), where psum's transpose is psum: the
+# cotangent reaching each rank's partial product is summed over the tp
+# ranks, and the pmean over dp hands every rank's local loss a cotangent
+# of 1. Measured on JAX 0.9's CPU mesh (tests/test_torch_tp.py): the raw
+# gradients of the column- and row-split decoder leaves come out tp times
+# the single-device ones, the replicated leaves (the row layers' biases,
+# the output head) equal them, every gradient is dp times the gradient of
+# the loss the step returns (local counts, then the pmean), and the
+# gradients of the packed table and of the pose are each rank's own column
+# block's share, times tp, never summed over tp, so those two replicated
+# outputs differ between the tp ranks of a row and stay equal down a tp
+# column. The port's collectives (``_AllReduceSum``) take the same rule,
+# so each rank holds the numbers of JAX's device at its mesh coordinates.
+
+
+class Mesh(NamedTuple):
+    """This rank's place in a dp x tp layout (JAX's ``Mesh`` with axes
+    ("dp", "tp") over devices laid out ``reshape(dp, tp)``: the rank of
+    (i, j) is i * tp + j). ``tp_group`` holds the tp ranks of this rank's
+    dp row (the decoder's partial sums), ``dp_group`` the dp ranks of its
+    tp column (the gradient sums); a group is None where it would hold this
+    rank alone."""
+
+    dp: int
+    tp: int
+    dp_index: int
+    tp_index: int
+    dp_group: object = None
+    tp_group: object = None
+
+
+def mesh_shape(n_devices: int, tp: int | None = None) -> tuple[int, int]:
+    """(dp, tp) of ``make_mesh`` over ``n_devices``: tp = 2 when n is even
+    and at least 4, else 1 (JAX sharding.py:41-44); raises ValueError unless
+    tp divides n."""
+    n = int(n_devices)
+    if tp is None:
+        tp = 2 if n % 2 == 0 and n >= 4 else 1
+    if tp < 1 or n % tp:
+        raise ValueError(f"make_mesh: tp {tp} does not divide {n} devices")
+    return n // tp, int(tp)
+
+
+def make_mesh(n_devices: int | None = None, tp: int | None = None) -> Mesh:
+    """The dp x tp layout over the ranks of the default process group
+    (every rank must call it, in the same order as its other group
+    creations: it makes one group per dp row and per tp column). Without a
+    process group, ``n_devices`` must be 1 (or None): the one-process
+    layout, dp = tp = 1."""
+    if not (dist.is_available() and dist.is_initialized()):
+        if n_devices not in (None, 1):
+            raise ValueError(f"make_mesh: {n_devices} devices need a process group of as "
+                             "many ranks (parallel.sharding.spawn)")
+        mesh_shape(1, tp)
+        return Mesh(1, 1, 0, 0)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(f"make_mesh: {n} devices but the process group has {world} ranks")
+    dp, tp = mesh_shape(n, tp)
+    tp_group = dp_group = None
+    for i in range(dp):  # new_group is collective: every rank makes every group
+        g = dist.new_group([i * tp + j for j in range(tp)])
+        if i == rank // tp and tp > 1:
+            tp_group = g
+    for j in range(tp):
+        g = dist.new_group([i * tp + j for i in range(dp)])
+        if j == rank % tp and dp > 1:
+            dp_group = g
+    return Mesh(dp, tp, rank // tp, rank % tp, dp_group, tp_group)
+
+
+def _tp_block(width: int, mesh: Mesh) -> slice:
+    if width % mesh.tp:
+        raise ValueError(f"tp {mesh.tp} does not divide the decoder width {width}")
+    b = width // mesh.tp
+    return slice(mesh.tp_index * b, (mesh.tp_index + 1) * b)
+
+
+def shard_decoder_params(params, mesh: Mesh):
+    """This rank's decoder blocks for tp (JAX sharding.py:47-68): layer 0
+    column-split (its columns of ``w`` and of ``b``), layers 1 and after
+    row-split (their rows of ``w``, ``b`` replicated), the output layer and
+    ``gaussian_B`` replicated. Returns a decoder dict of contiguous copies."""
+    ws, bs = params["w"], params["b"]
+    if len(ws) < 3:
+        raise ValueError("tp_decoder: the split needs two hidden layers or more (JAX's "
+                         "tp_decoder_apply reads the last row layer's output)")
+    blk = _tp_block(ws[0].shape[1], mesh)
+    out = {"w": [ws[0][:, blk].contiguous()], "b": [bs[0][blk].contiguous()]}
+    for w, b in zip(ws[1:-1], bs[1:-1]):
+        out["w"].append(w[_tp_block(w.shape[0], mesh)].contiguous())
+        out["b"].append(b.clone())
+    out["w"].append(ws[-1].clone())
+    out["b"].append(bs[-1].clone())
+    if "gaussian_B" in params:
+        out["gaussian_B"] = params["gaussian_B"].clone()
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ``group``'s ranks; the backward sums the cotangent over the
+    same ranks: JAX's psum and its transpose under shard_map(check_vma=
+    False). A None group is one rank: the identity both ways."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        if group is not None:
+            dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        if ctx.group is not None:
+            dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``lax.psum`` over ``group`` (see ``_AllReduceSum``)."""
+    return _AllReduceSum.apply(x, group)
+
+
+def _dot(h, w, compute_dtype):
+    if compute_dtype != torch.float32:  # models/decoder.decoder_apply's bf16 rounding
+        h, w = h.to(compute_dtype).float(), w.to(compute_dtype).float()
+    return torch.matmul(h, w)
+
+
+def tp_decoder_apply(params, feats: torch.Tensor, mesh: Mesh, compute_dtype=torch.float32):
+    """The Megatron split of the (no-embedder, no-skip) sdf MLP on this
+    rank (JAX sharding.py:71-99): layer 0's column block, a local product
+    and ReLU; each row layer a partial product of this rank's block, its
+    sum over the tp ranks (``psum``), the bias and ReLU, then this rank's
+    column block of the result for the next row layer; the replicated
+    output head on the last row layer's whole output. ``params`` from
+    ``shard_decoder_params``; the products stay ``torch.matmul``, as JAX's
+    ``jnp.dot`` outside any kernel, with ``compute_dtype`` rounding both
+    operands as ``decoder_apply`` does. Returns (..., 1)."""
+    ws, bs = params["w"], params["b"]
+    if len(ws) < 3:
+        raise ValueError("tp_decoder: the split needs two hidden layers or more (JAX's "
+                         "tp_decoder_apply reads the last row layer's output)")
+    h = torch.relu(_dot(feats, ws[0], compute_dtype) + bs[0])
+    for w, b in zip(ws[1:-1], bs[1:-1]):
+        hfull = torch.relu(psum(_dot(h, w, compute_dtype), mesh.tp_group) + b)
+        h = hfull[..., _tp_block(hfull.shape[-1], mesh)]
+    return _dot(hfull, ws[-1], compute_dtype) + bs[-1]
+
+
+def make_sharded_ba_iteration(map_cfg, rc, truncation: float, max_depth: float,
+                              fs_weight: float = 1.0, sdf_weight: float = 10000.0,
+                              mesh: Mesh | None = None):
+    """One multi-rank BA iteration (JAX sharding.py:102-226): rays split
+    over dp in contiguous blocks, the decoder split over tp, the map
+    replicated; the production optimizer (``tracking.scale_by_adam_``,
+    optax's Adam step bit for bit) and ``p - lr * update``.
+
+    Returns (step, init_opt): ``opt_state = init_opt(map_state, dec_local,
+    pose6)``, then ``packed, dec_local, pose6, loss, opt_state =
+    step(map_state, dec_local, pose6, pts_local, cos_local, rvalid_local,
+    lrs, u, opt_state)``: ``dec_local`` from ``shard_decoder_params``,
+    ``pts_local`` (R_local, 3) sensor-frame points, ``cos_local`` and
+    ``rvalid_local`` (R_local,) this rank's block of the rays, ``lrs`` the
+    three learning rates (table, decoder, pose) and ``u`` (R_local, M) the
+    placement jitter. JAX's body draws its jitter from the replicated key,
+    so every dp rank takes the same ``u``; the port is handed it.
+
+    The body: the ray directions and their useful range (``ray_prep``:
+    JAX's ``+ 1e-8`` normalisation and ``t_cap_for``), the grid sampler
+    (K9a, K9b) at the rays of ``pose6``, the features of each sample's own
+    cell (K8 forward, K2's d packed form backward), ``tp_decoder_apply`` in
+    float32, ``sdf_losses`` on this rank's rays, its mean over the dp ranks,
+    then every gradient summed over the dp ranks. The collectives follow
+    JAX's transpose rule (see ``_AllReduceSum``). ``mesh`` None is one
+    process (dp = tp = 1)."""
+    from nerfloam_tpu_torch.core.losses import MAX_DEPTH, sdf_losses
+    from nerfloam_tpu_torch.core.render import (
+        ActiveField,
+        DpackedScratch,
+        _FieldColumns,
+        grid_columns_fwd,
+    )
+    from nerfloam_tpu_torch.core.tracking import ray_prep, scale_by_adam_
+    from nerfloam_tpu_torch.models.decoder import decoder_leaves, map_decoder
+    from nerfloam_tpu_torch.ops import se3
+    from nerfloam_tpu_torch.ops.raycast import CdfPlacer
+
+    mesh = Mesh(1, 1, 0, 0) if mesh is None else mesh
+    scratch = DpackedScratch()  # K2's d packed scratch, kept over the steps
+
+    def init_opt(map_state, dec_params, pose6):
+        params = [map_state.packed, *decoder_leaves(dec_params), pose6]
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    def step(map_state, dec_params, pose6, pts, cos, rvalid, lrs, u, opt_state):
+        packed = map_state.packed.detach().clone().requires_grad_(True)
+        dec = map_decoder(dec_params, lambda p: p.detach().clone().requires_grad_(True))
+        pose = pose6.detach().clone().requires_grad_(True)
+        params = [packed, *decoder_leaves(dec), pose]
+        dirs, t_cap, _, _, dnorm = ray_prep(pts, cos, truncation, max_depth)
+        wdirs = se3.rotate_dirs(pose, dirs)
+        origin = se3.pose_translation(pose).expand_as(wdirs)
+        with torch.no_grad():  # K9a at the rays of pose6, into the placer K9b reads
+            placer = CdfPlacer.march(map_state, map_cfg, rc, origin.detach(), wdirs.detach(),
+                                     t_cap, rc.n_samples)
+        field = ActiveField(map_state, map_cfg)
+        side = {}
+
+        def fwd(p, o, d):
+            out, side["ray_mask"] = grid_columns_fwd(field, placer, u, o, d, p)
+            return out
+
+        feats, z, valid, _, _ = _FieldColumns.apply(packed, origin, wdirs, fwd,
+                                                    map_cfg.voxel_size, scratch)
+        ray_mask = side["ray_mask"] & rvalid
+        valid = valid & rvalid[:, None]
+        sdf = tp_decoder_apply(dec, feats, mesh)[..., 0]
+        sdf = torch.where(valid, sdf, 1.0)
+        z_out = torch.where(valid, z, MAX_DEPTH)
+        local, _ = sdf_losses(z_out, sdf, valid, ray_mask, pts, cos, truncation, max_depth,
+                              fs_weight, sdf_weight, gt_norm=dnorm)
+        loss = psum(local, mesh.dp_group) / mesh.dp  # JAX's pmean over dp
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if mesh.dp_group is not None:
+            grads = all_reduce_sum(grads, mesh.dp_group)
+        with torch.no_grad():
+            t = opt_state["count"] + 1
+            mu, nu = opt_state["mu"], opt_state["nu"]
+            lr_of = [lrs[0]] + [lrs[1]] * (len(params) - 2) + [lrs[2]]
+            new = [p.detach() - lr * scale_by_adam_(g, m, v, t)
+                   for p, g, m, v, lr in zip(params, grads, mu, nu, lr_of)]
+        n_dec = len(params) - 2
+        leaves = new[1:1 + n_dec]
+        nw = len(dec["w"])
+        dec_new = {"w": leaves[:nw], "b": leaves[nw:2 * nw]}
+        if "gaussian_B" in dec:
+            dec_new["gaussian_B"] = leaves[2 * nw]
+        return new[0], dec_new, new[-1], loss.detach(), {"count": t, "mu": mu, "nu": nu}
+
+    return step, init_opt

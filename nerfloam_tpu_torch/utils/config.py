@@ -1,12 +1,18 @@
-"""Yaml-free configuration (port of nerfloam_tpu/utils/config.py:55-280).
+"""Yaml-free configuration (port of nerfloam_tpu/utils/config.py:55-394).
 
 ``Config`` is built from a plain dict (a JSON file, or a dict produced by
 the JAX package's ``load_config``), merged over the same defaults as the
-JAX package so a config means the same thing on both sides.
+JAX package so a config means the same thing on both sides. The JAX
+package's YAML configs (``configs/**/*.yaml``) have JSON twins under
+``nerfloam_tpu_torch/configs/shipped/``, their ``base_config`` resolved
+(``scripts/yaml_configs_to_json.py`` writes them). ``parse_cli`` is JAX's
+CLI over a JSON config: every leaf key a ``--group.key`` flag, ``--set``
+applied last.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -149,3 +155,104 @@ def derive_static_shapes(cfg: Config) -> Dict[str, Any]:
         "max_depth": max_depth,
         "voxel_size": vs,
     }
+
+
+def parse_value(s: str):
+    """A ``--set`` value: JSON (numbers, true / false, lists), else JAX's
+    ``_parse_value`` (int, float, True / False in any case), else the
+    string."""
+    try:
+        return json.loads(s)
+    except json.JSONDecodeError:
+        pass
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    return s
+
+
+def apply_override(d: Dict, item: str) -> None:
+    """One ``group.key=value`` override into the dict ``d``."""
+    key, sep, raw = item.partition("=")
+    if not sep or not key:
+        raise SystemExit(f"--set takes group.key=value, got {item!r}")
+    *groups, name = key.split(".")
+    for g in groups:
+        d = d.setdefault(g, {})
+    d[name] = parse_value(raw)
+
+
+def _bool_flag(s: str) -> bool:
+    if s.lower() in ("true", "1", "yes"):
+        return True
+    if s.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a bool, got {s!r}")
+
+
+def _flag_items(d: Dict, prefix: str = "") -> Dict[str, Any]:
+    """A config dict flattened to {'group.key': leaf value}."""
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flag_items(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def build_arg_parser(description: str = "nerfloam_tpu_torch: neural-SDF LiDAR SLAM on one GPU"):
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("config", type=str, help="JSON config (nerfloam_tpu_torch/configs/)")
+    p.add_argument("--resume", default=None, type=str, help="checkpoint dir to resume")
+    p.add_argument("--debug", action="store_true", help="accepted as the JAX CLI does")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--set", action="append", default=[], metavar="group.key=value",
+                   help="override any config value, e.g. --set tracker_specs.num_iterations=10")
+    return p
+
+
+def parse_cli(argv: list[str] | None = None):
+    """JAX's two-phase CLI parse (nerfloam_tpu/utils/config.py:312-379)
+    over a JSON config: after the config is loaded and merged over the
+    defaults, every leaf key is its own flag, top-level ones as ``--key``
+    (``--exp_name``) and nested ones as ``--group.key``
+    (``--tracker_specs.num_iterations 10``), parsed by the type of its
+    value (a bool by true / false, 1 / 0, yes / no; a list as JSON);
+    ``--set group.key=value`` is applied last. Returns ``(args, cfg)`` with
+    every override folded into ``cfg``."""
+    p = build_arg_parser()
+    known, _ = p.parse_known_args(argv)
+    base = load_json_config(known.config).as_dict()
+    flags = _flag_items(base)
+    for name, default in flags.items():
+        if default is None:
+            typ = parse_value
+        elif isinstance(default, bool):  # bool("False") is True: parse it
+            typ = _bool_flag
+        elif isinstance(default, (list, tuple)):
+            typ = json.loads
+        else:
+            typ = type(default)
+        try:
+            p.add_argument("--" + name, type=typ, default=argparse.SUPPRESS, required=False,
+                           dest=name)
+        except argparse.ArgumentError:
+            continue  # the name of a built-in flag (--resume, --device)
+    args = p.parse_args(argv)
+    for name, val in vars(args).items():
+        if name not in flags:
+            continue
+        node = base
+        parts = name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+    for item in args.set:
+        apply_override(base, item)
+    return args, Config(base)

@@ -14,6 +14,7 @@ chip_smoke.py, measured on the CPU: the reference its ATE bound is made of.
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --defer --active-cap N  # ..._defer_grow
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --subscene 10  # [subscene]
     JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --quality --kitti-dir DIR  # [loader]
+    JAX_PLATFORMS=cpu python scripts/port_ate_reference.py --dropped  # [knobs_dropped]
 
 The KITTI-budget configs are synthetic_small.yaml + bench.BENCH_OVERRIDES
 (+ QUALITY_OVERRIDES or ADAM25) + 30 frames, defer_sync off unless
@@ -52,6 +53,11 @@ prints the deferred replays (overflows found with a newer frame in
 flight) and the keyframe count. ``--active-cap N`` sets
 ``tpu_specs.active_cap`` (``--defer --active-cap N`` on the budget config is
 kitti_budget_defer_grow.json: an active set that grows mid-run).
+
+``--dropped`` is the quality config over its first 10 frames with the
+knobs the JAX package measured and dropped turned on (``DROPPED``:
+``maturity_warmup`` 4, ``bias_source=keyframe``, ``bias_classes`` 2):
+chip_smoke.py's ``[knobs_dropped]``.
 
 ``--tpu-seed N`` sets ``tpu_specs.seed`` (the random stream's seed; the
 data's stays the config's).
@@ -103,6 +109,9 @@ MAPPING_GT = ["data_specs.use_gt=true"]
 # skips are set on the loaded config
 DECODER_PE = ["decoder_specs.embedder=nerf", "decoder_specs.multires=4"]
 DECODER_PE_SKIPS = [0]
+DROPPED = ["tpu_specs.maturity_warmup=4", "tpu_specs.bias_source=keyframe",
+           "tpu_specs.bias_classes=2"]
+DROPPED_FRAMES = 10
 EXACT = ["tpu_specs.emb_dtype=float32", "tpu_specs.exact_embedding_grads=true",
          "tpu_specs.ba_ray_superset=0", "tpu_specs.track_resample_rays=true"]
 
@@ -198,7 +207,8 @@ def main():
     knobs = "--knobs" in sys.argv
     mapping_gt = "--mapping-gt" in sys.argv
     decoder_pe = "--decoder-pe" in sys.argv
-    quality = "--quality" in sys.argv or knobs or mapping_gt
+    dropped = "--dropped" in sys.argv
+    quality = "--quality" in sys.argv or knobs or mapping_gt or dropped
     adam25 = "--adam25" in sys.argv
     s2s = "--s2s" in sys.argv
     defer = "--defer" in sys.argv
@@ -209,6 +219,7 @@ def main():
                  + (KNOBS if knobs else []) + (MAPPING_GT if mapping_gt else [])
                  + (DECODER_PE if decoder_pe else [])
                  + ["data_specs.n_frames=30", f"tpu_specs.defer_sync={str(defer).lower()}"]
+                 + (DROPPED + [f"data_specs.n_frames={DROPPED_FRAMES}"] if dropped else [])
                  + extra)
     cfg = load_config(os.path.join(ROOT, "configs", "synthetic", "synthetic_small.yaml"),
                       overrides)
@@ -252,6 +263,7 @@ def main():
     poses = np.asarray(slam.finalize())
     gt = ds.gt_trajectory()[: len(poses)]
     name = ("kitti_knobs" if knobs else "kitti_mapping_gt" if mapping_gt
+            else "kitti_quality_dropped" if dropped
             else "kitti_decoder_pe" if decoder_pe else "kitti_quality" if quality
             else "kitti_adam25" if adam25 else "kitti_budget")
     if defer:
@@ -269,6 +281,8 @@ def main():
         out.update(defer_replays=int(slam._defer_replays), keyframes=len(slam.state.keyframes),
                    dropped_delta_events=int(slam.dropped_delta_events),
                    active_cap=int(slam.map_cfg.active_cap))
+    if dropped:
+        out.update(keyframes=len(slam.state.keyframes))
     if knobs:
         along = [abs(r[1]) for r in slam.state.ba_delta_telemetry]
         out.update(replay_steps=replay_steps, ba_delta_rows=len(along),

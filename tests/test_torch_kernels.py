@@ -479,6 +479,45 @@ def test_gn_system_dp_form_matches_plain(cuda):
     assert list(launched.values()) == [1.0] and "gn_system_kernel" in next(iter(launched))
 
 
+@pytest.mark.parametrize("sums", [False, True])
+def test_gn_system_maturity_form_matches_plain(cuda, sums):
+    """K3's maturity form (GnSystem(..., cnt=) called with the samples'
+    active rows): one launch a call, bit-stable, within 1e-4 of the
+    weighted twin (gn_system_plain / gn_sums_plain under
+    maturity_weights), the dp form's counts unweighted; a sample whose
+    aid is -1 reads the first row's count, as JAX's clip does."""
+    tp = ttr.TrackParams(n_rays=512, num_iterations=1, truncation=0.3, max_depth=40.0,
+                         fs_weight=1.0, sdf_weight=1e4, maturity_warmup=4, maturity_floor=0.25)
+    a = _gn_inputs(cuda)
+    per_ray = (a["pcos"], a["d_meas"], a["depth_ok"], a["bias_ray"])
+    samples = (a["xyz"], a["t_pos"], a["z"], a["sdf"], a["g"], a["vmask"])
+    g = torch.Generator().manual_seed(2)
+    A = 300
+    cnt = torch.randint(0, 9, (A,), generator=g).float().to(cuda)
+    aid = torch.randint(-1, A, (512, 72), generator=g).to(torch.int32).to(cuda)
+    n0 = ttr.gn_maturity_launches
+    system = ttr.GnSystem(*per_ray, tp, 72, sums=sums, cnt=cnt)
+    out = [x.clone() for x in ((system(*samples, aid),) if sums else system(*samples, aid))]
+    again = (system(*samples, aid),) if sums else system(*samples, aid)
+    torch.cuda.synchronize()
+    assert ttr.gn_maturity_launches == n0 + 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    assert int(system._scratch[-1:].view(torch.int32)) == 0
+    w = ttr.maturity_weights(cnt, aid, tp)
+    if sums:
+        rs = ttr.gn_sums_plain(*samples, *per_ray[:3], tp, per_ray[3], w)
+        assert torch.equal(out[0][56:], rs[56:])
+        for sl in (slice(0, 28), slice(28, 56)):
+            assert float((out[0][sl].double() - rs[sl].double()).abs().max()) <= 1e-4 * float(
+                rs[sl].abs().max())
+    else:
+        ref = ttr.gn_system_plain(*samples, *per_ray[:3], tp, per_ray[3], w)
+        for k, r in zip(out, ref):
+            assert float((k.double() - r.double()).abs().max()) <= 1e-4 * float(r.abs().max())
+    launched = _launches_per_call(lambda: system(*samples, aid))
+    assert list(launched.values()) == [1.0] and "gn_system_kernel" in next(iter(launched))
+
+
 @pytest.mark.parametrize("op", ["sin", "cos", "atan2"])
 def test_trig_kernel_matches_host_copies(cuda, op):
     """csrc/trig.cu bit-equal to the host copies (native/trig.cpp) on 2^20
