@@ -94,9 +94,22 @@
    atan2 are the host's: 0-1 ulp expected), the rotation matrix it
    hands the next iteration within 8 ulp of 1 of the twin's and the twin's
    exp_so3 of the kernel's own pose, the largest gaps and the share of
-   poses bit-equal printed; and a GN tracker frame at 2 and
+   poses bit-equal printed; a GN tracker frame at 2 and
    16 iterations making the same exp_so3 and log_so3 calls and norm3
-   launches (none inside the loop after its first rotation).
+   launches (none inside the loop after its first rotation); and kernel
+   A, lm_tail (csrc/lm_step.cu: a GN iteration's damping, 6 x 6 solve,
+   pose step and next rays in one launch), torch.equal to lm_tail_plain on
+   the card and on the CPU on 10,000 seeded systems (a grid row each) and
+   at the tracker's 2048 rays, timed in turns against the parent's chain
+   (damping, torch.linalg.solve_ex, lm_step, torch.matmul), whose launches
+   a call are profiled beside the kernel's; [pose_rays] (kernel B,
+   csrc/pose_rays.cu: a pose's origins and directions with exp_so3 folded
+   in, one launch each way) at BA's current frame, window and superset and
+   the Adam tracker's rays: forward torch.equal to pose_rays_plain on the
+   card and on the CPU, the poses' gradient within 1e-5 of each pose's
+   largest entry and bit-stable between calls, timed in turns against the
+   parent's chain (exp_so3.cu, the batched product, the origins' copy,
+   autograd's backward), whose launches a call are profiled too.
    K9b is checked with one origin per ray, with one origin broadcast to
    every ray (row stride 0, the trackers' form, timed at the Adam shapes)
    and over a superset cdf whose rows each call picks (BA's form, timed at
@@ -203,7 +216,8 @@
      steps in one process, K9a, K9b, K8 and K2 launched on every rank; the
      wall time printed).
    Each path's launch counts are zeroed just before it and read just
-   after; a GN path launches lm_step once a GN iteration. Prints the
+   after; a GN path launches lm_tail once a GN iteration and lm_step
+   never. Prints the
    tracker ms the s2s term adds to the quality path.
    Prints scans/s over frames 6 to the end, sections, host syncs,
    overflow counters, the final sdf_bias and the ATE against ground
@@ -213,7 +227,8 @@
    function and its CUDA launches per call (K4 in every form, K9a in
    every form, K9b, K10a at res 2 and 4, K10b in both forms, K11b, K1 in
    both origin forms, K2's d xyz form, K3 at both shapes, K8 in every
-   form, lm_step, ray_prep, trig and exp_so3 in both forms must make
+   form, lm_step, lm_tail, ray_prep, trig, exp_so3 and pose_rays in
+   both forms (pose_rays forward and backward: two) must make
    exactly one; K2's
    d packed form at most four and K7 at
    most five, all of them the port's (K7 profiled with the undo of each
@@ -430,12 +445,14 @@ EXP_SO3_GRAD_TOL = 1e-5
 TRIG_CHUNK = 1 << 26
 _MAP = ("insert", "reconcile", "active_set")
 # every path's BA step and tracker take a ray draw's setup in one launch, and
-# every rotation (se3.exp_so3) one launch of csrc/exp_so3.cu each way
-_RAYS = ("ray_prep", "exp_so3")
+# every pose's rays (se3.pose_rays: BA, the Adam tracker, the GN tracker's first
+# rotation) one launch of csrc/pose_rays.cu each way, and the other rotations
+# (se3.exp_so3: the map's insert on every path) one of csrc/exp_so3.cu each way
+_RAYS = ("ray_prep", "exp_so3", "pose_rays")
 # the norm's own launch is left to the cold sites (ops/ieee.py): the bias probe
 # and the support directions of the quality stack, the deferred warm start's log
 _NORM = ("norm3",)
-_GN = ("gn_system", "lm_step")  # a GN iteration's normal equations and pose update
+_GN = ("gn_system", "lm_tail")  # a GN iteration's normal equations and its tail
 _MESH = ("mesh_lattice", "marching_tets")
 _QUALITY = ("hit_table", "hits_field_fwd", "hits_field_bwd", "active_field_fwd") + _GN
 PATH_KERNELS = {           # kernels each main path must launch
@@ -503,11 +520,14 @@ KERNEL_FUNCTIONS = {
     "pack_embeddings_vjp_build": ("pack_grad_link_kernel", "pack_grad_order_kernel"),
     "norm3": ("norm3_kernel",),
     "lm_step": ("lm_step_kernel",),
+    "lm_tail": ("lm_tail_kernel",),
     "ray_prep": ("ray_prep_kernel",),
     "trig": ("trig_fwd_kernel",),
     "trig_bwd": ("trig_bwd_kernel",),  # its backward, a form of the trig record
     "exp_so3": ("exp_so3_fwd_kernel",),
     "exp_so3_bwd": ("exp_so3_bwd_kernel",),  # its backward, a form of the exp_so3 record
+    "pose_rays": ("pose_rays_fwd_kernel",),
+    "pose_rays_bwd": ("pose_rays_bwd_kernel",),  # its backward, a form of the pose_rays record
     "gn_sums": ("gn_system_kernel",),  # K3's dp form: the same kernel, its sums written
     "gn_system_maturity": ("gn_system_kernel",),  # K3's maturity form: the same kernel
 }
@@ -524,7 +544,8 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "pack_embeddings_vjp, gate60", "norm3", "norm3, R=2048", "lm_step", "ray_prep",
               "ray_prep, BA superset", "trig", "trig, atan2 backward", "gn_sums",
               "gn_system_maturity", "exp_so3",
-              "exp_so3, backward") + tuple(
+              "exp_so3, backward", "lm_tail", "lm_tail, 10,000 systems", "pose_rays",
+              "pose_rays, backward", "pose_rays, Adam tracker") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -647,9 +668,11 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "pack_embeddings_vjp_build": (vm, "pack_grad_build_launches"),
     "norm3": (ieee, "norm3_launches"),
     "lm_step": (tr, "lm_step_launches"),
+    "lm_tail": (tr, "lm_tail_launches"),
     "ray_prep": (tr, "ray_prep_launches"),
     "trig": (trig, "trig_launches"),
     "exp_so3": (se3, "exp_so3_launches"),
+    "pose_rays": (se3, "pose_rays_launches"),
     "gn_sums": (tr, "gn_sums_launches"),
     "gn_system_maturity": (tr, "gn_maturity_launches"),
 }
@@ -811,6 +834,8 @@ def add_device_times(records):
                 + f"; {f_call:.2f} us per call; {f_launches:g} CUDA launches per call (profile)")
             if label in ONE_LAUNCH:
                 check(f_launches == 1, f"{label}: {f_launches} CUDA launches per call, not one")
+            if label.endswith("forward and backward"):  # one launch each way, no torch op
+                check(f_launches == 2, f"{label}: {f_launches} CUDA launches per call, not two")
 
 
 def rows_read(aid, valid):
@@ -1176,6 +1201,7 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     records.append(ieee_phase(p, tables[slam.tp.n_rays][4], gen))
     records.append(trig_phase(p, gen))
     records.append(exp_so3_phase(slam, gen))
+    records.append(pose_rays_phase(slam, gen))
     return records
 
 
@@ -1375,7 +1401,8 @@ def exp_so3_phase(slam, gen):
     of three theta^2 ranges (the series, small, large): the forward
     torch.equal; the backward, against autograd of the twin with a seeded
     cotangent, within EXP_SO3_GRAD_TOL of each gradient's largest entry.
-    Timed at BA's shape, the window's poses (W, 6) read in place, forward
+    Timed at a window's W poses (W, 6) read in place (BA's shape before
+    se3.pose_rays took BA's rotations; the insert's is one pose), forward
     and backward, beside the chain on the card. Returns its record."""
     dev = slam.device
     worst = 0.0
@@ -1414,7 +1441,7 @@ def exp_so3_phase(slam, gen):
     p_ms = median_ms(partial(both, se3.exp_so3_plain))
     f_ms = median_ms(partial(se3.exp_so3, poses[:, 3:6]))
     fp_ms = median_ms(partial(se3.exp_so3_plain, poses[:, 3:6]))
-    log(f"[exp_so3] BA's window of {W} poses, forward and backward (autograd.grad): kernel "
+    log(f"[exp_so3] a window of {W} poses, forward and backward (autograd.grad): kernel "
         f"{k_ms:.4f} ms, the chain of ops on the card {p_ms:.4f} ms; forward alone {f_ms:.4f} "
         f"and {fp_ms:.4f} ms")
     # forward 12 B in, 36 out; backward 48 in, 12 out; ~300 f32 operations each way
@@ -1423,6 +1450,90 @@ def exp_so3_phase(slam, gen):
                   dev=partial(se3.pose_rotation, poses),
                   forms={"exp_so3, backward": (partial(se3.exp_so3_bwd, poses[:, 3:6], G),
                                                KERNEL_FUNCTIONS["exp_so3_bwd"])})
+
+
+_DAMP_FLOOR = tuple(tuple(1e-6 if i == j else 0.0 for j in range(6)) for i in range(6))
+
+
+def parent_gn_tail(pose6, H, b, lam, dirs):
+    """The GN iteration's tail as the port ran it before tracking.lm_tail:
+    the damping in eager operations, cuSOLVER's solve, one lm_step launch,
+    and the next iteration's rotation of the rays by a cuBLAS product.
+    Returns (pose, R, wdirs)."""
+    Hd = H + lam * torch.diag(torch.diag(H)) + ieee.const(_DAMP_FLOOR, H.dtype, H.device)
+    pose, R = tr.lm_step(pose6, torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0])
+    return pose, R, torch.matmul(dirs, R.transpose(-1, -2))
+
+
+def parent_pose_rays(poses, dirs):
+    """A pose's rays as the port made them before se3.pose_rays:
+    exp_so3.cu, a batched product, the origins broadcast (and for BA's
+    window, ``poses`` (W, 6) and ``dirs`` (W, N, 3), reshaped to rows: a
+    copy). Returns (origins, wdirs)."""
+    wdirs = torch.matmul(dirs, se3.pose_rotation(poses).transpose(-1, -2))
+    if poses.dim() == 1:  # the trackers: one origin expanded
+        return se3.pose_translation(poses).expand_as(wdirs), wdirs
+    origins = se3.pose_translation(poses)[:, None, :].expand_as(wdirs)
+    n = wdirs.shape[0] * wdirs.shape[1]
+    return origins.reshape(n, 3), wdirs.reshape(n, 3)
+
+
+def rays_fwd_bwd(fn, poses, dirs, go, gd):
+    """``fn(poses, dirs)`` forward, then the poses' gradient from the rays'
+    cotangents (go, gd) through autograd.grad: a BA or Adam iteration's
+    rotation both ways."""
+    p = poses.detach().requires_grad_(True)
+    o, d = fn(p, dirs)
+    return torch.autograd.grad((o, d), p, (go, gd))[0]
+
+
+def gn_test_system(gen, n_samples=2048 * 72):
+    """A seeded 6 x 6 system as K3 forms one: H = J^T diag(w) J and
+    b = J^T diag(w) r over ``n_samples`` rows on the card."""
+    dev = gen.device
+    J = torch.randn((n_samples, 6), generator=gen, device=dev)
+    w = torch.rand((n_samples,), generator=gen, device=dev)
+    r = torch.randn((n_samples,), generator=gen, device=dev) * 0.1
+    Jw = J * w[:, None]
+    return Jw.T @ J, Jw.T @ r
+
+
+def unit_dirs(shape, gen):
+    d = torch.randn(tuple(shape) + (3,), generator=gen, device=gen.device)
+    return d / d.norm(dim=-1, keepdim=True)
+
+
+def tail_rotation_cases(gen, n_rays=2048, window=4):
+    """{label: (the parent's chain, the kernel's call, (CUDA functions of
+    the chain, of the kernel))} at the main path's shapes:
+    the GN tail at ``n_rays`` tracker rays; a BA iteration's rotation of
+    ``n_rays`` rays a frame for the current frame and a window of
+    ``window`` frames; the Adam tracker's, forward and backward."""
+    dev = gen.device
+    H, b = gn_test_system(gen)
+    pose = torch.cat([torch.randn((3,), generator=gen, device=dev) * 10,
+                      torch.randn((3,), generator=gen, device=dev) * 0.3])
+    dirs = unit_dirs((n_rays,), gen)
+    cases = {"gn tail": (partial(parent_gn_tail, pose, H, b, 1e-2, dirs),
+                         partial(tr.lm_tail, pose, H, b, 1e-2, dirs),
+                         (KERNEL_FUNCTIONS["lm_step"], KERNEL_FUNCTIONS["lm_tail"]))}
+    for label, W in (("BA rotation, current frame", 1), (f"BA rotation, window of {window}",
+                                                         window)):
+        poses = torch.cat([torch.randn((W, 3), generator=gen, device=dev) * 10,
+                           torch.randn((W, 3), generator=gen, device=dev) * 0.3], 1)
+        d = unit_dirs((W, n_rays), gen)
+        go, gd = (torch.randn((W * n_rays, 3), generator=gen, device=dev) for _ in range(2))
+        cases[label] = (partial(rays_fwd_bwd, parent_pose_rays, poses, d, go, gd),
+                        partial(rays_fwd_bwd, se3.pose_rays, poses, d, go, gd),
+                        (KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["exp_so3_bwd"],
+                         KERNEL_FUNCTIONS["pose_rays"] + KERNEL_FUNCTIONS["pose_rays_bwd"]))
+    go, gd = (torch.randn((n_rays, 3), generator=gen, device=dev) for _ in range(2))
+    cases["Adam tracker rotation"] = (
+        partial(rays_fwd_bwd, parent_pose_rays, pose, dirs, go, gd),
+        partial(rays_fwd_bwd, se3.pose_rays, pose, dirs, go, gd),
+        (KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["exp_so3_bwd"],
+         KERNEL_FUNCTIONS["pose_rays"] + KERNEL_FUNCTIONS["pose_rays_bwd"]))
+    return cases
 
 
 def ieee_phase(p, pts, gen):
@@ -2614,7 +2725,183 @@ def tracker_step_kernels(slam, ms, frames, gen, R_ba):
                     "region, exp_so3, compose, log_so3)", max(max_abs(kp, tp_dev.cpu()), rot_err),
                     k_ms, p_ms, 108, 600,
                     dev=partial(tr.lm_step, pose1, step1))
-    return [rec_ray, rec_lm]
+    return [rec_ray, rec_lm, lm_tail_phase(gen, tp.n_rays)]
+
+
+def gn_systems(n, gen, rows=256):
+    """n seeded (pose, H, b) on the card as the GN tracker meets them: H =
+    sum w J J^T and b = sum w J r over ``rows`` samples, J = [g, q x g]
+    with lever arms q of 2-40 m, every fourth system's gradients on one
+    plane (ill-conditioned); the poses 10 m out, the first half in
+    exp_so3's series branch, the rest at 0.8 rad."""
+    dev = gen.device
+    g = torch.randn((n, rows, 3), generator=gen, device=dev)
+    plane = torch.tensor([0.02, 0.01, 1.0], device=dev) + 1e-3 * torch.randn(
+        (n, rows, 3), generator=gen, device=dev)
+    g = torch.where((torch.arange(n, device=dev) % 4 == 1)[:, None, None], plane, g)
+    g = g / g.norm(dim=-1, keepdim=True)
+    q = torch.randn((n, rows, 3), generator=gen, device=dev) * (
+        2 + 38 * torch.rand((n, rows, 1), generator=gen, device=dev))
+    J = torch.cat([g, torch.linalg.cross(q, g, dim=-1)], -1)
+    w = 1e3 * torch.rand((n, rows, 1), generator=gen, device=dev) * (
+        torch.rand((n, rows, 1), generator=gen, device=dev) < 0.8)
+    r = 0.05 * torch.randn((n, rows), generator=gen, device=dev)
+    H = torch.einsum("nri,nrj->nij", J * w, J).contiguous()
+    b = torch.einsum("nri,nr->ni", J * w, r).contiguous()
+    small = (torch.arange(n, device=dev) < n // 2)[:, None]
+    rot = torch.where(small, 3e-5 * torch.randn((n, 3), generator=gen, device=dev),
+                      0.8 * torch.randn((n, 3), generator=gen, device=dev))
+    return torch.cat([10 * torch.randn((n, 3), generator=gen, device=dev), rot], 1), H, b
+
+
+def lm_tail_phase(gen, n_rays, n_systems=10000):
+    """[lm_step], kernel A: tracking.lm_tail (csrc/lm_step.cu: the damping,
+    the solve, the pose step and the next iteration's rays in one launch)
+    torch.equal to lm_tail_plain on the card and on the CPU on
+    ``n_systems`` seeded systems (a grid row each, 8 rays a system; each
+    row equal to the one-system form) and at the tracker's ``n_rays`` rays,
+    on a system of 2048 x 72 samples; timed in turns against the parent's
+    chain (parent_gn_tail), whose launches a call are profiled with the
+    record's forms. Returns its record."""
+    dev = gen.device
+    pose, H, b = gn_systems(n_systems, gen)
+    dirs = unit_dirs((n_systems, 8), gen)
+    got = tr.lm_tail(pose, H, b, 1e-2, dirs)
+    twin = tr.lm_tail_plain(pose, H, b, 1e-2, dirs)
+    cpu = tr.lm_tail_plain(pose.cpu(), H.cpu(), b.cpu(), 1e-2, dirs.cpu())
+    torch.cuda.synchronize()
+    for nm, k, t, c in zip(("pose", "R", "wdirs"), got, twin, cpu):
+        check(torch.equal(k, t) and torch.equal(k.cpu(), c),
+              f"[lm_step] lm_tail's {nm} differs from lm_tail_plain on the card or the CPU")
+    for i in (0, n_systems // 2 + 1, n_systems - 1):
+        one = tr.lm_tail(pose[i], H[i], b[i], 1e-2, dirs[i])
+        check(all(torch.equal(a, full[i]) for a, full in zip(one, got)),
+              "[lm_step] lm_tail's one-system form differs from the batch's row")
+    finite = float(torch.isfinite(got[0]).all(-1).float().mean())
+    H1, b1 = gn_test_system(gen)
+    p1, d1 = pose[n_systems - 1].clone(), unit_dirs((n_rays,), gen)
+    one = tr.lm_tail(p1, H1, b1, 1e-2, d1)
+    again = tr.lm_tail(p1, H1, b1, 1e-2, d1)
+    ref = tr.lm_tail_plain(p1, H1, b1, 1e-2, d1)
+    ref_cpu = tr.lm_tail_plain(p1.cpu(), H1.cpu(), b1.cpu(), 1e-2, d1.cpu())
+    parent = parent_gn_tail(p1, H1, b1, 1e-2, d1)
+    torch.cuda.synchronize()
+    for nm, k, k2, t, c in zip(("pose", "R", "wdirs"), one, again, ref, ref_cpu):
+        check(torch.equal(k, t) and torch.equal(k.cpu(), c) and torch.equal(k, k2),
+              f"[lm_step] lm_tail's {nm} at {n_rays} rays differs from its twin or between calls")
+    log(f"[lm_step] lm_tail (csrc/lm_step.cu, kernel A): pose, R and wdirs torch.equal to "
+        f"lm_tail_plain on the card and on the CPU on {n_systems} seeded systems ({finite:.4f} "
+        f"of poses finite) and at the tracker's {n_rays} rays; the parent's chain (cuSOLVER, "
+        f"lm_step, cuBLAS) on the tracker's system lands {max_abs(one[0], parent[0]):.3g} from "
+        f"it in the pose")
+    call = partial(tr.lm_tail, p1, H1, b1, 1e-2, d1)
+    chain = partial(parent_gn_tail, p1, H1, b1, 1e-2, d1)
+    k_ms, c_ms = paired_median_ms(call, chain)
+    p_ms = median_ms(partial(tr.lm_tail_plain, p1, H1, b1, 1e-2, d1))
+    log(f"[lm_step] a GN iteration's tail at {n_rays} rays, in turns: lm_tail {k_ms:.4f} ms, the "
+        f"parent's chain {c_ms:.4f} ms; host us (card idle before each): lm_tail "
+        f"{host_us_idle(call):.2f}, the parent's chain {host_us_idle(chain):.2f}")
+    # in: H, b, lam, the pose, the rays; out: the pose, R, the rays. ~1,500
+    # operations of the solve and the step, 15 a ray
+    return record("lm_tail", "lm_step.cu", "nerfloam_tpu/core/tracking.py:326-334 and :249 "
+                  "(the damped solve, the LM step and the next iteration's rotate_dirs, fused "
+                  "into the fori_loop body by XLA; no TPU kernel)", 0.0, k_ms, p_ms,
+                  24 * n_rays + 256, 1500 + 15 * n_rays, dev=call,
+                  forms={"lm_tail, 10,000 systems": (
+                      partial(tr.lm_tail, pose, H, b, 1e-2, dirs), KERNEL_FUNCTIONS["lm_tail"]),
+                      "lm_tail, the parent's chain": (chain, KERNEL_FUNCTIONS["lm_step"])},
+                  parent_chain_ms=c_ms)
+
+
+def pose_rays_phase(slam, gen):
+    """[pose_rays], kernel B: se3.pose_rays (csrc/pose_rays.cu, one launch
+    each way) at BA's shapes (the current frame, W = 1, and the window of
+    W frames, 2048 rays a frame; the superset's 2 x 2048 forward) and the
+    Adam tracker's (one pose, 2048 rays), the poses half in exp_so3's series
+    branch: origins, directions and R torch.equal to pose_rays_plain on the
+    card and on the CPU; the poses' gradient from seeded cotangents within
+    EXP_SO3_GRAD_TOL of each pose's largest entry of autograd through the
+    twin on the CPU, the same bits on a second call. Timed in turns against
+    the parent's chain (parent_pose_rays, forward and backward), whose
+    launches a call are profiled with the record's forms. Returns its
+    record."""
+    dev = slam.device
+    N, W = slam.bp_current.n_rays, slam.window_size
+    err, worst, cases = 0.0, 0.0, {}
+    for label, w_, n_, grad in (("current frame", 1, N, True), (f"window of {W}", W, N, True),
+                                ("BA superset", W, 2 * N, False),
+                                ("Adam tracker", 0, slam.tp.n_rays, True)):
+        k = max(w_, 1)
+        rot = torch.randn((k, 3), generator=gen, device=dev) * torch.where(
+            torch.arange(k, device=dev) % 2 == 0, 3e-5, 0.5)[:, None]
+        poses = torch.cat([10 * torch.randn((k, 3), generator=gen, device=dev), rot], 1)
+        dirs = unit_dirs((k, n_), gen)
+        if w_ == 0:
+            poses, dirs = poses[0].clone(), dirs[0].clone()
+        ok = se3.pose_rays(poses, dirs, with_R=True)
+        od = se3.pose_rays_plain(poses, dirs, with_R=True)
+        oc = se3.pose_rays_plain(poses.cpu(), dirs.cpu(), with_R=True)
+        torch.cuda.synchronize()
+        for nm, a, t, c in zip(("origins", "wdirs", "R"), ok, od, oc):
+            check(torch.equal(a, t) and torch.equal(a.cpu(), c),
+                  f"[pose_rays] {label}: {nm} differs from pose_rays_plain on the card or the CPU")
+        if not grad:
+            cases[label] = (poses, dirs, None, None)
+            continue
+        go, gd = (torch.randn(ok[0].shape, generator=gen, device=dev) for _ in range(2))
+        gk = rays_fwd_bwd(se3.pose_rays, poses, dirs, go, gd)
+        gk2 = rays_fwd_bwd(se3.pose_rays, poses, dirs, go, gd)
+        gc = rays_fwd_bwd(se3.pose_rays_plain, poses.cpu(), dirs.cpu(), go.cpu(), gd.cpu())
+        check(torch.equal(gk, gk2), f"[pose_rays] {label}: two backward calls differ")
+        scale = gc.reshape(-1, 6).abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((gk.cpu() - gc).reshape(-1, 6).abs() / scale).max())
+        err, worst = max(err, max_abs(gk.cpu(), gc)), max(worst, rel)
+        check(rel <= EXP_SO3_GRAD_TOL, f"[pose_rays] {label}: the poses' gradient {rel:.3g} of "
+              f"its largest entry off the twin's (limit {EXP_SO3_GRAD_TOL})")
+        cases[label] = (poses, dirs, go, gd)
+    log(f"[pose_rays] csrc/pose_rays.cu, kernel B: origins, wdirs and R torch.equal to "
+        f"pose_rays_plain on the card and on the CPU at BA's current frame, window of {W} and "
+        f"superset and the Adam tracker's rays; the poses' gradient within {worst:.3g} of each "
+        f"pose's largest entry (limit {EXP_SO3_GRAD_TOL}), the same bits between calls")
+    timed = {}
+    for label in ("current frame", f"window of {W}", "Adam tracker"):
+        poses, dirs, go, gd = cases[label]
+        kern = partial(rays_fwd_bwd, se3.pose_rays, poses, dirs, go, gd)
+        chain = partial(rays_fwd_bwd, parent_pose_rays, poses, dirs, go, gd)
+        k_ms, c_ms = paired_median_ms(kern, chain)
+        kf_ms, cf_ms = paired_median_ms(partial(se3.pose_rays, poses, dirs),
+                                        partial(parent_pose_rays, poses, dirs))
+        timed[label] = (k_ms, c_ms, kern, chain)
+        log(f"[pose_rays] {label} {tuple(dirs.shape)}, forward and backward (autograd.grad), in "
+            f"turns: pose_rays {k_ms:.4f} ms, the parent's chain {c_ms:.4f} ms; forward alone "
+            f"{kf_ms:.4f} and {cf_ms:.4f} ms; host us (card idle before each): pose_rays "
+            f"{host_us_idle(kern):.2f}, the parent's chain {host_us_idle(chain):.2f}")
+    poses, dirs, go, gd = cases[f"window of {W}"]
+    k_ms, c_ms, kern, chain = timed[f"window of {W}"]
+    p_ms = median_ms(partial(rays_fwd_bwd, se3.pose_rays_plain, poses, dirs, go, gd))
+    n = dirs.shape[0] * dirs.shape[1]
+    fw, both = KERNEL_FUNCTIONS["pose_rays"], KERNEL_FUNCTIONS["pose_rays"] + KERNEL_FUNCTIONS[
+        "pose_rays_bwd"]
+    forms = {"pose_rays, backward": (partial(se3.pose_rays_bwd, poses, dirs, go, gd),
+                                     KERNEL_FUNCTIONS["pose_rays_bwd"]),
+             f"pose_rays, window of {W}, forward and backward": (kern, both),
+             f"pose_rays, window of {W}, the parent's chain": (
+                 chain, KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["exp_so3_bwd"])}
+    for label in ("current frame", "Adam tracker"):
+        forms[f"pose_rays, {label}, the parent's chain"] = (
+            timed[label][3], KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["exp_so3_bwd"])
+    a = cases["Adam tracker"]
+    forms["pose_rays, Adam tracker"] = (partial(se3.pose_rays, a[0], a[1]), fw)
+    forms["pose_rays, Adam tracker, forward and backward"] = (timed["Adam tracker"][2], both)
+    # forward: the poses and dirs read, origins and wdirs written (12 B a ray
+    # each way); backward: dirs and both cotangents read; ~15 operations a ray
+    # forward and ~24 backward
+    return record("pose_rays", "pose_rays.cu", "nerfloam_tpu/core/ba.py:253-256 "
+                  "(vmap(se3.rotate_dirs) and the translation broadcast) and "
+                  "nerfloam_tpu/core/tracking.py:249, 436 (se3.rotate_dirs; XLA fusions, no TPU "
+                  "kernel)", err, k_ms, p_ms, 72 * n + 96 * dirs.shape[0],
+                  39 * n + 1200 * dirs.shape[0], dev=partial(se3.pose_rays, poses, dirs),
+                  forms=forms, parent_chain_ms=c_ms)
 
 
 def write_kitti_dir(ds, path):
@@ -2812,8 +3099,9 @@ def main_path(name, slam, ds, label=None):
     check(np.isfinite(slam.sdf_bias).all(), "non-finite sdf_bias")
     for k in PATH_KERNELS[path]:
         check(launches[k] > 0, f"kernel {k} never launched on the {label} path")
-    check(launches["lm_step"] == launches["gn_system"],
-          f"{launches['lm_step']} LM steps for {launches['gn_system']} GN iterations ({label})")
+    check(launches["lm_tail"] == launches["gn_system"] and launches["lm_step"] == 0,
+          f"{launches['lm_tail']} GN tails and {launches['lm_step']} lone LM steps for "
+          f"{launches['gn_system']} GN iterations ({label})")
     check(slam.dropped_delta_events == 0, "dropped deltas")
     if slam.bp_current.exact_embedding_grads:
         exact_checks(tag, slam, launches, len(frames))
@@ -3459,9 +3747,9 @@ def knobs_dropped_phase(here, device="cuda"):
     log(f"[knobs_dropped] launches: {launches}")
     check(len(poses) == len(frames) and np.isfinite(poses).all(), "[knobs_dropped] poses")
     check(np.isfinite(slam.sdf_bias).all(), "[knobs_dropped] non-finite sdf_bias")
-    check(launches["gn_system_maturity"] == n_it == launches["lm_step"],
+    check(launches["gn_system_maturity"] == n_it == launches["lm_tail"],
           f"[knobs_dropped] {launches['gn_system_maturity']} K3 maturity launches, "
-          f"{launches['lm_step']} LM steps, {n_it} GN iterations")
+          f"{launches['lm_tail']} GN tails, {n_it} GN iterations")
     check(launches["gn_system"] == 0, "[knobs_dropped] K3's plain form launched")
     for k in PATH_KERNELS["knobs_dropped"]:
         check(launches[k] > 0, f"kernel {k} never launched on the knobs_dropped path")

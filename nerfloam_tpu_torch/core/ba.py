@@ -150,10 +150,8 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             sup_pts, sup_cos = points[frame, sidx], points_cos[frame, sidx]
             sup_dirs, sup_tcap, _, _, sup_dnorm = ray_prep(sup_pts, sup_cos, bp.truncation,
                                                            bp.max_depth)
-            wdirs0 = se3.rotate_dirs(poses, sup_dirs)
-            origins0 = se3.pose_translation(poses)[:, None, :].expand_as(wdirs0)
-            sup_args = (map_state, map_cfg, rc, origins0.reshape(W * K, 3),
-                        wdirs0.reshape(W * K, 3), sup_tcap.reshape(W * K))
+            sup_args = (map_state, map_cfg, rc, *se3.pose_rays(poses, sup_dirs),
+                        sup_tcap.reshape(W * K))
             if use_hits:
                 sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
             else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows
@@ -198,8 +196,7 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             u = u.view(W, N, M)[:, cols].reshape(W * Nl, M)
 
         pts, pcos, dnorm = pts3.reshape(W * Nl, 3), pcos2.reshape(W * Nl), dnorm.reshape(W * Nl)
-        wdirs = se3.rotate_dirs(pos, dirs)
-        origins = se3.pose_translation(pos)[:, None, :].expand_as(wdirs)
+        rays = se3.pose_rays(pos, dirs)  # (origins, wdirs), (W * Nl, 3) rows
         extra = None
         if bp.surface_anchor or bp.band_samples:
             ub = (torch.rand((W, N, bp.band_samples), generator=generator,
@@ -207,7 +204,6 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
             ez = extra_surface_z(dnorm, pcos, bp.truncation, bp.surface_anchor, bp.band_samples,
                                  ub)
             extra = (field, ez, rvalid.reshape(W * Nl))
-        rays = (origins.reshape(W * Nl, 3), wdirs.reshape(W * Nl, 3))
         packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
         if use_hits:
             ht = unpack_hit_table(sup_hits[frame, ridx].reshape(W * Nl, -1))

@@ -19,9 +19,11 @@ residuals, the count-balanced weights and the 6x6 normal equations; with
 ``TrackParams.s2s`` set, K11b (``core.scan2scan.s2s_system``) adds the
 scan-to-scan point-to-plane term on the same rays against the previous
 scan's range image into K3's H, b and loss in place, with the iteration's
-rotation of the ray directions; the damped LM solve stays in torch, and
-``lm_step`` (csrc/lm_step.cu) takes the rest of the update, trust region to
-log map, in one launch and hands the next iteration its rotation.
+rotation of the ray directions; ``lm_tail`` (csrc/lm_step.cu) then takes
+the rest of the iteration in one launch: the damping, the 6 x 6 solve, the
+pose update (trust region to log map), the new rotation and the next
+iteration's ray directions. The frame's first rotation is ``se3.pose_rays``
+(csrc/pose_rays.cu), as the Adam tracker's every iteration is.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
 draw, one placer made by its K9a march per frame at the initial pose; per
@@ -33,9 +35,9 @@ reference-exact fallback) every iteration draws fresh rays and marches
 them at the current pose instead (a ``CdfPlacer.march`` an iteration);
 the GN tracker ignores the knob, as JAX's does.
 
-Neither loop reads a value back to the host: shapes are static,
-``torch.linalg.solve_ex`` skips the error check that would synchronise,
-and the total-miss fallback is a ``torch.where`` on the device.
+Neither loop reads a value back to the host: shapes are static, the
+solve is the kernel's (or its twin's on the CPU) with no error check, and
+the total-miss fallback is a ``torch.where`` on the device.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from nerfloam_tpu_torch.core.scan2scan import s2s_system
 from nerfloam_tpu_torch.map.voxel_map import MapConfig, MapState, rdiv
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_apply
 from nerfloam_tpu_torch.ops import se3
-from nerfloam_tpu_torch.ops.ieee import const, div, norm3, norm3_plain, sqrt_rn
+from nerfloam_tpu_torch.ops.ieee import div, norm3, norm3_plain, sqrt_rn
 from nerfloam_tpu_torch.ops.raycast import (
     CdfPlacer,
     RaycastConfig,
@@ -75,7 +77,8 @@ from nerfloam_tpu_torch.parallel.sharding import dp_cols
 gn_system_launches = 0  # K3
 gn_sums_launches = 0  # K3's dp form
 gn_maturity_launches = 0  # K3's maturity form (one-launch or dp)
-lm_step_launches = 0
+lm_step_launches = 0  # the pose step alone (lm_step), off the main path
+lm_tail_launches = 0  # a GN iteration's tail (lm_tail)
 ray_prep_launches = 0
 _K3 = "gn_system"
 _F32 = torch.float32
@@ -466,16 +469,16 @@ def lm_step_plain(pose6, step):
 
 
 def lm_step(pose6, step):
-    """The LM update after the damped solve, replacing the XLA fusion of
-    nerfloam_tpu/core/tracking.py:326-334: trust region (0.5 m / 0.1 rad),
-    exp_so3 of the rotation step left-multiplied onto the pose's, log_so3,
-    the translation added; also the new pose's rotation matrix, which the
-    next iteration rotates its rays with. ``pose6`` and ``step`` (the
-    solve's solution; delta = -step) are (..., 6) contiguous f32 on one
-    device, needing no gradient. CPU tensors take ``lm_step_plain``; CUDA
-    tensors one launch of csrc/lm_step.cu (one thread a step): its
-    translation equal to the twin's, its rotation within a few ulp (sinf
-    and atan2f are CUDA's). Returns (pose (..., 6), R (..., 3, 3)), views
+    """The LM update after the damped solve (nerfloam_tpu/core/tracking.py:
+    326-334): trust region (0.5 m / 0.1 rad), exp_so3 of the rotation step
+    left-multiplied onto the pose's, log_so3, the translation added; also
+    the new pose's rotation matrix. ``lm_tail``'s step alone, for a batch
+    of steps (the checks' form; the tracker takes ``lm_tail``). ``pose6``
+    and ``step`` (the solve's solution; delta = -step) are (..., 6)
+    contiguous f32 on one device, needing no gradient. CPU tensors take
+    ``lm_step_plain``; CUDA tensors one launch of csrc/lm_step.cu (one
+    thread a step), bit-equal to the twin (its sine, cosine and atan2 are
+    glibc's, native/trig.h). Returns (pose (..., 6), R (..., 3, 3)), views
     of one new buffer."""
     name, dev = "lm_step", pose6.device
     if dev.type == "cpu":
@@ -500,15 +503,94 @@ def lm_step(pose6, step):
     return out[:6 * n].view(shape), out[6 * n:].view(shape[:-1] + (3, 3))
 
 
-# 1e-6 I, the damping's floor, made once per device
-_DAMP_FLOOR = tuple(tuple(1e-6 if i == j else 0.0 for j in range(6)) for i in range(6))
+def lm_damping_plain(H, lam: float):
+    """H + lam diag(diag H) + 1e-6 I for H (..., 6, 6) as jitted XLA forms
+    it (JAX tracking.py:326): each diagonal entry (H_ii + lam H_ii) + 1e-6,
+    the rest H_ij; a new tensor."""
+    A = H.clone()
+    d = torch.diagonal(A, dim1=-2, dim2=-1)
+    d.copy_((d + d * lam) + 1e-6)
+    return A
 
 
-def lm_update(pose6, H, b, lam):
-    """Damped solve, trust region (0.5 m / 0.1 rad), left-multiplied update
-    (``lm_step``). Returns (the new pose, its rotation)."""
-    Hd = H + lam * torch.diag(torch.diag(H)) + const(_DAMP_FLOOR, H.dtype, H.device)
-    return lm_step(pose6, torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0])
+def damped_solve_plain(H, b, lam: float):
+    """x = (H + lam diag(diag H) + 1e-6 I)^-1 b for H (..., 6, 6), b (..., 6)
+    (JAX tracking.py:326-327), op by op as csrc/lm_step.cu solves it:
+    ``lm_damping_plain``, then LU with partial pivoting, the pivot the first
+    largest |a| of its column (as LAPACK's isamax, and torch.argmax, pick
+    it), each multiplier one IEEE division, the trailing rank-1 updates and
+    b's elimination a rounded product and a rounded difference (as
+    reference LAPACK's sgetf2 and sger, uncontracted); back substitution
+    column by column from the last. LAPACK's rounding under
+    jnp.linalg.solve (OpenBLAS's kernels) is not reproduced, nor MKL's under
+    torch.linalg.solve: tests/test_torch_gn_tail.py compares the three."""
+    A = lm_damping_plain(H, lam)
+    x = b.clone()
+    rows = torch.arange(6, device=H.device)
+    for k in range(6):
+        p = k + torch.argmax(A[..., k:, k].abs(), dim=-1)
+        perm = rows.expand(A.shape[:-1]).clone()
+        perm[..., k] = p
+        perm.scatter_(-1, p[..., None], k)
+        A = torch.gather(A, -2, perm[..., None].expand(A.shape))
+        x = torch.gather(x, -1, perm)
+        lk = A[..., k + 1:, k] / A[..., k, k, None]
+        A[..., k + 1:, k + 1:] = A[..., k + 1:, k + 1:] - lk[..., None] * A[..., k, None, k + 1:]
+        x[..., k + 1:] = x[..., k + 1:] - lk * x[..., k, None]
+    for j in range(5, -1, -1):
+        x[..., j] = x[..., j] / A[..., j, j]
+        if j:
+            x[..., :j] = x[..., :j] - A[..., :j, j] * x[..., j, None]
+    return x
+
+
+def lm_tail_plain(pose6, H, b, lam: float, dirs):
+    """Plain torch twin of ``lm_tail``: ``damped_solve_plain``, then
+    ``lm_step_plain`` of its solution and ``se3.rotate_rows`` of the ray
+    directions dirs (..., N, 3) by the new rotation. Batched over the
+    leading dimensions of pose6 (..., 6), H (..., 6, 6), b (..., 6).
+    Returns (pose, R, wdirs)."""
+    pose, R = lm_step_plain(pose6, damped_solve_plain(H, b, lam))
+    return pose, R, se3.rotate_rows(dirs, R)
+
+
+def lm_tail(pose6, H, b, lam: float, dirs):
+    """A GN iteration's tail, the XLA fusion of nerfloam_tpu/core/
+    tracking.py:326-334 and the next iteration's rotate_dirs (:249): the
+    damped solve, the trust region, the left-multiplied update and log_so3
+    (``lm_step``), then the new pose's rotation and the ray directions
+    rotated by it, for the next iteration. pose6 (..., 6), H (..., 6, 6),
+    b (..., 6) and dirs (..., N, 3) contiguous f32 on one device (else
+    ValueError, on the CPU too), needing no gradient; lam the damping. CPU
+    tensors take ``lm_tail_plain``; CUDA tensors one launch of
+    csrc/lm_step.cu, torch.equal to it (a grid row a system: the tracker's
+    one system, or a batch). Returns (pose (..., 6), R (..., 3, 3), wdirs
+    (..., N, 3)), views of one new buffer."""
+    name, dev = "lm_tail", pose6.device
+    kernels.expect(name, dev, _F32, pose6=pose6, H=H, b=b, dirs=dirs)
+    lead = tuple(pose6.shape[:-1])
+    N = dirs.shape[-2] if dirs.dim() == len(lead) + 2 else -1
+    kernels.expect_shape(name, pose6=(pose6, lead + (6,)), H=(H, lead + (6, 6)),
+                         b=(b, lead + (6,)), dirs=(dirs, lead + (N, 3)))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (pose6, H, b, dirs)):
+        raise ValueError(f"{name}: no backward; pass tensors that need no gradient")
+    if dev.type == "cpu":
+        return lm_tail_plain(pose6, H, b, lam, dirs)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = pose6.numel() // 6
+    if n > 65535:
+        raise ValueError(f"{name}: {n} systems; a launch takes at most 65,535")
+    global lm_tail_launches
+    out = pose6.new_empty(15 * n + 3 * n * N)
+    if n:
+        o = out.data_ptr()
+        kernels.check(kernels.lib().nl_lm_tail(H.data_ptr(), b.data_ptr(), lam, pose6.data_ptr(),
+                                               dirs.data_ptr(), N, n, o, o + 24 * n, o + 60 * n,
+                                               kernels.stream_ptr(dev)), name)
+        lm_tail_launches += 1
+    return (out[:6 * n].view(pose6.shape), out[6 * n:15 * n].view(lead + (3, 3)),
+            out[15 * n:].view(dirs.shape))
 
 
 def field_and_grad(decoder_params, feats, xyz, aid, valid, packed, voxel_size, compute_dtype,
@@ -568,21 +650,19 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
 
     s2s_on = tp.s2s is not None and prev_scan is not None
 
-    R = se3.pose_rotation(init_pose)  # then lm_step's, one iteration to the next
-    wdirs0 = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(init_pose, dirs)
-    origin0 = se3.pose_translation(init_pose).expand_as(wdirs0)
+    # the first rotation; then lm_tail's, one iteration to the next
+    origin0, wdirs, R = se3.pose_rays(init_pose, dirs, with_R=True)
     if rc.sampler == "hits":
-        ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs0, t_cap)
+        ht0 = build_hit_table(map_state, map_cfg, rc, origin0, wdirs, t_cap)
         ray_hit = ht0.ray_mask
     else:  # K9a once, into the placer that checks and packs K9b's per-frame arguments once
-        placer = CdfPlacer.march(map_state, map_cfg, rc, origin0, wdirs0, t_cap, rc.n_samples)
+        placer = CdfPlacer.march(map_state, map_cfg, rc, origin0, wdirs, t_cap, rc.n_samples)
 
     pose6 = init_pose
     lam = 1e-2
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for it in range(tp.num_iterations):
-        wdirs = torch.matmul(dirs, R.transpose(-1, -2))  # se3.rotate_dirs(pose6, dirs)
         t_pos = se3.pose_translation(pose6)
         origin = t_pos.expand_as(wdirs)
         u = uniform_jitter((tp.n_rays, rc.n_samples), generator, dev)[rows]
@@ -617,7 +697,7 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
             if s2s_on:
                 H, b, loss = (H + buf[GN_SUMS:GN_SUMS + 36].view(6, 6),
                               b + buf[GN_SUMS + 36:GN_SUMS + 42], loss + buf[GN_SUMS + 42])
-        pose6, R = lm_update(pose6, H, b, lam)
+        pose6, R, wdirs = lm_tail(pose6, H, b, lam, dirs)
         hits = (ray_hit & rvalid).sum()
     if group is not None:
         dist.all_reduce(hits, group=group)
@@ -635,8 +715,7 @@ def adam_loss(field: ActiveField, tp: TrackParams, decoder_params, pose6, dirs, 
     bias_ray (R,). ``dnorm`` (R,): |pts|, from the draw's ``ray_prep``.
     Returns (loss, RenderOutput)."""
     compute_dtype = getattr(torch, tp.compute_dtype)
-    wdirs = se3.rotate_dirs(pose6, dirs)
-    origin = se3.pose_translation(pose6).expand_as(wdirs)
+    origin, wdirs = se3.pose_rays(pose6, dirs)
     extra = None
     if tp.surface_anchor or tp.band_samples:
         ez = extra_surface_z(dnorm, pcos, tp.truncation, tp.surface_anchor, tp.band_samples,
@@ -669,10 +748,8 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
         ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
         pts, pcos = points[ridx], points_cos[ridx]
         rp = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
-        wdirs0 = se3.rotate_dirs(pose6, rp.dirs)
-        placer = CdfPlacer.march(map_state, map_cfg, rc,
-                                 se3.pose_translation(pose6).expand_as(wdirs0), wdirs0, rp.t_cap,
-                                 rc.n_samples)
+        placer = CdfPlacer.march(map_state, map_cfg, rc, *se3.pose_rays(pose6, rp.dirs),
+                                 rp.t_cap, rc.n_samples)
         return pts, pcos, rp.dirs, rp.dnorm, rvalid, placer, _bias_ray(pcos, sdf_bias, dev)
 
     if not tp.resample_rays:

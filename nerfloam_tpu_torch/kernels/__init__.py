@@ -89,6 +89,9 @@ _SIGNATURES = {
     "nl_trig_fwd": [_I, _P, _L, _P, _L, _I, _P, _P],
     "nl_trig_bwd": [_I, _P, _L, _P, _L, _P, _L, _I, _P, _P, _P],
     "nl_lm_step": [_P, _P, _I, _P, _P, _P],
+    "nl_lm_tail": [_P, _P, _F, _P, _P, _I, _I, _P, _P, _P, _P],
+    "nl_pose_rays_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "nl_pose_rays_bwd": [_P, _P, _P, _P, _I, _I, _P, _P],
     "nl_exp_so3_fwd": [_P, _L, _I, _P, _P],
     "nl_exp_so3_bwd": [_P, _L, _P, _I, _P, _P],
     "nl_ray_prep": [_P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],

@@ -4,9 +4,17 @@ pose6 = [t (3), w (3)]: raw translation plus axis-angle rotation,
 R = exp([w]x) in closed form with a grad-safe small-angle branch. All
 matmuls run in true float32 (TF32 is off, see the package __init__).
 
-exp_so3 of a CUDA tensor is one launch of csrc/exp_so3.cu forward and one
-backward (``exp_so3_launches`` counts both); its plain twin,
-``exp_so3_plain``, is the chain of ops that a CPU tensor takes.
+A pose's rays, origins and directions in the world (BA's iterations and
+superset, the Adam tracker, the tp BA iteration, the GN tracker's first
+rotation), are ``pose_rays``: on CUDA tensors one launch of
+csrc/pose_rays.cu forward and one backward (``pose_rays_launches`` counts
+both), exp_so3 folded in; its plain twin ``pose_rays_plain`` is the chain
+of ops (``exp_so3_plain``, ``rotate_rows``) with autograd. The other
+rotations (the map's insert, the scan-to-scan term, the bias probe, the
+warm start's pose matrices) take exp_so3, one launch of csrc/exp_so3.cu
+forward and one backward on the card (``exp_so3_launches`` counts both);
+its plain twin, ``exp_so3_plain``, is the chain of ops that a CPU tensor
+takes.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from nerfloam_tpu_torch.ops.ieee import const, div, fma_f32, norm3, sqrt_rn
 _SMALL = 1e-8  # theta^2 switch point for the series branches
 
 exp_so3_launches = 0
+pose_rays_launches = 0
+_F32 = torch.float32
 
 
 def skew(w: torch.Tensor) -> torch.Tensor:
@@ -56,17 +66,15 @@ def _sinc_coeffs(theta2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class _Matmul3(torch.autograd.Function):
-    """a @ b of (..., 3, 3) CPU matrices, each entry rounded as XLA's CPU
-    dot forms it, fma(a2, b2, fma(a1, b1, a0 * b0)); the backward is the
-    product's, dA = dC b^T and dB = a^T dC."""
+    """a @ b of (..., m, 3) and (..., 3, k) CPU matrices, each entry rounded
+    as XLA's CPU dot forms it, fma(a2, b2, fma(a1, b1, a0 * b0)); the
+    backward is the product's, dA = dC b^T and dB = a^T dC."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        rows = [fma_f32(a[..., i, 2:3], b[..., 2, :],
-                         fma_f32(a[..., i, 1:2], b[..., 1, :], a[..., i, 0:1] * b[..., 0, :]))
-                for i in range(3)]
-        return torch.stack(rows, -2)
+        return fma_f32(a[..., 2:3], b[..., 2:3, :],
+                       fma_f32(a[..., 1:2], b[..., 1:2, :], a[..., 0:1] * b[..., 0:1, :]))
 
     @staticmethod
     def backward(ctx, g):
@@ -74,21 +82,37 @@ class _Matmul3(torch.autograd.Function):
         return torch.matmul(g, b.transpose(-1, -2)), torch.matmul(a.transpose(-1, -2), g)
 
 
+def _chain3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of (..., m, 3) and (..., 3, k) matrices, each entry
+    fma(a2, b2, fma(a1, b1, a0 * b0)): on the card three elementwise
+    launches, ``addcmul`` being one fused multiply-add there; on the CPU
+    ``_Matmul3``."""
+    if a.is_cuda:
+        out = a[..., :, 0:1] * b[..., 0:1, :]
+        out = torch.addcmul(out, a[..., :, 1:2], b[..., 1:2, :])
+        return torch.addcmul(out, a[..., :, 2:3], b[..., 2:3, :])
+    return _Matmul3.apply(a, b)
+
+
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b of (..., 3, 3) matrices rounded as XLA's CPU dot forms each
     entry, fma(a2, b2, fma(a1, b1, a0 * b0)). torch's CPU product does so
     for one matrix but adds a batch's without fused multiply-adds, so a CPU
     batch takes ``_Matmul3``; on the card the chain is three elementwise
-    launches, ``addcmul`` being one fused multiply-add there (cuBLAS's
-    product rounds otherwise; chip_smoke's [ieee] holds the chain to the
-    CPU's)."""
-    if a.is_cuda:
-        out = a[..., :, 0:1] * b[..., 0:1, :]
-        out = torch.addcmul(out, a[..., :, 1:2], b[..., 1:2, :])
-        return torch.addcmul(out, a[..., :, 2:3], b[..., 2:3, :])
-    if a.dim() == 2:
+    launches (cuBLAS's product rounds otherwise; chip_smoke's [ieee] holds
+    the chain to the CPU's)."""
+    if not a.is_cuda and a.dim() == 2:
         return torch.matmul(a, b)
-    return _Matmul3.apply(a, b)
+    return _chain3(a, b)
+
+
+def rotate_rows(dirs: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """dirs (..., N, 3) rotated by R (..., 3, 3), d R^T, each entry
+    fma(d2, R_i2, fma(d1, R_i1, d0 * R_i0)), the order XLA's CPU dot
+    forms (N, 3) x (3, 3) in (torch's CPU product forms it so too); the
+    rotation of csrc/lm_step.cu's tail and csrc/pose_rays.cu, bit for bit.
+    Differentiable."""
+    return _chain3(dirs, R.transpose(-1, -2))
 
 
 def exp_so3_plain(w: torch.Tensor) -> torch.Tensor:
@@ -228,6 +252,128 @@ def transform_points(p6: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """R @ p + t for pts (..., N, 3) with pose6 (..., 6)."""
     R = pose_rotation(p6)
     return torch.matmul(pts, R.transpose(-1, -2)) + pose_translation(p6)[..., None, :]
+
+
+def _pose_rays_check(poses, dirs):
+    """Raise ValueError unless poses (6,) and dirs (N, 3), or poses (W, 6)
+    and dirs (W, N, 3), are contiguous f32 on one device, dirs needing no
+    gradient."""
+    name = "pose_rays"
+    kernels.expect(name, poses.device, _F32, poses=poses, dirs=dirs)
+    one = poses.dim() == 1
+    W = 1 if one else poses.shape[0]
+    ok = poses.shape[-1] == 6 and poses.dim() in (1, 2) and dirs.dim() == poses.dim() + 1
+    N = dirs.shape[-2] if ok else -1
+    if not ok or tuple(dirs.shape) != ((N, 3) if one else (W, N, 3)):
+        raise ValueError(f"{name}: poses (6,) with dirs (N, 3), or (W, 6) with (W, N, 3); got "
+                         f"{tuple(poses.shape)} and {tuple(dirs.shape)}")
+    if dirs.requires_grad and torch.is_grad_enabled():
+        raise ValueError(f"{name}: no gradient for dirs; pass directions that need none")
+
+
+def pose_rays_plain(poses: torch.Tensor, dirs: torch.Tensor, with_R: bool = False):
+    """Plain twin of ``pose_rays``, the chain of ops with autograd:
+    ``exp_so3_plain`` of the poses' rotations, ``rotate_rows`` of the
+    directions, and the translations broadcast (one frame: expanded, row
+    stride 0; a window: reshaped into rows, a copy). Returns (origins,
+    wdirs) as rows, and R where ``with_R``."""
+    R = exp_so3_plain(poses[..., 3:6])
+    wdirs = rotate_rows(dirs, R)
+    t = poses[..., :3]
+    if poses.dim() == 1:
+        origins = t.expand_as(wdirs)
+    else:
+        n = wdirs.shape[0] * wdirs.shape[1]
+        origins, wdirs = t[:, None, :].expand_as(wdirs).reshape(n, 3), wdirs.reshape(n, 3)
+    return (origins, wdirs, R) if with_R else (origins, wdirs)
+
+
+def pose_rays_fwd(poses: torch.Tensor, dirs: torch.Tensor):
+    """One launch of csrc/pose_rays.cu's forward on checked CUDA tensors:
+    (origins, wdirs, R) as ``pose_rays_plain`` shapes them, views of one
+    new buffer; one frame's origins its t expanded (row stride 0), a
+    window's written as rows."""
+    global pose_rays_launches
+    one = poses.dim() == 1
+    W = 1 if one else poses.shape[0]
+    N = dirs.shape[-2]
+    n = 3 * W * N
+    rows = W > 1
+    m = 2 * n if rows else n  # wdirs, then a window's origin rows; R (W, 9), t (W, 3)
+    buf = torch.empty((m + 12 * W,), dtype=_F32, device=poses.device)
+    o = buf.data_ptr()
+    err = kernels.lib().nl_pose_rays_fwd(poses.data_ptr(), dirs.data_ptr(), W, N, o,
+                                         o + 4 * n if rows else None, o + 4 * m,
+                                         o + 4 * (m + 9 * W), kernels.stream_ptr(poses.device))
+    kernels.check(err, "pose_rays")
+    pose_rays_launches += 1
+    wdirs = buf[:n].view(dirs.shape if one else (W * N, 3))
+    R = buf[m:m + 9 * W].view((3, 3) if one else (W, 3, 3))
+    origins = buf[n:m].view(W * N, 3) if rows else buf[m + 9 * W:].view(1, 3).expand(N, 3)
+    return origins, wdirs, R
+
+
+def pose_rays_bwd(poses: torch.Tensor, dirs: torch.Tensor, g_orig, g_wdirs) -> torch.Tensor:
+    """One launch of csrc/pose_rays.cu's backward: the poses' gradient
+    (poses' shape) from the cotangents of the origins and the directions
+    (rows, or None for zero)."""
+    global pose_rays_launches
+    W = 1 if poses.dim() == 1 else poses.shape[0]
+    N = dirs.shape[-2]
+    g = torch.empty_like(poses)
+    g_orig = None if g_orig is None else g_orig.contiguous()
+    g_wdirs = None if g_wdirs is None else g_wdirs.contiguous()
+    err = kernels.lib().nl_pose_rays_bwd(
+        poses.data_ptr(), dirs.data_ptr(), None if g_orig is None else g_orig.data_ptr(),
+        None if g_wdirs is None else g_wdirs.data_ptr(), W, N, g.data_ptr(),
+        kernels.stream_ptr(poses.device))
+    kernels.check(err, "pose_rays backward")
+    pose_rays_launches += 1
+    return g
+
+
+class _PoseRays(torch.autograd.Function):
+    """pose_rays of CUDA tensors: csrc/pose_rays.cu, one launch each way."""
+
+    @staticmethod
+    def forward(ctx, poses, dirs):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(poses, dirs)
+        origins, wdirs, R = pose_rays_fwd(poses, dirs)
+        ctx.mark_non_differentiable(R)
+        return origins, wdirs, R
+
+    @staticmethod
+    def backward(ctx, g_orig, g_wdirs, _):
+        if g_orig is None and g_wdirs is None:
+            return None, None
+        poses, dirs = ctx.saved_tensors
+        return pose_rays_bwd(poses, dirs, g_orig, g_wdirs), None
+
+
+def pose_rays(poses: torch.Tensor, dirs: torch.Tensor, with_R: bool = False):
+    """A pose's rays in the world: origins t and directions d R^T, R =
+    exp_so3(w), for poses (6,) with dirs (N, 3) (a tracker's frame) or
+    poses (W, 6) with dirs (W, N, 3) (BA's window), contiguous f32 on one
+    device (else ValueError, on the CPU too; dirs need no gradient).
+    Returns (origins, wdirs) as (N, 3) or (W * N, 3) rows, and R ((3, 3)
+    or (W, 3, 3), no gradient) where ``with_R``; one frame's origins are
+    its t expanded, row stride 0. Differentiable in the poses. The XLA
+    fusion of nerfloam_tpu/core/ba.py:253-256 (and of se3.rotate_dirs in
+    the trackers). CPU tensors take ``pose_rays_plain``; CUDA tensors one
+    launch of csrc/pose_rays.cu forward, its origins and directions
+    torch.equal to the twin's, and one backward, within rounding of the
+    twin's autograd (the sums' order)."""
+    _pose_rays_check(poses, dirs)
+    if poses.device.type == "cpu":
+        return pose_rays_plain(poses, dirs, with_R)
+    if poses.device.type != "cuda":
+        raise ValueError(f"pose_rays: unsupported device {poses.device}")
+    if torch.is_grad_enabled() and poses.requires_grad:
+        out = _PoseRays.apply(poses, dirs)
+    else:
+        out = pose_rays_fwd(poses, dirs)
+    return out if with_R else out[:2]
 
 
 def rotate_dirs(p6: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:

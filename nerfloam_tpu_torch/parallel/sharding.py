@@ -430,8 +430,7 @@ def make_sharded_ba_iteration(map_cfg, rc, truncation: float, max_depth: float,
         pose = pose6.detach().clone().requires_grad_(True)
         params = [packed, *decoder_leaves(dec), pose]
         dirs, t_cap, _, _, dnorm = ray_prep(pts, cos, truncation, max_depth)
-        wdirs = se3.rotate_dirs(pose, dirs)
-        origin = se3.pose_translation(pose).expand_as(wdirs)
+        origin, wdirs = se3.pose_rays(pose, dirs)
         with torch.no_grad():  # K9a at the rays of pose6, into the placer K9b reads
             placer = CdfPlacer.march(map_state, map_cfg, rc, origin.detach(), wdirs.detach(),
                                      t_cap, rc.n_samples)

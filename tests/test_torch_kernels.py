@@ -4,8 +4,9 @@ active set, K5 reconcile + repack, E1 pack_embeddings and its transpose,
 K9a occupancy march, K9b CDF
 placement, K10a mesh lattice, K10b marching tetrahedra, K11a range image,
 K11b point-to-plane system, the ray setup ray_prep, the LM update lm_step,
-K3's dp form, csrc/trig.cu, glibc's sin, cos and atan2, and
-csrc/exp_so3.cu, the rotations of the se3 ops)
+the GN iteration's tail lm_tail, K3's dp form, csrc/trig.cu, glibc's sin,
+cos and atan2, csrc/exp_so3.cu, the rotations of the se3 ops, and
+csrc/pose_rays.cu, a pose's rays and their pose gradient)
 against their plain torch twins, at small shapes. On a machine
 without CUDA these tests skip (the `cuda` fixture decides, at run time);
 run them on the card with
@@ -70,7 +71,11 @@ and on the CPU (and in BA's (W, K, 3) form); lm_step's translation and
 small-angle half equal to its twin's on the card and on the CPU, the
 rest's rotation within 4 ulp of each pose's largest entry (CUDA's sinf
 and atan2f), its rotation matrix within 4 ulp of 1 of the twin's, its
-one-step form the batch's row; both raise on what they cannot take."""
+one-step form the batch's row; lm_tail torch.equal to lm_tail_plain on
+the card and on the CPU (2,000 systems in one launch, and one system at
+2048 rays); pose_rays forward torch.equal to pose_rays_plain, its
+backward within 1e-5 of each pose's largest entry, one launch each way;
+all raise on what they cannot take."""
 
 import ctypes
 import os
@@ -904,6 +909,125 @@ def test_lm_step_kernel_matches_plain(cuda):
             ttr.lm_step(*bad)
 
 
+def _gn_systems(n, seed, rows=256):
+    """n seeded damped-LM systems as K3 forms them: H = sum w J J^T and
+    b = sum w J r over ``rows`` samples with lever arms of 2-40 m, every
+    fourth from gradients on one plane (ill-conditioned); with poses and
+    rotation steps in exp_so3's series and exact branches."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, rows, 3))
+    g[1::4] = [0.02, 0.01, 1.0] + rng.normal(size=(len(g[1::4]), rows, 3)) * 1e-3
+    g /= np.linalg.norm(g, axis=-1, keepdims=True)
+    q = rng.normal(size=(n, rows, 3)) * rng.uniform(2, 40, (n, rows, 1))
+    J = np.concatenate([g, np.cross(q, g)], -1)
+    w = rng.uniform(0, 1e3, (n, rows, 1)) * (rng.random((n, rows, 1)) < 0.8)
+    H = np.einsum("nri,nrj->nij", J * w, J).astype(np.float32)
+    b = np.einsum("nri,nr->ni", J * w, rng.normal(0, 0.05, (n, rows))).astype(np.float32)
+    small = (np.arange(n) < n // 2)[:, None]
+    pose = np.concatenate([rng.normal(0, 10, (n, 3)), np.where(
+        small, rng.normal(0, 3e-5, (n, 3)), rng.normal(0, 0.8, (n, 3)))], 1).astype(np.float32)
+    return tuple(torch.as_tensor(x) for x in (pose, H, b))
+
+
+def _unit_dirs(shape, seed):
+    d = np.random.default_rng(seed).normal(size=tuple(shape) + (3,))
+    return torch.as_tensor((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+
+
+def test_lm_tail_kernel_matches_plain(cuda):
+    """lm_tail (csrc/lm_step.cu: the damped solve, the pose step and the
+    next rays in one launch) torch.equal to lm_tail_plain on the card and on
+    the CPU: 2,000 systems of 16 rays in one batched launch (a grid row a
+    system) and the tracker's form, one system and 2048 rays; its R
+    se3.pose_rotation of its own pose and its rays se3.pose_rays' at that
+    pose; one CUDA launch a call; it raises on what it cannot take."""
+    pose, H, b = _gn_systems(2000, 4)
+    dirs = _unit_dirs((2000, 16), 5)
+    before = ttr.lm_tail_launches
+    got = ttr.lm_tail(*(x.to(cuda) for x in (pose, H, b)), 1e-2, dirs.to(cuda))
+    assert ttr.lm_tail_launches == before + 1
+    on_card = ttr.lm_tail_plain(*(x.to(cuda) for x in (pose, H, b)), 1e-2, dirs.to(cuda))
+    on_cpu = ttr.lm_tail_plain(pose, H, b, 1e-2, dirs)
+    for k, d_, c_ in zip(got, on_card, on_cpu):
+        assert torch.equal(k.cpu(), d_.cpu()) and torch.equal(k.cpu(), c_)
+    d1 = _unit_dirs((2048,), 6)
+    one = ttr.lm_tail(pose[7].to(cuda), H[7].to(cuda), b[7].to(cuda), 1e-2, d1.to(cuda))
+    ref = ttr.lm_tail_plain(pose[7], H[7], b[7], 1e-2, d1)
+    assert all(torch.equal(k.cpu(), r) for k, r in zip(one, ref))
+    assert torch.equal(one[0].cpu(), got[0][7].cpu()) and torch.equal(one[1].cpu(), got[1][7].cpu())
+    assert torch.equal(one[1].cpu(), tse3.pose_rotation(one[0].cpu()))
+    assert torch.equal(one[2].cpu(), tse3.pose_rays(one[0].cpu(), d1)[1])
+    args = (pose[7].to(cuda), H[7].to(cuda), b[7].to(cuda), 1e-2, d1.to(cuda))
+    launched = _launches_per_call(lambda: ttr.lm_tail(*args))
+    assert list(launched.values()) == [1.0] and "lm_tail_kernel" in next(iter(launched))
+    p1, H1, b1, _, dd = args
+    for bad in ((p1.double(), H1, b1, 1e-2, dd), (p1, H1[:5], b1, 1e-2, dd),
+                (p1, H1.t(), b1, 1e-2, dd), (p1, H1, b1, 1e-2, dd[:, :2]),
+                (p1, H1, b1.cpu(), 1e-2, dd), (p1.requires_grad_(True), H1, b1, 1e-2, dd)):
+        with pytest.raises(ValueError):
+            ttr.lm_tail(*bad)
+
+
+@pytest.mark.parametrize("W", [0, 1, 4])
+def test_pose_rays_kernel_matches_plain(cuda, W):
+    """se3.pose_rays (csrc/pose_rays.cu, one launch each way) against
+    pose_rays_plain: one frame (W = 0: poses (6,), the trackers' form; its
+    origins t expanded, row stride 0) or a window (W = 1, 4: (W, 6), BA's),
+    2048 rays a frame, poses in exp_so3's series and exact branches; the
+    forward torch.equal to the twin on the card and on the CPU, R too; the
+    pose's gradient (autograd.grad with seeded cotangents) within 1e-5 of
+    each pose's largest entry of the twin's on the CPU, and with one
+    cotangent missing; one CUDA launch each way; it raises on what it
+    cannot take."""
+    n = max(W, 1)
+    g = np.random.default_rng(W)
+    w = g.normal(size=(n, 3)) * np.where(np.arange(n) % 2, 0.5, 3e-5)[:, None]
+    poses = torch.as_tensor(np.concatenate([g.normal(0, 10, (n, 3)), w], 1).astype(np.float32))
+    dirs = _unit_dirs((n, 2048), 10 + W)
+    if W == 0:
+        poses, dirs = poses[0], dirs[0]
+    pk, dk = poses.to(cuda).requires_grad_(True), dirs.to(cuda)
+    before = tse3.pose_rays_launches
+    ok, wk, Rk = tse3.pose_rays(pk, dk, with_R=True)
+    assert tse3.pose_rays_launches == before + 1
+    assert (ok.stride(0) == 0) == (n == 1)
+    pc = poses.clone().requires_grad_(True)
+    oc, wc, Rc = tse3.pose_rays_plain(pc, dirs, with_R=True)
+    od, wd, Rd = tse3.pose_rays_plain(poses.to(cuda), dk, with_R=True)
+    for k, c_, d_ in ((ok, oc, od), (wk, wc, wd), (Rk, Rc, Rd)):
+        assert torch.equal(k.detach().cpu(), c_.detach()) and torch.equal(k.detach(), d_)
+    G = np.random.default_rng(20 + W)
+    go, gd = (torch.as_tensor(G.normal(size=oc.shape).astype(np.float32)) for _ in range(2))
+    for cot in ((go, gd), (None, gd), (go, None)):
+        outs = [(k, c_, t) for k, c_, t in zip((ok, wk), (oc, wc), cot) if t is not None]
+        (gk,) = torch.autograd.grad([o for o, _, _ in outs], pk,
+                                    [t.to(cuda) for _, _, t in outs], retain_graph=True)
+        (gc,) = torch.autograd.grad([c_ for _, c_, _ in outs], pc, [t for _, _, t in outs],
+                                    retain_graph=True)
+        scale = gc.reshape(-1, 6).abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((gk.cpu() - gc).reshape(-1, 6).abs() / scale).max())
+        assert rel <= 1e-5, rel
+    assert tse3.pose_rays_launches == before + 4
+    launched = _launches_per_call(lambda: tse3.pose_rays(pk.detach(), dk))
+    assert list(launched.values()) == [1.0] and "pose_rays_fwd_kernel" in next(iter(launched))
+
+    go_k, gd_k = go.to(cuda), gd.to(cuda)
+
+    def both():
+        o, d = tse3.pose_rays(pk, dk)
+        torch.autograd.grad((o, d), pk, (go_k, gd_k))
+
+    launched = _launches_per_call(both)
+    assert len(launched) == 2 and set(launched.values()) == {1.0}
+    assert all("pose_rays_fwd_kernel" in k or "pose_rays_bwd_kernel" in k for k in launched)
+    p_, d_ = pk.detach(), dk
+    for bad in ((p_.double(), d_), (p_, d_.double()), (p_[..., :5], d_), (p_, d_[..., :2]),
+                (p_, d_.cpu()), (p_, d_.transpose(-1, -2)),
+                (p_, d_.clone().requires_grad_(True))):
+        with pytest.raises(ValueError):
+            tse3.pose_rays(*bad)
+
+
 @pytest.mark.parametrize("trunc", [0.3, 0.5])
 def test_ray_prep_kernel_matches_plain(cuda, trunc):
     """ray_prep (csrc/ray_prep.cu, one launch) torch.equal to ray_prep_plain
@@ -1595,6 +1719,11 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ttr.lm_step(torch.zeros(6, device="meta"), torch.zeros(6, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
+        ttr.lm_tail(torch.zeros(6, device="meta"), torch.zeros(6, 6, device="meta"),
+                    torch.zeros(6, device="meta"), 1e-2, torch.zeros(8, 3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tse3.pose_rays(torch.zeros(6, device="meta"), torch.zeros(8, 3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
         ttr.ray_prep(pts.to("meta"), torch.ones(len(pts), device="meta"), 0.3, 60.0)
 
 
@@ -1605,7 +1734,7 @@ def test_kernel_library_is_built_lazily():
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
         "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu",
-        "pack_grad.cu", "norm3.cu", "lm_step.cu", "ray_prep.cu"}
+        "pack_grad.cu", "norm3.cu", "lm_step.cu", "ray_prep.cu", "pose_rays.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:

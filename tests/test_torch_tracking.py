@@ -134,9 +134,11 @@ def test_gn_normal_equations_match_jax(scene, trunc):
         assert _rel_err(sH, H) <= 1e-4
         assert _rel_err(sb, b) <= 1e-4
         np.testing.assert_allclose(float(sloss), float(jnp.sum(w * r * r)), rtol=1e-4)
-    new, R = ttr.lm_update(tpose, tH, tb, 1e-2)
+    tdirs = _t(dirs)
+    new, R, nwd = ttr.lm_tail(tpose, tH, tb, 1e-2, tdirs)
     assert torch.isfinite(new).all() and float((new - tpose).abs().max()) <= 0.5
     assert torch.equal(R, tse3.pose_rotation(new))
+    assert torch.equal(nwd, tse3.pose_rays(new, tdirs)[1])
 
 
 def _jax_trust_region(delta):
