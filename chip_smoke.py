@@ -109,7 +109,21 @@
    card and on the CPU, the poses' gradient within 1e-5 of each pose's
    largest entry and bit-stable between calls, timed in turns against the
    parent's chain (exp_so3.cu, the batched product, the origins' copy,
-   autograd's backward), whose launches a call are profiled too.
+   autograd's backward), whose launches a call are profiled too;
+   [ray_draw] (kernel A: a ray draw's keys, csrc/draw_keys.cu,
+   and its gathers and setup, csrc/ray_prep.cu's ray_draw, ray_superset
+   and ray_pick, one launch each): the keys torch.equal to the card's
+   eager chain on 2^24 uniforms, every output of the draw, the superset
+   and the pick torch.equal to its twin on the card and on the CPU at the
+   quality shapes (the tracker's 2048 rays of a frame's 65,536 points,
+   every column and a dp rank's half; BA's superset of 2 x 2048 rays a
+   frame, W = 1 and 4, its picks with a frame mask, its draw without
+   one), each site timed in turns against the parent's chain; and
+   [const_vel] (kernel B: the deferred warm start in one launch,
+   csrc/const_vel.cu) on 10^5 seeded pose pairs in each of exp_so3's
+   branches and both full settings: 0 bits differ from the CPU's
+   const_vel_plain; the gap to the card's eager chain of the parent (its
+   cuBLAS products) printed in ulp; timed in turns against that chain.
    K9b is checked with one origin per ray, with one origin broadcast to
    every ray (row stride 0, the trackers' form, timed at the Adam shapes)
    and over a superset cdf whose rows each call picks (BA's form, timed at
@@ -223,12 +237,14 @@
    overflow counters, the final sdf_bias and the ATE against ground
    truth, and checks them: every kernel of the path launched, no drops,
    ATE in bound.
-5. Each kernel-phase call profiled alone: its device time per CUDA
+5. Each kernel-phase call profiled alone (right after the kernel phase,
+   before the main paths of step 4): its device time per CUDA
    function and its CUDA launches per call (K4 in every form, K9a in
    every form, K9b, K10a at res 2 and 4, K10b in both forms, K11b, K1 in
    both origin forms, K2's d xyz form, K3 at both shapes, K8 in every
-   form, lm_step, lm_tail, ray_prep, trig, exp_so3 and pose_rays in
-   both forms (pose_rays forward and backward: two) must make
+   form, lm_step, lm_tail, ray_prep, trig, exp_so3, pose_rays in
+   both forms (pose_rays forward and backward: two), draw_keys, ray_draw
+   in both forms, ray_superset, ray_pick and const_vel must make
    exactly one; K2's
    d packed form at most four and K7 at
    most five, all of them the port's (K7 profiled with the undo of each
@@ -239,9 +255,7 @@
    the run fails. Then torch.profiler breakdowns of a few steady frames
    of the budget, quality, s2s, Adam, replica-gate, exact and deferred
    quality configs: device launches and device ms per frame (one summary
-   line for all seven, and one beside the launches a frame of the tree
-   before lm_step and ray_prep), device time per launch of each port
-   kernel.
+   line for all seven), device time per launch of each port kernel.
    A "[time]" line after each phase gives the seconds from the start, and
    one at the end the whole script's.
 
@@ -296,7 +310,8 @@ from nerfloam_tpu_torch.map import mesher
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.ops import ieee, interp, marching, raycast, se3, trig
 from nerfloam_tpu_torch.native import segment_ground_native
-from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.ops import sampling
+from nerfloam_tpu_torch.ops.sampling import draw_indices, sample_ray_indices
 from nerfloam_tpu_torch.parallel import sharding, subscene
 from nerfloam_tpu_torch.parallel.subscene import SubsceneRunner, run_sequences_parallel
 from nerfloam_tpu_torch.utils.checkpoint import (
@@ -444,13 +459,18 @@ TRIG_PAIRS = 10 ** 8
 EXP_SO3_GRAD_TOL = 1e-5
 TRIG_CHUNK = 1 << 26
 _MAP = ("insert", "reconcile", "active_set")
-# every path's BA step and tracker take a ray draw's setup in one launch, and
 # every pose's rays (se3.pose_rays: BA, the Adam tracker, the GN tracker's first
 # rotation) one launch of csrc/pose_rays.cu each way, and the other rotations
 # (se3.exp_so3: the map's insert on every path) one of csrc/exp_so3.cu each way
-_RAYS = ("ray_prep", "exp_so3", "pose_rays")
+_ROT = ("exp_so3", "pose_rays")
+# a ray draw: its keys in one launch (draw_keys), then the trackers' and the
+# superset-less BA's gathers and setup in one (ray_draw), BA's superset in one
+# (ray_superset) and each of its iterations' picks in one (ray_pick)
+_DRAW = ("draw_keys", "ray_draw")
+_SUPERSET = ("draw_keys", "ray_superset", "ray_pick")
+_RAYS = _DRAW + _SUPERSET[1:] + _ROT
 # the norm's own launch is left to the cold sites (ops/ieee.py): the bias probe
-# and the support directions of the quality stack, the deferred warm start's log
+# and the support directions of the quality stack
 _NORM = ("norm3",)
 _GN = ("gn_system", "lm_tail")  # a GN iteration's normal equations and its tail
 _MESH = ("mesh_lattice", "marching_tets")
@@ -463,17 +483,20 @@ PATH_KERNELS = {           # kernels each main path must launch
                      "hits_field_bwd", "hit_table", "hits_field_fwd") + _MAP + _RAYS,
     "replica_gate60": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                        "hits_field_bwd") + _GN + _MAP + _MESH + _RAYS + _NORM,
-    # exact gradients: E1 every BA iteration, no reconcile (no voxel touched)
+    # exact gradients: E1 every BA iteration, no reconcile (no voxel touched);
+    # BA without a superset: a fresh draw (ray_draw) every iteration
     "kitti_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd", "hits_field_bwd",
-                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set") + _RAYS,
+                    "pack_embeddings", "pack_embeddings_vjp", "insert", "active_set")
+    + _DRAW + _ROT,
     "replica_gate60_exact": ("march_occupancy", "place_samples_cdf", "active_field_fwd",
                              "hits_field_bwd", "pack_embeddings", "pack_embeddings_vjp", "insert",
-                             "active_set") + _GN + _MESH + _RAYS + _NORM,
+                             "active_set") + _GN + _MESH + _DRAW + _ROT + _NORM,
     # the off-by-default knobs: replay, along, remove_back on the quality stack
     "kitti_knobs": _QUALITY + _MAP + _MESH + _RAYS + _NORM,
-    # mapping only on GT poses: BA (K4, K1, K2, K8) and the map, no tracker (no K3)
+    # mapping only on GT poses: BA (K4, K1, K2, K8) and the map, no tracker (no
+    # K3, no tracker draw)
     "kitti_mapping_gt": ("hit_table", "hits_field_fwd", "hits_field_bwd", "active_field_fwd")
-    + _MAP + _MESH + _RAYS + _NORM,
+    + _MAP + _MESH + _SUPERSET + _ROT + _NORM,
     # a decoder skip and the nerf embedder on the budget row
     "kitti_decoder_pe": ("hit_table", "hits_field_fwd", "hits_field_bwd") + _GN + _MAP + _RAYS,
 }
@@ -484,12 +507,11 @@ PATH_KERNELS["loader"] = _QUALITY + _MAP + _RAYS + _NORM
 PATH_KERNELS["knobs_dropped"] = tuple(k for k in PATH_KERNELS["loader"] if k != "gn_system") + (
     "gn_system_maturity",)
 # the deferred schedule runs the same kernels as its synchronous config, and its
-# warm start on the device (log_so3) the angle's atan2 (csrc/trig.cu); the
-# budget run whose active set grows with a frame in flight also undoes K7, and
-# its warm start takes the norm
-PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"] + ("trig",)
-PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert", "trig"
-                                                                          ) + _NORM
+# warm start on the device in one launch (const_vel); the budget run whose
+# active set grows with a frame in flight also undoes K7
+PATH_KERNELS["kitti_quality_defer"] = PATH_KERNELS["kitti_quality"] + ("const_vel",)
+PATH_KERNELS["kitti_budget_defer_grow"] = PATH_KERNELS["kitti_budget"] + ("undo_insert",
+                                                                          "const_vel")
 DEFER_PATHS = ("kitti_quality_defer", "kitti_budget_defer_grow")
 # paths run with a RunLogger: finalize writes both meshes and the pose files
 LOGGED = ("kitti_quality", "kitti_knobs", "kitti_mapping_gt", "kitti_quality_defer")
@@ -522,6 +544,11 @@ KERNEL_FUNCTIONS = {
     "lm_step": ("lm_step_kernel",),
     "lm_tail": ("lm_tail_kernel",),
     "ray_prep": ("ray_prep_kernel",),
+    "draw_keys": ("draw_keys_kernel",),
+    "ray_draw": ("ray_draw_kernel",),
+    "ray_superset": ("ray_superset_kernel",),
+    "ray_pick": ("ray_pick_kernel",),
+    "const_vel": ("const_vel_kernel",),
     "trig": ("trig_fwd_kernel",),
     "trig_bwd": ("trig_bwd_kernel",),  # its backward, a form of the trig record
     "exp_so3": ("exp_so3_fwd_kernel",),
@@ -545,7 +572,9 @@ ONE_LAUNCH = ("hit_table", "hit_table, origin row stride 0",
               "ray_prep, BA superset", "trig", "trig, atan2 backward", "gn_sums",
               "gn_system_maturity", "exp_so3",
               "exp_so3, backward", "lm_tail", "lm_tail, 10,000 systems", "pose_rays",
-              "pose_rays, backward", "pose_rays, Adam tracker") + tuple(
+              "pose_rays, backward", "pose_rays, Adam tracker", "draw_keys", "ray_draw",
+              "ray_draw, BA without a superset, window of 4", "ray_superset", "ray_pick",
+              "const_vel") + tuple(
     f"{form}, {shape}" for shape in ("adam25", "gate60")
     for form in ("march_occupancy, origin row stride 0", "CdfPlacer.march",
                  "CdfPlacer.march, origin row stride 0"))
@@ -670,6 +699,11 @@ _COUNTERS = {  # wrapper name -> (module, launch counter)
     "lm_step": (tr, "lm_step_launches"),
     "lm_tail": (tr, "lm_tail_launches"),
     "ray_prep": (tr, "ray_prep_launches"),
+    "draw_keys": (sampling, "draw_keys_launches"),
+    "ray_draw": (tr, "ray_draw_launches"),
+    "ray_superset": (tr, "ray_superset_launches"),
+    "ray_pick": (tr, "ray_pick_launches"),
+    "const_vel": (se3, "const_vel_launches"),
     "trig": (trig, "trig_launches"),
     "exp_so3": (se3, "exp_so3_launches"),
     "pose_rays": (se3, "pose_rays_launches"),
@@ -758,9 +792,12 @@ def _on_device(e):
 def record(name, source, replaces, err, k_ms, p_ms, nbytes, flops, library_ms=None, dev=None,
            forms=None, **extra):
     """One kernel's JSON record. ``dev`` is a call of the wrapper on the
-    same inputs: its device time is profiled after the main paths
-    (``add_device_times``), so that no profiler session runs before them;
-    so are ``forms``, {label: (call, its CUDA functions)}, other forms of
+    same inputs: its device time is profiled once every record is made
+    (``add_device_times``), right after the kernel phase and before the
+    main paths: after the main paths and the runners, torch.profiler's
+    scheduled sessions kept 7 of 20 kernel records in 44-58% of sessions,
+    in runs of 16 and more (on an H100), and none right after the kernel
+    phase; so are ``forms``, {label: (call, its CUDA functions)}, other forms of
     the wrapper whose launches are checked (ONE_LAUNCH) and printed."""
     b_ms, b_by = bound(nbytes, flops)
     log(f"[{name}] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
@@ -1202,6 +1239,8 @@ def kernel_phase(slam, ds, rc_gate, gate_track, loops, sp, e1_shapes):
     records.append(trig_phase(p, gen))
     records.append(exp_so3_phase(slam, gen))
     records.append(pose_rays_phase(slam, gen))
+    records += ray_draw_phase(slam, frames, gen)
+    records.append(const_vel_phase(gen))
     return records
 
 
@@ -1533,6 +1572,178 @@ def tail_rotation_cases(gen, n_rays=2048, window=4):
         partial(rays_fwd_bwd, se3.pose_rays, pose, dirs, go, gd),
         (KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["exp_so3_bwd"],
          KERNEL_FUNCTIONS["pose_rays"] + KERNEL_FUNCTIONS["pose_rays_bwd"]))
+    return cases
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def parent_draw(valid, n, gen):
+    """A Gumbel top-k draw as the port made it before sampling.draw_keys:
+    the keys in seven eager operations, topk, and the picks' valid
+    gathered. Returns (idx, picked valid)."""
+    u = torch.rand(valid.shape, generator=gen, device=valid.device)
+    noise = -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
+    _, idx = torch.topk(torch.where(valid, 0.0, -1e9) + noise, n, dim=-1)
+    return idx, torch.gather(valid, -1, idx)
+
+
+def parent_tracker_draw(points, cos, valid, n, gen, trunc, max_depth, sdf_bias, rows=slice(None)):
+    """A tracker's ray draw as the port made it before tracking.ray_draw
+    (the GN tracker's frame and the Adam tracker's ``rays_at``): the draw,
+    the rank's block, two gathers, one ray_prep launch and the band
+    target in three operations. Returns (pts, pcos, rvalid, *RayPrep,
+    bias_ray)."""
+    ridx, rvalid = parent_draw(valid, n, gen)
+    ridx, rvalid = ridx[rows], rvalid[rows]
+    pts, pcos = points[ridx], cos[ridx]
+    rp = tr.ray_prep(pts, pcos, trunc, max_depth)
+    b2 = (torch.zeros((2,), device=pts.device) if sdf_bias is None
+          else torch.as_tensor(sdf_bias, dtype=torch.float32, device=pts.device).reshape(-1)[:2])
+    return pts, pcos, rvalid, *rp, torch.where(pcos < 0.999, b2[0], b2[1])
+
+
+def parent_superset(points, cos, valid, K, gen, trunc, max_depth):
+    """BA's ray superset as the port drew it before tracking.ray_superset:
+    (W, P) points, K rays a frame. Returns (pts, cos, dirs, t_cap, dnorm,
+    valid), (W, K, ...) each."""
+    frame = torch.arange(points.shape[0], device=points.device)[:, None]
+    sidx, svalid = parent_draw(valid, K, gen)
+    sup_pts, sup_cos = points[frame, sidx], cos[frame, sidx]
+    dirs, t_cap, _, _, dnorm = tr.ray_prep(sup_pts, sup_cos, trunc, max_depth)
+    return sup_pts, sup_cos, dirs, t_cap, dnorm, svalid
+
+
+def parent_ba_pick(sup, frame_active, N, gen, cols=slice(None), grid=False):
+    """A BA iteration's pick of N rays a frame from its superset as the port
+    made it before tracking.ray_pick: randint, the picks' valid, the rank's
+    columns, four gathers, the frame mask and the rows (and, on the grid
+    sampler, each ray's superset row). Returns (rvalid, pts, pcos, dirs,
+    dnorm[, rows]) as BA reads them."""
+    sup_pts, sup_cos, sup_dirs, _, sup_dnorm, svalid = sup
+    W, K = svalid.shape
+    dev = svalid.device
+    frame = torch.arange(W, device=dev)[:, None]
+    ridx = torch.randint(0, K, (W, N), generator=gen, device=dev)
+    rvalid = torch.gather(svalid, 1, ridx)
+    ridx, rvalid = ridx[:, cols], rvalid[:, cols]
+    pts3, pcos2, dirs, dnorm = (x[frame, ridx] for x in (sup_pts, sup_cos, sup_dirs, sup_dnorm))
+    rvalid = rvalid & frame_active[:, None]
+    n = rvalid.numel()
+    out = (rvalid.reshape(n), pts3.reshape(n, 3), pcos2.reshape(n), dirs, dnorm.reshape(n))
+    return out + ((frame * K + ridx).reshape(n).to(torch.int32),) if grid else out
+
+
+def parent_exact_draw(points, cos, valid, frame_active, N, gen, trunc, max_depth,
+                      cols=slice(None)):
+    """A BA iteration's fresh draw without a superset (the exact path) as
+    the port made it before tracking.ray_draw: the draw, the rank's
+    columns, two gathers, one ray_prep launch and the frame mask."""
+    frame = torch.arange(points.shape[0], device=points.device)[:, None]
+    ridx, rvalid = parent_draw(valid, N, gen)
+    ridx, rvalid = ridx[:, cols], rvalid[:, cols]
+    pts3, pcos2 = points[frame, ridx], cos[frame, ridx]
+    dirs, t_cap, _, _, dnorm = tr.ray_prep(pts3, pcos2, trunc, max_depth)
+    return rvalid & frame_active[:, None], pts3, pcos2, dirs, t_cap, dnorm
+
+
+def parent_const_vel(last6, prev6, full):
+    """The deferred warm start as the port took it before se3.const_vel:
+    two pose matrices (exp_so3.cu), cuBLAS's 4 x 4 products, the inverse,
+    and log_so3's eager chain with one norm3 and one trig.cu atan2."""
+    t_last = se3.pose_matrix(last6)
+    t_prev = se3.pose_matrix(prev6)
+    rel = se3.compose_matrices(se3.invert_matrix(t_prev), t_last)
+    t_const = se3.compose_matrices(t_last, rel)
+    if not full:
+        t_const = torch.cat([torch.cat([t_last[:3, :3], t_const[:3, 3:]], 1), t_last[3:]], 0)
+    return se3.pose_from_matrix(t_const)
+
+
+def tracker_draw(points, cos, valid, n, gen, trunc, max_depth, sdf_bias, rows=slice(None)):
+    """A tracker's ray draw through the kernels (draw_keys, top-k,
+    ray_draw), as the trackers make it."""
+    return tr.ray_draw(draw_indices(valid, n, gen), rows, points, cos, valid, trunc, max_depth,
+                       sdf_bias)
+
+
+def superset_draw(points, cos, valid, K, gen, trunc, max_depth):
+    """BA's ray superset through the kernels (draw_keys, top-k,
+    ray_superset)."""
+    return tr.ray_superset(draw_indices(valid, K, gen), points, cos, valid, trunc, max_depth)
+
+
+def ba_pick(sup, frame_active, N, gen, cols=slice(None)):
+    """A BA iteration's pick through the kernel (randint, ray_pick)."""
+    W, K = sup.valid.shape
+    ridx = torch.randint(0, K, (W, N), generator=gen, device=sup.valid.device)
+    return tr.ray_pick(ridx, cols, sup, frame_active)
+
+
+def exact_draw(points, cos, valid, frame_active, N, gen, trunc, max_depth, cols=slice(None)):
+    """BA's fresh draw without a superset through the kernels (draw_keys,
+    top-k, ray_draw with the frame mask)."""
+    return tr.ray_draw(draw_indices(valid, N, gen), cols, points, cos, valid, trunc, max_depth,
+                       frame_active=frame_active)
+
+
+def draw_inputs(gen, W, P=65536):
+    """Seeded frames as the draws meet them: (W, P) points 2-40 m out, their
+    ground cosines (a third at 1, the ground's), 85% of them valid."""
+    dev = gen.device
+    d = unit_dirs((W, P), gen) * (2 + 38 * torch.rand((W, P, 1), generator=gen, device=dev))
+    cos = torch.where(torch.rand((W, P), generator=gen, device=dev) < 0.33, 1.0,
+                      torch.rand((W, P), generator=gen, device=dev))
+    return d, cos, torch.rand((W, P), generator=gen, device=dev) < 0.85
+
+
+def draw_warmstart_cases(gen, chains_only=False, n_rays=2048, window=4, trunc=0.3,
+                         max_depth=40.0):
+    """{label: (the parent's chain, the kernel's call or None, (CUDA
+    functions of the chain, of the kernel))} at the main path's shapes: a
+    tracker's draw of ``n_rays`` rays over 65,536 points (GN and Adam
+    alike); BA's superset (2 n_rays of each of ``window`` frames); a BA
+    iteration's pick of n_rays a frame from it (the current frame and the
+    window); BA's fresh draw without a superset (the exact path, the
+    window); and the deferred warm start."""
+    dev = gen.device
+    pts, cos, val = draw_inputs(gen, window)
+    active = torch.ones((window,), dtype=torch.bool, device=dev)
+    sdf_bias = torch.tensor([0.01, -0.02], device=dev)
+    prep = KERNEL_FUNCTIONS["ray_prep"]
+    pw = lambda nm: () if chains_only else KERNEL_FUNCTIONS[nm]  # noqa: E731
+    keys = pw("draw_keys")
+    cases = {"tracker draw": (
+        partial(parent_tracker_draw, pts[0], cos[0], val[0], n_rays, gen, trunc, max_depth,
+                sdf_bias), None if chains_only else partial(
+            tracker_draw, pts[0], cos[0], val[0], n_rays, gen, trunc, max_depth, sdf_bias),
+        (prep, keys + pw("ray_draw")))}
+    K = 2 * n_rays
+    for label, W in (("current frame", 1), (f"window of {window}", window)):
+        sup = parent_superset(pts[:W], cos[:W], val[:W], K, gen, trunc, max_depth)
+        cases[f"BA superset, {label}"] = (
+            partial(parent_superset, pts[:W], cos[:W], val[:W], K, gen, trunc, max_depth),
+            None if chains_only else partial(superset_draw, pts[:W], cos[:W], val[:W], K, gen,
+                                             trunc, max_depth),
+            (prep, keys + pw("ray_superset")))
+        new_sup = None if chains_only else superset_draw(pts[:W], cos[:W], val[:W], K, gen,
+                                                         trunc, max_depth)
+        cases[f"BA pick, {label}"] = (
+            partial(parent_ba_pick, sup, active[:W], n_rays, gen),
+            None if chains_only else partial(ba_pick, new_sup, active[:W], n_rays, gen),
+            ((), pw("ray_pick")))
+    cases[f"BA exact draw, window of {window}"] = (
+        partial(parent_exact_draw, pts, cos, val, active, n_rays, gen, trunc, max_depth),
+        None if chains_only else partial(exact_draw, pts, cos, val, active, n_rays, gen, trunc,
+                                         max_depth),
+        (prep, keys + pw("ray_draw")))
+    last = torch.tensor([3.1, -0.4, 0.2, 0.01, -0.02, 0.3], device=dev)
+    prev = torch.tensor([2.2, -0.3, 0.21, 0.012, -0.018, 0.28], device=dev)
+    cases["deferred warm start"] = (partial(parent_const_vel, last, prev, True),
+                                    None if chains_only else partial(se3.const_vel, last, prev,
+                                                                     True),
+                                    (KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["trig"]
+                                     + KERNEL_FUNCTIONS["norm3"], pw("const_vel")))
     return cases
 
 
@@ -2902,6 +3113,203 @@ def pose_rays_phase(slam, gen):
                   "kernel)", err, k_ms, p_ms, 72 * n + 96 * dirs.shape[0],
                   39 * n + 1200 * dirs.shape[0], dev=partial(se3.pose_rays, poses, dirs),
                   forms=forms, parent_chain_ms=c_ms)
+
+
+def _equal_outputs(label, got, twin, cpu):
+    """Check every output of a draw kernel torch.equal to its twin on the
+    card and on the CPU; return the largest gap (0)."""
+    for nm, k, d, h in zip(type(got)._fields, got, twin, cpu):
+        check(torch.equal(k, d) and torch.equal(k.cpu(), h),
+              f"[ray_draw] {label}: {nm} differs from its twin on the card or the CPU")
+    return 0.0
+
+
+def ray_draw_phase(slam, frames, gen):
+    """[ray_draw], kernel A: a ray draw in its kernels (csrc/draw_keys.cu,
+    csrc/ray_prep.cu). The keys (draw_keys) torch.equal to the eager chain
+    on the card on 2^24 uniforms of the card's generator and its edges;
+    at the quality shapes (a frame's 65,536 points, the tracker's 2048
+    rays, every column and a dp rank's half; BA's superset of 2 x 2048 rays
+    of the current frame and of a window of 4, its picks of 2048 a frame
+    with a frame mask, its draw without one) every output of ray_draw,
+    ray_superset and ray_pick torch.equal to its twin on the card and on
+    the CPU. Each site is timed in turns against the parent's chain
+    (chip_smoke.parent_*), with its host us. Returns the four records."""
+    dev = slam.device
+    tp, bp = slam.tp, slam.bp_current
+    trunc, md = tp.truncation, tp.max_depth
+    u = torch.rand((1 << 24,), generator=gen, device=dev)
+    u[:6] = torch.tensor([0.0, _TINY, 1e-30, 0.5, 0.99999994, 0.9999999], device=dev)
+    valid = torch.rand((1 << 24,), generator=gen, device=dev) < 0.85
+    keys, chain = sampling.draw_keys(u, valid), sampling.draw_keys_plain(u, valid)
+    differ = int((keys.view(torch.int32) != chain.view(torch.int32)).sum())
+    log(f"[ray_draw] draw_keys on 2^24 uniforms: {differ} keys differ in their bits from the "
+        "card's eager chain (clamp, log, neg, log, neg, where, add)")
+    check(differ == 0, f"[ray_draw] draw_keys differs from the eager chain on {differ} keys")
+    pts = torch.stack([f.device_arrays(dev)[0] for f in frames])
+    cos = torch.stack([f.device_arrays(dev)[1] for f in frames])
+    val = torch.stack([f.device_arrays(dev)[2] for f in frames])
+    W, P = pts.shape[:2]
+    active = torch.arange(W, device=dev) != 2
+    sdf_bias = torch.tensor([0.012, -0.031], device=dev)
+    idx = draw_indices(val[0], tp.n_rays, gen)
+    for cols in (slice(None), slice(tp.n_rays // 2, tp.n_rays)):
+        args = (idx, cols, pts[0], cos[0], val[0], trunc, md, sdf_bias)
+        cpu_args = (idx.cpu(), cols, pts[0].cpu(), cos[0].cpu(), val[0].cpu(), trunc, md,
+                    sdf_bias.cpu())
+        _equal_outputs(f"tracker {cols}", tr.ray_draw(*args), tr.ray_draw_plain(*args),
+                       tr.ray_draw_plain(*cpu_args))
+    K = 2 * bp.n_rays
+    sups = {}
+    for Wn in (1, W):
+        sidx = draw_indices(val[:Wn], K, gen)
+        a = (sidx, pts[:Wn], cos[:Wn], val[:Wn], bp.truncation, bp.max_depth)
+        sups[Wn] = tr.ray_superset(*a)
+        _equal_outputs(f"superset W={Wn}", sups[Wn], tr.ray_superset_plain(*a),
+                       tr.ray_superset_plain(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                                               for x in a)))
+        ridx = torch.randint(0, K, (Wn, bp.n_rays), generator=gen, device=dev)
+        for cols in (slice(None), slice(bp.n_rays // 2, bp.n_rays)):
+            cpu_sup = tr.Superset(*(x.cpu() for x in sups[Wn]))
+            _equal_outputs(f"pick W={Wn} {cols}", tr.ray_pick(ridx, cols, sups[Wn], active[:Wn]),
+                           tr.ray_pick_plain(ridx, cols, sups[Wn], active[:Wn]),
+                           tr.ray_pick_plain(ridx.cpu(), cols, cpu_sup, active[:Wn].cpu()))
+    eidx = draw_indices(val, bp.n_rays, gen)
+    a = (eidx, slice(None), pts, cos, val, bp.truncation, bp.max_depth, None, active)
+    _equal_outputs("BA without a superset", tr.ray_draw(*a), tr.ray_draw_plain(*a),
+                   tr.ray_draw_plain(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in a)))
+    log(f"[ray_draw] ray_draw, ray_superset and ray_pick: every output torch.equal to its twin "
+        f"on the card and on the CPU: the tracker's {tp.n_rays} rays of {P} points (every column "
+        f"and a dp rank's half, a device sdf_bias), BA's superset of {K} rays a frame (W = 1 and "
+        f"{W}), its picks of {bp.n_rays} a frame with a frame mask (every column and a half), "
+        f"and its draw without one (W = {W})")
+    # the sites in turns against the parent's chains, at the main path's shapes
+    cases = draw_warmstart_cases(gen, window=W, trunc=trunc, max_depth=md)
+    timed = {}
+    for label, (chain, kern, _) in cases.items():
+        if label == "deferred warm start":
+            continue
+        k_ms, c_ms = paired_median_ms(kern, chain)
+        timed[label] = (k_ms, c_ms, kern, chain)
+        log(f"[ray_draw] {label}, in turns: the kernels {k_ms:.4f} ms, the parent's chain "
+            f"{c_ms:.4f} ms; host us (card idle before each): the kernels "
+            f"{host_us_idle(kern):.2f}, the parent's chain {host_us_idle(chain):.2f}")
+    u0 = torch.rand(val[0].shape, generator=gen, device=dev)
+    key_args = (u0, val[0])
+    k_ms, p_ms = median_ms(partial(sampling.draw_keys, *key_args)), median_ms(
+        partial(sampling.draw_keys_plain, *key_args))
+    nk = u0.numel()
+    forms_keys = {"draw_keys, the parent's chain": (partial(sampling.draw_keys_plain, *key_args),
+                                                    ())}
+    # u and valid read (5 B), a key written (4 B); two logs (~20 operations each)
+    rec_keys = record("draw_keys", "draw_keys.cu", "nerfloam_tpu/ops/sampling.py:23-25 (the "
+                      "mask's logits and jax.random.gumbel's -log(-log(u)); an XLA fusion, no "
+                      "TPU kernel)", 0.0, k_ms, p_ms, 9 * nk, 45 * nk,
+                      dev=partial(sampling.draw_keys, *key_args), forms=forms_keys)
+    targs = (idx, slice(None), pts[0], cos[0], val[0], trunc, md, sdf_bias)
+    eargs = (eidx, slice(None), pts, cos, val, bp.truncation, bp.max_depth, None, active)
+    k_ms, p_ms = median_ms(partial(tr.ray_draw, *targs)), median_ms(
+        partial(tr.ray_draw_plain, *targs))
+    n = tp.n_rays
+    tk, tc = timed["tracker draw"][:2]
+    # a ray: its index (8 B), point, cosine and flag (17 B) read; 44 B and two
+    # flags written; ~30 operations
+    rec_draw = record("ray_draw", "ray_prep.cu", "nerfloam_tpu/core/tracking.py:150-163 (the "
+                      "gathers, dirs, t_cap_for, d_meas, depth_ok, bias_ray; an XLA fusion, no "
+                      "TPU kernel)", 0.0, k_ms, p_ms, 71 * n, 30 * n,
+                      dev=partial(tr.ray_draw, *targs),
+                      forms={f"ray_draw, BA without a superset, window of {W}": (
+                          partial(tr.ray_draw, *eargs), KERNEL_FUNCTIONS["ray_draw"]),
+                          "ray_draw, the tracker's draw, the parent's chain": (
+                              timed["tracker draw"][3], KERNEL_FUNCTIONS["ray_prep"])},
+                      site_ms=tk, parent_chain_ms=tc)
+    sidx = draw_indices(val, K, gen)
+    sargs = (sidx, pts, cos, val, bp.truncation, bp.max_depth)
+    k_ms, p_ms = median_ms(partial(tr.ray_superset, *sargs)), median_ms(
+        partial(tr.ray_superset_plain, *sargs))
+    sk, sc = timed[f"BA superset, window of {W}"][:2]
+    # a ray: index 8 B, point, cosine, flag 17 B read; its row 32 B, dirs 12 B,
+    # t_cap 4 B and a flag written
+    rec_sup = record("ray_superset", "ray_prep.cu", "nerfloam_tpu/core/ba.py:183-191 (the "
+                     "superset's gathers and setup; an XLA fusion, no TPU kernel)", 0.0, k_ms,
+                     p_ms, 74 * W * K, 30 * W * K, dev=partial(tr.ray_superset, *sargs),
+                     forms={f"ray_superset, window of {W}, the parent's chain": (
+                         timed[f"BA superset, window of {W}"][3], KERNEL_FUNCTIONS["ray_prep"])},
+                     site_ms=sk, parent_chain_ms=sc)
+    ridx = torch.randint(0, K, (W, bp.n_rays), generator=gen, device=dev)
+    pargs = (ridx, slice(None), sups[W], active)
+    k_ms, p_ms = median_ms(partial(tr.ray_pick, *pargs)), median_ms(
+        partial(tr.ray_pick_plain, *pargs))
+    pk, pc = timed[f"BA pick, window of {W}"][:2]
+    # a ray: index 8 B, its 32 B row and flag read; 37 B written
+    rec_pick = record("ray_pick", "ray_prep.cu", "nerfloam_tpu/core/ba.py:230-234, 322-329 (a "
+                      "BA iteration's gathers from the superset; an XLA fusion, no TPU kernel)", 0.0,
+                      k_ms, p_ms, 78 * W * bp.n_rays, 4 * W * bp.n_rays,
+                      dev=partial(tr.ray_pick, *pargs),
+                      forms={f"ray_pick, window of {W}, the parent's chain": (
+                          timed[f"BA pick, window of {W}"][3], ())},
+                      site_ms=pk, parent_chain_ms=pc)
+    return [rec_keys, rec_draw, rec_sup, rec_pick]
+
+
+CONST_VEL_PAIRS = 10 ** 5
+CONST_VEL_CHAIN_PAIRS = 500  # the card's eager chain takes one pair a call
+
+
+def const_vel_phase(gen):
+    """[const_vel], kernel B: se3.const_vel (csrc/const_vel.cu, the
+    deferred warm start in one launch) on CONST_VEL_PAIRS seeded pose pairs
+    in each of exp_so3's branches (series, exact, exact below 0.01 rad),
+    both ``full`` settings: 0 bits differ from the CPU's const_vel_plain
+    (what the CPU's _const_vel takes, held to JAX's by
+    tests/test_torch_defer.py); the gap to the card's eager chain of the
+    parent (parent_const_vel: cuBLAS's products) in ulp of each pose's
+    largest entry, printed; timed in turns against that chain. Returns
+    its record."""
+    dev = gen.device
+    worst = {}
+    for branch, sigma in (("series", 3e-5), ("exact", 0.8), ("exact_small", 1e-3)):
+        rng = np.random.default_rng(14)
+        n = CONST_VEL_PAIRS
+        prev = np.concatenate([rng.uniform(-50, 50, (n, 3)), rng.normal(0, sigma, (n, 3))], 1)
+        step = np.concatenate([rng.normal(0, 1.0, (n, 3)), rng.normal(0, sigma, (n, 3))], 1)
+        last = torch.as_tensor((prev + step).astype(np.float32))
+        prev = torch.as_tensor(prev.astype(np.float32))
+        for full in (True, False):
+            got = se3.const_vel(last.to(dev), prev.to(dev), full).cpu()
+            ref = se3.const_vel_plain(last, prev, full)
+            differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            m = CONST_VEL_CHAIN_PAIRS
+            chain = torch.stack([parent_const_vel(a, b, full) for a, b in
+                                 zip(last[:m].to(dev), prev[:m].to(dev))]).cpu().double()
+            r = got[:m].double()
+            ulp = np.spacing(r.abs().amax(1, keepdim=True).float().numpy()).astype(np.float64)
+            gap = float(((chain - r).abs().numpy() / ulp).max())
+            same = float((chain == r).all(1).double().mean())
+            worst[(branch, full)] = gap
+            log(f"[const_vel] {branch} (sigma {sigma} rad), full={full}: {differ} of {6 * n} "
+                f"values differ in their bits from the CPU's const_vel_plain; against the card's "
+                f"eager chain (first {m} pairs): within {gap:.4g} ulp of each pose's largest "
+                f"entry, {same:.4f} of poses equal")
+            check(differ == 0, f"[const_vel] {differ} values differ from the CPU's "
+                  f"({branch}, full={full})")
+    last = torch.tensor([3.1, -0.4, 0.2, 0.01, -0.02, 0.3], device=dev)
+    prev = torch.tensor([2.2, -0.3, 0.21, 0.012, -0.018, 0.28], device=dev)
+    kern, chain = partial(se3.const_vel, last, prev, True), partial(parent_const_vel, last, prev,
+                                                                    True)
+    k_ms, c_ms = paired_median_ms(kern, chain)
+    p_ms = median_ms(partial(se3.const_vel_plain, last, prev, True))
+    log(f"[const_vel] one warm start, in turns: const_vel {k_ms:.4f} ms, the parent's chain "
+        f"{c_ms:.4f} ms; host us (card idle before each): const_vel {host_us_idle(kern):.2f}, "
+        f"the parent's chain {host_us_idle(chain):.2f}")
+    return record("const_vel", "const_vel.cu", "nerfloam_tpu/core/pipeline.py:60-72 "
+                  "(_const_vel_jit: pose matrices, inverse, products, log_so3; XLA fusions, no "
+                  "TPU kernel)", 0.0, k_ms, p_ms, 72, 900, dev=kern,
+                  forms={"const_vel, the parent's chain": (
+                      chain, KERNEL_FUNCTIONS["exp_so3"] + KERNEL_FUNCTIONS["trig"]
+                      + KERNEL_FUNCTIONS["norm3"])},
+                  parent_chain_ms=c_ms,
+                  chain_ulp={f"{b}, full={f}": g for (b, f), g in worst.items()})
 
 
 def write_kitti_dir(ds, path):
@@ -4403,6 +4811,8 @@ def main(argv=None):
     gc.collect()  # hand the kernel phase's freed blocks back before the timed paths
     torch.cuda.empty_cache()
     stamp("the kernel phase")
+    add_device_times(records)
+    stamp("the kernel-phase calls profiled")
     with tempfile.TemporaryDirectory() as workdir:
         results = kitti_paths(kitti, cfgs, ds, workdir)
         track = {n: results[n][2]["track"]["mean_ms"]
@@ -4428,8 +4838,6 @@ def main(argv=None):
     _, _, results["replica_gate60_exact_s0"] = gate_path(here, 0, exact=True)
     spread = gate_spread(here, results["replica_gate60_exact_s0"][3])
     stamp("the gate paths and the spread")
-    add_device_times(records)
-    stamp("the kernel-phase calls profiled")
     per_frame = {label: profile_phase(label, cfg, d) for label, cfg, d in (
         ("kitti_budget", cfgs["kitti_budget"], ds), ("kitti_quality", cfgs["kitti_quality"], ds),
         ("kitti_quality_s2s", cfgs["kitti_quality_s2s"], ds),

@@ -1,9 +1,11 @@
 """Windowed bundle adjustment on a ray superset (port of
 nerfloam_tpu/core/ba.py:55-113, 128-417, 476-500, single device).
 
-One call = one BA step: a 2x ray superset per frame is drawn, its
-directions, ranges and lengths taken in one launch (``tracking.ray_prep``:
-every iteration gathers its rays' with them) and, once per
+One call = one BA step: a 2x ray superset per frame is drawn (its keys in
+one launch, ``sampling.draw_indices``), its points, directions, ranges and
+lengths taken in one more (``tracking.ray_superset``: one 32 B row a ray,
+from which every iteration's ``tracking.ray_pick`` takes its rays in one
+launch) and, once per
 step, its hit table built (K4, hits sampler, packed into one row a ray by
 the launch) or its occupancy cdf marched (K9a, grid sampler, launched as
 part of making K9b's CdfPlacer, ``CdfPlacer.march``); every iteration
@@ -26,8 +28,9 @@ transfer feeds to the next tracked frame.
 The reference-exact fallbacks (JAX ba.py:167-172, 222-227, 245-250,
 312-314, 346-347, 380-391):
 - ``ray_superset=0``: no superset; every iteration draws ``n_rays`` rays a
-  frame over all the frame's points and marches them at the current
-  poses (a ``CdfPlacer.march``, K9a), always on the grid sampler;
+  frame over all the frame's points (``tracking.ray_draw``, the frame mask
+  in it) and marches them at the current poses (a ``CdfPlacer.march``,
+  K9a), always on the grid sampler;
 - ``exact_embedding_grads`` (which implies the above): the Adam parameter
   is the canonical (C, F) f32 table, repacked every iteration inside the
   differentiated function by E1 (``voxel_map.PackEmbeddings``: the pack
@@ -53,7 +56,12 @@ from nerfloam_tpu_torch.core.render import (
     render_rays,
     render_rays_hits,
 )
-from nerfloam_tpu_torch.core.tracking import ray_prep, scale_by_adam_
+from nerfloam_tpu_torch.core.tracking import (
+    ray_draw,
+    ray_pick,
+    ray_superset,
+    scale_by_adam_,
+)
 from nerfloam_tpu_torch.map import voxel_map as vm
 from nerfloam_tpu_torch.models.decoder import PLAIN, DecoderMeta, decoder_leaves, map_decoder
 from nerfloam_tpu_torch.ops import se3
@@ -65,7 +73,7 @@ from nerfloam_tpu_torch.ops.raycast import (
     uniform_jitter,
     unpack_hit_table,
 )
-from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.ops.sampling import draw_indices
 from nerfloam_tpu_torch.parallel.sharding import all_reduce_sum, dp_cols
 
 
@@ -146,18 +154,15 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
 
     if use_superset:
         with torch.no_grad():
-            sidx, svalid = sample_ray_indices(points_valid, K, generator)
-            sup_pts, sup_cos = points[frame, sidx], points_cos[frame, sidx]
-            sup_dirs, sup_tcap, _, _, sup_dnorm = ray_prep(sup_pts, sup_cos, bp.truncation,
-                                                           bp.max_depth)
-            sup_args = (map_state, map_cfg, rc, *se3.pose_rays(poses, sup_dirs),
-                        sup_tcap.reshape(W * K))
+            sup = ray_superset(draw_indices(points_valid, K, generator), points, points_cos,
+                               points_valid, bp.truncation, bp.max_depth)
+            sup_args = (map_state, map_cfg, rc, *se3.pose_rays(poses, sup.dirs),
+                        sup.t_cap.reshape(W * K))
             if use_hits:
                 sup_hits = build_hit_table_packed(*sup_args).reshape(W, K, -1)
             else:  # K9a once, into the placer that packs K9b's fixed arguments once; rows
                 # pick each ray's cdf row
                 placer = CdfPlacer.march(*sup_args, M, W * Nl)
-                frame_row0 = frame * K
 
     if exact:  # the canonical table, repacked by E1 every iteration
         pack_scratch = (vm.PackGradScratch() if pack_scratch is None
@@ -179,23 +184,19 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
     field = ActiveField(map_state, map_cfg)  # K8's grid, checked once a step
 
     for it in range(bp.num_iterations):
-        if use_superset:
+        if use_superset:  # a pick from the superset: one launch
             ridx = torch.randint(0, K, (W, N), generator=generator, device=dev)
-            rvalid = torch.gather(svalid, 1, ridx)
-            ridx, rvalid = ridx[:, cols], rvalid[:, cols]
-            pts3, pcos2, dirs, dnorm = (x[frame, ridx]
-                                        for x in (sup_pts, sup_cos, sup_dirs, sup_dnorm))
-        else:  # a fresh draw over all the frame's points
-            ridx, rvalid = sample_ray_indices(points_valid, N, generator)
-            ridx, rvalid = ridx[:, cols], rvalid[:, cols]
-            pts3, pcos2 = points[frame, ridx], points_cos[frame, ridx]
-            dirs, t_cap, _, _, dnorm = ray_prep(pts3, pcos2, bp.truncation, bp.max_depth)
-        rvalid = rvalid & frame_active[:, None]
+            rvalid, pts, pcos, dirs, dnorm, rows = ray_pick(ridx, cols, sup, frame_active)
+        else:  # a fresh draw over all the frame's points, its setup in one launch
+            rd = ray_draw(draw_indices(points_valid, N, generator), cols, points, points_cos,
+                          points_valid, bp.truncation, bp.max_depth, frame_active=frame_active)
+            rvalid, dirs, t_cap = rd.rvalid.reshape(W * Nl), rd.dirs, rd.t_cap
+            pts, pcos, dnorm = (rd.pts.reshape(W * Nl, 3), rd.pcos.reshape(W * Nl),
+                                rd.dnorm.reshape(W * Nl))
         u = uniform_jitter((W * N, M), generator, dev)
         if group is not None:
             u = u.view(W, N, M)[:, cols].reshape(W * Nl, M)
 
-        pts, pcos, dnorm = pts3.reshape(W * Nl, 3), pcos2.reshape(W * Nl), dnorm.reshape(W * Nl)
         rays = se3.pose_rays(pos, dirs)  # (origins, wdirs), (W * Nl, 3) rows
         extra = None
         if bp.surface_anchor or bp.band_samples:
@@ -203,22 +204,20 @@ def ba_step(map_state: vm.MapState, map_cfg: vm.MapConfig, rc: RaycastConfig, bp
                              device=dev)[:, cols].reshape(W * Nl, -1) if bp.band_samples else None)
             ez = extra_surface_z(dnorm, pcos, bp.truncation, bp.surface_anchor, bp.band_samples,
                                  ub)
-            extra = (field, ez, rvalid.reshape(W * Nl))
+            extra = (field, ez, rvalid)
         packed = vm.PackEmbeddings.apply(emb, map_state, map_cfg, pack_scratch) if exact else emb
         if use_hits:
-            ht = unpack_hit_table(sup_hits[frame, ridx].reshape(W * Nl, -1))
-            out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid.reshape(W * Nl), u,
-                                   compute_dtype, extra, k2_scratch, dec_meta)
+            ht = unpack_hit_table(sup_hits[frame, ridx[:, cols]].reshape(W * Nl, -1))
+            out = render_rays_hits(packed, dec, vs, *rays, ht, rvalid, u, compute_dtype, extra,
+                                   k2_scratch, dec_meta)
         else:
-            if use_superset:
-                rows = (frame_row0 + ridx).reshape(W * Nl).to(torch.int32)
-            else:  # K9a at the current poses, into this iteration's placer
+            if not use_superset:  # K9a at the current poses, into this iteration's placer
                 rows = None
                 with torch.no_grad():
                     placer = CdfPlacer.march(map_state, map_cfg, rc, rays[0].detach(),
                                              rays[1].detach(), t_cap.reshape(W * Nl), M)
-            out = render_rays(packed, dec, field, *rays, rvalid.reshape(W * Nl), placer, u,
-                              compute_dtype, extra, rows, k2_scratch, dec_meta)
+            out = render_rays(packed, dec, field, *rays, rvalid, placer, u, compute_dtype, extra,
+                              rows, k2_scratch, dec_meta)
         loss, _ = sdf_losses(out.z_vals, out.sdf, out.valid_mask, out.ray_mask, pts, pcos,
                              bp.truncation, bp.max_depth, bp.fs_weight, bp.sdf_weight,
                              gt_norm=dnorm, group=group)

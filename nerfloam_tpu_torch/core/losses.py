@@ -34,8 +34,8 @@ def sdf_losses(
 ):
     """Weighted free-space + truncated-SDF loss: (loss, loss dict).
     ``gt_norm``: the measured points' lengths, as ``ieee.norm3`` gives
-    them (the trackers and BA take them once, ``tracking.ray_prep``, and
-    gather them with their rays).
+    them (the trackers and BA take them with their draw, ``tracking.
+    ray_draw`` / ``ray_superset`` / ``ray_pick``).
 
     ``group``: a ``torch.distributed`` group whose ranks each hold a block
     of the rays (JAX's ``axis_name``, losses.py:44-62). The three counts

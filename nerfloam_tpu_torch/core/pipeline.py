@@ -104,14 +104,9 @@ def _const_vel(last6: torch.Tensor, prev6: torch.Tensor, full: bool) -> torch.Te
     """The constant-velocity warm start on the device from the raw tracked
     poses of the two previous frames (JAX ``_const_vel_jit``, pipeline.py:
     60-72): rel = inv(T_prev) T_last, init = T_last rel; ``full=False``
-    moves the translation only."""
-    t_last = se3.pose_matrix(last6)
-    t_prev = se3.pose_matrix(prev6)
-    rel = se3.compose_matrices(se3.invert_matrix(t_prev), t_last)
-    t_const = se3.compose_matrices(t_last, rel)
-    if not full:
-        t_const = torch.cat([torch.cat([t_last[:3, :3], t_const[:3, 3:]], 1), t_last[3:]], 0)
-    return se3.pose_from_matrix(t_const)
+    moves the translation only. One launch of csrc/const_vel.cu on the card
+    (``se3.const_vel``)."""
+    return se3.const_vel(last6, prev6, full)
 
 
 class _Staged:

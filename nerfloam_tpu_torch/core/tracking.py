@@ -2,8 +2,11 @@
 device): the Gauss-Newton / LM tracker (40-381) and the Adam tracker
 (383-497).
 
-GN, per frame: ``ray_prep`` (csrc/ray_prep.cu) takes the drawn rays'
-directions, ranges and measured depths in one launch; K4 builds the hit
+GN, per frame: a ray draw, its keys in one launch (``sampling.
+draw_indices``: csrc/draw_keys.cu, then torch.topk) and its gathers and
+setup in one more (``ray_draw``, csrc/ray_prep.cu: the points, cosines and
+valid flags picked, the directions, ranges, measured depths, their gate,
+lengths and band target); K4 builds the hit
 table (hits sampler) or K9a marches the
 occupancy cdf (grid sampler) at the initial pose, launched as part of
 making the frame's placer, which checks and packs K9b's per-frame
@@ -26,14 +29,21 @@ iteration's ray directions. The frame's first rotation is ``se3.pose_rays``
 (csrc/pose_rays.cu), as the Adam tracker's every iteration is.
 
 Adam (``track_frame``) always uses the grid sampler, as JAX does: one ray
-draw, one placer made by its K9a march per frame at the initial pose; per
-iteration the grid render_rays (K9b, K8, decoder, one K2 in the
-backward), the sdf losses
-with the band target, the pose gradient by autograd, and an
+draw (``draw_indices``, ``ray_draw``), one placer made by its K9a march
+per frame at the initial pose; per iteration the grid render_rays (K9b,
+K8, decoder, one K2 in the backward), the sdf losses with the band target,
+the pose gradient by autograd (the rays by ``se3.pose_rays``), and an
 ``optax.scale_by_adam`` step. With ``TrackParams.resample_rays`` (the
 reference-exact fallback) every iteration draws fresh rays and marches
-them at the current pose instead (a ``CdfPlacer.march`` an iteration);
-the GN tracker ignores the knob, as JAX's does.
+them at the current pose instead (a draw and a ``CdfPlacer.march`` an
+iteration); the GN tracker ignores the knob, as JAX's does.
+
+BA's draws are here too: its superset (``ray_superset``: one 32 B row a
+ray), each iteration's pick from it (``ray_pick``: one launch, one row
+read a ray) and its draw without one (``ray_draw`` with the frame mask).
+``ray_prep`` is the setup alone, of points handed in (the tp BA
+iteration's); every draw function has a plain twin that a CPU tensor
+takes (``*_plain``), equal to the kernel bit for bit.
 
 Neither loop reads a value back to the host: shapes are static, the
 solve is the kernel's (or its twin's on the CPU) with no error check, and
@@ -70,7 +80,7 @@ from nerfloam_tpu_torch.ops.raycast import (
     build_hit_table,
     uniform_jitter,
 )
-from nerfloam_tpu_torch.ops.sampling import sample_ray_indices
+from nerfloam_tpu_torch.ops.sampling import draw_indices
 from nerfloam_tpu_torch.parallel.sharding import dp_cols
 
 # launches on CUDA tensors (plain integers; chip_smoke.py resets and reads them)
@@ -79,7 +89,10 @@ gn_sums_launches = 0  # K3's dp form
 gn_maturity_launches = 0  # K3's maturity form (one-launch or dp)
 lm_step_launches = 0  # the pose step alone (lm_step), off the main path
 lm_tail_launches = 0  # a GN iteration's tail (lm_tail)
-ray_prep_launches = 0
+ray_prep_launches = 0  # the setup alone (ray_prep): the tp BA iteration
+ray_draw_launches = 0  # a draw's gathers and setup (ray_draw)
+ray_superset_launches = 0  # BA's superset (ray_superset)
+ray_pick_launches = 0  # a BA iteration's pick from it (ray_pick)
 _K3 = "gn_system"
 _F32 = torch.float32
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
@@ -136,13 +149,6 @@ def scale_by_adam_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, t: int) 
     return (mu / bc1) / (sqrt_rn(nu / bc2) + _EPS)
 
 
-def _bias_ray(pcos, sdf_bias, dev):
-    """Per-ray band target: sdf_bias (2,) [ground, non-ground] or None = 0."""
-    b2 = (torch.zeros((2,), device=dev) if sdf_bias is None
-          else torch.as_tensor(sdf_bias, dtype=torch.float32, device=dev).reshape(-1)[:2])
-    return torch.where(pcos < 0.999, b2[0], b2[1])
-
-
 class RayPrep(NamedTuple):
     """A ray draw's per-ray setup (``ray_prep``), for points p (..., 3)."""
 
@@ -195,6 +201,246 @@ def ray_prep(pts: torch.Tensor, pcos: torch.Tensor, truncation: float,
         ray_prep_launches += 1
     return RayPrep(out[:3 * n].view(pts.shape), out[3 * n:4 * n].view(pcos.shape),
                    out[4 * n:5 * n].view(pcos.shape), depth_ok, out[5 * n:].view(pcos.shape))
+
+
+class RayDraw(NamedTuple):
+    """A ray draw's rays and their setup (``ray_draw``): (..., n) each."""
+
+    pts: torch.Tensor       # (..., 3) the picked points (sensor frame)
+    pcos: torch.Tensor      # their ground cosines
+    rvalid: torch.Tensor    # bool: the pick is a valid point (of an active frame, BA's)
+    dirs: torch.Tensor      # (..., 3)
+    t_cap: torch.Tensor
+    d_meas: torch.Tensor
+    depth_ok: torch.Tensor  # bool
+    dnorm: torch.Tensor
+    bias_ray: torch.Tensor  # the band target: sdf_bias[0] on the ground, [1] off it
+
+
+def _bias_pair(sdf_bias, dev):
+    """sdf_bias (2,) [ground, non-ground] on ``dev`` as the draw reads it
+    (None: None, the target 0): a contiguous f32 tensor there is read as it
+    is; anything else is uploaded, as the band target took it before."""
+    if sdf_bias is None or (isinstance(sdf_bias, torch.Tensor) and sdf_bias.device == dev
+                            and sdf_bias.dtype == _F32 and sdf_bias.is_contiguous()
+                            and sdf_bias.numel() >= 2):
+        return sdf_bias
+    return torch.as_tensor(sdf_bias, dtype=_F32, device=dev).reshape(-1)[:2].contiguous()
+
+
+def ray_draw_plain(idx, cols: slice, points, points_cos, points_valid, truncation: float,
+                   max_depth: float, sdf_bias=None, frame_active=None) -> RayDraw:
+    """Plain torch twin of ``ray_draw``, the chain the trackers and BA ran:
+    the rank's columns of the indices, the gathers, ``ray_prep_plain``, the
+    frame mask and the band target (JAX tracking.py:150-163)."""
+    sel = idx[..., cols]
+    if idx.dim() == 1:
+        pts, pcos, rvalid = points[sel], points_cos[sel], points_valid[sel]
+    else:
+        frame = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        pts, pcos, rvalid = points[frame, sel], points_cos[frame, sel], points_valid[frame, sel]
+    if frame_active is not None:
+        rvalid = rvalid & frame_active[:, None]
+    rp = ray_prep_plain(pts, pcos, truncation, max_depth)
+    b2 = (torch.zeros((2,), device=pts.device) if sdf_bias is None
+          else torch.as_tensor(sdf_bias, dtype=_F32, device=pts.device).reshape(-1)[:2])
+    return RayDraw(pts, pcos, rvalid, *rp, torch.where(pcos < 0.999, b2[0], b2[1]))
+
+
+def _draw_check(name, dev, idx, points, points_cos, points_valid, frame_active=None):
+    """Raise ValueError unless idx (n,) with points (P, 3), or idx (W, n)
+    with points (W, P, 3), are contiguous int64 / f32 on ``dev`` with
+    their cosines (.., P) f32, valid (.., P) bool and frame_active (W,)
+    bool. Returns (W, P)."""
+    kernels.expect(name, dev, torch.int64, idx=idx)
+    kernels.expect(name, dev, _F32, points=points, points_cos=points_cos)
+    kernels.expect(name, dev, torch.bool, points_valid=points_valid,
+                   **({} if frame_active is None else {"frame_active": frame_active}))
+    lead = tuple(points.shape[:-2])
+    if idx.dim() not in (1, 2) or points.dim() != idx.dim() + 1 or tuple(idx.shape[:-1]) != lead:
+        raise ValueError(f"{name}: idx (n,) with points (P, 3), or (W, n) with (W, P, 3); got "
+                         f"{tuple(idx.shape)} and {tuple(points.shape)}")
+    P = points.shape[-2]
+    kernels.expect_shape(name, points=(points, lead + (P, 3)), points_cos=(points_cos, lead + (P,)),
+                         points_valid=(points_valid, lead + (P,)))
+    W = lead[0] if lead else 1
+    if frame_active is not None:
+        kernels.expect_shape(name, frame_active=(frame_active, (W,)))
+    return W, P
+
+
+def ray_draw(idx, cols: slice, points, points_cos, points_valid, truncation: float,
+             max_depth: float, sdf_bias=None, frame_active=None) -> RayDraw:
+    """A ray draw's rays and setup from its indices (the XLA fusion of
+    nerfloam_tpu/core/tracking.py:150-163 and t_cap_for; BA's draw without
+    a superset): ``idx`` (n,) int64 over a frame's points (P, 3), or (W, n)
+    over W frames' (W, P, 3), with their cosines and valid flags; ``cols``
+    this rank's columns of the draw (``dp_cols``); ``sdf_bias`` (2,) the
+    band target (None: 0; a contiguous f32 tensor on the device is read
+    there, with no host read); ``frame_active`` (W,) bool ANDed into the
+    picks' valid flags (BA's). Returns a ``RayDraw`` of (nl,) or (W, nl)
+    rows. CPU tensors take ``ray_draw_plain``; CUDA tensors one launch of
+    csrc/ray_prep.cu, equal to it bit for bit, every output a view of one
+    buffer; anything the kernel cannot read raises ValueError."""
+    name, dev = "ray_draw", idx.device
+    if dev.type == "cpu":
+        return ray_draw_plain(idx, cols, points, points_cos, points_valid, truncation, max_depth,
+                              sdf_bias, frame_active)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    global ray_draw_launches
+    W, P = _draw_check(name, dev, idx, points, points_cos, points_valid, frame_active)
+    n_all = idx.shape[-1]
+    c0, c1, step = cols.indices(n_all)
+    if step != 1:
+        raise ValueError(f"{name}: cols must be a contiguous block, got {cols}")
+    nl = max(c1 - c0, 0)
+    n = W * nl
+    bias = _bias_pair(sdf_bias, dev)
+    buf = torch.empty((46 * n,), dtype=torch.uint8, device=dev)
+    f = buf[:44 * n].view(_F32)
+    flags = buf[44 * n:].view(torch.bool)
+    lead = tuple(idx.shape[:-1]) + (nl,)
+    if n:
+        o = f.data_ptr()
+        kernels.check(kernels.lib().nl_ray_draw(
+            idx.data_ptr(), n_all, c0, nl, W, P, points.data_ptr(), points_cos.data_ptr(),
+            points_valid.data_ptr(), None if frame_active is None else frame_active.data_ptr(),
+            None if bias is None else bias.data_ptr(), truncation, max_depth, o, o + 12 * n,
+            o + 16 * n, o + 28 * n, o + 32 * n, o + 36 * n, o + 40 * n, flags.data_ptr(),
+            flags.data_ptr() + n, kernels.stream_ptr(dev)), name)
+        ray_draw_launches += 1
+    v3, v1 = lead + (3,), lead
+    return RayDraw(f[:3 * n].view(v3), f[3 * n:4 * n].view(v1), flags[:n].view(v1),
+                   f[4 * n:7 * n].view(v3), f[7 * n:8 * n].view(v1), f[8 * n:9 * n].view(v1),
+                   flags[n:].view(v1), f[9 * n:10 * n].view(v1), f[10 * n:].view(v1))
+
+
+class Superset(NamedTuple):
+    """BA's ray superset (``ray_superset``), (W, K) rays."""
+
+    rows: torch.Tensor   # (W, K, 8) f32: [dir xyz, p xyz, cos, |p|] a ray
+    dirs: torch.Tensor   # (W, K, 3) the directions again, for se3.pose_rays
+    t_cap: torch.Tensor  # (W, K)
+    valid: torch.Tensor  # (W, K) bool
+
+
+def ray_superset_plain(idx, points, points_cos, points_valid, truncation: float,
+                       max_depth: float) -> Superset:
+    """Plain torch twin of ``ray_superset``: BA's gathers and
+    ``ray_prep_plain`` (JAX ba.py:183-191), packed into its rows."""
+    frame = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    pts, pcos = points[frame, idx], points_cos[frame, idx]
+    rp = ray_prep_plain(pts, pcos, truncation, max_depth)
+    rows = torch.cat([rp.dirs, pts, pcos[..., None], rp.dnorm[..., None]], -1)
+    return Superset(rows, rp.dirs, rp.t_cap, points_valid[frame, idx])
+
+
+def ray_superset(idx, points, points_cos, points_valid, truncation: float,
+                 max_depth: float) -> Superset:
+    """BA's ray superset from its draw (the XLA fusion of
+    nerfloam_tpu/core/ba.py:183-191): ``idx`` (W, K) int64 over W frames'
+    points (W, P, 3), cosines and valid flags. Returns a ``Superset``: one
+    32 B row a ray, which each iteration's ``ray_pick`` reads in one
+    sector, the directions, t_cap and the valid flags. CPU tensors take
+    ``ray_superset_plain``; CUDA tensors one launch of csrc/ray_prep.cu,
+    equal to it bit for bit, views of one buffer (the rows 16 B aligned);
+    anything the kernel cannot read raises ValueError."""
+    name, dev = "ray_superset", idx.device
+    if dev.type == "cpu":
+        return ray_superset_plain(idx, points, points_cos, points_valid, truncation, max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    global ray_superset_launches
+    if idx.dim() != 2:
+        raise ValueError(f"{name}: idx must be (W, K), got {tuple(idx.shape)}")
+    W, P = _draw_check(name, dev, idx, points, points_cos, points_valid)
+    K = idx.shape[1]
+    n = W * K
+    buf = torch.empty((49 * n,), dtype=torch.uint8, device=dev)
+    f = buf[:48 * n].view(_F32)
+    valid = buf[48 * n:].view(torch.bool).view(W, K)
+    if n:
+        o = f.data_ptr()
+        kernels.check(kernels.lib().nl_ray_superset(
+            idx.data_ptr(), K, W, P, points.data_ptr(), points_cos.data_ptr(),
+            points_valid.data_ptr(), truncation, max_depth, o, o + 32 * n, o + 44 * n,
+            valid.data_ptr(), kernels.stream_ptr(dev)), name)
+        ray_superset_launches += 1
+    return Superset(f[:8 * n].view(W, K, 8), f[8 * n:11 * n].view(W, K, 3),
+                    f[11 * n:].view(W, K), valid)
+
+
+class RayPick(NamedTuple):
+    """A BA iteration's rays picked from its superset (``ray_pick``), as
+    BA's render reads them: W * nl rows."""
+
+    rvalid: torch.Tensor  # (W * nl,) bool: a valid pick of an active frame
+    pts: torch.Tensor     # (W * nl, 3)
+    pcos: torch.Tensor    # (W * nl,)
+    dirs: torch.Tensor    # (W, nl, 3), se3.pose_rays' layout
+    dnorm: torch.Tensor   # (W * nl,)
+    rows: torch.Tensor    # (W * nl,) int32: each ray's superset row, w K + idx
+
+
+def ray_pick_plain(ridx, cols: slice, sup: Superset, frame_active) -> RayPick:
+    """Plain torch twin of ``ray_pick``: the chain BA ran (JAX ba.py:
+    230-234, 322-329): the picks' valid, the rank's columns, the gathers of the
+    points, cosines, directions and lengths, the frame mask, each ray's
+    superset row."""
+    W, K = sup.valid.shape
+    frame = torch.arange(W, device=ridx.device)[:, None]
+    rvalid = torch.gather(sup.valid, 1, ridx)[:, cols]
+    ridx = ridx[:, cols]
+    r = sup.rows[frame, ridx]
+    n = ridx.numel()
+    return RayPick((rvalid & frame_active[:, None]).reshape(n), r[..., 3:6].reshape(n, 3),
+                   r[..., 6].reshape(n), r[..., 0:3].contiguous(), r[..., 7].reshape(n),
+                   (frame * K + ridx).reshape(n).to(torch.int32))
+
+
+def ray_pick(ridx, cols: slice, sup: Superset, frame_active) -> RayPick:
+    """A BA iteration's pick from its superset (the XLA fusion of
+    nerfloam_tpu/core/ba.py:230-234, 322-329): ``ridx`` (W, N) int64 in [0, K) (the
+    iteration's randint), ``cols`` this rank's columns of it, ``sup`` the
+    step's ``ray_superset``, ``frame_active`` (W,) bool. Returns a
+    ``RayPick``. CPU tensors take ``ray_pick_plain``; CUDA tensors one
+    launch of csrc/ray_prep.cu (one 32 B row read a ray), equal to it bit
+    for bit, views of one buffer; anything the kernel cannot read raises
+    ValueError."""
+    name, dev = "ray_pick", ridx.device
+    if dev.type == "cpu":
+        return ray_pick_plain(ridx, cols, sup, frame_active)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    global ray_pick_launches
+    W, K = sup.valid.shape
+    kernels.expect(name, dev, torch.int64, ridx=ridx)
+    kernels.expect(name, dev, _F32, rows=sup.rows)
+    kernels.expect(name, dev, torch.bool, valid=sup.valid, frame_active=frame_active)
+    kernels.expect_shape(name, rows=(sup.rows, (W, K, 8)), frame_active=(frame_active, (W,)))
+    if ridx.dim() != 2 or ridx.shape[0] != W or sup.rows.data_ptr() % 16:
+        raise ValueError(f"{name}: ridx must be ({W}, N) and the rows 16 B aligned; got "
+                         f"{tuple(ridx.shape)}")
+    N = ridx.shape[1]
+    c0, c1, step = cols.indices(N)
+    if step != 1:
+        raise ValueError(f"{name}: cols must be a contiguous block, got {cols}")
+    nl = max(c1 - c0, 0)
+    n = W * nl
+    buf = torch.empty((37 * n,), dtype=torch.uint8, device=dev)
+    f = buf[:32 * n].view(_F32)
+    srow = buf[32 * n:36 * n].view(torch.int32)
+    rvalid = buf[36 * n:].view(torch.bool)
+    if n:
+        o = f.data_ptr()
+        kernels.check(kernels.lib().nl_ray_pick(
+            ridx.data_ptr(), N, c0, nl, W, K, sup.rows.data_ptr(), sup.valid.data_ptr(),
+            frame_active.data_ptr(), rvalid.data_ptr(), o, o + 12 * n, o + 16 * n, o + 28 * n,
+            srow.data_ptr(), kernels.stream_ptr(dev)), name)
+        ray_pick_launches += 1
+    return RayPick(rvalid, f[:3 * n].view(n, 3), f[3 * n:4 * n], f[4 * n:7 * n].view(W, nl, 3),
+                   f[7 * n:], srow)
 
 
 def _gn_terms(xyz, t_pos, z, sdf, g, vmask, pcos, d_meas, depth_ok, tp: TrackParams, bias_ray):
@@ -631,13 +877,10 @@ def track_frame_gn(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, t
     compute_dtype = getattr(torch, tp.compute_dtype)
     vs = map_cfg.voxel_size
     packed = map_state.packed
-    ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
     rows = dp_cols(group, tp.n_rays)  # this rank's block of the global draws
-    ridx, rvalid = ridx[rows], rvalid[rows]
-    pts = points[ridx]
-    pcos = points_cos[ridx]
-    dirs, t_cap, d_meas, depth_ok, dnorm = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
-    bias_ray = _bias_ray(pcos, sdf_bias, dev)
+    pts, pcos, rvalid, dirs, t_cap, d_meas, depth_ok, dnorm, bias_ray = ray_draw(
+        draw_indices(points_valid, tp.n_rays, generator), rows, points, points_cos,
+        points_valid, tp.truncation, tp.max_depth, sdf_bias)
     n_extra = tp.surface_anchor + tp.band_samples
     # what stays fixed over the frame, checked once: K8's grid and K3's rays
     field = ActiveField(map_state, map_cfg)
@@ -745,12 +988,11 @@ def track_frame(map_state: MapState, map_cfg: MapConfig, rc: RaycastConfig, tp: 
 
     def rays_at(pose6):
         """A fresh ray draw and its placer, marched at pose6."""
-        ridx, rvalid = sample_ray_indices(points_valid, tp.n_rays, generator)
-        pts, pcos = points[ridx], points_cos[ridx]
-        rp = ray_prep(pts, pcos, tp.truncation, tp.max_depth)
-        placer = CdfPlacer.march(map_state, map_cfg, rc, *se3.pose_rays(pose6, rp.dirs),
-                                 rp.t_cap, rc.n_samples)
-        return pts, pcos, rp.dirs, rp.dnorm, rvalid, placer, _bias_ray(pcos, sdf_bias, dev)
+        rd = ray_draw(draw_indices(points_valid, tp.n_rays, generator), slice(None), points,
+                      points_cos, points_valid, tp.truncation, tp.max_depth, sdf_bias)
+        placer = CdfPlacer.march(map_state, map_cfg, rc, *se3.pose_rays(pose6, rd.dirs),
+                                 rd.t_cap, rc.n_samples)
+        return rd.pts, rd.pcos, rd.dirs, rd.dnorm, rd.rvalid, placer, rd.bias_ray
 
     if not tp.resample_rays:
         fixed = rays_at(init_pose)

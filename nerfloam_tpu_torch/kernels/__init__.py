@@ -95,6 +95,12 @@ _SIGNATURES = {
     "nl_exp_so3_fwd": [_P, _L, _I, _P, _P],
     "nl_exp_so3_bwd": [_P, _L, _P, _I, _P, _P],
     "nl_ray_prep": [_P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P],
+    "nl_ray_draw": [_P, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _P],
+    "nl_ray_superset": [_P, _I, _I, _L, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P],
+    "nl_ray_pick": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "nl_draw_keys": [_P, _P, _L, _P, _P],
+    "nl_const_vel": [_P, _P, _I, _I, _P, _P],
     "nl_s2s_system": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                       _F, _F, _I, _P, _P, _P, _P],
 }

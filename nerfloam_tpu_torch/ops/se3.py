@@ -14,7 +14,9 @@ rotations (the map's insert, the scan-to-scan term, the bias probe, the
 warm start's pose matrices) take exp_so3, one launch of csrc/exp_so3.cu
 forward and one backward on the card (``exp_so3_launches`` counts both);
 its plain twin, ``exp_so3_plain``, is the chain of ops that a CPU tensor
-takes.
+takes. The deferred warm start, ``const_vel`` (two pose matrices, their
+products, the log), is one launch of csrc/const_vel.cu on the card
+(``const_vel_launches``), bit for bit its plain twin ``const_vel_plain``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ _SMALL = 1e-8  # theta^2 switch point for the series branches
 
 exp_so3_launches = 0
 pose_rays_launches = 0
+const_vel_launches = 0
 _F32 = torch.float32
 
 
@@ -397,3 +400,57 @@ def invert_matrix(T: torch.Tensor) -> torch.Tensor:
     t = -torch.matmul(Rt, T[..., :3, 3:4])
     top = torch.cat([Rt, t], dim=-1)
     return torch.cat([top, T[..., 3:4, :]], dim=-2)
+
+
+def _dot4(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B of (..., 4, 4) f32 matrices, each entry fma(a3, b3, fma(a2, b2,
+    fma(a1, b1, a0 * b0))): XLA's CPU dot, and torch's CPU product of one
+    matrix."""
+    acc = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in (1, 2, 3):
+        acc = fma_f32(A[..., :, k:k + 1], B[..., k:k + 1, :], acc)
+    return acc
+
+
+def const_vel_plain(last6: torch.Tensor, prev6: torch.Tensor, full: bool) -> torch.Tensor:
+    """Plain twin of ``const_vel`` over (..., 6) poses, op by op: the pose
+    matrices (exp_so3), inv(T_prev)'s translation -(R^T t) and the 4 x 4
+    products in the dot's fma order, and ``log_so3``; one pair of
+    (6,) poses gives what the chain of se3's matrix ops gives on the CPU
+    (JAX ``_const_vel_jit``'s ops, op by op)."""
+    t_last, t_prev = pose_matrix(last6), pose_matrix(prev6)
+    Rt = t_prev[..., :3, :3].transpose(-1, -2)
+    tp = t_prev[..., :3, 3]
+    t_inv = -fma_f32(Rt[..., 2], tp[..., 2:3], fma_f32(Rt[..., 1], tp[..., 1:2],
+                                                        Rt[..., 0] * tp[..., 0:1]))
+    inv = torch.cat([torch.cat([Rt, t_inv[..., None]], -1), t_prev[..., 3:, :]], -2)
+    t_const = _dot4(t_last, _dot4(inv, t_last))
+    R = t_const[..., :3, :3] if full else t_last[..., :3, :3]
+    return torch.cat([t_const[..., :3, 3], log_so3(R)], -1)
+
+
+def const_vel(last6: torch.Tensor, prev6: torch.Tensor, full: bool) -> torch.Tensor:
+    """The constant-velocity warm start from the raw tracked poses of the
+    two frames before (JAX ``_const_vel_jit``, nerfloam_tpu/core/pipeline.py:
+    60-72): rel = inv(T_prev) T_last, init = T_last rel, as pose6;
+    ``full=False`` moves the translation alone. ``last6`` and ``prev6``
+    (..., 6) f32. CPU tensors take ``const_vel_plain``; CUDA tensors (f32,
+    contiguous, else ValueError) one launch of csrc/const_vel.cu, equal to
+    it bit for bit."""
+    name, dev = "const_vel", last6.device
+    if dev.type == "cpu":
+        return const_vel_plain(last6, prev6, full)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    global const_vel_launches
+    kernels.expect(name, dev, _F32, last6=last6, prev6=prev6)
+    if last6.shape[-1:] != (6,) or prev6.shape != last6.shape:
+        raise ValueError(f"{name}: last6 and prev6 must be (..., 6) of one shape; got "
+                         f"{tuple(last6.shape)} and {tuple(prev6.shape)}")
+    out = torch.empty_like(last6)
+    n = last6.numel() // 6
+    if n:
+        kernels.check(kernels.lib().nl_const_vel(last6.data_ptr(), prev6.data_ptr(), n, int(full),
+                                                 out.data_ptr(), kernels.stream_ptr(dev)), name)
+        const_vel_launches += 1
+    return out

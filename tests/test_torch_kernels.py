@@ -75,10 +75,17 @@ one-step form the batch's row; lm_tail torch.equal to lm_tail_plain on
 the card and on the CPU (2,000 systems in one launch, and one system at
 2048 rays); pose_rays forward torch.equal to pose_rays_plain, its
 backward within 1e-5 of each pose's largest entry, one launch each way;
-all raise on what they cannot take."""
+a ray draw's kernels (draw_keys, ray_draw, ray_superset, ray_pick) every
+output torch.equal to their twins (the keys to the card's eager chain,
+whose log is the card's; the gathers and setup on the card and on the
+CPU, with a rank's block of columns, BA's W > 1 and its frame mask), one
+launch a call; const_vel (the deferred warm start) bit for bit the CPU's
+const_vel_plain on 4,096 pose pairs in each of exp_so3's branches, both
+``full`` settings; all raise on what they cannot take."""
 
 import ctypes
 import os
+import time
 
 import numpy as np
 import pytest
@@ -94,10 +101,12 @@ from nerfloam_tpu_torch.ops import ieee
 from nerfloam_tpu_torch.ops import interp as tinterp
 from nerfloam_tpu_torch.ops import marching as tmarch
 from nerfloam_tpu_torch.ops import raycast as trc
+from nerfloam_tpu_torch.ops import sampling as tsampling
 from nerfloam_tpu_torch.ops import se3 as tse3
 from nerfloam_tpu_torch.ops import trig
 
 torch.set_num_threads(2)
+PROFILE_PAD_S = 0.1  # host sleep at each edge of a profiled step (chip_smoke.py's)
 VS = 0.5
 T_CFG = vm.MapConfig(capacity=1 << 14, grid_dim=(64, 64, 32), voxel_size=VS)
 T_RC = trc.RaycastConfig(step_world=0.25 * VS, n_slots=97, n_samples=48, voxel_size=VS,
@@ -343,8 +352,11 @@ def test_active_field_kernel_matches_plain(cuda):
 def _launches_per_call(fn, reps=5, sessions=3):
     """{device kernel or copy: launches per call of fn}, from torch.profiler
     over ``reps`` calls after a discarded warm-up step (a cold session drops
-    kernel records; a session that still misses some is run again). Work
-    seen fewer than ``reps`` times is the profiler's own."""
+    kernel records; a session that still misses some is run again), each
+    step's calls between two host sleeps of PROFILE_PAD_S (the trace's
+    device timestamps stray from the host clock, and records outside a
+    step's window are dropped: chip_smoke.py pads its windows the same
+    way). Work seen fewer than ``reps`` times is the profiler's own."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(sessions):
@@ -352,9 +364,11 @@ def _launches_per_call(fn, reps=5, sessions=3):
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      acc_events=True) as prof:
             for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
                 prof.step()
         got = {e.key: e.count / reps for e in prof.key_averages()
                if "CUDA" in str(getattr(e, "device_type", "")) and e.count >= reps}
@@ -1725,6 +1739,22 @@ def test_wrappers_reject_other_devices():
         tse3.pose_rays(torch.zeros(6, device="meta"), torch.zeros(8, 3, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         ttr.ray_prep(pts.to("meta"), torch.ones(len(pts), device="meta"), 0.3, 60.0)
+    m_idx, m_ok = torch.zeros(8, dtype=torch.int64, device="meta"), valid.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsampling.draw_keys(torch.zeros(len(pts), device="meta"), m_ok)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttr.ray_draw(m_idx, slice(None), pts.to("meta"), torch.ones(len(pts), device="meta"),
+                     m_ok, 0.3, 60.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttr.ray_superset(m_idx[None], pts[None].to("meta"),
+                         torch.ones(1, len(pts), device="meta"), m_ok[None], 0.3, 60.0)
+    m_sup = ttr.Superset(torch.zeros(1, 8, 8, device="meta"), torch.zeros(1, 8, 3, device="meta"),
+                         torch.zeros(1, 8, device="meta"),
+                         torch.ones(1, 8, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttr.ray_pick(m_idx[None], slice(None), m_sup, torch.ones(1, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tse3.const_vel(torch.zeros(6, device="meta"), torch.zeros(6, device="meta"), True)
 
 
 def test_kernel_library_is_built_lazily():
@@ -1734,7 +1764,8 @@ def test_kernel_library_is_built_lazily():
     assert {os.path.basename(s) for s in srcs} >= {
         "hit_table.cu", "hits_field.cu", "active_field.cu", "gn_system.cu", "insert.cu",
         "active_set.cu", "reconcile.cu", "grid_sampler.cu", "mesh.cu", "scan2scan.cu",
-        "pack_grad.cu", "norm3.cu", "lm_step.cu", "ray_prep.cu", "pose_rays.cu"}
+        "pack_grad.cu", "norm3.cu", "lm_step.cu", "ray_prep.cu", "pose_rays.cu", "draw_keys.cu",
+        "const_vel.cu"}
     paths = [kernels.library_path(s) for s in srcs]
     assert len(set(paths)) == len(srcs)
     for path in paths:
@@ -1742,3 +1773,133 @@ def test_kernel_library_is_built_lazily():
         assert len(os.path.basename(path).split("_")[-1]) == len("0123456789abcdef.so")
     assert kernels._lib is None or torch.cuda.is_available()
     assert "-fmad=false" in kernels.NVCC_FLAGS and "--use_fast_math" not in kernels.NVCC_FLAGS
+
+
+def _draw_frames(W, P, seed):
+    """W seeded frames of P points 1e-2 to 40 m out (every 97th at the
+    origin), cosines in [-0.2, 1] (a third at 1, the ground's), 80% valid."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.standard_normal((W, P, 3)) * 10 ** rng.uniform(-2, 1.6, (W, P, 1))).astype(
+        np.float32)
+    pts[:, ::97] = 0.0
+    cos = np.where(rng.uniform(size=(W, P)) < 0.33, 1.0, rng.uniform(-0.2, 1.0, (W, P)))
+    return (torch.as_tensor(pts), torch.as_tensor(cos.astype(np.float32)),
+            torch.as_tensor(rng.uniform(size=(W, P)) < 0.8))
+
+
+def test_draw_keys_kernel_matches_plain(cuda):
+    """draw_keys (csrc/draw_keys.cu, one launch) torch.equal to the eager
+    chain on the card on 2^20 uniforms from the card's generator and at
+    the edges (0, the smallest normal, values near 1), valid and not; no
+    launch for no element; it raises on what it cannot take."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    u = torch.rand((1 << 20,), generator=gen, device=cuda)
+    u[:6] = torch.tensor([0.0, 1.17549435e-38, 1e-30, 0.5, 0.99999994, 0.9999999], device=cuda)
+    valid = torch.rand((1 << 20,), generator=gen, device=cuda) < 0.7
+    before = tsampling.draw_keys_launches
+    keys = tsampling.draw_keys(u, valid)
+    assert tsampling.draw_keys_launches == before + 1
+    assert torch.equal(keys, tsampling.draw_keys_plain(u, valid))
+    assert tsampling.draw_keys(u[:0], valid[:0]).shape == (0,)
+    assert tsampling.draw_keys_launches == before + 1
+    for bad in ((u.double(), valid), (u, valid.int()), (u[::2], valid[::2]), (u, valid[:10])):
+        with pytest.raises(ValueError):
+            tsampling.draw_keys(*bad)
+
+
+@pytest.mark.parametrize("W", [0, 1, 3])
+def test_ray_draw_kernel_matches_plain(cuda, W):
+    """ray_draw (csrc/ray_prep.cu, one launch) torch.equal to ray_draw_plain
+    on the card and on the CPU for every output: one frame (W = 0: idx (n,))
+    or W frames with a frame mask, every column or a rank's block, the band
+    target from a device sdf_bias, a host one or none; the indices those of
+    a draw; it raises on what it cannot take."""
+    pts, cos, val = _draw_frames(max(W, 1), 4096, 6 + W)
+    if W == 0:
+        pts, cos, val = pts[0], cos[0], val[0]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(W)
+    idx = tsampling.draw_indices(val.to(cuda), 1024, gen)
+    active = (torch.arange(max(W, 1)) % 2 == 0) if W else None
+    for cols in (slice(None), slice(256, 512)):
+        for bias in (None, torch.tensor([0.25, -0.5]), np.asarray([0.1, 0.2, 0.3], np.float32)):
+            args = (pts, cos, val, 0.3, 40.0)
+            dev_args = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args)
+            b_dev = bias.to(cuda) if isinstance(bias, torch.Tensor) else bias
+            a_dev = None if active is None else active.to(cuda)
+            before = ttr.ray_draw_launches
+            ker = ttr.ray_draw(idx, cols, *dev_args, b_dev, a_dev)
+            assert ttr.ray_draw_launches == before + 1
+            twin = ttr.ray_draw_plain(idx, cols, *dev_args, b_dev, a_dev)
+            cpu = ttr.ray_draw_plain(idx.cpu(), cols, *args, bias, active)
+            for nm, k, d, h in zip(ttr.RayDraw._fields, ker, twin, cpu):
+                assert k.shape == h.shape and k.is_contiguous(), nm
+                assert torch.equal(k, d) and torch.equal(k.cpu(), h), nm
+    p_, c_, v_ = pts.to(cuda), cos.to(cuda), val.to(cuda)
+    for bad in ((idx.int(), p_, c_, v_), (idx, p_.double(), c_, v_), (idx, p_, c_, v_.float()),
+                (idx, p_.cpu(), c_, v_), (idx[..., :5].t() if W else idx[::2], p_, c_, v_)):
+        with pytest.raises(ValueError):
+            ttr.ray_draw(bad[0], slice(None), *bad[1:], 0.3, 40.0)
+
+
+@pytest.mark.parametrize("W", [1, 4])
+def test_ray_superset_and_pick_match_plain(cuda, W):
+    """ray_superset and ray_pick (csrc/ray_prep.cu, one launch each)
+    torch.equal to their twins on the card and on the CPU for every output:
+    BA's superset of W frames, then picks of every column and of a rank's
+    block with a frame mask; it raises on what it cannot take."""
+    pts, cos, val = _draw_frames(W, 4096, 11 + W)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(W)
+    K = 2048
+    sidx = tsampling.draw_indices(val.to(cuda), K, gen)
+    before = ttr.ray_superset_launches
+    sup = ttr.ray_superset(sidx, pts.to(cuda), cos.to(cuda), val.to(cuda), 0.3, 40.0)
+    assert ttr.ray_superset_launches == before + 1
+    twin = ttr.ray_superset_plain(sidx, pts.to(cuda), cos.to(cuda), val.to(cuda), 0.3, 40.0)
+    cpu = ttr.ray_superset_plain(sidx.cpu(), pts, cos, val, 0.3, 40.0)
+    for nm, k, d, h in zip(ttr.Superset._fields, sup, twin, cpu):
+        assert k.shape == h.shape and torch.equal(k, d) and torch.equal(k.cpu(), h), nm
+    active = torch.arange(W) != 1
+    ridx = torch.randint(0, K, (W, 1024), generator=gen, device=cuda)
+    for cols in (slice(None), slice(512, 1024)):
+        before = ttr.ray_pick_launches
+        ker = ttr.ray_pick(ridx, cols, sup, active.to(cuda))
+        assert ttr.ray_pick_launches == before + 1
+        twin = ttr.ray_pick_plain(ridx, cols, sup, active.to(cuda))
+        cpu = ttr.ray_pick_plain(ridx.cpu(), cols, ttr.Superset(*(x.cpu() for x in sup)), active)
+        for nm, k, d, h in zip(ttr.RayPick._fields, ker, twin, cpu):
+            assert k.shape == h.shape and k.is_contiguous(), nm
+            assert torch.equal(k, d) and torch.equal(k.cpu(), h), nm
+    a_ = active.to(cuda)
+    for bad in ((ridx.int(), sup, a_), (ridx, sup, a_[:1] if W > 1 else a_.int()),
+                (ridx[0], sup, a_), (ridx, sup._replace(rows=sup.rows.double()), a_)):
+        with pytest.raises(ValueError):
+            ttr.ray_pick(bad[0], slice(None), *bad[1:])
+
+
+@pytest.mark.parametrize("sigma", [3e-5, 1e-3, 0.8])
+def test_const_vel_kernel_matches_plain(cuda, sigma):
+    """const_vel (csrc/const_vel.cu, one launch) bit for bit the CPU's
+    const_vel_plain on 4,096 seeded pose pairs in each of exp_so3's
+    branches (series, small exact, exact), both full settings, and one
+    pair's form the batch's row; it raises on what it cannot take."""
+    rng = np.random.default_rng(int(sigma * 1e5))
+    prev = np.concatenate([rng.uniform(-50, 50, (4096, 3)), rng.normal(0, sigma, (4096, 3))], 1)
+    step = np.concatenate([rng.normal(0, 1, (4096, 3)), rng.normal(0, sigma, (4096, 3))], 1)
+    last = torch.as_tensor((prev + step).astype(np.float32))
+    prev = torch.as_tensor(prev.astype(np.float32))
+    for full in (True, False):
+        before = tse3.const_vel_launches
+        got = tse3.const_vel(last.to(cuda), prev.to(cuda), full)
+        assert tse3.const_vel_launches == before + 1
+        ref = tse3.const_vel_plain(last, prev, full)
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+        one = tse3.const_vel(last[7].to(cuda), prev[7].to(cuda), full)
+        assert torch.equal(one.cpu().view(torch.int32), ref[7].view(torch.int32))
+    l_ = last.to(cuda)
+    for bad in ((l_.double(), l_.double()), (l_[:, :5].contiguous(), l_[:, :5].contiguous()),
+                (l_, l_[:10]), (l_.t().contiguous().t(), l_)):
+        with pytest.raises(ValueError):
+            tse3.const_vel(*bad, True)
